@@ -1,9 +1,19 @@
-"""Engine context: device, seed and numerics policy (serving subset).
+"""Engine context: device, seed, numerics policy and random generators.
 
 Counterpart of ``analytics_zoo_tpu/common/engine.py``.  The reference's
 context owns a device mesh; the port runs on one device, so the context
 owns that device instead.  The sharding planes come with the
 distribution slice.
+
+Randomness: a ``torch.Generator`` stands in for a ``jax.random`` key.
+:func:`fold_in` derives a child generator from its parent's seed alone
+(the parent's state is not consumed), on the parent's device, as
+``jax.random.fold_in`` derives a child key; :func:`step_generator` is the
+training step's root, the counterpart of
+``fold_in(PRNGKey(seed), step)``.  :func:`seed_pair` turns a generator
+into the (seed0, seed1) pair the flash kernel's dropout hash takes, from
+the seed alone, so the pair is the same on every device and reading it
+never waits on the device.
 """
 
 from __future__ import annotations
@@ -39,6 +49,35 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is visible; pass device='cpu' to run on the CPU")
     return dev
+
+
+_U32 = 0xFFFFFFFF
+
+
+def make_generator(seed: int, device=None) -> torch.Generator:
+    """A generator seeded with ``seed``, on ``device`` (default: CPU)."""
+    gen = torch.Generator(device=torch.device(device or "cpu"))
+    return gen.manual_seed(int(seed) % (1 << 63))
+
+
+def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
+    """A child generator on ``gen``'s device, determined by ``gen``'s seed
+    and ``data`` alone (``gen``'s state is not consumed)."""
+    return make_generator(gen.initial_seed() * 0x9E3779B1 + int(data) + 1,
+                          gen.device)
+
+
+def step_generator(seed: int, step: int, device=None) -> torch.Generator:
+    """The root generator of training step ``step``: the counterpart of
+    ``fold_in(PRNGKey(seed), step)`` in the reference's train step."""
+    return fold_in(make_generator(seed, device), step)
+
+
+def seed_pair(gen: torch.Generator) -> tuple[int, int]:
+    """(seed0, seed1) for the flash kernel's dropout hash: the low and high
+    32 bits of ``gen``'s seed, as unsigned 32-bit values."""
+    s = gen.initial_seed()
+    return s & _U32, (s >> 32) & _U32
 
 
 def cast_floats(tree, dtype):

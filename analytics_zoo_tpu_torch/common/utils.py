@@ -28,6 +28,20 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map_many(fn, tree, *rest):
+    """``fn(leaf, *matching leaves)`` over trees of one structure, matched
+    by key and index (not by visiting order, so dicts whose keys were
+    inserted in different orders still pair up)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_many(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map_many(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(tree, *rest)
+
+
 def tree_leaves(tree) -> list:
     """Leaves in the order ``tree_map`` visits them."""
     out = []

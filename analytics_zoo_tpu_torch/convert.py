@@ -1,10 +1,12 @@
-"""Parameter trees from the JAX package into the port.
+"""Parameter trees and optimizer state from the JAX package into the port.
 
 ``params_from_jax`` takes the JAX package's parameter tree with its leaves
 as numpy arrays (or anything ``np.asarray`` accepts) and returns the
 port's tree of tensors on a device.  A quantized leaf comes as a
-``(values, scale, axis)`` triple.  The JAX package is never imported:
-the caller hands over plain arrays.
+``(values, scale, axis)`` triple.  ``opt_state_from_jax`` carries optax's
+Adam state (``ScaleByAdamState``: count, mu, nu) into the port's
+:class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.AdamState`.
+The JAX package is never imported: the caller hands over plain arrays.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.engine import resolve_device
+from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import AdamState
 from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
     QuantizedTensor,
 )
@@ -48,3 +51,22 @@ def params_from_jax(tree, device=None):
         return _tensor(x, dev)
 
     return conv(tree)
+
+
+def opt_state_from_jax(state, device=None):
+    """The port's ``AdamState`` for an optax Adam state: a
+    ``ScaleByAdamState`` (anything with ``count``, ``mu`` and ``nu``), or
+    the tuple ``optax.adam(...).init`` returns, whose first such element is
+    taken (the learning-rate stage after it holds no arrays the port
+    keeps: its count equals the Adam count)."""
+    adam = state
+    if not hasattr(adam, "mu"):
+        adam = next((s for s in state if hasattr(s, "mu")), None)
+        if adam is None:
+            raise ValueError("no Adam state (count, mu, nu) in the given "
+                             "optimizer state")
+    dev = resolve_device(device)
+    return AdamState(
+        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
+                           device=dev),
+        mu=params_from_jax(adam.mu, dev), nu=params_from_jax(adam.nu, dev))

@@ -1,18 +1,23 @@
-// Flash-attention forward: the device code.
+// Flash-attention forward: the device code, and the helpers the backward
+// (flash_attention_bwd.cu) shares with it.
 //
 // Replaces the TPU kernel `_flash_fwd_pallas`
 // (analytics_zoo_tpu/ops/pallas/flash_attention.py:216, kernel closure :245,
-// pl.pallas_call :399) for the features the serving path uses: an additive
-// f32 bias broadcast over (B|1, H|1, Lq|1, Lk), end-aligned causal masking,
-// ragged Lq/Lk, f32 or bf16 inputs with f32 math, output in the input type.
-// Dropout, segment ids and the (m, l) output stay with the training and
-// ring-attention slices.
+// pl.pallas_call :399): an additive f32 bias broadcast over
+// (B|1, H|1, Lq|1, Lk), end-aligned causal masking, ragged Lq/Lk, f32 or
+// bf16 inputs with f32 math, output in the input type, in-kernel attention
+// dropout from the reference's position hash, and optionally the softmax
+// statistics (m, l) per query row, which the backward reads.  Segment ids
+// are not ported yet.
 //
 // Semantics (identical to the reference's `_attention_reference`): a running
 // max m floored at -1e30, so a row whose keys are all masked, by the causal
 // triangle or by a bias of finfo.min, comes out as zeros and never as NaN;
 // keys past Lk are zeroed in shared memory, not only masked, because 0 * NaN
-// would poison the accumulator.
+// would poison the accumulator.  Dropout keeps an element when
+// keep_bits(seed0, seed1, b, h, q, k) >= floor(p * 2^32) and scales it by
+// 1/(1-p); l sums the probabilities before dropout, so out = acc / l is
+// dropout applied after the softmax, as in the reference.
 //
 // What bounds it on an H100: at BERT-base shapes (B=8, H=12, L=512, D=64)
 // the function moves 50 MB in f32 (15 us at 3.35 TB/s) and does 6.4 GFLOP
@@ -63,7 +68,35 @@ struct Args {
   int64_t os_b, os_h, os_l;
   float scale;
   int causal;
+  // (B, H, Lq) f32 outputs of the running max and the softmax denominator;
+  // both null when the caller needs no statistics
+  float* m_out;
+  float* l_out;
+  // dropout: keep an element when keep_bits(...) >= drop_thr
+  int dropout;
+  uint32_t seed0, seed1, drop_thr;
+  float inv_keep;  // 1 / (1 - p)
 };
+
+// The reference's counter-based dropout hash (`_mix32`, `_keep_bits`,
+// flash_attention.py:73-90), bit for bit: uint32 arithmetic wraps.
+__host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__host__ __device__ __forceinline__ uint32_t keep_bits(
+    uint32_t seed0, uint32_t seed1, uint32_t b, uint32_t h, uint32_t q,
+    uint32_t k) {
+  uint32_t x = (q * 0x9E3779B9u) ^ (k * 0x85EBCA6Bu);
+  x = x ^ (b * 0xC2B2AE35u) ^ (h * 0x27D4EB2Fu);
+  x = x ^ seed0 ^ (seed1 * 0x85EBCA6Bu);
+  return mix32(x);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -187,10 +220,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p =
-            (live >> (4 * i + j)) & 1u ? expf(s[i][j] - mnew) : 0.f;
+        float p = (live >> (4 * i + j)) & 1u ? expf(s[i][j] - mnew) : 0.f;
+        rs += p;  // l is the denominator before dropout
+        if (a.dropout) {
+          const uint32_t bits =
+              keep_bits(a.seed0, a.seed1, b, h, q0 + ty + 16 * i,
+                        k0 + tx + 16 * j);
+          p = bits >= a.drop_thr ? p * a.inv_keep : 0.f;
+        }
         Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        rs += p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -243,6 +281,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < CPT; ++c)
         store_as(&out[qi * a.os_l + tx * CPT + c], o[i][c] / denom);
+      if (a.m_out != nullptr && tx == 0) {
+        const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Lq + qi;
+        a.m_out[row] = m[i];
+        a.l_out[row] = l[i];
+      }
     }
   }
 }

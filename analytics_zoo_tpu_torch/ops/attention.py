@@ -8,6 +8,14 @@ routing: shapes the flash kernel takes go to
 every other shape takes the dense path, because that is what the
 reference computes there.  The two differ on a row whose keys are all
 masked: the dense softmax gives a uniform row, flash gives zeros.
+
+Attention dropout: on the flash route the mask comes from the kernel's
+position hash, seeded with the (seed0, seed1) pair of the call's generator
+(:func:`~analytics_zoo_tpu_torch.common.engine.seed_pair`), so it is the
+reference's mask for the same pair and the same on every device.  The
+dense route draws its mask from the generator with ``torch.rand``; the
+reference draws it with ``jax.random.bernoulli``, so that mask is not
+bit-identical to the reference's, only equal in distribution.
 """
 
 from __future__ import annotations
@@ -55,14 +63,11 @@ def dot_product_attention(q, k, v, mask=None, dropout_p=0.0, rng=None,
       q, k, v: (B, H, L, D) tensors.
       mask: optional additive mask broadcastable to (B, H, Lq, Lk) — 0 for
         keep, large-negative for drop — or a boolean mask (True = keep).
-      dropout_p: attention-prob dropout; only 0 is ported (training slice).
+      dropout_p: attention-prob dropout, applied when ``rng`` (a
+        ``torch.Generator`` on q's device) is given.
       causal: end-aligned lower-triangular masking.
       scale: score scale; defaults to 1/sqrt(D).
     """
-    if dropout_p > 0.0 and rng is not None:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP queue 1, "
-            "training slice)")
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     if flash_eligible(q.shape, None if mask is None else mask.shape,
@@ -74,7 +79,9 @@ def dot_product_attention(q, k, v, mask=None, dropout_p=0.0, rng=None,
                 bias = torch.where(mask, 0.0, _NEG).float()
             else:
                 bias = mask.float()
-        return flash_attention(q, k, v, causal, scale, bias=bias)
+        return flash_attention(
+            q, k, v, causal, scale, bias=bias, dropout_p=float(dropout_p),
+            dropout_seed=rng if dropout_p > 0.0 else None)
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     neg = torch.finfo(scores.dtype).min
     if causal:
@@ -88,6 +95,10 @@ def dot_product_attention(q, k, v, mask=None, dropout_p=0.0, rng=None,
         else:
             scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
+    if dropout_p > 0.0 and rng is not None:
+        keep = torch.rand(probs.shape, generator=rng,
+                          device=probs.device) < 1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 

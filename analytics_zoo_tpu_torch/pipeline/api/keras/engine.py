@@ -7,10 +7,12 @@ live in a tree (nested dicts/lists of tensors) passed to a pure
 that contract keeps the port's trees one-to-one with the reference's:
 the same position-canonical layer names, keys, shapes and dtypes.
 
-Randomness is a ``torch.Generator`` on the CPU: initializers draw there
-and the model moves the tree to its device afterwards, so the same seed
-gives the same weights on every device.  :func:`fold_in` derives a child
-generator per layer, as ``jax.random.fold_in`` derives a child key.
+Randomness is a ``torch.Generator``: initializers draw on the CPU and the
+model moves the tree to its device afterwards, so the same seed gives the
+same weights on every device.  :func:`fold_in` (from ``common/engine.py``)
+derives a child generator per layer, as ``jax.random.fold_in`` derives a
+child key; in training the generators live on the model's device, where
+dropout draws its masks.
 
 Shape convention (Keras-1): user-facing ``input_shape`` excludes the batch
 dim; internal full shapes carry ``None`` in position 0.
@@ -26,18 +28,11 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.common.engine import (  # noqa: F401
+    fold_in,
+    make_generator,
+)
 from analytics_zoo_tpu_torch.common.utils import to_tuple_shape
-
-
-def make_generator(seed: int) -> torch.Generator:
-    """A CPU generator seeded with ``seed``."""
-    return torch.Generator().manual_seed(int(seed) % (1 << 63))
-
-
-def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
-    """A child generator determined by ``gen``'s seed and ``data`` alone
-    (``gen``'s state is not consumed)."""
-    return make_generator(gen.initial_seed() * 0x9E3779B1 + int(data) + 1)
 
 
 # ---------------------------------------------------------------------------

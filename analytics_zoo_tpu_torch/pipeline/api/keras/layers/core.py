@@ -5,6 +5,8 @@ Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/core.py``.
 
 from __future__ import annotations
 
+import torch
+
 from analytics_zoo_tpu_torch.ops.activations import get_activation
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
 
@@ -39,7 +41,10 @@ class Dense(Layer):
 
 
 class Dropout(Layer):
-    """Inverted dropout; the identity at inference."""
+    """Inverted dropout; the identity at inference.  In training the mask
+    comes from ``rng``, a ``torch.Generator`` on the inputs' device (the
+    reference draws it with ``jax.random.bernoulli``: equal in
+    distribution, not bit for bit)."""
 
     def __init__(self, p, input_shape=None, name=None, **kwargs):
         super().__init__(input_shape=input_shape, name=name, **kwargs)
@@ -49,6 +54,11 @@ class Dropout(Layer):
     def call(self, params, inputs, state=None, training=False, rng=None):
         if not training or self.p <= 0.0 or rng is None:
             return inputs
-        raise NotImplementedError(
-            "training-mode Dropout is not ported yet (ROADMAP queue 1, "
-            "training slice)")
+        return dropout(inputs, self.p, rng)
+
+
+def dropout(x, p, rng):
+    """Keep each element with probability 1 - p and scale it by 1/(1-p)."""
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)

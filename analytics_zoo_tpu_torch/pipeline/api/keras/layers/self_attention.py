@@ -9,9 +9,12 @@ population variance, the tanh-approximate gelu, and BERT's additive mask
 :func:`analytics_zoo_tpu_torch.ops.attention.dot_product_attention`, so
 eligible shapes run the flash kernel.
 
-Inference only so far: dropout in training mode, the mixture-of-experts
-feed-forward and rematerialisation wait for the training and distribution
-slices.
+Training mode: hidden and embedding dropout draw their masks from a child
+of the layer's generator per site (salts 0, 1 and 2, as in the reference);
+attention dropout gets one generator per block (``fold_in(block_rng, 3)``),
+whose seed pair keys the flash kernel's dropout hash.  The
+mixture-of-experts feed-forward and rematerialisation wait for the
+distribution slice, and raise when asked for.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from analytics_zoo_tpu_torch.ops.attention import (
     split_heads,
 )
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer, fold_in
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import dropout
 
 
 def _dense_init(gen, shape, std):
@@ -90,12 +94,10 @@ class _TransformerCore(Layer):
         return (x - mean) * torch.reciprocal(torch.sqrt(var + eps)) * gamma \
             + beta
 
-    def _drop(self, x, p, training, rng):
+    def _drop(self, x, p, training, rng, salt):
         if not training or p <= 0.0 or rng is None:
             return x
-        raise NotImplementedError(
-            "training-mode dropout is not ported yet (ROADMAP queue 1, "
-            "training slice)")
+        return dropout(x, p, fold_in(rng, salt))
 
     def _run_blocks(self, blocks, h, mask, training, rng):
         for bi, bp in enumerate(blocks):
@@ -116,11 +118,11 @@ class _TransformerCore(Layer):
             causal=not self.bidirectional,
         )
         a = merge_heads(a) @ bp["proj_kernel"] + bp["proj_bias"]
-        a = self._drop(a, self.hidden_drop, training, brng)
+        a = self._drop(a, self.hidden_drop, training, brng, 1)
         h = self._ln(h + a, bp["ln1_gamma"], bp["ln1_beta"])
         f = self.act(h @ bp["fc_kernel"] + bp["fc_bias"])
         f = f @ bp["out_kernel"] + bp["out_bias"]
-        f = self._drop(f, self.hidden_drop, training, brng)
+        f = self._drop(f, self.hidden_drop, training, brng, 2)
         return self._ln(h + f, bp["ln2_gamma"], bp["ln2_beta"])
 
 
@@ -169,7 +171,7 @@ class TransformerLayer(_TransformerCore):
                                      ).expand(tokens.shape)
         h = params["tok_embed"][tokens.long()]
         h = h + params["pos_embed"][positions.long()]
-        h = self._drop(h, self.embedding_drop, training, rng)
+        h = self._drop(h, self.embedding_drop, training, rng, 0)
         return self._run_blocks(params["blocks"], h, None, training, rng)
 
     def compute_output_shape(self, input_shape):
@@ -233,7 +235,7 @@ class BERT(_TransformerCore):
         if token_types is not None:
             h = h + params["type_embed"][token_types.long()]
         h = self._ln(h, params["embed_ln_gamma"], params["embed_ln_beta"])
-        h = self._drop(h, self.hidden_drop, training, rng)
+        h = self._drop(h, self.hidden_drop, training, rng, 0)
         mask = None
         if attn_mask is not None:
             # additive mask: (B, L) 1/0 -> (B, 1, 1, L) 0/finfo.min, made in

@@ -1,10 +1,11 @@
-"""KerasNet / Sequential / Model — the user-facing model API (serving
-subset).
+"""KerasNet / Sequential / Model — the user-facing model API.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/topology.py``:
-parameter materialization, the pure forward, weights in and out, and
-whole-model save/load.  ``compile``/``fit``/``evaluate``/``predict`` come
-with the training slice; serving goes through
+parameter materialization, the pure forward, weights in and out,
+whole-model save/load, and training: ``compile``/``fit``/``evaluate``
+through :class:`~analytics_zoo_tpu_torch.pipeline.estimator.Estimator`,
+gradient clipping and freezing layers.  ``predict`` waits for its slice;
+serving goes through
 :class:`analytics_zoo_tpu_torch.pipeline.inference.InferenceModel`.
 
 A net's parameters are a tree of tensors on one device (``net.device``),
@@ -42,6 +43,13 @@ def _to_numpy(t):
     return t.detach().cpu().numpy()
 
 
+def _normalize_names(names) -> tuple:
+    """Accept both freeze("a", "b") and freeze(["a", "b"])."""
+    if len(names) == 1 and isinstance(names[0], (list, tuple)):
+        return tuple(names[0])
+    return tuple(names)
+
+
 def _to_device(tree, device):
     return tree_map(
         lambda a: (a if torch.is_tensor(a) else torch.from_numpy(
@@ -56,6 +64,10 @@ class KerasNet(_ContainerBase):
         self.params: dict | None = None
         self.state: dict | None = None
         self.device: torch.device | None = None
+        self._compiled = None     # set by compile()
+        self._grad_clip = None    # ("l2norm", v) | ("const", lo, hi)
+        self._estimator = None
+        self._frozen: set = set()  # layer names excluded from training
 
     # ------------------------------------------------------------------
     # parameter materialization
@@ -82,6 +94,113 @@ class KerasNet(_ContainerBase):
                          rng=rng)
 
     # ------------------------------------------------------------------
+    # compile / fit / evaluate
+    # ------------------------------------------------------------------
+    def compile(self, optimizer, loss, metrics=None):
+        """Configure training: an optimizer, a loss and metrics, each an
+        instance or a name."""
+        from analytics_zoo_tpu_torch.pipeline.api.keras.metrics import (
+            get_metric,
+        )
+        from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import (
+            get_loss,
+        )
+        from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
+            get_optimizer,
+        )
+
+        self._compiled = dict(
+            optimizer=get_optimizer(optimizer),
+            loss=get_loss(loss),
+            metrics=[get_metric(m) for m in (metrics or [])],
+        )
+        self._estimator = None
+        return self
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm):
+        self._grad_clip = ("l2norm", float(clip_norm))
+        self._estimator = None
+
+    def set_constant_gradient_clipping(self, min_value, max_value):
+        self._grad_clip = ("const", float(min_value), float(max_value))
+        self._estimator = None
+
+    def clear_gradient_clipping(self):
+        self._grad_clip = None
+        self._estimator = None
+
+    def _make_estimator(self):
+        from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+
+        if getattr(self, "_compiled", None) is None:
+            raise RuntimeError(
+                "model not compiled; call compile(optimizer, loss) first")
+        return Estimator(self, optimizer=self._compiled["optimizer"],
+                         loss=self._compiled["loss"],
+                         metrics=self._compiled["metrics"],
+                         grad_clip=getattr(self, "_grad_clip", None))
+
+    def fit(self, x, y=None, batch_size=32, nb_epoch=10,
+            validation_data=None, distributed=True, sample_weight=None):
+        """Train ``nb_epoch`` more epochs on (x, y); returns the model (the
+        estimator's ``history`` and ``loss_log`` hold the losses)."""
+        from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+
+        train_set = FeatureSet.of(x, y, sample_weight=sample_weight)
+        val_set = (FeatureSet.of(*validation_data)
+                   if validation_data is not None else None)
+        if getattr(self, "_estimator", None) is None:
+            self._estimator = self._make_estimator()
+        self._estimator.train(train_set, batch_size=batch_size,
+                              nb_epoch=nb_epoch, validation_set=val_set)
+        return self
+
+    def evaluate(self, x, y=None, batch_size=32):
+        """A dict of metric name -> value over (x, y), loss included."""
+        from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+
+        if getattr(self, "_estimator", None) is None:
+            self._estimator = self._make_estimator()
+        return self._estimator.evaluate(FeatureSet.of(x, y),
+                                        batch_size=batch_size)
+
+    # ------------------------------------------------------------------
+    # transfer learning: frozen layers get their gradients and optimizer
+    # updates masked to zero in the train step
+    # ------------------------------------------------------------------
+    def freeze(self, *names) -> "KerasNet":
+        """Mark the named layers (all layers if none given) non-trainable;
+        takes effect on the next fit()."""
+        names = _normalize_names(names)
+        if not names:
+            names = tuple(ly.name for ly in self.layers)
+        self._validate_layer_names(names)
+        self._frozen.update(names)
+        self._estimator = None
+        return self
+
+    def unfreeze(self, *names) -> "KerasNet":
+        names = _normalize_names(names)
+        if not names:
+            self._frozen.clear()
+        else:
+            self._validate_layer_names(names)
+            self._frozen.difference_update(names)
+        self._estimator = None
+        return self
+
+    @property
+    def frozen_layers(self) -> list[str]:
+        return sorted(getattr(self, "_frozen", ()))
+
+    def _validate_layer_names(self, names):
+        avail = {ly.name for ly in self.layers}
+        unknown = [n for n in names if n not in avail]
+        if unknown:
+            raise ValueError(
+                f"unknown layer(s) {unknown}; available: {sorted(avail)}")
+
+    # ------------------------------------------------------------------
     # weights / persistence
     # ------------------------------------------------------------------
     def get_weights(self):
@@ -101,13 +220,18 @@ class KerasNet(_ContainerBase):
             raise IOError(f"{path} exists and over_write=False")
         weights = (tree_map(_to_numpy, (self.params, self.state))
                    if self.params is not None else None)
-        stashed = (self.params, self.state, self.device)
-        self.params = self.state = self.device = None
+        # runtime state stays out of the file: the estimator and the
+        # compiled optimizer/loss (which may hold schedule closures)
+        keys = ("params", "state", "device", "_estimator", "_compiled")
+        stashed = {k: getattr(self, k, None) for k in keys}
+        for k in keys:
+            setattr(self, k, None)
         try:
             with open(path, "wb") as f:
                 pickle.dump({"net": self, "weights": weights}, f)
         finally:
-            self.params, self.state, self.device = stashed
+            for k, v in stashed.items():
+                setattr(self, k, v)
 
     @staticmethod
     def load(path, device=None) -> "KerasNet":

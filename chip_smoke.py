@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving slice on one CUDA GPU and check it.
+"""Run the PyTorch port's serving and training slices on one CUDA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -7,20 +8,36 @@ Phases, each of which raises on failure (the process then exits non-zero
 and prints no result):
 
 1. card: a CUDA GPU must be visible; prints its name and power limit;
-2. build: compiles every CUDA kernel of the slice from ``csrc/`` (one nvcc
-   per source, all started together) and prints ptxas's register report;
+2. build: compiles every CUDA kernel of the two slices from ``csrc/`` (one
+   nvcc per source, all started together) and prints ptxas's register
+   report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, with the tolerance stated; times
-   the kernel, the plain version and one PyTorch library call computing
-   the same function (the yardstick only; the port never calls it);
-4. slice: BERT-base at full width (vocab 30522, 12 blocks of hidden 768,
-   12 heads, intermediate 3072, sequence 512) with a Dense(2, softmax)
-   head, as a 4-input Model served by ``InferenceModel`` with random
-   weights from a seed.  It answers requests of 1, 3, 8 and 2 records and
-   one bf16 request, checks the outputs, holds two requests against the
-   same model run on the CPU, and checks from the launch counters that
-   every attention call went through the kernel;
-5. summary: a ``kernels`` JSON line, then the result line
+   the shapes the main paths give it, with the tolerance stated: the
+   flash-attention forward (serving, and training with dropout 0.1 and
+   the (m, l) statistics), the flash-attention backward, fused Adam over
+   the BERT-base parameter tree, and the softmax cross-entropy forward and
+   backward at the classifier head (8, 2) and an LM head (4096, 30522).
+   Times each kernel, its plain version and one PyTorch library call
+   computing the same function (the yardstick only; the port never calls
+   it), and computes each kernel's bound from this run's inputs;
+4. serving slice: BERT-base at full width (vocab 30522, 12 blocks of
+   hidden 768, 12 heads, intermediate 3072, sequence 512) with a
+   Dense(2, softmax) head, as a 4-input Model served by
+   ``InferenceModel`` with random weights from a seed.  It answers
+   requests of 1, 3, 8 and 2 records and one bf16 request, checks the
+   outputs, holds two requests against the same model run on the CPU, and
+   checks from the launch counters that every attention call went through
+   the kernel;
+5. training slice: the BERT-base classifier (Dense(2) logits, hidden and
+   attention dropout 0.1) through ``compile(Adam(2e-5),
+   "sparse_categorical_crossentropy_from_logits", ["accuracy"])``, ``fit``
+   for 5 steps at batch 8 x 512 and ``evaluate``; checks finite losses,
+   that every attention, Adam leaf and loss call went through its kernel,
+   that the loss falls when one batch is repeated at a higher learning
+   rate, and holds the step-1 loss and gradients against the same model
+   run on the CPU (2 blocks at full width, batch 2, hidden dropout 0,
+   attention dropout 0.1: the dropout hash is the same on both devices);
+6. summary: a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
@@ -45,6 +62,30 @@ F32_TOL = 1e-4                # kernel vs plain, f32 math on both sides
 BF16_TOL = 2e-2               # bf16 kernel vs plain run in f32
 CPU_TOL = 1e-4                # GPU vs CPU serving outputs (probabilities)
 BF16_SERVE_TOL = 0.1          # bf16 vs f32 serving outputs (probabilities)
+# backward kernel vs plain, relative to the largest gradient when that
+# exceeds 1: both sum 512-long f32 products, in different orders
+BWD_TOL = 2e-4
+ADAM_TOL = 1e-6               # relative to the leaf's largest value
+XENT_TOL = 1e-5               # f32 sums over the vocab in different orders
+DROPOUT = 0.1
+TRAIN_BATCH, TRAIN_STEPS = 8, 5
+# GPU vs CPU training step at 2 blocks: loss relative, gradients relative
+# to each leaf's largest value (f32 on both sides; cuBLAS, MKL and the
+# kernels sum in different orders)
+TRAIN_CPU_TOL = 1e-3
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
+           "fused_softmax_xent")
+REPLACES = {
+    "flash_attention_fwd":
+        "analytics_zoo_tpu/ops/pallas/flash_attention.py:216",
+    "flash_attention_bwd":
+        "analytics_zoo_tpu/ops/pallas/flash_attention.py:458",
+    "fused_adam": "analytics_zoo_tpu/ops/pallas/fused_adam.py:109",
+    "softmax_xent_fwd":
+        "analytics_zoo_tpu/ops/pallas/fused_softmax_xent.py:159",
+    "softmax_xent_bwd":
+        "analytics_zoo_tpu/ops/pallas/fused_softmax_xent.py:192",
+}
 # Published H100 SXM peaks (dense): HBM bytes/s and FLOP/s per input type
 # (f32 outside the tensor cores; bf16 on them).
 PEAK_BYTES = 3.35e12
@@ -72,7 +113,7 @@ def build_kernels() -> None:
     from analytics_zoo_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    report = build.build(["flash_attention_fwd"])
+    report = build.build(KERNELS)
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report)}")
     for name, r in report.items():
         for ln in r["log"].splitlines():
@@ -201,6 +242,223 @@ def kernel_phase(dev) -> dict:
     return entry
 
 
+def timed(fn, plain, library) -> dict:
+    return {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
+            "library_ms": None if library is None else cuda_ms(library)}
+
+
+def bound(nbytes: float, flops: float, dtype: str = "float32") -> dict:
+    """The least time for the work: bytes at the HBM rate, operations at
+    the input type's peak; the larger one bounds."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    return ((got.float() - want.float()).abs().max()
+            / max(1.0, want.float().abs().max().item())).item()
+
+
+def flash_train_phase(dev, fwd_entry) -> dict:
+    """The flash forward with dropout and statistics, and the backward,
+    at the BERT-base training shape with the padding bias."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = np.random.default_rng(SEED + 2)
+    b, h, l, d = 8, 12, SEQ, 64
+    q, k, v = attention_inputs(b, h, l, l, d, gen, dev)
+    g = torch.from_numpy(gen.normal(size=(b, h, l, d)).astype(np.float32)
+                         ).to(dev)
+    bias_np = padding_bias(b, l, gen)
+    bias = torch.from_numpy(bias_np).to(dev)
+    scale = 1.0 / np.sqrt(d)
+    seed = (0x2545F491, 0x9E3779B9)
+    live_keys = int((bias_np[:, 0, 0, :] == 0).sum())
+
+    out, m, lsum = fa._flash_cuda(q, k, v, False, scale, bias, DROPOUT,
+                                  seed, stats=True)
+    w_out, w_m, w_l = fa.attention_reference(q, k, v, False, scale, bias,
+                                             DROPOUT, seed, True)
+    torch.cuda.synchronize()
+    errs = [(out - w_out).abs().max().item(),
+            (m - w_m).abs().max().item(),
+            ((lsum - w_l).abs() / w_l.abs().clamp_min(1.0)).max().item()]
+    log(f"kernel fwd train (dropout {DROPOUT}, stats): max|d| out "
+        f"{errs[0]:.3e}, m {errs[1]:.3e}, l (rel) {errs[2]:.3e} "
+        f"(tol {F32_TOL:g}); fully masked row max "
+        f"{out[-1].abs().max().item():.1e}")
+    if not max(errs) <= F32_TOL or out[-1].abs().max().item() != 0.0:
+        raise AssertionError(f"flash forward with dropout disagrees: {errs}")
+    lib_q, lib_k, lib_v = (t.contiguous() for t in (q, k, v))
+    train = timed(
+        lambda: fa._flash_cuda(q, k, v, False, scale, bias, DROPOUT, seed,
+                               stats=True),
+        lambda: fa.attention_reference(q, k, v, False, scale, bias,
+                                       DROPOUT, seed, True),
+        lambda: F.scaled_dot_product_attention(
+            lib_q, lib_k, lib_v, attn_mask=bias, dropout_p=DROPOUT,
+            scale=scale))
+    fwd_bytes = 4 * b * h * l * d * 4 + bias.numel() * 4 + 2 * b * h * l * 4
+    train.update(bound(fwd_bytes, 4.0 * h * l * live_keys * d))
+    train["max_abs_err"] = max(errs)
+    fwd_entry["train"] = train
+    fwd_entry["max_abs_err"] = max(fwd_entry["max_abs_err"], max(errs))
+    log(f"kernel fwd train: {train['ms']:.4f} ms, plain "
+        f"{train['plain_ms']:.4f} ms, sdpa {train['library_ms']:.4f} ms, "
+        f"bound {train['bound_ms']:.4f} ms")
+
+    args = (q, k, v, g, out, m, lsum, False, scale, bias, DROPOUT, seed)
+    got = fa._flash_bwd_cuda(*args)
+    want = fa.attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    err = max(rel_err(x, y) for x, y in zip(got[:3], want[:3]))
+    abs_err = max((x - y).abs().max().item()
+                  for x, y in zip(got[:3], want[:3]))
+    masked = max(x[-1].abs().max().item() for x in got[:3])
+    log(f"kernel bwd B={b} H={h} L={l} D={d} padded bias, dropout "
+        f"{DROPOUT}: max|d| {abs_err:.3e}, relative {err:.3e} "
+        f"(tol {BWD_TOL:g}); fully masked row grads max {masked:.1e}")
+    if not err <= BWD_TOL or masked != 0.0:
+        raise AssertionError(f"flash backward disagrees: {err}")
+    lq_, lk_, lv_ = (t.detach().contiguous().requires_grad_()
+                     for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq_, lk_, lv_, attn_mask=bias,
+                                             scale=scale)
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu",
+             "replaces": REPLACES["flash_attention_bwd"],
+             "max_abs_err": abs_err}
+    entry.update(timed(
+        lambda: fa._flash_bwd_cuda(*args),
+        lambda: fa.attention_bwd_reference(*args),
+        lambda: torch.autograd.grad(lib_out, (lq_, lk_, lv_), g,
+                                    retain_graph=True)))
+    # q, k, v, dO, O, m, l and the bias read once; dq, dk, dv written once;
+    # five (query, live key, D) products
+    entry.update(bound(5 * b * h * l * d * 4 + 2 * b * h * l * 4
+                       + bias.numel() * 4 + 3 * b * h * l * d * 4,
+                       10.0 * h * l * live_keys * d))
+    log(f"kernel bwd: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+        f"ms, sdpa backward {entry['library_ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    return entry
+
+
+def adam_phase(dev, leaf_shapes) -> dict:
+    """Fused Adam over the BERT-base parameter tree."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    leaves = [(rand(s, 1e-3), rand(s, 1e-4), rand(s, 1e-8).abs())
+              for s in leaf_shapes]
+    kernel_leaves = [t for t in leaves
+                     if t[0].numel() >= fad.MIN_KERNEL_LEAF]
+    scalars = torch.tensor([2e-5, 0.9, 0.999, 1e-8, 1 - 0.9 ** 3,
+                            1 - 0.999 ** 3], dtype=torch.float32, device=dev)
+    err = 0.0
+    for g, mu, nu in kernel_leaves:
+        got = fad.adam_leaf(g, mu, nu, scalars)
+        want = fad.adam_leaf_reference(g, mu, nu, scalars)
+        for x, y in zip(got, want):
+            err = max(err, ((x - y).abs().max()
+                            / y.abs().max().clamp_min(1e-30)).item())
+    n = sum(t[0].numel() for t in kernel_leaves)
+    log(f"kernel adam: {len(kernel_leaves)} leaves of {len(leaves)}, "
+        f"{n / 1e6:.1f} M parameters: max relative |d| {err:.3e} "
+        f"(tol {ADAM_TOL:g})")
+    if not err <= ADAM_TOL:
+        raise AssertionError(f"fused adam disagrees: {err}")
+    params = [torch.zeros(s, device=dev, requires_grad=True)
+              for s in leaf_shapes]
+    for p, (g, _, _) in zip(params, leaves):
+        p.grad = g
+    lib = torch.optim.Adam(params, lr=2e-5, fused=True)
+    entry = {"name": "fused_adam", "route": "cuda",
+             "source": "analytics_zoo_tpu_torch/csrc/fused_adam.cu",
+             "replaces": REPLACES["fused_adam"], "max_abs_err": err}
+    entry.update(timed(
+        lambda: [fad.adam_leaf(*t, scalars) for t in kernel_leaves],
+        lambda: [fad.adam_leaf_reference(*t, scalars)
+                 for t in kernel_leaves],
+        lib.step))
+    entry.update(bound(24.0 * n, 12.0 * n))
+    log(f"kernel adam: {entry['ms']:.4f} ms per step, plain "
+        f"{entry['plain_ms']:.4f} ms, torch fused Adam "
+        f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms")
+    return entry
+
+
+def xent_phase(dev) -> list:
+    """Softmax cross-entropy forward and backward at the classifier head
+    (the main path's shape) and at an LM head."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as fx
+
+    fwd = {"name": "softmax_xent_fwd", "route": "cuda",
+           "source": "analytics_zoo_tpu_torch/csrc/fused_softmax_xent.cu",
+           "replaces": REPLACES["softmax_xent_fwd"], "max_abs_err": 0.0}
+    bwd = dict(fwd, name="softmax_xent_bwd",
+               replaces=REPLACES["softmax_xent_bwd"])
+    gen = np.random.default_rng(SEED + 3)
+    for key, (b, v) in (("head", (TRAIN_BATCH, 2)),
+                        ("lm_head", (4096, 30522))):
+        x = torch.from_numpy((gen.normal(size=(b, v)) * 3).astype(
+            np.float32)).to(dev)
+        labels = torch.from_numpy(gen.integers(0, v, b)).to(dev)
+        g = torch.from_numpy(gen.normal(size=b).astype(np.float32)).to(dev)
+        loss, lse = fx._fwd_cuda(x, labels)
+        dx = fx._bwd_cuda(x, labels, lse, g)
+        w_loss, w_lse = fx.xent_reference(x, labels)
+        w_dx = fx.xent_bwd_reference(x, labels, w_lse, g)
+        torch.cuda.synchronize()
+        e_f = max(((loss - w_loss).abs() / w_loss.abs().clamp_min(1)).max(
+        ).item(), ((lse - w_lse).abs() / w_lse.abs().clamp_min(1)).max(
+        ).item())
+        e_b = (dx - w_dx).abs().max().item()
+        log(f"kernel xent ({b}, {v}): fwd max rel|d| {e_f:.3e}, bwd "
+            f"max|d| {e_b:.3e} (tol {XENT_TOL:g})")
+        if not (e_f <= XENT_TOL and e_b <= XENT_TOL):
+            raise AssertionError(f"softmax xent disagrees at ({b}, {v})")
+        xr = x.detach().clone().requires_grad_()
+        lib_loss = F.cross_entropy(xr, labels, reduction="none")
+        nbytes = b * v * 4
+        f_row = timed(lambda: fx._fwd_cuda(x, labels),
+                      lambda: fx.xent_reference(x, labels),
+                      lambda: F.cross_entropy(x, labels, reduction="none"))
+        f_row.update(bound(nbytes + 4 * b * 4, 3.0 * b * v))
+        b_row = timed(lambda: fx._bwd_cuda(x, labels, lse, g),
+                      lambda: fx.xent_bwd_reference(x, labels, lse, g),
+                      lambda: torch.autograd.grad(lib_loss, xr, g,
+                                                  retain_graph=True))
+        b_row.update(bound(2 * nbytes + 4 * b * 4, 4.0 * b * v))
+        f_row["max_abs_err"], b_row["max_abs_err"] = e_f, e_b
+        for entry, row in ((fwd, f_row), (bwd, b_row)):
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       row["max_abs_err"])
+            if key == "head":
+                entry.update({k: row[k] for k in row if k != "max_abs_err"})
+            else:
+                entry[key] = row
+            log(f"kernel {entry['name']} ({b}, {v}): {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    return [fwd, bwd]
+
+
 def bert_model():
     from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
@@ -210,18 +468,31 @@ def bert_model():
     return Model(ins, Dense(2, activation="softmax")(pooled))
 
 
+def requests_of(n: int, gen: np.random.Generator):
+    """n records of real lengths 64-512: token ids, segment types,
+    positions and the attention mask."""
+    lengths = gen.integers(64, SEQ + 1, n)
+    split = (lengths * gen.uniform(0.3, 0.7, n)).astype(np.int64)
+    pos = np.arange(SEQ)[None, :]
+    mask = (pos < lengths[:, None]).astype(np.float32)
+    ids = gen.integers(1, BERT_BASE["vocab"], (n, SEQ)) * mask
+    types = ((pos >= split[:, None]) & (mask > 0)).astype(np.int32)
+    return [ids.astype(np.int32), types,
+            np.tile(pos.astype(np.int32), (n, 1)), mask]
+
+
 def requests(gen: np.random.Generator):
-    out = []
-    for n in REQUEST_SIZES:
-        lengths = gen.integers(64, SEQ + 1, n)
-        split = (lengths * gen.uniform(0.3, 0.7, n)).astype(np.int64)
-        pos = np.arange(SEQ)[None, :]
-        mask = (pos < lengths[:, None]).astype(np.float32)
-        ids = gen.integers(1, BERT_BASE["vocab"], (n, SEQ)) * mask
-        types = ((pos >= split[:, None]) & (mask > 0)).astype(np.int32)
-        out.append([ids.astype(np.int32), types,
-                    np.tile(pos.astype(np.int32), (n, 1)), mask])
-    return out
+    return [requests_of(n, gen) for n in REQUEST_SIZES]
+
+
+def tree_leaves_of_bert():
+    """The BERT-base classifier's parameter leaves (on the CPU)."""
+    from analytics_zoo_tpu_torch.common.engine import make_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+
+    return tree_leaves(bert_classifier(BERT_BASE["n_block"], DROPOUT,
+                                       DROPOUT).init_params(
+        make_generator(SEED)))
 
 
 def slice_phase(card_line: str) -> int:
@@ -289,15 +560,176 @@ def slice_phase(card_line: str) -> int:
     return launches
 
 
+def bert_classifier(n_block, hidden_drop, attn_drop):
+    """BERT with a Dense(2) logits head, fine-tuned as users of BERT do."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
+
+    ins = [Input((SEQ,)) for _ in range(4)]
+    cfg = dict(BERT_BASE, n_block=n_block, hidden_p_drop=hidden_drop,
+               attn_p_drop=attn_drop)
+    _, pooled = BERT(**cfg)(ins)
+    return Model(ins, Dense(2)(pooled))
+
+
+def counters() -> dict:
+    from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+    from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as fx
+
+    return {"flash_attention_fwd": fa.launch_count,
+            "flash_attention_bwd": fa.bwd_launch_count,
+            "fused_adam": fad.launch_count,
+            "softmax_xent_fwd": fx.fwd_launch_count,
+            "softmax_xent_bwd": fx.bwd_launch_count}
+
+
+def reset_counters() -> None:
+    from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+    from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as fx
+
+    fa.launch_count = fa.bwd_launch_count = 0
+    fad.launch_count = 0
+    fx.fwd_launch_count = fx.bwd_launch_count = 0
+
+
+def train_data(n: int, gen: np.random.Generator):
+    x = requests_of(n, gen)
+    return x, gen.integers(0, 2, n).astype(np.int32)
+
+
+def training_phase(card_line: str) -> dict:
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.engine import step_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import (
+        get_loss,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _to_device,
+    )
+
+    init_zoo_context(seed=SEED, device="cuda")
+    gen = np.random.default_rng(SEED + 4)
+    t0 = time.perf_counter()
+    net = bert_classifier(BERT_BASE["n_block"], DROPOUT, DROPOUT)
+    net.build_params()
+    net.compile(optimizer=Adam(2e-5),
+                loss="sparse_categorical_crossentropy_from_logits",
+                metrics=["accuracy"])
+    n = TRAIN_BATCH * TRAIN_STEPS
+    x, y = train_data(n, gen)
+    warm = [a[:TRAIN_BATCH] for a in x]
+    net.fit(warm, y[:TRAIN_BATCH], batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    log(f"training: BERT-base classifier built and one warm-up step in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kernel_leaves = sum(
+        1 for t in tree_leaves(net.params)
+        if t.dtype == torch.float32 and t.numel() >= fad.MIN_KERNEL_LEAF)
+
+    reset_counters()  # main path: from here to the read below
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = counters()  # end of the main path
+    est = net._estimator
+    losses = [v for _, v in est.loss_log[-TRAIN_STEPS:]]
+    log(f"training: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x {SEQ}: "
+        f"{step_ms:.1f} ms per step ({card_line}); losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    blocks = BERT_BASE["n_block"]
+    expected = {"flash_attention_fwd": blocks * TRAIN_STEPS,
+                "flash_attention_bwd": blocks * TRAIN_STEPS,
+                "fused_adam": kernel_leaves * TRAIN_STEPS,
+                "softmax_xent_fwd": TRAIN_STEPS,
+                "softmax_xent_bwd": TRAIN_STEPS}
+    log(f"training launches: {launches} (expected {expected}; "
+        f"{kernel_leaves} f32 leaves of >= {fad.MIN_KERNEL_LEAF})")
+    if launches != expected:
+        raise AssertionError("a training call did not run through its "
+                             "kernel")
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"training losses not finite: {losses}")
+    res = net.evaluate(x, y, batch_size=TRAIN_BATCH)
+    log(f"evaluate: {res}")
+    if not (np.isfinite(res["loss"]) and 0.0 <= res["accuracy"] <= 1.0):
+        raise AssertionError(f"bad evaluate result {res}")
+
+    # one batch the model has not seen, repeated at a higher learning rate
+    # (fresh Adam moments): the loss falls
+    fresh_x, fresh_y = train_data(TRAIN_BATCH, gen)
+    net.compile(optimizer=Adam(5e-5),
+                loss="sparse_categorical_crossentropy_from_logits")
+    net.fit(fresh_x, fresh_y, batch_size=TRAIN_BATCH, nb_epoch=10)
+    rep = [v for _, v in net._estimator.loss_log]
+    log("repeated batch at lr 5e-5: " + ", ".join(f"{v:.4f}" for v in rep))
+    if not min(rep[-3:]) < rep[0]:
+        raise AssertionError(f"the loss did not fall: {rep}")
+
+    # step 1 on the GPU against the same model on the CPU: 2 blocks at full
+    # width, batch 2, hidden dropout 0, attention dropout on
+    xs, ys = train_data(2, gen)
+    batch = {"x": xs, "y": ys}
+    results = []
+    for device in ("cuda", "cpu"):
+        small = bert_classifier(2, 0.0, DROPOUT)
+        small.build_params(rng=torch.Generator().manual_seed(SEED),
+                           device=device)
+        est = Estimator(small, loss=get_loss(
+            "sparse_categorical_crossentropy_from_logits"))
+        loss, grads, _ = est.loss_and_grads(
+            small.params, small.state, _to_device(batch, small.device),
+            step_generator(SEED, 0, small.device))
+        results.append((loss.item(), [g.cpu() for g in tree_leaves(grads)]))
+    (g_loss, g_grads), (c_loss, c_grads) = results
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(g_grads, c_grads))
+    log(f"training step 1 vs CPU (2 blocks, batch 2, attention dropout "
+        f"{DROPOUT}): loss {g_loss:.6f} vs {c_loss:.6f} (rel {loss_err:.2e})"
+        f", grads max rel to leaf max {grad_err:.2e} (tol "
+        f"{TRAIN_CPU_TOL:g})")
+    if not (loss_err <= TRAIN_CPU_TOL and grad_err <= TRAIN_CPU_TOL):
+        raise AssertionError("the GPU training step disagrees with the CPU")
+    return launches
+
+
 def main() -> int:
     import torch
 
     card_line = card()
     dev = torch.device("cuda")
     build_kernels()
-    entry = kernel_phase(dev)
-    entry["launches"] = slice_phase(card_line)
-    log(json.dumps({"kernels": [entry]}))
+    fwd = kernel_phase(dev)
+    bwd = flash_train_phase(dev, fwd)
+    shapes = [tuple(t.shape) for t in tree_leaves_of_bert()]
+    adam = adam_phase(dev, shapes)
+    xent = xent_phase(dev)
+    entries = [fwd, bwd, adam] + xent
+    reset_counters()  # serving main path: counted inside slice_phase
+    serving = {"flash_attention_fwd": slice_phase(card_line)}
+    training = training_phase(card_line)
+    for entry in entries:
+        name = entry["name"]
+        paths = {"serving": serving.get(name, 0),
+                 "training": training.get(name, 0)}
+        entry["launches"] = sum(paths.values())
+        entry["launches_by_path"] = paths
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    log(json.dumps({"kernels": [
+        {**{k: e[k] for k in keys}, **{k: v for k, v in e.items()
+                                         if k not in keys}}
+        for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

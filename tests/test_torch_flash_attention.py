@@ -154,14 +154,24 @@ def test_boolean_mask_routes_like_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"dropout_p": 0.1, "dropout_seed": 0},
+    {"q_segment_ids": np.zeros((1, 256), np.int32),
+     "kv_segment_ids": np.zeros((1, 256), np.int32),
+     "dropout_p": 0.1, "dropout_seed": 0},
     {"q_segment_ids": np.zeros((1, 256), np.int32),
      "kv_segment_ids": np.zeros((1, 256), np.int32)},
 ])
 def test_unported_features_raise(kwargs):
+    """Segment ids are not ported yet, with or without dropout (which is:
+    tests/test_torch_flash_backward.py)."""
     q = torch.zeros(1, 1, 256, 64)
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(q, q, q, **kwargs)
+
+
+def test_dropout_needs_a_seed():
+    q = torch.zeros(1, 1, 256, 64)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        tfa.flash_attention(q, q, q, dropout_p=0.1)
 
 
 def test_bad_bias_shape_raises():

@@ -140,6 +140,9 @@ def test_sequential_dense_dropout_serves_like_jax():
 
 
 def test_unported_training_features_raise():
+    from analytics_zoo_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention,
+    )
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
         BERT,
         Dropout,
@@ -151,8 +154,32 @@ def test_unported_training_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BERT(vocab=10, hidden_size=64, n_block=1, n_head=1, seq_len=8,
              remat=True)
+    q = torch.zeros(1, 1, 256, 64)
+    seg = torch.zeros(1, 256, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Dropout(0.5).call({}, torch.ones(2, 2), training=True,
-                          rng=torch.Generator())
+        flash_attention(q, q, q, q_segment_ids=seg, kv_segment_ids=seg)
+    # training-mode Dropout is ported (test_dropout_trains_like_jax); at
+    # inference it is the identity
     assert torch.equal(Dropout(0.5).call({}, torch.ones(2, 2)),
                        torch.ones(2, 2))
+
+
+def test_dropout_trains_like_jax():
+    """Training-mode Dropout keeps ~1-p of the values, scaled by 1/(1-p),
+    as the reference's does; the masks come from different generators
+    (torch vs jax.random), so the test compares the rule, not the bits."""
+    from analytics_zoo_tpu.pipeline.api.keras.layers import Dropout as JDrop
+    from analytics_zoo_tpu_torch.common.engine import make_generator
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dropout
+
+    x = np.full((200, 100), 3.0, np.float32)
+    got = Dropout(0.25).call({}, torch.from_numpy(x), training=True,
+                             rng=make_generator(1)).numpy()
+    want = np.asarray(JDrop(0.25).call({}, jnp.asarray(x), training=True,
+                                       rng=jax.random.PRNGKey(1)))
+    for out in (got, want):
+        assert set(np.unique(out)) <= {0.0, np.float32(4.0)}
+        assert abs((out == 0).mean() - 0.25) < 0.02
+    again = Dropout(0.25).call({}, torch.from_numpy(x), training=True,
+                               rng=make_generator(1)).numpy()
+    np.testing.assert_array_equal(got, again)  # the generator decides
