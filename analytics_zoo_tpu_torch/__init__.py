@@ -9,9 +9,11 @@ wrote in Pallas are hand-written CUDA kernels under ``csrc/``, wrapped in
 This package imports ``torch`` and never ``jax`` or ``analytics_zoo_tpu``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
-Ported so far: the serving slice (``Input``/``Model`` → ``InferenceModel``
-over Dense, Dropout, BERT and TransformerLayer) and the flash-attention
-forward kernel.
+Ported so far: serving (``Input``/``Model`` → ``InferenceModel`` over
+Dense, Dropout, BERT and TransformerLayer, in f32, bf16 and int8),
+fine-tuning (``compile``/``fit``/``evaluate``), the single-device kernel
+and precision planes (``parallel``), and every TPU kernel of the
+reference as a CUDA kernel.
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,10 @@
 
 ``params_from_jax`` takes the JAX package's parameter tree with its leaves
 as numpy arrays (or anything ``np.asarray`` accepts) and returns the
-port's tree of tensors on a device.  A quantized leaf comes as a
-``(values, scale, axis)`` triple.  ``opt_state_from_jax`` carries optax's
+port's tree of tensors on a device.  A quantized leaf comes as the JAX
+package's ``QuantizedTensor`` (anything with ``values``, ``scale`` and
+``axis``) or as a ``(values, scale, axis)`` triple, and becomes the port's
+``QuantizedTensor``.  ``opt_state_from_jax`` carries optax's
 Adam state (``ScaleByAdamState``: count, mu, nu) into the port's
 :class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.AdamState`.
 The JAX package is never imported: the caller hands over plain arrays.
@@ -30,9 +32,14 @@ def _tensor(a, device):
     return t.to(device)
 
 
-def _is_triple(x):
-    return (isinstance(x, tuple) and len(x) == 3
-            and isinstance(x[2], (int, np.integer)))
+def _quantized(x):
+    """(values, scale, axis) of a quantized leaf, else None."""
+    if isinstance(x, tuple) and len(x) == 3 \
+            and isinstance(x[2], (int, np.integer)):
+        return x
+    if all(hasattr(x, a) for a in ("values", "scale", "axis")):
+        return x.values, x.scale, x.axis
+    return None
 
 
 def params_from_jax(tree, device=None):
@@ -45,9 +52,10 @@ def params_from_jax(tree, device=None):
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, list):
             return [conv(v) for v in x]
-        if _is_triple(x):
-            return QuantizedTensor(_tensor(x[0], dev), _tensor(x[1], dev),
-                                   int(x[2]))
+        q = _quantized(x)
+        if q is not None:
+            return QuantizedTensor(_tensor(q[0], dev), _tensor(q[1], dev),
+                                   int(q[2]))
         return _tensor(x, dev)
 
     return conv(tree)

@@ -6,7 +6,10 @@ routing: shapes the flash kernel takes go to
 :func:`analytics_zoo_tpu_torch.ops.cuda.flash_attention.flash_attention`
 (the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor);
 every other shape takes the dense path, because that is what the
-reference computes there.  The two differ on a row whose keys are all
+reference computes there.  A plan's ``kernel_rules`` override the ``auto``
+routing, as in the reference: ``resolve_kernel("attention")`` of ``"xla"``
+pins the dense path (on the card too), ``"flash"`` asks for the kernel
+(eligibility still gates it).  The two differ on a row whose keys are all
 masked: the dense softmax gives a uniform row, flash gives zeros.
 
 Attention dropout: on the flash route the mask comes from the kernel's
@@ -28,6 +31,7 @@ from analytics_zoo_tpu_torch.ops.cuda.flash_attention import (
     _NEG,
     flash_attention,
 )
+from analytics_zoo_tpu_torch.parallel.plan import resolve_kernel
 
 
 def flash_eligible(q_shape, mask_shape, mask_ndim, dropout_p, has_rng,
@@ -70,6 +74,12 @@ def dot_product_attention(q, k, v, mask=None, dropout_p=0.0, rng=None,
     """
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if use_flash == "auto":
+        pick = resolve_kernel("attention")
+        if pick == "xla":
+            use_flash = False
+        elif pick == "flash":
+            use_flash = True
     if flash_eligible(q.shape, None if mask is None else mask.shape,
                       None if mask is None else mask.dim(), dropout_p,
                       rng is not None, k.shape[-2], use_flash):

@@ -20,7 +20,8 @@ take raises; a CPU tensor takes the plain versions,
 :func:`attention_reference` and :func:`attention_bwd_reference`, which
 compute the same functions in plain PyTorch.  Nothing falls back from one
 to the other.  ``launch_count`` and ``bwd_launch_count`` count the calls
-that launched the forward and the backward kernels.
+that launched the forward and the backward kernels, ``plain_count`` and
+``bwd_plain_count`` those that took the plain versions.
 
 Segment ids are not ported yet, and a full (…, Lq, Lk) bias that needs a
 gradient raises on CUDA: the reference takes a ``lax.scan``, not its
@@ -44,6 +45,8 @@ _U32 = 0xFFFFFFFF
 # last reset
 launch_count = 0
 bwd_launch_count = 0
+plain_count = 0         # forwards that took the plain version (CPU)
+bwd_plain_count = 0
 
 _FWD = "flash_attention_fwd"
 _BWD = "flash_attention_bwd"
@@ -250,8 +253,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale, dropout_p, seed):
+        global plain_count
         grad = any(ctx.needs_input_grad[:4])
         if q.device.type == "cpu":
+            plain_count += 1
             out, m, l = attention_reference(q, k, v, causal, scale, bias,
                                             dropout_p, seed,
                                             return_stats=True)
@@ -265,10 +270,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        global bwd_plain_count
         q, k, v, bias, out, m, l = ctx.saved_tensors
         causal, scale, dropout_p, seed = ctx.args
         bias_grad = ctx.needs_input_grad[3]
         if q.device.type == "cpu":
+            bwd_plain_count += 1
             dq, dk, dv, dbias = attention_bwd_reference(
                 q, k, v, g, out, m, l, causal, scale, bias, dropout_p, seed,
                 bias_grad)

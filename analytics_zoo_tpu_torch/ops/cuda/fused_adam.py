@@ -14,7 +14,8 @@ elements go through :func:`adam_leaf` and every other leaf takes the same
 formula in plain PyTorch (the reference's shape gate, not a fallback).
 :func:`adam_leaf` launches the kernel for a CUDA tensor and takes
 :func:`adam_leaf_reference` for a CPU tensor.  ``launch_count`` counts the
-kernel launches (one per leaf, as on the TPU).
+kernel launches (one per leaf, as on the TPU), ``plain_count`` the leaves
+that took the plain version.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 launch_count = 0
+plain_count = 0         # leaves that took the plain version (CPU)
 
 _KERNEL = "fused_adam"
 # the reference's gate: leaves smaller than one (8, 128) tile row
@@ -47,7 +49,9 @@ def adam_leaf_reference(g, mu, nu, scalars):
 def adam_leaf(g, mu, nu, scalars):
     """One leaf's update: the kernel for CUDA tensors, the plain version
     for CPU tensors."""
+    global plain_count
     if g.device.type == "cpu":
+        plain_count += 1
         return adam_leaf_reference(g, mu, nu, scalars)
     return _adam_cuda(g, mu, nu, scalars)
 
@@ -111,11 +115,13 @@ def _const(values, device):
     return t
 
 
-def fused_update(grads, mu, nu, scalars):
-    """Lists of leaves in, lists of (updates, mu', nu') out."""
+def fused_update(grads, mu, nu, scalars, kernel=True):
+    """Lists of leaves in, lists of (updates, mu', nu') out; ``kernel=False``
+    (the plan's ``"xla"`` pick) gives every leaf the plain formula."""
     out = []
     for g, m, n in zip(grads, mu, nu):
-        if g.dtype == torch.float32 and g.numel() >= MIN_KERNEL_LEAF:
+        if kernel and g.dtype == torch.float32 \
+                and g.numel() >= MIN_KERNEL_LEAF:
             out.append(adam_leaf(g, m, n, scalars))
         else:
             out.append(adam_leaf_reference(g, m, n, scalars))

@@ -11,7 +11,8 @@ dx = g * (exp(x - lse) - onehot), in the logits' type).
 labels get no gradient.  A CUDA tensor launches the kernels, a CPU tensor
 takes the plain versions :func:`xent_reference` and
 :func:`xent_bwd_reference`; nothing falls back from one to the other.
-``fwd_launch_count`` and ``bwd_launch_count`` count the kernel launches.
+``fwd_launch_count`` and ``bwd_launch_count`` count the kernel launches,
+``fwd_plain_count`` and ``bwd_plain_count`` the plain-version calls.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 
 fwd_launch_count = 0
 bwd_launch_count = 0
+fwd_plain_count = 0     # calls that took the plain versions (CPU)
+bwd_plain_count = 0
 
 _KERNEL = "fused_softmax_xent"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,7 +63,9 @@ def softmax_xent(logits, labels):
 class _SoftmaxXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels):
+        global fwd_plain_count
         if logits.device.type == "cpu":
+            fwd_plain_count += 1
             loss, lse = xent_reference(logits, labels)
         else:
             loss, lse = _fwd_cuda(logits, labels)
@@ -69,8 +74,10 @@ class _SoftmaxXent(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        global bwd_plain_count
         logits, labels, lse = ctx.saved_tensors
         if logits.device.type == "cpu":
+            bwd_plain_count += 1
             dx = xent_bwd_reference(logits, labels, lse, g)
         else:
             dx = _bwd_cuda(logits, labels, lse, g)

@@ -10,7 +10,8 @@ with (B,) labels to the fused softmax cross-entropy
 (``ops/cuda/fused_softmax_xent.py``): the CUDA kernels on the card, their
 plain version on the CPU.  That is the port's ``loss.softmax_xent`` scope,
 which the JAX package routes the same way under ``ZOO_USE_PALLAS=1``;
-every other shape takes the f32 log-softmax path, as there.
+every other shape, and a plan whose ``kernel_rules`` pick ``"xla"`` for
+the scope, takes the f32 log-softmax path, as there.
 
 Ported so far: the two sparse categorical cross-entropies; the other
 losses wait for their slice (ROADMAP queue 1, item 4).
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from analytics_zoo_tpu_torch.ops.cuda.fused_softmax_xent import softmax_xent
+from analytics_zoo_tpu_torch.parallel.plan import resolve_kernel
 
 _EPS = 1e-7
 
@@ -65,7 +67,8 @@ def sparse_categorical_crossentropy(y_true, y_pred):
 
 def sparse_categorical_crossentropy_from_logits(y_true, logits):
     labels = _labels(y_true, logits.dim())
-    if logits.dim() == 2 and labels.dim() == 1:
+    if logits.dim() == 2 and labels.dim() == 1 \
+            and resolve_kernel("loss.softmax_xent") != "xla":
         return softmax_xent(logits, labels)
     # f32 softmax-CE regardless of compute dtype, as in the reference
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -8,7 +8,8 @@ optax's state and arithmetic, so trajectories and checkpoints carry over:
 pre-increment count and bias-corrects at the incremented one.  Its update
 is the reference's ``fused_adam`` under the kernel plane: on the card the
 update of every f32 leaf of at least 128 elements runs the CUDA kernel of
-``ops/cuda/fused_adam.py``.  The oracle is ``optax.adam``, not
+``ops/cuda/fused_adam.py``, unless the active plan's ``kernel_rules`` pick
+``"xla"`` for ``optimizer.adam``; then every leaf takes the plain formula.  The oracle is ``optax.adam``, not
 ``torch.optim.Adam``, which groups its arithmetic differently.
 
 Schedules are functions of the step count (a 0-d int tensor) returning a
@@ -32,6 +33,7 @@ from analytics_zoo_tpu_torch.ops.cuda.fused_adam import (
     adam_scalars,
     fused_update,
 )
+from analytics_zoo_tpu_torch.parallel.plan import resolve_kernel
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -115,7 +117,8 @@ class Adam(Optimizer):
         triples = []  # (g, mu, nu) per leaf, matched by key
         tree_map_many(lambda *t: triples.append(t), grads, opt_state.mu,
                       opt_state.nu)
-        upd, mu, nu = fused_update(*zip(*triples), scalars)
+        kernel = resolve_kernel("optimizer.adam") != "xla"
+        upd, mu, nu = fused_update(*zip(*triples), scalars, kernel=kernel)
         return (_unflatten(grads, upd),
                 AdamState(count_inc, _unflatten(grads, mu),
                           _unflatten(grads, nu)))

@@ -141,9 +141,12 @@ class KerasNet(_ContainerBase):
                          grad_clip=getattr(self, "_grad_clip", None))
 
     def fit(self, x, y=None, batch_size=32, nb_epoch=10,
-            validation_data=None, distributed=True, sample_weight=None):
+            validation_data=None, distributed=True, sample_weight=None,
+            plan=None):
         """Train ``nb_epoch`` more epochs on (x, y); returns the model (the
-        estimator's ``history`` and ``loss_log`` hold the losses)."""
+        estimator's ``history`` and ``loss_log`` hold the losses).  ``plan``
+        (a ``ShardingPlan`` or a name, default ``dp``) is the plan every
+        step runs under: its ``kernel_rules`` pick each scope's kernel."""
         from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
 
         train_set = FeatureSet.of(x, y, sample_weight=sample_weight)
@@ -152,7 +155,8 @@ class KerasNet(_ContainerBase):
         if getattr(self, "_estimator", None) is None:
             self._estimator = self._make_estimator()
         self._estimator.train(train_set, batch_size=batch_size,
-                              nb_epoch=nb_epoch, validation_set=val_set)
+                              nb_epoch=nb_epoch, validation_set=val_set,
+                              plan=plan)
         return self
 
     def evaluate(self, x, y=None, batch_size=32):

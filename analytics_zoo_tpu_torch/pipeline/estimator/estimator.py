@@ -9,18 +9,24 @@ masking, gradient clipping, the optimizer update and
 ``step_generator(seed, global_step)`` on the model's device, the
 counterpart of ``fold_in(PRNGKey(seed), step)``.
 
-On the card the three training scopes always take their kernels, as the
-JAX package does under ``ZOO_USE_PALLAS=1``: attention (flash forward and
+On the card the three training scopes take their kernels, as the JAX
+package does under ``ZOO_USE_PALLAS=1``: attention (flash forward and
 backward, where ``flash_eligible`` holds), ``loss.softmax_xent`` (2-D
 logits with 1-D labels) and ``optimizer.adam`` (f32 leaves of at least 128
-elements).
+elements).  The train step runs under a plan
+(``Estimator(plan=)``/``train(plan=)``, default ``dp``) through
+``parallel.plan.compile_step``, as in the reference, so a plan's
+``kernel_rules`` can opt a scope out with ``"xla"`` (its plain PyTorch
+path).  A plan whose ``dtype_rules`` carry a compute role (bf16, f16, or
+int8, which the reference trains in bf16) raises: the port trains in f32
+only (ROADMAP queue 1 item 22).
 
 Batches come from ``FeatureSet.batches`` with the reference's seeded
 shuffle, so both packages see the same batches in the same order.
 ``history`` holds one record per epoch, as in the reference;
 ``loss_log`` holds every step's ``(iteration, loss)``, the values the
 reference writes as TensorBoard ``Loss`` scalars.  Not ported yet (ROADMAP
-queue 1, item 6): sharding plans, fused multi-step dispatch, checkpoints
+queue 1, item 6): sharded plans, fused multi-step dispatch, checkpoints
 and resume, the prefetch and autotune planes, TensorBoard and metrics.
 """
 
@@ -45,6 +51,11 @@ from analytics_zoo_tpu_torch.common.triggers import (
 )
 from analytics_zoo_tpu_torch.common.utils import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+from analytics_zoo_tpu_torch.parallel.plan import (
+    COMPUTE_ROLES,
+    compile_step,
+    resolve_plan,
+)
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
     _unflatten,
     apply_updates,
@@ -109,8 +120,11 @@ class Estimator:
     """Train and evaluate a KerasNet on its device."""
 
     def __init__(self, model, optimizer=None, loss=None, metrics=None,
-                 grad_clip=None, ctx=None):
+                 grad_clip=None, ctx=None, plan=None):
         self.model = model
+        # a ShardingPlan or a plan name; None is "dp".  train(plan=)
+        # overrides it per fit.
+        self.plan = plan
         self.optimizer = optimizer
         self.loss = loss
         self.metrics = list(metrics or [])
@@ -170,15 +184,32 @@ class Estimator:
     # ------------------------------------------------------------------
     # train / evaluate
     # ------------------------------------------------------------------
+    def _resolve_plan(self, plan=None):
+        """The plan of this fit (``plan`` over the estimator's), refused if
+        its dtype rules would change the training compute dtype."""
+        plan = resolve_plan(plan if plan is not None else self.plan)
+        compute = sorted({role for _, role in plan.dtype_rules
+                          if role in COMPUTE_ROLES})
+        if compute:
+            raise NotImplementedError(
+                f"plan {plan.name!r} computes in {compute}: mixed-precision "
+                "training is not ported yet (ROADMAP queue 1 item 22); the "
+                "port trains in f32 only")
+        return plan
+
     def train(self, train_set: FeatureSet, batch_size: int = 32,
               nb_epoch: int | None = None,
               end_trigger: ZooTrigger | None = None,
               validation_set: FeatureSet | None = None,
               validation_trigger: ZooTrigger | None = None,
-              seed: int | None = None):
+              seed: int | None = None, plan=None):
         """Train until ``end_trigger`` (default: ``nb_epoch`` more epochs,
-        Keras continuation semantics).  The optimizer state persists across
-        calls, so a second fit continues the moments and the step count."""
+        Keras continuation semantics) with every step under ``plan`` (a
+        ``ShardingPlan`` or name; ``None`` defers to the estimator's plan,
+        then ``dp``).  The optimizer state persists across calls, so a
+        second fit continues the moments and the step count."""
+        plan = self._resolve_plan(plan)
+        step = compile_step(self.train_step, plan, label="train_step")
         if end_trigger is None:
             end_trigger = MaxEpoch(
                 self.epoch - 1 + (nb_epoch if nb_epoch is not None else 10))
@@ -199,7 +230,7 @@ class Estimator:
                                            drop_last=True):
                 rng = step_generator(seed & 0x7FFFFFFF, self.global_step,
                                      device)
-                params, opt_state, state, loss = self.train_step(
+                params, opt_state, state, loss = step(
                     params, opt_state, state, rng,
                     _to_device(batch, device))
                 self.global_step += 1
@@ -208,7 +239,7 @@ class Estimator:
                 tstate.epoch_finished = False
                 tstate.loss = loss
                 self._maybe_validate(tstate, params, state, validation_set,
-                                     validation_trigger, batch_size)
+                                     validation_trigger, batch_size, plan)
             # the epoch boundary: the one host sync of the loop
             values = torch.stack(losses).tolist() if losses else []
             first = self.global_step - len(values) + 1
@@ -225,7 +256,7 @@ class Estimator:
             tstate.epoch = epoch
             tstate.epoch_finished = True
             self._maybe_validate(tstate, params, state, validation_set,
-                                 validation_trigger, batch_size)
+                                 validation_trigger, batch_size, plan)
         self.epoch = epoch
         self.model.params = params
         self.model.state = state
@@ -233,12 +264,12 @@ class Estimator:
         return self
 
     def _maybe_validate(self, tstate, params, state, validation_set,
-                        validation_trigger, batch_size):
+                        validation_trigger, batch_size, plan):
         if validation_set is None or validation_trigger is None \
                 or not validation_trigger(tstate):
             return
-        results = self._evaluate_with(params, state, validation_set,
-                                      batch_size)
+        results = compile_step(self._evaluate_with, plan, label="eval_step")(
+            params, state, validation_set, batch_size)
         tstate.score = next((v for k, v in results.items() if k != "loss"),
                             -results.get("loss", 0.0))
         logger.info("validation @ step %d: %s", tstate.iteration, results)
@@ -252,7 +283,9 @@ class Estimator:
                 "evaluate() called before any training: materializing "
                 "fresh random weights; metrics reflect an untrained model")
         params, state = self.model.build_params()
-        return self._evaluate_with(params, state, val_set, batch_size)
+        return compile_step(self._evaluate_with, self._resolve_plan(),
+                            label="eval_step")(params, state, val_set,
+                                               batch_size)
 
     def _evaluate_with(self, params, state, val_set, batch_size=32) -> dict:
         device = self.model.device

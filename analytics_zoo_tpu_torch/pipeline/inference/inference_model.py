@@ -12,6 +12,14 @@ records the buckets seen, and ``warmup`` runs one forward per bucket
 outputs are copied back to numpy inside it, so the bound covers the
 device work.  Telemetry is plain counters on the instance; the metrics
 registry comes with the serving-host slice.
+
+``optimize("int8")`` is weight-only (dequantized before each forward, as
+in the reference); ``optimize("int8", calibration_data=x)`` builds a
+calibrated :class:`~analytics_zoo_tpu_torch.pipeline.inference.quantize.
+Int8Model` whose int8 ``apply`` hooks are installed around each forward.
+The reference bakes those hooks into one compiled executable per bucket;
+here every calibrated forward installs them under the global
+``HOOK_LOCK``, so calibrated forwards run one at a time.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 from analytics_zoo_tpu_torch.common.utils import tree_map
 from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
     dequantize_params,
+    quantize_model,
     quantize_params,
 )
 
@@ -57,6 +66,7 @@ class InferenceModel:
         self._buckets = {}  # guarded-by: _lock -- input-shape key -> bucket
         self._quantized = False
         self._bf16 = False
+        self._int8_model = None  # calibrated int8 (optimize + calibration)
         # Telemetry: records served, and per bucket the micro-batch count
         # and total/max run seconds (host clock around work that ends in a
         # device-to-host copy)
@@ -84,23 +94,30 @@ class InferenceModel:
             self._buckets = {}
         self._quantized = False
         self._bf16 = False
+        self._int8_model = None
         return self
 
     def optimize(self, precision: str = "int8",
                  calibration_data=None) -> "InferenceModel":
         """``int8``: weight-only per-channel quantization, dequantized before
-        each forward; ``bf16``: weights (and floating inputs) in bfloat16,
-        outputs returned in float32."""
+        each forward; with ``calibration_data`` (representative inputs, one
+        array) the activations are calibrated too and the top-level Dense
+        layers run int8 x int8 -> int32; ``bf16``: weights (and floating
+        inputs) in bfloat16, outputs returned in float32 (calibration data
+        is ignored).  Every call starts from the float model."""
         if self._net is None:
             raise RuntimeError("load a model first")
         if precision not in ("int8", "bf16"):
+            # validate before changing anything: a bad precision leaves the
+            # model as it was
             raise ValueError(f"unknown precision {precision!r}")
-        if calibration_data is not None:
-            raise NotImplementedError(
-                "calibrated int8 (Int8Model) is not ported yet (ROADMAP "
-                "queue 1 item 8, int8 slice)")
+        self._int8_model = None
         self._bf16 = False
-        if precision == "int8":
+        if precision == "int8" and calibration_data is not None:
+            self._int8_model = quantize_model(self._net, calibration_data)
+            self._params = self._int8_model.qparams
+            self._quantized = True
+        elif precision == "int8":
             self._params = quantize_params(self._net.params)
             self._quantized = True
         else:
@@ -119,7 +136,8 @@ class InferenceModel:
     def _forward(self, xs: Sequence[np.ndarray]):
         device = self._net.device
         params = self._params
-        if self._quantized:
+        int8 = self._int8_model
+        if self._quantized and int8 is None:
             params = dequantize_params(params)
         ts = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
               for a in xs]
@@ -127,6 +145,10 @@ class InferenceModel:
             ts = [t.to(torch.bfloat16) if t.is_floating_point() else t
                   for t in ts]
         x = ts[0] if len(ts) == 1 else ts
+        if int8 is not None:
+            # the hooked layers read their int8 kernels from the hooks;
+            # params supplies the float leaves (biases, other layers)
+            return int8.forward(x)
         with torch.inference_mode():
             out, _ = self._net.forward(params, x, state=self._state,
                                        training=False)

@@ -1,15 +1,29 @@
-"""Weight-only int8 quantization for inference.
+"""int8 quantization for inference: weight-only and calibrated.
 
-Counterpart of the weight-only half of
-``analytics_zoo_tpu/pipeline/inference/quantize.py``: per-output-channel
-symmetric int8 quantization of the parameter tree, dequantized right
-before use.  Rounding is half-to-even on both sides (``torch.round``, like
-``jnp.round``), so the int8 values equal the reference's.  The calibrated
-``Int8Model`` and ``quantized_matmul`` (the int8 matmul kernel's route)
-wait for the int8 slice.
+Counterpart of ``analytics_zoo_tpu/pipeline/inference/quantize.py``.
+
+Weight-only: per-output-channel symmetric int8 quantization of the
+parameter tree, dequantized right before use.  Rounding is half-to-even on
+both sides (``torch.round``, like ``jnp.round``), so the int8 values equal
+the reference's.  :func:`quantize_params_for_plan` quantizes exactly the
+leaves a plan's ``dtype_rules`` mark ``"int8"``, and
+:func:`quantized_matmul` is the consumer of one quantized weight: under a
+plan whose ``kernel_rules`` route ``serving.int8_matmul`` to
+``int8_matmul`` it takes the CUDA kernel (``ops/cuda/int8_matmul.py``),
+otherwise dequantize-then-matmul, as in the reference.
+
+Calibrated: :func:`calibrate_activations` records each top-level Dense
+layer's input range over calibration batches; :class:`Int8Model` then runs
+those layers as int8 x int8 -> int32 with one rescale to float after
+(:func:`_int8_dense`), through per-layer ``apply`` hooks installed for the
+duration of a forward (:func:`_hooked`).  Conv targets wait for the conv
+layers (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -56,6 +70,59 @@ def quantize_params(params, min_size: int = 1024):
     return tree_map(q, params)
 
 
+def quantize_params_for_plan(params, plan, min_size: int = 1024):
+    """Quantize exactly the leaves whose dtype role under
+    ``plan.dtype_rules`` is ``"int8"`` (:func:`~analytics_zoo_tpu_torch.
+    parallel.plan.int8_serving` marks every leaf).  The structural gate of
+    :func:`quantize_params` still applies to each marked leaf (ndim >= 2,
+    >= ``min_size`` elements, floating), so a catch-all rule leaves biases
+    and norms alone.  A plan that marks nothing int8 returns the tree
+    itself."""
+    from analytics_zoo_tpu_torch.parallel.partition import (
+        leaf_path_name,
+        tree_map_with_path,
+    )
+
+    roles = plan.dtype_roles(params)
+    if not any(r == "int8" for r in roles.values()):
+        return params
+
+    def q(path, leaf):
+        if (roles.get(leaf_path_name(path)) == "int8"
+                and leaf.dim() >= 2 and leaf.numel() >= min_size
+                and leaf.is_floating_point()):
+            return _quantize_array(leaf, axis=-1)
+        return leaf
+
+    return tree_map_with_path(q, params)
+
+
+def quantized_matmul(x, qt):
+    """``x @ dequantize(qt)``, the consumer of a quantized dense weight.
+
+    Under a plan whose ``kernel_rules`` route ``serving.int8_matmul`` to
+    ``int8_matmul``, a 2-D weight with its scale on the last axis goes to
+    :func:`~analytics_zoo_tpu_torch.ops.cuda.int8_matmul.int8_matmul` (the
+    kernel for a CUDA tensor, its plain version for a CPU one): the weight
+    stays one byte per element.  Every other case (no plan, no rule, an
+    explicit ``"xla"`` pick, 3-D values, an axis-0 scale) is
+    dequantize-then-matmul, as in the reference.  A plain tensor is a plain
+    matmul."""
+    if isinstance(qt, QuantizedTensor) and qt.values.dim() == 2 \
+            and qt.axis == qt.values.dim() - 1:
+        from analytics_zoo_tpu_torch.parallel.plan import resolve_kernel
+
+        if resolve_kernel("serving.int8_matmul") == "int8_matmul":
+            from analytics_zoo_tpu_torch.ops.cuda.int8_matmul import (
+                int8_matmul,
+            )
+
+            return int8_matmul(x, qt.values, qt.scale.reshape(-1))
+    if isinstance(qt, QuantizedTensor):
+        return x @ qt.dequantize(x.dtype)
+    return x @ qt
+
+
 def quantized_bytes_ratio(params, qparams) -> float:
     """quantized-bytes / original-bytes over the whole tree (int8 values +
     f32 scales vs the float original; unquantized leaves count at full
@@ -89,3 +156,197 @@ def quantization_error(params, qparams) -> float:
             if denom > 0:
                 errs.append(float(np.linalg.norm(a - d) / denom))
     return max(errs) if errs else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Activation calibration + int8 x int8 execution
+# ---------------------------------------------------------------------------
+
+#: conv layer classes that are calibration targets; the port has no conv
+#: layer yet (ROADMAP queue 1 item 3), and a target of such a class raises
+_CONV_TYPES: tuple = ()
+
+
+def _target_layers(net):
+    """The net's top-level Dense layers (and conv layers, which raise), as
+    in the reference: layers nested inside another layer (BERT's own
+    projections) are not targets."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import Dense
+
+    targets = [l for l in net.layers
+               if isinstance(l, (Dense,) + _CONV_TYPES)
+               and getattr(l, "name", None)]
+    convs = [l.name for l in targets if not isinstance(l, Dense)]
+    if convs:
+        raise NotImplementedError(
+            f"calibrated int8 for conv layers {convs} is not ported yet: "
+            "_int8_conv waits for the conv layers (ROADMAP queue 1 item 3)")
+    return targets
+
+
+# Serializes every apply-hook installation and every forward that could
+# observe one: a layer's ``apply`` is shared by every user of the net, so
+# a float forward of the same net racing an int8 installation would run the
+# int8 path.  PyTorch has no trace to bake the hooks into, so they are
+# installed for each calibrated forward, and calibrated forwards of any
+# model run one at a time.
+HOOK_LOCK = threading.RLock()
+
+
+@contextmanager
+def _hooked(assignments):
+    """Install {layer: wrapped_apply}, restore on exit, under HOOK_LOCK."""
+    originals = {}
+    with HOOK_LOCK:
+        try:
+            for layer, wrapped in assignments.items():
+                originals[layer] = layer.apply
+                layer.apply = wrapped
+            yield
+        finally:
+            for layer, orig in originals.items():
+                layer.apply = orig
+
+
+def _as_input(xb, device):
+    t = torch.from_numpy(np.ascontiguousarray(xb))
+    if t.dtype == torch.float64:
+        t = t.float()
+    return t.to(device)
+
+
+def calibrate_activations(net, x_batches, params=None, state=None):
+    """Per-layer input abs-max over calibration batches (eager forwards
+    with per-instance ``apply`` hooks); returns {layer_name: scale}, where
+    the scale maps float inputs to int8 (amax / 127)."""
+    params = params if params is not None else net.params
+    state = state if state is not None else net.state
+    amax: dict[str, float] = {}
+
+    def hook(layer, orig):
+        def wrapped(p, inputs, **kw):
+            m = float(inputs.abs().max())
+            amax[layer.name] = max(amax.get(layer.name, 0.0), m)
+            return orig(p, inputs, **kw)
+
+        return wrapped
+
+    assignments = {l: hook(l, l.apply) for l in _target_layers(net)}
+    with _hooked(assignments), torch.inference_mode():
+        for xb in x_batches:
+            net.forward(params, _as_input(xb, net.device), state=state,
+                        training=False)
+    return {k: (v / 127.0 if v > 0 else 1.0) for k, v in amax.items()}
+
+
+def _quantize_act(x, scale):
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def _int8_acc(xs, values):
+    """The exact int32 accumulator of an int8 x int8 product over the last
+    axis of ``xs``.  On the CPU the operands are int32.  On the card the
+    product runs in float64: each term is at most 127 * 127 in magnitude,
+    so every partial sum of K terms is an integer below K * 127**2, exact
+    in float64 for any K below 2**53 / 127**2 (~5.6e11), whatever the sum
+    order; f32 is exact only up to K = 1040.  (``torch._int_mm`` would need
+    M, K and N padded to its shape rules.)"""
+    if xs.device.type == "cpu":
+        return xs.to(torch.int32) @ values.to(torch.int32)
+    return (xs.to(torch.float64) @ values.to(torch.float64)).to(torch.int32)
+
+
+def _int8_dense(layer, qt, act_scale, params, x):
+    xs = _quantize_act(x, act_scale)
+    acc = _int8_acc(xs, qt.values)
+    w_scale = qt.scale.reshape(-1)  # per output channel
+    y = acc.to(torch.float32) * (act_scale * w_scale)
+    if layer.bias:
+        y = y + params["bias"]
+    return layer.activation(y)
+
+
+class Int8Model:
+    """Calibrated int8 inference wrapper around a KerasNet.
+
+    ``quantize_model(net, calib_x)`` builds one; ``predict`` runs the
+    hooked Dense layers as int8 x int8 -> int32 with calibrated activation
+    scales, everything else in float.
+    """
+
+    def __init__(self, net, qparams, act_scales):
+        self.net = net
+        self.qparams = qparams
+        self.act_scales = dict(act_scales)
+
+    def _assignments(self):
+        assignments = {}
+        for layer in _target_layers(self.net):
+            qt = self.qparams.get(layer.name, {}).get("kernel")
+            scale = self.act_scales.get(layer.name)
+            if not isinstance(qt, QuantizedTensor) or scale is None:
+                continue
+
+            def wrapped(p, inputs, *, _l=layer, _qt=qt, _s=scale, **kw):
+                return _int8_dense(_l, _qt, _s, p, inputs), kw.get("state")
+
+            assignments[layer] = wrapped
+        return assignments
+
+    def installed(self):
+        """Context manager: the int8 apply hooks active (and exclusive, see
+        HOOK_LOCK) for its duration."""
+        return _hooked(self._assignments())
+
+    def forward(self, x):
+        """One forward of device tensor(s) ``x`` with the hooks installed."""
+        with self.installed(), torch.inference_mode():
+            return self.net.forward(self.qparams, x, state=self.net.state,
+                                    training=False)[0]
+
+    def predict(self, x, batch_size: int = 32):
+        """Batched predict; the tail batch is padded with copies of its last
+        record to ``batch_size``, so every forward has one shape."""
+        outs = []
+        n = np.shape(x)[0]
+        for i in range(0, n, batch_size):
+            xb = np.asarray(x[i:i + batch_size])
+            pad = batch_size - xb.shape[0]
+            if pad:
+                xb = np.concatenate(
+                    [xb, np.repeat(xb[-1:], pad, axis=0)], axis=0)
+            out = self.forward(_as_input(xb, self.net.device))
+            out = out.cpu().numpy()
+            outs.append(out[:out.shape[0] - pad] if pad else out)
+        return np.concatenate(outs, axis=0)
+
+
+def quantize_model(net, calib_x, batch_size: int = 32,
+                   min_size: int = 1024) -> Int8Model:
+    """Weight quantization + activation calibration in one step.
+
+    ``calib_x``: representative inputs, a single array (multi-input models
+    are not calibratable, as in the reference).  Only the kernels of the
+    layers that get int8 hooks (top-level Dense with a calibration scale)
+    are quantized; every other weight stays float.
+    """
+    if isinstance(calib_x, (list, tuple)):
+        raise ValueError(
+            "quantize_model: multi-input calibration is not supported; "
+            "pass a single input array")
+    batches = [calib_x[i:i + batch_size]
+               for i in range(0, np.shape(calib_x)[0], batch_size)]
+    scales = calibrate_activations(net, batches)
+    hooked = {l.name for l in _target_layers(net) if l.name in scales}
+    qparams = {}
+    for lname, group in net.params.items():
+        if lname in hooked and isinstance(group, dict) \
+                and "kernel" in group:
+            g = dict(group)
+            k = g["kernel"]
+            if k.dim() >= 2 and k.numel() >= min_size:
+                g["kernel"] = _quantize_array(k, axis=-1)
+            qparams[lname] = g
+        else:
+            qparams[lname] = group
+    return Int8Model(net, qparams, scales)

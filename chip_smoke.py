@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving and training slices on one CUDA GPU and
-check them.
+"""Run the PyTorch port's serving, training and int8 serving slices on one
+CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,18 +8,22 @@ Phases, each of which raises on failure (the process then exits non-zero
 and prints no result):
 
 1. card: a CUDA GPU must be visible; prints its name and power limit;
-2. build: compiles every CUDA kernel of the two slices from ``csrc/`` (one
-   nvcc per source, all started together) and prints ptxas's register
+2. build: compiles every CUDA kernel of the three slices from ``csrc/``
+   (one nvcc per source, all started together) and prints ptxas's register
    report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the tolerance stated: the
    flash-attention forward (serving, and training with dropout 0.1 and
    the (m, l) statistics), the flash-attention backward, fused Adam over
    the BERT-base parameter tree, and the softmax cross-entropy forward and
-   backward at the classifier head (8, 2) and an LM head (4096, 30522).
-   Times each kernel, its plain version and one PyTorch library call
-   computing the same function (the yardstick only; the port never calls
-   it), and computes each kernel's bound from this run's inputs;
+   backward at the classifier head (8, 2) and an LM head (4096, 30522), and
+   the weight-only int8 matmul at BERT-base's six Dense shapes for one
+   8 x 512 micro-batch (f32 x at all six, bf16 x at the four with M = 4096),
+   its weights from ``quantize_params_for_plan(params, int8_serving())`` on
+   the seeded tree.  Times each kernel, its plain version and one PyTorch
+   library call computing the same function (the yardstick only; the port
+   never calls it), and computes each kernel's bound from this run's
+   inputs;
 4. serving slice: BERT-base at full width (vocab 30522, 12 blocks of
    hidden 768, 12 heads, intermediate 3072, sequence 512) with a
    Dense(2, softmax) head, as a 4-input Model served by
@@ -37,7 +41,20 @@ and prints no result):
    rate, and holds the step-1 loss and gradients against the same model
    run on the CPU (2 blocks at full width, batch 2, hidden dropout 0,
    attention dropout 0.1: the dropout hash is the same on both devices);
-6. summary: a ``kernels`` JSON line, then the result line
+6. int8 serving slice: BERT-base served weight-only int8
+   (``optimize("int8")``, the 4-input model) and calibrated int8
+   (``optimize("int8", calibration_data=...)`` with 16 seeded records, a
+   single-input BERT-base over token ids: calibration takes one input
+   array, as in the reference, and only the head Dense is a target), each
+   answering requests of 1, 3 and 8 records held against the f32 model;
+   the calibrated request 0 is held against the same calibrated model on
+   the CPU.  Then ``quantized_matmul`` over all 50 quantized Dense kernels
+   of BERT-base (48 encoder, pooler, head) under
+   ``compile_step(..., plan=with_kernels(int8_serving()))``, which must
+   launch the int8 kernel exactly 50 times and agree with the plain
+   version, and under a plan that picks ``"xla"`` for
+   ``serving.int8_matmul``, which must launch it no time;
+7. summary: a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
@@ -73,8 +90,26 @@ TRAIN_BATCH, TRAIN_STEPS = 8, 5
 # to each leaf's largest value (f32 on both sides; cuBLAS, MKL and the
 # kernels sum in different orders)
 TRAIN_CPU_TOL = 1e-3
+# int8 matmul vs its plain version, relative L2: f32 sums in another
+# order; bf16 x is held against the plain version in f32, so the bf16
+# rounding of the output (2**-9 relative) dominates
+INT8_F32_TOL = 1e-5
+INT8_BF16_TOL = 1e-2
+# int8 serving vs the f32 model (probabilities): each weight rounds by up
+# to half a step of 1/127 of its column's largest magnitude, through 12
+# blocks
+INT8_SERVE_TOL = 0.05
+# calibrated request on the GPU vs the same calibrated model on the CPU:
+# one activation that rounds to the neighbouring int8 step moves a logit
+# by act_scale x w_scale (~1e-4 here)
+INT8_CPU_TOL = 1e-3
+INT8_REQUESTS = (1, 3, 8)
+N_CALIB = 16
+# the quantized Dense kernels of the BERT-base classifier: 4 per block, the
+# pooler and the head
+DENSE_KERNELS = r"(qkv|proj|fc|out|pooler)_kernel$|^dense_0/kernel$"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
-           "fused_softmax_xent")
+           "fused_softmax_xent", "int8_matmul")
 REPLACES = {
     "flash_attention_fwd":
         "analytics_zoo_tpu/ops/pallas/flash_attention.py:216",
@@ -85,6 +120,7 @@ REPLACES = {
         "analytics_zoo_tpu/ops/pallas/fused_softmax_xent.py:159",
     "softmax_xent_bwd":
         "analytics_zoo_tpu/ops/pallas/fused_softmax_xent.py:192",
+    "int8_matmul": "analytics_zoo_tpu/ops/pallas/int8_matmul.py:92",
 }
 # Published H100 SXM peaks (dense): HBM bytes/s and FLOP/s per input type
 # (f32 outside the tensor cores; bf16 on them).
@@ -576,22 +612,26 @@ def counters() -> dict:
     from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
     from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
     from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as fx
+    from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as im8
 
     return {"flash_attention_fwd": fa.launch_count,
             "flash_attention_bwd": fa.bwd_launch_count,
             "fused_adam": fad.launch_count,
             "softmax_xent_fwd": fx.fwd_launch_count,
-            "softmax_xent_bwd": fx.bwd_launch_count}
+            "softmax_xent_bwd": fx.bwd_launch_count,
+            "int8_matmul": im8.launch_count}
 
 
 def reset_counters() -> None:
     from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
     from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
     from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as fx
+    from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as im8
 
     fa.launch_count = fa.bwd_launch_count = 0
     fad.launch_count = 0
     fx.fwd_launch_count = fx.bwd_launch_count = 0
+    im8.launch_count = 0
 
 
 def train_data(n: int, gen: np.random.Generator):
@@ -650,7 +690,8 @@ def training_phase(card_line: str) -> dict:
                 "flash_attention_bwd": blocks * TRAIN_STEPS,
                 "fused_adam": kernel_leaves * TRAIN_STEPS,
                 "softmax_xent_fwd": TRAIN_STEPS,
-                "softmax_xent_bwd": TRAIN_STEPS}
+                "softmax_xent_bwd": TRAIN_STEPS,
+                "int8_matmul": 0}
     log(f"training launches: {launches} (expected {expected}; "
         f"{kernel_leaves} f32 leaves of >= {fad.MIN_KERNEL_LEAF})")
     if launches != expected:
@@ -702,6 +743,278 @@ def training_phase(card_line: str) -> dict:
     return launches
 
 
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in f32."""
+    diff = got.float() - want.float()
+    return (diff.norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+def int8_weights(dev) -> dict:
+    """The 50 quantized Dense kernels of the serving BERT-base (48 encoder,
+    the pooler and the head), by leaf path, on ``dev``: the seeded tree
+    through ``quantize_params_for_plan(params, int8_serving())``."""
+    import re
+
+    from analytics_zoo_tpu_torch.common.engine import make_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.parallel import int8_serving
+    from analytics_zoo_tpu_torch.parallel.partition import (
+        leaf_path_name,
+        tree_map_with_path,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
+        QuantizedTensor,
+        quantize_params_for_plan,
+    )
+
+    params = tree_map(lambda t: t.to(dev),
+                      bert_model().init_params(make_generator(SEED)))
+    out = {}
+
+    def pick(path, leaf):
+        name = leaf_path_name(path)
+        if isinstance(leaf, QuantizedTensor) and re.search(DENSE_KERNELS,
+                                                           name):
+            out[name] = leaf
+        return leaf
+
+    tree_map_with_path(pick, quantize_params_for_plan(params, int8_serving()))
+    if len(out) != 4 * BERT_BASE["n_block"] + 2:
+        raise AssertionError(f"expected 50 quantized Dense kernels, got "
+                             f"{len(out)}")
+    return out
+
+
+def int8_rows(path: str) -> int:
+    """Rows of the activations a Dense kernel sees for one 8 x 512
+    micro-batch: every token in the encoder, one per record after it."""
+    return 8 if "pooler" in path or path.startswith("dense_0") else 8 * SEQ
+
+
+def int8_kernel_phase(dev, weights) -> dict:
+    """The int8 matmul kernel against its plain version at BERT-base's six
+    Dense shapes, f32 x at all, bf16 x at the four with M = 4096."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as im8
+
+    gen = np.random.default_rng(SEED + 5)
+    shapes = [(label, f"bert_0/blocks/0/{label}_kernel")
+              for label in ("qkv", "proj", "fc", "out")]
+    shapes += [("pooler", "bert_0/pooler_kernel"), ("head", "dense_0/kernel")]
+    rows, errs = [], []
+    for label, path in shapes:
+        qt = weights[path]
+        values, scale = qt.values, qt.scale.reshape(-1)
+        (k, n), m = values.shape, int8_rows(path)
+        x = torch.from_numpy(gen.normal(size=(m, k)).astype(np.float32)
+                             ).to(dev)
+        for dtype in ((torch.float32, torch.bfloat16) if m > 8
+                      else (torch.float32,)):
+            name = str(dtype).split(".")[1]
+            xx = x.to(dtype)
+            got = im8.int8_matmul(xx, values, scale)
+            want = im8._reference(xx.float(), values, scale)
+            torch.cuda.synchronize()
+            rel = rel_l2(got, want)
+            abs_err = (got.float() - want).abs().max().item()
+            tol = INT8_F32_TOL if dtype == torch.float32 else INT8_BF16_TOL
+            log(f"kernel int8 {label} ({m}, {k}, {n}) {name}: relative L2 "
+                f"{rel:.3e} (tol {tol:g}), max|d| {abs_err:.3e}")
+            if not rel <= tol or got.dtype != dtype \
+                    or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"int8 matmul {label} {name} disagrees:"
+                                     f" {rel}")
+            wdeq = values.to(dtype) * scale.to(dtype)
+            row = {"shape": label, "m": m, "k": k, "n": n, "dtype": name,
+                   "rel_l2": rel, "max_abs_err": abs_err}
+            row.update(timed(lambda: im8.int8_matmul(xx, values, scale),
+                             lambda: im8._reference(xx, values, scale),
+                             lambda: xx @ wdeq))
+            # x, W (1 byte), the scale and the output moved once; 2 M K N
+            # operations at the input type's peak
+            esize = xx.element_size()
+            row.update(bound(m * k * esize + k * n + 4 * n + m * n * esize,
+                             2.0 * m * k * n, name))
+            log(f"kernel int8 {label} {name}: {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, dequantize+matmul "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            rows.append(row)
+            if dtype == torch.float32:
+                errs.append(abs_err)
+    f32 = {r["shape"]: r for r in rows if r["dtype"] == "float32"}
+    blocks = BERT_BASE["n_block"]
+    per_pass = {key: blocks * sum(f32[s][key] for s in
+                                  ("qkv", "proj", "fc", "out"))
+                + f32["pooler"][key] + f32["head"][key]
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"kernel int8 f32, one BERT-base pass (12 blocks, pooler, head): "
+        f"{per_pass['ms']:.3f} ms, bound {per_pass['bound_ms']:.3f} ms, "
+        f"dequantize+matmul {per_pass['library_ms']:.3f} ms")
+    entry = {"name": "int8_matmul", "route": "cuda",
+             "source": "analytics_zoo_tpu_torch/csrc/int8_matmul.cu",
+             "replaces": REPLACES["int8_matmul"], "max_abs_err": max(errs)}
+    entry.update({k: f32["qkv"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")})
+    entry["shapes"] = rows
+    entry["f32_pass"] = per_pass
+    return entry
+
+
+def bert_tokens_model():
+    """BERT-base over token ids alone, with the Dense(2, softmax) head: the
+    one-input model that calibrated int8 takes."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
+
+    ids = Input((SEQ,))
+    _, pooled = BERT(**BERT_BASE)(ids)
+    return Model(ids, Dense(2, activation="softmax")(pooled))
+
+
+def check_probs(tag, out, n, want, tol):
+    err = float(np.abs(out - want).max())
+    if out.shape != (n, 2) or not np.isfinite(out).all() \
+            or not np.allclose(out.sum(axis=1), 1.0, atol=1e-5):
+        raise AssertionError(f"{tag}: bad output {out.shape}")
+    if not err <= tol:
+        raise AssertionError(f"{tag}: max|d| {err} from f32 (tol {tol})")
+    return err
+
+
+def int8_serving_phase(card_line: str, weights) -> dict:
+    """Weight-only and calibrated int8 serving of BERT-base, and the
+    int8_matmul kernel route over its 50 Dense kernels; returns the launch
+    counts of the path."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as im8
+    from analytics_zoo_tpu_torch.ops.cuda import kernel_invocation_counts
+    from analytics_zoo_tpu_torch.parallel import (
+        compile_step,
+        int8_serving,
+        with_kernels,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
+        Int8Model,
+        QuantizedTensor,
+        quantized_matmul,
+    )
+
+    dev = next(iter(weights.values())).values.device
+    init_zoo_context(seed=SEED, device=dev.type)
+    gen = np.random.default_rng(SEED + 6)
+    t0 = time.perf_counter()
+    net, tok_net = bert_model(), bert_tokens_model()
+    net.build_params()
+    tok_net.build_params()
+    calib = requests_of(N_CALIB, gen)[0]
+    f32_im = InferenceModel().from_keras_net(net)
+    f32_tok = InferenceModel().from_keras_net(tok_net)
+    w8 = InferenceModel().from_keras_net(net).optimize("int8")
+    cal = InferenceModel().from_keras_net(tok_net).optimize(
+        "int8", calibration_data=calib)
+    w8.warmup([(SEQ,)] * 4, batch_sizes=INT8_REQUESTS)
+    cal.warmup([(SEQ,)], batch_sizes=INT8_REQUESTS)
+    reqs = [requests_of(n, gen) for n in INT8_REQUESTS]
+    want = [f32_im.predict(r) for r in reqs]
+    want_tok = [f32_tok.predict(r[0]) for r in reqs]
+    scales = cal._int8_model.act_scales
+    log(f"int8 serving: models built, calibrated on {N_CALIB} records and "
+        f"warmed up in {time.perf_counter() - t0:.1f} s; calibrated "
+        f"targets {sorted(scales)} (activation scales {scales})")
+    # one seeded activation per (rows, K) of the Dense kernels
+    acts = {key: torch.from_numpy(gen.normal(size=key).astype(np.float32)
+                                  ).to(dev)
+            for key in sorted({(int8_rows(p), qt.values.shape[0])
+                               for p, qt in weights.items()})}
+    torch.cuda.synchronize()
+
+    reset_counters()  # int8 serving main path: from here to the read below
+    outs = {}
+    for tag, im, pick, refs in (("weight-only", w8, lambda r: r, want),
+                                ("calibrated", cal, lambda r: r[0],
+                                 want_tok)):
+        for i, r in enumerate(reqs):
+            t0 = time.perf_counter()
+            out = im.predict(pick(r))
+            ms = (time.perf_counter() - t0) * 1e3
+            err = check_probs(f"int8 {tag} request {i}", out, len(r[0]),
+                              refs[i], INT8_SERVE_TOL)
+            outs[tag, i] = out
+            log(f"int8 {tag} request {i}: {len(out)} records in {ms:.2f} ms "
+                f"({card_line}); max|d| from f32 {err:.3e} (tol "
+                f"{INT8_SERVE_TOL:g})")
+    flash = counters()["flash_attention_fwd"]
+
+    def route():
+        return {p: quantized_matmul(
+                    acts[(int8_rows(p), qt.values.shape[0])], qt)
+                for p, qt in weights.items()}
+
+    kernel_route = compile_step(route, with_kernels(int8_serving()),
+                                label="int8_kernel_route")
+    xla_route = compile_step(
+        route, with_kernels(int8_serving(),
+                            (("serving.int8_matmul", "xla"),)),
+        label="int8_xla_route")
+    before = kernel_invocation_counts()["int8_matmul"]
+    t0 = time.perf_counter()
+    got = kernel_route()
+    torch.cuda.synchronize()
+    route_ms = (time.perf_counter() - t0) * 1e3
+    mid = kernel_invocation_counts()["int8_matmul"]
+    xla = xla_route()
+    torch.cuda.synchronize()
+    after = kernel_invocation_counts()["int8_matmul"]
+    launches = counters()  # end of the int8 serving main path
+    log(f"int8 kernel route: {len(got)} quantized_matmul calls in "
+        f"{route_ms:.2f} ms ({card_line}); int8_matmul counts {before} -> "
+        f"{mid} (kernel route) -> {after} (xla route)")
+    if mid["kernel"] - before["kernel"] != len(weights) \
+            or mid["plain"] != before["plain"] or after != mid:
+        raise AssertionError("quantized_matmul did not route through the "
+                             "int8 kernel exactly once per Dense kernel")
+    route_err = xla_err = 0.0
+    for p, qt in weights.items():
+        x = acts[(int8_rows(p), qt.values.shape[0])]
+        plain = im8._reference(x, qt.values, qt.scale.reshape(-1))
+        route_err = max(route_err, rel_l2(got[p], plain))
+        xla_err = max(xla_err, rel_l2(xla[p], plain))
+    log(f"int8 kernel route vs plain: relative L2 {route_err:.3e}; xla "
+        f"(dequantize) route {xla_err:.3e} (tol {INT8_F32_TOL:g})")
+    if not (route_err <= INT8_F32_TOL and xla_err <= INT8_F32_TOL):
+        raise AssertionError("an int8 route disagrees with the plain version")
+    blocks = BERT_BASE["n_block"]
+    expected_flash = 2 * blocks * len(INT8_REQUESTS)
+    log(f"int8 serving launches: {launches} (expected flash "
+        f"{expected_flash}, int8_matmul {len(weights)})")
+    if flash != expected_flash or launches["flash_attention_fwd"] != flash \
+            or launches["int8_matmul"] != len(weights):
+        raise AssertionError("an int8 serving call did not run through its "
+                             "kernel")
+
+    # the calibrated request 0 against the same calibrated model (its
+    # activation scales and int8 kernels) on the CPU, plain versions
+    cpu = bert_tokens_model()
+    cpu.build_params(device="cpu")
+    cpu_q = Int8Model(cpu, tree_map(
+        lambda l: QuantizedTensor(l.values.cpu(), l.scale.cpu(), l.axis)
+        if isinstance(l, QuantizedTensor) else l.cpu(),
+        cal._int8_model.qparams), scales)
+    err = float(np.abs(cpu_q.predict(reqs[0][0], batch_size=1)
+                       - outs["calibrated", 0]).max())
+    log(f"calibrated request 0 vs CPU: max|d| {err:.3e} (tol "
+        f"{INT8_CPU_TOL:g})")
+    if not err <= INT8_CPU_TOL:
+        raise AssertionError("the calibrated request disagrees with the CPU")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -713,14 +1026,18 @@ def main() -> int:
     shapes = [tuple(t.shape) for t in tree_leaves_of_bert()]
     adam = adam_phase(dev, shapes)
     xent = xent_phase(dev)
-    entries = [fwd, bwd, adam] + xent
+    weights = int8_weights(dev)
+    int8 = int8_kernel_phase(dev, weights)
+    entries = [fwd, bwd, adam] + xent + [int8]
     reset_counters()  # serving main path: counted inside slice_phase
     serving = {"flash_attention_fwd": slice_phase(card_line)}
     training = training_phase(card_line)
+    int8_serving = int8_serving_phase(card_line, weights)
     for entry in entries:
         name = entry["name"]
         paths = {"serving": serving.get(name, 0),
-                 "training": training.get(name, 0)}
+                 "training": training.get(name, 0),
+                 "int8_serving": int8_serving.get(name, 0)}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",
