@@ -39,7 +39,7 @@
 
 #include <cuda_runtime.h>
 
-#include "flash_attention_fwd.cuh"
+#include "flash_common.cuh"
 
 namespace zoo_flash_bwd {
 

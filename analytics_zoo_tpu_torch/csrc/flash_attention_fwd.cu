@@ -6,15 +6,16 @@
 //        -Xcompiler -fPIC -o libflash_attention_fwd.so flash_attention_fwd.cu
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "flash_attention_fwd.cuh"
 
 namespace {
 
 template <typename T, int D>
-cudaError_t launch(const zoo_flash::Args& a, cudaStream_t stream) {
+cudaError_t launch_simt(const zoo_flash::Args& a, cudaStream_t stream) {
   constexpr int smem = zoo_flash::smem_bytes(D);
-  auto kernel = zoo_flash::flash_fwd_kernel<T, D>;
+  auto kernel = zoo_flash::flash_fwd_simt_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -23,13 +24,62 @@ cudaError_t launch(const zoo_flash::Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int head_dim, const zoo_flash::Args& a, cudaStream_t stream) {
+// 16-byte copies need every row start 16-byte aligned: the base pointer
+// and all three strides (in bf16 elements) multiples of 8.
+bool rows_aligned(const void* p, int64_t s_b, int64_t s_h, int64_t s_l) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s_b % 8 == 0 &&
+         s_h % 8 == 0 && s_l % 8 == 0;
+}
+
+template <int D, bool ROW>
+cudaError_t launch_wgmma(const zoo_flash::Args& a, cudaStream_t stream) {
+  constexpr int smem = zoo_flash::wg_smem_bytes(D);
+  auto kernel = zoo_flash::flash_fwd_wgmma_kernel<D, ROW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const bool vec = rows_aligned(a.q, a.qs_b, a.qs_h, a.qs_l) &&
+                   rows_aligned(a.k, a.ks_b, a.ks_h, a.ks_l) &&
+                   rows_aligned(a.v, a.vs_b, a.vs_h, a.vs_l);
+  const dim3 grid((a.Lq + 63) / 64, a.H, a.B);
+  kernel<<<grid, zoo_flash::WG_THREADS, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+// No bias, or one row per (batch, head) contiguous along the keys and
+// 16-byte aligned (the padding mask): the row goes through shared memory
+// with K and V (zeros without a bias).  Any other bias: read element by
+// element.
+template <int D>
+cudaError_t launch_wgmma_bias(const zoo_flash::Args& a, cudaStream_t stream) {
+  const bool row = a.bias == nullptr ||
+                   (a.bs_q == 0 && a.bs_k == 1 && a.bs_b % 4 == 0 &&
+                    a.bs_h % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(a.bias) & 15) == 0);
+  return row ? launch_wgmma<D, true>(a, stream)
+             : launch_wgmma<D, false>(a, stream);
+}
+
+int dispatch_f32(int head_dim, const zoo_flash::Args& a,
+                 cudaStream_t stream) {
   switch (head_dim) {
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    case 192: return launch<T, 192>(a, stream);
-    case 256: return launch<T, 256>(a, stream);
+    case 64: return launch_simt<float, 64>(a, stream);
+    case 128: return launch_simt<float, 128>(a, stream);
+    case 192: return launch_simt<float, 192>(a, stream);
+    case 256: return launch_simt<float, 256>(a, stream);
+    default: return -1;
+  }
+}
+
+// bf16: the tensor-core kernel at head dims 64 and 128, the CUDA-core one
+// at 192 and 256.
+int dispatch_bf16(int head_dim, const zoo_flash::Args& a,
+                  cudaStream_t stream) {
+  switch (head_dim) {
+    case 64: return launch_wgmma_bias<64>(a, stream);
+    case 128: return launch_wgmma_bias<128>(a, stream);
+    case 192: return launch_simt<__nv_bfloat16, 192>(a, stream);
+    case 256: return launch_simt<__nv_bfloat16, 256>(a, stream);
     default: return -1;
   }
 }
@@ -38,9 +88,10 @@ int dispatch(int head_dim, const zoo_flash::Args& a, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  m_out/l_out: (B, H, Lq) f32 outputs
 // of the softmax statistics, or both null.  dropout != 0 drops with the
-// hash threshold drop_thr and scales kept values by inv_keep.  Returns 0 on
-// success, a cudaError_t code when the launch failed, or -1 for a head dim
-// the kernel does not take (64, 128, 192 and 256 are built).
+// hash threshold drop_thr and scales kept values by inv_keep.  out must be
+// contiguous.  Returns 0 on success, a cudaError_t code when the launch
+// failed, or -1 for a head dim the kernel does not take (64, 128, 192 and
+// 256 are built).
 extern "C" int zoo_flash_attention_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     const float* bias, void* out, float* m_out, float* l_out,
@@ -58,7 +109,7 @@ extern "C" int zoo_flash_attention_fwd(
                     scale, causal, m_out, l_out,
                     dropout, seed0, seed1, drop_thr, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(head_dim, a, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(head_dim, a, s);
+  if (dtype == 0) return dispatch_f32(head_dim, a, s);
+  if (dtype == 1) return dispatch_bf16(head_dim, a, s);
   return -1;
 }

@@ -1,14 +1,13 @@
-// Flash-attention forward: the device code, and the helpers the backward
-// (flash_attention_bwd.cu) shares with it.
+// Flash-attention forward: the device code of both forward kernels.
 //
 // Replaces the TPU kernel `_flash_fwd_pallas`
 // (analytics_zoo_tpu/ops/pallas/flash_attention.py:216, kernel closure :245,
 // pl.pallas_call :399): an additive f32 bias broadcast over
 // (B|1, H|1, Lq|1, Lk), end-aligned causal masking, ragged Lq/Lk, f32 or
-// bf16 inputs with f32 math, output in the input type, in-kernel attention
-// dropout from the reference's position hash, and optionally the softmax
-// statistics (m, l) per query row, which the backward reads.  Segment ids
-// are not ported yet.
+// bf16 inputs with f32 softmax math, output in the input type, in-kernel
+// attention dropout from the reference's position hash, and optionally the
+// softmax statistics (m, l) per query row, which the backward reads.
+// Segment ids are not ported yet.
 //
 // Semantics (identical to the reference's `_attention_reference`): a running
 // max m floored at -1e30, so a row whose keys are all masked, by the causal
@@ -19,93 +18,63 @@
 // 1/(1-p); l sums the probabilities before dropout, so out = acc / l is
 // dropout applied after the softmax, as in the reference.
 //
-// What bounds it on an H100: at BERT-base shapes (B=8, H=12, L=512, D=64)
-// the function moves 50 MB in f32 (15 us at 3.35 TB/s) and does 6.4 GFLOP
-// (96 us at the 67 TFLOP/s f32 CUDA-core peak), so it is bound by
-// operations.  The design therefore spends its effort on the FMA loop:
-// - one 256-thread block per (q-tile of 64 rows, head, batch); a loop over
-//   64-key tiles inside the block replaces the TPU's sequential `ki` grid
-//   axis, and the running (m, l) and the output accumulator stay in
-//   registers for the whole loop;
-// - Q, K and V tiles are staged once per tile in shared memory as f32, so
-//   bf16 inputs are converted once and every product runs in f32;
-// - each thread owns a 4x4 block of the 64x64 score tile (rows ty+16i,
-//   columns tx+16j) and a 4x(D/16) block of the output, and reads shared
-//   memory as float4: 8 FMAs per 16-byte load, with a row pad of 4 floats
-//   that keeps the 16 threads of a half-warp on distinct banks;
-// - the 16 threads that share a row reduce its max and sum with warp
-//   shuffles, and exchange probabilities through a shared 64x64 tile for
-//   the P @ V product;
-// - under causal masking a q-tile stops at the last key tile any of its
+// What bounds it on an H100.  At BERT-base serving shapes (B=8, H=12,
+// L=512, D=64, the padding mask of chip_smoke.py) the two products are
+// 3.5 GFLOP on the live keys.  In bf16 on the tensor cores (989 TFLOP/s)
+// that is ~3.5 us, against 25 MB moved (q, k, v, out and the bias once:
+// 7.5 us at 3.35 TB/s), so bytes bound it; in f32 on CUDA cores
+// (67 TFLOP/s) operations do, at ~52 us.
+//
+// bf16 inputs with head dim 64 or 128: `flash_fwd_wgmma_kernel`, on the
+// tensor cores.  With the products there, the work left on the CUDA cores
+// (scale, bias, mask, the running max and sum, exp, the rescale of the
+// accumulator) is what takes the time, so the design spends its effort on
+// doing little of it per element.
+// - One warpgroup (128 threads) per block owns 64 query rows of one
+//   (batch, head); a loop over key tiles (128 keys at head dim 64, 64 at
+//   128) inside the block replaces the TPU's sequential `ki` grid axis,
+//   with the running (m, l) and the output accumulator in registers for
+//   the whole loop.
+// - The Q tile sits in shared memory; K and V tiles go through a ring of
+//   two stages, the next tile's 16-byte cp.async copies in flight while
+//   the current one is used.  Rows are read through their strides (the
+//   split_heads views of a fused projection have row strides of 3 H D),
+//   and rows past Lq or Lk are zero-filled by the copy itself.  All three
+//   are stored in the 128-byte-swizzled layout of sm90.cuh.  A bias of one
+//   row per (batch, head), BERT's padding mask, rides with each K tile as
+//   one more copy; without a bias that row is zeros.
+// - S = Q K^T is `wgmma` m64nBKk16 with both operands in shared memory
+//   (K-major), f32 out.  Scale and bias are one FMA on the accumulator
+//   fragment in registers; the causal and ragged masks, needed only in
+//   tiles that cross an edge, set an element to -inf, so its exp is 0
+//   with no per-element flag while the running max, which starts at the
+//   floor, stays finite.  Each element's (row, key) follows from the
+//   fragment layout, and a row's max and sum reduce over the 4 threads
+//   that share it with two shuffles.  exp is exp2 of one FMA.
+// - P is rounded to bf16 in registers and is, as it stands, the register A
+//   operand of the second `wgmma` (m64nDk16), with V from shared memory as
+//   MN-major B; l keeps summing the f32 probabilities, as the plain version
+//   does.  Dropout, when on, multiplies P by the hash's keep mask after l.
+// - Under causal masking a q-tile stops at the last key tile any of its
 //   rows can see.
-// Tensor cores (mma/wgmma on bf16 inputs) and TMA loads are later work.
+
+// f32 inputs, and bf16 with head dim 192 or 256: `flash_fwd_simt_kernel`,
+// the CUDA-core body, which is not redesigned yet: one 256-thread block per
+// 64 query rows, Q, K and V staged in shared memory as f32, each thread
+// owning a 4x4 block of the 64x64 score tile and a 4x(D/16) block of the
+// output, float4 shared-memory reads with a row pad of 4 floats, the 16
+// threads of a row reducing with shuffles and exchanging probabilities
+// through a shared 64x64 tile.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+#include "sm90.cuh"
+
 namespace zoo_flash {
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads per block: 16 x 16
-constexpr float NEG = -1e30f; // running-max floor, as in the reference
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* bias;  // null when there is no bias
-  void* out;
-  int B, H, Lq, Lk;
-  // element strides of the batch, head and sequence dims (the head dim is
-  // contiguous); broadcast bias dims have stride 0
-  int64_t qs_b, qs_h, qs_l;
-  int64_t ks_b, ks_h, ks_l;
-  int64_t vs_b, vs_h, vs_l;
-  int64_t bs_b, bs_h, bs_q, bs_k;
-  int64_t os_b, os_h, os_l;
-  float scale;
-  int causal;
-  // (B, H, Lq) f32 outputs of the running max and the softmax denominator;
-  // both null when the caller needs no statistics
-  float* m_out;
-  float* l_out;
-  // dropout: keep an element when keep_bits(...) >= drop_thr
-  int dropout;
-  uint32_t seed0, seed1, drop_thr;
-  float inv_keep;  // 1 / (1 - p)
-};
-
-// The reference's counter-based dropout hash (`_mix32`, `_keep_bits`,
-// flash_attention.py:73-90), bit for bit: uint32 arithmetic wraps.
-__host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__host__ __device__ __forceinline__ uint32_t keep_bits(
-    uint32_t seed0, uint32_t seed1, uint32_t b, uint32_t h, uint32_t q,
-    uint32_t k) {
-  uint32_t x = (q * 0x9E3779B9u) ^ (k * 0x85EBCA6Bu);
-  x = x ^ (b * 0xC2B2AE35u) ^ (h * 0x27D4EB2Fu);
-  x = x ^ seed0 ^ (seed1 * 0x85EBCA6Bu);
-  return mix32(x);
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Bytes of dynamic shared memory the kernel needs for head dim D.
 __host__ __device__ constexpr int smem_bytes(int D) {
@@ -113,7 +82,7 @@ __host__ __device__ constexpr int smem_bytes(int D) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
+__global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a) {
   constexpr int QS = D + 4;   // row stride of the Q and K tiles
   constexpr int PS = BK + 4;  // row stride of the probability tile
   constexpr int CPT = D / 16; // output columns per thread
@@ -286,6 +255,281 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
         a.m_out[row] = m[i];
         a.l_out[row] = l[i];
       }
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16, head dim 64 or 128: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 128;  // one warpgroup, 64 query rows
+
+// Keys per tile: 128 at head dim 64, 64 at 128, so that two stages of K
+// and V fit beside Q with room for more than one block an SM.
+__host__ __device__ constexpr int wg_keys(int D) { return D == 64 ? 128 : 64; }
+// Bytes of the dynamic shared memory: Q (64 rows), two stages of K, V
+// (wg_keys rows each) and of a row of bias, and room to align.
+__host__ __device__ constexpr int wg_smem_bytes(int D) {
+  return 64 * D * 2 + 2 * (2 * wg_keys(D) * D * 2 + wg_keys(D) * 4) + 1024;
+}
+
+// Copy rows row0 .. row0 + R - 1 of a (rows, D) bf16 matrix with row
+// stride `ls` elements into a swizzled tile; rows at or past `n` read as
+// zeros.
+template <int D, int R>
+__device__ __forceinline__ void load_rows(uint8_t* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t ls, int row0, int n,
+                                          bool vec) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  const int tid = threadIdx.x;
+  if (vec) {  // chunk i of a thread: row r + i * RP, chunk j of the row
+    constexpr int RP = WG_THREADS / CPR;  // rows a pass covers, 8 or 16
+    const int r = tid / CPR, j = tid % CPR;
+    const uint32_t d0 = zoo_sm90::smem_u32(dst + (j >> 3) * (R * 128)) +
+                        zoo_sm90::swz(r, j & 7);
+    const __nv_bfloat16* s0 = src + (row0 + r) * ls + j * 8;
+#pragma unroll
+    for (int i = 0; i < R / RP; ++i) {
+      const bool in = row0 + r + i * RP < n;
+      zoo_sm90::cp_async16(d0 + i * RP * 128, in ? s0 + i * RP * ls : src,
+                           in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < R * D; e += WG_THREADS) {
+      const int r = e / D, d = e % D;
+      const __nv_bfloat16 v = row0 + r < n ? src[(row0 + r) * ls + d]
+                                           : __float2bfloat16(0.f);
+      *reinterpret_cast<__nv_bfloat16*>(
+          dst + (d >> 6) * (R * 128) + zoo_sm90::swz(r, (d & 63) >> 3) +
+          (d & 7) * 2) = v;
+    }
+  }
+}
+
+// Copy keys k0 .. k0 + R - 1 of one bias row (f32, contiguous along the
+// keys, 16-byte aligned) into shared memory; keys at or past lk read as
+// zeros.
+template <int R>
+__device__ __forceinline__ void load_bias_row(float* dst, const float* src,
+                                              int k0, int lk) {
+  for (int c = threadIdx.x; c < R / 4; c += WG_THREADS) {
+    const int kj = k0 + 4 * c;
+    const int bytes = kj >= lk ? 0 : (lk - kj >= 4 ? 16 : (lk - kj) * 4);
+    zoo_sm90::cp_async16(zoo_sm90::smem_u32(dst + 4 * c),
+                         bytes ? src + kj : src, bytes);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s(float (&d)[N / 2], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  if constexpr (N == 64)
+    zoo_sm90::wgmma_m64n64k16_ss<0>(d, da, db, scale_d);
+  else
+    zoo_sm90::wgmma_m64n128k16_ss<0>(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64)
+    zoo_sm90::wgmma_m64n64k16_rs<1>(d, a, db, 1);
+  else
+    zoo_sm90::wgmma_m64n128k16_rs<1>(d, a, db, 1);
+}
+
+// ROW: the bias is one row per (batch, head) (bs_q == 0), contiguous along
+// the keys and 16-byte aligned, or there is none; the row goes through
+// shared memory with the K and V tiles (zeros without a bias), so the
+// BERT padding mask and no mask take one code path.  Otherwise each bias
+// element is read from global memory.  At head dim 64 the registers are
+// capped at 128 a thread, for four blocks an SM (measured faster than two
+// blocks with more registers; at head dim 128 shared memory allows two).
+template <int D, bool ROW>
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
+    flash_fwd_wgmma_kernel(Args a, bool vec) {
+  using namespace zoo_sm90;
+  using bf16 = __nv_bfloat16;
+  constexpr int BKV = wg_keys(D);
+  constexpr int KV = BKV * D * 2;  // bytes of a K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* stages = Qs + 64 * D * 2;
+  auto Ks = [&](int st) { return stages + st * 2 * KV; };
+  auto Vs = [&](int st) { return stages + st * 2 * KV + KV; };
+  float* Bs = reinterpret_cast<float*>(stages + 4 * KV);  // [2][BKV]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * 64;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs_b + h * a.qs_h;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks_b + h * a.ks_h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs_b + h * a.vs_h;
+  const float* bias =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
+
+  // Keys at or past kend are masked for every row of this tile.
+  const int kend = a.causal ? min(a.Lk, q0 + 64 + offset) : a.Lk;
+  const int n_tiles = kend > 0 ? (kend + BKV - 1) / BKV : 0;
+  auto load_tile = [&](int st, int k0) {
+    load_rows<D, BKV>(Ks(st), k, a.ks_l, k0, a.Lk, vec);
+    load_rows<D, BKV>(Vs(st), v, a.vs_l, k0, a.Lk, vec);
+    if (ROW && bias != nullptr)
+      load_bias_row<BKV>(Bs + st * BKV, bias, k0, a.Lk);
+  };
+
+  if (ROW && bias == nullptr)
+    for (int i = tid; i < 2 * BKV; i += WG_THREADS) Bs[i] = 0.f;
+  load_rows<D, 64>(Qs, q, a.qs_l, q0, a.Lq, vec);
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  // this thread's rows of the tile: warp * 16 + g + 8 hh, hh = 0, 1
+  int qi[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    qi[hh] = q0 + warp * 16 + g + 8 * hh;
+    m[hh] = NEG;
+    l[hh] = 0.f;
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BKV;
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {  // the other stage was freed at the end of j - 1
+      load_tile(st ^ 1, k0 + BKV);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T, 64 x BKV, f32
+    float s[BKV / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_s<BKV>(s,
+                   desc_b128(smem_u32(Qs) + (kk >> 2) * 8192 + (kk & 3) * 32,
+                             16, 1024),
+                   desc_b128(smem_u32(Ks(st)) + (kk >> 2) * (BKV * 128) +
+                                 (kk & 3) * 32, 16, 1024),
+                   kk > 0 ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(s);
+
+    // Scale, bias and mask: element i is row g + 8 ((i / 2) % 2), key
+    // 8 (i / 4) + 2 t + i % 2 of the tile.  A masked element becomes -inf,
+    // so its probability is exactly 0 while the running max, which starts
+    // at the floor NEG, stays finite.  Tiles wholly inside the keys, the
+    // rows and the causal triangle skip the mask.
+    const bool whole = k0 + BKV <= a.Lk && q0 + 64 <= a.Lq &&
+                       (!a.causal || q0 + offset >= k0 + BKV - 1);
+    const float* brow = Bs + st * BKV;
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int row = qi[(i >> 1) & 1];
+      const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+      const int kj = k0 + col;
+      float bv = 0.f;
+      if constexpr (ROW)
+        bv = brow[col];
+      else if (bias != nullptr && (whole || (kj < a.Lk && row < a.Lq)))
+        bv = bias[row * a.bs_q + kj * a.bs_k];
+      float x = fmaf(s[i], a.scale, bv);
+      if (!whole && !(kj < a.Lk && row < a.Lq &&
+                      (!a.causal || row + offset >= kj)))
+        x = __int_as_float(0xff800000u);  // -inf
+      s[i] = x;
+    }
+    // The streaming-softmax update per row, exp as exp2 of one FMA.
+    constexpr float LOG2E = 1.4426950408889634f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = NEG;
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i)
+        if (((i >> 1) & 1) == hh) mx = fmaxf(mx, s[i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mnew = fmaxf(m[hh], mx);
+      const float alpha = exp2f((m[hh] - mnew) * LOG2E);
+      const float ml = mnew * LOG2E;
+      float rs = 0.f;
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        if (((i >> 1) & 1) != hh) continue;
+        s[i] = exp2f(fmaf(s[i], LOG2E, -ml));
+        rs += s[i];  // l is the denominator before dropout
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[hh] = l[hh] * alpha + rs;
+      m[hh] = mnew;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        if (((i >> 1) & 1) == hh) o[i] *= alpha;
+    }
+    if (a.dropout) {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        const int kj = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        s[i] = keep_bits(a.seed0, a.seed1, b, h, qi[(i >> 1) & 1], kj) >=
+                       a.drop_thr
+                   ? s[i] * a.inv_keep : 0.f;
+      }
+    }
+
+    // O += P V: the accumulator fragment of S is, in bf16 pairs, the
+    // register fragment of A for keys 16 kk .. 16 kk + 15.
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    fence_operand(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_pv<D>(o, pa[kk],
+                  desc_b128(smem_u32(Vs(st)) + kk * 2048, BKV * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(o);
+    __syncthreads();  // this stage is free for the tile after next
+  }
+  cp_async_wait<0>();
+
+  bf16* out = static_cast<bf16*>(a.out) + b * a.os_b + h * a.os_h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (qi[hh] >= a.Lq) continue;
+    const float inv = 1.f / fmaxf(l[hh], 1e-20f);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = c * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(&out[qi[hh] * a.os_l + col]) =
+          __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv,
+                                o[4 * c + 2 * hh + 1] * inv);
+    }
+    if (a.m_out != nullptr && t == 0) {
+      const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Lq + qi[hh];
+      a.m_out[row] = m[hh];
+      a.l_out[row] = l[hh];
     }
   }
 }

@@ -1,0 +1,73 @@
+// Flash attention: what the forward kernels (flash_attention_fwd.cuh) and
+// the backward (flash_attention_bwd.cu) share: the tile sizes of the CUDA-
+// core kernels, the running-max floor, the forward's argument block, the
+// reference's dropout hash and the f32 <-> input-type conversions.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace zoo_flash {
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 64;        // keys per tile
+constexpr int NT = 256;       // threads per block: 16 x 16
+constexpr float NEG = -1e30f; // running-max floor, as in the reference
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;  // null when there is no bias
+  void* out;
+  int B, H, Lq, Lk;
+  // element strides of the batch, head and sequence dims (the head dim is
+  // contiguous); broadcast bias dims have stride 0
+  int64_t qs_b, qs_h, qs_l;
+  int64_t ks_b, ks_h, ks_l;
+  int64_t vs_b, vs_h, vs_l;
+  int64_t bs_b, bs_h, bs_q, bs_k;
+  int64_t os_b, os_h, os_l;
+  float scale;
+  int causal;
+  // (B, H, Lq) f32 outputs of the running max and the softmax denominator;
+  // both null when the caller needs no statistics
+  float* m_out;
+  float* l_out;
+  // dropout: keep an element when keep_bits(...) >= drop_thr
+  int dropout;
+  uint32_t seed0, seed1, drop_thr;
+  float inv_keep;  // 1 / (1 - p)
+};
+
+// The reference's counter-based dropout hash (`_mix32`, `_keep_bits`,
+// flash_attention.py:73-90), bit for bit: uint32 arithmetic wraps.
+__host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__host__ __device__ __forceinline__ uint32_t keep_bits(
+    uint32_t seed0, uint32_t seed1, uint32_t b, uint32_t h, uint32_t q,
+    uint32_t k) {
+  uint32_t x = (q * 0x9E3779B9u) ^ (k * 0x85EBCA6Bu);
+  x = x ^ (b * 0xC2B2AE35u) ^ (h * 0x27D4EB2Fu);
+  x = x ^ seed0 ^ (seed1 * 0x85EBCA6Bu);
+  return mix32(x);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+}  // namespace zoo_flash

@@ -1,6 +1,6 @@
-// Weight-only int8 matrix product with per-output-channel scales, with a
-// plain C interface for ctypes (analytics_zoo_tpu_torch/ops/cuda/
-// int8_matmul.py).
+// Weight-only int8 matrix product with per-output-channel scales, on the
+// H100's tensor cores, with a plain C interface for ctypes
+// (analytics_zoo_tpu_torch/ops/cuda/int8_matmul.py).
 //
 //   out (M, N) = (x (M, K) @ float(W (K, N) int8)) * scale (N,)
 //
@@ -8,177 +8,470 @@
 //
 // Replaces the TPU kernel `_mm_kernel` (analytics_zoo_tpu/ops/pallas/
 // int8_matmul.py:70), launched by `_matmul_pallas` (:92, pl.pallas_call
-// :111).  As there, W stays one byte per element in device memory and in
-// shared memory; it becomes f32 only in registers, and the scale multiplies
-// the finished f32 sum once, in the epilogue.  Unlike the TPU version, which
-// pads x, W and the scale into new arrays to its 128 x 128 x 256 blocks,
-// this kernel masks the ragged M, N and K edges itself (the classifier
-// head has N = 2, the pooler and head M = 8).
+// :111).  As there, W stays one byte per element in device memory and on
+// its way into shared memory, becomes a float only on its way into the
+// matrix unit, and the scale multiplies the finished f32 sum once, in the
+// epilogue.  Unlike the TPU version, which pads x, W and the scale into
+// new arrays to its 128 x 128 x 256 blocks, this kernel masks the ragged
+// M, N and K edges itself (the classifier head has N = 2, the pooler and
+// head M = 8).
 //
-// What bounds it on an H100: at BERT-base's shapes (M = 4096 rows, K 768 or
-// 3072) the work is 2 M K N operations against ~M K * 4 + K N bytes, about
-// 500 operations per byte, so operations: f32 FMAs on CUDA cores at
-// 67 TFLOP/s (0.22 ms for the (4096, 768, 2304) QKV product).  The design is
-// the plain register-blocked GEMM: a block owns a 128 x 128 tile of the
-// output, 256 threads each hold 8 x 8 f32 sums in registers, and K goes by
-// in slices of 32 through double-buffered shared memory (x transposed, as
-// f32; W as int8), the next slice's loads in flight while the current one
-// is multiplied.  The int8 -> f32 conversion uses a byte permute and one add
-// per value instead of the I2F instruction, which runs at 1/8 of the FMA
-// rate on sm_90.  With bf16 x the products are still f32 on CUDA cores:
-// int8 values convert exactly to bf16, so `mma`/`wgmma` on the tensor cores
-// (989 TFLOP/s) is the next step for that case, in a later change.
+// What bounds it on an H100: at BERT-base's shapes (M = 4096 rows, K 768
+// or 3072) the work is 2 M K N operations against ~M K * 2 + K N bytes,
+// far above the ~295 operations a byte at which the bf16 tensor cores
+// (989 TFLOP/s) stop waiting on device memory: operations bound it,
+// 0.015 ms for the (4096, 768, 2304) QKV product in bf16, 0.044 ms for
+// f32 x as three bf16 products.  At M = 8 (pooler, head) only latency
+// does: the 0.6 MB of W takes 0.18 us to read.  Inside the SM the limit
+// of this design is shared memory, not the tensor cores: every K slice is
+// written by the copies, read and written again by the W conversion, and
+// read by wgmma (the converted W tile once by each warpgroup), about
+// 96 KB a slice against 512 clocks of products.
+//
+// The design:
+// - a block of two warpgroups owns a 128 x 128 output tile, each warpgroup
+//   64 rows, its f32 sums in registers, fed by `wgmma.mma_async` m64n128k16
+//   on bf16 operands;
+// - K goes by in slices of 64 through a ring of 3 shared-memory stages
+//   filled by 16-byte cp.async copies that zero-fill past M, N and K, one
+//   slice ahead; with bf16 x a block takes 105 KB and 128 registers a
+//   thread, so two blocks share an SM and one's copies and conversion run
+//   under the other's products;
+// - W arrives as int8 bytes, and each slice is converted once per block
+//   into a bf16 tile in the swizzled MN-major layout wgmma reads as B
+//   (transposed B, which bf16 allows).  The conversion takes no I2F: a
+//   byte permute makes the f32 2^23 + 128 + b, one subtraction leaves b,
+//   and the upper 16 bits of that f32 are b as an exact bf16 (an int8 has
+//   at most 8 significant bits), so two weights pack into one register
+//   with one more permute;
+// - bf16 x is copied straight into the swizzled K-major layout and read
+//   by descriptor (A from shared memory); the product of slice s is in
+//   flight while slice s + 1 is converted;
+// - f32 x runs on the tensor cores as three bf16 products: each value is
+//   split in registers into x_hi = bf16(x), x_mid = bf16(x - x_hi) and
+//   x_lo = bf16(x - x_hi - x_mid), which sum to x exactly (24 mantissa
+//   bits in three pieces of 8), and the three pieces go in as register A
+//   operands against the same W tile into one f32 accumulator.  A product
+//   of an int8 and a bf16 is exact in f32, so the result is the f32 sum in
+//   another order.  The fragments are registers the next slice rewrites,
+//   so each slice's products are retired before the next begins;
+// - the epilogue scales the tile, stages it in shared memory and writes
+//   it out in 16-byte rows;
+// - where the grid would leave most SMs idle (M = 8: 6 tiles at N = 768),
+//   the K slices are split across blocks (grid z); each writes f32
+//   partial sums to a workspace the wrapper allocates, and a second small
+//   kernel adds them in order, scales and casts;
+// - rows whose x or W is not 16-byte aligned (K or N not a multiple of 16
+//   bytes, as the N = 2 head) take element loads instead of cp.async, in
+//   the same kernel.
+//
+// Next steps, not taken: W converted in registers as the A operand of a
+// swapped product (out^T = W^T x^T), which removes the converted tile's
+// trips through shared memory, and TMA with warp-specialised producers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int BM = 128;         // output rows per block
-constexpr int BN = 128;         // output columns per block
-constexpr int BK = 32;          // K slice staged per step
-constexpr int NT = 256;         // threads: 16 x 16, 8 x 8 outputs each
-constexpr int XS_LD = BM + 4;   // row of the transposed x slice, padded
+using namespace zoo_sm90;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int BM = 128;  // output rows per block: two warpgroups of 64
+constexpr int BN = 128;  // output columns per block
+constexpr int BK = 64;   // K slice per stage
+constexpr int NT = 256;
+constexpr int W_RAW = BK * BN;      // int8 W slice, 128 bytes a row
+constexpr int W_BF = BK * BN * 2;   // converted bf16 W slice, two 64-col blocks
+
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<__nv_bfloat16> {
+  static constexpr int ST = 3;                 // stages (105 KB a block)
+  static constexpr int X_BYTES = BM * BK * 2;  // swizzled bf16 x slice
+};
+template <>
+struct Cfg<float> {
+  static constexpr int ST = 3;
+  static constexpr int XLD = BK + 8;  // f32 row, padded: conflict-free float2
+  static constexpr int X_BYTES = BM * XLD * 4;
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return Cfg<T>::ST * (Cfg<T>::X_BYTES + W_RAW) + 2 * W_BF + 1024;
 }
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Four int8 in one 32-bit word -> four f32, exactly.  Each byte b becomes
-// the f32 whose bits are 0x4B000000 | (b + 128), which is 2^23 + 128 + b;
-// subtracting 2^23 + 128 leaves b.
-__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float* out) {
-  const uint32_t u = w ^ 0x80808080u;  // b + 128 in each byte
-  const float bias = 8388736.f;        // 2^23 + 128
-  out[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - bias;
-  out[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - bias;
-  out[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - bias;
-  out[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - bias;
+// Four int8 in one word -> four bf16 in two words, exactly: byte b becomes
+// the f32 with bits 0x4B0000xx (2^23 + 128 + b), minus 2^23 + 128 is b, and
+// the upper half of b's f32 bits is b as a bf16 (the lower half is zero).
+__device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float bias = 8388736.f;
+  auto byte = [&](uint32_t sel) {  // byte `sel` of w as an exact f32
+    return __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - bias);
+  };
+  const uint32_t f0 = byte(0x7540), f1 = byte(0x7541);
+  const uint32_t f2 = byte(0x7542), f3 = byte(0x7543);
+  return make_uint2(__byte_perm(f0, f1, 0x7632),
+                    __byte_perm(f2, f3, 0x7632));
+}
+
+// x = hi + mid + lo exactly, each a bf16 (for |x| well inside f32's normal
+// range); the same arithmetic as `split_bf16x3` in the wrapper.
+__device__ __forceinline__ void split3(float x, float& hi, float& mid,
+                                       float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(x));
+  const float r = x - hi;
+  mid = __bfloat162float(__float2bfloat16_rn(r));
+  lo = r - mid;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT)
+struct Tile {
+  uint8_t* base;  // 1024-byte aligned
+  __device__ uint8_t* x(int s) const { return base + s * Cfg<T>::X_BYTES; }
+  __device__ uint8_t* wraw(int s) const {
+    return base + Cfg<T>::ST * Cfg<T>::X_BYTES + s * W_RAW;
+  }
+  __device__ uint8_t* wbf(int s) const {
+    return base + Cfg<T>::ST * (Cfg<T>::X_BYTES + W_RAW) + s * W_BF;
+  }
+};
+
+// Issue the copies of K slice `kt` into stage `s`.  Chunk i of a thread
+// is row (its first row) + i * (rows a pass covers), at a fixed column, so
+// the row and column tests and the addresses reduce to a base and a
+// stride.
+template <typename T>
+__device__ __forceinline__ void load_slice(const Tile<T>& tl, int s, int kt,
+                                           const T* __restrict__ x,
+                                           const int8_t* __restrict__ w,
+                                           int M, int N, int K, int m0,
+                                           int n0, bool vec_x, bool vec_w) {
+  const int tid = threadIdx.x;
+  const int k0 = kt * BK;
+  uint8_t* xs = tl.x(s);
+  if constexpr (sizeof(T) == 2) {
+    if (vec_x) {  // 128 rows x 8 chunks of 8 bf16: 32 rows a pass
+      const int r = tid >> 3, ch = tid & 7, gk = k0 + ch * 8;
+      const T* src = x + (int64_t)(m0 + r) * K + gk;
+      const uint32_t dst = smem_u32(xs) + swz(r, ch);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = m0 + r + 32 * i < M && gk < K;
+        cp_async16(dst + i * 32 * 128, in ? src + (int64_t)i * 32 * K : x,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int r = e >> 6, kk = e & 63;
+        const int gm = m0 + r, gk = k0 + kk;
+        const T v = (gm < M && gk < K) ? x[(int64_t)gm * K + gk]
+                                       : __float2bfloat16_rn(0.f);
+        *reinterpret_cast<T*>(xs + swz(r, kk >> 3) + (kk & 7) * 2) = v;
+      }
+    }
+  } else {
+    constexpr int XLD = Cfg<float>::XLD;
+    float* xf = reinterpret_cast<float*>(xs);
+    if (vec_x) {  // 128 rows x 16 chunks of 4 f32: 16 rows a pass
+      const int r = tid >> 4, ch = tid & 15, gk = k0 + ch * 4;
+      const float* src = x + (int64_t)(m0 + r) * K + gk;
+      const uint32_t dst = smem_u32(xf + r * XLD + ch * 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool in = m0 + r + 16 * i < M && gk < K;
+        cp_async16(dst + i * 16 * XLD * 4, in ? src + (int64_t)i * 16 * K : x,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int r = e >> 6, kk = e & 63;
+        const int gm = m0 + r, gk = k0 + kk;
+        xf[r * XLD + kk] = (gm < M && gk < K) ? x[(int64_t)gm * K + gk] : 0.f;
+      }
+    }
+  }
+  uint8_t* ws = tl.wraw(s);
+  if (vec_w) {  // 64 rows x 8 chunks of 16 bytes: 32 rows a pass
+    const int r = tid >> 3, ch = tid & 7, gn = n0 + ch * 16;
+    const int8_t* src = w + (int64_t)(k0 + r) * N + gn;
+    const uint32_t dst = smem_u32(ws + r * 128 + ch * 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool in = k0 + r + 32 * i < K && gn < N;
+      cp_async16(dst + i * 32 * 128, in ? src + (int64_t)i * 32 * N : w,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < BK * BN; e += NT) {
+      const int r = e >> 7, cn = e & 127;
+      const int gk = k0 + r, gn = n0 + cn;
+      ws[e] = (gk < K && gn < N) ? static_cast<uint8_t>(w[(int64_t)gk * N + gn])
+                                 : 0;
+    }
+  }
+}
+
+// int8 W slice of stage s -> bf16 tile `dst`: two 64-column blocks of 64
+// swizzled rows (row = k), MN-major for wgmma.
+__device__ __forceinline__ void convert_w(const uint8_t* src, uint8_t* dst) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // 1024 groups of 8 weights
+    const int c = threadIdx.x + i * NT, r = c >> 4, j = c & 15;
+    const uint2 raw = *reinterpret_cast<const uint2*>(src + r * 128 + j * 8);
+    const uint2 lo = int8x4_to_bf16x4(raw.x), hi = int8x4_to_bf16x4(raw.y);
+    *reinterpret_cast<uint4*>(dst + (j >> 3) * (BK * 128) + swz(r, j & 7)) =
+        make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+constexpr int C_LD = BN + 8;  // f32 row of the staged output tile
+
+// The staged 128 x 128 f32 tile -> rows m0.., columns n0.. of a row-major
+// (M, N) output in U, masked at the edges; 16-byte stores when every row
+// of the output starts 16-byte aligned.
+template <typename U>
+__device__ __forceinline__ void store_tile(const float* ct,
+                                           U* __restrict__ dst, int M, int N,
+                                           int m0, int n0, bool vec) {
+  constexpr int E = 16 / sizeof(U);  // values a 16-byte store holds
+  if (vec) {
+    for (int c = threadIdx.x; c < BM * BN / E; c += NT) {
+      const int r = c / (BN / E), col = (c % (BN / E)) * E;
+      if (m0 + r >= M || n0 + col >= N) continue;
+      const float* v = ct + r * C_LD + col;
+      U* p = dst + (int64_t)(m0 + r) * N + n0 + col;
+      if constexpr (E == 4) {
+        *reinterpret_cast<float4*>(p) = *reinterpret_cast<const float4*>(v);
+      } else {
+        uint4 u;
+        u.x = pack_bf16(v[0], v[1]);
+        u.y = pack_bf16(v[2], v[3]);
+        u.z = pack_bf16(v[4], v[5]);
+        u.w = pack_bf16(v[6], v[7]);
+        *reinterpret_cast<uint4*>(p) = u;
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < BM * BN; e += NT) {
+      const int r = e / BN, col = e % BN;
+      if (m0 + r < M && n0 + col < N)
+        store(&dst[(int64_t)(m0 + r) * N + n0 + col], ct[r * C_LD + col]);
+    }
+  }
+}
+
+// bf16 x: two blocks an SM (128 registers a thread); f32 x: one (its
+// stages take 168 KB, and its fragments more registers).
+template <typename T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
     int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                        const float* __restrict__ scale, T* __restrict__ out,
-                       int M, int N, int K) {
-  __shared__ __align__(16) float xs[2][BK][XS_LD];
-  __shared__ __align__(16) uint32_t ws[2][BK][BN / 4];
+                       float* __restrict__ partial, int M, int N, int K,
+                       int kt_per_split, bool vec_x, bool vec_w,
+                       bool vec_out) {
+  constexpr int ST = Cfg<T>::ST;
+  constexpr int AHEAD = ST - 2;  // slices loaded ahead of the one multiplied
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  const Tile<T> tl{smem_raw + pad};
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  // staging: x element (row warp + 8 i, k lane) for i < 16 (a warp reads
-  // 32 consecutive k of one row); W bytes (row tid / 8, columns
-  // (tid % 8) * 16 + j) for j < 16, packed four to a word
-  const int w_row = tid / 8, w_col = (tid % 8) * 16;
+  const int wg = tid >> 7;               // warpgroup: rows 64 wg ..
+  const int warp = (tid >> 5) & 3;       // warp in the warpgroup
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int n_kt = (K + BK - 1) / BK;
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int kt1 = min(n_kt, kt0 + kt_per_split);
+  const int steps = max(kt1 - kt0, 0);
 
-  float xr[16];
-  uint32_t wr[4];
-  auto load = [&](int k0) {
+  float acc[64];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int gm = m0 + warp + 8 * i, gk = k0 + lane;
-      xr[i] = (gm < M && gk < K) ? to_f32(x[(int64_t)gm * K + gk]) : 0.f;
-    }
-    const int gk = k0 + w_row;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gn = n0 + w_col + 4 * q + j;
-        const uint32_t b =
-            (gk < K && gn < N)
-                ? static_cast<uint8_t>(w[(int64_t)gk * N + gn]) : 0u;
-        word |= b << (8 * j);
-      }
-      wr[q] = word;
-    }
-  };
-  auto stage = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) xs[buf][lane][warp + 8 * i] = xr[i];
-    *reinterpret_cast<uint4*>(&ws[buf][w_row][w_col / 4]) =
-        make_uint4(wr[0], wr[1], wr[2], wr[3]);
-  };
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int n_steps = (K + BK - 1) / BK;
-  load(0);
-  stage(0);
-  __syncthreads();
-  for (int s = 0; s < n_steps; ++s) {
-    const int cur = s & 1;
-    if (s + 1 < n_steps) load((s + 1) * BK);
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[cur][k][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&xs[cur][k][64 + ty * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float b[8];
-      int8x4_to_f32(ws[cur][k][tx], b);
-      int8x4_to_f32(ws[cur][k][16 + tx], b + 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (s + 1 < n_steps) stage(cur ^ 1);
+  for (int p = 0; p < AHEAD; ++p) {
+    if (p < steps)
+      load_slice<T>(tl, p, kt0 + p, x, w, M, N, K, m0, n0, vec_x, vec_w);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<AHEAD - 1>();  // slice s has landed (this thread's copies)
+    // every thread's copies of slice s are visible, and every warpgroup has
+    // retired the products of slice s - 2, so that stage (the one the next
+    // load fills) and its converted W buffer are free
     __syncthreads();
-  }
+    if (s + AHEAD < steps)
+      load_slice<T>(tl, (s + AHEAD) % ST, kt0 + s + AHEAD, x, w, M, N, K, m0,
+                    n0, vec_x, vec_w);
+    cp_async_commit();
+    convert_w(tl.wraw(s % ST), tl.wbf(s & 1));
+    fence_proxy_async();
+    __syncthreads();
 
-  // epilogue: the per-column scale once, then the cast to x's type
-  float sc[8];
-  int cols[8];
+    const uint32_t wb = smem_u32(tl.wbf(s & 1));
+    if constexpr (sizeof(T) == 2) {
+      const uint32_t xa = smem_u32(tl.x(s % ST)) + wg * 64 * 128;
+      fence_operand(acc);
+      wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    cols[j] = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-    sc[j] = cols[j] < N ? scale[cols[j]] : 0.f;
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k16_ss<1>(acc, desc_b128(xa + kk * 32, 16, 1024),
+                               desc_b128(wb + kk * 2048, BK * 128, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the product of slice s - 1 is done
+      fence_operand(acc);
+    } else {
+      constexpr int XLD = Cfg<float>::XLD;
+      const float* xf = reinterpret_cast<const float*>(tl.x(s % ST));
+      const int r0 = wg * 64 + warp * 16 + g;
+      uint32_t a[4][3][4];  // [k step][hi, mid, lo][fragment register]
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = kk * 16 + 2 * t;
+        const float2 v[4] = {
+            *reinterpret_cast<const float2*>(xf + r0 * XLD + k),
+            *reinterpret_cast<const float2*>(xf + (r0 + 8) * XLD + k),
+            *reinterpret_cast<const float2*>(xf + r0 * XLD + k + 8),
+            *reinterpret_cast<const float2*>(xf + (r0 + 8) * XLD + k + 8)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float h0, m0_, l0, h1, m1, l1;
+          split3(v[q].x, h0, m0_, l0);
+          split3(v[q].y, h1, m1, l1);
+          a[kk][0][q] = pack_bf16(h0, h1);
+          a[kk][1][q] = pack_bf16(m0_, m1);
+          a[kk][2][q] = pack_bf16(l0, l1);
+        }
+      }
+      fence_operand(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_b128(wb + kk * 2048, BK * 128, 1024);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          wgmma_m64n128k16_rs<1>(acc, a[kk][p], db, 1);
+      }
+      wgmma_commit();
+      // the A fragments are registers the next slice rewrites: retire now
+      wgmma_wait<0>();
+      fence_operand(acc);
+    }
   }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // every stage is free: the tile goes through them
+
+  // Epilogue: the f32 tile (times the scale, unless it is a partial sum)
+  // into shared memory, then out to device memory in 16-byte rows.
+  // Fragment element i is row g + 8 ((i / 2) % 2), column 8 (i / 4) +
+  // 2 t + i % 2 of this warp's 16 x 128 piece.
+  float* ct = reinterpret_cast<float*>(tl.base);
+  const int lrow = wg * 64 + warp * 16 + g;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= M) continue;
+  for (int j = 0; j < 16; ++j) {
+    const int col = j * 8 + 2 * t;
+    float2 sc = make_float2(1.f, 1.f);
+    if (partial == nullptr) {
+      sc.x = n0 + col < N ? scale[n0 + col] : 0.f;
+      sc.y = n0 + col + 1 < N ? scale[n0 + col + 1] : 0.f;
+    }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (cols[j] < N) store(&out[(int64_t)row * N + cols[j]],
-                             acc[i][j] * sc[j]);
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(ct + (lrow + 8 * h) * C_LD + col) =
+          make_float2(acc[j * 4 + h * 2] * sc.x, acc[j * 4 + h * 2 + 1] * sc.y);
   }
+  __syncthreads();
+  if (partial == nullptr)
+    store_tile(ct, out, M, N, m0, n0, vec_out);
+  else
+    store_tile(ct, partial + (int64_t)blockIdx.z * M * N, M, N, m0, n0,
+               vec_out);
+}
+
+// out = (sum over splits of the partial sums, in order) * scale, cast.
+template <typename T>
+__global__ void reduce_splits_kernel(const float* __restrict__ partial,
+                                     const float* __restrict__ scale,
+                                     T* __restrict__ out, int64_t mn, int N,
+                                     int splits) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < mn;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float sum = 0.f;
+    for (int z = 0; z < splits; ++z) sum += partial[z * mn + i];
+    store(&out[i], sum * scale[i % N]);
+  }
+}
+
+template <typename T>
+int launch(const void* x, const int8_t* w, const float* scale, void* out,
+           float* partial, int m, int n, int k, int splits, cudaStream_t s) {
+  constexpr int smem = smem_bytes<T>();
+  auto kernel = int8_matmul_kernel<T>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_kt = (k + BK - 1) / BK;
+  const int per = (n_kt + splits - 1) / splits;
+  const bool vec_x = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                     (static_cast<int64_t>(k) * sizeof(T)) % 16 == 0;
+  const bool vec_w = (reinterpret_cast<uintptr_t>(w) & 15) == 0 && n % 16 == 0;
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, splits);
+  // rows of the output (or of the f32 partial sums) 16-byte aligned
+  const bool vec_out =
+      splits > 1
+          ? (reinterpret_cast<uintptr_t>(partial) & 15) == 0 && n % 4 == 0
+          : (reinterpret_cast<uintptr_t>(out) & 15) == 0 &&
+                (static_cast<int64_t>(n) * sizeof(T)) % 16 == 0;
+  kernel<<<grid, NT, smem, s>>>(static_cast<const T*>(x), w, scale,
+                                static_cast<T*>(out),
+                                splits > 1 ? partial : nullptr, m, n, k, per,
+                                vec_x, vec_w, vec_out);
+  if (splits > 1) {
+    const int64_t mn = static_cast<int64_t>(m) * n;
+    const int blocks = static_cast<int>((mn + 255) / 256 < 1024
+                                            ? (mn + 255) / 256 : 1024);
+    reduce_splits_kernel<T><<<blocks, 256, 0, s>>>(
+        partial, scale, static_cast<T*>(out), mn, n, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x (m, k) f32 (dtype 0) or bf16 (dtype 1), w (k, n) int8, scale (n,) f32,
 // out (m, n) in x's type; all contiguous and row-major on one device, with
-// m, n, k >= 1.  Returns 0 or a cudaError_t.
+// m, n, k >= 1.  splits > 1 divides the K slices among that many blocks per
+// output tile; `partial` is then an f32 workspace of splits * m * n values
+// (ignored, and may be null, when splits == 1).  Returns 0 or a
+// cudaError_t.
 extern "C" int zoo_int8_matmul(const void* x, const int8_t* w,
-                               const float* scale, void* out, int m, int n,
-                               int k, int dtype, void* stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+                               const float* scale, void* out, float* partial,
+                               int m, int n, int k, int dtype, int splits,
+                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    int8_matmul_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), w, scale, static_cast<float*>(out), m,
-        n, k);
-  } else if (dtype == 1) {
-    int8_matmul_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w, scale,
-        static_cast<__nv_bfloat16*>(out), m, n, k);
-  } else {
+  if (splits < 1 || (n + BN - 1) / BN > 65535 || splits > 65535 ||
+      (splits > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch<float>(x, w, scale, out, partial, m, n, k, splits, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, w, scale, out, partial, m, n, k, splits,
+                                 s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,8 @@ Counterpart of ``analytics_zoo_tpu/ops/pallas/flash_attention.py``.  Two
 kernels replace the TPU's:
 
 - ``csrc/flash_attention_fwd.cu`` (design note in its ``.cuh``) replaces
-  ``_flash_fwd_pallas``: an additive bias broadcast over
+  ``_flash_fwd_pallas``, on the tensor cores for bf16 at head dims 64 and
+  128 and on CUDA cores otherwise: an additive bias broadcast over
   (B|1, H|1, Lq|1, Lk), end-aligned causal masking, ragged lengths, f32 or
   bf16 inputs, in-kernel dropout from the reference's position hash
   (:func:`keep_bits`, ported bit for bit), and the (m, l) statistics the

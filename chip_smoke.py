@@ -9,21 +9,25 @@ and prints no result):
 
 1. card: a CUDA GPU must be visible; prints its name and power limit;
 2. build: compiles every CUDA kernel of the three slices from ``csrc/``
-   (one nvcc per source, all started together) and prints ptxas's register
-   report;
+   (one nvcc per source, all started together), prints ptxas's register
+   report, and checks with ``cuobjdump -sass`` that the tensor-core
+   kernels (int8 matmul, flash forward) issue ``wgmma`` (HGMMA);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the tolerance stated: the
-   flash-attention forward (serving, and training with dropout 0.1 and
-   the (m, l) statistics), the flash-attention backward, fused Adam over
+   flash-attention forward (serving in f32 and bf16 with the padding bias,
+   bf16 at head dim 128 and with dropout 0.1 and the (m, l) statistics,
+   causal with ragged lengths in both types, and training with dropout
+   0.1 and the statistics), the flash-attention backward, fused Adam over
    the BERT-base parameter tree, and the softmax cross-entropy forward and
    backward at the classifier head (8, 2) and an LM head (4096, 30522), and
    the weight-only int8 matmul at BERT-base's six Dense shapes for one
-   8 x 512 micro-batch (f32 x at all six, bf16 x at the four with M = 4096),
-   its weights from ``quantize_params_for_plan(params, int8_serving())`` on
-   the seeded tree.  Times each kernel, its plain version and one PyTorch
-   library call computing the same function (the yardstick only; the port
-   never calls it), and computes each kernel's bound from this run's
-   inputs;
+   8 x 512 micro-batch, f32 and bf16 x at all six, its weights from
+   ``quantize_params_for_plan(params, int8_serving())`` on the seeded
+   tree.  Times each kernel, its plain version and one PyTorch library
+   call computing the same function (the yardstick only; the port never
+   calls it), and computes each kernel's bound from this run's inputs
+   (for f32 x in the int8 matmul also the tensor-core bound of its three
+   bf16 products);
 4. serving slice: BERT-base at full width (vocab 30522, 12 blocks of
    hidden 768, 12 heads, intermediate 3072, sequence 512) with a
    Dense(2, softmax) head, as a 4-input Model served by
@@ -31,7 +35,7 @@ and prints no result):
    requests of 1, 3, 8 and 2 records and one bf16 request, checks the
    outputs, holds two requests against the same model run on the CPU, and
    checks from the launch counters that every attention call went through
-   the kernel;
+   the kernel; then times the 8-record bf16 request five more times;
 5. training slice: the BERT-base classifier (Dense(2) logits, hidden and
    attention dropout 0.1) through ``compile(Adam(2e-5),
    "sparse_categorical_crossentropy_from_logits", ["accuracy"])``, ``fit``
@@ -53,7 +57,8 @@ and prints no result):
    ``compile_step(..., plan=with_kernels(int8_serving()))``, which must
    launch the int8 kernel exactly 50 times and agree with the plain
    version, and under a plan that picks ``"xla"`` for
-   ``serving.int8_matmul``, which must launch it no time;
+   ``serving.int8_matmul``, which must launch it no time; then times the
+   kernel route on the device and splits it by shape;
 7. summary: a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -110,6 +115,7 @@ N_CALIB = 16
 DENSE_KERNELS = r"(qkv|proj|fc|out|pooler)_kernel$|^dense_0/kernel$"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
            "fused_softmax_xent", "int8_matmul")
+TENSOR_CORE_KERNELS = ("int8_matmul", "flash_attention_fwd")
 REPLACES = {
     "flash_attention_fwd":
         "analytics_zoo_tpu/ops/pallas/flash_attention.py:216",
@@ -155,6 +161,19 @@ def build_kernels() -> None:
         for ln in r["log"].splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"  {name}: {ln.strip()}")
+    # the tensor-core kernels must issue wgmma: HGMMA in their machine code
+    from pathlib import Path
+
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    for name in TENSOR_CORE_KERNELS:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path(name))], check=True,
+                              capture_output=True, text=True).stdout
+        hgmma = [ln.strip() for ln in sass.splitlines() if "HGMMA" in ln]
+        log(f"sass {name}: {len(hgmma)} HGMMA instructions, e.g. "
+            f"{hgmma[0] if hgmma else '-'}")
+        if not hgmma:
+            raise AssertionError(f"{name} issues no wgmma (no HGMMA)")
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -233,27 +252,40 @@ def kernel_phase(dev) -> dict:
             raise AssertionError(f"flash kernel {name} disagrees: {err}")
         if got[-1].float().abs().max().item() != 0.0:
             raise AssertionError("fully masked row is not zero")
-        ms = cuda_ms(lambda: fa.flash_attention(qq, kk, vv, False, scale,
-                                                bias=bias))
-        plain_ms = cuda_ms(lambda: fa.attention_reference(
-            qq, kk, vv, False, scale, bias=bias))
         lib_bias = bias.to(dtype)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=lib_bias, scale=scale))
+        times = graph_timed(
+            lambda: fa.flash_attention(qq, kk, vv, False, scale, bias=bias),
+            lambda: fa.attention_reference(qq, kk, vv, False, scale,
+                                           bias=bias),
+            lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=lib_bias, scale=scale))
+        ms, plain_ms, library_ms = (times[k] for k in ("ms", "plain_ms",
+                                                       "library_ms"))
         # least time for the same work: q, k, v, out and the bias moved
         # once; the two products over the (query, live key) pairs only
         nbytes = 4 * b * h * l * d * qq.element_size() + bias.numel() * 4
         flops = 4.0 * h * l * live_keys * d
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = flops / PEAK_FLOPS[name] * 1e3
-        per_dtype[name] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        log(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        per_dtype[name] = dict(
+            times, max_abs_err=err, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"kernel {name}: {ms:.4f} ms (through the wrapper "
+            f"{times['wrapper_ms']:.4f}), plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
             f"({per_dtype[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
+
+    # bf16 at head dim 128 (hidden 768 as 6 heads), padding bias
+    q8, k8, v8 = (t.to(torch.bfloat16) for t in
+                  attention_inputs(b, 6, l, l, 128, gen, dev))
+    per_dtype["bf16_d128"] = flash_bf16_case(
+        "bf16 D=128", q8, k8, v8, bias, 1.0 / np.sqrt(128), live_keys)
+    # bf16 with dropout 0.1 and the (m, l) statistics, BERT-base shape
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    per_dtype["bf16_dropout_stats"] = flash_bf16_case(
+        f"bf16 dropout {DROPOUT} + stats", qb, kb, vb, bias, scale,
+        live_keys, dropout=DROPOUT)
 
     # end-aligned causal with lq != lk and a ragged lk, both dtypes
     qc, kc, vc = attention_inputs(2, h, 448, 500, d, gen, dev)
@@ -275,7 +307,98 @@ def kernel_phase(dev) -> dict:
     entry["max_abs_err"] = max(per_dtype["float32"]["max_abs_err"],
                                causal_err)
     entry["bf16"] = per_dtype["bfloat16"]
+    entry["bf16_d128"] = per_dtype["bf16_d128"]
+    entry["bf16_dropout_stats"] = per_dtype["bf16_dropout_stats"]
     return entry
+
+
+def flash_bf16_case(label, q, k, v, bias, scale, live_keys,
+                    dropout=0.0) -> dict:
+    """One bf16 flash-forward case against the plain version run in f32
+    (out, and with dropout also m and l, within BF16_TOL; the fully masked
+    last record exactly zero), timed beside the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, h, l, d = q.shape
+    seed = (0x2545F491, 0x9E3779B9) if dropout else None
+    stats = dropout > 0.0
+    got, m, lsum = fa._flash_cuda(q, k, v, False, scale, bias, dropout,
+                                  seed, stats=stats)
+    want, w_m, w_l = fa.attention_reference(
+        q.float(), k.float(), v.float(), False, scale, bias, dropout, seed,
+        True)
+    torch.cuda.synchronize()
+    errs = [(got.float() - want).abs().max().item()]
+    if stats:
+        errs += [(m - w_m).abs().max().item(),
+                 ((lsum - w_l).abs() / w_l.abs().clamp_min(1.0)).max().item()]
+    masked = got[-1].float().abs().max().item()
+    log(f"kernel {label} B={b} H={h} L={l} D={d} padded bias: max|d| "
+        + ", ".join(f"{e:.3e}" for e in errs)
+        + f" (out{', m, l rel' if stats else ''}; tol {BF16_TOL:g}); fully "
+        f"masked row max {masked:.1e}")
+    if not max(errs) <= BF16_TOL or masked != 0.0 \
+            or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"flash kernel {label} disagrees: {errs}")
+    lib_q, lib_k, lib_v = (t.contiguous() for t in (q, k, v))
+    lib_bias = bias.to(torch.bfloat16)
+    row = graph_timed(
+        lambda: fa._flash_cuda(q, k, v, False, scale, bias, dropout, seed,
+                               stats=stats),
+        lambda: fa.attention_reference(q, k, v, False, scale, bias, dropout,
+                                       seed, stats),
+        lambda: F.scaled_dot_product_attention(
+            lib_q, lib_k, lib_v, attn_mask=lib_bias, dropout_p=dropout,
+            scale=scale))
+    nbytes = 4 * b * h * l * d * 2 + bias.numel() * 4 \
+        + (2 * b * h * l * 4 if stats else 0)
+    row.update(bound(nbytes, 4.0 * h * l * live_keys * d, "bfloat16"))
+    row["max_abs_err"] = max(errs)
+    log(f"kernel {label}: {row['ms']:.4f} ms (through the wrapper "
+        f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs captured in one CUDA
+    graph and replayed: the launches without the host's Python between
+    them, which at these sizes can take longer than a kernel."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def graph_timed(fn, plain, library) -> dict:
+    """Device times of the kernel, its plain version and the library call
+    from CUDA-graph replays, and the kernel's time through its Python
+    wrapper (``wrapper_ms``, launches issued one by one)."""
+    return {"ms": graph_ms(fn), "wrapper_ms": cuda_ms(fn),
+            "plain_ms": graph_ms(plain), "library_ms": graph_ms(library)}
 
 
 def timed(fn, plain, library) -> dict:
@@ -577,6 +700,14 @@ def slice_phase(card_line: str) -> int:
             len(reqs) + 1):
         raise AssertionError(f"flash launches {f32_launches}/{launches}: "
                              "attention did not run through the kernel")
+    # the 8-record bf16 request again, after the counted path: host clock
+    again = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        im_bf16.predict(reqs[2])
+        again.append((time.perf_counter() - t0) * 1e3)
+    log(f"bf16 request, 5 more runs: {', '.join(f'{t:.2f}' for t in again)}"
+        f" ms (median {float(np.median(again)):.2f}; {card_line})")
     bf16_err = float(np.abs(bf16_out - outs[2]).max())
     log(f"bf16 vs f32 outputs: max|d| {bf16_err:.3e} "
         f"(tol {BF16_SERVE_TOL:g})")
@@ -793,7 +924,7 @@ def int8_rows(path: str) -> int:
 
 def int8_kernel_phase(dev, weights) -> dict:
     """The int8 matmul kernel against its plain version at BERT-base's six
-    Dense shapes, f32 x at all, bf16 x at the four with M = 4096."""
+    Dense shapes, f32 and bf16 x at all six."""
     import torch
 
     from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as im8
@@ -809,8 +940,7 @@ def int8_kernel_phase(dev, weights) -> dict:
         (k, n), m = values.shape, int8_rows(path)
         x = torch.from_numpy(gen.normal(size=(m, k)).astype(np.float32)
                              ).to(dev)
-        for dtype in ((torch.float32, torch.bfloat16) if m > 8
-                      else (torch.float32,)):
+        for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             xx = x.to(dtype)
             got = im8.int8_matmul(xx, values, scale)
@@ -828,30 +958,47 @@ def int8_kernel_phase(dev, weights) -> dict:
             wdeq = values.to(dtype) * scale.to(dtype)
             row = {"shape": label, "m": m, "k": k, "n": n, "dtype": name,
                    "rel_l2": rel, "max_abs_err": abs_err}
-            row.update(timed(lambda: im8.int8_matmul(xx, values, scale),
-                             lambda: im8._reference(xx, values, scale),
-                             lambda: xx @ wdeq))
+            row.update(graph_timed(
+                lambda: im8.int8_matmul(xx, values, scale),
+                lambda: im8._reference(xx, values, scale),
+                lambda: xx @ wdeq))
             # x, W (1 byte), the scale and the output moved once; 2 M K N
             # operations at the input type's peak
             esize = xx.element_size()
-            row.update(bound(m * k * esize + k * n + 4 * n + m * n * esize,
-                             2.0 * m * k * n, name))
-            log(f"kernel int8 {label} {name}: {row['ms']:.4f} ms, plain "
+            nbytes = m * k * esize + k * n + 4 * n + m * n * esize
+            row.update(bound(nbytes, 2.0 * m * k * n, name))
+            tc = ""
+            if dtype == torch.float32:
+                # the kernel's own route for f32: three bf16 products on the
+                # tensor cores
+                row["bound_tc_ms"] = bound(nbytes, 3 * 2.0 * m * k * n,
+                                           "bfloat16")["bound_ms"]
+                tc = f", tensor-core bound (3 bf16 passes) " \
+                     f"{row['bound_tc_ms']:.4f} ms"
+            log(f"kernel int8 {label} {name}: {row['ms']:.4f} ms (through "
+                f"the wrapper {row['wrapper_ms']:.4f}), plain "
                 f"{row['plain_ms']:.4f} ms, dequantize+matmul "
                 f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})")
+                f"({row['bound_by']}){tc}")
             rows.append(row)
             if dtype == torch.float32:
                 errs.append(abs_err)
-    f32 = {r["shape"]: r for r in rows if r["dtype"] == "float32"}
     blocks = BERT_BASE["n_block"]
-    per_pass = {key: blocks * sum(f32[s][key] for s in
-                                  ("qkv", "proj", "fc", "out"))
-                + f32["pooler"][key] + f32["head"][key]
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"kernel int8 f32, one BERT-base pass (12 blocks, pooler, head): "
-        f"{per_pass['ms']:.3f} ms, bound {per_pass['bound_ms']:.3f} ms, "
-        f"dequantize+matmul {per_pass['library_ms']:.3f} ms")
+    passes = {}
+    for name in ("float32", "bfloat16"):
+        by = {r["shape"]: r for r in rows if r["dtype"] == name}
+        keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
+        keys += ["bound_tc_ms"] if name == "float32" else []
+        passes[name] = {key: blocks * sum(by[s][key] for s in
+                                          ("qkv", "proj", "fc", "out"))
+                        + by["pooler"][key] + by["head"][key]
+                        for key in keys}
+        log(f"kernel int8 {name}, one BERT-base pass (12 blocks, pooler, "
+            f"head): {passes[name]['ms']:.3f} ms, bound "
+            f"{passes[name]['bound_ms']:.3f} ms, dequantize+matmul "
+            f"{passes[name]['library_ms']:.3f} ms")
+    per_pass = passes["float32"]
+    f32 = {r["shape"]: r for r in rows if r["dtype"] == "float32"}
     entry = {"name": "int8_matmul", "route": "cuda",
              "source": "analytics_zoo_tpu_torch/csrc/int8_matmul.cu",
              "replaces": REPLACES["int8_matmul"], "max_abs_err": max(errs)}
@@ -859,6 +1006,7 @@ def int8_kernel_phase(dev, weights) -> dict:
                                              "bound_by", "library_ms")})
     entry["shapes"] = rows
     entry["f32_pass"] = per_pass
+    entry["bf16_pass"] = passes["bfloat16"]
     return entry
 
 
@@ -883,10 +1031,11 @@ def check_probs(tag, out, n, want, tol):
     return err
 
 
-def int8_serving_phase(card_line: str, weights) -> dict:
+def int8_serving_phase(card_line: str, weights, int8_entry) -> dict:
     """Weight-only and calibrated int8 serving of BERT-base, and the
     int8_matmul kernel route over its 50 Dense kernels; returns the launch
-    counts of the path."""
+    counts of the path and records the route's time, split by shape from
+    the kernel phase's rows, in ``int8_entry["kernel_route"]``."""
     import torch
 
     from analytics_zoo_tpu_torch import init_zoo_context
@@ -989,6 +1138,23 @@ def int8_serving_phase(card_line: str, weights) -> dict:
         f"(dequantize) route {xla_err:.3e} (tol {INT8_F32_TOL:g})")
     if not (route_err <= INT8_F32_TOL and xla_err <= INT8_F32_TOL):
         raise AssertionError("an int8 route disagrees with the plain version")
+    route_dev_ms = cuda_ms(kernel_route, reps=10)
+    calls = {}
+    for p in weights:
+        label = ("head" if p.startswith("dense_0") else "pooler"
+                 if "pooler" in p else p.rsplit("/", 1)[-1][:-len("_kernel")])
+        calls[label] = calls.get(label, 0) + 1
+    f32 = {r["shape"]: r for r in int8_entry["shapes"]
+           if r["dtype"] == "float32"}
+    by_shape = {lb: {"calls": c, "ms": c * f32[lb]["ms"]}
+                for lb, c in calls.items()}
+    int8_entry["kernel_route"] = {"host_ms": route_ms,
+                                  "device_ms": route_dev_ms,
+                                  "by_shape": by_shape}
+    log(f"int8 kernel route: {route_dev_ms:.3f} ms on the device per pass "
+        f"(CUDA events, 10 passes; {card_line}); by shape from the kernel "
+        "phase: " + ", ".join(f"{lb} {v['calls']} x = {v['ms']:.3f} ms"
+                              for lb, v in by_shape.items()))
     blocks = BERT_BASE["n_block"]
     expected_flash = 2 * blocks * len(INT8_REQUESTS)
     log(f"int8 serving launches: {launches} (expected flash "
@@ -1032,7 +1198,7 @@ def main() -> int:
     reset_counters()  # serving main path: counted inside slice_phase
     serving = {"flash_attention_fwd": slice_phase(card_line)}
     training = training_phase(card_line)
-    int8_serving = int8_serving_phase(card_line, weights)
+    int8_serving = int8_serving_phase(card_line, weights, int8)
     for entry in entries:
         name = entry["name"]
         paths = {"serving": serving.get(name, 0),

@@ -1,8 +1,10 @@
 """The port's CUDA flash-attention kernel and its dispatch, without JAX.
 
-The ``cuda``-marked test holds the kernel against its plain version on a
+The ``cuda``-marked tests hold the kernel against its plain version on a
 GPU (f32 within 1e-4; bf16 inputs within 2e-2 of the plain version run in
-f32) and skips where none is visible.  This file imports nothing from the
+f32: the tensor-core route at head dims 64 and 128, also with dropout and
+the (m, l) statistics, and the CUDA-core one at 192 and 256) and skip
+where none is visible.  This file imports nothing from the
 JAX package, so on a machine with a GPU and no JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -84,6 +86,28 @@ def test_cuda_kernel_matches_plain(case, dtype, tol, cuda_device):
     assert (got.float() - want).abs().max().item() <= tol
     if bias_kind == "padding":
         assert got[-1].float().abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_kernel_bf16_dropout_stats_match_plain(d, cuda_device):
+    """The tensor-core route with dropout 0.1 and the (m, l) statistics:
+    the dropout mask is the hash's, bit for bit, so out, m and l agree with
+    the plain version run in f32 within the bf16 tolerance."""
+    q, k, v, bias = _inputs(4, 3, 320, 320, d, "padding", cuda_device)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    seed, scale = (0x2545F491, 0x9E3779B9), 1.0 / np.sqrt(d)
+    before = tfa.launch_count
+    got, m, l = tfa._flash_cuda(q, k, v, False, scale, bias, 0.1, seed,
+                                stats=True)
+    torch.cuda.synchronize()
+    assert tfa.launch_count == before + 1
+    want, w_m, w_l = tfa.attention_reference(
+        q.float(), k.float(), v.float(), False, scale, bias, 0.1, seed, True)
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    assert (m - w_m).abs().max().item() <= 2e-2
+    assert ((l - w_l).abs() / w_l.abs().clamp_min(1.0)).max().item() <= 2e-2
+    assert got[-1].float().abs().max().item() == 0.0
 
 
 class _OnCuda:

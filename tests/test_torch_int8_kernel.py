@@ -1,11 +1,13 @@
 """The int8 matmul kernel and its wrapper, without JAX.
 
 The ``cuda``-marked tests hold ``csrc/int8_matmul.cu`` against its plain
-version on a GPU and skip where none is visible: ragged M, N and K, the
-BERT-base head (8, 768, 2) and pooler, K = 3072 and the QKV shape of one
-8 x 512 micro-batch, each with f32 x (relative L2 <= 1e-5: f32 sums in
-another order) and bf16 x (<= 1e-2 against the plain version in f32: the
-output's bf16 rounding).  This file imports nothing from the JAX package,
+version on a GPU and skip where none is visible: ragged M, N and K (a K
+tail inside the last 64-slice; K and N that are not 16-byte rows, which
+take the kernel's element loads), the BERT-base head (8, 768, 2) and
+pooler (split K), K = 3072 and the QKV and out shapes of one 8 x 512
+micro-batch, each with f32 x (relative L2 <= 1e-5: f32 sums in another
+order, through three bf16 tensor-core products) and bf16 x (<= 1e-2
+against the plain version in f32: the output's bf16 rounding).  This file imports nothing from the JAX package,
 so on a machine with a GPU and no JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -65,7 +67,9 @@ def _rel(got, want):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(13, 200, 70), (1, 33, 1), (8, 768, 2),
                                    (8, 768, 768), (130, 3072, 131),
-                                   (4096, 768, 2304)],
+                                   (4096, 768, 2304), (40, 1000, 256),
+                                   (9, 203, 48), (300, 520, 130),
+                                   (4096, 3072, 768)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(shape, dtype, tol, cuda_device):
     x, w, s = _inputs(*shape, cuda_device)
