@@ -51,23 +51,30 @@
 //   split in registers into x_hi = bf16(x), x_mid = bf16(x - x_hi) and
 //   x_lo = bf16(x - x_hi - x_mid), which sum to x exactly (24 mantissa
 //   bits in three pieces of 8), and the three pieces go in as register A
-//   operands against the same W tile into one f32 accumulator.  A product
-//   of an int8 and a bf16 is exact in f32, so the result is the f32 sum in
-//   another order.  The fragments are registers the next slice rewrites,
-//   so each slice's products are retired before the next begins;
+//   operands against the same W tile.  Each product of an int8 and a bf16
+//   piece is exact, but wgmma adds into its f32 accumulator with a
+//   rounding of its own that drifts one way, so an accumulator kept over
+//   all of K errs in proportion to K.  Each K slice's 12 products (the
+//   small pieces first) therefore go into a fresh accumulator, which is
+//   then added into the running f32 sum on the CUDA cores: the error of a
+//   slice no longer carries into the next, and the result is close to,
+//   not equal to, the f32 sum in another order.  The fragments are
+//   registers the next slice rewrites, so each slice's products are
+//   retired before the next begins;
 // - the epilogue scales the tile, stages it in shared memory and writes
 //   it out in 16-byte rows;
-// - where the grid would leave most SMs idle (M = 8: 6 tiles at N = 768),
-//   the K slices are split across blocks (grid z); each writes f32
-//   partial sums to a workspace the wrapper allocates, and a second small
-//   kernel adds them in order, scales and casts;
 // - rows whose x or W is not 16-byte aligned (K or N not a multiple of 16
 //   bytes, as the N = 2 head) take element loads instead of cp.async, in
 //   the same kernel.
 //
+// At M = 8 (pooler, head) the grid holds only N / 128 blocks, each walking
+// all of K; the kernel's time there is below the wrapper's host time per
+// call, so nothing spreads K over more blocks.
+//
 // Next steps, not taken: W converted in registers as the A operand of a
 // swapped product (out^T = W^T x^T), which removes the converted tile's
-// trips through shared memory, and TMA with warp-specialised producers.
+// trips through shared memory and makes M = 8 a wgmma N of 8, and TMA with
+// warp-specialised producers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -278,8 +285,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
     int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                        const float* __restrict__ scale, T* __restrict__ out,
-                       float* __restrict__ partial, int M, int N, int K,
-                       int kt_per_split, bool vec_x, bool vec_w,
+                       int M, int N, int K, bool vec_x, bool vec_w,
                        bool vec_out) {
   constexpr int ST = Cfg<T>::ST;
   constexpr int AHEAD = ST - 2;  // slices loaded ahead of the one multiplied
@@ -293,10 +299,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
   const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int n_kt = (K + BK - 1) / BK;
-  const int kt0 = blockIdx.z * kt_per_split;
-  const int kt1 = min(n_kt, kt0 + kt_per_split);
-  const int steps = max(kt1 - kt0, 0);
+  const int steps = (K + BK - 1) / BK;
 
   float acc[64];
 #pragma unroll
@@ -305,7 +308,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
 #pragma unroll
   for (int p = 0; p < AHEAD; ++p) {
     if (p < steps)
-      load_slice<T>(tl, p, kt0 + p, x, w, M, N, K, m0, n0, vec_x, vec_w);
+      load_slice<T>(tl, p, p, x, w, M, N, K, m0, n0, vec_x, vec_w);
     cp_async_commit();
   }
   for (int s = 0; s < steps; ++s) {
@@ -315,8 +318,8 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
     // load fills) and its converted W buffer are free
     __syncthreads();
     if (s + AHEAD < steps)
-      load_slice<T>(tl, (s + AHEAD) % ST, kt0 + s + AHEAD, x, w, M, N, K, m0,
-                    n0, vec_x, vec_w);
+      load_slice<T>(tl, (s + AHEAD) % ST, s + AHEAD, x, w, M, N, K, m0, n0,
+                    vec_x, vec_w);
     cp_async_commit();
     convert_w(tl.wraw(s % ST), tl.wbf(s & 1));
     fence_proxy_async();
@@ -357,19 +360,23 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
           a[kk][2][q] = pack_bf16(l0, l1);
         }
       }
-      fence_operand(acc);
+      // this slice's products, lo pieces first, into a fresh sum
+      float part[64];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = desc_b128(wb + kk * 2048, BK * 128, 1024);
+      for (int p = 2; p >= 0; --p) {
 #pragma unroll
-        for (int p = 0; p < 3; ++p)
-          wgmma_m64n128k16_rs<1>(acc, a[kk][p], db, 1);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16_rs<1>(
+              part, a[kk][p], desc_b128(wb + kk * 2048, BK * 128, 1024),
+              p != 2 || kk != 0);
       }
       wgmma_commit();
       // the A fragments are registers the next slice rewrites: retire now
       wgmma_wait<0>();
-      fence_operand(acc);
+      fence_operand(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
   }
   wgmma_wait<0>();
@@ -377,78 +384,45 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
   cp_async_wait<0>();
   __syncthreads();  // every stage is free: the tile goes through them
 
-  // Epilogue: the f32 tile (times the scale, unless it is a partial sum)
-  // into shared memory, then out to device memory in 16-byte rows.
-  // Fragment element i is row g + 8 ((i / 2) % 2), column 8 (i / 4) +
-  // 2 t + i % 2 of this warp's 16 x 128 piece.
+  // Epilogue: the f32 tile times the scale into shared memory, then out to
+  // device memory in 16-byte rows.  Fragment element i is row
+  // g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2 of this warp's
+  // 16 x 128 piece.
   float* ct = reinterpret_cast<float*>(tl.base);
   const int lrow = wg * 64 + warp * 16 + g;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = j * 8 + 2 * t;
-    float2 sc = make_float2(1.f, 1.f);
-    if (partial == nullptr) {
-      sc.x = n0 + col < N ? scale[n0 + col] : 0.f;
-      sc.y = n0 + col + 1 < N ? scale[n0 + col + 1] : 0.f;
-    }
+    const float2 sc =
+        make_float2(n0 + col < N ? scale[n0 + col] : 0.f,
+                    n0 + col + 1 < N ? scale[n0 + col + 1] : 0.f);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<float2*>(ct + (lrow + 8 * h) * C_LD + col) =
           make_float2(acc[j * 4 + h * 2] * sc.x, acc[j * 4 + h * 2 + 1] * sc.y);
   }
   __syncthreads();
-  if (partial == nullptr)
-    store_tile(ct, out, M, N, m0, n0, vec_out);
-  else
-    store_tile(ct, partial + (int64_t)blockIdx.z * M * N, M, N, m0, n0,
-               vec_out);
-}
-
-// out = (sum over splits of the partial sums, in order) * scale, cast.
-template <typename T>
-__global__ void reduce_splits_kernel(const float* __restrict__ partial,
-                                     const float* __restrict__ scale,
-                                     T* __restrict__ out, int64_t mn, int N,
-                                     int splits) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < mn;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float sum = 0.f;
-    for (int z = 0; z < splits; ++z) sum += partial[z * mn + i];
-    store(&out[i], sum * scale[i % N]);
-  }
+  store_tile(ct, out, M, N, m0, n0, vec_out);
 }
 
 template <typename T>
 int launch(const void* x, const int8_t* w, const float* scale, void* out,
-           float* partial, int m, int n, int k, int splits, cudaStream_t s) {
+           int m, int n, int k, cudaStream_t s) {
   constexpr int smem = smem_bytes<T>();
   auto kernel = int8_matmul_kernel<T>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_kt = (k + BK - 1) / BK;
-  const int per = (n_kt + splits - 1) / splits;
   const bool vec_x = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                      (static_cast<int64_t>(k) * sizeof(T)) % 16 == 0;
   const bool vec_w = (reinterpret_cast<uintptr_t>(w) & 15) == 0 && n % 16 == 0;
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, splits);
-  // rows of the output (or of the f32 partial sums) 16-byte aligned
-  const bool vec_out =
-      splits > 1
-          ? (reinterpret_cast<uintptr_t>(partial) & 15) == 0 && n % 4 == 0
-          : (reinterpret_cast<uintptr_t>(out) & 15) == 0 &&
-                (static_cast<int64_t>(n) * sizeof(T)) % 16 == 0;
+  // rows of the output 16-byte aligned
+  const bool vec_out = (reinterpret_cast<uintptr_t>(out) & 15) == 0 &&
+                       (static_cast<int64_t>(n) * sizeof(T)) % 16 == 0;
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
   kernel<<<grid, NT, smem, s>>>(static_cast<const T*>(x), w, scale,
-                                static_cast<T*>(out),
-                                splits > 1 ? partial : nullptr, m, n, k, per,
-                                vec_x, vec_w, vec_out);
-  if (splits > 1) {
-    const int64_t mn = static_cast<int64_t>(m) * n;
-    const int blocks = static_cast<int>((mn + 255) / 256 < 1024
-                                            ? (mn + 255) / 256 : 1024);
-    reduce_splits_kernel<T><<<blocks, 256, 0, s>>>(
-        partial, scale, static_cast<T*>(out), mn, n, splits);
-  }
+                                static_cast<T*>(out), m, n, k, vec_x, vec_w,
+                                vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -456,22 +430,14 @@ int launch(const void* x, const int8_t* w, const float* scale, void* out,
 
 // x (m, k) f32 (dtype 0) or bf16 (dtype 1), w (k, n) int8, scale (n,) f32,
 // out (m, n) in x's type; all contiguous and row-major on one device, with
-// m, n, k >= 1.  splits > 1 divides the K slices among that many blocks per
-// output tile; `partial` is then an f32 workspace of splits * m * n values
-// (ignored, and may be null, when splits == 1).  Returns 0 or a
-// cudaError_t.
+// m, n, k >= 1.  Returns 0 or a cudaError_t.
 extern "C" int zoo_int8_matmul(const void* x, const int8_t* w,
-                               const float* scale, void* out, float* partial,
-                               int m, int n, int k, int dtype, int splits,
-                               void* stream) {
+                               const float* scale, void* out, int m, int n,
+                               int k, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || (n + BN - 1) / BN > 65535 || splits > 65535 ||
-      (splits > 1 && partial == nullptr))
+  if ((n + BN - 1) / BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch<float>(x, w, scale, out, partial, m, n, k, splits, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, scale, out, partial, m, n, k, splits,
-                                 s);
+  if (dtype == 0) return launch<float>(x, w, scale, out, m, n, k, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w, scale, out, m, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,11 +6,10 @@ Counterpart of ``analytics_zoo_tpu/ops/pallas/int8_matmul.py``.
 with W int8 through device and shared memory, converted to bf16 on chip,
 the f32 sum multiplied by the per-output-channel scale (N,) once at the
 end and cast to x's dtype.  f32 x goes through the tensor cores as the
-three bf16 pieces of :func:`split_bf16x3`, which sum to x exactly.  The
+three bf16 pieces of :func:`split_bf16x3`, which sum to x exactly; each
+64-deep K slice's products are summed apart and then added into the f32
+total, so the tensor cores' own rounding does not build up along K.  The
 kernel masks ragged edges itself; nothing is padded in device memory.
-Where the output tiles would leave most SMs idle (the pooler and head at
-M = 8), the wrapper splits K across blocks (:func:`k_splits`) and hands
-the kernel an f32 workspace for the partial sums.
 
 :func:`int8_matmul` launches the kernel for a CUDA tensor and takes
 :func:`_reference` for a CPU tensor; nothing falls back from one to the
@@ -30,7 +29,6 @@ plain_count = 0
 _KERNEL = "int8_matmul"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2 ** 31 - 1
-_BM, _BN, _BK = 128, 128, 64  # the kernel's output tile and K slice
 
 
 def _reference(x, values, scale):
@@ -50,18 +48,6 @@ def split_bf16x3(x):
     r = x - hi.float()
     mid = r.to(torch.bfloat16)
     return hi, mid, (r - mid.float()).to(torch.bfloat16)
-
-
-def k_splits(m, n, k, sms):
-    """How many blocks share the K slices of one output tile: 1 when the
-    (M, N) tiles alone fill at least half of the card's ``sms``, else
-    enough splits to cover it, none of them empty."""
-    tiles = -(-m // _BM) * -(-n // _BN)
-    slices = -(-k // _BK)
-    if 2 * tiles >= sms or slices == 1:
-        return 1
-    per = -(-slices // min(slices, -(-sms // tiles)))
-    return -(-slices // per)
 
 
 def int8_matmul(x, values, scale):
@@ -106,14 +92,9 @@ def _int8_matmul_cuda(x, values, scale):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or k == 0:
         return out.zero_()
-    splits = k_splits(m, n, k, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     rc = _library().zoo_int8_matmul(
         x.data_ptr(), values.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        m, n, k, _DTYPES[x.dtype], splits,
+        m, n, k, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {rc}")
@@ -131,8 +112,8 @@ def _library():
         from analytics_zoo_tpu_torch.ops.cuda.build import load
 
         lib = load(_KERNEL)
-        lib.zoo_int8_matmul.argtypes = ([ctypes.c_void_p] * 5
-                                        + [ctypes.c_int] * 5
+        lib.zoo_int8_matmul.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 4
                                         + [ctypes.c_void_p])
         lib.zoo_int8_matmul.restype = ctypes.c_int
         _LIB = lib

@@ -23,11 +23,14 @@ and prints no result):
    the weight-only int8 matmul at BERT-base's six Dense shapes for one
    8 x 512 micro-batch, f32 and bf16 x at all six, its weights from
    ``quantize_params_for_plan(params, int8_serving())`` on the seeded
-   tree.  Times each kernel, its plain version and one PyTorch library
-   call computing the same function (the yardstick only; the port never
-   calls it), and computes each kernel's bound from this run's inputs
-   (for f32 x in the int8 matmul also the tensor-core bound of its three
-   bf16 products);
+   tree.  Times each kernel through its Python wrapper, its plain version
+   and one PyTorch library call computing the same function (the
+   yardstick only; the port never calls it) with CUDA events over calls
+   issued one by one, and for the tensor-core kernels also the same calls
+   replayed from one CUDA graph; computes each kernel's bound from this
+   run's inputs (for f32 x in the int8 matmul, that of its route: three
+   bf16 products on the tensor cores, with the f32 CUDA-core figure
+   beside it);
 4. serving slice: BERT-base at full width (vocab 30522, 12 blocks of
    hidden 768, 12 heads, intermediate 3072, sequence 512) with a
    Dense(2, softmax) head, as a 4-input Model served by
@@ -270,9 +273,10 @@ def kernel_phase(dev) -> dict:
         per_dtype[name] = dict(
             times, max_abs_err=err, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"kernel {name}: {ms:.4f} ms (through the wrapper "
-            f"{times['wrapper_ms']:.4f}), plain {plain_ms:.4f} ms, "
-            f"sdpa {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+        log(f"kernel {name}: {ms:.4f} ms (graph {times['graph_ms']:.4f}), "
+            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (graph "
+            f"{times['library_graph_ms']:.4f}), bound "
+            f"{max(t_bytes, t_ops):.4f} ms "
             f"({per_dtype[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
 
@@ -357,10 +361,10 @@ def flash_bf16_case(label, q, k, v, bias, scale, live_keys,
         + (2 * b * h * l * 4 if stats else 0)
     row.update(bound(nbytes, 4.0 * h * l * live_keys * d, "bfloat16"))
     row["max_abs_err"] = max(errs)
-    log(f"kernel {label}: {row['ms']:.4f} ms (through the wrapper "
-        f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa "
-        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})")
+    log(f"kernel {label}: {row['ms']:.4f} ms (graph {row['graph_ms']:.4f}), "
+        f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+        f"(graph {row['library_graph_ms']:.4f}), bound {row['bound_ms']:.4f}"
+        f" ms ({row['bound_by']})")
     return row
 
 
@@ -393,17 +397,21 @@ def graph_ms(fn, reps: int = 20) -> float:
     return ms
 
 
-def graph_timed(fn, plain, library) -> dict:
-    """Device times of the kernel, its plain version and the library call
-    from CUDA-graph replays, and the kernel's time through its Python
-    wrapper (``wrapper_ms``, launches issued one by one)."""
-    return {"ms": graph_ms(fn), "wrapper_ms": cuda_ms(fn),
-            "plain_ms": graph_ms(plain), "library_ms": graph_ms(library)}
-
-
 def timed(fn, plain, library) -> dict:
+    """CUDA-event times of calls issued one by one: the kernel through its
+    Python wrapper (``ms``), its plain version and the library call."""
     return {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
             "library_ms": None if library is None else cuda_ms(library)}
+
+
+def graph_timed(fn, plain, library) -> dict:
+    """``timed``, and beside it the device times of the same three calls
+    replayed from one CUDA graph each (``graph_ms``, ``plain_graph_ms``,
+    ``library_graph_ms``), which leave out the host time between calls."""
+    row = timed(fn, plain, library)
+    row.update(graph_ms=graph_ms(fn), plain_graph_ms=graph_ms(plain),
+               library_graph_ms=graph_ms(library))
+    return row
 
 
 def bound(nbytes: float, flops: float, dtype: str = "float32") -> dict:
@@ -963,23 +971,24 @@ def int8_kernel_phase(dev, weights) -> dict:
                 lambda: im8._reference(xx, values, scale),
                 lambda: xx @ wdeq))
             # x, W (1 byte), the scale and the output moved once; 2 M K N
-            # operations at the input type's peak
+            # operations at bf16's tensor-core peak, three times over for
+            # f32 x (the kernel's route: three bf16 products a value), with
+            # the f32 CUDA-core figure beside it
             esize = xx.element_size()
             nbytes = m * k * esize + k * n + 4 * n + m * n * esize
-            row.update(bound(nbytes, 2.0 * m * k * n, name))
-            tc = ""
+            flops = 2.0 * m * k * n
+            cc = ""
             if dtype == torch.float32:
-                # the kernel's own route for f32: three bf16 products on the
-                # tensor cores
-                row["bound_tc_ms"] = bound(nbytes, 3 * 2.0 * m * k * n,
-                                           "bfloat16")["bound_ms"]
-                tc = f", tensor-core bound (3 bf16 passes) " \
-                     f"{row['bound_tc_ms']:.4f} ms"
-            log(f"kernel int8 {label} {name}: {row['ms']:.4f} ms (through "
-                f"the wrapper {row['wrapper_ms']:.4f}), plain "
-                f"{row['plain_ms']:.4f} ms, dequantize+matmul "
-                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}){tc}")
+                row.update(bound(nbytes, 3 * flops, "bfloat16"))
+                row["bound_cuda_core_ms"] = bound(nbytes, flops)["bound_ms"]
+                cc = f"; f32 on CUDA cores {row['bound_cuda_core_ms']:.4f} ms"
+            else:
+                row.update(bound(nbytes, flops, name))
+            log(f"kernel int8 {label} {name}: {row['ms']:.4f} ms (graph "
+                f"{row['graph_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+                f"dequantize+matmul {row['library_ms']:.4f} ms (graph "
+                f"{row['library_graph_ms']:.4f}), bound {row['bound_ms']:.4f}"
+                f" ms ({row['bound_by']}{cc})")
             rows.append(row)
             if dtype == torch.float32:
                 errs.append(abs_err)
@@ -987,16 +996,19 @@ def int8_kernel_phase(dev, weights) -> dict:
     passes = {}
     for name in ("float32", "bfloat16"):
         by = {r["shape"]: r for r in rows if r["dtype"] == name}
-        keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
-        keys += ["bound_tc_ms"] if name == "float32" else []
+        keys = ["ms", "graph_ms", "plain_ms", "library_ms",
+                "library_graph_ms", "bound_ms"]
+        keys += ["bound_cuda_core_ms"] if name == "float32" else []
         passes[name] = {key: blocks * sum(by[s][key] for s in
                                           ("qkv", "proj", "fc", "out"))
                         + by["pooler"][key] + by["head"][key]
                         for key in keys}
         log(f"kernel int8 {name}, one BERT-base pass (12 blocks, pooler, "
-            f"head): {passes[name]['ms']:.3f} ms, bound "
+            f"head): {passes[name]['ms']:.3f} ms (graph "
+            f"{passes[name]['graph_ms']:.3f}), bound "
             f"{passes[name]['bound_ms']:.3f} ms, dequantize+matmul "
-            f"{passes[name]['library_ms']:.3f} ms")
+            f"{passes[name]['library_ms']:.3f} ms (graph "
+            f"{passes[name]['library_graph_ms']:.3f})")
     per_pass = passes["float32"]
     f32 = {r["shape"]: r for r in rows if r["dtype"] == "float32"}
     entry = {"name": "int8_matmul", "route": "cuda",
@@ -1146,15 +1158,17 @@ def int8_serving_phase(card_line: str, weights, int8_entry) -> dict:
         calls[label] = calls.get(label, 0) + 1
     f32 = {r["shape"]: r for r in int8_entry["shapes"]
            if r["dtype"] == "float32"}
-    by_shape = {lb: {"calls": c, "ms": c * f32[lb]["ms"]}
+    by_shape = {lb: {"calls": c, "ms": c * f32[lb]["ms"],
+                     "graph_ms": c * f32[lb]["graph_ms"]}
                 for lb, c in calls.items()}
     int8_entry["kernel_route"] = {"host_ms": route_ms,
                                   "device_ms": route_dev_ms,
                                   "by_shape": by_shape}
     log(f"int8 kernel route: {route_dev_ms:.3f} ms on the device per pass "
         f"(CUDA events, 10 passes; {card_line}); by shape from the kernel "
-        "phase: " + ", ".join(f"{lb} {v['calls']} x = {v['ms']:.3f} ms"
-                              for lb, v in by_shape.items()))
+        "phase (through the wrapper; graph): "
+        + ", ".join(f"{lb} {v['calls']} x = {v['ms']:.3f}; "
+                    f"{v['graph_ms']:.3f} ms" for lb, v in by_shape.items()))
     blocks = BERT_BASE["n_block"]
     expected_flash = 2 * blocks * len(INT8_REQUESTS)
     log(f"int8 serving launches: {launches} (expected flash "

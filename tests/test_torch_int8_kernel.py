@@ -4,11 +4,12 @@ The ``cuda``-marked tests hold ``csrc/int8_matmul.cu`` against its plain
 version on a GPU and skip where none is visible: ragged M, N and K (a K
 tail inside the last 64-slice; K and N that are not 16-byte rows, which
 take the kernel's element loads), the BERT-base head (8, 768, 2) and
-pooler (split K), K = 3072 and the QKV and out shapes of one 8 x 512
-micro-batch, each with f32 x (relative L2 <= 1e-5: f32 sums in another
-order, through three bf16 tensor-core products) and bf16 x (<= 1e-2
-against the plain version in f32: the output's bf16 rounding).  This file imports nothing from the JAX package,
-so on a machine with a GPU and no JAX it runs alone:
+pooler, the QKV and out shapes of one 8 x 512 micro-batch, and K of 3072,
+4096 and 8192, each with f32 x (relative L2 <= 1e-5: three bf16
+tensor-core products a value, summed slice by slice into f32) and bf16 x
+(<= 1e-2 against the plain version in f32: the output's bf16 rounding).
+This file imports nothing from the JAX package, so on a machine with a
+GPU and no JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_int8_kernel.py
@@ -69,7 +70,8 @@ def _rel(got, want):
                                    (8, 768, 768), (130, 3072, 131),
                                    (4096, 768, 2304), (40, 1000, 256),
                                    (9, 203, 48), (300, 520, 130),
-                                   (4096, 3072, 768)],
+                                   (4096, 3072, 768), (512, 4096, 768),
+                                   (256, 8192, 512)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(shape, dtype, tol, cuda_device):
     x, w, s = _inputs(*shape, cuda_device)
@@ -124,6 +126,8 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     ("x_dtype", TypeError), ("x_rank", TypeError), ("w_dtype", TypeError),
     ("k_mismatch", TypeError), ("scale_shape", TypeError),
     ("scale_dtype", TypeError), ("x_strided", ValueError),
+    ("w_rank", TypeError), ("w_strided", ValueError),
+    ("scale_strided", ValueError),
 ])
 def test_wrapper_raises_on_what_the_kernel_does_not_take(case, error):
     """Checked before the library is loaded, so no launch happens."""
@@ -142,6 +146,12 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(case, error):
         s = s.double()
     elif case == "x_strided":
         x = torch.zeros(64, 8).t()
+    elif case == "w_rank":
+        w = w[None]
+    elif case == "w_strided":
+        w = torch.zeros(16, 64, dtype=torch.int8).t()
+    elif case == "scale_strided":
+        s = torch.zeros(32)[::2]
     before = tim.launch_count
     with pytest.raises(error):
         tim._int8_matmul_cuda(_OnCuda(x), _OnCuda(w), _OnCuda(s))

@@ -5,9 +5,10 @@ products: x splits into hi = bf16(x), mid = bf16(x - hi) and
 lo = bf16(x - hi - mid), each multiplied by the same int8 W into one f32
 sum.  That is f32 math only if the three pieces sum to x exactly and each
 product is exact, which these tests check through the plain
-``split_bf16x3`` (the kernel's split, step for step).  They also check how
-the wrapper splits K across blocks where the output tiles alone leave most
-of the card idle.  Nothing here imports the JAX package.
+``split_bf16x3`` (the kernel's split, step for step).  They also check
+that the kernel's order of summation, each 64-deep K slice summed apart
+and then added into an f32 total, stays within the f32 tolerance at the K
+of BERT-base and beyond.  Nothing here imports the JAX package.
 """
 
 import numpy as np
@@ -16,17 +17,22 @@ import torch
 
 from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as tim
 
-H100_SMS = 132
+KINDS = ["normal", "tiny", "large", "mixed"]
+F32_TOL = 1e-5  # relative L2, the kernel's f32 tolerance
+BK = 64         # the kernel's K slice
 
 
 def _x(kind, shape, seed=0):
     gen = np.random.default_rng(seed)
-    scale = {"normal": 1.0, "tiny": 1e-20, "large": 1e30}[kind]
+    if kind == "mixed":  # magnitudes from 2^-60 to 2^60 side by side
+        scale = 2.0 ** gen.integers(-60, 61, size=shape)
+    else:
+        scale = {"normal": 1.0, "tiny": 1e-20, "large": 1e30}[kind]
     return torch.from_numpy((gen.normal(size=shape) * scale).astype(
         np.float32))
 
 
-@pytest.mark.parametrize("kind", ["normal", "tiny", "large"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_split_reproduces_x_exactly(kind):
     x = _x(kind, (64, 257))
     parts = tim.split_bf16x3(x)
@@ -38,7 +44,7 @@ def test_split_reproduces_x_exactly(kind):
     assert (mid <= hi * 2.0 ** -8).all() and (lo <= mid * 2.0 ** -8).all()
 
 
-@pytest.mark.parametrize("kind", ["normal", "tiny", "large"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_three_products_with_int8_weights_are_the_f32_product(kind):
     x = _x(kind, (16, 768), seed=1)
     gen = np.random.default_rng(2)
@@ -55,23 +61,28 @@ def test_three_products_with_int8_weights_are_the_f32_product(kind):
         assert torch.equal(prod.float().double(), prod)
 
 
-@pytest.mark.parametrize("m,k,n,want", [
-    (8, 768, 768, 12),     # BERT-base pooler: 6 tiles, 12 slices
-    (8, 768, 2, 12),       # the head: 1 tile
-    (8, 3072, 768, 16),    # 48 slices for 22 blocks a tile: 16 of 3 slices
-    (4096, 768, 2304, 1),  # enough tiles: no split
-    (4096, 768, 768, 1),
-    (8, 40, 768, 1),       # one slice cannot split
-])
-def test_k_splits(m, k, n, want):
-    assert tim.k_splits(m, k=k, n=n, sms=H100_SMS) == want
+@pytest.mark.parametrize("kind", ["normal", "tiny", "large"])
+def test_split_of_a_bf16_value_is_that_value(kind):
+    x = _x(kind, (32, 96), seed=3).to(torch.bfloat16).float()
+    hi, mid, lo = tim.split_bf16x3(x)
+    assert torch.equal(hi.float(), x)
+    assert not mid.float().any() and not lo.float().any()
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (8, 768, 768), (8, 3072, 768),
-                                   (100, 5000, 50), (8, 1000, 2)])
-def test_k_splits_leave_no_split_empty(m, k, n):
-    splits = tim.k_splits(m, n, k, H100_SMS)
-    slices = -(-k // 64)
-    per = -(-slices // splits)
-    assert 1 <= splits <= slices
-    assert (splits - 1) * per < slices <= splits * per
+@pytest.mark.parametrize("k", [768, 3072, 4096, 8192])
+def test_slice_sums_added_in_f32_meet_the_f32_tolerance(k):
+    """The kernel's f32 route with exact tensor-core products: each K
+    slice's three products summed (here exactly, in float64) and rounded
+    to f32, the slices added one by one into an f32 total."""
+    gen = np.random.default_rng(k)
+    x = torch.from_numpy(gen.normal(size=(64, k)).astype(np.float32))
+    w = torch.from_numpy(gen.integers(-127, 128, size=(k, 48)).astype(
+        np.int8)).double()
+    pieces = [p.double() for p in tim.split_bf16x3(x)]
+    total = torch.zeros(64, 48, dtype=torch.float32)
+    for k0 in range(0, k, BK):
+        total += sum(p[:, k0:k0 + BK] @ w[k0:k0 + BK]
+                     for p in pieces).float()
+    want = x.double() @ w
+    rel = ((total.double() - want).norm() / want.norm()).item()
+    assert rel <= F32_TOL / 10
