@@ -19,38 +19,71 @@
 // query rows, and one NaN there would poison every output.
 //
 // Two kernels, as on the TPU, and no atomics: the dq kernel owns a tile of
-// 64 query rows and streams the key tiles past it; the dk/dv kernel owns a
-// tile of 64 keys and streams the query tiles past it.  Each output element
-// is written by exactly one thread, so the result is deterministic, and the
-// bias-gradient partial of a key needs no cross-block reduction.  The cost
-// is that both kernels recompute the score tile (five 64x64xD products per
-// tile pair in all, against the three a one-kernel design with atomic dq
-// adds would need).
+// 64 query rows and streams the keys past it; the dk/dv kernel owns a tile
+// of 64 keys and streams the query rows past it.  Each output element is
+// written by one thread, so the result is deterministic, and the
+// bias-gradient partial of a key needs no cross-block reduction.  Both
+// recompute the score tile: seven products per tile pair in all, against
+// the five a one-kernel design with atomic dq adds would need.
 //
-// What bounds it on an H100: at the BERT-base training shape (B=8, H=12,
-// L=512, D=64) the five products are ~16 GFLOP on the dense tiles, about
-// 0.24 ms at the 67 TFLOP/s f32 CUDA-core peak, against ~75 MB moved (22 us),
-// so it is bound by operations.  The design reuses the forward's FMA loop:
-// one 256-thread block per tile, f32 tiles in shared memory (bf16 inputs
-// converted once), each thread owning a 4x4 block of the 64x64 score tile
-// and reading shared memory as float4.  The dk/dv kernel stores p*t and dS
-// transposed, so its contraction over query rows also reads float4.
-// Tensor cores and TMA are later work.  Head dims 64 and 128 are built.
+// What bounds it on an H100.  At the BERT-base training shape (B=8, H=12,
+// L=512, D=64) the seven products are ~22 GFLOP on dense tiles; f32 on the
+// CUDA cores (67 TFLOP/s) that is ~0.33 ms, so the products go to the
+// tensor cores.  There f32 needs care: a tf32 product keeps 11 bits of
+// each factor.  Each f32 operand x is split into hi = tf32(x) and
+// lo = x - hi, and a product is lo*hi + hi*lo + hi*hi (3xTF32, as CUTLASS's
+// OpMultiplyAddFastF32): three tf32 `wgmma`s at 495 TFLOP/s, ~0.13 ms on
+// dense tiles, ~2^-21 relative per product, i.e. f32 math in another order.
+// bf16 inputs are exact in tf32 (their lo pieces are zero), so only the
+// products of the f32 probabilities keep their lo halves.
+//
+// The design, shared by both kernels (`bwd_kernel<T, D, KV>`):
+// - D / 64 warpgroups a block; all of them compute the 64 x 32 score and
+//   dO.v tiles of the block's 64 own rows and the current 32 streamed rows
+//   (S = own0 . str0^T, dP = own1 . str1^T, `wgmma` m64n32k8 with both
+//   operands K-major in shared memory), and each owns 64 columns of the
+//   outputs (`wgmma` m64n64k8).  The own tile (Q, dO in the dq kernel; K,
+//   V in the dk/dv kernel) is split into hi and lo pieces once.
+// - The streamed rows (K, V past the dq kernel; Q, dO with their m, l and
+//   D past the dk/dv kernel) are loaded into registers one tile ahead,
+//   16 bytes a load where the rows allow.  Split into hi and lo, they are
+//   written to shared memory twice from those registers: row-major for S
+//   and dP, then, once those products are done, transposed into the same
+//   buffer for the products that contract over the streamed rows (dq over
+//   keys; dk, dv over queries): tf32 `wgmma` reads shared memory only
+//   K-major.  All tiles use the 128-byte-swizzled layout of sm90.cuh.
+// - The softmax recompute, the live select, the dropout hash and dbias work
+//   on the accumulator fragments in registers.  P*t and dS then are, split
+//   into hi and lo, the register A operands of the output products.  A
+//   thread holds columns 2t, 2t + 1 of each group of 8 where the tf32 A
+//   fragment wants columns t, t + 4; instead of shuffling, the transposed
+//   tile stores its 8 streamed rows in the matching order (row 2c at
+//   position c, row 2c + 1 at c + 4), which leaves the sum unchanged.
+// - Products are issued lo pieces first, so the small terms enter the
+//   accumulator before it grows.  Each output's per-tile contribution goes
+//   into a fresh accumulator that is added into the f32 total on the CUDA
+//   cores, so the accumulator's rounding does not build up over a 512-long
+//   sequence (PR 4's lesson from the int8 matmul).
+// - Under causal masking a block skips the streamed tiles none of its rows
+//   can see.  Head dims 64 and 128 are built; at 128, two warpgroups and
+//   192 KB of shared memory a block.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace zoo_flash_bwd {
 
-using zoo_flash::BK;
-using zoo_flash::BQ;
-using zoo_flash::NT;
-using zoo_flash::keep_bits;
-using zoo_flash::store_as;
-using zoo_flash::to_f32;
+using zoo_flash::keep_base;
+using zoo_flash::keep_k;
+using zoo_flash::keep_q;
+using zoo_flash::mix32;
 
-constexpr int PS = BK + 4;  // row stride of the 64x64 probability tiles
+constexpr int OWN = 64;  // own rows a block: one warpgroup's M
+constexpr int SR = 32;   // streamed rows a tile
 
 struct Args {
   const void* q;
@@ -76,362 +109,472 @@ struct Args {
   int dropout;
   uint32_t seed0, seed1, drop_thr;
   float inv_keep;
+  int vec;  // every row start aligned to 4 elements: vector loads
 };
 
-__host__ __device__ constexpr int dq_smem_bytes(int D) {
-  return ((2 * BQ + 2 * BK) * (D + 4) + BQ * PS) * 4;
+// Shared memory: four own pieces (own0 hi, lo; own1 hi, lo: 64 x D f32
+// each), four streamed pieces (32 x D f32 each, row-major or transposed),
+// the streamed rows' m, l, D, a bias row (the streamed keys' in the dq
+// kernel, the own keys' in the dk/dv kernel), and room to align to 1024
+// bytes.
+__host__ __device__ constexpr int own_bytes(int D) { return OWN * D * 4; }
+__host__ __device__ constexpr int str_bytes(int D) { return SR * D * 4; }
+__host__ __device__ constexpr int smem_bytes(int D) {
+  return 4 * own_bytes(D) + 4 * str_bytes(D) + (3 * SR + OWN) * 4 + 1024;
 }
 
-__host__ __device__ constexpr int dkv_smem_bytes(int D) {
-  return ((2 * BQ + 2 * BK) * (D + 4) + 2 * BK * PS + 3 * BQ) * 4;
+// Byte offset of f32 chunk `ch` (values 4 ch .. 4 ch + 3) of row r in a
+// K-major swizzled tile of R rows: 32-value column blocks follow each other.
+template <int R>
+__device__ __forceinline__ uint32_t kmajor(int r, int ch) {
+  return static_cast<uint32_t>((ch >> 3) * (R * 128)) +
+         zoo_sm90::swz(r, ch & 7);
 }
 
-// Stage rows [r0, r0 + 64) of a (L, D) slice with row stride `ls` into a
-// shared tile of row stride D + 4, as f32; rows past `len` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int64_t ls,
-                                      int r0, int len) {
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int row = r0 + r;
-    dst[r * (D + 4) + c] = row < len ? to_f32(src[row * ls + c]) : 0.f;
-  }
+// Byte offset of streamed row r, column d in a transposed tile (row d, 32
+// streamed values a row): within each group of 8, row 2c sits at position c
+// and row 2c + 1 at c + 4, the order in which a thread's accumulator
+// columns fill the tf32 A fragment.
+__device__ __forceinline__ uint32_t transposed(int d, int r) {
+  const int pos = (r & 24) | ((r & 7) >> 1) | ((r & 1) << 2);
+  return zoo_sm90::swz(d, pos >> 2) + (pos & 3) * 4;
 }
 
-// s[i][j] = A[ty + 16i] . B[tx + 16j] over D, tiles of row stride D + 4.
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* A, const float* Bm,
-                                         int ty, int tx, float (&s)[4][4]) {
-  constexpr int S = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * S + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(&Bm[(tx + 16 * j) * S + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float acc = s[i][j];
-        acc = fmaf(av[i].x, bv[j].x, acc);
-        acc = fmaf(av[i].y, bv[j].y, acc);
-        acc = fmaf(av[i].z, bv[j].z, acc);
-        acc = fmaf(av[i].w, bv[j].w, acc);
-        s[i][j] = acc;
-      }
-  }
+// Four values as loaded: f32 as they are, bf16 still packed, so a load
+// in flight is not waited for until its values are stored.
+template <typename T> struct Raw4 { using type = float4; };
+template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
+
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+__device__ __forceinline__ uint2 load4(const __nv_bfloat16* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint2*>(p));
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+  return make_uint2(u[0] | (static_cast<uint32_t>(u[1]) << 16),
+                    u[2] | (static_cast<uint32_t>(u[3]) << 16));
+}
+__device__ __forceinline__ float4 zero4(float4) {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ uint2 zero4(uint2) { return make_uint2(0u, 0u); }
+__device__ __forceinline__ float4 to_float4(const float4& x) { return x; }
+__device__ __forceinline__ float4 to_float4(const uint2& x) {
+  // bf16 -> f32 is a 16-bit shift
+  return make_float4(__uint_as_float(x.x << 16),
+                     __uint_as_float(x.x & 0xffff0000u),
+                     __uint_as_float(x.y << 16),
+                     __uint_as_float(x.y & 0xffff0000u));
 }
 
-// The reference's `tiles`: for this thread's 4x4 block of (query rows
-// q0 + ty + 16i, keys k0 + tx + 16j), p*t and dS from the raw scores s,
-// dp = dO.v, and the rows' statistics (m, floored l, D).
-__device__ __forceinline__ void grad_tile(
-    const Args& a, int b, int h, int q0, int k0, int ty, int tx,
-    const float* bias, const float (&s)[4][4], const float (&dp)[4][4],
-    const float (&mr)[4], const float (&lr)[4], const float (&dr)[4],
-    float (&pt)[4][4], float (&ds)[4][4]) {
-  const int offset = a.Lk - a.Lq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kj = k0 + tx + 16 * j;
-      const bool live =
-          qi < a.Lq && kj < a.Lk && (!a.causal || qi + offset >= kj);
-      float x = s[i][j] * a.scale;
-      if (live && bias != nullptr) x += bias[qi * a.bs_q + kj * a.bs_k];
-      const float p = live ? expf(x - mr[i]) / lr[i] : 0.f;
-      float t = 1.f;
-      if (a.dropout)
-        t = keep_bits(a.seed0, a.seed1, b, h, qi, kj) >= a.drop_thr
-                ? a.inv_keep
-                : 0.f;
-      pt[i][j] = p * t;
-      ds[i][j] = live ? p * (t * dp[i][j] - dr[i]) : 0.f;
-    }
-  }
-}
+// The chunks of an R-row tile a thread loads, converts and writes: rows
+// lane + 32 rr, chunks warp + NW i (NW = D / 16 warps a block), so the
+// 32 lanes of a store are 32 rows: the row-major stores hit every bank once
+// per 8 lanes, the transposed ones once per warp.
+template <int R>
+__host__ __device__ constexpr int tile_chunks() { return R / 32 * 4; }
 
-// ---- dq: one block per (64 query rows, head, batch); key tiles stream --
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) dq_kernel(Args a) {
-  constexpr int S = D + 4;
-  constexpr int CPT = D / 16;  // output columns per thread
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Gs = Qs + BQ * S;
-  float* Ks = Gs + BQ * S;
-  float* Vs = Ks + BK * S;
-  float* Ss = Vs + BK * S;  // dS * scale, 64 x 64
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int offset = a.Lk - a.Lq;
-  const T* q = static_cast<const T*>(a.q) + b * a.qs_b + h * a.qs_h;
-  const T* g = static_cast<const T*>(a.g) + b * a.gs_b + h * a.gs_h;
-  const T* k = static_cast<const T*>(a.k) + b * a.ks_b + h * a.ks_h;
-  const T* v = static_cast<const T*>(a.v) + b * a.vs_b + h * a.vs_h;
-  const float* bias =
-      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
-  const int64_t rows = (static_cast<int64_t>(b) * a.H + h) * a.Lq;
-
-  stage<T, D>(Qs, q, a.qs_l, q0, a.Lq);
-  stage<T, D>(Gs, g, a.gs_l, q0, a.Lq);
-  float mr[4], lr[4], dr[4], acc[4][CPT];
+template <typename T, int D, int R>
+__device__ __forceinline__ void load_tile(
+    typename Raw4<T>::type (&raw)[tile_chunks<R>()], const T* src,
+    int64_t ls, int r0, int len, bool vec) {
+  constexpr int NW = D / 16;
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    const bool in = qi < a.Lq;
-    mr[i] = in ? a.m[rows + qi] : 0.f;
-    lr[i] = in ? fmaxf(a.l[rows + qi], 1e-20f) : 1.f;
-    dr[i] = in ? a.dsum[rows + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
-  const int kend = a.causal ? min(a.Lk, q0 + BQ + offset) : a.Lk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(Ks, k + k0 * a.ks_l, a.ks_l, 0, a.Lk - k0);
-    stage<T, D>(Vs, v + k0 * a.vs_l, a.vs_l, 0, a.Lk - k0);
-    __syncthreads();
-
-    float s[4][4], dp[4][4], pt[4][4], ds[4][4];
-    dot_tile<D>(Qs, Ks, ty, tx, s);
-    dot_tile<D>(Gs, Vs, ty, tx, dp);
-    grad_tile(a, b, h, q0, k0, ty, tx, bias, s, dp, mr, lr, dr, pt, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ss[(ty + 16 * i) * PS + tx + 16 * j] = ds[i][j] * a.scale;
-    __syncthreads();
-
-    // dq += dS K for this thread's 4 x CPT block.
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sv[i] = *reinterpret_cast<const float4*>(&Ss[(ty + 16 * i) * PS + kk]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float kv[CPT];
-#pragma unroll
-        for (int w = 0; w < CPT; w += 4) {
-          const float4 t4 = *reinterpret_cast<const float4*>(
-              &Ks[(kk + u) * S + tx * CPT + w]);
-          kv[w] = t4.x;
-          kv[w + 1] = t4.y;
-          kv[w + 2] = t4.z;
-          kv[w + 3] = t4.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0   ? sv[i].x
-                          : u == 1 ? sv[i].y
-                          : u == 2 ? sv[i].z
-                                   : sv[i].w;
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p, kv[c], acc[i][c]);
-        }
-      }
-    }
-  }
-
-  T* dq = static_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi < a.Lq) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        store_as(&dq[(rows + qi) * D + tx * CPT + c], acc[i][c]);
-    }
-  }
-}
-
-// ---- dk, dv (and dbias partials): one block per (64 keys, head, batch);
-// query tiles stream --------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) dkv_kernel(Args a) {
-  constexpr int S = D + 4;
-  constexpr int CPT = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BK * S;
-  float* Qs = Vs + BK * S;
-  float* Gs = Qs + BQ * S;
-  float* PT = Gs + BQ * S;  // (p t)^T: row = key, column = query
-  float* DT = PT + BK * PS; // dS^T
-  float* Ms = DT + BK * PS; // the query tile's m, floored l and D
-  float* Ls = Ms + BQ;
-  float* Dsm = Ls + BQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int offset = a.Lk - a.Lq;
-  const T* q = static_cast<const T*>(a.q) + b * a.qs_b + h * a.qs_h;
-  const T* g = static_cast<const T*>(a.g) + b * a.gs_b + h * a.gs_h;
-  const T* k = static_cast<const T*>(a.k) + b * a.ks_b + h * a.ks_h;
-  const T* v = static_cast<const T*>(a.v) + b * a.vs_b + h * a.vs_h;
-  const float* bias =
-      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
-  const int64_t rows = (static_cast<int64_t>(b) * a.H + h) * a.Lq;
-
-  stage<T, D>(Ks, k, a.ks_l, k0, a.Lk);
-  stage<T, D>(Vs, v, a.vs_l, k0, a.Lk);
-  float dk[4][CPT], dv[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dk[i][c] = dv[i][c] = 0.f;
-  float db = 0.f;  // thread tid < 64: the partial of key k0 + tid
-
-  // Under causal masking, query rows before k0 - offset see no key here.
-  const int qstart = a.causal ? max(0, k0 - offset) / BQ * BQ : 0;
-  for (int q0 = qstart; q0 < a.Lq; q0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(Qs, q, a.qs_l, q0, a.Lq);
-    stage<T, D>(Gs, g, a.gs_l, q0, a.Lq);
-    if (tid < BQ) {
-      const int qi = q0 + tid;
-      const bool in = qi < a.Lq;
-      Ms[tid] = in ? a.m[rows + qi] : 0.f;
-      Ls[tid] = in ? fmaxf(a.l[rows + qi], 1e-20f) : 1.f;
-      Dsm[tid] = in ? a.dsum[rows + qi] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4], pt[4][4], ds[4][4];
-    float mr[4], lr[4], dr[4];
+  for (int rr = 0; rr < R / 32; ++rr) {
+    const int row = r0 + lane + 32 * rr;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      mr[i] = Ms[ty + 16 * i];
-      lr[i] = Ls[ty + 16 * i];
-      dr[i] = Dsm[ty + 16 * i];
-    }
-    // rows: queries ty + 16i of this q tile; columns: keys tx + 16j
-    dot_tile<D>(Qs, Ks, ty, tx, s);
-    dot_tile<D>(Gs, Vs, ty, tx, dp);
-    grad_tile(a, b, h, q0, k0, ty, tx, bias, s, dp, mr, lr, dr, pt, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        PT[(tx + 16 * j) * PS + ty + 16 * i] = pt[i][j];
-        DT[(tx + 16 * j) * PS + ty + 16 * i] = ds[i][j];
-      }
-    __syncthreads();
-
-    // dv += (p t)^T dO and dk += dS^T Q for keys ty + 16i, columns
-    // tx * CPT + c.
-#pragma unroll 2
-    for (int qq = 0; qq < BQ; qq += 4) {
-      float4 pv[4], sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = *reinterpret_cast<const float4*>(&PT[(ty + 16 * i) * PS + qq]);
-        sv[i] = *reinterpret_cast<const float4*>(&DT[(ty + 16 * i) * PS + qq]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float gv[CPT], qv[CPT];
-#pragma unroll
-        for (int w = 0; w < CPT; w += 4) {
-          const float4 g4 = *reinterpret_cast<const float4*>(
-              &Gs[(qq + u) * S + tx * CPT + w]);
-          const float4 q4 = *reinterpret_cast<const float4*>(
-              &Qs[(qq + u) * S + tx * CPT + w]);
-          gv[w] = g4.x;
-          gv[w + 1] = g4.y;
-          gv[w + 2] = g4.z;
-          gv[w + 3] = g4.w;
-          qv[w] = q4.x;
-          qv[w + 1] = q4.y;
-          qv[w + 2] = q4.z;
-          qv[w + 3] = q4.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0   ? pv[i].x
-                          : u == 1 ? pv[i].y
-                          : u == 2 ? pv[i].z
-                                   : pv[i].w;
-          const float d = u == 0   ? sv[i].x
-                          : u == 1 ? sv[i].y
-                          : u == 2 ? sv[i].z
-                                   : sv[i].w;
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            dv[i][c] = fmaf(p, gv[c], dv[i][c]);
-            dk[i][c] = fmaf(d, qv[c], dk[i][c]);
-          }
-        }
-      }
-    }
-    if (a.dbias != nullptr && tid < BK) {
-      for (int qq = 0; qq < BQ; qq += 4) {
-        const float4 d4 =
-            *reinterpret_cast<const float4*>(&DT[tid * PS + qq]);
-        db += (d4.x + d4.y) + (d4.z + d4.w);
-      }
+      const int ch = wi + NW * i;
+      raw[rr * 4 + i] = row < len ? load4(src + row * ls + 4 * ch, vec)
+                                  : zero4(raw[0]);
     }
   }
+}
 
-  T* dkp = static_cast<T*>(a.dk);
-  T* dvp = static_cast<T*>(a.dv);
-  const int64_t keys = (static_cast<int64_t>(b) * a.H + h) * a.Lk;
+// 2^x to ~2 ulp; denormal results flush to zero
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
+  zoo_sm90::split_tf32(x.x, hi.x, lo.x);
+  zoo_sm90::split_tf32(x.y, hi.y, lo.y);
+  zoo_sm90::split_tf32(x.z, hi.z, lo.z);
+  zoo_sm90::split_tf32(x.w, hi.w, lo.w);
+}
+
+// Write a loaded tile as hi and lo pieces, K-major (row-major in D).
+template <int D, int R, bool EXACT, typename RT>
+__device__ __forceinline__ void store_kmajor(
+    const RT (&raw)[tile_chunks<R>()], uint8_t* hi, uint8_t* lo) {
+  constexpr int NW = D / 16;
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+#pragma unroll
+  for (int rr = 0; rr < R / 32; ++rr)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t off = kmajor<R>(lane + 32 * rr, wi + NW * i);
+      uint4 h, l;
+      split4(to_float4(raw[rr * 4 + i]), h, l);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      if (!EXACT) *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+}
+
+// Write a loaded 32-row streamed tile as hi and lo pieces, transposed.
+template <int D, bool EXACT, typename RT>
+__device__ __forceinline__ void store_transposed(
+    const RT (&raw)[tile_chunks<SR>()], uint8_t* hi, uint8_t* lo) {
+  constexpr int NW = D / 16;
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty + 16 * i;
-    if (kj < a.Lk) {
+    const int d0 = 4 * (wi + NW * i);
+    uint4 h, l;
+    split4(to_float4(raw[i]), h, l);
+    const uint32_t hv[4] = {h.x, h.y, h.z, h.w};
+    const uint32_t lv[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        store_as(&dkp[(keys + kj) * D + tx * CPT + c], dk[i][c] * a.scale);
-        store_as(&dvp[(keys + kj) * D + tx * CPT + c], dv[i][c]);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t off = transposed(d0 + e, lane);
+      *reinterpret_cast<uint32_t*>(hi + off) = hv[e];
+      if (!EXACT) *reinterpret_cast<uint32_t*>(lo + off) = lv[e];
     }
   }
-  if (a.dbias != nullptr && tid < BK && k0 + tid < a.Lk)
-    a.dbias[keys + k0 + tid] = db;
+}
+
+// acc (64 x 32) = own . str^T over D: lo products first, then hi * hi.
+template <int D, bool EXACT>
+__device__ __forceinline__ void issue_scores(float (&acc)[16], uint32_t own_hi,
+                                             uint32_t own_lo, uint32_t str_hi,
+                                             uint32_t str_lo) {
+  using zoo_sm90::desc_b128;
+  auto da = [](uint32_t base, int kk) {
+    return desc_b128(base + (kk >> 2) * (OWN * 128) + (kk & 3) * 32, 16, 1024);
+  };
+  auto db = [](uint32_t base, int kk) {
+    return desc_b128(base + (kk >> 2) * (SR * 128) + (kk & 3) * 32, 16, 1024);
+  };
+  int first = 0;
+  if (!EXACT) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(own_lo, kk), db(str_hi, kk),
+                                       first);
+      first = 1;
+      zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(own_hi, kk), db(str_lo, kk), 1);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(own_hi, kk), db(str_hi, kk),
+                                     first);
+    first = 1;
+  }
+}
+
+// A fragments of a 64 x 32 accumulator-shaped tile for the four k-steps
+// over its 32 columns, split into hi and lo.
+__device__ __forceinline__ void a_frags(const float (&x)[16],
+                                        uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    zoo_sm90::split_tf32(x[4 * j + 0], hi[j][0], lo[j][0]);
+    zoo_sm90::split_tf32(x[4 * j + 2], hi[j][1], lo[j][1]);
+    zoo_sm90::split_tf32(x[4 * j + 1], hi[j][2], lo[j][2]);
+    zoo_sm90::split_tf32(x[4 * j + 3], hi[j][3], lo[j][3]);
+  }
+}
+
+// total (64 x 64, this warpgroup's output columns) += A . B over the 32
+// streamed rows, A from registers, B a transposed tile; the product goes
+// into a fresh accumulator first.
+template <bool EXACT>
+__device__ __forceinline__ void accumulate(float (&total)[32],
+                                           const uint32_t (&a_hi)[4][4],
+                                           const uint32_t (&a_lo)[4][4],
+                                           uint32_t t_hi, uint32_t t_lo,
+                                           int wg) {
+  using zoo_sm90::desc_b128;
+  auto db = [&](uint32_t base, int j) {
+    return desc_b128(base + wg * 64 * 128 + j * 32, 16, 1024);
+  };
+  float f[32];
+  zoo_sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_lo[j], db(t_hi, j), j > 0);
+  if (!EXACT) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_hi[j], db(t_lo, j), 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_hi[j], db(t_hi, j), 1);
+  zoo_sm90::wgmma_commit();
+  zoo_sm90::wgmma_wait<0>();
+  zoo_sm90::fence_operand(f);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) total[i] += f[i];
+}
+
+// KV = false: the dq kernel (own rows: queries; streamed: keys).
+// KV = true: the dk/dv kernel (own rows: keys; streamed: queries), which
+// also writes the bias-gradient partials.
+template <typename T, int D, bool KV>
+__global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
+  using namespace zoo_sm90;
+  constexpr bool EXACT = sizeof(T) == 2;  // bf16: the lo pieces are zero
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* own[4];  // own0 hi, own0 lo, own1 hi, own1 lo
+  uint8_t* str[4];  // str0 hi, str0 lo, str1 hi, str1 lo (or transposed)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    own[i] = base + i * own_bytes(D);
+    str[i] = base + 4 * own_bytes(D) + i * str_bytes(D);
+  }
+  float* Ms = reinterpret_cast<float*>(base + 4 * own_bytes(D) +
+                                       4 * str_bytes(D));
+  float* Ls = Ms + SR;
+  float* Dm = Ls + SR;
+  float* Bs = Dm + SR;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * OWN;  // first own row
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
+  const bool vec = a.vec != 0;
+  const T* q = static_cast<const T*>(a.q) + b * a.qs_b + h * a.qs_h;
+  const T* gp = static_cast<const T*>(a.g) + b * a.gs_b + h * a.gs_h;
+  const T* k = static_cast<const T*>(a.k) + b * a.ks_b + h * a.ks_h;
+  const T* v = static_cast<const T*>(a.v) + b * a.vs_b + h * a.vs_h;
+  const float* bias =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
+  // a bias of one row per (batch, head), BERT's padding mask, or none: the
+  // row goes through shared memory (zeros without a bias); any other bias
+  // is read element by element
+  const bool row_bias = bias == nullptr || a.bs_q == 0;
+  const int64_t rows = (static_cast<int64_t>(b) * a.H + h) * a.Lq;
+  const int64_t keys = (static_cast<int64_t>(b) * a.H + h) * a.Lk;
+
+  // own0 / own1 and str0 / str1 with their row strides and lengths
+  const T* o0 = KV ? k : q;
+  const T* o1 = KV ? v : gp;
+  const int64_t o0s = KV ? a.ks_l : a.qs_l, o1s = KV ? a.vs_l : a.gs_l;
+  const int own_len = KV ? a.Lk : a.Lq;
+  const T* s0 = KV ? q : k;
+  const T* s1 = KV ? gp : v;
+  const int64_t s0s = KV ? a.qs_l : a.ks_l, s1s = KV ? a.gs_l : a.vs_l;
+  const int str_len = KV ? a.Lq : a.Lk;
+
+  // the streamed range
+  int sbeg = 0, send = str_len;
+  if (a.causal) {
+    if (KV) sbeg = max(0, r0 - offset) / SR * SR;
+    else send = min(a.Lk, r0 + OWN + offset);
+  }
+
+  using RT = typename Raw4<T>::type;
+  RT raw0[tile_chunks<SR>()], raw1[tile_chunks<SR>()];
+  // this thread's value of the streamed m, l or D rows (dk/dv kernel) or
+  // of the streamed keys' bias row (dq kernel)
+  float mld = 0.f;
+  auto load_streamed = [&](int s) {
+    load_tile<T, D, SR>(raw0, s0, s0s, s, str_len, vec);
+    load_tile<T, D, SR>(raw1, s1, s1s, s, str_len, vec);
+    if (KV && tid < 3 * SR) {
+      const int qi = s + tid % SR;
+      const int which = tid / SR;
+      mld = which == 0 ? (qi < a.Lq ? a.m[rows + qi] : 0.f)
+          : which == 1 ? (qi < a.Lq ? 1.f / fmaxf(a.l[rows + qi], 1e-20f)
+                                    : 1.f)
+                       : (qi < a.Lq ? a.dsum[rows + qi] : 0.f);
+    }
+    if (!KV && tid < SR)
+      mld = bias != nullptr && row_bias && s + tid < a.Lk
+                ? bias[(s + tid) * a.bs_k] : 0.f;
+  };
+  if (sbeg < send) load_streamed(sbeg);
+  if (KV && tid < OWN)
+    Bs[tid] = bias != nullptr && row_bias && r0 + tid < a.Lk
+                  ? bias[(r0 + tid) * a.bs_k] : 0.f;
+  {
+    RT own_raw[tile_chunks<OWN>()];
+    load_tile<T, D, OWN>(own_raw, o0, o0s, r0, own_len, vec);
+    store_kmajor<D, OWN, EXACT>(own_raw, own[0], own[1]);
+    load_tile<T, D, OWN>(own_raw, o1, o1s, r0, own_len, vec);
+    store_kmajor<D, OWN, EXACT>(own_raw, own[2], own[3]);
+  }
+
+  // this thread's own rows: warp * 16 + g + 8 hh, hh = 0, 1, with their
+  // part of the dropout hash and, in the dq kernel, their m, 1 / l and D
+  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  int rw[2];
+  uint32_t rhash[2];
+  float mr[2] = {0.f, 0.f}, lr[2] = {1.f, 1.f}, dr[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    rw[hh] = r0 + warp * 16 + g + 8 * hh;
+    rhash[hh] = hash ^ (KV ? keep_k(rw[hh]) : keep_q(rw[hh]));
+    if (!KV && rw[hh] < a.Lq) {
+      mr[hh] = a.m[rows + rw[hh]];
+      lr[hh] = 1.f / fmaxf(a.l[rows + rw[hh]], 1e-20f);
+      dr[hh] = a.dsum[rows + rw[hh]];
+    }
+  }
+  float acc0[32], acc1[32];  // dq, or dk and dv
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  float db[2] = {0.f, 0.f};
+
+  for (int s = sbeg; s < send; s += SR) {
+    // ---- phase 1: the streamed rows, row-major; S and dP ----------------
+    __syncthreads();  // the previous tile's products are done
+    store_kmajor<D, SR, EXACT>(raw0, str[0], str[1]);
+    store_kmajor<D, SR, EXACT>(raw1, str[2], str[3]);
+    if (KV && tid < 3 * SR) Ms[tid] = mld;  // Ms, Ls, Dm are contiguous
+    if (!KV && tid < SR) Bs[tid] = mld;
+    fence_proxy_async();
+    __syncthreads();
+
+    float sc[16], dp[16];
+    wgmma_fence();
+    issue_scores<D, EXACT>(sc, smem_u32(own[0]), smem_u32(own[1]),
+                           smem_u32(str[0]), smem_u32(str[1]));
+    issue_scores<D, EXACT>(dp, smem_u32(own[2]), smem_u32(own[3]),
+                           smem_u32(str[2]), smem_u32(str[3]));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(sc);
+    fence_operand(dp);
+
+    // ---- the softmax recompute on the fragments -------------------------
+    // element i: own row rw[(i >> 1) & 1], streamed row
+    // s + 8 (i >> 2) + 2 t + (i & 1).  Tiles inside the rows, the keys and
+    // the causal triangle skip the live test.
+    const bool whole = s + SR <= str_len && r0 + OWN <= own_len &&
+                       (!a.causal || (KV ? s + offset >= r0 + OWN - 1
+                                         : r0 + offset >= s + SR - 1));
+    float pt[16], ds[16];
+    // branch-free per element: a tile takes one of two bodies, with the
+    // bias row from shared memory or each bias element from global memory
+    auto body = [&](auto row_tag) {
+      constexpr bool ROWB = decltype(row_tag)::value;
+      constexpr float LOG2E = 1.4426950408889634f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int sr = s + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int qi = KV ? sr : rw[hh];
+        const int kj = KV ? rw[hh] : sr;
+        const int c = sr - s;
+        const float m = KV ? Ms[c] : mr[hh];
+        const float inv_l = KV ? Ls[c] : lr[hh];
+        const float dd = KV ? Dm[c] : dr[hh];
+        const bool live = whole || (qi < a.Lq && kj < a.Lk &&
+                                    (!a.causal || qi + offset >= kj));
+        float bv;
+        if constexpr (ROWB)
+          bv = Bs[KV ? rw[hh] - r0 : c];
+        else
+          bv = bias[min(qi, a.Lq - 1) * a.bs_q + min(kj, a.Lk - 1) * a.bs_k];
+        // exp(x - m) as 2^((x - m) log2 e): the plain version's rounding
+        // of x - m, then one rounding of the scale
+        const float e = fast_exp2((fmaf(sc[i], a.scale, bv) - m) * LOG2E);
+        const float p = live ? e * inv_l : 0.f;
+        // without dropout drop_thr is 0 and inv_keep 1: every bit pattern
+        // keeps its element
+        const float keep =
+            mix32(rhash[hh] ^ (KV ? keep_q(sr) : keep_k(sr))) >= a.drop_thr
+                ? a.inv_keep
+                : 0.f;
+        pt[i] = p * keep;
+        ds[i] = live ? p * (keep * dp[i] - dd) : 0.f;
+      }
+    };
+    if (row_bias)
+      body(std::true_type());
+    else
+      body(std::false_type());
+    if (KV && a.dbias != nullptr && wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) db[(i >> 1) & 1] += ds[i];
+    }
+
+    // ---- phase 2: the streamed rows, transposed; the output products ----
+    __syncthreads();  // every warpgroup's S and dP products are done
+    store_transposed<D, EXACT>(raw0, str[0], str[1]);
+    if (KV) store_transposed<D, EXACT>(raw1, str[2], str[3]);
+    if (s + SR < send) load_streamed(s + SR);
+    fence_proxy_async();
+    __syncthreads();
+
+    uint32_t hi[4][4], lo[4][4];
+    if (KV) {
+      a_frags(pt, hi, lo);  // dv += (p t)^T dO
+      accumulate<EXACT>(acc1, hi, lo, smem_u32(str[2]), smem_u32(str[3]),
+                        wg);
+    }
+    a_frags(ds, hi, lo);  // dq += dS k, or dk += dS^T q
+    accumulate<EXACT>(acc0, hi, lo, smem_u32(str[0]), smem_u32(str[1]), wg);
+  }
+
+  // element i: own row rw[(i >> 1) & 1], output column
+  // 64 wg + 8 (i >> 2) + 2 t + (i & 1)
+  T* out0 = static_cast<T*>(KV ? a.dk : a.dq);
+  T* out1 = static_cast<T*>(a.dv);
+  const int64_t first = KV ? keys : rows;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = rw[(i >> 1) & 1];
+    if (r >= own_len) continue;
+    const int64_t e = (first + r) * D + 64 * wg + 8 * (i >> 2) + 2 * t;
+    zoo_flash::store_as(&out0[e], acc0[i] * a.scale);
+    zoo_flash::store_as(&out0[e + 1], acc0[i + 1] * a.scale);
+    if (KV) {
+      zoo_flash::store_as(&out1[e], acc1[i]);
+      zoo_flash::store_as(&out1[e + 1], acc1[i + 1]);
+    }
+  }
+  if (KV && a.dbias != nullptr && wg == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float x = db[hh];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (t == 0 && rw[hh] < a.Lk) a.dbias[keys + rw[hh]] = x;
+    }
+  }
 }
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int dq_smem = dq_smem_bytes(D);
-  constexpr int dkv_smem = dkv_smem_bytes(D);
-  auto dqk = dq_kernel<T, D>;
-  auto dkvk = dkv_kernel<T, D>;
+  constexpr int smem = smem_bytes(D);
+  auto dqk = bwd_kernel<T, D, false>;
+  auto dkvk = bwd_kernel<T, D, true>;
   cudaError_t err = cudaFuncSetAttribute(
-      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      dkvk, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
+      dkvk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 qgrid((a.Lq + BQ - 1) / BQ, a.H, a.B);
-  dqk<<<qgrid, NT, dq_smem, stream>>>(a);
+  const dim3 qgrid((a.Lq + OWN - 1) / OWN, a.H, a.B);
+  dqk<<<qgrid, 2 * D, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 kgrid((a.Lk + BK - 1) / BK, a.H, a.B);
-  dkvk<<<kgrid, NT, dkv_smem, stream>>>(a);
+  const dim3 kgrid((a.Lk + OWN - 1) / OWN, a.H, a.B);
+  dkvk<<<kgrid, 2 * D, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -442,6 +585,14 @@ int dispatch(int head_dim, const Args& a, cudaStream_t stream) {
     case 128: return launch<T, 128>(a, stream);
     default: return -1;
   }
+}
+
+// Vector loads need every row start aligned to 4 elements: the base pointer
+// and all three strides.
+bool rows_aligned(const void* p, int bytes, int64_t s_b, int64_t s_h,
+                  int64_t s_l) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0 && s_b % 4 == 0 &&
+         s_h % 4 == 0 && s_l % 4 == 0;
 }
 
 }  // namespace zoo_flash_bwd
@@ -463,12 +614,22 @@ extern "C" int zoo_flash_attention_bwd(
     long long bs_b, long long bs_h, long long bs_q, long long bs_k,
     float scale, int causal, int dropout, unsigned seed0, unsigned seed1,
     unsigned drop_thr, float inv_keep, void* stream) {
+  using zoo_flash_bwd::rows_aligned;
+  const int bytes = dtype == 0 ? 16 : 8;
+  const int vec = rows_aligned(q, bytes, qs_b, qs_h, qs_l) &&
+                  rows_aligned(k, bytes, ks_b, ks_h, ks_l) &&
+                  rows_aligned(v, bytes, vs_b, vs_h, vs_l) &&
+                  rows_aligned(g, bytes, gs_b, gs_h, gs_l);
+  if (!dropout) {  // every element kept, unscaled
+    drop_thr = 0;
+    inv_keep = 1.f;
+  }
   zoo_flash_bwd::Args a{q, k, v, g, m, l, dsum, bias, dq, dk, dv, dbias,
                         B, H, Lq, Lk,
                         qs_b, qs_h, qs_l, ks_b, ks_h, ks_l, vs_b, vs_h, vs_l,
                         gs_b, gs_h, gs_l, bs_b, bs_h, bs_q, bs_k,
                         scale, causal, dropout, seed0, seed1, drop_thr,
-                        inv_keep};
+                        inv_keep, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return zoo_flash_bwd::dispatch<float>(head_dim, a, s);
   if (dtype == 1)

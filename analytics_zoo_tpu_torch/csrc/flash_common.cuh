@@ -52,13 +52,27 @@ __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
+// The hash's input is an XOR of a part fixed by (seed, b, h) and one part
+// each of the query and the key position, so a kernel can form the fixed
+// and per-row parts once and each element with one XOR.
+__host__ __device__ __forceinline__ uint32_t keep_base(uint32_t seed0,
+                                                       uint32_t seed1,
+                                                       uint32_t b,
+                                                       uint32_t h) {
+  return (b * 0xC2B2AE35u) ^ (h * 0x27D4EB2Fu) ^ seed0 ^
+         (seed1 * 0x85EBCA6Bu);
+}
+__host__ __device__ __forceinline__ uint32_t keep_q(uint32_t q) {
+  return q * 0x9E3779B9u;
+}
+__host__ __device__ __forceinline__ uint32_t keep_k(uint32_t k) {
+  return k * 0x85EBCA6Bu;
+}
+
 __host__ __device__ __forceinline__ uint32_t keep_bits(
     uint32_t seed0, uint32_t seed1, uint32_t b, uint32_t h, uint32_t q,
     uint32_t k) {
-  uint32_t x = (q * 0x9E3779B9u) ^ (k * 0x85EBCA6Bu);
-  x = x ^ (b * 0xC2B2AE35u) ^ (h * 0x27D4EB2Fu);
-  x = x ^ seed0 ^ (seed1 * 0x85EBCA6Bu);
-  return mix32(x);
+  return mix32(keep_base(seed0, seed1, b, h) ^ keep_q(q) ^ keep_k(k));
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (int8_matmul.cu, flash_attention_fwd.cuh): 16-byte cp.async copies with
-// zero fill, the async-proxy fence, the 128-byte-swizzled shared-memory
-// layout that wgmma reads, its matrix descriptors, and `wgmma.mma_async`
-// on bf16 operands with f32 accumulators, as inline PTX.
+// (int8_matmul.cu, flash_attention_fwd.cuh, flash_attention_bwd.cu):
+// 16-byte cp.async copies with zero fill, the async-proxy fence, the
+// 128-byte-swizzled shared-memory layout that wgmma reads, its matrix
+// descriptors, and `wgmma.mma_async` on bf16 and tf32 operands with f32
+// accumulators, as inline PTX.  For tf32 (4-byte values) the same layout
+// holds 32 values a 128-byte row and the K step of 8 values is again 32
+// bytes; tf32 operands must be K-major.
 //
 // The layout.  An operand tile is stored as "atoms" of 8 rows x 128 bytes
 // (8 rows x 64 bf16).  Row r of an atom sits at r * 128 bytes; its 16-byte
@@ -212,6 +215,62 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// d (64 x 32, f32) += A (64 x 8) * B (8 x 32), tf32 operands read from
+// shared memory by descriptor, both K-major (tf32 has no transpose).  An
+// f32 value read as tf32 keeps its top 19 bits.
+__device__ __forceinline__ void wgmma_tf32_m64n32k8_ss(float (&d)[16],
+                                                      uint64_t da,
+                                                      uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 8) * B (8 x 64), tf32; A from registers:
+// a[0] = (row g, k t), a[1] = (g + 8, t), a[2] = (g, t + 4),
+// a[3] = (g + 8, t + 4) of the warp's 16 rows, g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void wgmma_tf32_m64n64k8_rs(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// x = hi + lo exactly: hi is x rounded to tf32 (10 mantissa bits, to
+// nearest, ties away from zero), lo = x - hi, which needs at most 13
+// significant bits and is read by wgmma as its top 11.  hi * hi + hi * lo
+// + lo * hi is then the f32 product to ~2^-21 relative (3xTF32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 }  // namespace zoo_sm90

@@ -13,7 +13,10 @@ kernels replace the TPU's:
   backward reads;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_pallas``: dq, dk,
   dv and the bias-gradient partials of a (B|1, H|1, 1, Lk) bias, from the
-  saved statistics and the dropout mask re-derived from the same hash.
+  saved statistics and the dropout mask re-derived from the same hash, on
+  the tensor cores: f32 as three tf32 products a value (3xTF32,
+  :func:`split_tf32` and :func:`matmul_3xtf32` are its arithmetic in plain
+  PyTorch), bf16 exactly in tf32.
 
 :func:`flash_attention` is a ``torch.autograd.Function`` around the two.
 Dispatch: a CUDA tensor launches the kernels, and anything they do not
@@ -121,6 +124,37 @@ def _keep_mask(seed, dropout_p, b, h, lq, lk, device):
     bits = keep_bits(seed[0], seed[1], ar(b, 0), ar(h, 1), ar(lq, 2),
                      ar(lk, 3))
     return bits >= drop_threshold(dropout_p)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's f32 arithmetic on tf32 tensor cores (3xTF32)
+# ---------------------------------------------------------------------------
+_TF32_LOW = 0x1FFF  # the 13 mantissa bits an f32 has beyond tf32's 10
+
+
+def split_tf32(x):
+    """(hi, lo), f32 tensors with hi + lo == x exactly: hi is x rounded to
+    tf32 (10 mantissa bits, to nearest, ties away from zero), lo = x - hi.
+    The split the backward kernel makes in registers (``split_tf32``,
+    ``csrc/sm90.cuh``) before its tensor-core products."""
+    x = x.float().contiguous()
+    hi = ((x.view(torch.int32) + 0x1000) & ~_TF32_LOW).view(torch.float32)
+    return hi, x - hi
+
+
+def tf32_read(x):
+    """``x`` as a tf32 ``wgmma`` operand reads an f32: its top 19 bits."""
+    return (x.float().contiguous().view(torch.int32)
+            & ~_TF32_LOW).view(torch.float32)
+
+
+def matmul_3xtf32(a, b):
+    """``a @ b`` as the backward kernel forms it, lo * hi + hi * lo +
+    hi * hi of the tf32 pieces, each piece read as ``wgmma`` reads it; the
+    products are exact in f64, where they are summed here."""
+    a_hi, a_lo = (tf32_read(t).double() for t in split_tf32(a))
+    b_hi, b_lo = (tf32_read(t).double() for t in split_tf32(b))
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
 # ---------------------------------------------------------------------------

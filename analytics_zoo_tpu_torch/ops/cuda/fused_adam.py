@@ -5,27 +5,35 @@ Counterpart of ``analytics_zoo_tpu/ops/pallas/fused_adam.py``.
 ``csrc/fused_adam.cu`` replaces the TPU kernel ``_adam_kernel`` (launched
 per leaf by ``_adam_leaf_pallas``): one read of (g, mu, nu) and one write
 of (upd, mu', nu') per parameter, with the scalars (lr, b1, b2, eps, bc1,
-bc2) in a device array.
+bc2) in a device array.  Where the TPU launches it once per leaf, the port
+launches it once per tree: a table of every kernel leaf goes with one
+launch (one per ``TABLE_LEAVES`` leaves of a larger tree).
 
 :func:`fused_update` is the reference's ``_fused_update``: the scalars are
 computed once per step on the device (lr at the pre-increment count,
 bc = 1 - beta^t at the incremented one), f32 leaves of at least 128
-elements go through :func:`adam_leaf` and every other leaf takes the same
-formula in plain PyTorch (the reference's shape gate, not a fallback).
-:func:`adam_leaf` launches the kernel for a CUDA tensor and takes
-:func:`adam_leaf_reference` for a CPU tensor.  ``launch_count`` counts the
-kernel launches (one per leaf, as on the TPU), ``plain_count`` the leaves
-that took the plain version.
+elements go through the kernel and every other leaf takes the same formula
+in plain PyTorch (the reference's shape gate, not a fallback).  On the
+card the kernel leaves' outputs are views into three flat buffers, one
+each for the updates, mu' and nu', at 16-byte aligned offsets that never
+overlap, so every leaf stays a tensor of its own.  On the CPU each kernel
+leaf goes through :func:`adam_leaf`, which takes :func:`adam_leaf_reference`
+for a CPU tensor; :func:`adam_leaf` on a CUDA tensor is a table of one.
+``launch_count`` counts the kernel launches, ``leaf_count`` the leaves
+they updated, ``plain_count`` the leaves that took the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from operator import attrgetter
 
 import numpy as np
 import torch
 
 launch_count = 0
+leaf_count = 0          # leaves updated by the kernel launches
 plain_count = 0         # leaves that took the plain version (CPU)
 
 _KERNEL = "fused_adam"
@@ -33,6 +41,8 @@ _KERNEL = "fused_adam"
 # (``g.size >= _LANES``) take the plain formula
 MIN_KERNEL_LEAF = 128
 _INT32_MAX = 2 ** 31 - 1
+# leaves one launch takes (csrc/fused_adam.cu); a larger tree takes more
+TABLE_LEAVES = 256
 
 
 def adam_leaf_reference(g, mu, nu, scalars):
@@ -53,7 +63,8 @@ def adam_leaf(g, mu, nu, scalars):
     if g.device.type == "cpu":
         plain_count += 1
         return adam_leaf_reference(g, mu, nu, scalars)
-    return _adam_cuda(g, mu, nu, scalars)
+    upd, mu2, nu2 = _adam_cuda([g], [mu], [nu], scalars)
+    return upd[0], mu2[0], nu2[0]
 
 
 _POWERS: dict = {}
@@ -117,41 +128,117 @@ def _const(values, device):
 
 def fused_update(grads, mu, nu, scalars, kernel=True):
     """Lists of leaves in, lists of (updates, mu', nu') out; ``kernel=False``
-    (the plan's ``"xla"`` pick) gives every leaf the plain formula."""
-    out = []
-    for g, m, n in zip(grads, mu, nu):
+    (the plan's ``"xla"`` pick) gives every leaf the plain formula.  The
+    kernel leaves on the card go through one launch."""
+    n = len(grads)
+    out = [None] * n
+    table = []  # indices of the kernel leaves on the card
+    for i, g in enumerate(grads):
         if kernel and g.dtype == torch.float32 \
                 and g.numel() >= MIN_KERNEL_LEAF:
-            out.append(adam_leaf(g, m, n, scalars))
+            if g.device.type == "cpu":
+                out[i] = adam_leaf(g, mu[i], nu[i], scalars)
+            else:
+                table.append(i)
         else:
-            out.append(adam_leaf_reference(g, m, n, scalars))
+            out[i] = adam_leaf_reference(g, mu[i], nu[i], scalars)
+    if table:
+        got = _adam_cuda([grads[i] for i in table], [mu[i] for i in table],
+                         [nu[i] for i in table], scalars)
+        for j, i in enumerate(table):
+            out[i] = (got[0][j], got[1][j], got[2][j])
     return ([t[0] for t in out], [t[1] for t in out], [t[2] for t in out])
 
 
-def _adam_cuda(g, mu, nu, scalars):
-    global launch_count
-    if g.device.type != "cuda":
-        raise ValueError(f"fused_adam: no kernel for device {g.device}")
-    for name, t in (("g", g), ("mu", mu), ("nu", nu)):
-        if t.dtype != torch.float32 or t.device != g.device \
-                or t.shape != g.shape:
-            raise TypeError(f"fused_adam kernel takes f32 g/mu/nu of one "
-                            f"shape on one device; {name} is {t.dtype} "
-                            f"{tuple(t.shape)} on {t.device}")
+class _Layout:
+    """What one tree structure needs, worked out once: the leaves' shapes,
+    their output offsets in the flat buffers (rounded up to 4 elements, 16
+    bytes) and the host table the kernel reads, whose pointer columns are
+    refilled each step."""
+
+    def __init__(self, shapes):
+        self.shapes = shapes
+        self.sizes = [math.prod(s) for s in shapes]
+        self.strides = [_contiguous_strides(s) for s in shapes]
+        self.offsets, total = [], 0
+        for size in self.sizes:
+            self.offsets.append(total)
+            total += -(-size // 4) * 4
+        self.total = total
+        self.table = np.zeros((len(shapes), 5), np.int64)
+        self.table[:, 3] = self.offsets
+        self.table[:, 4] = self.sizes
+        self.launches = -(-len(shapes) // TABLE_LEAVES)
+
+    def views(self, flat):
+        """The leaves of one flat buffer, in order, each shaped and
+        contiguous, none overlapping another."""
+        return [flat.as_strided(shape, stride, off) for shape, stride, off
+                in zip(self.shapes, self.strides, self.offsets)]
+
+
+def _contiguous_strides(shape):
+    strides, step = [], 1
+    for d in reversed(shape):
+        strides.append(step)
+        step *= d
+    return tuple(reversed(strides))
+
+
+_LAYOUTS: dict = {}
+_KEY_ATTRS = (attrgetter("shape"), attrgetter("dtype"), attrgetter("device"))
+
+
+def _layout(grads, mu, nu):
+    """The cached layout of this tree structure; checks dtype, device and
+    shape of every leaf the first time the structure is seen."""
+    key = tuple(tuple(map(attr, ts)) for attr in _KEY_ATTRS
+                for ts in (grads, mu, nu))
+    layout = _LAYOUTS.get(key)
+    if layout is not None:
+        return layout
+    dev = grads[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_adam: no kernel for device {dev}")
+    for leaf, (g, m, v) in enumerate(zip(grads, mu, nu)):
+        for name, t in (("g", g), ("mu", m), ("nu", v)):
+            if t.dtype != torch.float32 or t.device != dev \
+                    or t.shape != g.shape:
+                raise TypeError(
+                    f"fused_adam kernel takes f32 g/mu/nu of one shape on "
+                    f"one device; leaf {leaf}: {name} is {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
+    layout = _LAYOUTS[key] = _Layout([tuple(g.shape) for g in grads])
+    return layout
+
+
+def _adam_cuda(grads, mu, nu, scalars):
+    """One launch (per ``TABLE_LEAVES`` leaves) over the given f32 leaves:
+    lists of (updates, mu', nu'), each leaf a view into a flat buffer."""
+    global launch_count, leaf_count
+    layout = _layout(grads, mu, nu)
     if scalars.dtype != torch.float32 or scalars.shape != (6,) \
-            or scalars.device != g.device:
+            or scalars.device != grads[0].device:
         raise TypeError("fused_adam kernel takes a (6,) f32 scalar array on "
-                        "the leaf's device")
-    g, mu, nu, scalars = (t.contiguous() for t in (g, mu, nu, scalars))
-    upd, mu2, nu2 = (torch.empty_like(g) for _ in range(3))
-    rc = _library().zoo_fused_adam(
-        g.data_ptr(), mu.data_ptr(), nu.data_ptr(), scalars.data_ptr(),
-        upd.data_ptr(), mu2.data_ptr(), nu2.data_ptr(), g.numel(),
-        torch.cuda.current_stream(g.device).cuda_stream)
+                        "the leaves' device")
+    grads, mu, nu = ([t if t.is_contiguous() else t.contiguous() for t in ts]
+                     for ts in (grads, mu, nu))
+    table = layout.table.copy()  # the offset and size columns are set
+    table[:, 0] = [t.data_ptr() for t in grads]
+    table[:, 1] = [t.data_ptr() for t in mu]
+    table[:, 2] = [t.data_ptr() for t in nu]
+    dev = grads[0].device
+    flats = [torch.empty(layout.total, dtype=torch.float32, device=dev)
+             for _ in range(3)]
+    rc = _library().zoo_fused_adam_multi(
+        table.ctypes.data, len(grads), scalars.contiguous().data_ptr(),
+        *(f.data_ptr() for f in flats),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_adam kernel launch failed: cudaError {rc}")
-    launch_count += 1
-    return upd, mu2, nu2
+    launch_count += layout.launches
+    leaf_count += len(grads)
+    return tuple(layout.views(f) for f in flats)  # while the kernel runs
 
 
 _LIB = None
@@ -164,8 +251,8 @@ def _library():
         from analytics_zoo_tpu_torch.ops.cuda.build import load
 
         lib = load(_KERNEL)
-        lib.zoo_fused_adam.argtypes = ([ctypes.c_void_p] * 7
-                                       + [ctypes.c_longlong, ctypes.c_void_p])
-        lib.zoo_fused_adam.restype = ctypes.c_int
+        lib.zoo_fused_adam_multi.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5)
+        lib.zoo_fused_adam_multi.restype = ctypes.c_int
         _LIB = lib
     return _LIB

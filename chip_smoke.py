@@ -11,14 +11,18 @@ and prints no result):
 2. build: compiles every CUDA kernel of the three slices from ``csrc/``
    (one nvcc per source, all started together), prints ptxas's register
    report, and checks with ``cuobjdump -sass`` that the tensor-core
-   kernels (int8 matmul, flash forward) issue ``wgmma`` (HGMMA);
+   kernels (int8 matmul, flash forward, flash backward) issue ``wgmma``
+   (HGMMA);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the tolerance stated: the
    flash-attention forward (serving in f32 and bf16 with the padding bias,
    bf16 at head dim 128 and with dropout 0.1 and the (m, l) statistics,
    causal with ragged lengths in both types, and training with dropout
-   0.1 and the statistics), the flash-attention backward, fused Adam over
-   the BERT-base parameter tree, and the softmax cross-entropy forward and
+   0.1 and the statistics), the flash-attention backward (f32 on the tf32
+   tensor cores; its error also relative to the largest gradient), fused
+   Adam's ``fused_update`` over the BERT-base parameter tree (one launch,
+   every output bit for bit the plain version's), and the softmax
+   cross-entropy forward and
    backward at the classifier head (8, 2) and an LM head (4096, 30522), and
    the weight-only int8 matmul at BERT-base's six Dense shapes for one
    8 x 512 micro-batch, f32 and bf16 x at all six, its weights from
@@ -27,10 +31,11 @@ and prints no result):
    and one PyTorch library call computing the same function (the
    yardstick only; the port never calls it) with CUDA events over calls
    issued one by one, and for the tensor-core kernels also the same calls
-   replayed from one CUDA graph; computes each kernel's bound from this
-   run's inputs (for f32 x in the int8 matmul, that of its route: three
-   bf16 products on the tensor cores, with the f32 CUDA-core figure
-   beside it);
+   replayed from one CUDA graph (and so are the backward and Adam);
+   computes each kernel's bound from this run's inputs (for f32 x in the
+   int8 matmul and for the f32 backward, that of its route: three bf16 or
+   tf32 products a value on the tensor cores, with the f32 CUDA-core
+   figure beside it);
 4. serving slice: BERT-base at full width (vocab 30522, 12 blocks of
    hidden 768, 12 heads, intermediate 3072, sequence 512) with a
    Dense(2, softmax) head, as a 4-input Model served by
@@ -43,7 +48,8 @@ and prints no result):
    attention dropout 0.1) through ``compile(Adam(2e-5),
    "sparse_categorical_crossentropy_from_logits", ["accuracy"])``, ``fit``
    for 5 steps at batch 8 x 512 and ``evaluate``; checks finite losses,
-   that every attention, Adam leaf and loss call went through its kernel,
+   that every attention and loss call went through its kernel and Adam
+   through one launch a step covering every f32 leaf of >= 128 elements,
    that the loss falls when one batch is repeated at a higher learning
    rate, and holds the step-1 loss and gradients against the same model
    run on the CPU (2 blocks at full width, batch 2, hidden dropout 0,
@@ -62,7 +68,9 @@ and prints no result):
    version, and under a plan that picks ``"xla"`` for
    ``serving.int8_matmul``, which must launch it no time; then times the
    kernel route on the device and splits it by shape;
-7. summary: a ``kernels`` JSON line, then the result line
+7. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
+   forward with its statistics, the TPU's ``attention_stats``, has a row
+   of its own), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
@@ -118,10 +126,13 @@ N_CALIB = 16
 DENSE_KERNELS = r"(qkv|proj|fc|out|pooler)_kernel$|^dense_0/kernel$"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
            "fused_softmax_xent", "int8_matmul")
-TENSOR_CORE_KERNELS = ("int8_matmul", "flash_attention_fwd")
+TENSOR_CORE_KERNELS = ("int8_matmul", "flash_attention_fwd",
+                       "flash_attention_bwd")
 REPLACES = {
     "flash_attention_fwd":
         "analytics_zoo_tpu/ops/pallas/flash_attention.py:216",
+    "attention_stats":
+        "analytics_zoo_tpu/ops/pallas/flash_attention.py:182",
     "flash_attention_bwd":
         "analytics_zoo_tpu/ops/pallas/flash_attention.py:458",
     "fused_adam": "analytics_zoo_tpu/ops/pallas/fused_adam.py:109",
@@ -132,9 +143,9 @@ REPLACES = {
     "int8_matmul": "analytics_zoo_tpu/ops/pallas/int8_matmul.py:92",
 }
 # Published H100 SXM peaks (dense): HBM bytes/s and FLOP/s per input type
-# (f32 outside the tensor cores; bf16 on them).
+# (f32 outside the tensor cores; tf32 and bf16 on them).
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tfloat32": 494.7e12, "bfloat16": 989e12}
 
 
 def log(msg: str) -> None:
@@ -429,6 +440,29 @@ def rel_err(got, want) -> float:
             / max(1.0, want.float().abs().max().item())).item()
 
 
+def sdpa_backward(q, k, v, g, bias, scale):
+    """One PyTorch call for SDPA's backward on these inputs: the backward op
+    of the memory-efficient attention kernel (SDPA's choice for f32 with a
+    float mask), fed its own forward's outputs; no dropout.  Unlike
+    ``torch.autograd.grad``, a CUDA graph can capture it."""
+    import torch
+
+    q, k, v = (t.detach().contiguous() for t in (q, k, v))
+    mask = bias.to(q.dtype).expand(q.shape[0], q.shape[1], q.shape[2],
+                                   k.shape[2])
+    out, lse, seed, offset = \
+        torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, mask, True, 0.0, False, scale=scale)
+    g = g.to(q.dtype).contiguous()
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            g, q, k, v, mask, out, lse, seed, offset, 0.0,
+            [True, True, True, False], False, scale=scale)
+
+    return call
+
+
 def flash_train_phase(dev, fwd_entry) -> dict:
     """The flash forward with dropout and statistics, and the backward,
     at the BERT-base training shape with the padding bias."""
@@ -487,38 +521,45 @@ def flash_train_phase(dev, fwd_entry) -> dict:
     err = max(rel_err(x, y) for x, y in zip(got[:3], want[:3]))
     abs_err = max((x - y).abs().max().item()
                   for x, y in zip(got[:3], want[:3]))
+    # the f32 error relative to the largest gradient of each output
+    top_err = max(((x - y).abs().max() / y.abs().max()).item()
+                  for x, y in zip(got[:3], want[:3]))
     masked = max(x[-1].abs().max().item() for x in got[:3])
     log(f"kernel bwd B={b} H={h} L={l} D={d} padded bias, dropout "
         f"{DROPOUT}: max|d| {abs_err:.3e}, relative {err:.3e} "
-        f"(tol {BWD_TOL:g}); fully masked row grads max {masked:.1e}")
-    if not err <= BWD_TOL or masked != 0.0:
+        f"(tol {BWD_TOL:g}), relative to the largest gradient "
+        f"{top_err:.3e}; fully masked row grads max {masked:.1e}")
+    if not err <= BWD_TOL or masked != 0.0 \
+            or not all(torch.isfinite(x).all() for x in got[:3]):
         raise AssertionError(f"flash backward disagrees: {err}")
-    lq_, lk_, lv_ = (t.detach().contiguous().requires_grad_()
-                     for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(lq_, lk_, lv_, attn_mask=bias,
-                                             scale=scale)
     entry = {"name": "flash_attention_bwd", "route": "cuda",
              "source": "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu",
              "replaces": REPLACES["flash_attention_bwd"],
-             "max_abs_err": abs_err}
-    entry.update(timed(
+             "max_abs_err": abs_err, "rel_to_largest_grad": top_err}
+    entry.update(graph_timed(
         lambda: fa._flash_bwd_cuda(*args),
         lambda: fa.attention_bwd_reference(*args),
-        lambda: torch.autograd.grad(lib_out, (lq_, lk_, lv_), g,
-                                    retain_graph=True)))
+        sdpa_backward(q, k, v, g, bias, scale)))
     # q, k, v, dO, O, m, l and the bias read once; dq, dk, dv written once;
-    # five (query, live key, D) products
-    entry.update(bound(5 * b * h * l * d * 4 + 2 * b * h * l * 4
-                       + bias.numel() * 4 + 3 * b * h * l * d * 4,
-                       10.0 * h * l * live_keys * d))
-    log(f"kernel bwd: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
-        f"ms, sdpa backward {entry['library_ms']:.4f} ms, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    # five (query, live key, D) products, three tf32 products a value on
+    # the kernel's route, with the f32 CUDA-core figure beside it
+    nbytes = (5 * b * h * l * d * 4 + 2 * b * h * l * 4 + bias.numel() * 4
+              + 3 * b * h * l * d * 4)
+    flops = 10.0 * h * l * live_keys * d
+    entry.update(bound(nbytes, 3 * flops, "tfloat32"))
+    entry["bound_cuda_core_ms"] = bound(nbytes, flops)["bound_ms"]
+    log(f"kernel bwd: {entry['ms']:.4f} ms (graph {entry['graph_ms']:.4f}),"
+        f" plain {entry['plain_ms']:.4f} ms, sdpa backward "
+        f"{entry['library_ms']:.4f} ms (graph "
+        f"{entry['library_graph_ms']:.4f}), bound {entry['bound_ms']:.4f} ms"
+        f" ({entry['bound_by']}; f32 on CUDA cores "
+        f"{entry['bound_cuda_core_ms']:.4f} ms)")
     return entry
 
 
 def adam_phase(dev, leaf_shapes) -> dict:
-    """Fused Adam over the BERT-base parameter tree."""
+    """Fused Adam over the BERT-base parameter tree: ``fused_update``, the
+    call the training step makes, one launch for every kernel leaf."""
     import torch
 
     from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
@@ -530,40 +571,60 @@ def adam_phase(dev, leaf_shapes) -> dict:
 
     leaves = [(rand(s, 1e-3), rand(s, 1e-4), rand(s, 1e-8).abs())
               for s in leaf_shapes]
-    kernel_leaves = [t for t in leaves
-                     if t[0].numel() >= fad.MIN_KERNEL_LEAF]
+    kernel = [t[0].numel() >= fad.MIN_KERNEL_LEAF for t in leaves]
+    kernel_leaves = [t for t, k in zip(leaves, kernel) if k]
+    gs, mus, nus = (list(x) for x in zip(*leaves))
     scalars = torch.tensor([2e-5, 0.9, 0.999, 1e-8, 1 - 0.9 ** 3,
                             1 - 0.999 ** 3], dtype=torch.float32, device=dev)
-    err = 0.0
-    for g, mu, nu in kernel_leaves:
-        got = fad.adam_leaf(g, mu, nu, scalars)
+    before = fad.launch_count, fad.leaf_count
+    got = fad.fused_update(gs, mus, nus, scalars)
+    launches = fad.launch_count - before[0]
+    leaf_launched = fad.leaf_count - before[1]
+    err, same = 0.0, True
+    for i, (g, mu, nu) in enumerate(leaves):
+        if not kernel[i]:
+            continue
         want = fad.adam_leaf_reference(g, mu, nu, scalars)
-        for x, y in zip(got, want):
+        for x, y in zip((got[0][i], got[1][i], got[2][i]), want):
+            same = same and torch.equal(x, y)
             err = max(err, ((x - y).abs().max()
                             / y.abs().max().clamp_min(1e-30)).item())
     n = sum(t[0].numel() for t in kernel_leaves)
     log(f"kernel adam: {len(kernel_leaves)} leaves of {len(leaves)}, "
-        f"{n / 1e6:.1f} M parameters: max relative |d| {err:.3e} "
-        f"(tol {ADAM_TOL:g})")
-    if not err <= ADAM_TOL:
-        raise AssertionError(f"fused adam disagrees: {err}")
+        f"{n / 1e6:.1f} M parameters, {launches} launch(es) for "
+        f"{leaf_launched} leaves per step: bit for bit the plain version's "
+        f"outputs: {same}; max relative |d| {err:.3e} (tol {ADAM_TOL:g})")
+    if not (same and err <= ADAM_TOL) or launches != 1 \
+            or leaf_launched != len(kernel_leaves):
+        raise AssertionError(f"fused adam disagrees: {err}, {launches} "
+                             f"launches, {leaf_launched} leaves")
     params = [torch.zeros(s, device=dev, requires_grad=True)
               for s in leaf_shapes]
     for p, (g, _, _) in zip(params, leaves):
         p.grad = g
     lib = torch.optim.Adam(params, lr=2e-5, fused=True)
+    lib_graph = torch.optim.Adam(params, lr=2e-5, fused=True,
+                                 capturable=True)
     entry = {"name": "fused_adam", "route": "cuda",
              "source": "analytics_zoo_tpu_torch/csrc/fused_adam.cu",
-             "replaces": REPLACES["fused_adam"], "max_abs_err": err}
-    entry.update(timed(
-        lambda: [fad.adam_leaf(*t, scalars) for t in kernel_leaves],
-        lambda: [fad.adam_leaf_reference(*t, scalars)
-                 for t in kernel_leaves],
-        lib.step))
+             "replaces": REPLACES["fused_adam"], "max_abs_err": err,
+             "bit_identical": same, "launches_per_step": launches,
+             "leaves_per_step": leaf_launched}
+
+    def step():
+        return fad.fused_update(gs, mus, nus, scalars)
+
+    def plain():
+        return [fad.adam_leaf_reference(*t, scalars) for t in kernel_leaves]
+
+    entry.update(timed(step, plain, lib.step))
+    entry.update(graph_ms=graph_ms(step), plain_graph_ms=graph_ms(plain),
+                 library_graph_ms=graph_ms(lib_graph.step))
     entry.update(bound(24.0 * n, 12.0 * n))
-    log(f"kernel adam: {entry['ms']:.4f} ms per step, plain "
-        f"{entry['plain_ms']:.4f} ms, torch fused Adam "
-        f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms")
+    log(f"kernel adam: {entry['ms']:.4f} ms per step (graph "
+        f"{entry['graph_ms']:.4f}), plain {entry['plain_ms']:.4f} ms, torch "
+        f"fused Adam {entry['library_ms']:.4f} ms (graph, capturable "
+        f"{entry['library_graph_ms']:.4f}), bound {entry['bound_ms']:.4f} ms")
     return entry
 
 
@@ -768,7 +829,7 @@ def reset_counters() -> None:
     from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as im8
 
     fa.launch_count = fa.bwd_launch_count = 0
-    fad.launch_count = 0
+    fad.launch_count = fad.leaf_count = 0
     fx.fwd_launch_count = fx.bwd_launch_count = 0
     im8.launch_count = 0
 
@@ -819,6 +880,7 @@ def training_phase(card_line: str) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     launches = counters()  # end of the main path
+    adam_leaves = fad.leaf_count
     est = net._estimator
     losses = [v for _, v in est.loss_log[-TRAIN_STEPS:]]
     log(f"training: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x {SEQ}: "
@@ -827,13 +889,14 @@ def training_phase(card_line: str) -> dict:
     blocks = BERT_BASE["n_block"]
     expected = {"flash_attention_fwd": blocks * TRAIN_STEPS,
                 "flash_attention_bwd": blocks * TRAIN_STEPS,
-                "fused_adam": kernel_leaves * TRAIN_STEPS,
+                "fused_adam": TRAIN_STEPS,  # one launch a step
                 "softmax_xent_fwd": TRAIN_STEPS,
                 "softmax_xent_bwd": TRAIN_STEPS,
                 "int8_matmul": 0}
-    log(f"training launches: {launches} (expected {expected}; "
-        f"{kernel_leaves} f32 leaves of >= {fad.MIN_KERNEL_LEAF})")
-    if launches != expected:
+    log(f"training launches: {launches} (expected {expected}); Adam leaves "
+        f"through the kernel: {adam_leaves} (expected {kernel_leaves} f32 "
+        f"leaves of >= {fad.MIN_KERNEL_LEAF} x {TRAIN_STEPS} steps)")
+    if launches != expected or adam_leaves != kernel_leaves * TRAIN_STEPS:
         raise AssertionError("a training call did not run through its "
                              "kernel")
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
@@ -1208,7 +1271,13 @@ def main() -> int:
     xent = xent_phase(dev)
     weights = int8_weights(dev)
     int8 = int8_kernel_phase(dev, weights)
-    entries = [fwd, bwd, adam] + xent + [int8]
+    # the forward with its (m, l) statistics: the TPU's attention_stats,
+    # one kernel with row 1, launched with statistics wherever a gradient
+    # is needed (the training path)
+    stats = {"name": "attention_stats", "route": "cuda",
+             "source": fwd["source"], "replaces": REPLACES["attention_stats"],
+             **fwd["train"]}
+    entries = [fwd, stats, bwd, adam] + xent + [int8]
     reset_counters()  # serving main path: counted inside slice_phase
     serving = {"flash_attention_fwd": slice_phase(card_line)}
     training = training_phase(card_line)
@@ -1218,6 +1287,9 @@ def main() -> int:
         paths = {"serving": serving.get(name, 0),
                  "training": training.get(name, 0),
                  "int8_serving": int8_serving.get(name, 0)}
+        if name == "attention_stats":
+            paths = {"serving": 0, "int8_serving": 0,
+                     "training": training["flash_attention_fwd"]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",

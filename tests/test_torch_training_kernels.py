@@ -10,8 +10,12 @@ against its plain version on a GPU and skip where none is visible:
   version (relative to the largest value when it exceeds 1: both sum
   512-long products in f32, in different orders), bf16 inputs within
   2e-2 of the plain version run in f32;
+- the f32 backward within 1e-5 of the largest gradient on every case,
+  fed the same forward outputs as its plain version;
 - the fused Adam update over leaves of odd sizes, within 1e-6 relative
-  (the kernel rounds each operation as the plain formula does);
+  (the kernel rounds each operation as the plain formula does), and over
+  whole trees (BERT-base's leaf shapes; odd sizes and unaligned views):
+  one launch, bit for bit the plain version's outputs;
 - the fused softmax cross-entropy forward and backward at the classifier
   head (8, 2) and an LM head (4096, 30522), within 1e-5 (f32 sums over the
   vocab in different orders).
@@ -173,6 +177,94 @@ def test_adam_kernel_matches_plain(n, cuda_device):
     assert tadam.launch_count == before + 1
     for a, w in zip(got, tadam.adam_leaf_reference(g, mu, nu, scalars)):
         assert ((a - w).abs().max() <= 1e-6 * w.abs().max()).item()
+
+
+# f32 backward against the plain version fed the same forward outputs,
+# relative to the largest gradient: 3xTF32 products are f32 math to
+# ~2^-21 relative each, summed in fresh accumulators per 32-row tile
+F32_BWD_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_flash_bwd_f32_within_1e5_of_largest_gradient(case, cuda_device):
+    b, h, lq, lk, d, causal, bias_kind, bias_grad, p = case
+    q, k, v, g, bias = _attn_inputs(b, h, lq, lk, d, bias_kind, cuda_device,
+                                    seed=7)
+    seed = (0x1234ABCD, 0x9E3779B9) if p > 0 else None
+    scale = 1.0 / np.sqrt(d)
+    out, m, l = tfa._flash_cuda(q, k, v, causal, scale, bias, p, seed,
+                                stats=True)
+    args = (q, k, v, g, out, m, l, causal, scale, bias, p, seed, bias_grad)
+    got = tfa._flash_bwd_cuda(*args)
+    want = tfa.attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for name, x, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            continue
+        err = (x - w).abs().max().item()
+        top = w.abs().max().item()
+        assert torch.isfinite(x).all() and err <= F32_BWD_TOL * top, \
+            (name, err, top)
+
+
+def _bert_base_leaf_shapes():
+    """The BERT-base classifier's parameter shapes: 12 blocks of hidden 768
+    and intermediate 3072, the embeddings, the pooler and a Dense(2)."""
+    block = [(768, 2304), (2304,), (768, 768), (768,), (768,), (768,),
+             (768, 3072), (3072,), (3072, 768), (768,), (768,), (768,)]
+    return (block * 12 + [(30522, 768), (512, 768), (2, 768), (768,),
+                          (768,), (768, 768), (768,), (768, 2), (2,)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", ["bert_base", "odd"])
+def test_adam_one_launch_bit_identical(tree, cuda_device):
+    """fused_update over a whole tree: one launch, every kernel leaf's
+    outputs equal to the plain version's bit for bit, small and non-f32
+    leaves on the plain formula."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+
+    def rand(shape, scale, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * scale).to(dtype)
+
+    if tree == "bert_base":
+        shapes = _bert_base_leaf_shapes()
+        leaves = [(rand(sh, 1e-3), rand(sh, 1e-4), rand(sh, 1e-8).abs())
+                  for sh in shapes]
+    else:
+        sizes = [128, 129, 4099, 768 * 3072 + 1, 127, 1000]
+        leaves = [(rand(n, 1.0), rand(n, 0.1), rand(n, 0.01).abs())
+                  for n in sizes]
+        # unaligned views: one element into a larger buffer
+        big = [rand(4100, s).abs() if i == 2 else rand(4100, s)
+               for i, s in enumerate((1.0, 0.1, 0.01))]
+        leaves.append(tuple(t[1:] for t in big))
+        leaves.append(tuple(rand(300, s, torch.bfloat16).abs()
+                            for s in (1.0, 0.1, 0.01)))
+    scalars = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 1 - 0.9 ** 3,
+                            1 - 0.999 ** 3], dtype=torch.float32,
+                           device=cuda_device)
+    kernel = [g.dtype == torch.float32 and g.numel() >= 128
+              for g, _, _ in leaves]
+    before = tadam.launch_count, tadam.leaf_count, tadam.plain_count
+    upd, mu, nu = tadam.fused_update(*zip(*leaves), scalars)
+    torch.cuda.synchronize()
+    assert (tadam.launch_count, tadam.leaf_count, tadam.plain_count) == \
+        (before[0] + 1, before[1] + sum(kernel), before[2])
+    for i, (g, m, n) in enumerate(leaves):
+        want = tadam.adam_leaf_reference(g, m, n, scalars)
+        for got_t, want_t in zip((upd[i], mu[i], nu[i]), want):
+            assert got_t.shape == g.shape
+            if kernel[i]:
+                assert torch.equal(got_t, want_t), i
+    # kernel leaves are views into three flat buffers that never overlap
+    spans = sorted((t.data_ptr(), t.data_ptr() + 4 * t.numel())
+                   for i, t in enumerate(upd) if kernel[i])
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert all(s[0] % 16 == 0 for s in spans)
 
 
 @pytest.mark.cuda

@@ -37,9 +37,9 @@ BERT_BASE = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
                  hidden_p_drop=0.1, attn_p_drop=0.1)
 # kernel-name fragments -> group; the first match wins
 GROUPS = (
-    ("flash_attention_fwd", ("flash_fwd_kernel",)),
-    ("flash_attention_bwd", ("dq_kernel", "dkv_kernel")),
-    ("fused_adam", ("adam_kernel",)),
+    ("flash_attention_fwd", ("flash_fwd_",)),
+    ("flash_attention_bwd", ("zoo_flash_bwd",)),
+    ("fused_adam", ("adam_multi_kernel",)),
     ("softmax_xent", ("xent_fwd_kernel", "xent_bwd_kernel")),
     ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "Kernel2",
                          "splitKreduce")),
