@@ -14,9 +14,13 @@
 //   dq = scale * dS k,   dk = scale * dS^T q,   dv = (p t)^T dO,
 //   and, for a bias broadcast as (B|1, H|1, 1, Lk), the partial
 //   dbias[b, h, k] = sum over q of dS (the caller sums the broadcast dims).
-// The division and the D-subtraction sit inside the `live` select, so a
-// padded or masked entry is an exact zero: the dk/dv kernel contracts over
-// query rows, and one NaN there would poison every output.
+// A pair is live inside the causal triangle, inside Lq and Lk, and where
+// the query's and the key's segment ids are equal (when given).  The
+// division and the D-subtraction sit inside the `live` select, so a padded
+// or masked entry is an exact zero: the dk/dv kernel contracts over query
+// rows, and one NaN there would poison every output.  The gradient of a
+// full (..., Lq, Lk) bias is not computed here: the caller takes the
+// reference's blockwise route for it.
 //
 // Two kernels, as on the TPU, and no atomics: the dq kernel owns a tile of
 // 64 query rows and streams the keys past it; the dk/dv kernel owns a tile
@@ -65,14 +69,24 @@
 //   cores, so the accumulator's rounding does not build up over a 512-long
 //   sequence (PR 4's lesson from the int8 matmul).
 // - Under causal masking a block skips the streamed tiles none of its rows
-//   can see.  Head dims 64 and 128 are built; at 128, two warpgroups and
-//   192 KB of shared memory a block.
+//   can see.  Segment ids: the own rows' in registers, the streamed rows'
+//   read where a pair is tested; with segment ids every tile tests every
+//   pair.  These kernels take head dims 64 and 128; at 128, two warpgroups
+//   and 192 KB of shared memory a block.
+//
+// Every other head dim: `bwd_simt_kernel<T, KV>`, the same two kernels on
+// CUDA cores, with the head dim a runtime loop over 64-column chunks.  A
+// block owns 64 rows and one 64-column slice of their outputs, and
+// recomputes S and dP over the whole head dim for it: D / 64 times the
+// score work, which keeps shared memory at 105 KB at any head dim (two
+// blocks an SM) and the outputs in registers.
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_tf32.cuh"
 #include "sm90.cuh"
 
 namespace zoo_flash_bwd {
@@ -82,8 +96,14 @@ using zoo_flash::keep_k;
 using zoo_flash::keep_q;
 using zoo_flash::mix32;
 
-constexpr int OWN = 64;  // own rows a block: one warpgroup's M
-constexpr int SR = 32;   // streamed rows a tile
+// own rows a block (one warpgroup's M) and streamed rows a tile
+using zoo_tf32::OWN;
+using zoo_tf32::SR;
+using zoo_tf32::a_frags;
+using zoo_tf32::issue_scores;
+using zoo_tf32::kmajor;
+using zoo_tf32::split4;
+using zoo_tf32::transposed;
 
 struct Args {
   const void* q;
@@ -98,6 +118,8 @@ struct Args {
   void* dk;            // contiguous (B, H, Lk, D)
   void* dv;
   float* dbias;        // (B, H, Lk) partials, or null
+  const int* q_seg;    // (B, Lq) and (B, Lk) segment ids, or both null
+  const int* kv_seg;
   int B, H, Lq, Lk;
   int64_t qs_b, qs_h, qs_l;
   int64_t ks_b, ks_h, ks_l;
@@ -121,23 +143,6 @@ __host__ __device__ constexpr int own_bytes(int D) { return OWN * D * 4; }
 __host__ __device__ constexpr int str_bytes(int D) { return SR * D * 4; }
 __host__ __device__ constexpr int smem_bytes(int D) {
   return 4 * own_bytes(D) + 4 * str_bytes(D) + (3 * SR + OWN) * 4 + 1024;
-}
-
-// Byte offset of f32 chunk `ch` (values 4 ch .. 4 ch + 3) of row r in a
-// K-major swizzled tile of R rows: 32-value column blocks follow each other.
-template <int R>
-__device__ __forceinline__ uint32_t kmajor(int r, int ch) {
-  return static_cast<uint32_t>((ch >> 3) * (R * 128)) +
-         zoo_sm90::swz(r, ch & 7);
-}
-
-// Byte offset of streamed row r, column d in a transposed tile (row d, 32
-// streamed values a row): within each group of 8, row 2c sits at position c
-// and row 2c + 1 at c + 4, the order in which a thread's accumulator
-// columns fill the tf32 A fragment.
-__device__ __forceinline__ uint32_t transposed(int d, int r) {
-  const int pos = (r & 24) | ((r & 7) >> 1) | ((r & 1) << 2);
-  return zoo_sm90::swz(d, pos >> 2) + (pos & 3) * 4;
 }
 
 // Four values as loaded: f32 as they are, bf16 still packed, so a load
@@ -200,13 +205,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
-  zoo_sm90::split_tf32(x.x, hi.x, lo.x);
-  zoo_sm90::split_tf32(x.y, hi.y, lo.y);
-  zoo_sm90::split_tf32(x.z, hi.z, lo.z);
-  zoo_sm90::split_tf32(x.w, hi.w, lo.w);
-}
-
 // Write a loaded tile as hi and lo pieces, K-major (row-major in D).
 template <int D, int R, bool EXACT, typename RT>
 __device__ __forceinline__ void store_kmajor(
@@ -244,50 +242,6 @@ __device__ __forceinline__ void store_transposed(
       *reinterpret_cast<uint32_t*>(hi + off) = hv[e];
       if (!EXACT) *reinterpret_cast<uint32_t*>(lo + off) = lv[e];
     }
-  }
-}
-
-// acc (64 x 32) = own . str^T over D: lo products first, then hi * hi.
-template <int D, bool EXACT>
-__device__ __forceinline__ void issue_scores(float (&acc)[16], uint32_t own_hi,
-                                             uint32_t own_lo, uint32_t str_hi,
-                                             uint32_t str_lo) {
-  using zoo_sm90::desc_b128;
-  auto da = [](uint32_t base, int kk) {
-    return desc_b128(base + (kk >> 2) * (OWN * 128) + (kk & 3) * 32, 16, 1024);
-  };
-  auto db = [](uint32_t base, int kk) {
-    return desc_b128(base + (kk >> 2) * (SR * 128) + (kk & 3) * 32, 16, 1024);
-  };
-  int first = 0;
-  if (!EXACT) {
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(own_lo, kk), db(str_hi, kk),
-                                       first);
-      first = 1;
-      zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(own_hi, kk), db(str_lo, kk), 1);
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(own_hi, kk), db(str_hi, kk),
-                                     first);
-    first = 1;
-  }
-}
-
-// A fragments of a 64 x 32 accumulator-shaped tile for the four k-steps
-// over its 32 columns, split into hi and lo.
-__device__ __forceinline__ void a_frags(const float (&x)[16],
-                                        uint32_t (&hi)[4][4],
-                                        uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    zoo_sm90::split_tf32(x[4 * j + 0], hi[j][0], lo[j][0]);
-    zoo_sm90::split_tf32(x[4 * j + 2], hi[j][1], lo[j][1]);
-    zoo_sm90::split_tf32(x[4 * j + 1], hi[j][2], lo[j][2]);
-    zoo_sm90::split_tf32(x[4 * j + 3], hi[j][3], lo[j][3]);
   }
 }
 
@@ -367,6 +321,13 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
   const bool row_bias = bias == nullptr || a.bs_q == 0;
   const int64_t rows = (static_cast<int64_t>(b) * a.H + h) * a.Lq;
   const int64_t keys = (static_cast<int64_t>(b) * a.H + h) * a.Lk;
+  // segment ids: the own rows' in registers, the streamed rows' read where
+  // a pair is tested (only tiles with segment ids test every pair)
+  const bool seg = a.q_seg != nullptr;
+  const int* own_seg = !seg ? nullptr
+                       : KV ? a.kv_seg + b * a.Lk : a.q_seg + b * a.Lq;
+  const int* str_seg = !seg ? nullptr
+                       : KV ? a.q_seg + b * a.Lq : a.kv_seg + b * a.Lk;
 
   // own0 / own1 and str0 / str1 with their row strides and lengths
   const T* o0 = KV ? k : q;
@@ -423,10 +384,12 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
   int rw[2];
   uint32_t rhash[2];
   float mr[2] = {0.f, 0.f}, lr[2] = {1.f, 1.f}, dr[2] = {0.f, 0.f};
+  int rseg[2] = {0, 0};
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     rw[hh] = r0 + warp * 16 + g + 8 * hh;
     rhash[hh] = hash ^ (KV ? keep_k(rw[hh]) : keep_q(rw[hh]));
+    if (seg && rw[hh] < own_len) rseg[hh] = own_seg[rw[hh]];
     if (!KV && rw[hh] < a.Lq) {
       mr[hh] = a.m[rows + rw[hh]];
       lr[hh] = 1.f / fmaxf(a.l[rows + rw[hh]], 1e-20f);
@@ -462,8 +425,8 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
     // ---- the softmax recompute on the fragments -------------------------
     // element i: own row rw[(i >> 1) & 1], streamed row
     // s + 8 (i >> 2) + 2 t + (i & 1).  Tiles inside the rows, the keys and
-    // the causal triangle skip the live test.
-    const bool whole = s + SR <= str_len && r0 + OWN <= own_len &&
+    // the causal triangle, without segment ids, skip the live test.
+    const bool whole = !seg && s + SR <= str_len && r0 + OWN <= own_len &&
                        (!a.causal || (KV ? s + offset >= r0 + OWN - 1
                                          : r0 + offset >= s + SR - 1));
     float pt[16], ds[16];
@@ -483,7 +446,8 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
         const float inv_l = KV ? Ls[c] : lr[hh];
         const float dd = KV ? Dm[c] : dr[hh];
         const bool live = whole || (qi < a.Lq && kj < a.Lk &&
-                                    (!a.causal || qi + offset >= kj));
+                                    (!a.causal || qi + offset >= kj) &&
+                                    (!seg || rseg[hh] == str_seg[sr]));
         float bv;
         if constexpr (ROWB)
           bv = Bs[KV ? rw[hh] - r0 : c];
@@ -558,6 +522,235 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Any other head dim: CUDA cores
+// ---------------------------------------------------------------------------
+
+using zoo_flash::CS;
+using zoo_flash::dot_chunk;
+constexpr int ST = 64;                    // own and streamed rows a tile
+constexpr int SIMT_NT = zoo_flash::NT;    // 16 x 16 threads
+
+// Shared memory of the CUDA-core kernels: own0, str0, own1, str1 chunks,
+// dS and P t tiles (64 x CS f32 each), and the streamed rows' m, 1 / l, D.
+__host__ __device__ constexpr int simt_smem_bytes() {
+  return 6 * ST * CS * 4 + 3 * ST * 4;
+}
+
+// out[i][w] += sum over s of X[ty + 16 i][s] . S[s][4 tx + w]
+__device__ __forceinline__ void mul_chunk(float (&out)[4][4], const float* X,
+                                          const float* S, int ty, int tx) {
+#pragma unroll 2
+  for (int s = 0; s < ST; s += 4) {
+    float4 xv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(&X[(ty + 16 * i) * CS + s]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 sv =
+          *reinterpret_cast<const float4*>(&S[(s + u) * CS + 4 * tx]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = u == 0 ? xv[i].x : u == 1 ? xv[i].y
+                        : u == 2 ? xv[i].z : xv[i].w;
+        out[i][0] = fmaf(x, sv.x, out[i][0]);
+        out[i][1] = fmaf(x, sv.y, out[i][1]);
+        out[i][2] = fmaf(x, sv.z, out[i][2]);
+        out[i][3] = fmaf(x, sv.w, out[i][3]);
+      }
+    }
+  }
+}
+
+// The same two kernels at any head dim D, on CUDA cores.  A block owns 64
+// rows and one 64-column slice of their outputs (blockIdx.x = row tile x
+// slices + slice) and recomputes S and dP over the whole of D, 64 columns
+// at a time: D / 64 times the score work of one block per row tile, which
+// keeps shared memory at 105 KB whatever D is.  The column chunks run in
+// an order that ends with the block's own slice, so the streamed chunks
+// left in shared memory are the ones the output products need.  Columns
+// past D are zeros in shared memory and are never stored.  Only slice 0
+// writes the bias-gradient partials.
+template <typename T, bool KV>
+__global__ void __launch_bounds__(SIMT_NT) bwd_simt_kernel(Args a, int D) {
+  extern __shared__ float4 smem4[];
+  float* A0 = reinterpret_cast<float*>(smem4);
+  float* B0 = A0 + ST * CS;
+  float* A1 = B0 + ST * CS;
+  float* B1 = A1 + ST * CS;
+  float* X = B1 + ST * CS;   // dS
+  float* X2 = X + ST * CS;   // P t
+  float* Ms = X2 + ST * CS;  // the streamed rows' m, 1 / l, D (dk/dv)
+  float* Ls = Ms + ST;
+  float* Dm = Ls + ST;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int nch = (D + 63) / 64;
+  const int cs = blockIdx.x % nch;  // this block's output slice
+  const int r0 = blockIdx.x / nch * ST;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int offset = a.Lk - a.Lq;
+  const T* q = static_cast<const T*>(a.q) + b * a.qs_b + h * a.qs_h;
+  const T* gp = static_cast<const T*>(a.g) + b * a.gs_b + h * a.gs_h;
+  const T* k = static_cast<const T*>(a.k) + b * a.ks_b + h * a.ks_h;
+  const T* v = static_cast<const T*>(a.v) + b * a.vs_b + h * a.vs_h;
+  const float* bias =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
+  const int64_t rows = (static_cast<int64_t>(b) * a.H + h) * a.Lq;
+  const int64_t keys = (static_cast<int64_t>(b) * a.H + h) * a.Lk;
+  const bool seg = a.q_seg != nullptr;
+  const int* qsg = seg ? a.q_seg + b * a.Lq : nullptr;
+  const int* ksg = seg ? a.kv_seg + b * a.Lk : nullptr;
+
+  const T* o0 = KV ? k : q;
+  const T* o1 = KV ? v : gp;
+  const int64_t o0s = KV ? a.ks_l : a.qs_l, o1s = KV ? a.vs_l : a.gs_l;
+  const int own_len = KV ? a.Lk : a.Lq;
+  const T* s0p = KV ? q : k;
+  const T* s1p = KV ? gp : v;
+  const int64_t s0s = KV ? a.qs_l : a.ks_l, s1s = KV ? a.gs_l : a.vs_l;
+  const int str_len = KV ? a.Lq : a.Lk;
+  int sbeg = 0, send = str_len;
+  if (a.causal) {
+    if (KV) sbeg = max(0, r0 - offset) / ST * ST;
+    else send = min(a.Lk, r0 + ST + offset);
+  }
+
+  // the own rows ty + 16 i: their segment ids and, in the dq kernel, m,
+  // 1 / l and D
+  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  float mr[4], lr[4], dr[4];
+  int rseg[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    const bool in = r < own_len;
+    rseg[i] = seg && in ? (KV ? ksg[r] : qsg[r]) : 0;
+    mr[i] = !KV && in ? a.m[rows + r] : 0.f;
+    lr[i] = !KV && in ? 1.f / fmaxf(a.l[rows + r], 1e-20f) : 1.f;
+    dr[i] = !KV && in ? a.dsum[rows + r] : 0.f;
+  }
+  float acc0[4][4], acc1[4][4], db[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    db[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc0[i][j] = acc1[i][j] = 0.f;
+  }
+
+  for (int s = sbeg; s < send; s += ST) {
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+    for (int n = 1; n <= nch; ++n) {
+      const int col0 = (cs + n) % nch * 64;  // the last chunk is slice cs
+      __syncthreads();  // the previous readers of every tile are done
+      if (nch > 1 || s == sbeg) {
+        zoo_flash::stage_chunk<T>(A0, CS, o0, o0s, r0, own_len, col0, D);
+        zoo_flash::stage_chunk<T>(A1, CS, o1, o1s, r0, own_len, col0, D);
+      }
+      zoo_flash::stage_chunk<T>(B0, CS, s0p, s0s, s, str_len, col0, D);
+      zoo_flash::stage_chunk<T>(B1, CS, s1p, s1s, s, str_len, col0, D);
+      if (KV && n == 1 && tid < ST) {
+        const int qi = s + tid;
+        const bool in = qi < a.Lq;
+        Ms[tid] = in ? a.m[rows + qi] : 0.f;
+        Ls[tid] = in ? 1.f / fmaxf(a.l[rows + qi], 1e-20f) : 1.f;
+        Dm[tid] = in ? a.dsum[rows + qi] : 0.f;
+      }
+      __syncthreads();
+      dot_chunk(sc, A0, B0, ty, tx);
+      dot_chunk(dp, A1, B1, ty, tx);
+    }
+
+    // element (i, j): own row r0 + ty + 16 i, streamed row s + tx + 16 j
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const int own = r0 + ty + 16 * i, str = s + c;
+        const int qi = KV ? str : own, kj = KV ? own : str;
+        const bool live = qi < a.Lq && kj < a.Lk &&
+                          (!a.causal || qi + offset >= kj) &&
+                          (!seg || rseg[i] == (KV ? qsg[qi] : ksg[kj]));
+        float p = 0.f, pt = 0.f, ds = 0.f;
+        if (live) {
+          const float m = KV ? Ms[c] : mr[i];
+          const float inv_l = KV ? Ls[c] : lr[i];
+          const float dd = KV ? Dm[c] : dr[i];
+          float x = sc[i][j] * a.scale;
+          if (bias != nullptr) x += bias[qi * a.bs_q + kj * a.bs_k];
+          p = expf(x - m) * inv_l;
+          const float keep =
+              mix32(hash ^ keep_q(qi) ^ keep_k(kj)) >= a.drop_thr
+                  ? a.inv_keep : 0.f;
+          pt = p * keep;
+          ds = p * (keep * dp[i][j] - dd);
+        }
+        X[(ty + 16 * i) * CS + c] = ds;
+        if (KV) X2[(ty + 16 * i) * CS + c] = pt;
+        db[i] += ds;
+      }
+    }
+    __syncthreads();
+    // dq += dS k, or dk += dS^T q and dv += (P t)^T dO, over this slice
+    mul_chunk(acc0, X, B0, ty, tx);
+    if (KV) mul_chunk(acc1, X2, B1, ty, tx);
+  }
+
+  T* out0 = static_cast<T*>(KV ? a.dk : a.dq);
+  T* out1 = static_cast<T*>(a.dv);
+  const int64_t first = KV ? keys : rows;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= own_len) continue;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int col = cs * 64 + 4 * tx + w;
+      if (col >= D) continue;
+      zoo_flash::store_as(&out0[(first + r) * D + col], acc0[i][w] * a.scale);
+      if (KV) zoo_flash::store_as(&out1[(first + r) * D + col], acc1[i][w]);
+    }
+  }
+  if (KV && a.dbias != nullptr && cs == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = db[i];
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      const int r = r0 + ty + 16 * i;
+      if (tx == 0 && r < a.Lk) a.dbias[keys + r] = x;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_simt(const Args& a, int D, cudaStream_t stream) {
+  constexpr int smem = simt_smem_bytes();
+  auto dqk = bwd_simt_kernel<T, false>;
+  auto dkvk = bwd_simt_kernel<T, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      dkvk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int nch = (D + 63) / 64;
+  const dim3 qgrid((a.Lq + ST - 1) / ST * nch, a.H, a.B);
+  dqk<<<qgrid, SIMT_NT, smem, stream>>>(a, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 kgrid((a.Lk + ST - 1) / ST * nch, a.H, a.B);
+  dkvk<<<kgrid, SIMT_NT, smem, stream>>>(a, D);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = smem_bytes(D);
@@ -583,7 +776,7 @@ int dispatch(int head_dim, const Args& a, cudaStream_t stream) {
   switch (head_dim) {
     case 64: return launch<T, 64>(a, stream);
     case 128: return launch<T, 128>(a, stream);
-    default: return -1;
+    default: return launch_simt<T>(a, head_dim, stream);
   }
 }
 
@@ -599,14 +792,16 @@ bool rows_aligned(const void* p, int bytes, int64_t s_b, int64_t s_h,
 
 // dtype: 0 = float32, 1 = bfloat16.  m, l, dsum: (B, H, Lq) f32.  dq, dk,
 // dv: contiguous outputs in the input type.  dbias: (B, H, Lk) f32
-// partials, or null when the bias needs no gradient.  Returns 0 on success,
-// a cudaError_t code when a launch failed, or -1 for a head dim the kernels
-// do not take (64 and 128 are built).
+// partials, or null when the bias needs no gradient.  q_seg, kv_seg:
+// contiguous (B, Lq) and (B, Lk) int32 segment ids, or both null.  Head
+// dims 64 and 128 take the tensor-core kernels, any other the CUDA-core
+// ones.  Returns 0 on success, a cudaError_t code when a launch failed, or
+// -1 for a dtype the kernels do not take.
 extern "C" int zoo_flash_attention_bwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     const void* g, const float* m, const float* l, const float* dsum,
     const float* bias, void* dq, void* dk, void* dv, float* dbias,
-    int B, int H, int Lq, int Lk,
+    const int* q_seg, const int* kv_seg, int B, int H, int Lq, int Lk,
     long long qs_b, long long qs_h, long long qs_l,
     long long ks_b, long long ks_h, long long ks_l,
     long long vs_b, long long vs_h, long long vs_l,
@@ -625,7 +820,7 @@ extern "C" int zoo_flash_attention_bwd(
     inv_keep = 1.f;
   }
   zoo_flash_bwd::Args a{q, k, v, g, m, l, dsum, bias, dq, dk, dv, dbias,
-                        B, H, Lq, Lk,
+                        q_seg, kv_seg, B, H, Lq, Lk,
                         qs_b, qs_h, qs_l, ks_b, ks_h, ks_l, vs_b, vs_h, vs_l,
                         gs_b, gs_h, gs_l, bs_b, bs_h, bs_q, bs_k,
                         scale, causal, dropout, seed0, seed1, drop_thr,

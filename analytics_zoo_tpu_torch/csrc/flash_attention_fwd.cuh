@@ -1,29 +1,34 @@
-// Flash-attention forward: the device code of both forward kernels.
+// Flash-attention forward: the device code of the three forward kernels.
 //
 // Replaces the TPU kernel `_flash_fwd_pallas`
 // (analytics_zoo_tpu/ops/pallas/flash_attention.py:216, kernel closure :245,
 // pl.pallas_call :399): an additive f32 bias broadcast over
-// (B|1, H|1, Lq|1, Lk), end-aligned causal masking, ragged Lq/Lk, f32 or
-// bf16 inputs with f32 softmax math, output in the input type, in-kernel
-// attention dropout from the reference's position hash, and optionally the
-// softmax statistics (m, l) per query row, which the backward reads.
-// Segment ids are not ported yet.
+// (B|1, H|1, Lq|1, Lk), end-aligned causal masking, segment ids (a pair is
+// live only where the query's and the key's ids are equal: packed
+// sequences), ragged Lq/Lk, any head dim, f32 or bf16 inputs with f32
+// softmax math, output in the input type, in-kernel attention dropout from
+// the reference's position hash, and optionally the softmax statistics
+// (m, l) per query row, which the backward reads.
 //
 // Semantics (identical to the reference's `_attention_reference`): a running
 // max m floored at -1e30, so a row whose keys are all masked, by the causal
-// triangle or by a bias of finfo.min, comes out as zeros and never as NaN;
-// keys past Lk are zeroed in shared memory, not only masked, because 0 * NaN
-// would poison the accumulator.  Dropout keeps an element when
-// keep_bits(seed0, seed1, b, h, q, k) >= floor(p * 2^32) and scales it by
-// 1/(1-p); l sums the probabilities before dropout, so out = acc / l is
+// triangle, by segment ids or by a bias of finfo.min, comes out as zeros and
+// never as NaN; keys past Lk are zeroed in shared memory, not only masked,
+// because 0 * NaN would poison the accumulator.  Dropout keeps an element
+// when keep_bits(seed0, seed1, b, h, q, k) >= floor(p * 2^32) and scales it
+// by 1/(1-p); l sums the probabilities before dropout, so out = acc / l is
 // dropout applied after the softmax, as in the reference.
 //
 // What bounds it on an H100.  At BERT-base serving shapes (B=8, H=12,
 // L=512, D=64, the padding mask of chip_smoke.py) the two products are
 // 3.5 GFLOP on the live keys.  In bf16 on the tensor cores (989 TFLOP/s)
 // that is ~3.5 us, against 25 MB moved (q, k, v, out and the bias once:
-// 7.5 us at 3.35 TB/s), so bytes bound it; in f32 on CUDA cores
-// (67 TFLOP/s) operations do, at ~52 us.
+// 7.5 us at 3.35 TB/s), so bytes bound it; in f32 as three tf32 products a
+// value (494.7 TFLOP/s) ~21 us, so operations do (on CUDA cores, 67
+// TFLOP/s, ~52 us).
+//
+// Which body: head dims 64 and 128 take the tensor cores (bf16 as it is,
+// f32 as 3xTF32), every other head dim the CUDA-core body.
 //
 // bf16 inputs with head dim 64 or 128: `flash_fwd_wgmma_kernel`, on the
 // tensor cores.  With the products there, the work left on the CUDA cores
@@ -45,26 +50,60 @@
 //   one more copy; without a bias that row is zeros.
 // - S = Q K^T is `wgmma` m64nBKk16 with both operands in shared memory
 //   (K-major), f32 out.  Scale and bias are one FMA on the accumulator
-//   fragment in registers; the causal and ragged masks, needed only in
-//   tiles that cross an edge, set an element to -inf, so its exp is 0
-//   with no per-element flag while the running max, which starts at the
-//   floor, stays finite.  Each element's (row, key) follows from the
-//   fragment layout, and a row's max and sum reduce over the 4 threads
-//   that share it with two shuffles.  exp is exp2 of one FMA.
+//   fragment in registers; the causal, ragged and segment masks, needed
+//   only in tiles that cross an edge or when segment ids are given (a
+//   template parameter: a call without them compiles no test of them), set
+//   an element to -inf, so its exp is 0 with no per-element flag while the
+//   running max, which starts at the floor, stays finite.  The keys'
+//   segment ids are read where a pair is tested; a row's own id sits in a
+//   register.  Each element's (row, key) follows from the fragment layout,
+//   and a row's max and sum reduce over the 4 threads that share it with
+//   two shuffles.  exp is exp2 of one FMA.
 // - P is rounded to bf16 in registers and is, as it stands, the register A
 //   operand of the second `wgmma` (m64nDk16), with V from shared memory as
 //   MN-major B; l keeps summing the f32 probabilities, as the plain version
 //   does.  Dropout, when on, multiplies P by the hash's keep mask after l.
 // - Under causal masking a q-tile stops at the last key tile any of its
 //   rows can see.
-
-// f32 inputs, and bf16 with head dim 192 or 256: `flash_fwd_simt_kernel`,
-// the CUDA-core body, which is not redesigned yet: one 256-thread block per
-// 64 query rows, Q, K and V staged in shared memory as f32, each thread
-// owning a 4x4 block of the 64x64 score tile and a 4x(D/16) block of the
-// output, float4 shared-memory reads with a row pad of 4 floats, the 16
-// threads of a row reducing with shuffles and exchanging probabilities
-// through a shared 64x64 tile.
+//
+// f32 inputs with head dim 64 or 128: `flash_fwd_tf32_kernel`, the same
+// design with f32 products as three tf32 `wgmma`s a value (x = hi + lo,
+// hi = tf32(x); lo * hi + hi * lo + hi * hi, the lo products first: f32
+// math to ~2^-21 relative, the backward's arithmetic, flash_tf32.cuh).
+// - tf32 operands must be K-major.  Q and K are (D contiguous), so their hi
+//   and lo pieces are staged straight into the swizzled layout; P V
+//   contracts over keys, so V is staged transposed (V^T, keys contiguous),
+//   with the keys of each 8 in the order a thread's S columns fill the
+//   tf32 A fragment (columns 2t, 2t + 1 of the accumulator are the
+//   fragment's t, t + 4): P goes from the S accumulator into the register
+//   A operand with no shuffle, split into hi and lo in registers.
+// - The split needs the values in registers, so K and V rows travel raw:
+//   16-byte cp.async copies into a two-stage ring of raw rows (padded by 16
+//   bytes a row, so the splitting reads hit every bank once), two tiles
+//   ahead; each tile's rows are then split into the K and V^T hi/lo tiles,
+//   which every warp reads through wgmma.  Q is split once.
+// - Shared memory is the limit: hi and lo double every tile.  32-key tiles
+//   keep a block at 101.6 KB at head dim 64 (Q 32 KB, K and V^T 32 KB, two
+//   raw stages 34 KB), so two blocks share an SM; at 128 the same layout
+//   takes 200 KB, one block an SM, which leaves room for the ring of two
+//   raw stages: a single stage would not let a second block in (166 KB)
+//   and would stall every tile on its copies.
+// - Each tile's P V goes into a fresh accumulator that is added into the
+//   f32 output, after the output's rescale by the running max, on the CUDA
+//   cores, so the tensor cores' accumulator rounding does not build up over
+//   the keys.  Softmax as in the bf16 kernel: one FMA for scale and bias,
+//   -inf masking only in edge tiles, exp2; dropout multiplies P after l.
+//
+// Any other head dim: `flash_fwd_simt_kernel`, on CUDA cores, with the head
+// dim a runtime loop over 64-column chunks: one 256-thread block per 64
+// query rows and up to four 64-column slices of their output, each thread
+// owning a 4x4 block of the 64x64 score tile and a 4x4 block of each slice,
+// float4 shared-memory reads with a row pad of 4 floats, the 16 threads of
+// a row reducing with shuffles and exchanging probabilities through a
+// shared 64x64 tile.  Columns past D are zeros in shared memory and are
+// never stored.  Q stays in shared memory up to head dim 384 (six chunks);
+// above 256 a second block per query tile computes S again for the next
+// four slices.
 
 #pragma once
 
@@ -72,30 +111,52 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_tf32.cuh"
 #include "sm90.cuh"
 
 namespace zoo_flash {
 
-// Bytes of dynamic shared memory the kernel needs for head dim D.
-__host__ __device__ constexpr int smem_bytes(int D) {
-  return ((BQ + BK) * (D + 4) + BK * D + BQ * (BK + 4)) * 4;
+// ---------------------------------------------------------------------------
+// Any head dim: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int SLICES = 4;   // 64-column output slices a block owns, at most
+constexpr int Q_RESIDENT = 6;  // Q stays in shared memory up to 6 chunks
+
+// The Q chunks kept in shared memory: all of them up to head dim 384, else
+// one, staged anew for each key tile.
+__host__ __device__ constexpr int q_slots(int D) {
+  return (D + 63) / 64 <= Q_RESIDENT ? (D + 63) / 64 : 1;
+}
+// Bytes of dynamic shared memory of the CUDA-core kernel: the Q chunks, a
+// K chunk, a block's V slices and the probability tile.
+__host__ __device__ constexpr int simt_smem_bytes(int D) {
+  return ((q_slots(D) * BQ + BK) * CS + SLICES * BK * 64 + BQ * CS) * 4;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a) {
-  constexpr int QS = D + 4;   // row stride of the Q and K tiles
+// One 256-thread block per 64 query rows and up to SLICES 64-column slices
+// of their output (blockIdx.x = query tile x groups + group); S is summed
+// over the whole head dim, 64 columns at a time, so every group's block
+// computes the same S (group 0 writes the statistics): once per query tile
+// up to head dim 256, twice up to 512.
+template <typename T>
+__global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a, int D) {
   constexpr int PS = BK + 4;  // row stride of the probability tile
-  constexpr int CPT = D / 16; // output columns per thread
   extern __shared__ float4 smem4[];
+  const int qslots = q_slots(D);
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BQ * QS;
-  float* Vs = Ks + BK * QS;
-  float* Ps = Vs + BK * D;
+  float* Ks = Qs + qslots * BQ * CS;
+  float* Vs = Ks + BK * CS;
+  float* Ps = Vs + SLICES * BK * 64;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
+  const int nch = (D + 63) / 64;
+  const int ngr = (nch + SLICES - 1) / SLICES;
+  const int c0 = blockIdx.x % ngr * SLICES * 64;  // this block's columns
+  const int ns = min(SLICES, nch - c0 / 64);      // and its slices
+  const int q0 = blockIdx.x / ngr * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
@@ -104,62 +165,48 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a) {
   const T* v = static_cast<const T*>(a.v) + b * a.vs_b + h * a.vs_h;
   const float* bias =
       a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
-
-  // Stage the Q tile; rows past Lq are zero.
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int qi = q0 + r;
-    Qs[r * QS + c] = qi < a.Lq ? to_f32(q[qi * a.qs_l + c]) : 0.f;
+  const bool seg = a.q_seg != nullptr;
+  const int* ksg = seg ? a.kv_seg + b * a.Lk : nullptr;
+  int qseg[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    qseg[i] = seg && qi < a.Lq ? a.q_seg[b * a.Lq + qi] : 0;
   }
 
-  float m[4], l[4], o[4][CPT];
+  float m[4], l[4], o[SLICES][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) o[i][c] = 0.f;
+    for (int sl = 0; sl < SLICES; ++sl)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[sl][i][c] = 0.f;
   }
 
   // Keys at or past kend are masked for every row of this tile.
   const int kend = a.causal ? min(a.Lk, q0 + BQ + offset) : a.Lk;
   for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const int kj = k0 + r;
-      const bool in = kj < a.Lk;
-      Ks[r * QS + c] = in ? to_f32(k[kj * a.ks_l + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(v[kj * a.vs_l + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this thread's 4x4 block.
+    // S = Q K^T for this thread's 4x4 block, over the head dim in chunks.
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * QS + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * QS + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float acc = s[i][j];
-          acc = fmaf(qv[i].x, kv[j].x, acc);
-          acc = fmaf(qv[i].y, kv[j].y, acc);
-          acc = fmaf(qv[i].z, kv[j].z, acc);
-          acc = fmaf(qv[i].w, kv[j].w, acc);
-          s[i][j] = acc;
-        }
+    for (int dc = 0; dc < nch; ++dc) {
+      // Q chunk dc: staged once when every chunk stays, else each time
+      float* Qc = qslots > 1 ? Qs + dc * BQ * CS : Qs;
+      __syncthreads();  // the previous readers of every tile are done
+      if (k0 == 0 || (qslots == 1 && nch > 1))
+        stage_chunk<T>(Qc, CS, q, a.qs_l, q0, a.Lq, dc * 64, D);
+      stage_chunk<T>(Ks, CS, k, a.ks_l, k0, a.Lk, dc * 64, D);
+      if (dc == 0)
+        for (int sl = 0; sl < ns; ++sl)
+          stage_chunk<T>(Vs + sl * BK * 64, 64, v, a.vs_l, k0, a.Lk,
+                         c0 + sl * 64, D);
+      __syncthreads();
+      dot_chunk(s, Qc, Ks, ty, tx);
     }
 
     // Scale, bias and mask, then the streaming-softmax update per row.
@@ -171,7 +218,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a) {
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
         const bool ok = kj < a.Lk && qi < a.Lq &&
-                        (!a.causal || qi + offset >= kj);
+                        (!a.causal || qi + offset >= kj) &&
+                        (!seg || qseg[i] == ksg[kj]);
         float x = s[i][j] * a.scale;
         if (ok && bias != nullptr) x += bias[qi * a.bs_q + kj * a.bs_k];
         s[i][j] = ok ? x : NEG;
@@ -205,11 +253,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a) {
       l[i] = l[i] * alpha + rs;
       m[i] = mnew;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) o[i][c] *= alpha;
+      for (int sl = 0; sl < SLICES; ++sl)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[sl][i][c] *= alpha;
     }
     __syncthreads();
 
-    // O += P V for this thread's 4 x CPT block.
+    // O += P V for this thread's 4 x 4 block of each slice.
 #pragma unroll 2
     for (int kk = 0; kk < BK; kk += 4) {
       float4 pv[4];
@@ -217,25 +267,23 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a) {
       for (int i = 0; i < 4; ++i)
         pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * PS + kk]);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float vv[CPT];
+      for (int sl = 0; sl < SLICES; ++sl) {
+        if (sl >= ns) break;
 #pragma unroll
-        for (int w = 0; w < CPT; w += 4) {
+        for (int u = 0; u < 4; ++u) {
           const float4 t = *reinterpret_cast<const float4*>(
-              &Vs[(kk + u) * D + tx * CPT + w]);
-          vv[w] = t.x;
-          vv[w + 1] = t.y;
-          vv[w + 2] = t.z;
-          vv[w + 3] = t.w;
-        }
+              &Vs[sl * BK * 64 + (kk + u) * 64 + tx * 4]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0   ? pv[i].x
-                          : u == 1 ? pv[i].y
-                          : u == 2 ? pv[i].z
-                                   : pv[i].w;
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
+          for (int i = 0; i < 4; ++i) {
+            const float p = u == 0   ? pv[i].x
+                            : u == 1 ? pv[i].y
+                            : u == 2 ? pv[i].z
+                                     : pv[i].w;
+            o[sl][i][0] = fmaf(p, t.x, o[sl][i][0]);
+            o[sl][i][1] = fmaf(p, t.y, o[sl][i][1]);
+            o[sl][i][2] = fmaf(p, t.z, o[sl][i][2]);
+            o[sl][i][3] = fmaf(p, t.w, o[sl][i][3]);
+          }
         }
       }
     }
@@ -248,9 +296,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a) {
     if (qi < a.Lq) {
       const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        store_as(&out[qi * a.os_l + tx * CPT + c], o[i][c] / denom);
-      if (a.m_out != nullptr && tx == 0) {
+      for (int sl = 0; sl < SLICES; ++sl)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = c0 + sl * 64 + tx * 4 + c;
+          if (sl < ns && col < D)
+            store_as(&out[qi * a.os_l + col], o[sl][i][c] / denom);
+        }
+      if (a.m_out != nullptr && tx == 0 && c0 == 0) {
         const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Lq + qi;
         a.m_out[row] = m[i];
         a.l_out[row] = l[i];
@@ -344,10 +397,11 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
 // the keys and 16-byte aligned, or there is none; the row goes through
 // shared memory with the K and V tiles (zeros without a bias), so the
 // BERT padding mask and no mask take one code path.  Otherwise each bias
-// element is read from global memory.  At head dim 64 the registers are
+// element is read from global memory.  SEG: segment ids are given (a call
+// without them runs no test of them).  At head dim 64 the registers are
 // capped at 128 a thread, for four blocks an SM (measured faster than two
 // blocks with more registers; at head dim 128 shared memory allows two).
-template <int D, bool ROW>
+template <int D, bool ROW, bool SEG>
 __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
     flash_fwd_wgmma_kernel(Args a, bool vec) {
   using namespace zoo_sm90;
@@ -373,6 +427,7 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
   const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs_b + h * a.vs_h;
   const float* bias =
       a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
+  const int* ksg = SEG ? a.kv_seg + b * a.Lk : nullptr;
 
   // Keys at or past kend are masked for every row of this tile.
   const int kend = a.causal ? min(a.Lk, q0 + 64 + offset) : a.Lk;
@@ -390,12 +445,14 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
   if (n_tiles > 0) load_tile(0, 0);
   cp_async_commit();
 
-  // this thread's rows of the tile: warp * 16 + g + 8 hh, hh = 0, 1
-  int qi[2];
+  // this thread's rows of the tile: warp * 16 + g + 8 hh, hh = 0, 1, with
+  // their segment ids
+  int qi[2], qseg[2];
   float m[2], l[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     qi[hh] = q0 + warp * 16 + g + 8 * hh;
+    qseg[hh] = SEG && qi[hh] < a.Lq ? a.q_seg[b * a.Lq + qi[hh]] : 0;
     m[hh] = NEG;
     l[hh] = 0.f;
   }
@@ -435,8 +492,8 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
     // 8 (i / 4) + 2 t + i % 2 of the tile.  A masked element becomes -inf,
     // so its probability is exactly 0 while the running max, which starts
     // at the floor NEG, stays finite.  Tiles wholly inside the keys, the
-    // rows and the causal triangle skip the mask.
-    const bool whole = k0 + BKV <= a.Lk && q0 + 64 <= a.Lq &&
+    // rows and the causal triangle, without segment ids, skip the mask.
+    const bool whole = !SEG && k0 + BKV <= a.Lk && q0 + 64 <= a.Lq &&
                        (!a.causal || q0 + offset >= k0 + BKV - 1);
     const float* brow = Bs + st * BKV;
 #pragma unroll
@@ -451,7 +508,8 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
         bv = bias[row * a.bs_q + kj * a.bs_k];
       float x = fmaf(s[i], a.scale, bv);
       if (!whole && !(kj < a.Lk && row < a.Lq &&
-                      (!a.causal || row + offset >= kj)))
+                      (!a.causal || row + offset >= kj) &&
+                      (!SEG || qseg[(i >> 1) & 1] == ksg[kj])))
         x = __int_as_float(0xff800000u);  // -inf
       s[i] = x;
     }
@@ -525,6 +583,299 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
       *reinterpret_cast<__nv_bfloat162*>(&out[qi[hh] * a.os_l + col]) =
           __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv,
                                 o[4 * c + 2 * hh + 1] * inv);
+    }
+    if (a.m_out != nullptr && t == 0) {
+      const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Lq + qi[hh];
+      a.m_out[row] = m[hh];
+      a.l_out[row] = l[hh];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32, head dim 64 or 128: tensor cores, three tf32 products a value
+// ---------------------------------------------------------------------------
+
+constexpr int TF_KEYS = zoo_tf32::SR;  // keys a tile: 32
+
+// f32 values of one stage of raw rows: 32 K rows then 32 V rows, each
+// padded by 16 bytes so that the splitting reads hit every bank once.
+__host__ __device__ constexpr int tf_raw_floats(int D) {
+  return 2 * TF_KEYS * (D + 4);
+}
+// Bytes of the dynamic shared memory: Q hi and lo (64 x D), K hi and lo
+// (32 x D), V^T hi and lo (D x 32), two stages of raw rows, a bias row and
+// room to align.
+__host__ __device__ constexpr int tf_smem_bytes(int D) {
+  return 2 * 64 * D * 4 + 4 * TF_KEYS * D * 4 + 2 * tf_raw_floats(D) * 4 +
+         TF_KEYS * 4 + 1024;
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv_tf32(float (&d)[D / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  if constexpr (D == 64)
+    zoo_sm90::wgmma_tf32_m64n64k8_rs(d, a, db, scale_d);
+  else
+    zoo_sm90::wgmma_tf32_m64n128k8_rs(d, a, db, scale_d);
+}
+
+// ROW: the bias is one row per (batch, head) (bs_q == 0) or there is none;
+// the row goes through shared memory with each tile (zeros without a
+// bias).  Otherwise each bias element is read from global memory.  SEG:
+// segment ids are given.
+template <int D, bool ROW, bool SEG>
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)
+    flash_fwd_tf32_kernel(Args a, bool vec) {
+  using namespace zoo_sm90;
+  using zoo_tf32::kmajor;
+  using zoo_tf32::split4;
+  using zoo_tf32::transposed;
+  constexpr int BKV = TF_KEYS;
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  constexpr int RS = D + 4;   // row stride of the raw rows (floats)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qhi = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* Qlo = Qhi + 64 * D * 4;
+  uint8_t* Khi = Qlo + 64 * D * 4;
+  uint8_t* Klo = Khi + BKV * D * 4;
+  uint8_t* Vhi = Klo + BKV * D * 4;
+  uint8_t* Vlo = Vhi + BKV * D * 4;
+  float* raw = reinterpret_cast<float*>(Vlo + BKV * D * 4);
+  float* Bs = raw + 2 * tf_raw_floats(D);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * 64;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
+  const float* q = static_cast<const float*>(a.q) + b * a.qs_b + h * a.qs_h;
+  const float* k = static_cast<const float*>(a.k) + b * a.ks_b + h * a.ks_h;
+  const float* v = static_cast<const float*>(a.v) + b * a.vs_b + h * a.vs_h;
+  const float* bias =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
+  const int* ksg = SEG ? a.kv_seg + b * a.Lk : nullptr;
+
+  // Keys at or past kend are masked for every row of this tile.
+  const int kend = a.causal ? min(a.Lk, q0 + 64 + offset) : a.Lk;
+  const int n_tiles = kend > 0 ? (kend + BKV - 1) / BKV : 0;
+
+  // Raw K and V rows k0 .. k0 + 31 into stage st, 16-byte copies where
+  // the rows allow; rows past Lk are zeros.
+  auto load_raw = [&](int st, int k0) {
+    float* rk = raw + st * tf_raw_floats(D);
+    float* rv = rk + BKV * RS;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < BKV * CPR / WG_THREADS; ++i) {
+        const int e = tid + i * WG_THREADS;
+        const int r = e / CPR, c = e % CPR;
+        const bool in = k0 + r < a.Lk;
+        cp_async16(smem_u32(rk + r * RS + 4 * c),
+                   in ? k + (k0 + r) * a.ks_l + 4 * c : k, in ? 16 : 0);
+        cp_async16(smem_u32(rv + r * RS + 4 * c),
+                   in ? v + (k0 + r) * a.vs_l + 4 * c : v, in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < BKV * D; e += WG_THREADS) {
+        const int r = e / D, c = e % D;
+        const bool in = k0 + r < a.Lk;
+        rk[r * RS + c] = in ? k[(k0 + r) * a.ks_l + c] : 0.f;
+        rv[r * RS + c] = in ? v[(k0 + r) * a.vs_l + c] : 0.f;
+      }
+    }
+  };
+  // Stage st's raw rows split into hi and lo: K K-major, V transposed (key
+  // lane of chunk c at row 4 c + e), and the keys' bias row.
+  auto split_tile = [&](int st, int k0) {
+    const float* rk = raw + st * tf_raw_floats(D);
+    const float* rv = rk + BKV * RS;
+#pragma unroll
+    for (int i = 0; i < CPR / 4; ++i) {
+      const int c = warp + 4 * i;
+      uint4 hi, lo;
+      split4(*reinterpret_cast<const float4*>(rk + lane * RS + 4 * c), hi,
+             lo);
+      *reinterpret_cast<uint4*>(Khi + kmajor<BKV>(lane, c)) = hi;
+      *reinterpret_cast<uint4*>(Klo + kmajor<BKV>(lane, c)) = lo;
+      split4(*reinterpret_cast<const float4*>(rv + lane * RS + 4 * c), hi,
+             lo);
+      const uint32_t hv[4] = {hi.x, hi.y, hi.z, hi.w};
+      const uint32_t lv[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t off = transposed(4 * c + e, lane);
+        *reinterpret_cast<uint32_t*>(Vhi + off) = hv[e];
+        *reinterpret_cast<uint32_t*>(Vlo + off) = lv[e];
+      }
+    }
+    if (ROW && tid < BKV)
+      Bs[tid] = bias != nullptr && k0 + tid < a.Lk ? bias[(k0 + tid) * a.bs_k]
+                                                    : 0.f;
+  };
+
+  if (n_tiles > 0) load_raw(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) load_raw(1, BKV);
+  cp_async_commit();
+  // Q, split into hi and lo: rows lane + 32 rr, chunks warp + 4 i
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = lane + 32 * rr;
+    const bool in = q0 + r < a.Lq;
+    const float* src = q + (q0 + r) * a.qs_l;
+#pragma unroll
+    for (int i = 0; i < CPR / 4; ++i) {
+      const int c = warp + 4 * i;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in)
+        x = vec ? __ldg(reinterpret_cast<const float4*>(src + 4 * c))
+                : make_float4(src[4 * c], src[4 * c + 1], src[4 * c + 2],
+                              src[4 * c + 3]);
+      uint4 hi, lo;
+      split4(x, hi, lo);
+      *reinterpret_cast<uint4*>(Qhi + kmajor<64>(r, c)) = hi;
+      *reinterpret_cast<uint4*>(Qlo + kmajor<64>(r, c)) = lo;
+    }
+  }
+
+  // this thread's rows of the tile: warp * 16 + g + 8 hh, hh = 0, 1, with
+  // their segment ids
+  int qi[2], qseg[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    qi[hh] = q0 + warp * 16 + g + 8 * hh;
+    qseg[hh] = SEG && qi[hh] < a.Lq ? a.q_seg[b * a.Lq + qi[hh]] : 0;
+    m[hh] = NEG;
+    l[hh] = 0.f;
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BKV;
+    const int st = j & 1;
+    cp_async_wait<1>();  // this thread's copies of tile j have landed
+    __syncthreads();     // everyone's; and tile j - 1's products are done
+    split_tile(st, k0);
+    fence_proxy_async();
+    __syncthreads();
+    if (j + 2 < n_tiles) load_raw(st, k0 + 2 * BKV);  // stage st is free
+    cp_async_commit();
+
+    // S = Q K^T, 64 x 32, f32 as 3xTF32
+    float s[BKV / 2];
+    wgmma_fence();
+    zoo_tf32::issue_scores<D, false>(s, smem_u32(Qhi), smem_u32(Qlo),
+                                     smem_u32(Khi), smem_u32(Klo));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(s);
+
+    // Scale, bias and mask as in the bf16 kernel (the same code, inline in
+    // each: as one shared function it made the bf16 kernel 10% slower at
+    // head dim 128): element i is row g + 8 ((i / 2) % 2), key
+    // 8 (i / 4) + 2 t + i % 2 of the tile.  A masked element becomes -inf,
+    // so its probability is exactly 0 while the running max, which starts
+    // at the floor NEG, stays finite.  Tiles wholly inside the keys, the
+    // rows and the causal triangle, without segment ids, skip the mask.
+    const bool whole = !SEG && k0 + BKV <= a.Lk && q0 + 64 <= a.Lq &&
+                       (!a.causal || q0 + offset >= k0 + BKV - 1);
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int row = qi[(i >> 1) & 1];
+      const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+      const int kj = k0 + col;
+      float bv = 0.f;
+      if constexpr (ROW)
+        bv = Bs[col];
+      else if (bias != nullptr && (whole || (kj < a.Lk && row < a.Lq)))
+        bv = bias[row * a.bs_q + kj * a.bs_k];
+      float x = fmaf(s[i], a.scale, bv);
+      if (!whole && !(kj < a.Lk && row < a.Lq &&
+                      (!a.causal || row + offset >= kj) &&
+                      (!SEG || qseg[(i >> 1) & 1] == ksg[kj])))
+        x = __int_as_float(0xff800000u);  // -inf
+      s[i] = x;
+    }
+    // The streaming-softmax update per row, exp as exp2 of one FMA.
+    constexpr float LOG2E = 1.4426950408889634f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = NEG;
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i)
+        if (((i >> 1) & 1) == hh) mx = fmaxf(mx, s[i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mnew = fmaxf(m[hh], mx);
+      const float alpha = exp2f((m[hh] - mnew) * LOG2E);
+      const float ml = mnew * LOG2E;
+      float rs = 0.f;
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        if (((i >> 1) & 1) != hh) continue;
+        s[i] = exp2f(fmaf(s[i], LOG2E, -ml));
+        rs += s[i];  // l is the denominator before dropout
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[hh] = l[hh] * alpha + rs;
+      m[hh] = mnew;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        if (((i >> 1) & 1) == hh) o[i] *= alpha;
+    }
+    if (a.dropout) {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        const int kj = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        s[i] = keep_bits(a.seed0, a.seed1, b, h, qi[(i >> 1) & 1], kj) >=
+                       a.drop_thr
+                   ? s[i] * a.inv_keep : 0.f;
+      }
+    }
+
+    // O += P V (O already rescaled): P from the S fragment, split into hi
+    // and lo, is the register A operand; this tile's product goes into a
+    // fresh accumulator, lo products first, and is added into O in f32.
+    uint32_t phi[4][4], plo[4][4];
+    zoo_tf32::a_frags(s, phi, plo);
+    auto dv = [](uint8_t* base, int jj) {
+      return desc_b128(smem_u32(base) + jj * 32, 16, 1024);
+    };
+    float f[D / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      wgmma_pv_tf32<D>(f, plo[jj], dv(Vhi, jj), jj > 0);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) wgmma_pv_tf32<D>(f, phi[jj], dv(Vlo, jj), 1);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) wgmma_pv_tf32<D>(f, phi[jj], dv(Vhi, jj), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(f);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] += f[i];
+  }
+  cp_async_wait<0>();
+
+  float* out = static_cast<float*>(a.out) + b * a.os_b + h * a.os_h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (qi[hh] >= a.Lq) continue;
+    const float inv = 1.f / fmaxf(l[hh], 1e-20f);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = c * 8 + 2 * t;
+      *reinterpret_cast<float2*>(&out[qi[hh] * a.os_l + col]) =
+          make_float2(o[4 * c + 2 * hh] * inv, o[4 * c + 2 * hh + 1] * inv);
     }
     if (a.m_out != nullptr && t == 0) {
       const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Lq + qi[hh];

@@ -1,7 +1,8 @@
 // Flash attention: what the forward kernels (flash_attention_fwd.cuh) and
-// the backward (flash_attention_bwd.cu) share: the tile sizes of the CUDA-
-// core kernels, the running-max floor, the forward's argument block, the
-// reference's dropout hash and the f32 <-> input-type conversions.
+// the backward (flash_attention_bwd.cu) share: the tiles of the CUDA-core
+// bodies and their staging and score products, the running-max floor, the
+// forward's argument block, the reference's dropout hash and the f32 <->
+// input-type conversions.
 
 #pragma once
 
@@ -12,7 +13,7 @@ namespace zoo_flash {
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads per block: 16 x 16
+constexpr int NT = 256;       // threads per CUDA-core block: 16 x 16
 constexpr float NEG = -1e30f; // running-max floor, as in the reference
 
 struct Args {
@@ -39,6 +40,10 @@ struct Args {
   int dropout;
   uint32_t seed0, seed1, drop_thr;
   float inv_keep;  // 1 / (1 - p)
+  // contiguous (B, Lq) and (B, Lk) int32 segment ids, or both null: a
+  // (query, key) pair is live only where the two are equal
+  const int* q_seg;
+  const int* kv_seg;
 };
 
 // The reference's counter-based dropout hash (`_mix32`, `_keep_bits`,
@@ -82,6 +87,55 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core bodies (any head dim): 256 threads, 16 x 16, each owning a
+// 4 x 4 block of a 64 x 64 tile; the head dim is a loop over 64-column
+// chunks held in shared memory with a row pad of 4 floats.
+// ---------------------------------------------------------------------------
+
+constexpr int CS = 64 + 4;  // row stride of a 64-column chunk (floats)
+
+// Rows r0 .. r0 + 63, columns col0 .. col0 + 63 of a (rows, D) matrix with
+// row stride ls into a 64-row f32 tile of row stride `stride`; rows past n
+// and columns past D read as zeros.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(float* dst, int stride,
+                                            const T* src, int64_t ls, int r0,
+                                            int n, int col0, int D) {
+  for (int i = threadIdx.x; i < 64 * 64; i += NT) {
+    const int r = i >> 6, c = i & 63;
+    dst[r * stride + c] = r0 + r < n && col0 + c < D
+                              ? to_f32(src[(r0 + r) * ls + col0 + c])
+                              : 0.f;
+  }
+}
+
+// acc[i][j] += sum over the 64 columns of A[ty + 16 i] . B[tx + 16 j], both
+// 64 x CS tiles
+__device__ __forceinline__ void dot_chunk(float (&acc)[4][4], const float* A,
+                                          const float* B, int ty, int tx) {
+#pragma unroll 4
+  for (int d = 0; d < 64; d += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * CS + d]);
+      bv[i] = *reinterpret_cast<const float4*>(&B[(tx + 16 * i) * CS + d]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = acc[i][j];
+        x = fmaf(av[i].x, bv[j].x, x);
+        x = fmaf(av[i].y, bv[j].y, x);
+        x = fmaf(av[i].z, bv[j].z, x);
+        x = fmaf(av[i].w, bv[j].w, x);
+        acc[i][j] = x;
+      }
+  }
 }
 
 }  // namespace zoo_flash

@@ -2,21 +2,27 @@
 their plain versions.
 
 Counterpart of ``analytics_zoo_tpu/ops/pallas/flash_attention.py``.  Two
-kernels replace the TPU's:
+kernels replace the TPU's, for any head dim:
 
 - ``csrc/flash_attention_fwd.cu`` (design note in its ``.cuh``) replaces
-  ``_flash_fwd_pallas``, on the tensor cores for bf16 at head dims 64 and
-  128 and on CUDA cores otherwise: an additive bias broadcast over
-  (B|1, H|1, Lq|1, Lk), end-aligned causal masking, ragged lengths, f32 or
-  bf16 inputs, in-kernel dropout from the reference's position hash
-  (:func:`keep_bits`, ported bit for bit), and the (m, l) statistics the
-  backward reads;
+  ``_flash_fwd_pallas``: on the tensor cores at head dims 64 and 128 (bf16
+  as it is, f32 as three tf32 products a value, 3xTF32), on CUDA cores at
+  any other head dim; an additive bias broadcast over (B|1, H|1, Lq|1, Lk),
+  end-aligned causal masking, segment ids (packed sequences), ragged
+  lengths, f32 or bf16 inputs, in-kernel dropout from the reference's
+  position hash (:func:`keep_bits`, ported bit for bit), and the (m, l)
+  statistics the backward reads;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_pallas``: dq, dk,
   dv and the bias-gradient partials of a (B|1, H|1, 1, Lk) bias, from the
-  saved statistics and the dropout mask re-derived from the same hash, on
-  the tensor cores: f32 as three tf32 products a value (3xTF32,
+  saved statistics and the dropout mask re-derived from the same hash; on
+  the tensor cores at head dims 64 and 128 (f32 as 3xTF32,
   :func:`split_tf32` and :func:`matmul_3xtf32` are its arithmetic in plain
-  PyTorch), bf16 exactly in tf32.
+  PyTorch, bf16 exactly in tf32), on CUDA cores at any other.
+
+The gradient of a full (…, Lq, Lk) bias takes neither kernel: as in the
+reference (``_bwd``, which leaves it to a blockwise ``lax.scan``), it is
+:func:`attention_bwd_blockwise`, plain PyTorch on the tensor's device,
+chosen by shape before anything launches.
 
 :func:`flash_attention` is a ``torch.autograd.Function`` around the two.
 Dispatch: a CUDA tensor launches the kernels, and anything they do not
@@ -25,11 +31,8 @@ take raises; a CPU tensor takes the plain versions,
 compute the same functions in plain PyTorch.  Nothing falls back from one
 to the other.  ``launch_count`` and ``bwd_launch_count`` count the calls
 that launched the forward and the backward kernels, ``plain_count`` and
-``bwd_plain_count`` those that took the plain versions.
-
-Segment ids are not ported yet, and a full (…, Lq, Lk) bias that needs a
-gradient raises on CUDA: the reference takes a ``lax.scan``, not its
-kernel, for it (ROADMAP queue 2).
+``bwd_plain_count`` those that took the plain versions, and
+``bwd_blockwise_count`` the backwards that took the blockwise route.
 """
 
 from __future__ import annotations
@@ -51,12 +54,11 @@ launch_count = 0
 bwd_launch_count = 0
 plain_count = 0         # forwards that took the plain version (CPU)
 bwd_plain_count = 0
+bwd_blockwise_count = 0  # full-bias gradients: the blockwise route
 
 _FWD = "flash_attention_fwd"
 _BWD = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 192, 256)
-_BWD_HEAD_DIMS = (64, 128)
 
 # ---------------------------------------------------------------------------
 # The dropout hash (the reference's `_mix32`, `_keep_bits`,
@@ -162,15 +164,26 @@ def matmul_3xtf32(a, b):
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, causal, scale, bias):
-    """f32 scores with the bias added and the causal triangle at -1e30, and
-    the live mask (None when nothing is masked structurally)."""
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    lq, lk = scores.shape[-2], scores.shape[-1]
+def _live(lq, lk, causal, q_seg, kv_seg, device):
+    """The structural live mask: the end-aligned causal triangle (Lq, Lk)
+    and equal segment ids (B, 1, Lq, Lk), combined; None when neither
+    masks anything."""
     live = None
     if causal:
-        live = torch.ones(lq, lk, dtype=torch.bool,
-                          device=q.device).tril(lk - lq)
+        live = torch.ones(lq, lk, dtype=torch.bool, device=device).tril(
+            lk - lq)
+    if q_seg is not None:
+        seg = q_seg[:, None, :, None] == kv_seg[:, None, None, :]
+        live = seg if live is None else live & seg
+    return live
+
+
+def _scores(q, k, causal, scale, bias, q_seg=None, kv_seg=None):
+    """f32 scores with the bias added and the masked pairs at -1e30, and
+    the live mask (None when nothing is masked structurally)."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    live = _live(scores.shape[-2], scores.shape[-1], causal, q_seg, kv_seg,
+                 q.device)
     if bias is not None:
         scores = scores + bias.float()
     if live is not None:
@@ -179,13 +192,15 @@ def _scores(q, k, causal, scale, bias):
 
 
 def attention_reference(q, k, v, causal, scale, bias=None, dropout_p=0.0,
-                        seed=None, return_stats=False):
+                        seed=None, return_stats=False, q_seg=None,
+                        kv_seg=None):
     """Plain PyTorch attention with the kernel's semantics (the reference's
-    ``_attention_reference``): scores in f32, a running-max floor at -1e30
-    so a fully masked row comes out as zeros, dropout from the hash with
-    the seed pair ``seed``, output in q's dtype.  ``return_stats`` also
-    returns the (B, H, Lq) f32 statistics (m, l)."""
-    scores, live = _scores(q, k, causal, scale, bias)
+    ``_attention_reference``): scores in f32, a (q, k) pair live where the
+    causal triangle and equal segment ids allow it, a running-max floor at
+    -1e30 so a fully masked row comes out as zeros, dropout from the hash
+    with the seed pair ``seed``, output in q's dtype.  ``return_stats``
+    also returns the (B, H, Lq) f32 statistics (m, l)."""
+    scores, live = _scores(q, k, causal, scale, bias, q_seg, kv_seg)
     m = scores.amax(dim=-1, keepdim=True).clamp_min(_NEG)
     p = torch.exp(scores - m)
     if live is not None:
@@ -209,39 +224,106 @@ def _sum_to(x, shape):
     return x.sum(dim=dims, keepdim=True) if dims else x
 
 
+def _tile_grads(qf, gf, kb, vb, m, l_safe, dsum, live, scale, bias_blk,
+                keep_t):
+    """One (all queries, key block) tile of the backward: p from the saved
+    (m, l), dS = p (t dO.v - D) inside the live select.  Returns
+    (ds_raw, p_t, dq_part, dk, dv) in f32."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
+    if bias_blk is not None:
+        s = s + bias_blk
+    p = torch.exp(s - m[..., None]) / l_safe[..., None]
+    if live is not None:
+        p = p.masked_fill(~live, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vb)
+    if keep_t is not None:
+        p_t = p * keep_t
+        ds_raw = p * (keep_t * dp - dsum[..., None])
+    else:
+        p_t = p
+        ds_raw = p * (dp - dsum[..., None])
+    if live is not None:
+        ds_raw = ds_raw.masked_fill(~live, 0.0)
+    ds = ds_raw * scale
+    return (ds_raw, p_t, torch.einsum("bhqk,bhkd->bhqd", ds, kb),
+            torch.einsum("bhqk,bhqd->bhkd", ds, qf),
+            torch.einsum("bhqk,bhqd->bhkd", p_t, gf))
+
+
+def _keep_scale(seed, dropout_p, b, h, lq, k0, k1, device):
+    """1/(1-p) where the hash keeps a (q, k) pair of keys k0 .. k1 - 1, else
+    0; None without dropout."""
+    if dropout_p <= 0.0:
+        return None
+    bits = keep_bits(seed[0], seed[1],
+                     torch.arange(b, device=device).reshape(b, 1, 1, 1),
+                     torch.arange(h, device=device).reshape(1, h, 1, 1),
+                     torch.arange(lq, device=device).reshape(1, 1, lq, 1),
+                     torch.arange(k0, k1, device=device).reshape(1, 1, 1, -1))
+    return torch.where(bits >= drop_threshold(dropout_p),
+                       1.0 / (1.0 - dropout_p), 0.0)
+
+
 def attention_bwd_reference(q, k, v, g, out, m, l, causal, scale, bias=None,
-                            dropout_p=0.0, seed=None, bias_grad=False):
+                            dropout_p=0.0, seed=None, bias_grad=False,
+                            q_seg=None, kv_seg=None):
     """Plain backward with the kernel's arithmetic (the reference's
     ``tiles``, flash_attention.py:508): p from the saved (m, l),
     D = rowsum(dO * O), dS = p (t dO.v - D) inside the live select.
     Returns (dq, dk, dv, dbias); dbias has the bias's shape when
     ``bias_grad``, else None."""
-    scores, live = _scores(q, k, causal, scale, bias)
+    b, h, lq, _ = q.shape
+    lk = k.shape[2]
     gf = g.float()
-    dsum = (gf * out.float()).sum(dim=-1, keepdim=True)
-    p = torch.exp(scores - m[..., None]) / l.clamp_min(1e-20)[..., None]
-    if live is not None:
-        p = p.masked_fill(~live, 0.0)
-    dp = torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
-    if dropout_p > 0.0:
-        b, h, lq, lk = p.shape
-        keep = _keep_mask(seed, dropout_p, b, h, lq, lk, q.device)
-        t = torch.where(keep, 1.0 / (1.0 - dropout_p), 0.0)
-        p_t = p * t
-        ds_raw = p * (t * dp - dsum)
-    else:
-        p_t = p
-        ds_raw = p * (dp - dsum)
-    if live is not None:
-        ds_raw = ds_raw.masked_fill(~live, 0.0)
-    ds = ds_raw * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
-    dv = torch.einsum("bhqk,bhqd->bhkd", p_t, gf)
+    dsum = (gf * out.float()).sum(dim=-1)
+    live = _live(lq, lk, causal, q_seg, kv_seg, q.device)
+    ds_raw, _, dq, dk, dv = _tile_grads(
+        q.float(), gf, k.float(), v.float(), m, l.clamp_min(1e-20), dsum,
+        live, scale, None if bias is None else bias.float(),
+        _keep_scale(seed, dropout_p, b, h, lq, 0, lk, q.device))
     dbias = None
     if bias_grad:
         dbias = _sum_to(ds_raw, bias.shape).to(bias.dtype)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def attention_bwd_blockwise(q, k, v, g, out, m, l, causal, scale, bias=None,
+                            dropout_p=0.0, seed=None, q_seg=None,
+                            kv_seg=None):
+    """The backward the reference takes for the gradient of a full
+    (…, Lq, Lk) bias (``_bwd``, flash_attention.py:893-1014, its second
+    pass: the forward saved (m, l)), in plain PyTorch on the tensors'
+    device: key blocks of at most 256, each (Lq, block) score tile
+    recomputed from q and k, dropout re-derived from the hash; dq summed
+    over the blocks, dk, dv and the bias gradient written block by block.
+    Returns (dq, dk, dv, dbias); dbias has the bias's shape (None without
+    a bias)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    bk = min(256, lk)
+    qf, gf = q.float(), g.float()
+    l_safe = l.clamp_min(1e-20)
+    dsum = (gf * out.float()).sum(dim=-1)
+    live_all = _live(lq, lk, causal, q_seg, kv_seg, q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((b, h, lk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h, lk, d), dtype=v.dtype, device=q.device)
+    dbias = None if bias is None else torch.empty(
+        bias.shape, dtype=bias.dtype, device=q.device)
+    for k0 in range(0, lk, bk):
+        k1 = min(k0 + bk, lk)
+        ds_raw, _, dq_part, dkb, dvb = _tile_grads(
+            qf, gf, k[:, :, k0:k1].float(), v[:, :, k0:k1].float(), m,
+            l_safe, dsum,
+            None if live_all is None else live_all[..., k0:k1], scale,
+            None if bias is None else bias[..., k0:k1].float(),
+            _keep_scale(seed, dropout_p, b, h, lq, k0, k1, q.device))
+        dq += dq_part
+        dk[:, :, k0:k1] = dkb
+        dv[:, :, k0:k1] = dvb
+        if bias is not None:
+            dbias[..., k0:k1] = _sum_to(ds_raw, bias.shape[:3] + (k1 - k0,))
+    return dq.to(q.dtype), dk, dv, dbias
 
 
 # ---------------------------------------------------------------------------
@@ -256,21 +338,33 @@ def _check_bias(bias, b, h, lq, lk):
                          f"to ({b}|1, {h}|1, {lq}|1, {lk})")
 
 
+def _segment_ids(ids, b, n, which, device):
+    """(B, n) integer segment ids as a tensor on ``device``."""
+    ids = torch.as_tensor(np.asarray(ids) if not torch.is_tensor(ids)
+                          else ids, device=device)
+    if ids.shape != (b, n) or ids.dtype.is_floating_point \
+            or ids.dtype == torch.bool:
+        raise ValueError(f"{which} must be ({b}, {n}) integers, got "
+                         f"{tuple(ids.shape)} {ids.dtype}")
+    return ids
+
+
 def flash_attention(q, k, v, causal=False, scale=None, *, bias=None,
                     q_segment_ids=None, kv_segment_ids=None, dropout_p=0.0,
                     dropout_seed=None):
     """Fused attention over (B, H, L, D) tensors, differentiable.
 
     ``bias``: optional additive mask/bias, shape (B|1, H|1, Lq|1, Lk),
-    computed in f32.  ``dropout_p`` > 0 needs ``dropout_seed``: an int, a
-    ``torch.Generator`` or a (2,) integer pair; the mask comes from the
-    position hash, identical in the forward, the backward and the plain
-    versions.  Segment ids raise until they are ported.
+    computed in f32.  ``q_segment_ids`` / ``kv_segment_ids``: optional
+    (B, Lq) / (B, Lk) integers, given together; a query sees only the keys
+    of its own segment (packed sequences).  ``dropout_p`` > 0 needs
+    ``dropout_seed``: an int, a ``torch.Generator`` or a (2,) integer pair;
+    the mask comes from the position hash, identical in the forward, the
+    backward and the plain versions.
     """
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "flash_attention segment ids are not ported yet (ROADMAP "
-            "queue 2, flash_attention: segment ids)")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("q_segment_ids and kv_segment_ids must be given "
+                         "together")
     if dropout_p > 0.0 and dropout_seed is None:
         raise ValueError("dropout_p > 0 requires dropout_seed")
     b, h, lq, d = q.shape
@@ -278,47 +372,61 @@ def flash_attention(q, k, v, causal=False, scale=None, *, bias=None,
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if bias is not None:
         _check_bias(bias, b, h, lq, lk)
+    q_seg = kv_seg = None
+    if q_segment_ids is not None:
+        q_seg = _segment_ids(q_segment_ids, b, lq, "q_segment_ids", q.device)
+        kv_seg = _segment_ids(kv_segment_ids, b, lk, "kv_segment_ids",
+                              q.device)
     seed = normalize_seed(dropout_seed) if dropout_p > 0.0 else None
-    return _FlashAttention.apply(q, k, v, bias, bool(causal), scale,
-                                 float(dropout_p), seed)
+    return _FlashAttention.apply(q, k, v, bias, q_seg, kv_seg, bool(causal),
+                                 scale, float(dropout_p), seed)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward and backward kernels on CUDA, plain versions on the CPU."""
+    """Forward and backward kernels on CUDA, plain versions on the CPU;
+    the gradient of a full bias on the blockwise route on either."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale, dropout_p, seed):
+    def forward(ctx, q, k, v, bias, q_seg, kv_seg, causal, scale, dropout_p,
+                seed):
         global plain_count
         grad = any(ctx.needs_input_grad[:4])
         if q.device.type == "cpu":
             plain_count += 1
             out, m, l = attention_reference(q, k, v, causal, scale, bias,
                                             dropout_p, seed,
-                                            return_stats=True)
+                                            return_stats=True, q_seg=q_seg,
+                                            kv_seg=kv_seg)
         else:
             out, m, l = _flash_cuda(q, k, v, causal, scale, bias, dropout_p,
-                                    seed, stats=grad)
+                                    seed, stats=grad, q_seg=q_seg,
+                                    kv_seg=kv_seg)
         if grad:
-            ctx.save_for_backward(q, k, v, bias, out, m, l)
+            ctx.save_for_backward(q, k, v, bias, q_seg, kv_seg, out, m, l)
         ctx.args = (causal, scale, dropout_p, seed)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        global bwd_plain_count
-        q, k, v, bias, out, m, l = ctx.saved_tensors
+        global bwd_plain_count, bwd_blockwise_count
+        q, k, v, bias, q_seg, kv_seg, out, m, l = ctx.saved_tensors
         causal, scale, dropout_p, seed = ctx.args
         bias_grad = ctx.needs_input_grad[3]
-        if q.device.type == "cpu":
+        args = (q, k, v, g, out, m, l, causal, scale, bias, dropout_p, seed)
+        if bias_grad and bias.shape[2] > 1:
+            # a full bias's gradient: the reference's blockwise route,
+            # decided by shape before anything launches
+            bwd_blockwise_count += 1
+            dq, dk, dv, dbias = attention_bwd_blockwise(
+                *args, q_seg=q_seg, kv_seg=kv_seg)
+        elif q.device.type == "cpu":
             bwd_plain_count += 1
             dq, dk, dv, dbias = attention_bwd_reference(
-                q, k, v, g, out, m, l, causal, scale, bias, dropout_p, seed,
-                bias_grad)
+                *args, bias_grad, q_seg=q_seg, kv_seg=kv_seg)
         else:
             dq, dk, dv, dbias = _flash_bwd_cuda(
-                q, k, v, g, out, m, l, causal, scale, bias, dropout_p, seed,
-                bias_grad)
-        return dq, dk, dv, dbias, None, None, None, None
+                *args, bias_grad, q_seg=q_seg, kv_seg=kv_seg)
+        return dq, dk, dv, dbias, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +434,7 @@ class _FlashAttention(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(q, k, v, head_dims):
+def _check_cuda(q, k, v):
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if q.device.type != "cuda":
@@ -337,9 +445,6 @@ def _check_cuda(q, k, v, head_dims):
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
                         f"{v.dtype}")
-    if d not in head_dims:
-        raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{head_dims}, got {d}")
     if k.shape != (b, h, lk, d) or v.shape != (b, h, lk, d):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -358,6 +463,18 @@ def _bias_args(bias, b, h, lq, lk, device):
     return bias, bias.expand(b, h, lq, lk).stride()  # 0 on broadcast dims
 
 
+def _seg_args(q_seg, kv_seg, device):
+    """The kernels read segment ids as contiguous (B, L) int32."""
+    if q_seg is None:
+        return None, None
+    return tuple(t.to(device=device, dtype=torch.int32).contiguous()
+                 for t in (q_seg, kv_seg))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _drop_args(dropout_p, seed):
     if dropout_p <= 0.0:
         return 0, 0, 0, 0, 1.0
@@ -366,15 +483,16 @@ def _drop_args(dropout_p, seed):
 
 
 def _flash_cuda(q, k, v, causal, scale, bias, dropout_p=0.0, seed=None,
-                stats=False):
+                stats=False, q_seg=None, kv_seg=None):
     """Launch the forward kernel: out, and (m, l) when ``stats`` (else
     None, None)."""
     global launch_count
-    _check_cuda(q, k, v, _HEAD_DIMS)
+    _check_cuda(q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     q, k, v = (_row_major(t) for t in (q, k, v))
     bias, bias_strides = _bias_args(bias, b, h, lq, lk, q.device)
+    q_seg, kv_seg = _seg_args(q_seg, kv_seg, q.device)
     out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     m = l = None
     if stats:
@@ -382,12 +500,10 @@ def _flash_cuda(q, k, v, causal, scale, bias, dropout_p=0.0, seed=None,
         l = torch.empty_like(m)
     rc = _library(_FWD).zoo_flash_attention_fwd(
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        None if m is None else m.data_ptr(),
-        None if l is None else l.data_ptr(),
-        b, h, lq, lk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *bias_strides, *out.stride()[:3], scale, int(causal),
-        *_drop_args(dropout_p, seed),
+        _ptr(bias), out.data_ptr(), _ptr(m), _ptr(l), _ptr(q_seg),
+        _ptr(kv_seg), b, h, lq, lk, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *bias_strides, *out.stride()[:3], scale,
+        int(causal), *_drop_args(dropout_p, seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
@@ -397,21 +513,25 @@ def _flash_cuda(q, k, v, causal, scale, bias, dropout_p=0.0, seed=None,
 
 
 def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
-                    dropout_p=0.0, seed=None, bias_grad=False):
-    """Launch the backward kernels: (dq, dk, dv, dbias)."""
+                    dropout_p=0.0, seed=None, bias_grad=False, q_seg=None,
+                    kv_seg=None):
+    """Launch the backward kernels: (dq, dk, dv, dbias).  A bias gradient
+    comes from the kernels for a (B|1, H|1, 1, Lk) bias only: a full
+    bias's takes :func:`attention_bwd_blockwise`, which the autograd
+    Function picks before it gets here."""
     global bwd_launch_count
-    _check_cuda(q, k, v, _BWD_HEAD_DIMS)
+    _check_cuda(q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if bias_grad and bias.shape[2] != 1:
-        raise NotImplementedError(
-            "the gradient of a full (..., Lq, Lk) attention bias has no "
-            "kernel yet (ROADMAP queue 2, flash_attention backward: full "
-            "bias)")
+        raise ValueError("the backward kernels give the gradient of a "
+                         "(B|1, H|1, 1, Lk) bias only; a full bias's is "
+                         "attention_bwd_blockwise")
     q, k, v, g = (_row_major(t) for t in (q, k, v, g))
     if g.dtype != q.dtype:
         g = g.to(q.dtype)
     bias_f, bias_strides = _bias_args(bias, b, h, lq, lk, q.device)
+    q_seg, kv_seg = _seg_args(q_seg, kv_seg, q.device)
     # D = rowsum(dO * O) in f32, outside the kernels as in the reference
     dsum = (g.float() * out.float()).sum(dim=-1).contiguous()
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
@@ -422,11 +542,10 @@ def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
     rc = _library(_BWD).zoo_flash_attention_bwd(
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         g.data_ptr(), m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
-        None if bias_f is None else bias_f.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), None if db is None else db.data_ptr(),
-        b, h, lq, lk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *g.stride()[:3], *bias_strides, scale, int(causal),
-        *_drop_args(dropout_p, seed),
+        _ptr(bias_f), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(db),
+        _ptr(q_seg), _ptr(kv_seg), b, h, lq, lk, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *g.stride()[:3], *bias_strides,
+        scale, int(causal), *_drop_args(dropout_p, seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: "
@@ -439,11 +558,11 @@ def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
 
 
 _ARGTYPES = {
-    _FWD: ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
+    _FWD: ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
            + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 16
            + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 3
            + [ctypes.c_float, ctypes.c_void_p]),
-    _BWD: ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12
+    _BWD: ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 14
            + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 16
            + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 3
            + [ctypes.c_float, ctypes.c_void_p]),

@@ -11,15 +11,18 @@ and prints no result):
 2. build: compiles every CUDA kernel of the three slices from ``csrc/``
    (one nvcc per source, all started together), prints ptxas's register
    report, and checks with ``cuobjdump -sass`` that the tensor-core
-   kernels (int8 matmul, flash forward, flash backward) issue ``wgmma``
-   (HGMMA);
+   kernels issue ``wgmma`` (HGMMA) of their input types: bf16 in the int8
+   matmul, bf16 and tf32 in the flash forward, tf32 in the flash backward;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the tolerance stated: the
-   flash-attention forward (serving in f32 and bf16 with the padding bias,
-   bf16 at head dim 128 and with dropout 0.1 and the (m, l) statistics,
-   causal with ragged lengths in both types, and training with dropout
-   0.1 and the statistics), the flash-attention backward (f32 on the tf32
-   tensor cores; its error also relative to the largest gradient), fused
+   flash-attention forward (serving in f32, on 3xTF32 tensor cores, and
+   bf16 with the padding bias, bf16 at head dim 128 and with dropout 0.1
+   and the (m, l) statistics, causal with ragged lengths in both types,
+   and training with dropout 0.1 and the statistics), the flash-attention
+   backward (f32 on the tf32 tensor cores; its error also relative to the
+   largest gradient), both at head dims 192, 256 and 384 (the CUDA-core
+   bodies) and with segment ids (2-4 packed sequences a row), f32 and
+   bf16, beside SDPA with the equivalent mask, fused
    Adam's ``fused_update`` over the BERT-base parameter tree (one launch,
    every output bit for bit the plain version's), and the softmax
    cross-entropy forward and
@@ -33,9 +36,9 @@ and prints no result):
    issued one by one, and for the tensor-core kernels also the same calls
    replayed from one CUDA graph (and so are the backward and Adam);
    computes each kernel's bound from this run's inputs (for f32 x in the
-   int8 matmul and for the f32 backward, that of its route: three bf16 or
-   tf32 products a value on the tensor cores, with the f32 CUDA-core
-   figure beside it);
+   int8 matmul and for the f32 flash kernels at head dims 64 and 128, that
+   of their route: three bf16 or tf32 products a value on the tensor
+   cores, with the f32 CUDA-core figure beside it);
 4. serving slice: BERT-base at full width (vocab 30522, 12 blocks of
    hidden 768, 12 heads, intermediate 3072, sequence 512) with a
    Dense(2, softmax) head, as a 4-input Model served by
@@ -68,7 +71,12 @@ and prints no result):
    version, and under a plan that picks ``"xla"`` for
    ``serving.int8_matmul``, which must launch it no time; then times the
    kernel route on the device and splits it by shape;
-7. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
+7. head dims the tensor-core bodies do not take, at full width: the
+   BERT-base classifier with 4 heads (head dim 192) fine-tuned through
+   ``fit`` for 3 steps at batch 8 x 512 (12 forward and 12 backward flash
+   launches a step), and BERT-base with 2 heads (head dim 384) answering
+   one 8-record request through ``InferenceModel`` (12 launches);
+8. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
    of its own), then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -102,6 +110,12 @@ ADAM_TOL = 1e-6               # relative to the leaf's largest value
 XENT_TOL = 1e-5               # f32 sums over the vocab in different orders
 DROPOUT = 0.1
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
+# the head dims of the kernel phase's extra cases; the full-width paths at
+# head dims the tensor-core bodies do not take: fine-tuning with 4 heads
+# (D=192) and serving with 2 (D=384)
+NEW_HEAD_DIMS = (192, 256, 384)
+D192_HEADS, D192_STEPS = 4, 3
+D384_HEADS, D384_RECORDS = 2, 8
 # GPU vs CPU training step at 2 blocks: loss relative, gradients relative
 # to each leaf's largest value (f32 on both sides; cuBLAS, MKL and the
 # kernels sum in different orders)
@@ -126,8 +140,11 @@ N_CALIB = 16
 DENSE_KERNELS = r"(qkv|proj|fc|out|pooler)_kernel$|^dense_0/kernel$"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
            "fused_softmax_xent", "int8_matmul")
-TENSOR_CORE_KERNELS = ("int8_matmul", "flash_attention_fwd",
-                       "flash_attention_bwd")
+# the tensor-core kernels and the wgmma input types their machine code must
+# show: the f32 forward and the backward run tf32 (3xTF32), bf16 bf16
+TENSOR_CORE_KERNELS = {"int8_matmul": ("BF16",),
+                       "flash_attention_fwd": ("BF16", "TF32"),
+                       "flash_attention_bwd": ("TF32",)}
 REPLACES = {
     "flash_attention_fwd":
         "analytics_zoo_tpu/ops/pallas/flash_attention.py:216",
@@ -179,15 +196,19 @@ def build_kernels() -> None:
     from pathlib import Path
 
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    for name in TENSOR_CORE_KERNELS:
+    for name, types in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(build.library_path(name))], check=True,
                               capture_output=True, text=True).stdout
         hgmma = [ln.strip() for ln in sass.splitlines() if "HGMMA" in ln]
-        log(f"sass {name}: {len(hgmma)} HGMMA instructions, e.g. "
-            f"{hgmma[0] if hgmma else '-'}")
-        if not hgmma:
-            raise AssertionError(f"{name} issues no wgmma (no HGMMA)")
+        by_type = {t: [ln for ln in hgmma if f".{t}" in ln] for t in types}
+        log(f"sass {name}: {len(hgmma)} HGMMA instructions; "
+            + "; ".join(f"{t} {len(v)}, e.g. {v[0] if v else '-'}"
+                        for t, v in by_type.items()))
+        missing = [t for t, v in by_type.items() if not v]
+        if missing:
+            raise AssertionError(f"{name} issues no {missing} wgmma "
+                                 "(no HGMMA of that type)")
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -273,23 +294,14 @@ def kernel_phase(dev) -> dict:
                                            bias=bias),
             lambda: F.scaled_dot_product_attention(
                 qq, kk, vv, attn_mask=lib_bias, scale=scale))
-        ms, plain_ms, library_ms = (times[k] for k in ("ms", "plain_ms",
-                                                       "library_ms"))
         # least time for the same work: q, k, v, out and the bias moved
         # once; the two products over the (query, live key) pairs only
         nbytes = 4 * b * h * l * d * qq.element_size() + bias.numel() * 4
         flops = 4.0 * h * l * live_keys * d
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_FLOPS[name] * 1e3
-        per_dtype[name] = dict(
-            times, max_abs_err=err, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"kernel {name}: {ms:.4f} ms (graph {times['graph_ms']:.4f}), "
-            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (graph "
-            f"{times['library_graph_ms']:.4f}), bound "
-            f"{max(t_bytes, t_ops):.4f} ms "
-            f"({per_dtype[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)")
+        per_dtype[name] = dict(times, max_abs_err=err,
+                               **route_bound(nbytes, flops, name, d))
+        log(f"kernel {name}: {fmt_row(per_dtype[name])} ({nbytes / 1e6:.1f}"
+            f" MB, {flops / 1e9:.2f} GFLOP)")
 
     # bf16 at head dim 128 (hidden 768 as 6 heads), padding bias
     q8, k8, v8 = (t.to(torch.bfloat16) for t in
@@ -421,8 +433,55 @@ def graph_timed(fn, plain, library) -> dict:
     ``library_graph_ms``), which leave out the host time between calls."""
     row = timed(fn, plain, library)
     row.update(graph_ms=graph_ms(fn), plain_graph_ms=graph_ms(plain),
-               library_graph_ms=graph_ms(library))
+               library_graph_ms=None if library is None
+               else graph_ms(library))
     return row
+
+
+def library_call(make):
+    """``make()``'s library call, or None where the library does not take
+    these inputs (SDPA's kernels at some head dims): the yardstick is then
+    "none".  ``make`` builds the call and runs it once."""
+    import torch
+
+    try:
+        call = make()
+        call()
+        torch.cuda.synchronize()
+        return call
+    except RuntimeError as e:
+        log(f"  library call: none ({str(e).splitlines()[0][:100]})")
+        return None
+
+
+def route_bound(nbytes: float, flops: float, dtype: str, d: int) -> dict:
+    """The bound of the flash route the kernel takes: the f32 tensor-core
+    bodies (head dims 64 and 128) count three tf32 products a value, with
+    the f32 CUDA-core figure beside (``bound_cuda_core_ms``); bf16 counts at
+    the bf16 tensor-core rate, the f32 CUDA-core body at the f32 rate."""
+    if dtype == "float32" and d in (64, 128):
+        row = bound(nbytes, 3 * flops, "tfloat32")
+        row["bound_cuda_core_ms"] = bound(nbytes, flops)["bound_ms"]
+        return row
+    return bound(nbytes, flops, dtype)
+
+
+def fmt_row(row: dict) -> str:
+    """A timed row: kernel, plain and library ms (eager, and graph where
+    timed), and the bound."""
+    def ms(x):
+        return "none" if x is None else f"{x:.4f}"
+
+    def pair(key, lib=False):
+        graph = "library_graph_ms" if lib else key.replace("ms", "graph_ms")
+        return (f"{ms(row[key])}" + (f" (graph {ms(row[graph])})"
+                                     if graph in row else ""))
+
+    cc = (f"; f32 on CUDA cores {row['bound_cuda_core_ms']:.4f}"
+          if "bound_cuda_core_ms" in row else "")
+    return (f"{pair('ms')} ms, plain {pair('plain_ms')}, library "
+            f"{pair('library_ms', True)}, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}{cc})")
 
 
 def bound(nbytes: float, flops: float, dtype: str = "float32") -> dict:
@@ -497,7 +556,7 @@ def flash_train_phase(dev, fwd_entry) -> dict:
     if not max(errs) <= F32_TOL or out[-1].abs().max().item() != 0.0:
         raise AssertionError(f"flash forward with dropout disagrees: {errs}")
     lib_q, lib_k, lib_v = (t.contiguous() for t in (q, k, v))
-    train = timed(
+    train = graph_timed(
         lambda: fa._flash_cuda(q, k, v, False, scale, bias, DROPOUT, seed,
                                stats=True),
         lambda: fa.attention_reference(q, k, v, False, scale, bias,
@@ -506,13 +565,12 @@ def flash_train_phase(dev, fwd_entry) -> dict:
             lib_q, lib_k, lib_v, attn_mask=bias, dropout_p=DROPOUT,
             scale=scale))
     fwd_bytes = 4 * b * h * l * d * 4 + bias.numel() * 4 + 2 * b * h * l * 4
-    train.update(bound(fwd_bytes, 4.0 * h * l * live_keys * d))
+    train.update(route_bound(fwd_bytes, 4.0 * h * l * live_keys * d,
+                             "float32", d))
     train["max_abs_err"] = max(errs)
     fwd_entry["train"] = train
     fwd_entry["max_abs_err"] = max(fwd_entry["max_abs_err"], max(errs))
-    log(f"kernel fwd train: {train['ms']:.4f} ms, plain "
-        f"{train['plain_ms']:.4f} ms, sdpa {train['library_ms']:.4f} ms, "
-        f"bound {train['bound_ms']:.4f} ms")
+    log(f"kernel fwd train: {fmt_row(train)}")
 
     args = (q, k, v, g, out, m, lsum, False, scale, bias, DROPOUT, seed)
     got = fa._flash_bwd_cuda(*args)
@@ -555,6 +613,127 @@ def flash_train_phase(dev, fwd_entry) -> dict:
         f" ({entry['bound_by']}; f32 on CUDA cores "
         f"{entry['bound_cuda_core_ms']:.4f} ms)")
     return entry
+
+
+def packed_segments(b: int, n: int, gen: np.random.Generator):
+    """(B, n) int32 ids of 2 to 4 packed sequences a row, and the number of
+    (query, key) pairs they leave live."""
+    ids = np.zeros((b, n), np.int32)
+    for row in range(b):
+        cuts = np.sort(gen.choice(np.arange(1, n), gen.integers(1, 4),
+                                  replace=False))
+        ids[row] = np.searchsorted(cuts, np.arange(n), side="right")
+    return ids, sum(int((np.bincount(r) ** 2).sum()) for r in ids)
+
+
+def flash_case(d, dtype, dev, gen, segments=False):
+    """The forward and the backward at head dim d (hidden 768 as 768 // d
+    heads) at B=8, L=512, with the padding bias or with packed segment ids
+    (2-4 sequences a row), each against its plain version and timed beside
+    SDPA: its forward with the bias, or the equivalent boolean mask; its
+    memory-efficient backward op with the same mask as a float bias, no
+    dropout.  Returns (forward row, backward row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, l, h = 8, SEQ, 768 // d
+    name = str(dtype).split(".")[1]
+    label = f"{name} D={d} H={h} " + ("segment ids" if segments
+                                      else "padded bias")
+    q, k, v = (t.to(dtype) for t in attention_inputs(b, h, l, l, d, gen,
+                                                      dev))
+    g = torch.from_numpy(gen.normal(size=(b, h, l, d)).astype(
+        np.float32)).to(dev, dtype)
+    scale = 1.0 / np.sqrt(d)
+    seg, bias = {}, None
+    if segments:
+        ids, pairs = packed_segments(b, l, gen)
+        ids = torch.from_numpy(ids).to(dev)
+        seg = {"q_seg": ids, "kv_seg": ids}
+        keep = ids[:, None, :, None] == ids[:, None, None, :]
+        lib_mask = keep
+        lib_bias = torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+        extra = 2 * b * l * 4  # the ids, read once
+    else:
+        bias_np = padding_bias(b, l, gen)
+        bias = torch.from_numpy(bias_np).to(dev)
+        pairs = l * int((bias_np[:, 0, 0, :] == 0).sum())
+        lib_mask = lib_bias = bias.to(dtype)
+        extra = bias.numel() * 4
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    bwd_tol = BWD_TOL if dtype == torch.float32 else BF16_TOL
+    esize = q.element_size()
+
+    got = fa._flash_cuda(q, k, v, False, scale, bias, **seg)[0]
+    want = fa.attention_reference(q.float(), k.float(), v.float(), False,
+                                  scale, bias, **seg)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    log(f"kernel fwd {label}: max|d| {err:.3e} (tol {tol:g})")
+    if not err <= tol or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"flash forward {label} disagrees: {err}")
+    lq, lk, lv = (t.contiguous() for t in (q, k, v))
+    fwd = graph_timed(
+        lambda: fa._flash_cuda(q, k, v, False, scale, bias, **seg),
+        lambda: fa.attention_reference(q, k, v, False, scale, bias, **seg),
+        library_call(lambda: lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=lib_mask, scale=scale)))
+    fwd["max_abs_err"] = err
+    fwd.update(route_bound(4 * b * h * l * d * esize + extra,
+                           4.0 * h * d * pairs, name, d))
+    log(f"kernel fwd {label}: {fmt_row(fwd)}")
+
+    out, m, lsum = fa._flash_cuda(q, k, v, False, scale, bias, stats=True,
+                                  **seg)
+    args = (q, k, v, g, out, m, lsum, False, scale, bias)
+    grads = fa._flash_bwd_cuda(*args, **seg)
+    want = fa.attention_bwd_reference(
+        q.float(), k.float(), v.float(), g.float(), out.float(), m, lsum,
+        False, scale, bias, **seg)
+    torch.cuda.synchronize()
+    rel = max(rel_err(x, y) for x, y in zip(grads[:3], want[:3]))
+    top = max(((x.float() - y).abs().max() / y.abs().max()).item()
+              for x, y in zip(grads[:3], want[:3]))
+    log(f"kernel bwd {label}: relative {rel:.3e} (tol {bwd_tol:g}), "
+        f"relative to the largest gradient {top:.3e}")
+    if not rel <= bwd_tol or not all(torch.isfinite(x.float()).all()
+                                     for x in grads[:3]):
+        raise AssertionError(f"flash backward {label} disagrees: {rel}")
+    bwd = graph_timed(
+        lambda: fa._flash_bwd_cuda(*args, **seg),
+        lambda: fa.attention_bwd_reference(*args, **seg),
+        library_call(lambda: sdpa_backward(q, k, v, g, lib_bias, scale)))
+    bwd.update(max_abs_err=max((x.float() - y).abs().max().item()
+                               for x, y in zip(grads[:3], want[:3])),
+               rel_to_largest_grad=top)
+    bwd.update(route_bound(8 * b * h * l * d * esize + 2 * b * h * l * 4
+                           + extra, 10.0 * h * d * pairs, name, d))
+    log(f"kernel bwd {label}: {fmt_row(bwd)}")
+    return fwd, bwd
+
+
+def flash_dims_phase(dev, fwd_entry, bwd_entry) -> None:
+    """The head dims of the two new full-width paths and one more (192,
+    256, 384) and segment ids at D=64, f32 and bf16, forward and backward;
+    rows go into the two kernels' entries as ``<dtype>_d<D>`` and
+    ``<dtype>_segments``."""
+    import torch
+
+    gen = np.random.default_rng(SEED + 9)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for key, d, segments in [(f"{name}_d{d}", d, False)
+                                 for d in NEW_HEAD_DIMS] + [
+                                     (f"{name}_segments", 64, True)]:
+            fwd, bwd = flash_case(d, dtype, dev, gen, segments)
+            fwd_entry[key], bwd_entry[key] = fwd, bwd
+            if dtype == torch.float32:
+                fwd_entry["max_abs_err"] = max(fwd_entry["max_abs_err"],
+                                               fwd["max_abs_err"])
+                bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"],
+                                               bwd["max_abs_err"])
 
 
 def adam_phase(dev, leaf_shapes) -> dict:
@@ -687,12 +866,12 @@ def xent_phase(dev) -> list:
     return [fwd, bwd]
 
 
-def bert_model():
+def bert_model(n_head=BERT_BASE["n_head"]):
     from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
 
     ins = [Input((SEQ,)) for _ in range(4)]
-    _, pooled = BERT(**BERT_BASE)(ins)
+    _, pooled = BERT(**dict(BERT_BASE, n_head=n_head))(ins)
     return Model(ins, Dense(2, activation="softmax")(pooled))
 
 
@@ -796,14 +975,15 @@ def slice_phase(card_line: str) -> int:
     return launches
 
 
-def bert_classifier(n_block, hidden_drop, attn_drop):
+def bert_classifier(n_block, hidden_drop, attn_drop,
+                    n_head=BERT_BASE["n_head"]):
     """BERT with a Dense(2) logits head, fine-tuned as users of BERT do."""
     from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
 
     ins = [Input((SEQ,)) for _ in range(4)]
-    cfg = dict(BERT_BASE, n_block=n_block, hidden_p_drop=hidden_drop,
-               attn_p_drop=attn_drop)
+    cfg = dict(BERT_BASE, n_block=n_block, n_head=n_head,
+               hidden_p_drop=hidden_drop, attn_p_drop=attn_drop)
     _, pooled = BERT(**cfg)(ins)
     return Model(ins, Dense(2)(pooled))
 
@@ -942,6 +1122,85 @@ def training_phase(card_line: str) -> dict:
         f"{TRAIN_CPU_TOL:g})")
     if not (loss_err <= TRAIN_CPU_TOL and grad_err <= TRAIN_CPU_TOL):
         raise AssertionError("the GPU training step disagrees with the CPU")
+    return launches
+
+
+def training_d192_phase(card_line: str) -> dict:
+    """BERT-base's width with 4 heads (head dim 192, the CUDA-core bodies)
+    fine-tuned through ``fit`` for 3 steps at batch 8 x 512 in f32, dropout
+    0.1: every step launches 12 forward and 12 backward flash kernels."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    init_zoo_context(seed=SEED, device="cuda")
+    gen = np.random.default_rng(SEED + 7)
+    net = bert_classifier(BERT_BASE["n_block"], DROPOUT, DROPOUT,
+                          n_head=D192_HEADS)
+    net.build_params()
+    net.compile(optimizer=Adam(2e-5),
+                loss="sparse_categorical_crossentropy_from_logits")
+    x, y = train_data(TRAIN_BATCH * D192_STEPS, gen)
+    net.fit([a[:TRAIN_BATCH] for a in x], y[:TRAIN_BATCH],
+            batch_size=TRAIN_BATCH, nb_epoch=1)  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    reset_counters()  # head-dim-192 training path: from here to the read
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / D192_STEPS
+    launches = counters()  # end of the path
+    losses = [v for _, v in net._estimator.loss_log[-D192_STEPS:]]
+    blocks = BERT_BASE["n_block"]
+    expected = {"flash_attention_fwd": blocks * D192_STEPS,
+                "flash_attention_bwd": blocks * D192_STEPS,
+                "fused_adam": D192_STEPS, "softmax_xent_fwd": D192_STEPS,
+                "softmax_xent_bwd": D192_STEPS, "int8_matmul": 0}
+    log(f"training at head dim 192 ({D192_HEADS} heads): {D192_STEPS} steps"
+        f" at batch {TRAIN_BATCH} x {SEQ}: {step_ms:.1f} ms per step "
+        f"({card_line}); losses " + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError("a head-dim-192 training call did not run "
+                             "through its kernel")
+    if len(losses) != D192_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"head-dim-192 losses not finite: {losses}")
+    return launches
+
+
+def serving_d384_phase(card_line: str) -> dict:
+    """BERT-base's width with 2 heads (head dim 384, the CUDA-core forward)
+    served through ``InferenceModel``: one 8-record request, 12 flash
+    launches."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    init_zoo_context(seed=SEED, device="cuda")
+    net = bert_model(n_head=D384_HEADS)
+    net.build_params()
+    im = InferenceModel().from_keras_net(net)
+    im.warmup([(SEQ,)] * 4, batch_sizes=(D384_RECORDS,))
+    xs = requests_of(D384_RECORDS, np.random.default_rng(SEED + 8))
+    torch.cuda.synchronize()
+
+    reset_counters()  # head-dim-384 serving path: from here to the read
+    t0 = time.perf_counter()
+    out = im.predict(xs)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counters()  # end of the path
+    log(f"serving at head dim 384 ({D384_HEADS} heads): {len(out)} records "
+        f"in {ms:.2f} ms ({card_line}); launches {launches}")
+    if out.shape != (D384_RECORDS, 2) or not np.isfinite(out).all() \
+            or not np.allclose(out.sum(axis=1), 1.0, atol=1e-5):
+        raise AssertionError(f"head-dim-384 request: bad output {out}")
+    if launches["flash_attention_fwd"] != BERT_BASE["n_block"] \
+            or launches["flash_attention_bwd"] != 0:
+        raise AssertionError("head-dim-384 attention did not run through "
+                             "the kernel")
     return launches
 
 
@@ -1266,6 +1525,7 @@ def main() -> int:
     build_kernels()
     fwd = kernel_phase(dev)
     bwd = flash_train_phase(dev, fwd)
+    flash_dims_phase(dev, fwd, bwd)
     shapes = [tuple(t.shape) for t in tree_leaves_of_bert()]
     adam = adam_phase(dev, shapes)
     xent = xent_phase(dev)
@@ -1282,14 +1542,20 @@ def main() -> int:
     serving = {"flash_attention_fwd": slice_phase(card_line)}
     training = training_phase(card_line)
     int8_serving = int8_serving_phase(card_line, weights, int8)
+    training_d192 = training_d192_phase(card_line)
+    serving_d384 = serving_d384_phase(card_line)
     for entry in entries:
         name = entry["name"]
         paths = {"serving": serving.get(name, 0),
                  "training": training.get(name, 0),
-                 "int8_serving": int8_serving.get(name, 0)}
+                 "int8_serving": int8_serving.get(name, 0),
+                 "training_d192": training_d192.get(name, 0),
+                 "serving_d384": serving_d384.get(name, 0)}
         if name == "attention_stats":
-            paths = {"serving": 0, "int8_serving": 0,
-                     "training": training["flash_attention_fwd"]}
+            # training launches the forward with its statistics
+            paths = dict({p: 0 for p in paths},
+                         training=training["flash_attention_fwd"],
+                         training_d192=training_d192["flash_attention_fwd"])
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",

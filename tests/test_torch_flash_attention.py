@@ -8,12 +8,14 @@ with a seed and go to both packages.  The CUDA kernel itself is held
 against the plain version in tests/test_torch_flash_kernel.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from analytics_zoo_tpu.ops import attention as jattn
+from analytics_zoo_tpu.ops.pallas import flash_attention as jfa
 from analytics_zoo_tpu.ops.pallas.flash_attention import (
     _attention_reference,
     flash_attention as jax_flash,
@@ -153,19 +155,232 @@ def test_boolean_mask_routes_like_jax(monkeypatch):
     np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"q_segment_ids": np.zeros((1, 256), np.int32),
-     "kv_segment_ids": np.zeros((1, 256), np.int32),
-     "dropout_p": 0.1, "dropout_seed": 0},
-    {"q_segment_ids": np.zeros((1, 256), np.int32),
-     "kv_segment_ids": np.zeros((1, 256), np.int32)},
-])
-def test_unported_features_raise(kwargs):
-    """Segment ids are not ported yet, with or without dropout (which is:
-    tests/test_torch_flash_backward.py)."""
+def _segments(b, n, lengths_per_row, seed):
+    """(B, n) packed-sequence ids: each row cut into segments of the given
+    lengths (the rest of the row is one more segment)."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((b, n), np.int32)
+    for row in range(b):
+        cuts = np.cumsum(rng.permutation(lengths_per_row))
+        ids[row] = np.searchsorted(cuts, np.arange(n), side="right")
+    return ids
+
+
+# name: (b, h, lq, lk, d, causal, bias kind, segment lengths, dropout)
+SEG_CASES = {
+    # the reference's training config (tests/test_flash_attention.py:225):
+    # padding mask, segment ids, dropout and causal
+    "training_config": (2, 2, 130, 130, 64, True, "pad_1e30", None, 0.2),
+    "packed_rows_head_bias": (2, 2, 256, 256, 64, False, "heads",
+                              (40, 100, 60), 0.0),
+    "ragged_lq_lt_lk_d128": (1, 2, 200, 256, 128, False, "padding",
+                             (90, 70), 0.1),
+}
+
+
+def _seg_inputs(case, seed=21):
+    b, h, lq, lk, d, causal, bias_kind, lengths, p = SEG_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.normal(size=(b, h, n, d)).astype(np.float32)
+                  for n in (lq, lk, lk, lq))
+    bias = None
+    if bias_kind == "pad_1e30":
+        keep = np.ones((b, 1, 1, lk), np.float32)
+        keep[:, :, :, 100:] = 0.0
+        bias = (1.0 - keep) * np.float32(-1e30)
+    elif bias_kind == "padding":
+        bias = _padding_bias(b, lk, seed + 1)
+    elif bias_kind == "heads":
+        bias = rng.normal(size=(1, h, 1, lk)).astype(np.float32)
+    if lengths is None:  # as the reference's test: two segments of 70, 60
+        q_seg = kv_seg = np.repeat([[0] * 70 + [1] * 60], b, 0).astype(
+            np.int32)
+    else:
+        q_seg = _segments(b, lq, lengths, seed + 2)
+        kv_seg = _segments(b, lk, lengths, seed + 3)
+    return q, k, v, g, bias, q_seg, kv_seg, causal, p
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+def test_segment_ids_forward_matches_jax(case, monkeypatch):
+    """The plain forward with segment ids against the reference's Pallas
+    forward in interpret mode and its ``_attention_reference``."""
+    q, k, v, _, bias, q_seg, kv_seg, causal, p = _seg_inputs(case)
+    seed = np.array([5, 9], np.int32)
+    jb = None if bias is None else jnp.asarray(bias)
+    got = tfa.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal, None,
+        bias=None if bias is None else torch.from_numpy(bias),
+        q_segment_ids=torch.from_numpy(q_seg),
+        kv_segment_ids=torch.from_numpy(kv_seg), dropout_p=p,
+        dropout_seed=seed).numpy()
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal)
+    want_ref = _attention_reference(
+        *args, 1.0 / np.sqrt(q.shape[-1]), bias=jb,
+        q_seg=jnp.asarray(q_seg), kv_seg=jnp.asarray(kv_seg), dropout_p=p,
+        seed=jnp.asarray(seed))
+    np.testing.assert_allclose(got, np.asarray(want_ref), rtol=TOL, atol=TOL)
+    monkeypatch.setenv("ZOO_FLASH_INTERPRET", "1")
+    want = jax_flash(*args, None, 128, 128, bias=jb,
+                     q_segment_ids=jnp.asarray(q_seg),
+                     kv_segment_ids=jnp.asarray(kv_seg), dropout_p=p,
+                     dropout_seed=jnp.asarray(seed))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+    assert np.isfinite(got).all()
+
+
+# gradients: f32 sums in different orders (tests/test_torch_flash_backward.py)
+GRAD_TOL = 1e-4
+
+
+def _port_grads(q, k, v, g, bias, causal, p, seed, bias_grad, **seg):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias).requires_grad_(
+        bias_grad)
+    out = tfa.flash_attention(tq, tk, tv, causal, None, bias=tb,
+                              dropout_p=p, dropout_seed=seed, **seg)
+    out.backward(torch.from_numpy(g))
+    grads = [tq.grad, tk.grad, tv.grad] + ([tb.grad] if bias_grad else [])
+    return out.detach().numpy(), [t.numpy() for t in grads]
+
+
+def _jax_grads(q, k, v, g, bias, causal, p, seed, bias_grad, **seg):
+    def fn(q, k, v, bias):
+        return jax_flash(q, k, v, causal, None, 128, 128, bias=bias,
+                         dropout_p=p, dropout_seed=jnp.asarray(seed), **{
+                             n: jnp.asarray(a) for n, a in seg.items()})
+
+    jb = None if bias is None else jnp.asarray(bias)
+    out, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       jb)
+    grads = vjp(jnp.asarray(g))
+    return np.asarray(out), [np.asarray(t) for t in
+                             grads[:4 if bias_grad else 3]]
+
+
+def _assert_grads(got, want):
+    (g_out, g_grads), (w_out, w_grads) = got, want
+    np.testing.assert_allclose(g_out, w_out, rtol=TOL, atol=TOL)
+    for i, (a, w) in enumerate(zip(g_grads, w_grads)):
+        # the bias gradient sums over the broadcast dims: 10x the tolerance
+        tol = GRAD_TOL * (10 if i == 3 else 1)
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a, w, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+def test_segment_ids_gradients_match_jax(case, monkeypatch):
+    """dq, dk, dv (and a per-head bias's gradient) through both packages'
+    autograd with segment ids; the JAX backward is ``_flash_bwd_pallas`` in
+    interpret mode."""
+    q, k, v, g, bias, q_seg, kv_seg, causal, p = _seg_inputs(case, seed=31)
+    seed = np.array([-7, 11], np.int32)
+    bias_grad = case == "packed_rows_head_bias"
+    seg = {"q_segment_ids": q_seg, "kv_segment_ids": kv_seg}
+    got = _port_grads(q, k, v, g, bias, causal, p, seed, bias_grad,
+                      **{n: torch.from_numpy(a) for n, a in seg.items()})
+    monkeypatch.setenv("ZOO_FLASH_INTERPRET", "1")
+    before = jfa.invocation_counts["pallas"]
+    _assert_grads(got, _jax_grads(q, k, v, g, bias, causal, p, seed,
+                                  bias_grad, **seg))
+    assert jfa.invocation_counts["pallas"] >= before + 2  # fwd and bwd
+
+
+@pytest.mark.parametrize("d", [96, 192, 320])
+def test_any_head_dim_matches_jax(d, monkeypatch):
+    """The plain forward and backward at head dims the tensor-core bodies
+    do not take (the CUDA-core bodies' on a GPU), against the reference
+    with the padding bias and dropout."""
+    rng = np.random.default_rng(d)
+    b, h, lq, lk = 2, 2, 160, 200
+    q, k, v, g = (rng.normal(size=(b, h, n, d)).astype(np.float32)
+                  for n in (lq, lk, lk, lq))
+    bias = _padding_bias(b, lk, d)
+    seed = np.array([3, 4], np.int32)
+    got = _port_grads(q, k, v, g, bias, False, 0.1, seed, False)
+    monkeypatch.setenv("ZOO_FLASH_INTERPRET", "1")
+    want = _jax_grads(q, k, v, g, bias, False, 0.1, seed, False)
+    _assert_grads(got, want)
+    want_ref = _attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), False,
+        1.0 / np.sqrt(d), bias=jnp.asarray(bias), dropout_p=0.1,
+        seed=jnp.asarray(seed))
+    np.testing.assert_allclose(got[0], np.asarray(want_ref), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("causal,p,segments", [(True, 0.0, False),
+                                               (False, 0.1, True)],
+                         ids=["causal", "dropout_segments"])
+def test_full_bias_gradient_blockwise_matches_jax(causal, p, segments,
+                                                  monkeypatch):
+    """A (B, 1, Lq, Lk) bias that needs a gradient takes the blockwise
+    route (key blocks of 256: Lk 300 makes two) in both packages: dq, dk,
+    dv and the bias gradient against ``jax.grad``."""
+    rng = np.random.default_rng(41)
+    b, h, lq, lk, d = 2, 2, 140, 300, 64
+    q, k, v, g = (rng.normal(size=(b, h, n, d)).astype(np.float32)
+                  for n in (lq, lk, lk, lq))
+    bias = (rng.normal(size=(b, 1, lq, lk)) * 2).astype(np.float32)
+    seed = np.array([8, -8], np.int32)
+    seg = {}
+    if segments:
+        seg = {"q_segment_ids": _segments(b, lq, (50, 60), 42),
+               "kv_segment_ids": _segments(b, lk, (120, 100), 43)}
+    before = tfa.bwd_blockwise_count, tfa.bwd_plain_count
+    got = _port_grads(q, k, v, g, bias, causal, p, seed, True,
+                      **{n: torch.from_numpy(a) for n, a in seg.items()})
+    assert (tfa.bwd_blockwise_count, tfa.bwd_plain_count) == \
+        (before[0] + 1, before[1])
+    monkeypatch.setenv("ZOO_FLASH_INTERPRET", "1")
+    _assert_grads(got, _jax_grads(q, k, v, g, bias, causal, p, seed, True,
+                                  **seg))
+
+
+def test_blockwise_route_matches_the_plain_backward():
+    """The blockwise route and the one-tile plain backward compute the same
+    gradients (the kernels' arithmetic), here with every option on."""
+    rng = np.random.default_rng(51)
+    b, h, lq, lk, d = 2, 3, 100, 530, 32
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, n, d)).astype(
+        np.float32)) for n in (lq, lk, lk, lq))
+    bias = torch.from_numpy(rng.normal(size=(1, h, lq, lk)).astype(
+        np.float32))
+    q_seg = torch.from_numpy(_segments(b, lq, (30, 30), 52))
+    kv_seg = torch.from_numpy(_segments(b, lk, (200, 200), 53))
+    seed = (17, 19)
+    out, m, l = tfa.attention_reference(q, k, v, True, 0.2, bias, 0.1, seed,
+                                        True, q_seg=q_seg, kv_seg=kv_seg)
+    args = (q, k, v, g, out, m, l, True, 0.2, bias, 0.1, seed)
+    plain = tfa.attention_bwd_reference(*args, True, q_seg=q_seg,
+                                        kv_seg=kv_seg)
+    blocks = tfa.attention_bwd_blockwise(*args, q_seg=q_seg, kv_seg=kv_seg)
+    for a, w in zip(blocks, plain):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+
+
+def test_unmatched_segment_rows_are_zero():
+    """A query whose segment has no key comes out as zeros (and its
+    gradients too), not NaN, as in the reference."""
+    q = torch.randn(1, 2, 256, 64, requires_grad=True)
+    k = torch.randn(1, 2, 256, 64, requires_grad=True)
+    q_seg = torch.zeros(1, 256, dtype=torch.int64)
+    q_seg[0, :10] = 7  # segment 7 has no key
+    out = tfa.flash_attention(q, k, k, q_segment_ids=q_seg,
+                              kv_segment_ids=torch.zeros(1, 256,
+                                                         dtype=torch.int64))
+    out.sum().backward()
+    assert torch.equal(out[0, :, :10], torch.zeros_like(out[0, :, :10]))
+    assert torch.isfinite(out).all() and torch.isfinite(q.grad).all()
+    assert torch.equal(q.grad[0, :, :10], torch.zeros_like(q.grad[0, :, :10]))
+
+
+@pytest.mark.parametrize("which", ["q_segment_ids", "kv_segment_ids"])
+def test_segment_ids_come_together(which):
+    """One of the two raises, as in the reference (:1048-1050)."""
     q = torch.zeros(1, 1, 256, 64)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, q, q, **kwargs)
+    with pytest.raises(ValueError, match="together"):
+        tfa.flash_attention(q, q, q, **{which: np.zeros((1, 256), np.int32)})
 
 
 def test_dropout_needs_a_seed():

@@ -154,10 +154,16 @@ def test_unported_training_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BERT(vocab=10, hidden_size=64, n_block=1, n_head=1, seq_len=8,
              remat=True)
-    q = torch.zeros(1, 1, 256, 64)
+    # segment ids are ported: two packed sequences attend as two separate
+    # calls would
+    q = torch.randn(1, 1, 256, 64, generator=torch.Generator().manual_seed(0))
     seg = torch.zeros(1, 256, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q, q, q, q_segment_ids=seg, kv_segment_ids=seg)
+    seg[0, 100:] = 1
+    packed = flash_attention(q, q, q, q_segment_ids=seg, kv_segment_ids=seg)
+    for part in (slice(0, 100), slice(100, 256)):
+        x = q[:, :, part]
+        torch.testing.assert_close(packed[:, :, part],
+                                   flash_attention(x, x, x))
     # training-mode Dropout is ported (test_dropout_trains_like_jax); at
     # inference it is the identity
     assert torch.equal(Dropout(0.5).call({}, torch.ones(2, 2)),

@@ -10,8 +10,17 @@ against its plain version on a GPU and skip where none is visible:
   version (relative to the largest value when it exceeds 1: both sum
   512-long products in f32, in different orders), bf16 inputs within
   2e-2 of the plain version run in f32;
-- the f32 backward within 1e-5 of the largest gradient on every case,
-  fed the same forward outputs as its plain version;
+- the f32 forward on the tensor cores (3xTF32) within 1e-4 of the plain
+  version on every case, and the f32 backward within 1e-5 of the largest
+  gradient, fed the same forward outputs as its plain version;
+- every body of both kernels with segment ids (2-4 packed sequences a
+  row), causal masking, the padding bias and dropout 0.1, at head dims 64
+  and 128 (tensor cores) and 96, 192, 256, 320 and 512 (CUDA cores), f32
+  and bf16, within the tolerances above;
+- the gradient of a full bias through autograd: the blockwise route,
+  against the plain backward;
+- one ``fit`` step of a BERT classifier with head dim 192 (hidden 384, 2
+  heads) on the GPU against the same step on the CPU;
 - the fused Adam update over leaves of odd sizes, within 1e-6 relative
   (the kernel rounds each operation as the plain formula does), and over
   whole trees (BERT-base's leaf shapes; odd sizes and unaligned views):
@@ -151,11 +160,31 @@ def test_flash_through_autograd(cuda_device):
     assert (tfa.launch_count, tfa.bwd_launch_count) == \
         (before[0] + 1, before[1] + 1)
     assert bias.grad.shape == bias.shape
-    full = torch.zeros(2, 1, 256, 256, device=cuda_device,
-                       requires_grad=True)
-    out = tfa.flash_attention(q, k, v, bias=full)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.backward(g)
+    # the gradient of a full bias: the blockwise route, not the kernel
+    gen = np.random.default_rng(4)
+    full = torch.from_numpy(gen.normal(size=(2, 1, 256, 256)).astype(
+        np.float32)).to(cuda_device).requires_grad_()
+    for t in (q, k, v):
+        t.grad = None
+    before = (tfa.launch_count, tfa.bwd_launch_count,
+              tfa.bwd_blockwise_count)
+    out = tfa.flash_attention(q, k, v, False, None, bias=full,
+                              dropout_p=0.1, dropout_seed=(5, 6))
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (tfa.launch_count, tfa.bwd_launch_count,
+            tfa.bwd_blockwise_count) == (before[0] + 1, before[1],
+                                         before[2] + 1)
+    scale = 1.0 / np.sqrt(64)
+    w_out, w_m, w_l = tfa.attention_reference(
+        q.detach(), k.detach(), v.detach(), False, scale, full.detach(),
+        0.1, (5, 6), return_stats=True)
+    want = tfa.attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), g, w_out, w_m, w_l, False, scale,
+        full.detach(), 0.1, (5, 6), True)
+    for got_t, want_t in zip((q.grad, k.grad, v.grad, full.grad), want):
+        assert got_t.shape == want_t.shape
+        _close(got_t, want_t, F32_TOL)
 
 
 @pytest.mark.cuda
@@ -207,6 +236,153 @@ def test_flash_bwd_f32_within_1e5_of_largest_gradient(case, cuda_device):
         top = w.abs().max().item()
         assert torch.isfinite(x).all() and err <= F32_BWD_TOL * top, \
             (name, err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_flash_fwd_f32_tensor_cores_within_1e4(case, cuda_device):
+    """The f32 forward at head dims 64 and 128 runs 3xTF32 on the tensor
+    cores: out within 1e-4 of the plain version (measured ~1e-6), m and l
+    as the plain version's."""
+    b, h, lq, lk, d, causal, bias_kind, _, p = case
+    q, k, v, _, bias = _attn_inputs(b, h, lq, lk, d, bias_kind, cuda_device,
+                                    seed=9)
+    seed = (0x1234ABCD, 0x9E3779B9) if p > 0 else None
+    scale = 1.0 / np.sqrt(d)
+    for stats in (False, True):
+        out, m, l = tfa._flash_cuda(q, k, v, causal, scale, bias, p, seed,
+                                    stats=stats)
+        w_out, w_m, w_l = tfa.attention_reference(
+            q, k, v, causal, scale, bias, p, seed, return_stats=True)
+        torch.cuda.synchronize()
+        err = (out - w_out).abs().max().item()
+        assert torch.isfinite(out).all() and err <= 1e-4, err
+        if stats:
+            torch.testing.assert_close(m, w_m, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(l, w_l, rtol=1e-4, atol=1e-5)
+
+
+def _segment_ids(b, n, gen, device):
+    """(B, n) packed-sequence ids: 2 to 4 sequences a row."""
+    ids = np.zeros((b, n), np.int32)
+    for row in range(b):
+        cuts = np.sort(gen.choice(np.arange(1, n), gen.integers(1, 4),
+                                  replace=False))
+        ids[row] = np.searchsorted(cuts, np.arange(n), side="right")
+    return torch.from_numpy(ids).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 96, 128, 192, 256, 320, 512])
+def test_flash_every_body_with_segments(d, dtype, tol, cuda_device):
+    """Forward (with statistics) and backward of every kernel body with
+    segment ids, causal masking (lq < lk), the padding bias, a per-head
+    bias gradient and dropout 0.1: the tensor-core bodies at head dims 64
+    and 128, the CUDA-core ones at every other."""
+    gen = np.random.default_rng(d)
+    b, h, lq, lk = 2, 3, 200, 260
+    q, k, v, g, bias = _attn_inputs(b, h, lq, lk, d, "padding", cuda_device,
+                                    seed=d)
+    q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+    q_seg = _segment_ids(b, lq, gen, cuda_device)
+    kv_seg = _segment_ids(b, lk, gen, cuda_device)
+    seg = {"q_seg": q_seg, "kv_seg": kv_seg}
+    seed, scale = (0x1234ABCD, 0x9E3779B9), 1.0 / np.sqrt(d)
+    before = tfa.launch_count, tfa.bwd_launch_count
+    out, m, l = tfa._flash_cuda(q, k, v, True, scale, bias, 0.1, seed,
+                                stats=True, **seg)
+    grads = tfa._flash_bwd_cuda(q, k, v, g, out, m, l, True, scale, bias,
+                                0.1, seed, True, **seg)
+    torch.cuda.synchronize()
+    assert (tfa.launch_count, tfa.bwd_launch_count) == \
+        (before[0] + 1, before[1] + 1)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    w_out, w_m, w_l = tfa.attention_reference(
+        qf, kf, vf, True, scale, bias, 0.1, seed, return_stats=True, **seg)
+    _close(out, w_out, tol)
+    torch.testing.assert_close(m, w_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, w_l, rtol=tol, atol=1e-5)
+    want = tfa.attention_bwd_reference(
+        qf, kf, vf, gf, w_out, w_m, w_l, True, scale, bias, 0.1, seed, True,
+        **seg)
+    for got_t, want_t in zip(grads, want):
+        assert got_t.shape == want_t.shape
+        _close(got_t, want_t, tol)
+    # the fully masked batch row: zero output, zero gradients
+    for t in (out,) + grads[:3]:
+        assert t[-1].float().abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_fit_step_head_dim_192(cuda_device):
+    """One ``fit`` step of a BERT classifier with head dim 192 (hidden 384,
+    2 heads, 2 blocks, sequence 256) launches one forward and one backward
+    flash kernel a block, and its loss and gradients match the same step
+    on the CPU (f32 on both; cuBLAS, MKL and the kernels sum in different
+    orders: 1e-3 relative)."""
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.engine import step_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import (
+        get_loss,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _to_device,
+    )
+
+    seq, n = 256, 4
+
+    def model():
+        ins = [Input((seq,)) for _ in range(4)]
+        _, pooled = BERT(vocab=1000, hidden_size=384, n_block=2, n_head=2,
+                         seq_len=seq, intermediate_size=768,
+                         hidden_p_drop=0.0, attn_p_drop=0.1)(ins)
+        return Model(ins, Dense(2)(pooled))
+
+    gen = np.random.default_rng(192)
+    lengths = gen.integers(64, seq + 1, n)
+    pos = np.arange(seq)[None, :]
+    mask = (pos < lengths[:, None]).astype(np.float32)
+    x = [(gen.integers(1, 1000, (n, seq)) * mask).astype(np.int32),
+         np.zeros((n, seq), np.int32), np.tile(pos.astype(np.int32), (n, 1)),
+         mask]
+    y = gen.integers(0, 2, n).astype(np.int32)
+    init_zoo_context(seed=7, device="cuda")
+    net = model()
+    net.build_params(rng=torch.Generator().manual_seed(7), device="cuda")
+    net.compile(optimizer=Adam(1e-4),
+                loss="sparse_categorical_crossentropy_from_logits")
+    before = tfa.launch_count, tfa.bwd_launch_count
+    net.fit(x, y, batch_size=n, nb_epoch=1)
+    torch.cuda.synchronize()
+    assert (tfa.launch_count, tfa.bwd_launch_count) == \
+        (before[0] + 2, before[1] + 2)
+    assert np.isfinite(net._estimator.loss_log[-1][1])
+    results = []
+    for device in ("cuda", "cpu"):
+        small = model()
+        small.build_params(rng=torch.Generator().manual_seed(7),
+                           device=device)
+        est = Estimator(small, loss=get_loss(
+            "sparse_categorical_crossentropy_from_logits"))
+        loss, grads, _ = est.loss_and_grads(
+            small.params, small.state,
+            _to_device({"x": x, "y": y}, small.device),
+            step_generator(7, 0, small.device))
+        results.append((loss.item(), [t.cpu() for t in tree_leaves(grads)]))
+    (g_loss, g_grads), (c_loss, c_grads) = results
+    assert abs(g_loss - c_loss) <= 1e-3 * abs(c_loss)
+    for a, w in zip(g_grads, c_grads):
+        assert ((a - w).abs().max() <= 1e-3 * w.abs().max().clamp_min(
+            1e-30)).item()
 
 
 def _bert_base_leaf_shapes():
