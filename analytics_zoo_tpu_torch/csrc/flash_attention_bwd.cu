@@ -74,13 +74,66 @@
 //   pair.  These kernels take head dims 64 and 128; at 128, two warpgroups
 //   and 192 KB of shared memory a block.
 //
-// Every other head dim: `bwd_simt_kernel<T, KV>`, the same two kernels on
-// CUDA cores, with the head dim a runtime loop over 64-column chunks.  A
-// block owns 64 rows and one 64-column slice of their outputs, and
-// recomputes S and dP over the whole head dim for it: D / 64 times the
-// score work, which keeps shared memory at 105 KB at any head dim (two
-// blocks an SM) and the outputs in registers.
+// Head dims above 128 that are multiples of 64 (`bwd_wide_kernel<T, KV,
+// NWG>`, the head dim a runtime value).  The whole own tile does not fit
+// here: its hi and lo pieces and the streamed tile's take 1536 D bytes,
+// 295 KB at D 192.  So S and dP contract over the head dim in 32-column
+// chunks (one 128-byte swizzled row of f32):
+// - Tensor copies (TMA) bring each chunk's own rows (64) and streamed rows
+//   (32) of both operands into a ring of three slots, two chunks ahead of
+//   the one being multiplied; one thread issues them, and an mbarrier a
+//   slot says when they have landed.  f32 rows land as they are, in the
+//   128-byte-swizzled K-major layout; the threads split each value with
+//   split_tf32, write hi back in place and lo into a lo slot, and write the
+//   transposed copies below.  bf16 rows land in a staging slot and are
+//   widened into the hi slot (exactly).  The own rows are read again, from
+//   L2, for every streamed tile.  An input whose base or strides are not
+//   multiples of 16 bytes (which tensor maps need) is copied by the
+//   wrapper first.
+// - While chunk n's products run, chunk n + 2's copies are issued and
+//   chunk n + 1 is completed.
+// - The NWG warpgroups of a block share each chunk's products, every
+//   warpgroup with the same wgmma sequence (a warpgroup-dependent branch
+//   around wgmma makes ptxas serialize all of them): three warpgroups take
+//   one product each (lo . hi, hi . lo, hi . hi, added in that order: lo
+//   products first) over all k-steps; two split the k-steps.  The partial
+//   S and dP go through shared memory; each warpgroup adds them, in
+//   warpgroup order, for its share of the 16 accumulator elements a thread
+//   holds (bf16 on three warpgroups: each forms the whole of S and dP and
+//   takes its share from its own registers), runs the softmax recompute,
+//   live select and dropout hash on that share as above, and passes P t
+//   and dS back through shared memory.  Every warpgroup then holds them
+//   whole as the register A operands of the output products, one fresh
+//   accumulator per 32-row tile; dbias is summed from dS as above.
+// - A block owns 64 rows and NWG groups of 64 output columns (its slice,
+//   carried by blockIdx.x), one a warpgroup, and forms S and dP over the
+//   whole head dim for them.  NWG is 3 where the head dim has a multiple of
+//   3 groups, else 2: the dk/dv kernel holds two 64 x 64 accumulators a
+//   thread, and three warpgroups get 168 registers a thread.  Slices: one
+//   at D 192, two at 256 and 384, three at 320 (2, 2 and 1 groups), four at
+//   512.  Only slice 0 writes the bias-gradient partials.
+// - The streamed chunks of the slice are also written transposed
+//   (zoo_tf32::transposed, in the fragment's row order, no shuffles), 32 x
+//   64 NWG x 8 bytes: K in the dq kernel, Q and dO in the dk/dv kernel.
+// - Shared memory a block, f32 / bf16: the transposed pieces (24 KB a
+//   warpgroup and operand), three hi slots of 24 KB, two lo slots of 24 KB
+//   (bf16: three staging slots of 12 KB), the streamed rows' m, 1 / l, D
+//   and a bias row, three mbarriers and 1 KB to align: the dq kernel 153.6 /
+//   141.6 KB with two warpgroups, 169.6 / 157.6 KB with three; the dk/dv
+//   kernel 185.6 / 173.6 KB and 217.6 / 205.6 KB; one block an SM.
+// - ptxas -v (CUDA 12.9): no spills in any of the eight instances;
+//   registers in PERF.md section 6.
+//
+// Any other head dim (not a multiple of 64; only direct calls of
+// flash_attention reach these, never the router, which sends multiples of
+// 64 only): `bwd_simt_kernel<T, KV>`, the same two kernels on CUDA cores,
+// with the head dim a runtime loop over 64-column chunks.  A block owns 64
+// rows and one 64-column slice of their outputs, and recomputes S and dP
+// over the whole head dim for it: D / 64 times the score work, which keeps
+// shared memory at 105 KB at any head dim (two blocks an SM) and the
+// outputs in registers.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -523,7 +576,491 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// Any other head dim: CUDA cores
+// Head dims above 128 that are multiples of 64: 3xTF32 wgmma over 32-column
+// chunks (design note at the top of the file)
+// ---------------------------------------------------------------------------
+
+constexpr int CW = 32;                    // columns a chunk (128 f32 bytes)
+constexpr int OWN_PIECE = OWN * CW * 4;   // a 64 x 32 f32 piece: 8 KB
+constexpr int STR_PIECE = SR * CW * 4;    // a 32 x 32 f32 piece: 4 KB
+// The pieces of a chunk, K-major: a hi slot (own0, own1, str0, str1) and,
+// for f32, a lo slot of the same layout.  f32 rows land in the hi slot as
+// loaded and are split there (hi in place, lo into the lo slot); bf16 rows
+// land in a staging slot (rows of 64 bytes) and are widened into the hi
+// slot.
+constexpr int HALF_SLOT = 2 * OWN_PIECE + 2 * STR_PIECE;  // 24 KB
+constexpr int BF_ROW = CW * 2;
+constexpr int BF_SLOT = (2 * OWN + 2 * SR) * BF_ROW;       // 12 KB
+constexpr int NSLOT = 3;  // hi (and staging) slots: two chunks in flight
+// 4-value units of a chunk: 1024 of the own rows, then 512 streamed
+constexpr int OWN_UNITS = 2 * OWN * CW / 4;
+constexpr int CHUNK_UNITS = OWN_UNITS + 2 * SR * CW / 4;
+// Warpgroups a block: 3 where the head dim has a multiple of 3 groups of
+// 64 columns, else 2 (the dk/dv kernel holds two 64 x 64 accumulators a
+// thread, and 128 NWG threads share 64 K registers).  Every warpgroup
+// issues the same wgmma sequence: a warpgroup-dependent branch around
+// wgmma makes ptxas serialize them all.
+__host__ __device__ constexpr int wide_warpgroups(int D) {
+  return D / 64 % 3 == 0 ? 3 : 2;
+}
+// One transposed piece: the slice's 64 NWG columns as rows of 32 values.
+__host__ __device__ constexpr int wide_t_bytes(int nwg) {
+  return nwg * 64 * 128;
+}
+// Transposed str0 hi, lo (and str1 hi, lo in the dk/dv kernel); NSLOT hi
+// slots; two lo slots (f32) or NSLOT staging slots (bf16); the streamed
+// rows' m, 1 / l, D and a bias row; an mbarrier a slot; room to align to
+// 1024 bytes.
+__host__ __device__ constexpr int wide_smem_bytes(bool kv, int nwg,
+                                                  bool exact) {
+  return (kv ? 4 : 2) * wide_t_bytes(nwg) + NSLOT * HALF_SLOT +
+         (exact ? NSLOT * BF_SLOT : 2 * HALF_SLOT) + (3 * SR + OWN) * 4 +
+         NSLOT * 8 + 1024;
+}
+
+// The tensor maps of q, k, v and dO, (D, L, H, B) with boxes of 32 columns
+// x 32 rows, for the tensor copies (TMA) of the chunked kernels.
+struct Maps {
+  CUtensorMap q, k, v, g;
+};
+static_assert(wide_smem_bytes(true, 3, false) <= 232448,
+              "a block may have 227 KB of shared memory");
+
+// Warpgroup wg's part of sc += own0 . str0^T and dp += own1 . str1^T over
+// one 32-column chunk, from its hi and lo slots; the two accumulators'
+// products alternate.  Three warpgroups take one product of the three
+// each (lo . hi, hi . lo, hi . hi: summed in that order they are the lo
+// products first), over all 4 k-steps; bf16 (EXACT: hi . hi only) there
+// has every warpgroup form the whole of S and dP.  Two split the k-steps:
+// wg and wg + 2, lo products first, then hi * hi.
+template <bool EXACT, int NWG>
+__device__ __forceinline__ void chunk_scores(float (&sc)[16], float (&dp)[16],
+                                             uint32_t hi, uint32_t lo,
+                                             int wg) {
+  static_assert(NWG == 2 || NWG == 3, "two or three warpgroups");
+  using zoo_sm90::desc_b128;
+  using zoo_sm90::wgmma_tf32_m64n32k8_ss;
+  // own0, own1 at 0, OWN_PIECE; str0, str1 after them
+  auto da = [](uint32_t slot, int which, int kk) {
+    return desc_b128(slot + which * OWN_PIECE + kk * 32, 16, 1024);
+  };
+  auto db = [](uint32_t slot, int which, int kk) {
+    return desc_b128(slot + 2 * OWN_PIECE + which * STR_PIECE + kk * 32, 16,
+                     1024);
+  };
+  if constexpr (NWG == 3) {
+    const uint32_t a = !EXACT && wg == 0 ? lo : hi;
+    const uint32_t b = !EXACT && wg == 1 ? lo : hi;
+#pragma unroll
+    for (int kk = 0; kk < CW / 8; ++kk) {
+      wgmma_tf32_m64n32k8_ss(sc, da(a, 0, kk), db(b, 0, kk), 1);
+      wgmma_tf32_m64n32k8_ss(dp, da(a, 1, kk), db(b, 1, kk), 1);
+    }
+    return;
+  }
+  if (!EXACT) {
+#pragma unroll
+    for (int j = 0; j < CW / 8 / NWG; ++j) {
+      const int kk = wg + NWG * j;
+      wgmma_tf32_m64n32k8_ss(sc, da(lo, 0, kk), db(hi, 0, kk), 1);
+      wgmma_tf32_m64n32k8_ss(dp, da(lo, 1, kk), db(hi, 1, kk), 1);
+      wgmma_tf32_m64n32k8_ss(sc, da(hi, 0, kk), db(lo, 0, kk), 1);
+      wgmma_tf32_m64n32k8_ss(dp, da(hi, 1, kk), db(lo, 1, kk), 1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < CW / 8 / NWG; ++j) {
+    const int kk = wg + NWG * j;
+    wgmma_tf32_m64n32k8_ss(sc, da(hi, 0, kk), db(hi, 0, kk), 1);
+    wgmma_tf32_m64n32k8_ss(dp, da(hi, 1, kk), db(hi, 1, kk), 1);
+  }
+}
+
+// The two kernels at a head dim D > 128, D % 64 == 0 (KV as in bwd_kernel).
+// NWG warpgroups a block; a block owns 64 rows and the output columns of
+// the 64-column groups g0 .. g0 + NWG - 1 (its slice, blockIdx.x = row tile
+// x slices + slice) and computes S and dP over the whole head dim for them.
+template <typename T, bool KV, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
+    bwd_wide_kernel(Args a, const __grid_constant__ Maps maps, int D) {
+  using namespace zoo_sm90;
+  constexpr bool EXACT = sizeof(T) == 2;  // bf16: the lo pieces are zero
+  constexpr int NT = 128 * NWG;
+  constexpr int U = CHUNK_UNITS / NT;     // units of a chunk a thread
+  static_assert(CHUNK_UNITS % NT == 0, "a chunk splits evenly");
+  constexpr int TB = wide_t_bytes(NWG);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* tp = base;                        // transposed pieces
+  uint8_t* his = base + (KV ? 4 : 2) * TB;   // NSLOT hi slots
+  uint8_t* aux = his + NSLOT * HALF_SLOT;    // lo or staging slots
+  float* Ms = reinterpret_cast<float*>(
+      aux + (EXACT ? NSLOT * BF_SLOT : 2 * HALF_SLOT));
+  float* Ls = Ms + SR;
+  float* Dm = Ls + SR;
+  float* Bs = Dm + SR;
+  const uint32_t full = smem_u32(Bs + OWN);  // NSLOT mbarriers: chunk landed
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nch = D / CW;
+  const int ns = (D / 64 + NWG - 1) / NWG;  // slices
+  const int slice = blockIdx.x % ns;
+  const int r0 = blockIdx.x / ns * OWN;     // first own row
+  const int g0 = slice * NWG;               // first 64-column group
+  const int nout = min(NWG, D / 64 - g0);   // warpgroups with outputs
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
+  const float* bias =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
+  const bool row_bias = bias == nullptr || a.bs_q == 0;
+  const int64_t rows = (static_cast<int64_t>(b) * a.H + h) * a.Lq;
+  const int64_t keys = (static_cast<int64_t>(b) * a.H + h) * a.Lk;
+  const bool seg = a.q_seg != nullptr;
+  const int* own_seg = !seg ? nullptr
+                       : KV ? a.kv_seg + b * a.Lk : a.q_seg + b * a.Lq;
+  const int* str_seg = !seg ? nullptr
+                       : KV ? a.q_seg + b * a.Lq : a.kv_seg + b * a.Lk;
+  const int own_len = KV ? a.Lk : a.Lq;
+  const int str_len = KV ? a.Lq : a.Lk;
+
+  int sbeg = 0, send = str_len;
+  if (a.causal) {
+    if (KV) sbeg = max(0, r0 - offset) / SR * SR;
+    else send = min(a.Lk, r0 + OWN + offset);
+  }
+  const int ntiles = sbeg < send ? (send - sbeg + SR - 1) / SR : 0;
+
+  // A chunk's unit (which, row, ch: 4 values) lies in a hi or lo slot at
+  // piece(is_own, which) + kmaj(row, ch), in a staging slot at bf_off.
+  auto piece = [](bool is_own, int which) {
+    return is_own ? which * OWN_PIECE : 2 * OWN_PIECE + which * STR_PIECE;
+  };
+  auto kmaj = [](bool is_own, int row, int ch) {
+    return is_own ? kmajor<OWN>(row, ch) : kmajor<SR>(row, ch);
+  };
+  auto bf_off = [](bool is_own, int which, int row, int ch) {
+    return ((is_own ? which * OWN : 2 * OWN + which * SR) + row) * BF_ROW +
+           ch * 8;
+  };
+  // Copy chunk n (chunk c of the own rows and of the streamed rows s .. s
+  // + 31) into hi slot (f32) or staging slot (bf16) st = n % NSLOT: six
+  // tensor copies from one thread, which complete on the slot's mbarrier;
+  // rows past the lengths are zeros.
+  auto tma_chunk = [&](int st, int s, int c) {
+    const uint32_t bar = full + 8 * st;
+    const uint32_t dst = EXACT ? smem_u32(aux + st * BF_SLOT)
+                               : smem_u32(his + st * HALF_SLOT);
+    const int half = EXACT ? 32 * BF_ROW : 32 * 128;  // 32 rows' bytes
+    fence_proxy_async();  // the slot's last readers were generic too
+    mbar_arrive_tx(bar, 6 * 32 * CW * sizeof(T));
+    const CUtensorMap* om0 = KV ? &maps.k : &maps.q;
+    const CUtensorMap* om1 = KV ? &maps.v : &maps.g;
+    const CUtensorMap* sm0 = KV ? &maps.q : &maps.k;
+    const CUtensorMap* sm1 = KV ? &maps.g : &maps.v;
+    const uint32_t own_b = EXACT ? OWN * BF_ROW : OWN_PIECE;
+    const uint32_t str_b = EXACT ? SR * BF_ROW : STR_PIECE;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      tma_load_4d(dst + j * half, om0, c * CW, r0 + 32 * j, h, b, bar);
+      tma_load_4d(dst + own_b + j * half, om1, c * CW, r0 + 32 * j, h, b,
+                  bar);
+    }
+    tma_load_4d(dst + 2 * own_b, sm0, c * CW, s, h, b, bar);
+    tma_load_4d(dst + 2 * own_b + str_b, sm1, c * CW, s, h, b, bar);
+  };
+  // Complete chunk n (chunk c of a tile): f32 its lo slot n % 2 from the
+  // hi slot, bf16 its hi slot from the staging slot; a streamed chunk of
+  // the block's slice also transposed, hi and lo (str0, and str1 in the
+  // dk/dv kernel).  Own units: 8 lanes a row; streamed units: lane = row,
+  // so that the transposed stores hit every bank once a warp.
+  auto complete_chunk = [&](int n, int c) {
+    uint8_t* hs = his + n % NSLOT * HALF_SLOT;
+    const int tc = c - 2 * g0;  // chunk within the slice
+    const bool in_slice = tc >= 0 && tc < 2 * nout;
+    auto unit = [&](int i) {
+      const int u = tid + NT * i;
+      const bool is_own = u < OWN_UNITS;
+      const int w = is_own ? u : u - OWN_UNITS;
+      const int which = is_own ? w >> 9 : w >> 8;
+      const int row = is_own ? (w >> 3) & (OWN - 1) : w & (SR - 1);
+      const int ch = is_own ? w & 7 : (w >> 5) & 7;
+      const uint32_t off = piece(is_own, which) + kmaj(is_own, row, ch);
+      uint32_t h4[4], l4[4];
+      if (EXACT) {
+        const float4 x = to_float4(*reinterpret_cast<const uint2*>(
+            aux + n % NSLOT * BF_SLOT + bf_off(is_own, which, row, ch)));
+        h4[0] = __float_as_uint(x.x), h4[1] = __float_as_uint(x.y);
+        h4[2] = __float_as_uint(x.z), h4[3] = __float_as_uint(x.w);
+        *reinterpret_cast<uint4*>(hs + off) =
+            make_uint4(h4[0], h4[1], h4[2], h4[3]);
+      } else {
+        const uint4 x = *reinterpret_cast<const uint4*>(hs + off);
+        const uint32_t x4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(x4[e]), h4[e], l4[e]);
+        *reinterpret_cast<uint4*>(hs + off) =
+            make_uint4(h4[0], h4[1], h4[2], h4[3]);
+        *reinterpret_cast<uint4*>(aux + n % 2 * HALF_SLOT + off) =
+            make_uint4(l4[0], l4[1], l4[2], l4[3]);
+      }
+      if (!is_own && in_slice && (KV || which == 0)) {
+        uint8_t* th = tp + 2 * which * TB;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t toff = transposed(CW * tc + 4 * ch + e, row);
+          *reinterpret_cast<uint32_t*>(th + toff) = h4[e];
+          if (!EXACT) *reinterpret_cast<uint32_t*>(th + TB + toff) = l4[e];
+        }
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < U; ++i) unit(i);
+  };
+  // chunks in the order (streamed tile, chunk): NSLOT - 1 in flight ahead
+  // of the one multiplied; chunk n's copies land in its slot's phase
+  // n / NSLOT
+  const int nall = ntiles * nch;
+  auto issue = [&](int n) {
+    if (tid == 0 && n < nall)
+      tma_chunk(n % NSLOT, sbeg + SR * (n / nch), n % nch);
+  };
+  auto landed = [&](int n) {
+    mbar_wait(full + 8 * (n % NSLOT), (n / NSLOT) & 1);
+  };
+
+  float mld = 0.f;  // as in bwd_kernel: streamed m, 1 / l, D, or bias
+  auto load_rowvals = [&](int s) {
+    if (KV && tid < 3 * SR) {
+      const int qi = s + tid % SR;
+      const int which = tid / SR;
+      mld = which == 0 ? (qi < a.Lq ? a.m[rows + qi] : 0.f)
+          : which == 1 ? (qi < a.Lq ? 1.f / fmaxf(a.l[rows + qi], 1e-20f)
+                                    : 1.f)
+                       : (qi < a.Lq ? a.dsum[rows + qi] : 0.f);
+    }
+    if (!KV && tid < SR)
+      mld = bias != nullptr && row_bias && s + tid < a.Lk
+                ? bias[(s + tid) * a.bs_k] : 0.f;
+  };
+  if (tid == 0)
+    for (int j = 0; j < NSLOT; ++j) mbar_init(full + 8 * j, 1);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NSLOT - 1; ++j) issue(j);
+  if (ntiles) load_rowvals(sbeg);
+  if (KV && tid < OWN)
+    Bs[tid] = bias != nullptr && row_bias && r0 + tid < a.Lk
+                  ? bias[(r0 + tid) * a.bs_k] : 0.f;
+
+  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  int rw[2];
+  uint32_t rhash[2];
+  float mr[2] = {0.f, 0.f}, lr[2] = {1.f, 1.f}, dr[2] = {0.f, 0.f};
+  int rseg[2] = {0, 0};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    rw[hh] = r0 + warp * 16 + g + 8 * hh;
+    rhash[hh] = hash ^ (KV ? keep_k(rw[hh]) : keep_q(rw[hh]));
+    if (seg && rw[hh] < own_len) rseg[hh] = own_seg[rw[hh]];
+    if (!KV && rw[hh] < a.Lq) {
+      mr[hh] = a.m[rows + rw[hh]];
+      lr[hh] = 1.f / fmaxf(a.l[rows + rw[hh]], 1e-20f);
+      dr[hh] = a.dsum[rows + rw[hh]];
+    }
+  }
+  float acc0[32], acc1[32];  // dq, or dk and dv: this warpgroup's columns
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  float db[2] = {0.f, 0.f};
+  const int lt = tid & 127;
+  // the warpgroups' partial S and dP (16 KB a warpgroup) go through the
+  // lo slots (f32) or the hi slots (bf16), free between tiles
+  float* red = reinterpret_cast<float*>(EXACT ? his : aux);
+  static_assert(NWG * 16384 <= 2 * HALF_SLOT, "the partials fit");
+
+  int n = 0;  // the chunk being multiplied
+  for (int s = sbeg; s < send; s += SR) {
+    // ---- S and dP: each warpgroup sums its part of every chunk --------
+    float sc[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.f;
+    landed(n);  // the tile's first chunk
+    __syncthreads();  // and the last tile's readers are done
+    complete_chunk(n, 0);
+    if (KV && tid < 3 * SR) Ms[tid] = mld;  // Ms, Ls, Dm contiguous
+    if (!KV && tid < SR) Bs[tid] = mld;
+    if (s + SR < send) load_rowvals(s + SR);
+    fence_proxy_async();
+    __syncthreads();
+    for (int c = 0; c < nch; ++c, ++n) {
+      // chunk n's products run while chunk n + NSLOT - 1 is copied (into
+      // the slots chunk n - 1 left) and chunk n + 1 is completed
+      wgmma_fence();
+      chunk_scores<EXACT, NWG>(sc, dp, smem_u32(his + n % NSLOT * HALF_SLOT),
+                               smem_u32(aux + n % 2 * HALF_SLOT), wg);
+      wgmma_commit();
+      issue(n + NSLOT - 1);
+      if (c + 1 < nch) {
+        landed(n + 1);
+        complete_chunk(n + 1, c + 1);
+        fence_proxy_async();
+      }
+      wgmma_wait<0>();
+      fence_operand(sc);
+      fence_operand(dp);
+      __syncthreads();  // chunk n + 1 complete; chunk n's slots free
+    }
+    // ---- S and dP summed and the softmax recompute, shared out: each
+    // warpgroup adds the partials of its share of the 16 fragment elements
+    // a thread holds, in warpgroup order (bf16 on three warpgroups holds
+    // whole values already), forms P t and dS for them as bwd_kernel does,
+    // and passes them on through the last chunk's hi slot (f32) or the
+    // third hi slot (bf16), free between tiles.  Partials and results are
+    // planes of one value a thread.
+    float* pts = reinterpret_cast<float*>(
+        his + (EXACT ? 2 : (n - 1) % NSLOT) * HALF_SLOT);
+    float* dss = pts + 16 * 128;
+    constexpr bool PARTIALS = !EXACT || NWG != 3;
+    if (PARTIALS) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        red[(wg * 32 + i) * 128 + lt] = sc[i];
+        red[(wg * 32 + 16 + i) * 128 + lt] = dp[i];
+      }
+      __syncthreads();
+    }
+    const bool whole = !seg && s + SR <= str_len && r0 + OWN <= own_len &&
+                       (!a.causal || (KV ? s + offset >= r0 + OWN - 1
+                                         : r0 + offset >= s + SR - 1));
+    // elements LO .. HI - 1, with the bias row from shared memory (ROWB) or
+    // each bias element from global memory
+    auto share = [&](auto row_tag, auto lo_tag, auto hi_tag) {
+      constexpr bool ROWB = decltype(row_tag)::value;
+      constexpr int LO = decltype(lo_tag)::value, HI = decltype(hi_tag)::value;
+      constexpr float LOG2E = 1.4426950408889634f;
+#pragma unroll
+      for (int i = LO; i < HI; ++i) {
+        float x = sc[i], y = dp[i];
+        if (PARTIALS) {
+          x = y = 0.f;
+#pragma unroll
+          for (int w = 0; w < NWG; ++w) {
+            x += red[(w * 32 + i) * 128 + lt];
+            y += red[(w * 32 + 16 + i) * 128 + lt];
+          }
+        }
+        const int hh = (i >> 1) & 1;
+        const int sr = s + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int qi = KV ? sr : rw[hh];
+        const int kj = KV ? rw[hh] : sr;
+        const int c = sr - s;
+        const float m = KV ? Ms[c] : mr[hh];
+        const float inv_l = KV ? Ls[c] : lr[hh];
+        const float dd = KV ? Dm[c] : dr[hh];
+        const bool live = whole || (qi < a.Lq && kj < a.Lk &&
+                                    (!a.causal || qi + offset >= kj) &&
+                                    (!seg || rseg[hh] == str_seg[sr]));
+        float bv;
+        if constexpr (ROWB)
+          bv = Bs[KV ? rw[hh] - r0 : c];
+        else
+          bv = bias[min(qi, a.Lq - 1) * a.bs_q + min(kj, a.Lk - 1) * a.bs_k];
+        const float e = fast_exp2((fmaf(x, a.scale, bv) - m) * LOG2E);
+        const float p = live ? e * inv_l : 0.f;
+        const float keep =
+            mix32(rhash[hh] ^ (KV ? keep_q(sr) : keep_k(sr))) >= a.drop_thr
+                ? a.inv_keep
+                : 0.f;
+        if (KV) pts[i * 128 + lt] = p * keep;
+        dss[i * 128 + lt] = live ? p * (keep * y - dd) : 0.f;
+      }
+    };
+    auto shares = [&](auto row_tag) {
+      using std::integral_constant;
+      if constexpr (NWG == 3) {
+        if (wg == 0)
+          share(row_tag, integral_constant<int, 0>(),
+                integral_constant<int, 6>());
+        else if (wg == 1)
+          share(row_tag, integral_constant<int, 6>(),
+                integral_constant<int, 11>());
+        else
+          share(row_tag, integral_constant<int, 11>(),
+                integral_constant<int, 16>());
+      } else {
+        if (wg == 0)
+          share(row_tag, integral_constant<int, 0>(),
+                integral_constant<int, 8>());
+        else
+          share(row_tag, integral_constant<int, 8>(),
+                integral_constant<int, 16>());
+      }
+    };
+    if (row_bias)
+      shares(std::true_type());
+    else
+      shares(std::false_type());
+    __syncthreads();
+
+    // ---- the output products over the transposed streamed rows (every
+    // warpgroup issues them; one past the slice's columns stores nothing),
+    // P t and dS read back one at a time
+    uint32_t hi[4][4], lo[4][4];
+    if (KV) {  // dv += (p t)^T dO
+      float pt[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pt[i] = pts[i * 128 + lt];
+      a_frags(pt, hi, lo);
+      accumulate<EXACT>(acc1, hi, lo, smem_u32(tp + 2 * TB),
+                        smem_u32(tp + 3 * TB), wg);
+    }
+    float ds[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ds[i] = dss[i * 128 + lt];
+    if (KV && a.dbias != nullptr && slice == 0 && wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) db[(i >> 1) & 1] += ds[i];
+    }
+    a_frags(ds, hi, lo);  // dq += dS k, or dk += dS^T q
+    accumulate<EXACT>(acc0, hi, lo, smem_u32(tp), smem_u32(tp + TB), wg);
+  }
+
+  T* out0 = static_cast<T*>(KV ? a.dk : a.dq);
+  T* out1 = static_cast<T*>(a.dv);
+  const int64_t first = KV ? keys : rows;
+  if (wg < nout) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = rw[(i >> 1) & 1];
+      if (r >= own_len) continue;
+      const int64_t e =
+          (first + r) * D + (g0 + wg) * 64 + 8 * (i >> 2) + 2 * t;
+      zoo_flash::store_as(&out0[e], acc0[i] * a.scale);
+      zoo_flash::store_as(&out0[e + 1], acc0[i + 1] * a.scale);
+      if (KV) {
+        zoo_flash::store_as(&out1[e], acc1[i]);
+        zoo_flash::store_as(&out1[e + 1], acc1[i + 1]);
+      }
+    }
+  }
+  if (KV && a.dbias != nullptr && slice == 0 && wg == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float x = db[hh];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (t == 0 && rw[hh] < a.Lk) a.dbias[keys + rw[hh]] = x;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Head dims that are not multiples of 64: CUDA cores
 // ---------------------------------------------------------------------------
 
 using zoo_flash::CS;
@@ -771,12 +1308,108 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, bool KV, int NWG>
+cudaError_t launch_wide_kernel(const Args& a, const Maps& maps, int D,
+                               cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes(KV, NWG, sizeof(T) == 2);
+  auto kern = bwd_wide_kernel<T, KV, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int slices = (D / 64 + NWG - 1) / NWG;
+  const int len = KV ? a.Lk : a.Lq;
+  const dim3 grid((len + OWN - 1) / OWN * slices, a.H, a.B);
+  kern<<<grid, 128 * NWG, smem, stream>>>(a, maps, D);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda), or null.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &found) == cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (D, L, H, B) map of one input with boxes of 32 columns x 32 rows:
+// f32 into the 128-byte-swizzled layout wgmma reads, bf16 as loaded.
+// False where the tensor copies cannot take it (a base or a stride not a
+// multiple of 16 bytes).
+bool encode_map(CUtensorMap* map, const void* p, int esize, int D, int L,
+                int H, int B, int64_t s_b, int64_t s_h, int64_t s_l) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(p) % 16 != 0 ||
+      s_b * esize % 16 != 0 || s_h * esize % 16 != 0 ||
+      s_l * esize % 16 != 0 || s_b <= 0 || s_h <= 0)
+    return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_l * esize),
+                                 static_cast<cuuint64_t>(s_h * esize),
+                                 static_cast<cuuint64_t>(s_b * esize)};
+  const cuuint32_t box[4] = {CW, SR, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(p), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            esize == 4 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// D > 128, D % 64 == 0: the inputs' tensor maps, then the dq and the
+// dk/dv kernels.  Returns -2 when an input's base or strides are not
+// multiples of 16 bytes (the wrapper copies such an input first).
+template <typename T>
+int launch_wide(const Args& a, int D, cudaStream_t stream) {
+  const int es = sizeof(T);
+  Maps maps;
+  const bool tma =
+      encode_map(&maps.q, a.q, es, D, a.Lq, a.H, a.B, a.qs_b, a.qs_h,
+                 a.qs_l) &&
+      encode_map(&maps.k, a.k, es, D, a.Lk, a.H, a.B, a.ks_b, a.ks_h,
+                 a.ks_l) &&
+      encode_map(&maps.v, a.v, es, D, a.Lk, a.H, a.B, a.vs_b, a.vs_h,
+                 a.vs_l) &&
+      encode_map(&maps.g, a.g, es, D, a.Lq, a.H, a.B, a.gs_b, a.gs_h,
+                 a.gs_l);
+  if (!tma) return -2;
+  const bool three = wide_warpgroups(D) == 3;
+  const cudaError_t err =
+      three ? launch_wide_kernel<T, false, 3>(a, maps, D, stream)
+            : launch_wide_kernel<T, false, 2>(a, maps, D, stream);
+  if (err != cudaSuccess) return err;
+  return three ? launch_wide_kernel<T, true, 3>(a, maps, D, stream)
+               : launch_wide_kernel<T, true, 2>(a, maps, D, stream);
+}
+
+// Head dims 64 and 128: bwd_kernel; every other multiple of 64: the
+// chunked bwd_wide_kernel; any other head dim: the CUDA-core kernels.
 template <typename T>
 int dispatch(int head_dim, const Args& a, cudaStream_t stream) {
   switch (head_dim) {
     case 64: return launch<T, 64>(a, stream);
     case 128: return launch<T, 128>(a, stream);
-    default: return launch_simt<T>(a, head_dim, stream);
+    default:
+      return head_dim % 64 == 0 ? launch_wide<T>(a, head_dim, stream)
+                                : launch_simt<T>(a, head_dim, stream);
   }
 }
 
@@ -794,9 +1427,11 @@ bool rows_aligned(const void* p, int bytes, int64_t s_b, int64_t s_h,
 // dv: contiguous outputs in the input type.  dbias: (B, H, Lk) f32
 // partials, or null when the bias needs no gradient.  q_seg, kv_seg:
 // contiguous (B, Lq) and (B, Lk) int32 segment ids, or both null.  Head
-// dims 64 and 128 take the tensor-core kernels, any other the CUDA-core
-// ones.  Returns 0 on success, a cudaError_t code when a launch failed, or
-// -1 for a dtype the kernels do not take.
+// dims 64 and 128 take the tensor-core kernels, every other multiple of 64
+// the chunked tensor-core kernels, any other the CUDA-core ones.  Returns
+// 0 on success, a cudaError_t code when a launch failed, -1 for a dtype the
+// kernels do not take, or -2 when the chunked kernels cannot map an input
+// (a base or a stride not a multiple of 16 bytes).
 extern "C" int zoo_flash_attention_bwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     const void* g, const float* m, const float* l, const float* dsum,

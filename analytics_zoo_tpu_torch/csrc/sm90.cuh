@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (int8_matmul.cu, flash_attention_fwd.cuh, flash_attention_bwd.cu,
 // flash_tf32.cuh):
-// 16-byte cp.async copies with zero fill, the async-proxy fence, the
+// 16-byte cp.async copies with zero fill, mbarriers and tensor copies
+// (TMA), the async-proxy fence, the
 // 128-byte-swizzled shared-memory layout that wgmma reads, its matrix
 // descriptors, and `wgmma.mma_async` on bf16 and tf32 operands with f32
 // accumulators, as inline PTX.  For tf32 (4-byte values) the same layout
@@ -54,6 +55,42 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// An mbarrier in shared memory counting `count` arrivals, and the
+// transaction bytes a tensor copy (TMA) reports to it.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also expects `bytes` of tensor copies this phase.
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+// The box at coordinates (c0, c1, c2, c3), innermost first, of the tensor
+// map at `map` (a __grid_constant__ kernel parameter) into shared memory
+// at dst; it completes its bytes on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
 }
 
 // Makes generic-proxy writes to shared memory (st.shared, cp.async)

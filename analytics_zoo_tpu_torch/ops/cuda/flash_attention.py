@@ -15,9 +15,10 @@ kernels replace the TPU's, for any head dim:
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_pallas``: dq, dk,
   dv and the bias-gradient partials of a (B|1, H|1, 1, Lk) bias, from the
   saved statistics and the dropout mask re-derived from the same hash; on
-  the tensor cores at head dims 64 and 128 (f32 as 3xTF32,
-  :func:`split_tf32` and :func:`matmul_3xtf32` are its arithmetic in plain
-  PyTorch, bf16 exactly in tf32), on CUDA cores at any other.
+  the tensor cores at every head dim that is a multiple of 64 (f32 as
+  3xTF32, :func:`split_tf32` and :func:`matmul_3xtf32` are its arithmetic
+  in plain PyTorch, bf16 exactly in tf32; above 128 in 32-column chunks
+  that tensor copies bring in), on CUDA cores at any other.
 
 The gradient of a full (…, Lq, Lk) bias takes neither kernel: as in the
 reference (``_bwd``, which leaves it to a blockwise ``lax.scan``), it is
@@ -456,6 +457,15 @@ def _row_major(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _tma_ready(t):
+    """The chunked backward kernels (head dims above 128) read their inputs
+    with tensor copies, which need the base and the batch, head and row
+    strides in multiples of 16 bytes."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s > 0 and s * es % 16 == 0 for s in t.stride()[:3])
+
+
 def _bias_args(bias, b, h, lq, lk, device):
     if bias is None:
         return None, (0, 0, 0, 0)
@@ -530,6 +540,10 @@ def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
     q, k, v, g = (_row_major(t) for t in (q, k, v, g))
     if g.dtype != q.dtype:
         g = g.to(q.dtype)
+    if d > 128 and d % 64 == 0:
+        q, k, v, g = (t if _tma_ready(t) else
+                      t.clone(memory_format=torch.contiguous_format)
+                      for t in (q, k, v, g))
     bias_f, bias_strides = _bias_args(bias, b, h, lq, lk, q.device)
     q_seg, kv_seg = _seg_args(q_seg, kv_seg, q.device)
     # D = rowsum(dO * O) in f32, outside the kernels as in the reference

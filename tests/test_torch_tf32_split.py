@@ -7,7 +7,9 @@ lo * hi + hi * lo + hi * hi (3xTF32).  That is f32 math only if the two
 pieces sum to x exactly and the dropped lo * lo term and the tf32 read of
 lo stay near f32's rounding, which these tests check through the plain
 ``split_tf32``, ``tf32_read`` and ``matmul_3xtf32`` (the kernel's split and
-products, step for step).  Nothing here imports the JAX package.
+products, step for step).  The last test models the order in which the
+chunked body (head dims above 128) sums its products, and holds that
+order against the plain backward.  Nothing here imports the JAX package.
 """
 
 import numpy as np
@@ -86,3 +88,128 @@ def test_3xtf32_product_is_f32_math(depth, kind):
     # a single tf32 product is not: ~2^-11 relative
     one = tfa.tf32_read(a).double() @ tfa.tf32_read(b).double()
     assert ((one - want).abs() / size).max().item() > 1e-5
+
+
+# The chunked backward body (``bwd_wide_kernel`` in
+# csrc/flash_attention_bwd.cu) contracts S and dP over 32-column chunks.
+
+
+def _warpgroups(d):
+    """Warpgroups a block: 3 where d has a multiple of 3 groups of 64
+    columns, else 2; each owns one group of a block's output slice."""
+    return 3 if d // 64 % 3 == 0 else 2
+
+
+def _chunked_scores(a, b, nwg):
+    """``a @ b^T`` over the head dim as the chunked body forms S and dP from
+    the ``split_tf32`` pieces: with 3 warpgroups, warpgroup w sums product w
+    of (lo . hi, hi . lo, hi . hi) over every 32-column chunk; with 2,
+    warpgroup w sums the k-steps w and w + 2 of each chunk, lo products
+    first; each chunk's products are added into the warpgroup's f32 sum,
+    and the warpgroups' sums are added in order."""
+    a_hi, a_lo = (tfa.tf32_read(t).double() for t in tfa.split_tf32(a))
+    b_hi, b_lo = (tfa.tf32_read(t).double().transpose(-1, -2)
+                  for t in tfa.split_tf32(b))
+    pieces = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+    total = None
+    for w in range(nwg):
+        acc = torch.zeros(a.shape[:-1] + b.shape[-2:-1])
+        for c0 in range(0, a.shape[-1], 32):
+            if nwg == 3:
+                cols, parts = torch.arange(c0, c0 + 32), [pieces[w]]
+            else:
+                cols = torch.tensor([c0 + 8 * kk + i for kk in (w, w + 2)
+                                     for i in range(8)])
+                parts = pieces
+            for x, y in parts:
+                acc = (acc.double() + x[..., cols] @ y[..., cols, :]).float()
+        total = acc if total is None else total + acc
+    return total
+
+
+def _out_product(p, x):
+    """``p @ x`` over one 32-row streamed tile as the output products form
+    it (3xTF32, lo products first), in a fresh accumulator."""
+    return tfa.matmul_3xtf32(p, x).float()
+
+
+def _chunked_side(own0, own1, str0, str1, m, inv_l, dsum, bias, keep, live,
+                  scale, kv):
+    """One kernel of the chunked body on whole tensors: S and dP of the own
+    rows against every streamed row, the softmax recompute, then per
+    32-row streamed tile and per output slice (64 columns a warpgroup) a
+    fresh product added into the f32 totals.  Returns (out0, out1, dbias
+    partial); the (own, streamed) operands are (q, k) in the dq kernel,
+    (k, q) in the dk/dv kernel, whose m, 1 / l, D, bias, keep and live
+    come transposed."""
+    d = own0.shape[-1]
+    nwg = _warpgroups(d)
+    s = _chunked_scores(own0, str0, nwg)
+    dp = _chunked_scores(own1, str1, nwg)
+    p = torch.exp2((s * scale + bias - m) * 1.4426950408889634) * inv_l
+    p = torch.where(live, p, 0.0)
+    pt = p * keep
+    ds = torch.where(live, p * (keep * dp - dsum), 0.0)
+    out0 = torch.zeros(own0.shape)
+    out1 = torch.zeros(own0.shape)
+    db = torch.zeros(own0.shape[:-1])
+    for s0 in range(0, str0.shape[-2], 32):
+        tile = slice(s0, s0 + 32)
+        db = db + ds[..., tile].sum(-1)
+        for c0 in range(0, d, 64 * nwg):
+            cols = slice(c0, min(c0 + 64 * nwg, d))
+            out0[..., cols] += _out_product(ds[..., tile],
+                                            str0[..., tile, cols])
+            if kv:
+                out1[..., cols] += _out_product(pt[..., tile],
+                                                str1[..., tile, cols])
+    return out0, out1, db
+
+
+@pytest.mark.parametrize("d", [192, 320])
+def test_chunked_backward_order_within_1e5_of_largest_gradient(d):
+    """dq, dk, dv and the bias gradient summed in the chunked body's order
+    (S and dP over 32-column chunks of tf32 hi and lo pieces, split across
+    the warpgroups by product at d 192 and by k-step at d 320,
+    a fresh accumulator per 32-row streamed tile, outputs per column slice)
+    stay within 1e-5 of each output's largest gradient of the plain
+    backward: causal with lq < lk, segment ids, the padding bias and
+    dropout 0.1."""
+    gen = np.random.default_rng(d)
+    b, h, lq, lk, p_drop = 2, 2, 80, 100, 0.1
+    q, k, v, g = (torch.from_numpy(gen.normal(size=(b, h, n, d)).astype(
+        np.float32)) for n in (lq, lk, lk, lq))
+    keep_k = np.arange(lk)[None, :] < gen.integers(lk // 2, lk + 1, b)[:, None]
+    bias = torch.from_numpy(np.where(keep_k, 0.0, np.finfo(np.float32).min)
+                            .astype(np.float32)[:, None, None, :])
+    q_seg, kv_seg = (torch.from_numpy(np.searchsorted(
+        np.sort(gen.choice(np.arange(1, n), 2, replace=False)),
+        np.arange(n), side="right")[None].repeat(b, 0).astype(np.int32))
+        for n in (lq, lk))
+    seed, scale = (0x1234ABCD, 0x9E3779B9), 1.0 / np.sqrt(d)
+    out, m, l = tfa.attention_reference(q, k, v, True, scale, bias, p_drop,
+                                        seed, True, q_seg, kv_seg)
+    want = tfa.attention_bwd_reference(q, k, v, g, out, m, l, True, scale,
+                                       bias, p_drop, seed, True, q_seg,
+                                       kv_seg)
+    live = tfa._live(lq, lk, True, q_seg, kv_seg, q.device).expand(
+        b, h, lq, lk)
+    keep = tfa._keep_scale(seed, p_drop, b, h, lq, 0, lk, q.device)
+    full_bias = bias.expand(b, h, lq, lk)
+    inv_l = 1.0 / l.clamp_min(1e-20)
+    dsum = (g * out).sum(-1)
+    dq, _, _ = _chunked_side(q, g, k, v, m[..., None], inv_l[..., None],
+                             dsum[..., None], full_bias, keep, live, scale,
+                             kv=False)
+
+    def tr(x):
+        return x.transpose(-1, -2)
+
+    dk, dv, db = _chunked_side(k, v, q, g, m[..., None, :],
+                               inv_l[..., None, :], dsum[..., None, :],
+                               tr(full_bias), tr(keep), tr(live), scale,
+                               kv=True)
+    got = (dq * scale, dk * scale, dv, db.sum(1)[:, None, None, :])
+    for name, x, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        err = (x - w).abs().max().item()
+        assert err <= 1e-5 * w.abs().max().item(), (name, err)

@@ -12,11 +12,13 @@ against its plain version on a GPU and skip where none is visible:
   2e-2 of the plain version run in f32;
 - the f32 forward on the tensor cores (3xTF32) within 1e-4 of the plain
   version on every case, and the f32 backward within 1e-5 of the largest
-  gradient, fed the same forward outputs as its plain version;
+  gradient, fed the same forward outputs as its plain version, on every
+  case and at head dims 192, 256 and 384 (the chunked tensor-core body);
 - every body of both kernels with segment ids (2-4 packed sequences a
   row), causal masking, the padding bias and dropout 0.1, at head dims 64
-  and 128 (tensor cores) and 96, 192, 256, 320 and 512 (CUDA cores), f32
-  and bf16, within the tolerances above;
+  and 128 (tensor cores in both), 192, 256, 320 and 512 (the CUDA-core
+  forward, the chunked tensor-core backward) and 96 (CUDA cores in both),
+  f32 and bf16, within the tolerances above;
 - the gradient of a full bias through autograd: the blockwise route,
   against the plain backward;
 - one ``fit`` step of a BERT classifier with head dim 192 (hidden 384, 2
@@ -212,10 +214,19 @@ def test_adam_kernel_matches_plain(n, cuda_device):
 # relative to the largest gradient: 3xTF32 products are f32 math to
 # ~2^-21 relative each, summed in fresh accumulators per 32-row tile
 F32_BWD_TOL = 1e-5
+# the chunked tensor-core backward (head dims above 128): one and two
+# column slices a block, causal with lq < lk and lq > lk, the padding bias
+# with its row gradient, a per-head bias, dropout 0.1
+WIDE_BWD_CASES = [
+    (2, 4, 512, 512, 192, False, "padding", True, 0.1),   # 4-head BERT
+    (2, 3, 448, 500, 256, True, "padding", True, 0.1),
+    (2, 2, 300, 173, 384, True, "padding", True, 0.0),
+    (1, 2, 256, 301, 384, False, "heads", True, 0.1),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ATTN_CASES,
+@pytest.mark.parametrize("case", ATTN_CASES + WIDE_BWD_CASES,
                          ids=lambda c: "x".join(map(str, c)))
 def test_flash_bwd_f32_within_1e5_of_largest_gradient(case, cuda_device):
     b, h, lq, lk, d, causal, bias_kind, bias_grad, p = case
@@ -282,7 +293,8 @@ def test_flash_every_body_with_segments(d, dtype, tol, cuda_device):
     """Forward (with statistics) and backward of every kernel body with
     segment ids, causal masking (lq < lk), the padding bias, a per-head
     bias gradient and dropout 0.1: the tensor-core bodies at head dims 64
-    and 128, the CUDA-core ones at every other."""
+    and 128, the chunked tensor-core backward at the other multiples of
+    64, the CUDA-core forward there and both CUDA-core bodies at 96."""
     gen = np.random.default_rng(d)
     b, h, lq, lk = 2, 3, 200, 260
     q, k, v, g, bias = _attn_inputs(b, h, lq, lk, d, "padding", cuda_device,
@@ -502,6 +514,21 @@ def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):
     with pytest.raises(Exception):
         tfa._flash_bwd_cuda(q, q, q, q, q, None, None, False, 0.125, None)
     assert plain == []
+
+
+def test_chunked_backward_inputs_suit_tensor_copies():
+    """The chunked backward (head dims above 128) reads q, k, v and dO with
+    tensor copies: a split-heads view of a fused projection suits them as
+    it is; a view whose base or row stride is not a multiple of 16 bytes
+    does not, and the wrapper hands the kernels a copy instead."""
+    x = torch.zeros(2, 8, 3 * 4 * 192)
+    q = x.reshape(2, 8, 3, 4, 192)[:, :, 0].transpose(1, 2)
+    assert q.shape == (2, 4, 8, 192) and tfa._tma_ready(q)
+    odd = torch.zeros(2, 4, 8, 193)[..., 1:]
+    assert not tfa._tma_ready(odd)
+    assert tfa._tma_ready(odd.clone(memory_format=torch.contiguous_format))
+    assert not tfa._tma_ready(
+        torch.zeros(2, 4, 8, 196, dtype=torch.bfloat16)[..., 4:])
 
 
 def test_other_devices_raise():

@@ -12,10 +12,12 @@ Forward cases: f32 and bf16 at head dims 64 (12 heads), 128 (6), 192 (4),
 statistics (the training call).  Backward cases: f32 and bf16 at D 192,
 256 and 384 (a tree whose kernels do not take a head dim reports
 "raises").  ``--dtype`` keeps the cases of one input type (a kernel's
-time can depend on what ran on the card before it).  Each case: the error against the plain version on the same
-inputs (forward: max |d|; backward: relative to each output's largest
-gradient), the time through the Python wrapper (CUDA events over calls
-issued one by one) and from a CUDA-graph replay of the same calls, and
+time can depend on what ran on the card before it).  Each case: the error
+against the plain version on the same inputs (forward: max |d|; backward:
+relative to each output's largest gradient), the bound of the kernel's
+route (as ``chip_smoke.py`` counts it), the time through the Python
+wrapper (CUDA events over calls issued one by one) and from a CUDA-graph
+replay of the same calls, and
 SDPA timed the same two ways (forward: ``scaled_dot_product_attention``
 with the bias as its mask; backward: the memory-efficient attention's
 backward op, without dropout).  Prints the card's name and power limit, a
@@ -41,6 +43,31 @@ SEED = 20261016
 B, L, HIDDEN = 8, 512, 768
 FWD_DIMS = (64, 128, 192, 256, 384)
 BWD_DIMS = (192, 256, 384)
+# published H100 SXM peaks (dense): HBM bytes/s, FLOP/s per input type
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "tfloat32": 494.7e12, "bfloat16": 989e12}
+
+
+def add_bound(row, nbytes, flops, dtype, tensor_cores):
+    """``bound_ms`` of the case and what bounds it: each input read and
+    each output written once at the HBM rate, or the operations at the
+    route's peak: an f32 tensor-core body (``tensor_cores``) counts three
+    tf32 products a value, with the f32 CUDA-core figure beside it
+    (``bound_cuda_core_ms``)."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    kind = "bfloat16" if dtype == "bfloat16" else "float32"
+    if kind == "float32" and tensor_cores:
+        row["bound_cuda_core_ms"] = max(t_bytes,
+                                        flops / PEAK_FLOPS[kind] * 1e3)
+        kind, flops = "tfloat32", 3 * flops
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def live_pairs(bias):
+    """(query, live key) pairs of one head: L times the unmasked keys."""
+    return L * int((bias[:, 0, 0, :] == 0).sum().item())
 
 
 def cuda_ms(fn, reps):
@@ -139,6 +166,10 @@ def fwd_case(d, dtype, reps, dev, dropout=0.0):
                                   scale, bias, dropout, seed)
     torch.cuda.synchronize()
     row["max_abs_err"] = (out.float() - want).abs().max().item()
+    h = HIDDEN // d
+    add_bound(row, 4 * B * h * L * d * q.element_size() + bias.numel() * 4
+              + (2 * B * h * L * 4 if stats else 0),
+              4.0 * h * d * live_pairs(bias), row["dtype"], d in (64, 128))
     row["ms"], row["graph_ms"] = both(call, reps)
     lq, lk, lv = (t.contiguous() for t in (q, k, v))
     mask = bias.to(dtype)
@@ -174,6 +205,10 @@ def bwd_case(d, dtype, reps, dev):
     row["rel_to_largest_grad"] = max(
         ((x.float() - w).abs().max() / w.abs().max()).item()
         for x, w in zip(got[:3], want[:3]))
+    h = HIDDEN // d
+    add_bound(row, 8 * B * h * L * d * q.element_size() + 2 * B * h * L * 4
+              + bias.numel() * 4, 10.0 * h * d * live_pairs(bias),
+              row["dtype"], True)
     row["ms"], row["graph_ms"] = both(lambda: fa._flash_bwd_cuda(*args),
                                       reps)
     lq, lk, lv = (t.detach().contiguous() for t in (q, k, v))
@@ -200,9 +235,12 @@ def fmt(row):
     if "raises" in row:
         return f"raises {row['raises']}"
     err = row.get("max_abs_err", row.get("rel_to_largest_grad"))
+    cc = (f"; f32 on CUDA cores {row['bound_cuda_core_ms']:.4f}"
+          if "bound_cuda_core_ms" in row else "")
     return (f"{ms(row['ms'])} ms (graph {ms(row['graph_ms'])}); sdpa "
             f"{ms(row['sdpa_ms'])} (graph {ms(row['sdpa_graph_ms'])}); "
-            f"error {err:.3e}")
+            f"error {err:.3e}; bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}{cc})")
 
 
 def main() -> int:

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one BERT-base fine-tuning step goes, on one CUDA GPU.
 
-    python3 tools/torch_train_profile.py [--steps 3] [--trace DIR]
+    python3 tools/torch_train_profile.py [--steps 3] [--heads 12]
+                                         [--trace DIR]
 
 Runs the PyTorch port's training slice as ``chip_smoke.py`` does (BERT-base
 at full width, Dense(2) logits head, hidden and attention dropout 0.1,
 ``Adam(2e-5)``, ``sparse_categorical_crossentropy_from_logits``, batch
 8 x 512, random weights and data from a seed), warms up one step, then
 traces ``--steps`` steps with ``torch.profiler`` (CPU and CUDA activity).
+``--heads 4`` gives the same width with head dim 192, as ``chip_smoke.py``
+fine-tunes it.
 Prints the card's name and power limit, the host-clock time per step, the
 device time per step by kernel group (the port's kernels by name, cuBLAS
 matrix products, everything else), the device's busy and idle shares of
@@ -56,6 +59,7 @@ def group_of(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--heads", type=int, default=BERT_BASE["n_head"])
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
 
@@ -78,7 +82,7 @@ def main() -> int:
 
     init_zoo_context(seed=SEED, device="cuda")
     ins = [Input((SEQ,)) for _ in range(4)]
-    _, pooled = BERT(**BERT_BASE)(ins)
+    _, pooled = BERT(**dict(BERT_BASE, n_head=args.heads))(ins)
     net = Model(ins, Dense(2)(pooled))
     net.build_params()
     net.compile(optimizer=Adam(2e-5),
@@ -124,7 +128,7 @@ def main() -> int:
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {ms:.3f} ms per step ({ms / wall_ms:.1%} of the "
               f"step), {launches[g]} launches", flush=True)
-    print(json.dumps({"card": card, "steps": args.steps,
+    print(json.dumps({"card": card, "steps": args.steps, "heads": args.heads,
                       "step_ms": wall_ms, "device_busy_ms": busy,
                       "idle_share": 1 - busy / wall_ms,
                       "groups_ms": groups, "launches": launches}),

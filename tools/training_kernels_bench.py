@@ -7,12 +7,13 @@ the flash-attention backward and fused Adam, on one CUDA GPU.
 The flash-attention backward at BERT-base's training shape (B=8, H=12,
 L=512, D=64, f32, the padding bias of chip_smoke.py with a fully masked
 last record, dropout 0.1 from the hash), and beside it at head dim 128 (6
-heads) in f32 and at D=64 in bf16: the error of dq, dk and dv against the
-plain version on the same inputs, relative to each output's largest
+heads) in f32 and at D=64 and 128 in bf16: the error of dq, dk and dv
+against the plain version on the same inputs, relative to each output's largest
 gradient, and the time through the Python wrapper (CUDA events over calls
 issued one by one) and from a CUDA-graph replay of the same calls, with
 SDPA's backward (the memory-efficient attention backward op SDPA runs
-here, without dropout) timed the same two ways.  Then fused
+here, without dropout) timed the same two ways, and the bound of the
+kernel's tensor-core route.  Then fused
 Adam's ``fused_update`` over the BERT-base classifier's 153 parameter
 leaves (the call a training step makes), eager and graph, beside
 ``torch.optim.Adam(fused=True)``.  Prints the card's name and power limit,
@@ -41,7 +42,29 @@ BERT_BASE_LEAVES = BLOCK * 12 + [(30522, 768), (512, 768), (2, 768), (768,),
                                  (768,), (768, 768), (768,), (768, 2), (2,)]
 # (label, heads, head dim, dtype name)
 BWD_CASES = (("f32_d64", 12, 64, "float32"), ("f32_d128", 6, 128, "float32"),
-             ("bf16_d64", 12, 64, "bfloat16"))
+             ("bf16_d64", 12, 64, "bfloat16"),
+             ("bf16_d128", 6, 128, "bfloat16"))
+# published H100 SXM peaks (dense): HBM bytes/s, FLOP/s per input type
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "tfloat32": 494.7e12, "bfloat16": 989e12}
+
+
+def bound(nbytes, flops, f32):
+    """The backward's bound on its tensor-core route: each input read and
+    each output written once at the HBM rate, or the five products at the
+    tensor cores' rate (f32 as three tf32 products a value, with the f32
+    CUDA-core figure beside it)."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    row = {}
+    if f32:
+        row["bound_cuda_core_ms"] = max(t_bytes,
+                                        flops / PEAK_FLOPS["float32"] * 1e3)
+        t_ops = 3 * flops / PEAK_FLOPS["tfloat32"] * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
 
 
 def cuda_ms(fn, reps):
@@ -145,10 +168,15 @@ def bwd_case(heads, d, dtype, reps, dev):
     def call():
         return fa._flash_bwd_cuda(*args)
 
+    live_keys = int((bias[:, 0, 0, :] == 0).sum().item())
     return {"rel_to_largest_grad": err, "masked_row_max": masked,
             "ms": cuda_ms(call, reps), "graph_ms": graph_ms(call, reps),
             "library_ms": cuda_ms(lib, reps),
-            "library_graph_ms": graph_ms(lib, reps)}
+            "library_graph_ms": graph_ms(lib, reps),
+            **bound(8 * b * heads * l * d * q.element_size()
+                    + 2 * b * heads * l * 4 + bias.numel() * 4,
+                    10.0 * heads * d * l * live_keys,
+                    dtype == torch.float32)}
 
 
 def adam_case(reps, dev):
@@ -206,7 +234,8 @@ def main() -> int:
               f"to the largest gradient {row['rel_to_largest_grad']:.3e}, "
               f"{row['ms']:.4f} ms through the wrapper, {row['graph_ms']:.4f}"
               f" ms graph; sdpa backward {row['library_ms']:.4f} ms, graph "
-              f"{row['library_graph_ms']:.4f} ms", flush=True)
+              f"{row['library_graph_ms']:.4f} ms; bound {row['bound_ms']:.4f}"
+              f" ms ({row['bound_by']})", flush=True)
     row = result["adam"] = adam_case(args.reps, dev)
     print(f"{args.tag} adam over {len(BERT_BASE_LEAVES)} leaves: "
           f"{row['launches_per_step']} launches, {row['ms']:.4f} ms through "
