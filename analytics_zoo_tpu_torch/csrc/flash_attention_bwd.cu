@@ -140,6 +140,7 @@
 
 #include "flash_common.cuh"
 #include "flash_tf32.cuh"
+#include "flash_tma.cuh"
 #include "sm90.cuh"
 
 namespace zoo_flash_bwd {
@@ -153,6 +154,7 @@ using zoo_flash::mix32;
 using zoo_tf32::OWN;
 using zoo_tf32::SR;
 using zoo_tf32::a_frags;
+using zoo_tf32::accumulate;
 using zoo_tf32::issue_scores;
 using zoo_tf32::kmajor;
 using zoo_tf32::split4;
@@ -296,39 +298,6 @@ __device__ __forceinline__ void store_transposed(
       if (!EXACT) *reinterpret_cast<uint32_t*>(lo + off) = lv[e];
     }
   }
-}
-
-// total (64 x 64, this warpgroup's output columns) += A . B over the 32
-// streamed rows, A from registers, B a transposed tile; the product goes
-// into a fresh accumulator first.
-template <bool EXACT>
-__device__ __forceinline__ void accumulate(float (&total)[32],
-                                           const uint32_t (&a_hi)[4][4],
-                                           const uint32_t (&a_lo)[4][4],
-                                           uint32_t t_hi, uint32_t t_lo,
-                                           int wg) {
-  using zoo_sm90::desc_b128;
-  auto db = [&](uint32_t base, int j) {
-    return desc_b128(base + wg * 64 * 128 + j * 32, 16, 1024);
-  };
-  float f[32];
-  zoo_sm90::wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_lo[j], db(t_hi, j), j > 0);
-  if (!EXACT) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_hi[j], db(t_lo, j), 1);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_hi[j], db(t_hi, j), 1);
-  zoo_sm90::wgmma_commit();
-  zoo_sm90::wgmma_wait<0>();
-  zoo_sm90::fence_operand(f);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) total[i] += f[i];
 }
 
 // KV = false: the dq kernel (own rows: queries; streamed: keys).
@@ -619,10 +588,9 @@ __host__ __device__ constexpr int wide_smem_bytes(bool kv, int nwg,
 }
 
 // The tensor maps of q, k, v and dO, (D, L, H, B) with boxes of 32 columns
-// x 32 rows, for the tensor copies (TMA) of the chunked kernels.
-struct Maps {
-  CUtensorMap q, k, v, g;
-};
+// x 32 rows, for the tensor copies (TMA) of the chunked kernels
+// (flash_tma.cuh).
+using zoo_tma::Maps;
 static_assert(wide_smem_bytes(true, 3, false) <= 232448,
               "a block may have 227 KB of shared memory");
 
@@ -1323,62 +1291,12 @@ cudaError_t launch_wide_kernel(const Args& a, const Maps& maps, int D,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
-// libcuda), or null.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                   cudaEnableDefault, &found) == cudaSuccess &&
-                   found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The (D, L, H, B) map of one input with boxes of 32 columns x 32 rows:
-// f32 into the 128-byte-swizzled layout wgmma reads, bf16 as loaded.
-// False where the tensor copies cannot take it (a base or a stride not a
-// multiple of 16 bytes).
-bool encode_map(CUtensorMap* map, const void* p, int esize, int D, int L,
-                int H, int B, int64_t s_b, int64_t s_h, int64_t s_l) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(p) % 16 != 0 ||
-      s_b * esize % 16 != 0 || s_h * esize % 16 != 0 ||
-      s_l * esize % 16 != 0 || s_b <= 0 || s_h <= 0)
-    return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_l * esize),
-                                 static_cast<cuuint64_t>(s_h * esize),
-                                 static_cast<cuuint64_t>(s_b * esize)};
-  const cuuint32_t box[4] = {CW, SR, 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            4, const_cast<void*>(p), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            esize == 4 ? CU_TENSOR_MAP_SWIZZLE_128B
-                       : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // D > 128, D % 64 == 0: the inputs' tensor maps, then the dq and the
 // dk/dv kernels.  Returns -2 when an input's base or strides are not
 // multiples of 16 bytes (the wrapper copies such an input first).
 template <typename T>
 int launch_wide(const Args& a, int D, cudaStream_t stream) {
+  using zoo_tma::encode_map;
   const int es = sizeof(T);
   Maps maps;
   const bool tma =

@@ -98,24 +98,93 @@ cudaError_t launch_tf32_bias(const zoo_flash::Args& a, cudaStream_t stream) {
              : launch_tf32<D, false, false>(a, stream);
 }
 
-// f32: 3xTF32 on the tensor cores at head dims 64 and 128, CUDA cores at
-// any other.
+template <typename T, int NWG, int CPW, bool ROW, bool SEG>
+cudaError_t launch_wide_kernel(const zoo_flash::Args& a,
+                               const zoo_tma::Maps& maps, int D, int smem,
+                               cudaStream_t stream) {
+  auto kernel = zoo_flash::flash_fwd_wide_kernel<T, NWG, CPW, ROW, SEG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int slices = (D + NWG * CPW - 1) / (NWG * CPW);
+  const dim3 grid((a.Lq + 63) / 64 * slices, a.H, a.B);
+  kernel<<<grid, zoo_flash::WG_THREADS * NWG, smem, stream>>>(a, maps, D);
+  return cudaGetLastError();
+}
+
+// D > 128, D % 64 == 0: the inputs' tensor maps with the boxes wide_plan
+// stages (128-byte swizzled), then flash_fwd_wide_kernel with a bias row
+// through shared memory or not, with segment ids or not.  Returns -2 when
+// an input's base or strides are not multiples of 16 bytes (the wrapper
+// copies such an input first).
+template <typename T, int NWG, int CPW>
+int launch_wide(const zoo_flash::Args& a, int D, cudaStream_t stream) {
+  using zoo_tma::encode_chunked_map;
+  constexpr int es = sizeof(T);
+  const zoo_flash::WidePlan plan =
+      zoo_flash::wide_plan(NWG, CPW, es == 2, D);
+  zoo_tma::Maps maps = {};
+  const bool tma =
+      encode_chunked_map(&maps.q, a.q, es, D, a.Lq, a.H, a.B, a.qs_b,
+                         a.qs_h, a.qs_l, 64,
+                         plan.qres ? D * es / 128 : plan.cps) &&
+      encode_chunked_map(&maps.k, a.k, es, D, a.Lk, a.H, a.B, a.ks_b,
+                         a.ks_h, a.ks_l, 32, plan.cps) &&
+      encode_chunked_map(&maps.v, a.v, es, D, a.Lk, a.H, a.B, a.vs_b,
+                         a.vs_h, a.vs_l, 32, plan.vp);
+  if (!tma) return -2;
+  const bool row = a.bias == nullptr || a.bs_q == 0;
+  if (a.q_seg != nullptr)
+    return row ? launch_wide_kernel<T, NWG, CPW, true, true>(a, maps, D,
+                                                        plan.smem, stream)
+               : launch_wide_kernel<T, NWG, CPW, false, true>(a, maps, D,
+                                                         plan.smem, stream);
+  return row ? launch_wide_kernel<T, NWG, CPW, true, false>(a, maps, D, plan.smem,
+                                                       stream)
+             : launch_wide_kernel<T, NWG, CPW, false, false>(a, maps, D,
+                                                        plan.smem, stream);
+}
+
+// The warpgroups' columns and count of fwd_wide_cols and
+// fwd_wide_warpgroups (bf16: 64 columns a warpgroup only).
+template <typename T>
+int launch_wide_any(const zoo_flash::Args& a, int D, cudaStream_t stream) {
+  using zoo_flash::fwd_wide_warpgroups;
+  if constexpr (sizeof(T) == 4) {
+    if (zoo_flash::fwd_wide_cols(false, D) == 128)
+      return fwd_wide_warpgroups(D, 128) == 3
+                 ? launch_wide<T, 3, 128>(a, D, stream)
+                 : launch_wide<T, 2, 128>(a, D, stream);
+  }
+  return fwd_wide_warpgroups(D, 64) == 3 ? launch_wide<T, 3, 64>(a, D, stream)
+                                         : launch_wide<T, 2, 64>(a, D, stream);
+}
+
+// f32: 3xTF32 on the tensor cores at head dims 64 and 128 and, in 32-column
+// chunks, at every other multiple of 64; CUDA cores at any other head dim.
 int dispatch_f32(int head_dim, const zoo_flash::Args& a,
                  cudaStream_t stream) {
   switch (head_dim) {
     case 64: return launch_tf32_bias<64>(a, stream);
     case 128: return launch_tf32_bias<128>(a, stream);
-    default: return launch_simt_any(a, head_dim, false, stream);
+    default:
+      return head_dim % 64 == 0
+                 ? launch_wide_any<float>(a, head_dim, stream)
+                 : launch_simt_any(a, head_dim, false, stream);
   }
 }
 
-// bf16: the tensor cores at head dims 64 and 128, CUDA cores at any other.
+// bf16: the tensor cores at head dims 64 and 128 and, in 64-column chunks,
+// at every other multiple of 64; CUDA cores at any other head dim.
 int dispatch_bf16(int head_dim, const zoo_flash::Args& a,
                   cudaStream_t stream) {
   switch (head_dim) {
     case 64: return launch_wgmma_bias<64>(a, stream);
     case 128: return launch_wgmma_bias<128>(a, stream);
-    default: return launch_simt_any(a, head_dim, true, stream);
+    default:
+      return head_dim % 64 == 0
+                 ? launch_wide_any<__nv_bfloat16>(a, head_dim, stream)
+                 : launch_simt_any(a, head_dim, true, stream);
   }
 }
 
@@ -126,8 +195,10 @@ int dispatch_bf16(int head_dim, const zoo_flash::Args& a,
 // (B, Lq) and (B, Lk) int32 segment ids, or both null.  dropout != 0
 // drops with the hash threshold drop_thr and scales kept values by
 // inv_keep.  out must be contiguous.  Any head dim.  Returns 0 on success,
-// a cudaError_t code when the launch failed, or -1 for a dtype the kernels
-// do not take.
+// a cudaError_t code when the launch failed, -1 for a dtype the kernels do
+// not take, or -2 when the chunked kernel (head dims above 128 that are
+// multiples of 64) cannot map an input (a base or a stride not a multiple
+// of 16 bytes).
 extern "C" int zoo_flash_attention_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     const float* bias, void* out, float* m_out, float* l_out,

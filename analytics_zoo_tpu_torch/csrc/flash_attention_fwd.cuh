@@ -27,8 +27,12 @@
 // value (494.7 TFLOP/s) ~21 us, so operations do (on CUDA cores, 67
 // TFLOP/s, ~52 us).
 //
-// Which body: head dims 64 and 128 take the tensor cores (bf16 as it is,
-// f32 as 3xTF32), every other head dim the CUDA-core body.
+// Which body: every head dim that is a multiple of 64 takes the tensor
+// cores (bf16 as it is, f32 as 3xTF32): 64 and 128 whole-tile bodies, every
+// other multiple of 64 the chunked body; only head dims that are not
+// multiples of 64 (direct calls of flash_attention; the router sends
+// multiples of 64 only) take the CUDA-core body.  The backward splits the
+// same way (flash_attention_bwd.cu).
 //
 // bf16 inputs with head dim 64 or 128: `flash_fwd_wgmma_kernel`, on the
 // tensor cores.  With the products there, the work left on the CUDA cores
@@ -94,8 +98,68 @@
 //   the keys.  Softmax as in the bf16 kernel: one FMA for scale and bias,
 //   -inf masking only in edge tiles, exp2; dropout multiplies P after l.
 //
-// Any other head dim: `flash_fwd_simt_kernel`, on CUDA cores, with the head
-// dim a runtime loop over 64-column chunks: one 256-thread block per 64
+// Head dims above 128 that are multiples of 64: `flash_fwd_wide_kernel<T,
+// NWG, CPW, ROW, SEG>`, the head dim a runtime value, the backward's chunked
+// design (bwd_wide_kernel) with one output accumulator.  Q, K and V do not
+// fit whole (f32 Q hi and lo alone take 96 KB at head dim 192), so S = Q K^T
+// contracts over the head dim in 128-byte column chunks (32 f32 or 64 bf16
+// columns), 32 keys a tile:
+// - A block owns 64 query rows and a slice of NWG x CPW output columns,
+//   CPW a warpgroup (blockIdx.x = query tile x slices + slice); each
+//   slice's block forms S over the whole head dim again.  CPW is 64, or
+//   128 for f32 at head dims that are multiples of 128 (two 64-column
+//   halves of O, each its own fresh accumulator: half the slices).  NWG is
+//   3 where the head dim has a multiple of 3 warpgroups' columns, else 2.
+//   f32 slices: one at 192, 256 and 384, three at 320, two at 512 and 768;
+//   bf16: one at 192, two at 256 and 384, four at 512.
+// - Tensor copies (TMA), issued by one thread with an mbarrier a ring slot,
+//   bring the chunks in, 128-byte swizzled as wgmma reads them.  The maps
+//   view an input as (column in chunk, row, chunk, head, batch), so that
+//   one copy brings several chunks; rows and columns past the tensor read
+//   as zeros.  An input whose base or strides are not multiples of 16 bytes
+//   is copied by the wrapper first.
+// - f32: a slot holds one or two chunks (CPW 128 or 64) of Q's 64 rows, of
+//   the tile's K rows and, for the chunks of the block's slice, of its V
+//   rows; three slots, two in flight (deeper rings were no faster).  The
+//   threads split each Q and K value with split_tf32, hi back in place and
+//   lo into a lo slot, and V's values into hi and lo tiles transposed in the
+//   A fragment's key order (zoo_tf32::transposed), while the last slot's
+//   products run.  The warpgroups share the score products: three take one
+//   each (lo . hi, hi . lo, hi . hi), two take half the k-steps each; their
+//   partial S go through shared memory and every warpgroup adds them in
+//   warpgroup order (the lo products first), so all hold the same S.  P,
+//   split into hi and lo in registers, is the register A operand of O += P
+//   V (`accumulate`: a fresh accumulator per tile and 64 columns, lo
+//   products first, added into O in f32).  One block an SM (153-217 KB).
+// - bf16: Q's 64 rows stay whole in shared memory, brought by one copy; a
+//   slot holds all of a tile's K chunks and the slice's V chunks, two
+//   slots.  Every warpgroup forms the whole S with bf16 wgmma (sharing it
+//   out and adding the parts through shared memory was slower), rounds P
+//   to bf16 as the register A operand, and reads its 64 columns of V in the
+//   slot (MN-major).  Blocks fit two an SM up to head dim 320 (73-97 KB),
+//   and get the registers for it except the three-warpgroup full-bias
+//   kernel.  Past head dim 832 Q and two slots do not fit: one chunk a
+//   slot, Q with it, V copied out of the ring for the output product.
+// - The softmax, masks, bias (a one-row bias through shared memory with
+//   each tile, any other read element by element), dropout and statistics
+//   are the tensor-core bodies' above; each warpgroup computes them for the
+//   whole tile (the same values in all), and warpgroup 0 of slice 0 writes
+//   (m, l).  Every warpgroup issues the same wgmma sequence (a
+//   warpgroup-dependent branch around wgmma makes ptxas serialize them
+//   all); one past the head dim computes and stores nothing.
+// - What bounds it: like the bodies above, operations on the tf32 route
+//   and bytes in bf16, far below what it takes.  clock64() phase sums in a
+//   probed copy (PERF.md section 6) put f32's time in the splits (a third:
+//   shared-memory traffic, hi, lo and the transposed V written for every 16
+//   bytes read) and the score products (small-N wgmma reading both operands
+//   from shared memory), bf16's in the score products and the softmax; one
+//   block an SM walks the phases in lockstep, so their latencies add up.
+// - ptxas -v (CUDA 12.9): no spills in any of the 24 instances; registers
+//   in PERF.md section 6.
+//
+// Any other head dim (not a multiple of 64): `flash_fwd_simt_kernel`, on
+// CUDA cores, with the head dim a runtime loop over 64-column chunks: one
+// 256-thread block per 64
 // query rows and up to four 64-column slices of their output, each thread
 // owning a 4x4 block of the 64x64 score tile and a 4x4 block of each slice,
 // float4 shared-memory reads with a row pad of 4 floats, the 16 threads of
@@ -112,6 +176,7 @@
 
 #include "flash_common.cuh"
 #include "flash_tf32.cuh"
+#include "flash_tma.cuh"
 #include "sm90.cuh"
 
 namespace zoo_flash {
@@ -878,6 +943,459 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)
           make_float2(o[4 * c + 2 * hh] * inv, o[4 * c + 2 * hh + 1] * inv);
     }
     if (a.m_out != nullptr && t == 0) {
+      const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Lq + qi[hh];
+      a.m_out[row] = m[hh];
+      a.l_out[row] = l[hh];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Head dims above 128 that are multiples of 64: tensor cores over 128-byte
+// column chunks (design note at the top of the file)
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_KEYS = zoo_tf32::SR;     // keys a tile: 32
+constexpr int Q_PIECE = 64 * 128;           // a chunk of the 64 query rows
+constexpr int KV_PIECE = WIDE_KEYS * 128;   // a chunk of a tile's 32 keys
+// f32 column chunks a slot: two with 64 columns a warpgroup, one with 128
+// (whose transposed V leaves no room for larger slots)
+__host__ __device__ constexpr int wide_cps(int cpw) {
+  return cpw == 64 ? 2 : 1;
+}
+constexpr int WIDE_REST = WIDE_KEYS * 4 + 9 * 8 + 1024;  // bias row,
+                                            // mbarriers, alignment
+
+// Output columns a warpgroup: f32 128 where the head dim is a multiple of
+// 128 (two 64-column halves, each its own fresh accumulator per tile: half
+// the slices, which each form S again), else 64; bf16 64.
+__host__ __device__ constexpr int fwd_wide_cols(bool exact, int D) {
+  return !exact && D % 128 == 0 ? 128 : 64;
+}
+// Warpgroups a block, one per `cpw` output columns of its slice: 3 where
+// the head dim has a multiple of 3 warpgroups' columns, else 2.
+__host__ __device__ constexpr int fwd_wide_warpgroups(int D, int cpw) {
+  return D / cpw % 3 == 0 ? 3 : 2;
+}
+
+// How the chunked forward stages a tile.  A chunk is one 128-byte column
+// chunk (32 f32 or 64 bf16 columns) of the rows; a group is the `cps`
+// chunks one ring slot holds, brought in by one tensor copy per operand:
+// Q's 64 rows (unless Q stays whole in shared memory, `qres`), K's 32 rows
+// of the tile and, in the groups that hold columns of the block's slice,
+// `vp` chunks of V's 32 rows.  Sizes in bytes.
+struct WidePlan {
+  int qres, cps, vp, nslot, slot, vbytes, smem;
+};
+__host__ __device__ constexpr WidePlan wide_plan(int nwg, int cpw,
+                                                 bool exact, int D) {
+  if (!exact) {
+    // f32: wide_cps chunks a slot, Q with them; the slice's V split and
+    // transposed into hi and lo tiles; two lo slots, the warpgroups'
+    // partial scores
+    const int cps = wide_cps(cpw);
+    const int slot = cps * (Q_PIECE + 2 * KV_PIECE);
+    const int vbytes = 2 * nwg * cpw * 128;
+    return {0, cps, cps, 3, slot, vbytes,
+            vbytes + 3 * slot + 2 * cps * (Q_PIECE + KV_PIECE) +
+                nwg * 16 * 128 * 4 + WIDE_REST};
+  }
+  // bf16: Q whole, loaded once, and a slot a tile (all its K chunks and the
+  // slice's V, read by wgmma where it landed), two slots, where they fit
+  // (two blocks an SM up to head dim 320; more slots were no faster)
+  const int nch = D / 64;
+  const int slot = (nch + nwg) * KV_PIECE;
+  if (D * 128 + 2 * slot + WIDE_REST <= 232448)
+    return {1, nch, nwg, 2, slot, 0, D * 128 + 2 * slot + WIDE_REST};
+  // wider bf16: one chunk a slot, Q with it, V copied out of the ring
+  return {0, 1, 1, 8, Q_PIECE + 2 * KV_PIECE, nwg * KV_PIECE,
+          nwg * KV_PIECE + 8 * (Q_PIECE + 2 * KV_PIECE) + WIDE_REST};
+}
+static_assert(wide_plan(3, 64, false, 192).smem <= 232448 &&
+                  wide_plan(3, 128, false, 384).smem <= 232448 &&
+                  wide_plan(3, 64, true, 4096).smem <= 232448,
+              "a block may have 227 KB of shared memory");
+
+// bf16 blocks that fit two to an SM (by shared memory: head dims up to 320)
+// get the registers for two, except the three-warpgroup full-bias kernel,
+// which then spills; f32 takes one block an SM.
+__host__ __device__ constexpr int wide_min_blocks(bool exact, int nwg,
+                                                  bool row) {
+  return exact && (row || nwg == 2) ? 2 : 1;
+}
+
+// One block per 64 query rows and NWG x CPW output columns (its slice:
+// blockIdx.x = query tile x slices + slice), NWG warpgroups, CPW columns
+// each.  ROW and SEG as in flash_fwd_tf32_kernel.  T = float: 3xTF32;
+// T = bf16: bf16 wgmma.  The tensor maps are (column in chunk, row, chunk,
+// head, batch), with boxes as wide_plan stages them.
+template <typename T, int NWG, int CPW, bool ROW, bool SEG>
+__global__ void __launch_bounds__(WG_THREADS * NWG,
+                                  wide_min_blocks(sizeof(T) == 2, NWG, ROW))
+    flash_fwd_wide_kernel(Args a, const __grid_constant__ zoo_tma::Maps maps,
+                          int D) {
+  using namespace zoo_sm90;
+  using zoo_tf32::transposed;
+  constexpr bool EXACT = sizeof(T) == 2;  // bf16: no lo pieces
+  constexpr int NT = WG_THREADS * NWG;
+  constexpr int CW = 128 / sizeof(T);     // columns a chunk
+  constexpr int BKV = WIDE_KEYS;
+  constexpr int NVC = NWG * CPW / CW;     // chunks of the slice's columns
+  constexpr int FCPS = wide_cps(CPW);     // f32 chunks a slot
+  constexpr int LO = FCPS * (Q_PIECE + KV_PIECE);  // an f32 lo slot
+  const WidePlan plan = wide_plan(NWG, CPW, EXACT, D);
+  const bool qres = plan.qres;
+  const int cps = plan.cps, nslot = plan.nslot, sbytes = plan.slot;
+  const int kofs = qres ? 0 : cps * Q_PIECE;  // K pieces in a slot
+  const int vofs = kofs + cps * KV_PIECE;     // V pieces
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* vs = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* qs = vs + plan.vbytes;  // Q kept whole
+  uint8_t* slots = qs + (qres ? D * 128 : 0);
+  uint8_t* los = slots + nslot * sbytes;  // f32 only
+  float* red = reinterpret_cast<float*>(los + (EXACT ? 0 : 2 * LO));
+  float* Bs = red + (EXACT ? 0 : NWG * 16 * 128);
+  // an mbarrier a slot (its group landed), then one for Q kept whole
+  const uint32_t full = smem_u32(Bs + BKV);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, lt = tid & 127;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nch = D / CW;
+  const int ngr = nch / cps;                // groups a tile
+  const int ns = (D + NWG * CPW - 1) / (NWG * CPW);  // slices
+  const int slice = blockIdx.x % ns;
+  const int q0 = blockIdx.x / ns * 64;
+  const int c0 = slice * NWG * CPW;         // the slice's first column
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
+  const float* bias =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
+  const int* ksg = SEG ? a.kv_seg + b * a.Lk : nullptr;
+
+  // Keys at or past kend are masked for every row of this tile.
+  const int kend = a.causal ? min(a.Lk, q0 + 64 + offset) : a.Lk;
+  const int n_tiles = kend > 0 ? (kend + BKV - 1) / BKV : 0;
+  const int nall = n_tiles * ngr;  // groups, in (tile, group) order
+
+  // Group n (group gi of tile n / ngr) into slot n % nslot, one tensor
+  // copy an operand from one thread, completing on the slot's mbarrier;
+  // rows and columns past the tensor read as zeros.
+  auto issue = [&](int n) {
+    if (tid != 0 || n >= nall) return;
+    const int st = n % nslot, gi = n % ngr, k0 = n / ngr * BKV;
+    const bool with_v = gi * cps < NVC;
+    const uint32_t bar = full + 8 * st;
+    const uint32_t dst = smem_u32(slots + st * sbytes);
+    fence_proxy_async();  // the slot's last readers were generic too
+    mbar_arrive_tx(bar, vofs + (with_v ? plan.vp * KV_PIECE : 0));
+    if (!qres) tma_load_5d(dst, &maps.q, 0, q0, gi * cps, h, b, bar);
+    tma_load_5d(dst + kofs, &maps.k, 0, k0, gi * cps, h, b, bar);
+    if (with_v)
+      tma_load_5d(dst + vofs, &maps.v, 0, k0, c0 / CW + gi * cps, h, b,
+                  bar);
+  };
+  auto landed = [&](int n) {
+    mbar_wait(full + 8 * (n % nslot), (n / nslot) & 1);
+  };
+  // Complete group n (group gi): f32 splits its Q and K values, hi in place
+  // and lo into lo slot n % 2, and its V chunks of the slice into the
+  // transposed hi and lo tiles; bf16 one chunk a slot copies a V chunk as
+  // it is (bf16 with Q whole reads V in the slot).  Q and K units: 8 lanes
+  // a row; V units: lane = key, so that the transposed stores hit every
+  // bank once a warp.
+  auto complete = [&](int n, int gi) {
+    uint8_t* sl = slots + n % nslot * sbytes;
+    if constexpr (EXACT) {
+      if (!qres && gi < NVC)
+        for (int u = tid; u < KV_PIECE / 16; u += NT) {
+          const uint32_t off = swz(u & 31, u >> 5);
+          *reinterpret_cast<uint4*>(vs + gi * KV_PIECE + off) =
+              *reinterpret_cast<const uint4*>(sl + vofs + off);
+        }
+    } else {
+      constexpr int QU = FCPS * Q_PIECE / 16;   // Q units, then K's
+      constexpr int KU = FCPS * KV_PIECE / 16;  // and V's
+      uint8_t* lo = los + n % 2 * LO;
+      const int units = QU + KU + (gi * FCPS < NVC ? KU : 0);
+      // not unrolled: the temporaries of several units at once made the
+      // three-warpgroup kernel spill
+#pragma unroll 1
+      for (int u = tid; u < units; u += NT) {
+        uint32_t h4[4], l4[4];
+        const bool qk = u < QU + KU;
+        uint32_t off;
+        if (qk)  // Q rows, then K rows, of both chunks
+          off = u < QU ? (u >> 9) * Q_PIECE + swz((u >> 3) & 63, u & 7)
+                       : FCPS * Q_PIECE + ((u - QU) >> 8) * KV_PIECE +
+                             swz(((u - QU) >> 3) & 31, u & 7);
+        else  // V: key row (the lane), 4 columns of a chunk
+          off = vofs + ((u - QU - KU) >> 8) * KV_PIECE +
+                swz(u & 31, ((u - QU - KU) >> 5) & 7);
+        const uint4 x = *reinterpret_cast<const uint4*>(sl + off);
+        split_tf32(__uint_as_float(x.x), h4[0], l4[0]);
+        split_tf32(__uint_as_float(x.y), h4[1], l4[1]);
+        split_tf32(__uint_as_float(x.z), h4[2], l4[2]);
+        split_tf32(__uint_as_float(x.w), h4[3], l4[3]);
+        if (qk) {
+          *reinterpret_cast<uint4*>(sl + off) =
+              make_uint4(h4[0], h4[1], h4[2], h4[3]);
+          *reinterpret_cast<uint4*>(lo + off) =
+              make_uint4(l4[0], l4[1], l4[2], l4[3]);
+        } else {
+          const int w = u - QU - KU;
+          const int col = (gi * FCPS + (w >> 8)) * CW + 4 * ((w >> 5) & 7);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t toff = transposed(col + e, u & 31);
+            *reinterpret_cast<uint32_t*>(vs + toff) = h4[e];
+            *reinterpret_cast<uint32_t*>(vs + NWG * CPW * 128 + toff) =
+                l4[e];
+          }
+        }
+      }
+    }
+  };
+
+  float mld = 0.f;  // this thread's key of the next tile's bias row
+  auto load_row = [&](int k0) {
+    if (ROW && tid < BKV)
+      mld = bias != nullptr && k0 + tid < a.Lk ? bias[(k0 + tid) * a.bs_k]
+                                               : 0.f;
+  };
+  if (tid == 0)
+    for (int j = 0; j <= nslot; ++j) mbar_init(full + 8 * j, 1);
+  __syncthreads();
+  if (qres && tid == 0 && n_tiles > 0) {  // Q whole: one copy
+    const uint32_t bar = full + 8 * nslot;
+    mbar_arrive_tx(bar, D * 128);
+    tma_load_5d(smem_u32(qs), &maps.q, 0, q0, 0, h, b, bar);
+  }
+  for (int j = 0; j < nslot - 1; ++j) issue(j);
+  load_row(0);
+
+  // this thread's rows of the tile: warp * 16 + g + 8 hh, hh = 0, 1, with
+  // their segment ids and dropout hashes
+  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  int qi[2], qseg[2];
+  uint32_t rhash[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    qi[hh] = q0 + warp * 16 + g + 8 * hh;
+    qseg[hh] = SEG && qi[hh] < a.Lq ? a.q_seg[b * a.Lq + qi[hh]] : 0;
+    rhash[hh] = hash ^ keep_q(qi[hh]);
+    m[hh] = NEG;
+    l[hh] = 0.f;
+  }
+  float o[CPW / 64][32];  // this warpgroup's output columns, 64 at a time
+#pragma unroll
+  for (int hf = 0; hf < CPW / 64; ++hf)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hf][i] = 0.f;
+  if (qres && n_tiles > 0) mbar_wait(full + 8 * nslot, 0);
+
+  int n = 0;  // the group being multiplied
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BKV;
+    // ---- S = Q K^T over the head dim, group by group: f32 each
+    // warpgroup its part (three: one product each, lo . hi, hi . lo,
+    // hi . hi; two: half the k-steps), bf16 each warpgroup the whole
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    landed(n);        // the tile's first group
+    __syncthreads();  // and the last tile's readers are done
+    complete(n, 0);
+    if (ROW && tid < BKV) Bs[tid] = mld;
+    if (j + 1 < n_tiles) load_row(k0 + BKV);
+    fence_proxy_async();
+    __syncthreads();
+    const uint8_t* vtile = slots + n % nslot * sbytes + vofs;  // bf16, Q whole
+    for (int gi = 0; gi < ngr; ++gi, ++n) {
+      // group n's products run while group n + nslot - 1 is copied (into
+      // the slot group n - 1 left) and group n + 1 is completed
+      const uint32_t hi = smem_u32(slots + n % nslot * sbytes);
+      auto desc = [](uint32_t base, int kk) {
+        return desc_b128(base + kk * 32, 16, 1024);
+      };
+      wgmma_fence();
+      if constexpr (EXACT) {  // Q kept whole or in the slot
+        for (int c = 0; c < cps; ++c) {
+          const uint32_t qa =
+              qres ? smem_u32(qs + (gi * cps + c) * Q_PIECE) : hi;
+          const uint32_t kb = hi + kofs + c * KV_PIECE;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n32k16_ss<0>(s, desc(qa, kk), desc(kb, kk), 1);
+        }
+      } else {
+        const uint32_t lo = smem_u32(los + n % 2 * LO);
+#pragma unroll
+        for (int c = 0; c < FCPS; ++c) {
+          const uint32_t qh = hi + c * Q_PIECE, ql = lo + c * Q_PIECE;
+          const uint32_t kh = hi + kofs + c * KV_PIECE;
+          const uint32_t kl = lo + kofs + c * KV_PIECE;
+          if constexpr (NWG == 3) {
+            const uint32_t pa = wg == 0 ? ql : qh, pb = wg == 1 ? kl : kh;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_tf32_m64n32k8_ss(s, desc(pa, kk), desc(pb, kk), 1);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int kk = wg + 2 * i;
+              wgmma_tf32_m64n32k8_ss(s, desc(ql, kk), desc(kh, kk), 1);
+              wgmma_tf32_m64n32k8_ss(s, desc(qh, kk), desc(kl, kk), 1);
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              wgmma_tf32_m64n32k8_ss(s, desc(qh, wg + 2 * i),
+                                     desc(kh, wg + 2 * i), 1);
+          }
+        }
+      }
+      wgmma_commit();
+      issue(n + nslot - 1);
+      if (gi + 1 < ngr) {
+        landed(n + 1);
+        complete(n + 1, gi + 1);
+        fence_proxy_async();
+      }
+      wgmma_wait<0>();
+      fence_operand(s);
+      __syncthreads();  // group n + 1 complete; group n's slots free
+    }
+    if constexpr (!EXACT) {
+      // the warpgroups' parts, added in warpgroup order (lo products
+      // first) by every warpgroup, so each holds the same whole S
+#pragma unroll
+      for (int i = 0; i < 16; ++i) red[(wg * 16 + i) * 128 + lt] = s[i];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        float x = 0.f;
+#pragma unroll
+        for (int w = 0; w < NWG; ++w) x += red[(w * 16 + i) * 128 + lt];
+        s[i] = x;
+      }
+    }
+
+    // Scale, bias and mask as in the kernels above (each warpgroup the
+    // whole tile: the same values in all): element i is row g + 8
+    // ((i / 2) % 2), key 8 (i / 4) + 2 t + i % 2 of the tile.  A masked
+    // element becomes -inf, so its probability is exactly 0 while the
+    // running max, which starts at the floor NEG, stays finite.  Tiles
+    // wholly inside the keys, the rows and the causal triangle, without
+    // segment ids, skip the mask.
+    const bool whole = !SEG && k0 + BKV <= a.Lk && q0 + 64 <= a.Lq &&
+                       (!a.causal || q0 + offset >= k0 + BKV - 1);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int row = qi[(i >> 1) & 1];
+      const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+      const int kj = k0 + col;
+      float bv = 0.f;
+      if constexpr (ROW)
+        bv = Bs[col];
+      else if (bias != nullptr && (whole || (kj < a.Lk && row < a.Lq)))
+        bv = bias[row * a.bs_q + kj * a.bs_k];
+      float x = fmaf(s[i], a.scale, bv);
+      if (!whole && !(kj < a.Lk && row < a.Lq &&
+                      (!a.causal || row + offset >= kj) &&
+                      (!SEG || qseg[(i >> 1) & 1] == ksg[kj])))
+        x = __int_as_float(0xff800000u);  // -inf
+      s[i] = x;
+    }
+    // The streaming-softmax update per row, exp as exp2 of one FMA.
+    constexpr float LOG2E = 1.4426950408889634f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = NEG;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (((i >> 1) & 1) == hh) mx = fmaxf(mx, s[i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mnew = fmaxf(m[hh], mx);
+      const float alpha = exp2f((m[hh] - mnew) * LOG2E);
+      const float ml = mnew * LOG2E;
+      float rs = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (((i >> 1) & 1) != hh) continue;
+        s[i] = exp2f(fmaf(s[i], LOG2E, -ml));
+        rs += s[i];  // l is the denominator before dropout
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[hh] = l[hh] * alpha + rs;
+      m[hh] = mnew;
+#pragma unroll
+      for (int hf = 0; hf < CPW / 64; ++hf)
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == hh) o[hf][i] *= alpha;
+    }
+    if (a.dropout) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int kj = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        s[i] = mix32(rhash[(i >> 1) & 1] ^ keep_k(kj)) >= a.drop_thr
+                   ? s[i] * a.inv_keep : 0.f;
+      }
+    }
+
+    // ---- O += P V over this warpgroup's 64 columns (every warpgroup
+    // issues it; one past the head dim stores nothing): P from the S
+    // fragment is the register A operand
+    if constexpr (EXACT) {
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      const uint32_t vb = smem_u32((qres ? vtile : vs) + wg * KV_PIECE);
+      fence_operand(o[0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_m64n64k16_rs<1>(o[0], pa[kk],
+                              desc_b128(vb + kk * 2048, KV_PIECE, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(o[0]);
+    } else {
+      // split into hi and lo, into a fresh accumulator added into O in f32
+      uint32_t phi[4][4], plo[4][4];
+      zoo_tf32::a_frags(s, phi, plo);
+#pragma unroll
+      for (int hf = 0; hf < CPW / 64; ++hf)  // 64 columns at a time
+        zoo_tf32::accumulate<false>(o[hf], phi, plo, smem_u32(vs),
+                                    smem_u32(vs + NWG * CPW * 128),
+                                    wg * (CPW / 64) + hf);
+    }
+  }
+
+  if (c0 + wg * CPW >= D) return;
+  T* out = static_cast<T*>(a.out) + b * a.os_b + h * a.os_h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (qi[hh] >= a.Lq) continue;
+    const float inv = 1.f / fmaxf(l[hh], 1e-20f);
+#pragma unroll
+    for (int hf = 0; hf < CPW / 64; ++hf)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        T* p = &out[qi[hh] * a.os_l + c0 + wg * CPW + hf * 64 + c * 8 +
+                    2 * t];
+        store_as(p, o[hf][4 * c + 2 * hh] * inv);
+        store_as(p + 1, o[hf][4 * c + 2 * hh + 1] * inv);
+      }
+    if (a.m_out != nullptr && slice == 0 && wg == 0 && t == 0) {
       const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Lq + qi[hh];
       a.m_out[row] = m[hh];
       a.l_out[row] = l[hh];

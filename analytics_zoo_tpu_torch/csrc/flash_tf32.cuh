@@ -2,8 +2,8 @@
 // and the backward (flash_attention_bwd.cu): f32 tiles split into tf32 hi
 // and lo pieces in the 128-byte-swizzled K-major layout of sm90.cuh, the
 // transposed layout whose row order matches a register A fragment, the
-// score product of a 64-row tile and a 32-row tile (lo products first), and
-// the A fragments of a 64 x 32 accumulator.
+// score product of a 64-row tile and a 32-row tile (lo products first), the
+// A fragments of a 64 x 32 accumulator, and the output product they feed.
 
 #pragma once
 
@@ -82,6 +82,41 @@ __device__ __forceinline__ void a_frags(const float (&x)[16],
     zoo_sm90::split_tf32(x[4 * j + 1], hi[j][2], lo[j][2]);
     zoo_sm90::split_tf32(x[4 * j + 3], hi[j][3], lo[j][3]);
   }
+}
+
+// total (64 x 64, warpgroup wg's output columns) += A . B over 32 rows,
+// A (64 x 32) from registers in hi and lo pieces, B a transposed tile (wg's
+// 64 rows at wg * 8 KB); the product goes into a fresh accumulator first,
+// lo products first, and is added into total in f32.  EXACT: B is exact in
+// tf32 (bf16), its lo piece is zero and skipped.
+template <bool EXACT>
+__device__ __forceinline__ void accumulate(float (&total)[32],
+                                           const uint32_t (&a_hi)[4][4],
+                                           const uint32_t (&a_lo)[4][4],
+                                           uint32_t t_hi, uint32_t t_lo,
+                                           int wg) {
+  using zoo_sm90::desc_b128;
+  auto db = [&](uint32_t base, int j) {
+    return desc_b128(base + wg * 64 * 128 + j * 32, 16, 1024);
+  };
+  float f[32];
+  zoo_sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_lo[j], db(t_hi, j), j > 0);
+  if (!EXACT) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_hi[j], db(t_lo, j), 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    zoo_sm90::wgmma_tf32_m64n64k8_rs(f, a_hi[j], db(t_hi, j), 1);
+  zoo_sm90::wgmma_commit();
+  zoo_sm90::wgmma_wait<0>();
+  zoo_sm90::fence_operand(f);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) total[i] += f[i];
 }
 
 }  // namespace zoo_tf32

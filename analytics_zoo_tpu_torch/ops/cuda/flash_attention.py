@@ -5,13 +5,14 @@ Counterpart of ``analytics_zoo_tpu/ops/pallas/flash_attention.py``.  Two
 kernels replace the TPU's, for any head dim:
 
 - ``csrc/flash_attention_fwd.cu`` (design note in its ``.cuh``) replaces
-  ``_flash_fwd_pallas``: on the tensor cores at head dims 64 and 128 (bf16
-  as it is, f32 as three tf32 products a value, 3xTF32), on CUDA cores at
-  any other head dim; an additive bias broadcast over (B|1, H|1, Lq|1, Lk),
-  end-aligned causal masking, segment ids (packed sequences), ragged
-  lengths, f32 or bf16 inputs, in-kernel dropout from the reference's
-  position hash (:func:`keep_bits`, ported bit for bit), and the (m, l)
-  statistics the backward reads;
+  ``_flash_fwd_pallas``: on the tensor cores at every head dim that is a
+  multiple of 64 (bf16 as it is, f32 as three tf32 products a value,
+  3xTF32; above 128 in column chunks that tensor copies bring in), on
+  CUDA cores at any other; an additive bias broadcast over
+  (B|1, H|1, Lq|1, Lk), end-aligned causal masking, segment ids (packed
+  sequences), ragged lengths, f32 or bf16 inputs, in-kernel dropout from
+  the reference's position hash (:func:`keep_bits`, ported bit for bit),
+  and the (m, l) statistics the backward reads;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_pallas``: dq, dk,
   dv and the bias-gradient partials of a (B|1, H|1, 1, Lk) bias, from the
   saved statistics and the dropout mask re-derived from the same hash; on
@@ -130,7 +131,7 @@ def _keep_mask(seed, dropout_p, b, h, lq, lk, device):
 
 
 # ---------------------------------------------------------------------------
-# The backward kernel's f32 arithmetic on tf32 tensor cores (3xTF32)
+# The kernels' f32 arithmetic on tf32 tensor cores (3xTF32)
 # ---------------------------------------------------------------------------
 _TF32_LOW = 0x1FFF  # the 13 mantissa bits an f32 has beyond tf32's 10
 
@@ -138,8 +139,8 @@ _TF32_LOW = 0x1FFF  # the 13 mantissa bits an f32 has beyond tf32's 10
 def split_tf32(x):
     """(hi, lo), f32 tensors with hi + lo == x exactly: hi is x rounded to
     tf32 (10 mantissa bits, to nearest, ties away from zero), lo = x - hi.
-    The split the backward kernel makes in registers (``split_tf32``,
-    ``csrc/sm90.cuh``) before its tensor-core products."""
+    The split the tensor-core kernels make (``split_tf32``,
+    ``csrc/sm90.cuh``) before their products."""
     x = x.float().contiguous()
     hi = ((x.view(torch.int32) + 0x1000) & ~_TF32_LOW).view(torch.float32)
     return hi, x - hi
@@ -458,12 +459,38 @@ def _row_major(t):
 
 
 def _tma_ready(t):
-    """The chunked backward kernels (head dims above 128) read their inputs
-    with tensor copies, which need the base and the batch, head and row
-    strides in multiples of 16 bytes."""
+    """The chunked kernels (the forward's and the backward's at head dims
+    above 128 that are multiples of 64) read their inputs with tensor
+    copies, which need the base and the batch, head and row strides in
+    multiples of 16 bytes."""
     es = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         s > 0 and s * es % 16 == 0 for s in t.stride()[:3])
+
+
+def _kernel_inputs(d, *ts):
+    """``ts`` as the kernels take them: a contiguous head dim, and at head
+    dims above 128 that are multiples of 64 (the chunked kernels) a copy of
+    any tensor that tensor copies cannot read (:func:`_tma_ready`)."""
+    ts = [_row_major(t) for t in ts]
+    if d > 128 and d % 64 == 0:
+        ts = [t if _tma_ready(t) else
+              t.clone(memory_format=torch.contiguous_format) for t in ts]
+    return ts
+
+
+def _stream(device):
+    """The current CUDA stream of ``device``, as the kernels take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_rc(rc, what):
+    if rc == -2:
+        raise RuntimeError(f"{what} launch failed: an input's base or "
+                           f"strides are not multiples of 16 bytes, which "
+                           f"the chunked kernels' tensor copies need")
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
 def _bias_args(bias, b, h, lq, lk, device):
@@ -500,24 +527,22 @@ def _flash_cuda(q, k, v, causal, scale, bias, dropout_p=0.0, seed=None,
     _check_cuda(q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    q, k, v = (_row_major(t) for t in (q, k, v))
-    bias, bias_strides = _bias_args(bias, b, h, lq, lk, q.device)
-    q_seg, kv_seg = _seg_args(q_seg, kv_seg, q.device)
-    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    device = q.device
+    q, k, v = _kernel_inputs(d, q, k, v)
+    bias, bias_strides = _bias_args(bias, b, h, lq, lk, device)
+    q_seg, kv_seg = _seg_args(q_seg, kv_seg, device)
+    out = q.new_empty((b, h, lq, d))
     m = l = None
     if stats:
-        m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+        m = q.new_empty((b, h, lq), dtype=torch.float32)
         l = torch.empty_like(m)
     rc = _library(_FWD).zoo_flash_attention_fwd(
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         _ptr(bias), out.data_ptr(), _ptr(m), _ptr(l), _ptr(q_seg),
         _ptr(kv_seg), b, h, lq, lk, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *bias_strides, *out.stride()[:3], scale,
-        int(causal), *_drop_args(dropout_p, seed),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
+        int(causal), *_drop_args(dropout_p, seed), _stream(device))
+    _check_rc(rc, "flash_attention kernel")
     launch_count += 1
     return out, m, l
 
@@ -537,13 +562,9 @@ def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
         raise ValueError("the backward kernels give the gradient of a "
                          "(B|1, H|1, 1, Lk) bias only; a full bias's is "
                          "attention_bwd_blockwise")
-    q, k, v, g = (_row_major(t) for t in (q, k, v, g))
     if g.dtype != q.dtype:
         g = g.to(q.dtype)
-    if d > 128 and d % 64 == 0:
-        q, k, v, g = (t if _tma_ready(t) else
-                      t.clone(memory_format=torch.contiguous_format)
-                      for t in (q, k, v, g))
+    q, k, v, g = _kernel_inputs(d, q, k, v, g)
     bias_f, bias_strides = _bias_args(bias, b, h, lq, lk, q.device)
     q_seg, kv_seg = _seg_args(q_seg, kv_seg, q.device)
     # D = rowsum(dO * O) in f32, outside the kernels as in the reference
@@ -560,10 +581,8 @@ def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
         _ptr(q_seg), _ptr(kv_seg), b, h, lq, lk, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *g.stride()[:3], *bias_strides,
         scale, int(causal), *_drop_args(dropout_p, seed),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: "
-                           f"cudaError {rc}")
+        _stream(q.device))
+    _check_rc(rc, "flash_attention backward")
     bwd_launch_count += 1
     dbias = None
     if bias_grad:

@@ -12,8 +12,11 @@ and prints no result):
    (one nvcc per source, all started together), prints ptxas's register
    report, and checks with ``cuobjdump -sass`` that the tensor-core
    kernels issue ``wgmma`` (HGMMA) of their input types: bf16 in the int8
-   matmul, bf16 and tf32 in the flash forward, tf32 in the flash backward,
-   there in every kernel function of its two tensor-core bodies;
+   matmul, bf16 and tf32 in the flash forward (tf32 in every f32 function
+   of its tensor-core bodies, bf16 in every bf16 function of its chunked
+   body, whose ptxas registers and spills get a line of their own), tf32
+   in the flash backward, there in every kernel function of its two
+   tensor-core bodies;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with the tolerance stated: the
    flash-attention forward (serving in f32, on 3xTF32 tensor cores, and
@@ -21,11 +24,11 @@ and prints no result):
    and the (m, l) statistics, causal with ragged lengths in both types,
    and training with dropout 0.1 and the statistics), the flash-attention
    backward (f32 on the tf32 tensor cores; its error also relative to the
-   largest gradient), both at head dims 192, 256 and 384 (the CUDA-core
-   forward; the chunked 3xTF32 backward, f32 within 1e-5 of the largest
-   gradient) and with segment ids (2-4 packed sequences a row), f32 and
-   bf16, beside SDPA with the equivalent mask, fused
-   Adam's ``fused_update`` over the BERT-base parameter tree (one launch,
+   largest gradient), both at head dims 192, 256, 384 and 512 (the
+   chunked tensor-core forward and backward, f32 as 3xTF32, the backward
+   within 1e-5 of the largest gradient) and with segment ids (2-4 packed
+   sequences a row), f32 and bf16, beside SDPA with the equivalent mask,
+   fused Adam's ``fused_update`` over the BERT-base parameter tree (one launch,
    every output bit for bit the plain version's), and the softmax
    cross-entropy forward and
    backward at the classifier head (8, 2) and an LM head (4096, 30522), and
@@ -38,9 +41,9 @@ and prints no result):
    issued one by one, and for the tensor-core kernels also the same calls
    replayed from one CUDA graph (and so are the backward and Adam);
    computes each kernel's bound from this run's inputs (for f32 x in the
-   int8 matmul and for the f32 flash kernels at head dims 64 and 128, that
-   of their route: three bf16 or tf32 products a value on the tensor
-   cores, with the f32 CUDA-core figure beside it);
+   int8 matmul and for the f32 flash kernels at head dims that are
+   multiples of 64, that of their route: three bf16 or tf32 products a
+   value on the tensor cores, with the f32 CUDA-core figure beside it);
 4. serving slice: BERT-base at full width (vocab 30522, 12 blocks of
    hidden 768, 12 heads, intermediate 3072, sequence 512) with a
    Dense(2, softmax) head, as a 4-input Model served by
@@ -74,8 +77,8 @@ and prints no result):
    ``serving.int8_matmul``, which must launch it no time; then times the
    kernel route on the device and splits it by shape;
 7. head dims above 128, at full width: the BERT-base classifier with 4
-   heads (head dim 192: the CUDA-core forward, the chunked tensor-core
-   backward) fine-tuned through ``fit`` for 3 steps at batch 8 x 512 (12
+   heads (head dim 192: the chunked tensor-core forward and backward)
+   fine-tuned through ``fit`` for 3 steps at batch 8 x 512 (12
    forward and 12 backward flash launches a step), and BERT-base with 2
    heads (head dim 384) answering one 8-record request through
    ``InferenceModel`` (12 launches);
@@ -119,7 +122,7 @@ TRAIN_BATCH, TRAIN_STEPS = 8, 5
 # the head dims of the kernel phase's extra cases; the full-width paths at
 # head dims above 128: fine-tuning with 4 heads (D=192) and serving with 2
 # (D=384)
-NEW_HEAD_DIMS = (192, 256, 384)
+NEW_HEAD_DIMS = (192, 256, 384, 512)
 D192_HEADS, D192_STEPS = 4, 3
 D384_HEADS, D384_RECORDS = 2, 8
 # GPU vs CPU training step at 2 blocks: loss relative, gradients relative
@@ -151,13 +154,23 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
 TENSOR_CORE_KERNELS = {"int8_matmul": ("BF16",),
                        "flash_attention_fwd": ("BF16", "TF32"),
                        "flash_attention_bwd": ("TF32",)}
-# kernel functions that must each issue tf32 wgmma, by the identifier in
-# their mangled names: the flash backward's tensor-core bodies (head dims 64
-# and 128, and the chunked body of every other multiple of 64); the
-# CUDA-core body (bwd_simt_kernel) takes the head dims that are not
+# kernel functions that must each issue wgmma of one input type, by the
+# identifier (and template type) in their mangled names: the flash
+# backward's tensor-core bodies (head dims 64 and 128, and the chunked body
+# of every other multiple of 64) tf32 in all instances; the flash forward's
+# f32 bodies (head dims 64 and 128, and the chunked body) tf32 and the
+# chunked body's bf16 instances bf16.  The CUDA-core bodies
+# (bwd_simt_kernel, flash_fwd_simt_kernel) take the head dims that are not
 # multiples of 64
 TF32_FUNCTIONS = {"flash_attention_bwd": ("10bwd_kernel",
-                                          "15bwd_wide_kernel")}
+                                          "15bwd_wide_kernel"),
+                  "flash_attention_fwd": ("21flash_fwd_tf32_kernel",
+                                          "21flash_fwd_wide_kernelIf")}
+BF16_FUNCTIONS = {"flash_attention_fwd":
+                  ("21flash_fwd_wide_kernelI13__nv_bfloat16",)}
+# the chunked forward: its ptxas registers and spills get a line of their
+# own
+WIDE_FWD = "21flash_fwd_wide_kernel"
 REPLACES = {
     "flash_attention_fwd":
         "analytics_zoo_tpu/ops/pallas/flash_attention.py:216",
@@ -202,8 +215,16 @@ def build_kernels() -> None:
     report = build.build(KERNELS)
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report)}")
     for name, r in report.items():
-        for fn, regs, spilled in ptxas_report(r["log"]):
+        rows = ptxas_report(r["log"])
+        for fn, regs, spilled in rows:
             log(f"  {name}: {fn}: {regs} registers, {spilled} bytes spilled")
+        wide = [(regs, spilled) for fn, regs, spilled in rows
+                if WIDE_FWD in fn]
+        if wide:
+            log(f"ptxas {name} flash_fwd_wide_kernel: {len(wide)} "
+                f"instances, registers {min(w[0] for w in wide)}-"
+                f"{max(w[0] for w in wide)}, most bytes spilled "
+                f"{max(w[1] for w in wide)}")
     # the tensor-core kernels must issue wgmma: HGMMA in their machine code
     from pathlib import Path
 
@@ -221,7 +242,8 @@ def build_kernels() -> None:
         if missing:
             raise AssertionError(f"{name} issues no {missing} wgmma "
                                  "(no HGMMA of that type)")
-        check_tf32_functions(name, sass)
+        check_functions(name, sass, TF32_FUNCTIONS, "TF32")
+        check_functions(name, sass, BF16_FUNCTIONS, "BF16")
 
 
 def ptxas_report(text: str) -> list:
@@ -246,23 +268,23 @@ def ptxas_report(text: str) -> list:
     return rows
 
 
-def check_tf32_functions(name: str, sass: str) -> None:
-    """Every kernel function of ``TF32_FUNCTIONS[name]`` in the library's
-    ``cuobjdump -sass`` listing issues tf32 HGMMA, and each named body has
-    at least one function."""
-    parts = TF32_FUNCTIONS.get(name, ())
+def check_functions(name: str, sass: str, table: dict, kind: str) -> None:
+    """Every kernel function of ``table[name]`` in the library's
+    ``cuobjdump -sass`` listing issues HGMMA of input type ``kind`` (TF32
+    or BF16), and each named body has at least one function."""
+    parts = table.get(name, ())
     functions = {}
     for block in sass.split("Function : ")[1:]:
         fn, _, body = block.partition("\n")
         functions[fn.strip()] = sum(1 for ln in body.splitlines()
-                                    if "HGMMA" in ln and ".TF32" in ln)
+                                    if "HGMMA" in ln and f".{kind}" in ln)
     for part in parts:
         mine = {fn: n for fn, n in functions.items() if part in fn}
-        log(f"sass {name} {part}: {len(mine)} functions, tf32 HGMMA "
+        log(f"sass {name} {part}: {len(mine)} functions, {kind} HGMMA "
             f"{sorted(mine.values())}")
         if not mine or not all(mine.values()):
-            raise AssertionError(f"{name}: a {part} function issues no tf32 "
-                                 f"wgmma: {mine}")
+            raise AssertionError(f"{name}: a {part} function issues no "
+                                 f"{kind} wgmma: {mine}")
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -508,14 +530,13 @@ def library_call(make):
         return None
 
 
-def route_bound(nbytes: float, flops: float, dtype: str, d: int,
-                backward: bool = False) -> dict:
+def route_bound(nbytes: float, flops: float, dtype: str, d: int) -> dict:
     """The bound of the flash route the kernel takes: the f32 tensor-core
-    bodies (the forward's at head dims 64 and 128, the backward's at every
-    multiple of 64) count three tf32 products a value, with the f32
-    CUDA-core figure beside (``bound_cuda_core_ms``); bf16 counts at the
-    bf16 tensor-core rate, an f32 CUDA-core body at the f32 rate."""
-    if dtype == "float32" and (d % 64 == 0 if backward else d in (64, 128)):
+    bodies (forward and backward at every multiple of 64) count three tf32
+    products a value, with the f32 CUDA-core figure beside
+    (``bound_cuda_core_ms``); bf16 counts at the bf16 tensor-core rate, an
+    f32 CUDA-core body at the f32 rate."""
+    if dtype == "float32" and d % 64 == 0:
         row = bound(nbytes, 3 * flops, "tfloat32")
         row["bound_cuda_core_ms"] = bound(nbytes, flops)["bound_ms"]
         return row
@@ -773,17 +794,16 @@ def flash_case(d, dtype, dev, gen, segments=False):
                                for x, y in zip(grads[:3], want[:3])),
                rel_to_largest_grad=top)
     bwd.update(route_bound(8 * b * h * l * d * esize + 2 * b * h * l * 4
-                           + extra, 10.0 * h * d * pairs, name, d,
-                           backward=True))
+                           + extra, 10.0 * h * d * pairs, name, d))
     log(f"kernel bwd {label}: {fmt_row(bwd)}")
     return fwd, bwd
 
 
 def flash_dims_phase(dev, fwd_entry, bwd_entry) -> None:
-    """The head dims of the two new full-width paths and one more (192,
-    256, 384) and segment ids at D=64, f32 and bf16, forward and backward;
-    rows go into the two kernels' entries as ``<dtype>_d<D>`` and
-    ``<dtype>_segments``."""
+    """The head dims of the two full-width paths above 128 and two more
+    (192, 256, 384, 512) and segment ids at D=64, f32 and bf16, forward
+    and backward; rows go into the two kernels' entries as
+    ``<dtype>_d<D>`` and ``<dtype>_segments``."""
     import torch
 
     gen = np.random.default_rng(SEED + 9)
@@ -1191,8 +1211,8 @@ def training_phase(card_line: str) -> dict:
 
 
 def training_d192_phase(card_line: str) -> dict:
-    """BERT-base's width with 4 heads (head dim 192: the CUDA-core forward,
-    the chunked tensor-core backward) fine-tuned through ``fit`` for 3
+    """BERT-base's width with 4 heads (head dim 192: the chunked
+    tensor-core forward and backward) fine-tuned through ``fit`` for 3
     steps at batch 8 x 512 in f32, dropout 0.1: every step launches 12
     forward and 12 backward flash kernels."""
     import torch
@@ -1237,9 +1257,9 @@ def training_d192_phase(card_line: str) -> dict:
 
 
 def serving_d384_phase(card_line: str) -> dict:
-    """BERT-base's width with 2 heads (head dim 384, the CUDA-core forward)
-    served through ``InferenceModel``: one 8-record request, 12 flash
-    launches."""
+    """BERT-base's width with 2 heads (head dim 384, the chunked
+    tensor-core forward) served through ``InferenceModel``: one 8-record
+    request, 12 flash launches."""
     import torch
 
     from analytics_zoo_tpu_torch import init_zoo_context

@@ -289,9 +289,9 @@ def test_segment_ids_gradients_match_jax(case, monkeypatch):
 @pytest.mark.parametrize("d", [96, 192, 320])
 def test_any_head_dim_matches_jax(d, monkeypatch):
     """The plain forward and backward at head dims other than 64 and 128
-    (on a GPU the CUDA-core forward's; the backward's chunked tensor-core
-    body at 192 and 320, its CUDA-core body at 96), against the reference
-    with the padding bias and dropout."""
+    (on a GPU the chunked tensor-core bodies' at 192 and 320, the
+    CUDA-core bodies' at 96), against the reference with the padding bias
+    and dropout."""
     rng = np.random.default_rng(d)
     b, h, lq, lk = 2, 2, 160, 200
     q, k, v, g = (rng.normal(size=(b, h, n, d)).astype(np.float32)

@@ -3,9 +3,10 @@
 The ``cuda``-marked tests hold the kernel against its plain version on a
 GPU (f32 within 1e-4; bf16 inputs within 2e-2 of the plain version run in
 f32: the tensor-core bodies at head dims 64 and 128, f32 as 3xTF32, bf16
-also with dropout and the (m, l) statistics, and the CUDA-core body at 192
-and 256) and skip where none is visible.  This file imports nothing from the
-JAX package, so on a machine with a GPU and no JAX it runs alone:
+also with dropout and the (m, l) statistics, and the chunked tensor-core
+body at 192 and 256) and skip where none is visible.  This file imports
+nothing from the JAX package, so on a machine with a GPU and no JAX it
+runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_flash_kernel.py

@@ -11,14 +11,16 @@ against its plain version on a GPU and skip where none is visible:
   512-long products in f32, in different orders), bf16 inputs within
   2e-2 of the plain version run in f32;
 - the f32 forward on the tensor cores (3xTF32) within 1e-4 of the plain
-  version on every case, and the f32 backward within 1e-5 of the largest
-  gradient, fed the same forward outputs as its plain version, on every
-  case and at head dims 192, 256 and 384 (the chunked tensor-core body);
+  version on every case and at head dims 192 to 1024 (the chunked
+  tensor-core body, also in bf16 within the bf16 tolerance), and the f32
+  backward within 1e-5 of the largest gradient, fed the same forward
+  outputs as its plain version, on every case and at head dims 192, 256
+  and 384 (the chunked tensor-core body);
 - every body of both kernels with segment ids (2-4 packed sequences a
   row), causal masking, the padding bias and dropout 0.1, at head dims 64
-  and 128 (tensor cores in both), 192, 256, 320 and 512 (the CUDA-core
-  forward, the chunked tensor-core backward) and 96 (CUDA cores in both),
-  f32 and bf16, within the tolerances above;
+  and 128 (tensor cores in both), 192, 256, 320 and 512 (the chunked
+  tensor-core bodies) and 96 (CUDA cores in both), f32 and bf16, within
+  the tolerances above;
 - the gradient of a full bias through autograd: the blockwise route,
   against the plain backward;
 - one ``fit`` step of a BERT classifier with head dim 192 (hidden 384, 2
@@ -63,18 +65,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _attn_inputs(b, h, lq, lk, d, bias_kind, device, seed=0):
+def _attn_inputs(b, h, lq, lk, d, bias_kind, device, seed=0, layout=None):
+    """q, k, v as split_heads views (non-contiguous rows), as the model
+    hands them over; ``layout`` "fused": views of one fused (B, L, 3 H D)
+    projection (lq == lk); "misaligned": q's base and row stride not
+    multiples of 16 bytes."""
     gen = np.random.default_rng(seed)
 
     def t(shape, scale=1.0):
         return torch.from_numpy(
             (gen.normal(size=shape) * scale).astype(np.float32)).to(device)
 
-    # q/k/v as split_heads views (non-contiguous rows), as the model
-    # hands them over
     q = t((b, lq, h, d)).transpose(1, 2)
     k = t((b, lk, h, d)).transpose(1, 2)
     v = t((b, lk, h, d)).transpose(1, 2)
+    if layout == "fused":
+        q, k, v = (x.reshape(b, lq, h, d).transpose(1, 2) for x in
+                   torch.chunk(t((b, lq, 3 * h * d)), 3, dim=-1))
+    elif layout == "misaligned":
+        wide = torch.zeros(b, h, lq, d + 1, device=device)
+        wide[..., 1:] = q
+        q = wide[..., 1:]
     g = t((b, h, lq, d))
     bias = None
     if bias_kind == "padding":
@@ -249,29 +260,69 @@ def test_flash_bwd_f32_within_1e5_of_largest_gradient(case, cuda_device):
             (name, err, top)
 
 
+# the chunked tensor-core forward (head dims above 128 that are multiples
+# of 64): one to four column slices a block, two and three warpgroups of
+# 64 or (f32) 128 columns, bf16 with Q kept whole and (at 1024) streamed,
+# causal with lq > lk and lq < lk, the padding and per-head bias rows, a
+# full bias read element by element, dropout 0.1 with (m, l), views of one
+# fused projection, and an input the wrapper copies for the tensor copies;
+# (b, h, lq, lk, d, causal, bias kind, -, dropout[, layout])
+WIDE_FWD_CASES = [
+    (2, 4, 512, 512, 192, False, "padding", False, 0.1, "fused"),
+    (2, 3, 448, 500, 256, True, None, False, 0.0),
+    (2, 2, 300, 173, 320, True, "padding", False, 0.1),
+    (1, 2, 256, 301, 384, False, "full", False, 0.1),
+    (2, 2, 130, 200, 512, False, "heads", False, 0.0),
+    (1, 1, 200, 260, 768, True, "padding", False, 0.1),
+    (2, 2, 256, 256, 384, False, "padding", False, 0.0, "misaligned"),
+    (1, 2, 200, 160, 1024, True, "heads", False, 0.1),  # bf16: Q streamed
+]
+
+
+def _case_id(c):
+    return "x".join(map(str, c))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ATTN_CASES,
-                         ids=lambda c: "x".join(map(str, c)))
-def test_flash_fwd_f32_tensor_cores_within_1e4(case, cuda_device):
-    """The f32 forward at head dims 64 and 128 runs 3xTF32 on the tensor
-    cores: out within 1e-4 of the plain version (measured ~1e-6), m and l
-    as the plain version's."""
-    b, h, lq, lk, d, causal, bias_kind, _, p = case
+@pytest.mark.parametrize(
+    "case,dtype",
+    [pytest.param(c, torch.float32, id=_case_id(c))
+     for c in ATTN_CASES + WIDE_FWD_CASES]
+    + [pytest.param(c, torch.bfloat16, id=_case_id(c) + "-bf16")
+       for c in WIDE_FWD_CASES])
+def test_flash_fwd_f32_tensor_cores_within_1e4(case, dtype, cuda_device):
+    """The f32 forward runs 3xTF32 on the tensor cores at every multiple of
+    64 (head dims 64 and 128 whole, above 128 in 32-column chunks): out
+    within 1e-4 of the plain version (measured ~1e-6), m and l as the plain
+    version's.  The chunked body's bf16 instances (bf16 wgmma) are held to
+    the bf16 tolerance against the plain version run in f32."""
+    b, h, lq, lk, d, causal, bias_kind, _, p, *layout = case
     q, k, v, _, bias = _attn_inputs(b, h, lq, lk, d, bias_kind, cuda_device,
-                                    seed=9)
+                                    seed=9, layout=(layout or [None])[0])
+    q, k, v = (x.to(dtype) for x in (q, k, v))
     seed = (0x1234ABCD, 0x9E3779B9) if p > 0 else None
     scale = 1.0 / np.sqrt(d)
     for stats in (False, True):
+        before = tfa.launch_count
         out, m, l = tfa._flash_cuda(q, k, v, causal, scale, bias, p, seed,
                                     stats=stats)
         w_out, w_m, w_l = tfa.attention_reference(
-            q, k, v, causal, scale, bias, p, seed, return_stats=True)
+            q.float(), k.float(), v.float(), causal, scale, bias, p, seed,
+            return_stats=True)
         torch.cuda.synchronize()
-        err = (out - w_out).abs().max().item()
-        assert torch.isfinite(out).all() and err <= 1e-4, err
+        assert tfa.launch_count == before + 1 and out.dtype == dtype
+        if dtype == torch.float32:
+            err = (out - w_out).abs().max().item()
+            assert torch.isfinite(out).all() and err <= 1e-4, err
+        else:
+            _close(out, w_out, BF16_TOL)
         if stats:
             torch.testing.assert_close(m, w_m, rtol=1e-5, atol=1e-5)
-            torch.testing.assert_close(l, w_l, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(
+                l, w_l, rtol=1e-4 if dtype == torch.float32 else BF16_TOL,
+                atol=1e-5)
+        if bias_kind == "padding":  # the fully masked batch row
+            assert out[-1].float().abs().max().item() == 0.0
 
 
 def _segment_ids(b, n, gen, device):
@@ -293,8 +344,8 @@ def test_flash_every_body_with_segments(d, dtype, tol, cuda_device):
     """Forward (with statistics) and backward of every kernel body with
     segment ids, causal masking (lq < lk), the padding bias, a per-head
     bias gradient and dropout 0.1: the tensor-core bodies at head dims 64
-    and 128, the chunked tensor-core backward at the other multiples of
-    64, the CUDA-core forward there and both CUDA-core bodies at 96."""
+    and 128, the chunked tensor-core bodies at the other multiples of 64
+    and both CUDA-core bodies at 96."""
     gen = np.random.default_rng(d)
     b, h, lq, lk = 2, 3, 200, 260
     q, k, v, g, bias = _attn_inputs(b, h, lq, lk, d, "padding", cuda_device,
@@ -529,6 +580,50 @@ def test_chunked_backward_inputs_suit_tensor_copies():
     assert tfa._tma_ready(odd.clone(memory_format=torch.contiguous_format))
     assert not tfa._tma_ready(
         torch.zeros(2, 4, 8, 196, dtype=torch.bfloat16)[..., 4:])
+
+
+@pytest.mark.parametrize("d,dtype,layout,copied", [
+    (192, torch.float32, "fused", False),
+    (384, torch.float32, "misaligned", True),
+    (256, torch.bfloat16, "misaligned", True),
+    (96, torch.float32, "misaligned", False),
+], ids=["d192-fused", "d384-misaligned", "d256-bf16-misaligned",
+        "d96-cuda-cores"])
+def test_chunked_forward_inputs_suit_tensor_copies(d, dtype, layout, copied,
+                                                   monkeypatch):
+    """The forward wrapper hands the chunked kernel (head dims above 128
+    that are multiples of 64) only inputs that tensor copies can read: a
+    split-heads view of a fused projection as it is, a view whose base or
+    row stride is not a multiple of 16 bytes as a copy.  The CUDA-core body
+    (other head dims) reads rows element by element and gets the view."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the kernels run instead")
+    b, h, n = 2, 3, 8
+    x = torch.zeros(b, n, 3 * h * d, dtype=dtype)
+    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2)
+               for t in torch.chunk(x, 3, dim=-1))
+    if layout == "misaligned":
+        q = torch.zeros(b, h, n, d + 1, dtype=dtype)[..., 1:]
+    handed = {}
+
+    class Lib:
+        def zoo_flash_attention_fwd(self, *args):
+            handed["ptrs"] = args[2:5]
+            handed["strides"] = (args[15:18], args[18:21], args[21:24])
+            return 0
+
+    monkeypatch.setattr(tfa, "_library", lambda name: Lib())
+    monkeypatch.setattr(tfa, "_stream", lambda device: 0)
+    before = tfa.launch_count
+    out, _, _ = tfa._flash_cuda(*(_OnCuda(t) for t in (q, k, v)), False,
+                                0.125, None)
+    assert tfa.launch_count == before + 1 and out.shape == (b, h, n, d)
+    es = q.element_size()
+    ok = [p % 16 == 0 and all(s * es % 16 == 0 for s in st)
+          for p, st in zip(handed["ptrs"], handed["strides"])]
+    assert ok == ([True] * 3 if d % 64 == 0 else [False, True, True])
+    assert (handed["ptrs"][0] != q.data_ptr()) == copied
+    assert handed["ptrs"][1:] == (k.data_ptr(), v.data_ptr())
 
 
 def test_other_devices_raise():

@@ -6,24 +6,27 @@ into, beside SDPA.
 
     python3 tools/flash_fwd_bench.py [--tag NAME] [--reps 20]
                                      [--dtype float32|bfloat16]
+                                     [--only fwd|bwd]
 
 Forward cases: f32 and bf16 at head dims 64 (12 heads), 128 (6), 192 (4),
 256 (3) and 384 (2), and f32 at D 64 with dropout 0.1 and the (m, l)
 statistics (the training call).  Backward cases: f32 and bf16 at D 192,
 256 and 384 (a tree whose kernels do not take a head dim reports
 "raises").  ``--dtype`` keeps the cases of one input type (a kernel's
-time can depend on what ran on the card before it).  Each case: the error
+time can depend on what ran on the card before it), ``--only`` the
+forward or the backward cases.  Each case: the error
 against the plain version on the same inputs (forward: max |d|; backward:
 relative to each output's largest gradient), the bound of the kernel's
 route (as ``chip_smoke.py`` counts it), the time through the Python
 wrapper (CUDA events over calls issued one by one) and from a CUDA-graph
-replay of the same calls, and
-SDPA timed the same two ways (forward: ``scaled_dot_product_attention``
-with the bias as its mask; backward: the memory-efficient attention's
-backward op, without dropout).  Prints the card's name and power limit, a
-line per case, and one JSON line last.  To compare two checkouts, copy
-this file into the other's ``tools/`` and run it from each in turn on the
-same card.  Needs one GPU and nvcc; imports nothing of the JAX package.
+replay of the same calls, the plain version's time (forward: eager and
+graph), and SDPA timed the same two ways (forward:
+``scaled_dot_product_attention`` with the bias as its mask; backward: the
+memory-efficient attention's backward op, without dropout).  Prints the
+card's name and power limit, a line per case, and one JSON line last.  To
+compare two checkouts, copy this file into the other's ``tools/`` and run
+it from each in turn on the same card.  Needs one GPU and nvcc; imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -169,8 +172,11 @@ def fwd_case(d, dtype, reps, dev, dropout=0.0):
     h = HIDDEN // d
     add_bound(row, 4 * B * h * L * d * q.element_size() + bias.numel() * 4
               + (2 * B * h * L * 4 if stats else 0),
-              4.0 * h * d * live_pairs(bias), row["dtype"], d in (64, 128))
+              4.0 * h * d * live_pairs(bias), row["dtype"], d % 64 == 0)
     row["ms"], row["graph_ms"] = both(call, reps)
+    row["plain_ms"], row["plain_graph_ms"] = both(
+        lambda: fa.attention_reference(q, k, v, False, scale, bias, dropout,
+                                       seed, stats), reps)
     lq, lk, lv = (t.contiguous() for t in (q, k, v))
     mask = bias.to(dtype)
     row["sdpa_ms"], row["sdpa_graph_ms"] = both(
@@ -237,7 +243,9 @@ def fmt(row):
     err = row.get("max_abs_err", row.get("rel_to_largest_grad"))
     cc = (f"; f32 on CUDA cores {row['bound_cuda_core_ms']:.4f}"
           if "bound_cuda_core_ms" in row else "")
-    return (f"{ms(row['ms'])} ms (graph {ms(row['graph_ms'])}); sdpa "
+    plain = (f"plain {ms(row['plain_ms'])} (graph "
+             f"{ms(row['plain_graph_ms'])}); " if "plain_ms" in row else "")
+    return (f"{ms(row['ms'])} ms (graph {ms(row['graph_ms'])}); {plain}sdpa "
             f"{ms(row['sdpa_ms'])} (graph {ms(row['sdpa_graph_ms'])}); "
             f"error {err:.3e}; bound {row['bound_ms']:.4f} "
             f"({row['bound_by']}{cc})")
@@ -248,6 +256,7 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"))
+    ap.add_argument("--only", choices=("fwd", "bwd"))
     args = ap.parse_args()
     import torch
 
@@ -268,6 +277,9 @@ def main() -> int:
               for d in BWD_DIMS]
     if args.dtype:
         cases = [c for c in cases if str(c[2]) == f"torch.{args.dtype}"]
+    if args.only:
+        cases = [c for c in cases
+                 if (c[0] is bwd_case) == (args.only == "bwd")]
     rows = []
     for fn, d, dtype, kw in cases:
         r = fn(d, dtype, args.reps, dev, **kw)
