@@ -2,8 +2,9 @@
 
 Counterpart of ``analytics_zoo_tpu/common/engine.py``.  The reference's
 context owns a device mesh; the port runs on one device, so the context
-owns that device instead.  The sharding planes come with the
-distribution slice.
+owns that device instead, and the dtype-policy tier of the reference's
+env config (``ZOO_DTYPE_POLICY``, validated when the context is made).
+The sharding planes come with the distribution slice.
 
 Randomness: a ``torch.Generator`` stands in for a ``jax.random`` key.
 :func:`fold_in` derives a child generator from its parent's seed alone
@@ -26,6 +27,7 @@ import threading
 import torch
 
 from analytics_zoo_tpu_torch.common.utils import tree_map
+from analytics_zoo_tpu_torch.parallel.plan import resolve_dtype_rules
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -38,6 +40,9 @@ class ZooContext:
     seed: int = 0
     # Forward math dtype (params-in-compute); None = full f32.
     compute_dtype: torch.dtype | None = None
+    # ZOO_DTYPE_POLICY: a policy spec the estimator overlays on a plan that
+    # has no dtype rules (None = no policy)
+    dtype_policy: str | None = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -113,16 +118,36 @@ def _resolve_compute_dtype(spec):
     raise ValueError(f"unknown compute_dtype {spec!r}")
 
 
+def _resolve_dtype_policy(spec):
+    """The dtype policy: explicit arg > ``ZOO_DTYPE_POLICY`` > none,
+    validated here so a bad value fails at context init naming the
+    variable.  ``"auto"`` passes (the config oracle resolves it, as in the
+    reference; the port's estimator refuses it until that is ported)."""
+    if spec is None:
+        spec = os.environ.get("ZOO_DTYPE_POLICY")
+    if spec is None:
+        return None
+    spec = str(spec)
+    if spec.strip().lower() != "auto":
+        try:
+            resolve_dtype_rules(spec)
+        except ValueError as e:
+            raise ValueError(f"ZOO_DTYPE_POLICY: {e}") from None
+    return spec
+
+
 _LOCK = threading.Lock()
 _CONTEXT: ZooContext | None = None  # guarded-by: _LOCK
 
 
 def init_zoo_context(*, seed: int | None = None, device=None,
-                     compute_dtype=None) -> ZooContext:
+                     compute_dtype=None, dtype_policy=None) -> ZooContext:
     """Initialise (or re-initialise) the global runtime context.
 
     ``device`` defaults to ``cuda`` and raises when no GPU is visible;
-    tests pass ``device="cpu"``.  TF32 is switched off for matmuls and
+    tests pass ``device="cpu"``.  ``dtype_policy`` (default
+    ``ZOO_DTYPE_POLICY``) is any spec ``resolve_dtype_rules`` accepts, or
+    ``"auto"``.  TF32 is switched off for matmuls and
     cuDNN: the reference computes in full f32 off-TPU, and the port's
     parity tolerances assume full f32.
     """
@@ -131,7 +156,8 @@ def init_zoo_context(*, seed: int | None = None, device=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ctx = ZooContext(device=dev, seed=int(seed or 0),
-                     compute_dtype=_resolve_compute_dtype(compute_dtype))
+                     compute_dtype=_resolve_compute_dtype(compute_dtype),
+                     dtype_policy=_resolve_dtype_policy(dtype_policy))
     with _LOCK:
         _CONTEXT = ctx
     logger.info("init_zoo_context: device %s, seed %d; TF32 off for "

@@ -61,6 +61,8 @@ bwd_blockwise_count = 0  # full-bias gradients: the blockwise route
 _FWD = "flash_attention_fwd"
 _BWD = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the q/k/v dtypes the kernels take
+KERNEL_DTYPES = tuple(_DTYPES)
 
 # ---------------------------------------------------------------------------
 # The dropout hash (the reference's `_mix32`, `_keep_bits`,

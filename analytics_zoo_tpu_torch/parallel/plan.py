@@ -8,9 +8,12 @@ rule tables:
 - ``dtype_rules`` (the precision plane): ``(regex, role)`` pairs over the
   ``/``-joined leaf paths of a parameter tree
   (:func:`~analytics_zoo_tpu_torch.parallel.partition.leaf_path_name`),
-  the role one of :data:`DTYPE_ROLES`.  :func:`int8_serving` marks every
-  matmul-sized weight ``"int8"`` for
-  ``pipeline/inference/quantize.quantize_params_for_plan``.
+  the role one of :data:`DTYPE_ROLES`.  In training,
+  :meth:`ShardingPlan.cast_params_for_compute` makes the step's compute
+  copy of the f32 masters (``bf16``/``f16``, and bf16 for an ``int8``
+  leaf) and :meth:`ShardingPlan.compute_cast_dtype` is what the batch
+  casts to; :func:`int8_serving` marks every matmul-sized weight
+  ``"int8"`` for ``pipeline/inference/quantize.quantize_params_for_plan``.
 - ``kernel_rules`` (the kernel plane): ``(regex, kernel)`` pairs over
   logical op scopes (``"attention"``, ``"optimizer.adam"``,
   ``"loss.softmax_xent"``, ``"serving.int8_matmul"``), the kernel one of
@@ -28,27 +31,32 @@ runs under :func:`compile_step`.  Eager PyTorch has nothing to compile, so
 compile choke point waits for ROADMAP queue 1 item 12.  The sharded plans
 (zero1/2/3, fsdp, ``+overlap``) and the param/opt/grad/remat tables wait
 for the distribution slice (queue 1 item 13); their names raise
-``NotImplementedError``.  The ``ZOO_SHARDING_PLAN``/``ZOO_DTYPE_POLICY``/
-``ZOO_USE_PALLAS`` env tier waits for ``ZooConfig`` (queue 1 item 2).
+``NotImplementedError``.  ``ZOO_DTYPE_POLICY`` is read by
+``common.engine.init_zoo_context`` and overlaid by the estimator; the
+``ZOO_SHARDING_PLAN``/``ZOO_USE_PALLAS`` env tier waits for ``ZooConfig``
+(queue 1 item 2).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 import re
 import threading
 
+import torch
+
+from analytics_zoo_tpu_torch.common.utils import tree_map_many
 from analytics_zoo_tpu_torch.parallel.partition import (
     leaf_path_name,
+    match_rule_values,
     tree_map_with_path,
 )
 
 __all__ = [
     "ShardingPlan", "data_parallel", "with_dtype", "with_dtype_policy",
     "mixed_precision", "int8_serving", "resolve_dtype_rules",
-    "DTYPE_ROLES", "DTYPE_POLICY_NAMES", "COMPUTE_ROLES", "with_kernels",
+    "DTYPE_ROLES", "DTYPE_POLICY_NAMES", "with_kernels",
     "resolve_kernel", "KERNEL_NAMES", "DEFAULT_KERNEL_RULES",
     "resolve_plan", "compile_step", "PlannedStep", "PLAN_NAMES",
 ]
@@ -65,9 +73,12 @@ _SHARDED_NAMES = ("fsdp", "zero1", "zero2", "zero3")
 #: weight-only quantized serving copy.
 DTYPE_ROLES = ("f32", "bf16", "f16", "int8")
 
-#: roles that change the compute dtype of a training step (the reference
-#: trains an ``"int8"`` leaf in bf16); the port trains in f32 only
-COMPUTE_ROLES = ("bf16", "f16", "int8")
+#: the compute dtype each role casts a floating leaf to inside the train
+#: and eval steps (``None``: the stored dtype; ``None`` as a role is a
+#: ``keep`` rule).  An ``"int8"`` leaf trains in bf16: int8 is a
+#: weight-only serving transform, not a training number format.
+_ROLE_COMPUTE_DTYPES = {"f32": None, None: None, "bf16": torch.bfloat16,
+                        "f16": torch.float16, "int8": torch.bfloat16}
 
 #: canned policy names :func:`resolve_dtype_rules` accepts (besides a
 #: ``<regex>=<role>,...`` rule string)
@@ -134,23 +145,46 @@ class ShardingPlan:
     def dtype_roles(self, tree) -> dict:
         """Leaf path -> matched dtype role, for every non-scalar leaf a rule
         hits (first ``re.search`` wins).  Unmatched leaves are absent: they
-        keep master precision."""
+        keep master precision, as do leaves a ``keep`` rule pins."""
         out = {}
 
-        def visit(path, leaf):
-            shape = tuple(getattr(leaf, "shape", ()))
-            if not shape or math.prod(shape) == 1:
-                return leaf
-            name = leaf_path_name(path)
-            for pat, role in self.dtype_rules:
-                if re.search(pat, name):
-                    if role is not None:
-                        out[name] = role
-                    break
-            return leaf
+        def visit(path, role):
+            if role is not None:
+                out[leaf_path_name(path)] = role
 
-        tree_map_with_path(visit, tree)
+        tree_map_with_path(visit, match_rule_values(self.dtype_rules, tree))
         return out
+
+    def compute_cast_dtype(self):
+        """The first low-precision compute dtype this plan's rules declare
+        (``torch.bfloat16`` / ``torch.float16``), or ``None`` for a pure
+        f32 plan: what the batch's floating inputs cast to, so the
+        matmuls run in the compute dtype."""
+        for _, role in self.dtype_rules:
+            dtype = _ROLE_COMPUTE_DTYPES.get(role)
+            if dtype is not None:
+                return dtype
+        return None
+
+    def cast_params_for_compute(self, params):
+        """A compute copy of ``params``: each floating leaf whose role has
+        a compute dtype (``bf16``, ``f16``, ``int8`` -> bf16) cast to it,
+        every other leaf (f32 or ``keep`` roles, scalars, integers) as it
+        is.  ``params`` stays the f32 master the optimizer updates; cast
+        where autograd records it, the cast's backward returns f32
+        gradients to the masters."""
+        if not self.dtype_rules:
+            return params
+        roles = match_rule_values(self.dtype_rules, params, default="f32")
+
+        def cast(leaf, role):
+            dtype = _ROLE_COMPUTE_DTYPES.get(role)
+            if dtype is None or not torch.is_tensor(leaf) \
+                    or not leaf.is_floating_point():
+                return leaf
+            return leaf.to(dtype)
+
+        return tree_map_many(cast, params, roles)
 
     # -- kernel plane --------------------------------------------------
     def kernel_policy_str(self) -> str:
@@ -255,9 +289,9 @@ def with_kernels(plan: ShardingPlan | str | None = None,
 
 
 def mixed_precision(plan: ShardingPlan | str | None = None) -> ShardingPlan:
-    """The canned bf16 mixed-precision policy over a base plan (``dp+bf16``).
-    The port's training loop refuses it for now (ROADMAP queue 1 item 22)
-    rather than train in f32 under its name."""
+    """The canned bf16 mixed-precision policy over a base plan
+    (``dp+bf16``): bf16 compute copies of the f32 masters, made on use
+    inside the step, with f32 gradients and f32 optimizer state."""
     return with_dtype(resolve_plan(plan), "bf16")
 
 

@@ -17,9 +17,19 @@ elements).  The train step runs under a plan
 (``Estimator(plan=)``/``train(plan=)``, default ``dp``) through
 ``parallel.plan.compile_step``, as in the reference, so a plan's
 ``kernel_rules`` can opt a scope out with ``"xla"`` (its plain PyTorch
-path).  A plan whose ``dtype_rules`` carry a compute role (bf16, f16, or
-int8, which the reference trains in bf16) raises: the port trains in f32
-only (ROADMAP queue 1 item 22).
+path).
+
+Mixed precision, as in the reference (estimator.py:939-981): under a plan
+with ``dtype_rules`` (``mixed_precision()``, ``"dp+bf16"``, or the
+context's ``ZOO_DTYPE_POLICY`` overlaid on a plan without dtype rules) the
+forward takes ``plan.cast_params_for_compute`` of the f32 masters and the
+batch's floating inputs in ``plan.compute_cast_dtype()``.  The casts are
+made where autograd records them, so gradients arrive in f32; predictions
+go up to f32 before the loss, the new state keeps the old state's dtypes,
+and the masters and Adam's moments stay f32.  The eval step casts the same
+way under the estimator's own plan (not a fit's ``plan=``), as the
+reference's ``_resolved_plan()`` gives it.  On the card a compute dtype the
+flash kernels do not take (f16) raises before the first step.
 
 Batches come from ``FeatureSet.batches`` with the reference's seeded
 shuffle, so both packages see the same batches in the same order.
@@ -49,12 +59,17 @@ from analytics_zoo_tpu_torch.common.triggers import (
     TrainingState,
     ZooTrigger,
 )
-from analytics_zoo_tpu_torch.common.utils import tree_leaves, tree_map
+from analytics_zoo_tpu_torch.common.utils import (
+    tree_leaves,
+    tree_map,
+    tree_map_many,
+)
 from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+from analytics_zoo_tpu_torch.ops.cuda.flash_attention import KERNEL_DTYPES
 from analytics_zoo_tpu_torch.parallel.plan import (
-    COMPUTE_ROLES,
     compile_step,
     resolve_plan,
+    with_dtype_policy,
 )
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
     _unflatten,
@@ -93,6 +108,17 @@ def _clip_grads(grads, grad_clip):
                           for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     return tree_map(lambda g: g * scale, grads)
+
+
+def _compute_inputs(plan, compute_dtype, params, x):
+    """(params, x) as the forward takes them: under a plan with dtype rules
+    its per-role compute copy and x in its compute dtype (a plan's rules
+    beat the context's ``compute_dtype``), else both in
+    ``compute_dtype``."""
+    if plan is not None and plan.dtype_rules:
+        return (plan.cast_params_for_compute(params),
+                cast_floats(x, plan.compute_cast_dtype() or compute_dtype))
+    return cast_floats(params, compute_dtype), cast_floats(x, compute_dtype)
 
 
 def _tensor(a, device):
@@ -135,22 +161,29 @@ class Estimator:
         self.history: list[dict] = []
         self.loss_log: list[tuple[int, float]] = []
         self._opt_state = None  # persists across fit() calls
+        # the plan the last fit ran under: its name and dtype policy
+        # ("" = none), as the reference's checkpoint plan record holds them
+        self._plan_record: dict | None = None
 
     # ------------------------------------------------------------------
     # the train step
     # ------------------------------------------------------------------
-    def loss_and_grads(self, params, state, batch, rng):
+    def loss_and_grads(self, params, state, batch, rng, plan=None):
         """(loss, grads, new_state) of one training forward and backward;
         ``batch`` holds tensors on the model's device, ``rng`` is the step's
-        generator.  Integer leaves get zero gradients."""
+        generator, ``plan`` (a ``ShardingPlan`` or None) gives the compute
+        casts.  Gradients have the masters' dtypes; integer leaves get
+        zero gradients."""
         leaves = [t.detach().requires_grad_(t.is_floating_point())
                   for t in tree_leaves(params)]
         p = _unflatten(params, leaves)
         dtype = self.ctx.compute_dtype
         with torch.enable_grad():
+            # cast inside the recorded region: the casts' backward brings
+            # the gradients up to f32 at the masters
+            pc, xc = _compute_inputs(plan, dtype, p, batch["x"])
             preds, new_state = self.model.forward(
-                cast_floats(p, dtype), cast_floats(batch["x"], dtype),
-                state=state, training=True, rng=rng)
+                pc, xc, state=state, training=True, rng=rng)
             preds = cast_floats(preds, torch.float32)
             loss = self.loss.mean(batch.get("y"), preds, batch.get("w"))
         wrt = [t for t in leaves if t.requires_grad]
@@ -160,6 +193,10 @@ class Estimator:
             g = next(got) if t.requires_grad else None
             grads.append(torch.zeros_like(t) if g is None else g)
         new_state = tree_map(lambda s: s.detach(), new_state or {})
+        if dtype is not None or (plan is not None and plan.dtype_rules):
+            # the state keeps its dtypes from step to step
+            new_state = tree_map_many(lambda new, old: new.to(old.dtype),
+                                      new_state, state)
         return loss.detach(), _unflatten(params, grads), new_state
 
     def _mask_frozen(self, tree):
@@ -169,9 +206,11 @@ class Estimator:
         return {k: tree_map(torch.zeros_like, v) if k in frozen else v
                 for k, v in tree.items()}
 
-    def train_step(self, params, opt_state, state, rng, batch):
-        """One optimizer step: (params, opt_state, state, loss)."""
-        loss, grads, state = self.loss_and_grads(params, state, batch, rng)
+    def train_step(self, params, opt_state, state, rng, batch, plan=None):
+        """One optimizer step under ``plan``'s compute casts: (params,
+        opt_state, state, loss)."""
+        loss, grads, state = self.loss_and_grads(params, state, batch, rng,
+                                                 plan)
         # frozen layers: grads AND updates masked to zero (the reference's
         # transfer-learning contract)
         grads = _clip_grads(self._mask_frozen(grads), self.grad_clip)
@@ -185,17 +224,31 @@ class Estimator:
     # train / evaluate
     # ------------------------------------------------------------------
     def _resolve_plan(self, plan=None):
-        """The plan of this fit (``plan`` over the estimator's), refused if
-        its dtype rules would change the training compute dtype."""
+        """The effective plan: ``plan`` over the estimator's, then ``dp``,
+        with the context's dtype policy (``ZOO_DTYPE_POLICY``) overlaid on
+        a plan that has no dtype rules (explicit beats environment)."""
         plan = resolve_plan(plan if plan is not None else self.plan)
-        compute = sorted({role for _, role in plan.dtype_rules
-                          if role in COMPUTE_ROLES})
-        if compute:
+        policy = self.ctx.dtype_policy
+        if not policy or plan.dtype_rules:
+            return plan
+        if policy.strip().lower() == "auto":
             raise NotImplementedError(
-                f"plan {plan.name!r} computes in {compute}: mixed-precision "
-                "training is not ported yet (ROADMAP queue 1 item 22); the "
-                "port trains in f32 only")
-        return plan
+                'dtype policy "auto" (ZOO_DTYPE_POLICY) is resolved by the '
+                "config oracle, which is not ported yet (ROADMAP queue 1 "
+                'item 19); set a concrete policy such as "bf16_mixed"')
+        return with_dtype_policy(plan, policy)
+
+    def _check_compute_dtype(self, plan, device):
+        """Refuse, before any step, a compute dtype the flash kernels do
+        not take on the card (f16), rather than fail inside a step."""
+        dtype = plan.compute_cast_dtype() or self.ctx.compute_dtype
+        if device.type == "cuda" and dtype is not None \
+                and dtype not in KERNEL_DTYPES:
+            raise NotImplementedError(
+                f"plan {plan.name!r} computes in {dtype}, which the flash "
+                "attention kernels do not take on the card yet (ROADMAP "
+                "queue 2 item E: their f16 instances); use bf16 "
+                "(mixed_precision()) there, or f16 on the CPU")
 
     def train(self, train_set: FeatureSet, batch_size: int = 32,
               nb_epoch: int | None = None,
@@ -209,6 +262,7 @@ class Estimator:
         then ``dp``).  The optimizer state persists across calls, so a
         second fit continues the moments and the step count."""
         plan = self._resolve_plan(plan)
+        eval_plan = self._resolve_plan()
         step = compile_step(self.train_step, plan, label="train_step")
         if end_trigger is None:
             end_trigger = MaxEpoch(
@@ -218,6 +272,11 @@ class Estimator:
         seed = self.ctx.seed if seed is None else seed
         params, state = self.model.build_params()
         device = self.model.device
+        self._check_compute_dtype(plan, device)
+        if validation_set is not None:
+            self._check_compute_dtype(eval_plan, device)
+        self._plan_record = {"name": plan.name,
+                             "dtype_policy": plan.dtype_policy_str()}
         opt_state = (self._opt_state if self._opt_state is not None
                      else self.optimizer.init(params))
         tstate = TrainingState(epoch=self.epoch, iteration=self.global_step)
@@ -232,14 +291,15 @@ class Estimator:
                                      device)
                 params, opt_state, state, loss = step(
                     params, opt_state, state, rng,
-                    _to_device(batch, device))
+                    _to_device(batch, device), plan)
                 self.global_step += 1
                 losses.append(loss)
                 tstate.iteration = self.global_step
                 tstate.epoch_finished = False
                 tstate.loss = loss
                 self._maybe_validate(tstate, params, state, validation_set,
-                                     validation_trigger, batch_size, plan)
+                                     validation_trigger, batch_size,
+                                     eval_plan)
             # the epoch boundary: the one host sync of the loop
             values = torch.stack(losses).tolist() if losses else []
             first = self.global_step - len(values) + 1
@@ -256,7 +316,7 @@ class Estimator:
             tstate.epoch = epoch
             tstate.epoch_finished = True
             self._maybe_validate(tstate, params, state, validation_set,
-                                 validation_trigger, batch_size, plan)
+                                 validation_trigger, batch_size, eval_plan)
         self.epoch = epoch
         self.model.params = params
         self.model.state = state
@@ -269,36 +329,39 @@ class Estimator:
                 or not validation_trigger(tstate):
             return
         results = compile_step(self._evaluate_with, plan, label="eval_step")(
-            params, state, validation_set, batch_size)
+            params, state, validation_set, batch_size, plan)
         tstate.score = next((v for k, v in results.items() if k != "loss"),
                             -results.get("loss", 0.0))
         logger.info("validation @ step %d: %s", tstate.iteration, results)
 
     def evaluate(self, val_set: FeatureSet, batch_size: int = 32) -> dict:
         """Loss and metrics over ``val_set``, unshuffled, every record
-        counted once."""
+        counted once, under the estimator's plan (a fit's ``plan=`` does
+        not carry over, as in the reference)."""
         if getattr(self.model, "params", None) is None \
                 and self.global_step == 0:
             logger.warning(
                 "evaluate() called before any training: materializing "
                 "fresh random weights; metrics reflect an untrained model")
         params, state = self.model.build_params()
-        return compile_step(self._evaluate_with, self._resolve_plan(),
-                            label="eval_step")(params, state, val_set,
-                                               batch_size)
+        plan = self._resolve_plan()
+        self._check_compute_dtype(plan, self.model.device)
+        return compile_step(self._evaluate_with, plan, label="eval_step")(
+            params, state, val_set, batch_size, plan)
 
-    def _evaluate_with(self, params, state, val_set, batch_size=32) -> dict:
+    def _evaluate_with(self, params, state, val_set, batch_size=32,
+                       plan=None) -> dict:
         device = self.model.device
-        dtype = self.ctx.compute_dtype
         accum = None
         with torch.no_grad():
             for batch in val_set.batches(batch_size, shuffle=False,
                                          drop_last=False, pad_to_batch=1):
                 batch = _to_device(batch, device)
-                preds, _ = self.model.forward(
-                    cast_floats(params, dtype),
-                    cast_floats(batch["x"], dtype), state=state,
-                    training=False)
+                # the state stays as stored (f32 running statistics)
+                pc, xc = _compute_inputs(plan, self.ctx.compute_dtype,
+                                         params, batch["x"])
+                preds, _ = self.model.forward(pc, xc, state=state,
+                                              training=False)
                 preds = cast_floats(preds, torch.float32)
                 rows = preds[0].shape[0] if isinstance(preds, list) \
                     else preds.shape[0]

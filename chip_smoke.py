@@ -24,7 +24,8 @@ and prints no result):
    and the (m, l) statistics, causal with ragged lengths in both types,
    and training with dropout 0.1 and the statistics), the flash-attention
    backward (f32 on the tf32 tensor cores; its error also relative to the
-   largest gradient), both at head dims 192, 256, 384 and 512 (the
+   largest gradient; and bf16 with dropout 0.1 at the same shape, the
+   bf16 training path's), both at head dims 192, 256, 384 and 512 (the
    chunked tensor-core forward and backward, f32 as 3xTF32, the backward
    within 1e-5 of the largest gradient) and with segment ids (2-4 packed
    sequences a row), f32 and bf16, beside SDPA with the equivalent mask,
@@ -62,6 +63,15 @@ and prints no result):
    rate, and holds the step-1 loss and gradients against the same model
    run on the CPU (2 blocks at full width, batch 2, hidden dropout 0,
    attention dropout 0.1: the dropout hash is the same on both devices);
+   then the same classifier fine-tuned in bf16 mixed precision through
+   ``fit(plan=mixed_precision())`` for 5 steps on the same data: the same
+   launch counts, every flash launch on bf16 q/k/v (recorded by a wrapper
+   around the launch functions that still calls them), f32 masters and
+   Adam moments, finite losses, step 1's loss within 5% of the f32 step's,
+   a loss that falls on a repeated batch, ``evaluate`` under the plan,
+   step 1 at 2 blocks on the card against the CPU under the same plan, and
+   an ``f16`` plan refused before any step (the flash kernels take f32
+   and bf16); logs the f32 and bf16 host-clock step times;
 6. int8 serving slice: BERT-base served weight-only int8
    (``optimize("int8")``, the 4-input model) and calibrated int8
    (``optimize("int8", calibration_data=...)`` with 16 seeded records, a
@@ -129,6 +139,19 @@ D384_HEADS, D384_RECORDS = 2, 8
 # to each leaf's largest value (f32 on both sides; cuBLAS, MKL and the
 # kernels sum in different orders)
 TRAIN_CPU_TOL = 1e-3
+# the bf16 training step on the GPU vs the CPU under the same plan (2
+# blocks, batch 2), loss relative.  Gradients: each leaf's relative L2
+# distance between the two devices' bf16 gradients within twice the CPU
+# bf16 gradient's own distance from the f32 one, plus 1e-2.  Both round
+# every stored activation and gradient to bf16 (2**-9 relative) from f32
+# sums taken in different orders, so each lies about as far from the f32
+# gradient as the other (independent errors: sqrt(2) times apart); bias
+# and embedding gradients sum ~1,000 terms in bf16 and lie furthest
+# (type_embed ~0.24 at this width on the CPU)
+BF16_TRAIN_CPU_TOL = 1e-2
+# bf16 vs f32 step-1 loss: the reference's bound for a bf16 trajectory
+# against the f32 one (tests/test_precision.py)
+BF16_F32_LOSS_TOL = 0.05
 # int8 matmul vs its plain version, relative L2: f32 sums in another
 # order; bf16 x is held against the plain version in f32, so the bf16
 # rounding of the output (2**-9 relative) dominates
@@ -689,6 +712,37 @@ def flash_train_phase(dev, fwd_entry) -> dict:
         f"{entry['library_graph_ms']:.4f}), bound {entry['bound_ms']:.4f} ms"
         f" ({entry['bound_by']}; f32 on CUDA cores "
         f"{entry['bound_cuda_core_ms']:.4f} ms)")
+
+    # bf16 with dropout at the same shape: the bf16 training path's 12
+    # launches a step, against the plain version run in f32
+    qb, kb, vb, gb = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    outb, mb, lb = fa._flash_cuda(qb, kb, vb, False, scale, bias, DROPOUT,
+                                  seed, stats=True)
+    bargs = (qb, kb, vb, gb, outb, mb, lb, False, scale, bias, DROPOUT,
+             seed)
+    got = fa._flash_bwd_cuda(*bargs)
+    want = fa.attention_bwd_reference(
+        qb.float(), kb.float(), vb.float(), gb.float(), outb.float(), mb, lb,
+        False, scale, bias, DROPOUT, seed)
+    torch.cuda.synchronize()
+    err = max(rel_err(x, y) for x, y in zip(got[:3], want[:3]))
+    masked = max(x[-1].float().abs().max().item() for x in got[:3])
+    log(f"kernel bwd bf16 B={b} H={h} L={l} D={d} padded bias, dropout "
+        f"{DROPOUT}: relative {err:.3e} (tol {BF16_TOL:g}); fully masked "
+        f"row grads max {masked:.1e}")
+    if not err <= BF16_TOL or masked != 0.0 \
+            or not all(torch.isfinite(x.float()).all() for x in got[:3]):
+        raise AssertionError(f"bf16 flash backward disagrees: {err}")
+    row = graph_timed(
+        lambda: fa._flash_bwd_cuda(*bargs),
+        lambda: fa.attention_bwd_reference(*bargs),
+        library_call(lambda: sdpa_backward(qb, kb, vb, gb, bias, scale)))
+    row["max_abs_err"] = max((x.float() - y).abs().max().item()
+                             for x, y in zip(got[:3], want[:3]))
+    row.update(route_bound(8 * b * h * l * d * 2 + 2 * b * h * l * 4
+                           + bias.numel() * 4, flops, "bfloat16", d))
+    entry["bf16_train"] = row
+    log(f"kernel bwd bf16 train: {fmt_row(row)}")
     return entry
 
 
@@ -1104,7 +1158,9 @@ def train_data(n: int, gen: np.random.Generator):
     return x, gen.integers(0, 2, n).astype(np.int32)
 
 
-def training_phase(card_line: str) -> dict:
+def training_phase(card_line: str) -> tuple[dict, dict]:
+    """The f32 fine-tuning path: its launch counts, and its warm-up step's
+    loss and host-clock step time for the bf16 phase."""
     import torch
 
     from analytics_zoo_tpu_torch import init_zoo_context
@@ -1133,8 +1189,9 @@ def training_phase(card_line: str) -> dict:
     warm = [a[:TRAIN_BATCH] for a in x]
     net.fit(warm, y[:TRAIN_BATCH], batch_size=TRAIN_BATCH, nb_epoch=1)
     torch.cuda.synchronize()
+    first_loss = net._estimator.loss_log[0][1]
     log(f"training: BERT-base classifier built and one warm-up step in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (step 1 loss {first_loss:.6f})")
     kernel_leaves = sum(
         1 for t in tree_leaves(net.params)
         if t.dtype == torch.float32 and t.numel() >= fad.MIN_KERNEL_LEAF)
@@ -1207,6 +1264,190 @@ def training_phase(card_line: str) -> dict:
         f"{TRAIN_CPU_TOL:g})")
     if not (loss_err <= TRAIN_CPU_TOL and grad_err <= TRAIN_CPU_TOL):
         raise AssertionError("the GPU training step disagrees with the CPU")
+    return launches, {"step_ms": step_ms, "first_loss": first_loss,
+                      "cpu_grads": c_grads}
+
+
+def training_bf16_phase(card_line: str, f32: dict) -> dict:
+    """The f32 phase's classifier, weights and batches fine-tuned in bf16
+    mixed precision through ``fit(plan=mixed_precision())``: bf16 compute
+    copies of the f32 masters, so every flash launch takes bf16 q/k/v,
+    while Adam and the cross-entropy stay f32."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.engine import step_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+    from analytics_zoo_tpu_torch.parallel import compile_step, mixed_precision
+    from analytics_zoo_tpu_torch.pipeline.api.keras.metrics import (
+        get_metric,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import (
+        get_loss,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _to_device,
+    )
+
+    plan = mixed_precision()
+    loss_name = "sparse_categorical_crossentropy_from_logits"
+    init_zoo_context(seed=SEED, device="cuda")
+    gen = np.random.default_rng(SEED + 4)  # the f32 phase's batches
+    net = bert_classifier(BERT_BASE["n_block"], DROPOUT, DROPOUT)
+    net.build_params()  # the f32 phase's weights: same seed
+    net.compile(optimizer=Adam(2e-5), loss=loss_name, metrics=["accuracy"])
+    n = TRAIN_BATCH * TRAIN_STEPS
+    x, y = train_data(n, gen)
+    net.fit([a[:TRAIN_BATCH] for a in x], y[:TRAIN_BATCH],
+            batch_size=TRAIN_BATCH, nb_epoch=1, plan=plan)
+    torch.cuda.synchronize()
+    first_loss = net._estimator.loss_log[0][1]
+    loss_gap = abs(first_loss - f32["first_loss"]) / abs(f32["first_loss"])
+    log(f"training bf16: step 1 loss {first_loss:.6f} vs f32 "
+        f"{f32['first_loss']:.6f} (rel {loss_gap:.2e}, tol "
+        f"{BF16_F32_LOSS_TOL:g})")
+    if not loss_gap <= BF16_F32_LOSS_TOL:
+        raise AssertionError("the bf16 step-1 loss is not within 5% of f32")
+    kernel_leaves = sum(
+        1 for t in tree_leaves(net.params)
+        if t.dtype == torch.float32 and t.numel() >= fad.MIN_KERNEL_LEAF)
+
+    # every flash launch records its q/k/v dtypes, then launches
+    seen = {"fwd": [], "bwd": []}
+    launch_fwd, launch_bwd = fa._flash_cuda, fa._flash_bwd_cuda
+
+    def record_fwd(q, k, v, *args, **kwargs):
+        seen["fwd"].append((q.dtype, k.dtype, v.dtype))
+        return launch_fwd(q, k, v, *args, **kwargs)
+
+    def record_bwd(q, k, v, *args, **kwargs):
+        seen["bwd"].append((q.dtype, k.dtype, v.dtype))
+        return launch_bwd(q, k, v, *args, **kwargs)
+
+    fa._flash_cuda, fa._flash_bwd_cuda = record_fwd, record_bwd
+    reset_counters()  # bf16 training path: from here to the read below
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1, plan=plan)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = counters()  # end of the path
+    fa._flash_cuda, fa._flash_bwd_cuda = launch_fwd, launch_bwd
+    adam_leaves = fad.leaf_count
+    est = net._estimator
+    losses = [v for _, v in est.loss_log[-TRAIN_STEPS:]]
+    log(f"training bf16: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x "
+        f"{SEQ}: {step_ms:.1f} ms per step against f32's "
+        f"{f32['step_ms']:.1f} ({card_line}); losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    blocks = BERT_BASE["n_block"]
+    expected = {"flash_attention_fwd": blocks * TRAIN_STEPS,
+                "flash_attention_bwd": blocks * TRAIN_STEPS,
+                "fused_adam": TRAIN_STEPS, "softmax_xent_fwd": TRAIN_STEPS,
+                "softmax_xent_bwd": TRAIN_STEPS, "int8_matmul": 0}
+    bf16 = (torch.bfloat16,) * 3
+    log(f"training bf16 launches: {launches} (expected {expected}); flash "
+        f"launches on bf16 q/k/v: {seen['fwd'].count(bf16)} of "
+        f"{len(seen['fwd'])} forward, {seen['bwd'].count(bf16)} of "
+        f"{len(seen['bwd'])} backward; Adam leaves {adam_leaves} (expected "
+        f"{kernel_leaves} x {TRAIN_STEPS})")
+    if launches != expected or adam_leaves != kernel_leaves * TRAIN_STEPS:
+        raise AssertionError("a bf16 training call did not run through its "
+                             "kernel")
+    if seen["fwd"] != [bf16] * (blocks * TRAIN_STEPS) \
+            or seen["bwd"] != [bf16] * (blocks * TRAIN_STEPS):
+        raise AssertionError("a flash launch of the bf16 path was not bf16")
+    wide = [t.dtype for t in tree_leaves(net.params)
+            + tree_leaves(est._opt_state.mu) + tree_leaves(est._opt_state.nu)
+            if t.is_floating_point()]
+    if set(wide) != {torch.float32}:
+        raise AssertionError(f"masters or moments left f32: {set(wide)}")
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"bf16 training losses not finite: {losses}")
+    if est._plan_record != {"name": "dp+bf16", "dtype_policy": ".*=bf16"}:
+        raise AssertionError(f"bad plan record {est._plan_record}")
+
+    # evaluate under the plan (an Estimator that holds it), and as
+    # Model.evaluate does after fit(plan=...): under the model's own plan,
+    # in f32, as in the reference
+    bf16_eval = Estimator(net, loss=get_loss(loss_name),
+                          metrics=[get_metric("accuracy")],
+                          plan=plan).evaluate(FeatureSet.of(x, y),
+                                              batch_size=TRAIN_BATCH)
+    f32_eval = net.evaluate(x, y, batch_size=TRAIN_BATCH)
+    eval_gap = abs(bf16_eval["loss"] - f32_eval["loss"]) / f32_eval["loss"]
+    log(f"evaluate under {plan.name}: {bf16_eval}; in f32: {f32_eval} (loss"
+        f" rel {eval_gap:.2e}, tol {BF16_F32_LOSS_TOL:g})")
+    for res in (bf16_eval, f32_eval):
+        if not (np.isfinite(res["loss"]) and 0.0 <= res["accuracy"] <= 1.0):
+            raise AssertionError(f"bad evaluate result {res}")
+    if not eval_gap <= BF16_F32_LOSS_TOL:
+        raise AssertionError("bf16 evaluate is not within 5% of f32")
+
+    # one unseen batch repeated at a higher learning rate: the loss falls
+    fresh_x, fresh_y = train_data(TRAIN_BATCH, gen)
+    net.compile(optimizer=Adam(5e-5), loss=loss_name)
+    net.fit(fresh_x, fresh_y, batch_size=TRAIN_BATCH, nb_epoch=10,
+            plan=plan)
+    rep = [v for _, v in net._estimator.loss_log]
+    log("bf16 repeated batch at lr 5e-5: "
+        + ", ".join(f"{v:.4f}" for v in rep))
+    if not min(rep[-3:]) < rep[0]:
+        raise AssertionError(f"the bf16 loss did not fall: {rep}")
+
+    # an f16 plan: the flash kernels take f32 and bf16, so fit refuses it
+    # before any step
+    reset_counters()
+    step0 = net._estimator.global_step
+    refused = None
+    try:
+        net.fit(fresh_x, fresh_y, batch_size=TRAIN_BATCH, nb_epoch=1,
+                plan="dp+f16")
+    except NotImplementedError as e:
+        refused = str(e)
+    log(f"f16 plan on the card: {refused}")
+    if refused is None or "queue 2 item E" not in refused \
+            or net._estimator.global_step != step0 \
+            or any(counters().values()):
+        raise AssertionError("the f16 plan was not refused before a step")
+
+    # step 1 on the GPU against the same model on the CPU under the plan:
+    # 2 blocks at full width, batch 2, hidden dropout 0, attention dropout
+    xs, ys = train_data(2, gen)
+    batch = {"x": xs, "y": ys}
+    results = []
+    for device in ("cuda", "cpu"):
+        small = bert_classifier(2, 0.0, DROPOUT)
+        small.build_params(rng=torch.Generator().manual_seed(SEED),
+                           device=device)
+        est = Estimator(small, loss=get_loss(loss_name))
+        loss, grads, _ = compile_step(est.loss_and_grads, plan)(
+            small.params, small.state, _to_device(batch, small.device),
+            step_generator(SEED, 0, small.device), plan)
+        results.append((loss.item(), [g.cpu() for g in tree_leaves(grads)]))
+    (g_loss, g_grads), (c_loss, c_grads) = results
+    if not all(g.dtype == torch.float32 for g in g_grads + c_grads):
+        raise AssertionError("bf16 step gradients are not f32")
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    # per leaf: (card vs CPU, CPU bf16 vs CPU f32), relative L2
+    gaps = [(rel_l2(a, b), rel_l2(b, w))
+            for a, b, w in zip(g_grads, c_grads, f32["cpu_grads"])]
+    worst = max(range(len(gaps)),
+                key=lambda i: gaps[i][0] / (2 * gaps[i][1] + 1e-2))
+    log(f"bf16 training step 1 vs CPU (2 blocks, batch 2, attention dropout"
+        f" {DROPOUT}): loss {g_loss:.6f} vs {c_loss:.6f} (rel "
+        f"{loss_err:.2e}, tol {BF16_TRAIN_CPU_TOL:g}); grads, relative L2 "
+        f"card vs CPU: max {max(g for g, _ in gaps):.2e}, median "
+        f"{float(np.median([g for g, _ in gaps])):.2e}; closest to its "
+        f"bound: leaf {worst}, {gaps[worst][0]:.2e} against the CPU bf16 "
+        f"gradient's {gaps[worst][1]:.2e} from f32 (bound 2 x that + 1e-2)")
+    if not loss_err <= BF16_TRAIN_CPU_TOL \
+            or not all(g <= 2 * c + 1e-2 for g, c in gaps):
+        raise AssertionError("the bf16 GPU step disagrees with the CPU")
     return launches
 
 
@@ -1626,7 +1867,8 @@ def main() -> int:
     entries = [fwd, stats, bwd, adam] + xent + [int8]
     reset_counters()  # serving main path: counted inside slice_phase
     serving = {"flash_attention_fwd": slice_phase(card_line)}
-    training = training_phase(card_line)
+    training, f32_training = training_phase(card_line)
+    training_bf16 = training_bf16_phase(card_line, f32_training)
     int8_serving = int8_serving_phase(card_line, weights, int8)
     training_d192 = training_d192_phase(card_line)
     serving_d384 = serving_d384_phase(card_line)
@@ -1634,6 +1876,7 @@ def main() -> int:
         name = entry["name"]
         paths = {"serving": serving.get(name, 0),
                  "training": training.get(name, 0),
+                 "training_bf16": training_bf16.get(name, 0),
                  "int8_serving": int8_serving.get(name, 0),
                  "training_d192": training_d192.get(name, 0),
                  "serving_d384": serving_d384.get(name, 0)}
@@ -1641,6 +1884,7 @@ def main() -> int:
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},
                          training=training["flash_attention_fwd"],
+                         training_bf16=training_bf16["flash_attention_fwd"],
                          training_d192=training_d192["flash_attention_fwd"])
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths

@@ -12,7 +12,9 @@ goes to its wrapper.
 
 Tolerances: attention 1e-4 absolute (f32, sums in another order); the
 loss 1e-6; training losses 1e-5 relative per epoch (the existing training
-parity bound: optax and the fused Adam round 1 - b2 differently).
+parity bound: optax and the fused Adam round 1 - b2 differently), and 1e-2
+under a bf16 or f16 compute role (each stored activation rounds to 2**-9
+or 2**-12 relative).
 """
 
 import jax.numpy as jnp
@@ -186,28 +188,66 @@ def test_training_scopes(kind, monkeypatch):
 
 
 @pytest.mark.parametrize("plan", ["dp+bf16", "dp+int8", "dp+f16+kernels",
-                                  "mixed_precision"])
-def test_fit_refuses_compute_roles(plan):
-    from analytics_zoo_tpu_torch import init_zoo_context
+                                  "mixed_precision", "auto"])
+def test_fit_under_compute_roles_matches_jax(plan, monkeypatch):
+    """Two epochs of the Dense classifier under each compute role (an
+    ``int8`` leaf trains in bf16): the epoch losses within 1e-2 relative
+    of the JAX package's under the same plan (bf16 and f16 round every
+    stored activation; measured <= 3.2e-4), the same plan name, f32
+    masters.
+    ``ZOO_DTYPE_POLICY=auto`` waits for the config oracle: ``fit`` raises
+    before any step."""
+    from analytics_zoo_tpu import init_zoo_context as jax_init
+    from analytics_zoo_tpu.parallel import plan as jplan
+    from analytics_zoo_tpu.pipeline.api import keras as jk
+    from analytics_zoo_tpu.pipeline.api.keras import layers as jl
+    from analytics_zoo_tpu.pipeline.api.keras.optimizers import Adam as JAdam
+    from analytics_zoo_tpu_torch import init_zoo_context as torch_init
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.convert import params_from_jax
     from analytics_zoo_tpu_torch.pipeline.api import keras as tk
     from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
     from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
 
-    if plan == "mixed_precision":
-        plan = tplan.mixed_precision()
-    init_zoo_context(seed=3, device="cpu")
-    m = _mlp(tk, tl)
-    m.build_params()
-    m.compile(optimizer="adam",
-              loss="sparse_categorical_crossentropy_from_logits")
+    import jax
+
+    monkeypatch.setenv("ZOO_KERNEL_INTERPRET", "1")
+    loss = "sparse_categorical_crossentropy_from_logits"
     x, y = _train_data()
-    w0 = m.get_weights()
-    with pytest.raises(NotImplementedError, match="queue 1 item 22"):
-        m.fit(x, y, batch_size=16, nb_epoch=1, plan=plan)
-    with pytest.raises(NotImplementedError, match="queue 1 item 22"):
-        Estimator(m, plan=plan)._resolve_plan()
-    # nothing trained
-    for a, b in zip(*(np.concatenate([np.ravel(v) for d in t.values()
-                                      for v in d.values()])
-                      for t in (w0, m.get_weights()))):
-        assert a == b
+    if plan == "auto":
+        monkeypatch.setenv("ZOO_DTYPE_POLICY", "auto")
+        torch_init(seed=3, device="cpu")
+        m = _mlp(tk, tl)
+        m.build_params()
+        m.compile(optimizer=Adam(1e-2), loss=loss)
+        w0 = m.get_weights()
+        with pytest.raises(NotImplementedError, match="queue 1 item 19"):
+            m.fit(x, y, batch_size=16, nb_epoch=1)
+        with pytest.raises(NotImplementedError, match="queue 1 item 19"):
+            Estimator(m)._resolve_plan()
+        # nothing trained
+        for d0, d1 in zip(w0.values(), m.get_weights().values()):
+            for a, b in zip(d0.values(), d1.values()):
+                np.testing.assert_array_equal(a, b)
+        return
+    tp, jp = ((tplan.mixed_precision(), jplan.mixed_precision())
+              if plan == "mixed_precision" else (plan, plan))
+    jax_init(seed=3)
+    jnet = _mlp(jk, jl)
+    jnet.build_params()
+    jnet.compile(optimizer=JAdam(1e-2), loss=loss)
+    torch_init(seed=3, device="cpu")
+    tnet = _mlp(tk, tl)
+    tnet.build_params()
+    tnet.set_weights(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jnet.params), device="cpu"))
+    tnet.compile(optimizer=Adam(1e-2), loss=loss)
+    jnet.fit(x, y, batch_size=16, nb_epoch=2, plan=jp)
+    tnet.fit(x, y, batch_size=16, nb_epoch=2, plan=tp)
+    np.testing.assert_allclose([h["loss"] for h in tnet._estimator.history],
+                               [h["loss"] for h in jnet._estimator.history],
+                               rtol=1e-2)
+    assert tnet._estimator._plan_record["name"] == \
+        jnet._estimator._plan_record["name"]
+    assert all(t.dtype == torch.float32 for t in tree_leaves(tnet.params))

@@ -25,6 +25,9 @@ against its plain version on a GPU and skip where none is visible:
   against the plain backward;
 - one ``fit`` step of a BERT classifier with head dim 192 (hidden 384, 2
   heads) on the GPU against the same step on the CPU;
+- ``fit`` under ``mixed_precision()`` (hidden 128, head dim 64): every
+  flash launch on bf16 q/k/v, f32 masters and moments, and an ``f16`` plan
+  refused before any step (the kernels take f32 and bf16);
 - the fused Adam update over leaves of odd sizes, within 1e-6 relative
   (the kernel rounds each operation as the plain formula does), and over
   whole trees (BERT-base's leaf shapes; odd sizes and unaligned views):
@@ -446,6 +449,64 @@ def test_fit_step_head_dim_192(cuda_device):
     for a, w in zip(g_grads, c_grads):
         assert ((a - w).abs().max() <= 1e-3 * w.abs().max().clamp_min(
             1e-30)).item()
+
+
+@pytest.mark.cuda
+def test_fit_mixed_precision_launches_bf16_kernels(cuda_device,
+                                                   monkeypatch):
+    """Two ``fit`` steps of a 2-block BERT (hidden 128, 2 heads of 64,
+    sequence 256) under ``mixed_precision()``: 4 forward and 4 backward
+    flash launches, each on bf16 q/k/v, finite losses, f32 masters and Adam
+    moments; then ``plan="dp+f16"`` raises before any step or launch."""
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    seq, n = 256, 4
+    gen = np.random.default_rng(16)
+    lengths = gen.integers(64, seq + 1, n)
+    pos = np.arange(seq)[None, :]
+    mask = (pos < lengths[:, None]).astype(np.float32)
+    x = [(gen.integers(1, 1000, (n, seq)) * mask).astype(np.int32),
+         np.zeros((n, seq), np.int32), np.tile(pos.astype(np.int32), (n, 1)),
+         mask]
+    y = gen.integers(0, 2, n).astype(np.int32)
+    init_zoo_context(seed=16, device="cuda")
+    ins = [Input((seq,)) for _ in range(4)]
+    _, pooled = BERT(vocab=1000, hidden_size=128, n_block=2, n_head=2,
+                     seq_len=seq, intermediate_size=256, hidden_p_drop=0.1,
+                     attn_p_drop=0.1)(ins)
+    net = Model(ins, Dense(2)(pooled))
+    net.build_params()
+    net.compile(optimizer=Adam(1e-4),
+                loss="sparse_categorical_crossentropy_from_logits")
+    seen = []
+    for name in ("_flash_cuda", "_flash_bwd_cuda"):
+        launch = getattr(tfa, name)
+
+        def record(q, k, v, *args, _launch=launch, **kwargs):
+            seen.append((q.dtype, k.dtype, v.dtype))
+            return _launch(q, k, v, *args, **kwargs)
+
+        monkeypatch.setattr(tfa, name, record)
+    before = tfa.launch_count, tfa.bwd_launch_count
+    net.fit(x, y, batch_size=n // 2, nb_epoch=1, plan=mixed_precision())
+    torch.cuda.synchronize()
+    assert (tfa.launch_count, tfa.bwd_launch_count) == \
+        (before[0] + 4, before[1] + 4)
+    assert seen == [(torch.bfloat16,) * 3] * 8
+    est = net._estimator
+    assert np.isfinite([v for _, v in est.loss_log]).all()
+    assert {t.dtype for t in tree_leaves(net.params)
+            + tree_leaves(est._opt_state.mu)
+            + tree_leaves(est._opt_state.nu)} == {torch.float32}
+    step = est.global_step
+    with pytest.raises(NotImplementedError, match="queue 2 item E"):
+        net.fit(x, y, batch_size=n // 2, nb_epoch=1, plan="dp+f16")
+    assert est.global_step == step and len(seen) == 8
 
 
 def _bert_base_leaf_shapes():

@@ -2,7 +2,7 @@
 """Where the time of one BERT-base fine-tuning step goes, on one CUDA GPU.
 
     python3 tools/torch_train_profile.py [--steps 3] [--heads 12]
-                                         [--trace DIR]
+                                         [--plan PLAN] [--trace DIR]
 
 Runs the PyTorch port's training slice as ``chip_smoke.py`` does (BERT-base
 at full width, Dense(2) logits head, hidden and attention dropout 0.1,
@@ -10,11 +10,13 @@ at full width, Dense(2) logits head, hidden and attention dropout 0.1,
 8 x 512, random weights and data from a seed), warms up one step, then
 traces ``--steps`` steps with ``torch.profiler`` (CPU and CUDA activity).
 ``--heads 4`` gives the same width with head dim 192, as ``chip_smoke.py``
-fine-tunes it.
+fine-tunes it; ``--plan`` trains under a plan (a name such as ``dp+bf16``,
+or ``mixed_precision``: bf16 compute copies of the f32 masters).
 Prints the card's name and power limit, the host-clock time per step, the
 device time per step by kernel group (the port's kernels by name, cuBLAS
-matrix products, everything else), the device's busy and idle shares of
-the step, and the same as one JSON line last.  ``--trace DIR`` also writes
+matrix products, copies and casts, everything else), the operators that
+launch the most device time, the device's busy and idle shares of the
+step, and the same as one JSON line last.  ``--trace DIR`` also writes
 the Chrome trace there.  Needs one GPU and nvcc; imports nothing of the
 JAX package.
 """
@@ -45,8 +47,13 @@ GROUPS = (
     ("fused_adam", ("adam_multi_kernel",)),
     ("softmax_xent", ("xent_fwd_kernel", "xent_bwd_kernel")),
     ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "Kernel2",
-                         "splitKreduce")),
+                         "splitKreduce", "nvjet")),
+    # dtype casts and layout copies (the bf16 plan's per-leaf casts)
+    ("copies and casts", ("direct_copy_kernel",)),
 )
+
+
+TOP_OPS = 12  # operators listed by the device time they launch
 
 
 def group_of(name: str) -> str:
@@ -60,6 +67,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--heads", type=int, default=BERT_BASE["n_head"])
+    ap.add_argument("--plan", default=None)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
 
@@ -76,11 +84,13 @@ def main() -> int:
     print(card, flush=True)
 
     from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
     from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
     from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
 
     init_zoo_context(seed=SEED, device="cuda")
+    plan = mixed_precision() if args.plan == "mixed_precision" else args.plan
     ins = [Input((SEQ,)) for _ in range(4)]
     _, pooled = BERT(**dict(BERT_BASE, n_head=args.heads))(ins)
     net = Model(ins, Dense(2)(pooled))
@@ -97,13 +107,14 @@ def main() -> int:
     x = [ids, np.zeros((n, SEQ), np.int32),
          np.tile(pos.astype(np.int32), (n, 1)), mask]
     y = gen.integers(0, 2, n).astype(np.int32)
-    net.fit([a[:BATCH] for a in x], y[:BATCH], batch_size=BATCH, nb_epoch=1)
+    net.fit([a[:BATCH] for a in x], y[:BATCH], batch_size=BATCH, nb_epoch=1,
+            plan=plan)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        net.fit(x, y, batch_size=BATCH, nb_epoch=1)
+        net.fit(x, y, batch_size=BATCH, nb_epoch=1, plan=plan)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     if args.trace:
@@ -122,16 +133,29 @@ def main() -> int:
         launches[g] = launches.get(g, 0) + ev.count
     launches = {g: n // args.steps for g, n in launches.items()}
     busy = sum(groups.values())
-    print(f"step: {wall_ms:.2f} ms on the host clock ({card}); device busy "
+    print(f"step under plan {net._estimator._plan_record['name']}: "
+          f"{wall_ms:.2f} ms on the host clock ({card}); device busy "
           f"{busy:.2f} ms ({busy / wall_ms:.1%}), idle "
           f"{1 - busy / wall_ms:.1%}", flush=True)
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {ms:.3f} ms per step ({ms / wall_ms:.1%} of the "
               f"step), {launches[g]} launches", flush=True)
+    # the same device time by the operator that launched it (self time)
+    ops = sorted(((ev.key, ev.self_device_time_total / 1e3 / args.steps,
+                   ev.count // args.steps)
+                  for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CPU
+                  and ev.self_device_time_total > 0),
+                 key=lambda t: -t[1])[:TOP_OPS]
+    print("  by operator:", flush=True)
+    for name, ms, count in ops:
+        print(f"    {name}: {ms:.3f} ms per step, {count} calls", flush=True)
     print(json.dumps({"card": card, "steps": args.steps, "heads": args.heads,
+                      "plan": net._estimator._plan_record["name"],
                       "step_ms": wall_ms, "device_busy_ms": busy,
                       "idle_share": 1 - busy / wall_ms,
-                      "groups_ms": groups, "launches": launches}),
+                      "groups_ms": groups, "launches": launches,
+                      "ops_ms": {name: ms for name, ms, _ in ops}}),
           flush=True)
     return 0
 
