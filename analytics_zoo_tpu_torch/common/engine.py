@@ -118,16 +118,14 @@ def _resolve_compute_dtype(spec):
     raise ValueError(f"unknown compute_dtype {spec!r}")
 
 
-def _resolve_dtype_policy(spec):
-    """The dtype policy: explicit arg > ``ZOO_DTYPE_POLICY`` > none,
-    validated here so a bad value fails at context init naming the
-    variable.  ``"auto"`` passes (the config oracle resolves it, as in the
-    reference; the port's estimator refuses it until that is ported)."""
-    if spec is None:
-        spec = os.environ.get("ZOO_DTYPE_POLICY")
+def _resolve_dtype_policy():
+    """The dtype policy ``ZOO_DTYPE_POLICY`` names (None: none), validated
+    here so a bad value fails at context init naming the variable.
+    ``"auto"`` passes (the config oracle resolves it, as in the reference;
+    the port's estimator refuses it until that is ported)."""
+    spec = os.environ.get("ZOO_DTYPE_POLICY")
     if spec is None:
         return None
-    spec = str(spec)
     if spec.strip().lower() != "auto":
         try:
             resolve_dtype_rules(spec)
@@ -141,13 +139,12 @@ _CONTEXT: ZooContext | None = None  # guarded-by: _LOCK
 
 
 def init_zoo_context(*, seed: int | None = None, device=None,
-                     compute_dtype=None, dtype_policy=None) -> ZooContext:
+                     compute_dtype=None) -> ZooContext:
     """Initialise (or re-initialise) the global runtime context.
 
     ``device`` defaults to ``cuda`` and raises when no GPU is visible;
-    tests pass ``device="cpu"``.  ``dtype_policy`` (default
-    ``ZOO_DTYPE_POLICY``) is any spec ``resolve_dtype_rules`` accepts, or
-    ``"auto"``.  TF32 is switched off for matmuls and
+    tests pass ``device="cpu"``.  ``ZOO_DTYPE_POLICY`` is read and
+    validated here.  TF32 is switched off for matmuls and
     cuDNN: the reference computes in full f32 off-TPU, and the port's
     parity tolerances assume full f32.
     """
@@ -157,7 +154,7 @@ def init_zoo_context(*, seed: int | None = None, device=None,
     torch.backends.cudnn.allow_tf32 = False
     ctx = ZooContext(device=dev, seed=int(seed or 0),
                      compute_dtype=_resolve_compute_dtype(compute_dtype),
-                     dtype_policy=_resolve_dtype_policy(dtype_policy))
+                     dtype_policy=_resolve_dtype_policy())
     with _LOCK:
         _CONTEXT = ctx
     logger.info("init_zoo_context: device %s, seed %d; TF32 off for "

@@ -46,7 +46,7 @@ import threading
 
 import torch
 
-from analytics_zoo_tpu_torch.common.utils import tree_map_many
+from analytics_zoo_tpu_torch.common.utils import tree_map, tree_map_many
 from analytics_zoo_tpu_torch.parallel.partition import (
     leaf_path_name,
     match_rule_values,
@@ -166,6 +166,14 @@ class ShardingPlan:
                 return dtype
         return None
 
+    def compute_dtypes(self, params):
+        """Each leaf's compute dtype under the dtype rules, as a tree of
+        ``params``' structure (``None``: the leaf stays as stored).  It
+        depends on the tree's structure alone, so a loop works it out once
+        and casts every step with :func:`cast_to_compute`."""
+        roles = match_rule_values(self.dtype_rules, params, default="f32")
+        return tree_map(_ROLE_COMPUTE_DTYPES.get, roles)
+
     def cast_params_for_compute(self, params):
         """A compute copy of ``params``: each floating leaf whose role has
         a compute dtype (``bf16``, ``f16``, ``int8`` -> bf16) cast to it,
@@ -175,16 +183,7 @@ class ShardingPlan:
         gradients to the masters."""
         if not self.dtype_rules:
             return params
-        roles = match_rule_values(self.dtype_rules, params, default="f32")
-
-        def cast(leaf, role):
-            dtype = _ROLE_COMPUTE_DTYPES.get(role)
-            if dtype is None or not torch.is_tensor(leaf) \
-                    or not leaf.is_floating_point():
-                return leaf
-            return leaf.to(dtype)
-
-        return tree_map_many(cast, params, roles)
+        return cast_to_compute(params, self.compute_dtypes(params))
 
     # -- kernel plane --------------------------------------------------
     def kernel_policy_str(self) -> str:
@@ -203,6 +202,19 @@ class ShardingPlan:
                 if kernel is not None:
                     return kernel
         return default
+
+
+def cast_to_compute(params, dtypes):
+    """``params`` with each floating tensor leaf cast to its entry of
+    ``dtypes`` (a tree from :meth:`ShardingPlan.compute_dtypes`; ``None``
+    leaves it as it is)."""
+    def cast(leaf, dtype):
+        if dtype is None or not torch.is_tensor(leaf) \
+                or not leaf.is_floating_point():
+            return leaf
+        return leaf.to(dtype)
+
+    return tree_map_many(cast, params, dtypes)
 
 
 # ---------------------------------------------------------------------------

@@ -22,13 +22,14 @@ path).
 Mixed precision, as in the reference (estimator.py:939-981): under a plan
 with ``dtype_rules`` (``mixed_precision()``, ``"dp+bf16"``, or the
 context's ``ZOO_DTYPE_POLICY`` overlaid on a plan without dtype rules) the
-forward takes ``plan.cast_params_for_compute`` of the f32 masters and the
-batch's floating inputs in ``plan.compute_cast_dtype()``.  The casts are
-made where autograd records them, so gradients arrive in f32; predictions
-go up to f32 before the loss, the new state keeps the old state's dtypes,
-and the masters and Adam's moments stay f32.  The eval step casts the same
-way under the estimator's own plan (not a fit's ``plan=``), as the
-reference's ``_resolved_plan()`` gives it.  On the card a compute dtype the
+forward takes the per-role compute copy of the f32 masters
+(``plan.compute_dtypes``, worked out once per fit) and the batch's
+floating inputs in ``plan.compute_cast_dtype()``.  The casts are made
+where autograd records them, so gradients arrive in f32; predictions go up
+to f32 before the loss, the new state keeps the old state's dtypes, and
+the masters and Adam's moments stay f32.  The eval step casts the same way
+under the estimator's own plan (not a fit's ``plan=``), as the reference's
+``_resolved_plan()`` gives it.  On the card a plan whose compute dtype the
 flash kernels do not take (f16) raises before the first step.
 
 Batches come from ``FeatureSet.batches`` with the reference's seeded
@@ -67,6 +68,7 @@ from analytics_zoo_tpu_torch.common.utils import (
 from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
 from analytics_zoo_tpu_torch.ops.cuda.flash_attention import KERNEL_DTYPES
 from analytics_zoo_tpu_torch.parallel.plan import (
+    cast_to_compute,
     compile_step,
     resolve_plan,
     with_dtype_policy,
@@ -110,15 +112,13 @@ def _clip_grads(grads, grad_clip):
     return tree_map(lambda g: g * scale, grads)
 
 
-def _compute_inputs(plan, compute_dtype, params, x):
-    """(params, x) as the forward takes them: under a plan with dtype rules
-    its per-role compute copy and x in its compute dtype (a plan's rules
-    beat the context's ``compute_dtype``), else both in
-    ``compute_dtype``."""
-    if plan is not None and plan.dtype_rules:
-        return (plan.cast_params_for_compute(params),
-                cast_floats(x, plan.compute_cast_dtype() or compute_dtype))
-    return cast_floats(params, compute_dtype), cast_floats(x, compute_dtype)
+def _cast_params(params, casts):
+    """``params`` as the forward takes them under ``casts`` (see
+    ``Estimator.compute_casts``)."""
+    param_dtypes, dtype = casts
+    if param_dtypes is None:
+        return cast_floats(params, dtype)
+    return cast_to_compute(params, param_dtypes)
 
 
 def _tensor(a, device):
@@ -168,22 +168,35 @@ class Estimator:
     # ------------------------------------------------------------------
     # the train step
     # ------------------------------------------------------------------
-    def loss_and_grads(self, params, state, batch, rng, plan=None):
+    def compute_casts(self, plan, params):
+        """What a step under ``plan`` casts to: (each leaf's compute dtype
+        as a tree of ``params``' structure, or None to cast every floating
+        leaf to the batch's dtype; the batch's floating dtype, None for
+        f32).  A plan's dtype rules beat the context's ``compute_dtype``.
+        It depends on the tree's structure alone, so it is worked out once
+        per fit or evaluate."""
+        dtype = self.ctx.compute_dtype
+        if plan is None or not plan.dtype_rules:
+            return None, dtype
+        return (plan.compute_dtypes(params),
+                plan.compute_cast_dtype() or dtype)
+
+    def loss_and_grads(self, params, state, batch, rng, casts=None):
         """(loss, grads, new_state) of one training forward and backward;
         ``batch`` holds tensors on the model's device, ``rng`` is the step's
-        generator, ``plan`` (a ``ShardingPlan`` or None) gives the compute
-        casts.  Gradients have the masters' dtypes; integer leaves get
-        zero gradients."""
+        generator, ``casts`` (from :meth:`compute_casts`; None: the
+        context's ``compute_dtype``) the compute casts.  Gradients have the
+        masters' dtypes; integer leaves get zero gradients."""
+        casts = casts or (None, self.ctx.compute_dtype)
         leaves = [t.detach().requires_grad_(t.is_floating_point())
                   for t in tree_leaves(params)]
         p = _unflatten(params, leaves)
-        dtype = self.ctx.compute_dtype
         with torch.enable_grad():
             # cast inside the recorded region: the casts' backward brings
             # the gradients up to f32 at the masters
-            pc, xc = _compute_inputs(plan, dtype, p, batch["x"])
             preds, new_state = self.model.forward(
-                pc, xc, state=state, training=True, rng=rng)
+                _cast_params(p, casts), cast_floats(batch["x"], casts[1]),
+                state=state, training=True, rng=rng)
             preds = cast_floats(preds, torch.float32)
             loss = self.loss.mean(batch.get("y"), preds, batch.get("w"))
         wrt = [t for t in leaves if t.requires_grad]
@@ -193,7 +206,7 @@ class Estimator:
             g = next(got) if t.requires_grad else None
             grads.append(torch.zeros_like(t) if g is None else g)
         new_state = tree_map(lambda s: s.detach(), new_state or {})
-        if dtype is not None or (plan is not None and plan.dtype_rules):
+        if casts != (None, None):
             # the state keeps its dtypes from step to step
             new_state = tree_map_many(lambda new, old: new.to(old.dtype),
                                       new_state, state)
@@ -206,11 +219,11 @@ class Estimator:
         return {k: tree_map(torch.zeros_like, v) if k in frozen else v
                 for k, v in tree.items()}
 
-    def train_step(self, params, opt_state, state, rng, batch, plan=None):
-        """One optimizer step under ``plan``'s compute casts: (params,
-        opt_state, state, loss)."""
+    def train_step(self, params, opt_state, state, rng, batch, casts=None):
+        """One optimizer step under ``casts`` (:meth:`compute_casts`):
+        (params, opt_state, state, loss)."""
         loss, grads, state = self.loss_and_grads(params, state, batch, rng,
-                                                 plan)
+                                                 casts)
         # frozen layers: grads AND updates masked to zero (the reference's
         # transfer-learning contract)
         grads = _clip_grads(self._mask_frozen(grads), self.grad_clip)
@@ -239,9 +252,10 @@ class Estimator:
         return with_dtype_policy(plan, policy)
 
     def _check_compute_dtype(self, plan, device):
-        """Refuse, before any step, a compute dtype the flash kernels do
-        not take on the card (f16), rather than fail inside a step."""
-        dtype = plan.compute_cast_dtype() or self.ctx.compute_dtype
+        """Refuse, before any step, a plan whose compute dtype the flash
+        kernels do not take on the card (f16), rather than fail inside a
+        step.  The context's own ``compute_dtype`` is not checked here."""
+        dtype = plan.compute_cast_dtype()
         if device.type == "cuda" and dtype is not None \
                 and dtype not in KERNEL_DTYPES:
             raise NotImplementedError(
@@ -262,7 +276,10 @@ class Estimator:
         then ``dp``).  The optimizer state persists across calls, so a
         second fit continues the moments and the step count."""
         plan = self._resolve_plan(plan)
-        eval_plan = self._resolve_plan()
+        # validation runs under the estimator's own plan, as in the
+        # reference; resolved only when there is a validation set
+        eval_plan = (self._resolve_plan() if validation_set is not None
+                     else None)
         step = compile_step(self.train_step, plan, label="train_step")
         if end_trigger is None:
             end_trigger = MaxEpoch(
@@ -273,8 +290,11 @@ class Estimator:
         params, state = self.model.build_params()
         device = self.model.device
         self._check_compute_dtype(plan, device)
-        if validation_set is not None:
+        casts = self.compute_casts(plan, params)
+        eval_casts = None
+        if eval_plan is not None:
             self._check_compute_dtype(eval_plan, device)
+            eval_casts = self.compute_casts(eval_plan, params)
         self._plan_record = {"name": plan.name,
                              "dtype_policy": plan.dtype_policy_str()}
         opt_state = (self._opt_state if self._opt_state is not None
@@ -291,7 +311,7 @@ class Estimator:
                                      device)
                 params, opt_state, state, loss = step(
                     params, opt_state, state, rng,
-                    _to_device(batch, device), plan)
+                    _to_device(batch, device), casts)
                 self.global_step += 1
                 losses.append(loss)
                 tstate.iteration = self.global_step
@@ -299,7 +319,7 @@ class Estimator:
                 tstate.loss = loss
                 self._maybe_validate(tstate, params, state, validation_set,
                                      validation_trigger, batch_size,
-                                     eval_plan)
+                                     eval_plan, eval_casts)
             # the epoch boundary: the one host sync of the loop
             values = torch.stack(losses).tolist() if losses else []
             first = self.global_step - len(values) + 1
@@ -316,7 +336,8 @@ class Estimator:
             tstate.epoch = epoch
             tstate.epoch_finished = True
             self._maybe_validate(tstate, params, state, validation_set,
-                                 validation_trigger, batch_size, eval_plan)
+                                 validation_trigger, batch_size, eval_plan,
+                                 eval_casts)
         self.epoch = epoch
         self.model.params = params
         self.model.state = state
@@ -324,12 +345,12 @@ class Estimator:
         return self
 
     def _maybe_validate(self, tstate, params, state, validation_set,
-                        validation_trigger, batch_size, plan):
+                        validation_trigger, batch_size, plan, casts):
         if validation_set is None or validation_trigger is None \
                 or not validation_trigger(tstate):
             return
         results = compile_step(self._evaluate_with, plan, label="eval_step")(
-            params, state, validation_set, batch_size, plan)
+            params, state, validation_set, batch_size, casts)
         tstate.score = next((v for k, v in results.items() if k != "loss"),
                             -results.get("loss", 0.0))
         logger.info("validation @ step %d: %s", tstate.iteration, results)
@@ -347,21 +368,24 @@ class Estimator:
         plan = self._resolve_plan()
         self._check_compute_dtype(plan, self.model.device)
         return compile_step(self._evaluate_with, plan, label="eval_step")(
-            params, state, val_set, batch_size, plan)
+            params, state, val_set, batch_size,
+            self.compute_casts(plan, params))
 
     def _evaluate_with(self, params, state, val_set, batch_size=32,
-                       plan=None) -> dict:
+                       casts=None) -> dict:
         device = self.model.device
+        casts = casts or (None, self.ctx.compute_dtype)
         accum = None
         with torch.no_grad():
+            # one compute copy for the pass; the state stays as stored
+            # (f32 running statistics)
+            pc = _cast_params(params, casts)
             for batch in val_set.batches(batch_size, shuffle=False,
                                          drop_last=False, pad_to_batch=1):
                 batch = _to_device(batch, device)
-                # the state stays as stored (f32 running statistics)
-                pc, xc = _compute_inputs(plan, self.ctx.compute_dtype,
-                                         params, batch["x"])
-                preds, _ = self.model.forward(pc, xc, state=state,
-                                              training=False)
+                preds, _ = self.model.forward(
+                    pc, cast_floats(batch["x"], casts[1]), state=state,
+                    training=False)
                 preds = cast_floats(preds, torch.float32)
                 rows = preds[0].shape[0] if isinstance(preds, list) \
                     else preds.shape[0]

@@ -147,7 +147,9 @@ TRAIN_CPU_TOL = 1e-3
 # sums taken in different orders, so each lies about as far from the f32
 # gradient as the other (independent errors: sqrt(2) times apart); bias
 # and embedding gradients sum ~1,000 terms in bf16 and lie furthest
-# (type_embed ~0.24 at this width on the CPU)
+# (type_embed ~0.24 at this width on the CPU).  Two controls run each
+# time and must fail the check: the card's step with the bf16 backward's
+# dq zeroed, and with attention dropout off
 BF16_TRAIN_CPU_TOL = 1e-2
 # bf16 vs f32 step-1 loss: the reference's bound for a bf16 trajectory
 # against the f32 one (tests/test_precision.py)
@@ -1419,35 +1421,62 @@ def training_bf16_phase(card_line: str, f32: dict) -> dict:
     # 2 blocks at full width, batch 2, hidden dropout 0, attention dropout
     xs, ys = train_data(2, gen)
     batch = {"x": xs, "y": ys}
-    results = []
-    for device in ("cuda", "cpu"):
-        small = bert_classifier(2, 0.0, DROPOUT)
+
+    def step1(device, attn_drop=DROPOUT):
+        small = bert_classifier(2, 0.0, attn_drop)
         small.build_params(rng=torch.Generator().manual_seed(SEED),
                            device=device)
         est = Estimator(small, loss=get_loss(loss_name))
         loss, grads, _ = compile_step(est.loss_and_grads, plan)(
             small.params, small.state, _to_device(batch, small.device),
-            step_generator(SEED, 0, small.device), plan)
-        results.append((loss.item(), [g.cpu() for g in tree_leaves(grads)]))
-    (g_loss, g_grads), (c_loss, c_grads) = results
+            step_generator(SEED, 0, small.device),
+            est.compute_casts(plan, small.params))
+        return loss.item(), [g.cpu() for g in tree_leaves(grads)]
+
+    (g_loss, g_grads), (c_loss, c_grads) = step1("cuda"), step1("cpu")
     if not all(g.dtype == torch.float32 for g in g_grads + c_grads):
         raise AssertionError("bf16 step gradients are not f32")
+
+    def bound_ratios(grads):
+        """Per leaf: the card's relative L2 distance from the CPU bf16
+        gradient over its bound (twice the CPU bf16 gradient's own
+        distance from f32, + 1e-2); the check holds every ratio <= 1."""
+        return [rel_l2(a, b) / (2 * rel_l2(b, w) + 1e-2)
+                for a, b, w in zip(grads, c_grads, f32["cpu_grads"])]
+
     loss_err = abs(g_loss - c_loss) / abs(c_loss)
-    # per leaf: (card vs CPU, CPU bf16 vs CPU f32), relative L2
-    gaps = [(rel_l2(a, b), rel_l2(b, w))
-            for a, b, w in zip(g_grads, c_grads, f32["cpu_grads"])]
-    worst = max(range(len(gaps)),
-                key=lambda i: gaps[i][0] / (2 * gaps[i][1] + 1e-2))
+    gaps = [rel_l2(a, b) for a, b in zip(g_grads, c_grads)]
+    ratios = bound_ratios(g_grads)
+    worst = int(np.argmax(ratios))
     log(f"bf16 training step 1 vs CPU (2 blocks, batch 2, attention dropout"
         f" {DROPOUT}): loss {g_loss:.6f} vs {c_loss:.6f} (rel "
         f"{loss_err:.2e}, tol {BF16_TRAIN_CPU_TOL:g}); grads, relative L2 "
-        f"card vs CPU: max {max(g for g, _ in gaps):.2e}, median "
-        f"{float(np.median([g for g, _ in gaps])):.2e}; closest to its "
-        f"bound: leaf {worst}, {gaps[worst][0]:.2e} against the CPU bf16 "
-        f"gradient's {gaps[worst][1]:.2e} from f32 (bound 2 x that + 1e-2)")
-    if not loss_err <= BF16_TRAIN_CPU_TOL \
-            or not all(g <= 2 * c + 1e-2 for g, c in gaps):
+        f"card vs CPU: max {max(gaps):.2e}, median "
+        f"{float(np.median(gaps)):.2e}; closest to its bound: leaf {worst},"
+        f" {ratios[worst]:.3f} of it (bound 2 x the CPU bf16 gradient's "
+        f"distance from f32 + 1e-2)")
+    if not loss_err <= BF16_TRAIN_CPU_TOL or max(ratios) > 1.0:
         raise AssertionError("the bf16 GPU step disagrees with the CPU")
+
+    # controls the gradient check must refuse: the card's step with the
+    # bf16 backward's dq zeroed, and with its attention dropout off
+    def no_dq(*args, **kwargs):
+        dq, dk, dv, dbias = launch_bwd(*args, **kwargs)
+        return torch.zeros_like(dq), dk, dv, dbias
+
+    fa._flash_bwd_cuda = no_dq
+    controls = {"dq zeroed": step1("cuda")[1]}
+    fa._flash_bwd_cuda = launch_bwd
+    controls["attention dropout off"] = step1("cuda", attn_drop=0.0)[1]
+    for name, grads in controls.items():
+        ratios = bound_ratios(grads)
+        over = sum(r > 1.0 for r in ratios)
+        log(f"bf16 gradient check, control {name!r}: {over} of "
+            f"{len(ratios)} leaves over their bound, largest "
+            f"{max(ratios):.3f} of it (must be refused)")
+        if not over:
+            raise AssertionError(f"the bf16 gradient check passed the "
+                                 f"{name!r} control")
     return launches
 
 

@@ -188,15 +188,17 @@ def test_training_scopes(kind, monkeypatch):
 
 
 @pytest.mark.parametrize("plan", ["dp+bf16", "dp+int8", "dp+f16+kernels",
-                                  "mixed_precision", "auto"])
+                                  "mixed_precision", "auto",
+                                  "auto+dp+bf16"])
 def test_fit_under_compute_roles_matches_jax(plan, monkeypatch):
     """Two epochs of the Dense classifier under each compute role (an
     ``int8`` leaf trains in bf16): the epoch losses within 1e-2 relative
     of the JAX package's under the same plan (bf16 and f16 round every
     stored activation; measured <= 3.2e-4), the same plan name, f32
     masters.
-    ``ZOO_DTYPE_POLICY=auto`` waits for the config oracle: ``fit`` raises
-    before any step."""
+    ``ZOO_DTYPE_POLICY=auto`` waits for the config oracle: ``fit`` without
+    a plan raises before any step; an explicit plan with dtype rules beats
+    it and trains (``auto+dp+bf16``)."""
     from analytics_zoo_tpu import init_zoo_context as jax_init
     from analytics_zoo_tpu.parallel import plan as jplan
     from analytics_zoo_tpu.pipeline.api import keras as jk
@@ -215,7 +217,10 @@ def test_fit_under_compute_roles_matches_jax(plan, monkeypatch):
     monkeypatch.setenv("ZOO_KERNEL_INTERPRET", "1")
     loss = "sparse_categorical_crossentropy_from_logits"
     x, y = _train_data()
-    if plan == "auto":
+    if plan.startswith("auto+"):
+        monkeypatch.setenv("ZOO_DTYPE_POLICY", "auto")
+        plan = plan[len("auto+"):]
+    elif plan == "auto":
         monkeypatch.setenv("ZOO_DTYPE_POLICY", "auto")
         torch_init(seed=3, device="cpu")
         m = _mlp(tk, tl)
