@@ -38,8 +38,13 @@
 // lo = x - hi, and a product is lo*hi + hi*lo + hi*hi (3xTF32, as CUTLASS's
 // OpMultiplyAddFastF32): three tf32 `wgmma`s at 495 TFLOP/s, ~0.13 ms on
 // dense tiles, ~2^-21 relative per product, i.e. f32 math in another order.
-// bf16 inputs are exact in tf32 (their lo pieces are zero), so only the
-// products of the f32 probabilities keep their lo halves.
+// bf16 and f16 inputs are exact in tf32 (their lo pieces are zero: tf32
+// keeps f32's exponent range and 10 mantissa bits, bf16 has 7 and f16 10,
+// and f16's exponents, subnormals included, lie inside f32's normal
+// range), so only the products of the f32 probabilities keep their lo
+// halves.  The 16-bit types differ only in how a loaded value widens to
+// f32 (a shift for bf16, a conversion for f16): `Raw4` and `to_float4` key
+// that on the type, and everything after the widening is shared.
 //
 // The design, shared by both kernels (`bwd_kernel<T, D, KV>`):
 // - D / 64 warpgroups a block; all of them compute the 64 x 32 score and
@@ -85,8 +90,8 @@
 //   slot says when they have landed.  f32 rows land as they are, in the
 //   128-byte-swizzled K-major layout; the threads split each value with
 //   split_tf32, write hi back in place and lo into a lo slot, and write the
-//   transposed copies below.  bf16 rows land in a staging slot and are
-//   widened into the hi slot (exactly).  The own rows are read again, from
+//   transposed copies below.  bf16 and f16 rows land in a staging slot and
+//   are widened into the hi slot (exactly).  The own rows are read again, from
 //   L2, for every streamed tile.  An input whose base or strides are not
 //   multiples of 16 bytes (which tensor maps need) is copied by the
 //   wrapper first.
@@ -200,10 +205,16 @@ __host__ __device__ constexpr int smem_bytes(int D) {
   return 4 * own_bytes(D) + 4 * str_bytes(D) + (3 * SR + OWN) * 4 + 1024;
 }
 
-// Four values as loaded: f32 as they are, bf16 still packed, so a load
-// in flight is not waited for until its values are stored.
+// Four values as loaded: f32 as they are, bf16 and f16 still packed two
+// to a register, so a load in flight is not waited for until its values
+// are stored.  f16's eight bytes have a type of their own (Half4), so the
+// widening (to_float4) is picked by the type, never by the size.
+struct Half4 {
+  uint2 bits;
+};
 template <typename T> struct Raw4 { using type = float4; };
 template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
+template <> struct Raw4<__half> { using type = Half4; };
 
 __device__ __forceinline__ float4 load4(const float* p, bool vec) {
   if (vec) return __ldg(reinterpret_cast<const float4*>(p));
@@ -215,10 +226,15 @@ __device__ __forceinline__ uint2 load4(const __nv_bfloat16* p, bool vec) {
   return make_uint2(u[0] | (static_cast<uint32_t>(u[1]) << 16),
                     u[2] | (static_cast<uint32_t>(u[3]) << 16));
 }
+__device__ __forceinline__ Half4 load4(const __half* p, bool vec) {
+  // the same bits as bf16's load
+  return {load4(reinterpret_cast<const __nv_bfloat16*>(p), vec)};
+}
 __device__ __forceinline__ float4 zero4(float4) {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 __device__ __forceinline__ uint2 zero4(uint2) { return make_uint2(0u, 0u); }
+__device__ __forceinline__ Half4 zero4(Half4) { return {make_uint2(0u, 0u)}; }
 __device__ __forceinline__ float4 to_float4(const float4& x) { return x; }
 __device__ __forceinline__ float4 to_float4(const uint2& x) {
   // bf16 -> f32 is a 16-bit shift
@@ -226,6 +242,14 @@ __device__ __forceinline__ float4 to_float4(const uint2& x) {
                      __uint_as_float(x.x & 0xffff0000u),
                      __uint_as_float(x.y << 16),
                      __uint_as_float(x.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 to_float4(const Half4& x) {
+  // f16 -> f32 is a conversion (exact), a pair at a time
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(
+      &x.bits.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(
+      &x.bits.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // The chunks of an R-row tile a thread loads, converts and writes: rows
@@ -306,7 +330,7 @@ __device__ __forceinline__ void store_transposed(
 template <typename T, int D, bool KV>
 __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
   using namespace zoo_sm90;
-  constexpr bool EXACT = sizeof(T) == 2;  // bf16: the lo pieces are zero
+  constexpr bool EXACT = zoo_sm90::is_16bit_v<T>;  // lo pieces are zero
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   uint8_t* own[4];  // own0 hi, own0 lo, own1 hi, own1 lo
@@ -554,9 +578,9 @@ constexpr int OWN_PIECE = OWN * CW * 4;   // a 64 x 32 f32 piece: 8 KB
 constexpr int STR_PIECE = SR * CW * 4;    // a 32 x 32 f32 piece: 4 KB
 // The pieces of a chunk, K-major: a hi slot (own0, own1, str0, str1) and,
 // for f32, a lo slot of the same layout.  f32 rows land in the hi slot as
-// loaded and are split there (hi in place, lo into the lo slot); bf16 rows
-// land in a staging slot (rows of 64 bytes) and are widened into the hi
-// slot.
+// loaded and are split there (hi in place, lo into the lo slot); bf16 and
+// f16 rows land in a staging slot (rows of 64 bytes) and are widened into
+// the hi slot.
 constexpr int HALF_SLOT = 2 * OWN_PIECE + 2 * STR_PIECE;  // 24 KB
 constexpr int BF_ROW = CW * 2;
 constexpr int BF_SLOT = (2 * OWN + 2 * SR) * BF_ROW;       // 12 KB
@@ -577,7 +601,7 @@ __host__ __device__ constexpr int wide_t_bytes(int nwg) {
   return nwg * 64 * 128;
 }
 // Transposed str0 hi, lo (and str1 hi, lo in the dk/dv kernel); NSLOT hi
-// slots; two lo slots (f32) or NSLOT staging slots (bf16); the streamed
+// slots; two lo slots (f32) or NSLOT staging slots (16-bit); the streamed
 // rows' m, 1 / l, D and a bias row; an mbarrier a slot; room to align to
 // 1024 bytes.
 __host__ __device__ constexpr int wide_smem_bytes(bool kv, int nwg,
@@ -598,7 +622,7 @@ static_assert(wide_smem_bytes(true, 3, false) <= 232448,
 // one 32-column chunk, from its hi and lo slots; the two accumulators'
 // products alternate.  Three warpgroups take one product of the three
 // each (lo . hi, hi . lo, hi . hi: summed in that order they are the lo
-// products first), over all 4 k-steps; bf16 (EXACT: hi . hi only) there
+// products first), over all 4 k-steps; 16-bit (EXACT: hi . hi only) there
 // has every warpgroup form the whole of S and dP.  Two split the k-steps:
 // wg and wg + 2, lo products first, then hi * hi.
 template <bool EXACT, int NWG>
@@ -652,7 +676,7 @@ template <typename T, bool KV, int NWG>
 __global__ void __launch_bounds__(128 * NWG, 1)
     bwd_wide_kernel(Args a, const __grid_constant__ Maps maps, int D) {
   using namespace zoo_sm90;
-  constexpr bool EXACT = sizeof(T) == 2;  // bf16: the lo pieces are zero
+  constexpr bool EXACT = zoo_sm90::is_16bit_v<T>;  // lo pieces are zero
   constexpr int NT = 128 * NWG;
   constexpr int U = CHUNK_UNITS / NT;     // units of a chunk a thread
   static_assert(CHUNK_UNITS % NT == 0, "a chunk splits evenly");
@@ -715,7 +739,7 @@ __global__ void __launch_bounds__(128 * NWG, 1)
            ch * 8;
   };
   // Copy chunk n (chunk c of the own rows and of the streamed rows s .. s
-  // + 31) into hi slot (f32) or staging slot (bf16) st = n % NSLOT: six
+  // + 31) into hi slot (f32) or staging slot (16-bit) st = n % NSLOT: six
   // tensor copies from one thread, which complete on the slot's mbarrier;
   // rows past the lengths are zeros.
   auto tma_chunk = [&](int st, int s, int c) {
@@ -741,7 +765,7 @@ __global__ void __launch_bounds__(128 * NWG, 1)
     tma_load_4d(dst + 2 * own_b + str_b, sm1, c * CW, s, h, b, bar);
   };
   // Complete chunk n (chunk c of a tile): f32 its lo slot n % 2 from the
-  // hi slot, bf16 its hi slot from the staging slot; a streamed chunk of
+  // hi slot, 16-bit its hi slot from the staging slot; a streamed chunk of
   // the block's slice also transposed, hi and lo (str0, and str1 in the
   // dk/dv kernel).  Own units: 8 lanes a row; streamed units: lane = row,
   // so that the transposed stores hit every bank once a warp.
@@ -758,9 +782,11 @@ __global__ void __launch_bounds__(128 * NWG, 1)
       const int ch = is_own ? w & 7 : (w >> 5) & 7;
       const uint32_t off = piece(is_own, which) + kmaj(is_own, row, ch);
       uint32_t h4[4], l4[4];
-      if (EXACT) {
-        const float4 x = to_float4(*reinterpret_cast<const uint2*>(
-            aux + n % NSLOT * BF_SLOT + bf_off(is_own, which, row, ch)));
+      if constexpr (EXACT) {
+        // widened by the type: bf16 a shift, f16 a conversion
+        const float4 x = to_float4(
+            *reinterpret_cast<const typename Raw4<T>::type*>(
+                aux + n % NSLOT * BF_SLOT + bf_off(is_own, which, row, ch)));
         h4[0] = __float_as_uint(x.x), h4[1] = __float_as_uint(x.y);
         h4[2] = __float_as_uint(x.z), h4[3] = __float_as_uint(x.w);
         *reinterpret_cast<uint4*>(hs + off) =
@@ -847,7 +873,7 @@ __global__ void __launch_bounds__(128 * NWG, 1)
   float db[2] = {0.f, 0.f};
   const int lt = tid & 127;
   // the warpgroups' partial S and dP (16 KB a warpgroup) go through the
-  // lo slots (f32) or the hi slots (bf16), free between tiles
+  // lo slots (f32) or the hi slots (16-bit), free between tiles
   float* red = reinterpret_cast<float*>(EXACT ? his : aux);
   static_assert(NWG * 16384 <= 2 * HALF_SLOT, "the partials fit");
 
@@ -885,10 +911,10 @@ __global__ void __launch_bounds__(128 * NWG, 1)
     }
     // ---- S and dP summed and the softmax recompute, shared out: each
     // warpgroup adds the partials of its share of the 16 fragment elements
-    // a thread holds, in warpgroup order (bf16 on three warpgroups holds
+    // a thread holds, in warpgroup order (16-bit on three warpgroups holds
     // whole values already), forms P t and dS for them as bwd_kernel does,
     // and passes them on through the last chunk's hi slot (f32) or the
-    // third hi slot (bf16), free between tiles.  Partials and results are
+    // third hi slot (16-bit), free between tiles.  Partials and results are
     // planes of one value a thread.
     float* pts = reinterpret_cast<float*>(
         his + (EXACT ? 2 : (n - 1) % NSLOT) * HALF_SLOT);
@@ -1279,7 +1305,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 template <typename T, bool KV, int NWG>
 cudaError_t launch_wide_kernel(const Args& a, const Maps& maps, int D,
                                cudaStream_t stream) {
-  constexpr int smem = wide_smem_bytes(KV, NWG, sizeof(T) == 2);
+  constexpr int smem = wide_smem_bytes(KV, NWG, zoo_sm90::is_16bit_v<T>);
   auto kern = bwd_wide_kernel<T, KV, NWG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1297,17 +1323,16 @@ cudaError_t launch_wide_kernel(const Args& a, const Maps& maps, int D,
 template <typename T>
 int launch_wide(const Args& a, int D, cudaStream_t stream) {
   using zoo_tma::encode_map;
-  const int es = sizeof(T);
   Maps maps;
   const bool tma =
-      encode_map(&maps.q, a.q, es, D, a.Lq, a.H, a.B, a.qs_b, a.qs_h,
-                 a.qs_l) &&
-      encode_map(&maps.k, a.k, es, D, a.Lk, a.H, a.B, a.ks_b, a.ks_h,
-                 a.ks_l) &&
-      encode_map(&maps.v, a.v, es, D, a.Lk, a.H, a.B, a.vs_b, a.vs_h,
-                 a.vs_l) &&
-      encode_map(&maps.g, a.g, es, D, a.Lq, a.H, a.B, a.gs_b, a.gs_h,
-                 a.gs_l);
+      encode_map<T>(&maps.q, a.q, D, a.Lq, a.H, a.B, a.qs_b, a.qs_h,
+                    a.qs_l) &&
+      encode_map<T>(&maps.k, a.k, D, a.Lk, a.H, a.B, a.ks_b, a.ks_h,
+                    a.ks_l) &&
+      encode_map<T>(&maps.v, a.v, D, a.Lk, a.H, a.B, a.vs_b, a.vs_h,
+                    a.vs_l) &&
+      encode_map<T>(&maps.g, a.g, D, a.Lq, a.H, a.B, a.gs_b, a.gs_h,
+                    a.gs_l);
   if (!tma) return -2;
   const bool three = wide_warpgroups(D) == 3;
   const cudaError_t err =
@@ -1341,9 +1366,9 @@ bool rows_aligned(const void* p, int bytes, int64_t s_b, int64_t s_h,
 
 }  // namespace zoo_flash_bwd
 
-// dtype: 0 = float32, 1 = bfloat16.  m, l, dsum: (B, H, Lq) f32.  dq, dk,
-// dv: contiguous outputs in the input type.  dbias: (B, H, Lk) f32
-// partials, or null when the bias needs no gradient.  q_seg, kv_seg:
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  m, l, dsum: (B, H, Lq)
+// f32.  dq, dk, dv: contiguous outputs in the input type.  dbias: (B, H,
+// Lk) f32 partials, or null when the bias needs no gradient.  q_seg, kv_seg:
 // contiguous (B, Lq) and (B, Lk) int32 segment ids, or both null.  Head
 // dims 64 and 128 take the tensor-core kernels, every other multiple of 64
 // the chunked tensor-core kernels, any other the CUDA-core ones.  Returns
@@ -1382,5 +1407,6 @@ extern "C" int zoo_flash_attention_bwd(
   if (dtype == 0) return zoo_flash_bwd::dispatch<float>(head_dim, a, s);
   if (dtype == 1)
     return zoo_flash_bwd::dispatch<__nv_bfloat16>(head_dim, a, s);
+  if (dtype == 2) return zoo_flash_bwd::dispatch<__half>(head_dim, a, s);
   return -1;
 }

@@ -8,15 +8,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_attention_fwd.cuh"
 
 namespace {
 
-cudaError_t launch_simt_any(const zoo_flash::Args& a, int D, bool bf16,
+template <typename T>
+cudaError_t launch_simt_any(const zoo_flash::Args& a, int D,
                             cudaStream_t stream) {
   const int smem = zoo_flash::simt_smem_bytes(D);
-  auto kernel = bf16 ? zoo_flash::flash_fwd_simt_kernel<__nv_bfloat16>
-                     : zoo_flash::flash_fwd_simt_kernel<float>;
+  auto kernel = zoo_flash::flash_fwd_simt_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -44,10 +46,10 @@ bool qkv_aligned(const zoo_flash::Args& a, int size) {
          rows_aligned(a.v, size, a.vs_b, a.vs_h, a.vs_l);
 }
 
-template <int D, bool ROW, bool SEG>
+template <typename T, int D, bool ROW, bool SEG>
 cudaError_t launch_wgmma(const zoo_flash::Args& a, cudaStream_t stream) {
   constexpr int smem = zoo_flash::wg_smem_bytes(D);
-  auto kernel = zoo_flash::flash_fwd_wgmma_kernel<D, ROW, SEG>;
+  auto kernel = zoo_flash::flash_fwd_wgmma_kernel<T, D, ROW, SEG>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -59,18 +61,18 @@ cudaError_t launch_wgmma(const zoo_flash::Args& a, cudaStream_t stream) {
 // No bias, or one row per (batch, head) contiguous along the keys and
 // 16-byte aligned (the padding mask): the row goes through shared memory
 // with K and V (zeros without a bias).  Any other bias: read element by
-// element.  With segment ids or without.
-template <int D>
+// element.  With segment ids or without.  T: bf16 or f16.
+template <typename T, int D>
 cudaError_t launch_wgmma_bias(const zoo_flash::Args& a, cudaStream_t stream) {
   const bool row = a.bias == nullptr ||
                    (a.bs_q == 0 && a.bs_k == 1 && a.bs_b % 4 == 0 &&
                     a.bs_h % 4 == 0 &&
                     (reinterpret_cast<uintptr_t>(a.bias) & 15) == 0);
   if (a.q_seg != nullptr)
-    return row ? launch_wgmma<D, true, true>(a, stream)
-               : launch_wgmma<D, false, true>(a, stream);
-  return row ? launch_wgmma<D, true, false>(a, stream)
-             : launch_wgmma<D, false, false>(a, stream);
+    return row ? launch_wgmma<T, D, true, true>(a, stream)
+               : launch_wgmma<T, D, false, true>(a, stream);
+  return row ? launch_wgmma<T, D, true, false>(a, stream)
+             : launch_wgmma<T, D, false, false>(a, stream);
 }
 
 template <int D, bool ROW, bool SEG>
@@ -122,16 +124,15 @@ int launch_wide(const zoo_flash::Args& a, int D, cudaStream_t stream) {
   using zoo_tma::encode_chunked_map;
   constexpr int es = sizeof(T);
   const zoo_flash::WidePlan plan =
-      zoo_flash::wide_plan(NWG, CPW, es == 2, D);
+      zoo_flash::wide_plan(NWG, CPW, zoo_sm90::is_16bit_v<T>, D);
   zoo_tma::Maps maps = {};
   const bool tma =
-      encode_chunked_map(&maps.q, a.q, es, D, a.Lq, a.H, a.B, a.qs_b,
-                         a.qs_h, a.qs_l, 64,
-                         plan.qres ? D * es / 128 : plan.cps) &&
-      encode_chunked_map(&maps.k, a.k, es, D, a.Lk, a.H, a.B, a.ks_b,
-                         a.ks_h, a.ks_l, 32, plan.cps) &&
-      encode_chunked_map(&maps.v, a.v, es, D, a.Lk, a.H, a.B, a.vs_b,
-                         a.vs_h, a.vs_l, 32, plan.vp);
+      encode_chunked_map<T>(&maps.q, a.q, D, a.Lq, a.H, a.B, a.qs_b, a.qs_h,
+                            a.qs_l, 64, plan.qres ? D * es / 128 : plan.cps) &&
+      encode_chunked_map<T>(&maps.k, a.k, D, a.Lk, a.H, a.B, a.ks_b, a.ks_h,
+                            a.ks_l, 32, plan.cps) &&
+      encode_chunked_map<T>(&maps.v, a.v, D, a.Lk, a.H, a.B, a.vs_b, a.vs_h,
+                            a.vs_l, 32, plan.vp);
   if (!tma) return -2;
   const bool row = a.bias == nullptr || a.bs_q == 0;
   if (a.q_seg != nullptr)
@@ -146,11 +147,11 @@ int launch_wide(const zoo_flash::Args& a, int D, cudaStream_t stream) {
 }
 
 // The warpgroups' columns and count of fwd_wide_cols and
-// fwd_wide_warpgroups (bf16: 64 columns a warpgroup only).
+// fwd_wide_warpgroups (bf16 and f16: 64 columns a warpgroup only).
 template <typename T>
 int launch_wide_any(const zoo_flash::Args& a, int D, cudaStream_t stream) {
   using zoo_flash::fwd_wide_warpgroups;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (std::is_same<T, float>::value) {
     if (zoo_flash::fwd_wide_cols(false, D) == 128)
       return fwd_wide_warpgroups(D, 128) == 3
                  ? launch_wide<T, 3, 128>(a, D, stream)
@@ -170,35 +171,37 @@ int dispatch_f32(int head_dim, const zoo_flash::Args& a,
     default:
       return head_dim % 64 == 0
                  ? launch_wide_any<float>(a, head_dim, stream)
-                 : launch_simt_any(a, head_dim, false, stream);
+                 : launch_simt_any<float>(a, head_dim, stream);
   }
 }
 
-// bf16: the tensor cores at head dims 64 and 128 and, in 64-column chunks,
-// at every other multiple of 64; CUDA cores at any other head dim.
-int dispatch_bf16(int head_dim, const zoo_flash::Args& a,
-                  cudaStream_t stream) {
+// bf16 and f16 (T), one code path keyed on T: the tensor cores at head
+// dims 64 and 128 and, in 64-column chunks, at every other multiple of 64;
+// CUDA cores at any other head dim.
+template <typename T>
+int dispatch_16bit(int head_dim, const zoo_flash::Args& a,
+                   cudaStream_t stream) {
+  static_assert(zoo_sm90::is_16bit_v<T>, "bf16 or f16");
   switch (head_dim) {
-    case 64: return launch_wgmma_bias<64>(a, stream);
-    case 128: return launch_wgmma_bias<128>(a, stream);
+    case 64: return launch_wgmma_bias<T, 64>(a, stream);
+    case 128: return launch_wgmma_bias<T, 128>(a, stream);
     default:
-      return head_dim % 64 == 0
-                 ? launch_wide_any<__nv_bfloat16>(a, head_dim, stream)
-                 : launch_simt_any(a, head_dim, true, stream);
+      return head_dim % 64 == 0 ? launch_wide_any<T>(a, head_dim, stream)
+                                : launch_simt_any<T>(a, head_dim, stream);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  m_out/l_out: (B, H, Lq) f32 outputs
-// of the softmax statistics, or both null.  q_seg, kv_seg: contiguous
-// (B, Lq) and (B, Lk) int32 segment ids, or both null.  dropout != 0
-// drops with the hash threshold drop_thr and scales kept values by
-// inv_keep.  out must be contiguous.  Any head dim.  Returns 0 on success,
-// a cudaError_t code when the launch failed, -1 for a dtype the kernels do
-// not take, or -2 when the chunked kernel (head dims above 128 that are
-// multiples of 64) cannot map an input (a base or a stride not a multiple
-// of 16 bytes).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  m_out/l_out: (B, H, Lq)
+// f32 outputs of the softmax statistics, or both null.  q_seg, kv_seg:
+// contiguous (B, Lq) and (B, Lk) int32 segment ids, or both null.
+// dropout != 0 drops with the hash threshold drop_thr and scales kept
+// values by inv_keep.  out must be contiguous.  Any head dim.  Returns 0
+// on success, a cudaError_t code when the launch failed, -1 for a dtype
+// the kernels do not take, or -2 when the chunked kernel (head dims above
+// 128 that are multiples of 64) cannot map an input (a base or a stride
+// not a multiple of 16 bytes).
 extern "C" int zoo_flash_attention_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     const float* bias, void* out, float* m_out, float* l_out,
@@ -217,6 +220,7 @@ extern "C" int zoo_flash_attention_fwd(
                     dropout, seed0, seed1, drop_thr, inv_keep, q_seg, kv_seg};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(head_dim, a, s);
-  if (dtype == 1) return dispatch_bf16(head_dim, a, s);
+  if (dtype == 1) return dispatch_16bit<__nv_bfloat16>(head_dim, a, s);
+  if (dtype == 2) return dispatch_16bit<__half>(head_dim, a, s);
   return -1;
 }

@@ -5,8 +5,8 @@
 // pl.pallas_call :399): an additive f32 bias broadcast over
 // (B|1, H|1, Lq|1, Lk), end-aligned causal masking, segment ids (a pair is
 // live only where the query's and the key's ids are equal: packed
-// sequences), ragged Lq/Lk, any head dim, f32 or bf16 inputs with f32
-// softmax math, output in the input type, in-kernel attention dropout from
+// sequences), ragged Lq/Lk, any head dim, f32, bf16 or f16 inputs with
+// f32 softmax math, output in the input type, in-kernel attention dropout from
 // the reference's position hash, and optionally the softmax statistics
 // (m, l) per query row, which the backward reads.
 //
@@ -21,24 +21,28 @@
 //
 // What bounds it on an H100.  At BERT-base serving shapes (B=8, H=12,
 // L=512, D=64, the padding mask of chip_smoke.py) the two products are
-// 3.5 GFLOP on the live keys.  In bf16 on the tensor cores (989 TFLOP/s)
+// 3.5 GFLOP on the live keys.  In bf16 or f16 on the tensor cores (989
+// TFLOP/s)
 // that is ~3.5 us, against 25 MB moved (q, k, v, out and the bias once:
 // 7.5 us at 3.35 TB/s), so bytes bound it; in f32 as three tf32 products a
 // value (494.7 TFLOP/s) ~21 us, so operations do (on CUDA cores, 67
 // TFLOP/s, ~52 us).
 //
 // Which body: every head dim that is a multiple of 64 takes the tensor
-// cores (bf16 as it is, f32 as 3xTF32): 64 and 128 whole-tile bodies, every
-// other multiple of 64 the chunked body; only head dims that are not
-// multiples of 64 (direct calls of flash_attention; the router sends
-// multiples of 64 only) take the CUDA-core body.  The backward splits the
+// cores (bf16 and f16 as they are, f32 as 3xTF32): 64 and 128 whole-tile
+// bodies, every other multiple of 64 the chunked body; only head dims that
+// are not multiples of 64 (direct calls of flash_attention; the router
+// sends multiples of 64 only) take the CUDA-core body.  The backward splits the
 // same way (flash_attention_bwd.cu).
 //
-// bf16 inputs with head dim 64 or 128: `flash_fwd_wgmma_kernel`, on the
-// tensor cores.  With the products there, the work left on the CUDA cores
-// (scale, bias, mask, the running max and sum, exp, the rescale of the
-// accumulator) is what takes the time, so the design spends its effort on
-// doing little of it per element.
+// 16-bit inputs (bf16 or f16, the kernels' T) with head dim 64 or 128:
+// `flash_fwd_wgmma_kernel<T, ...>`, on the tensor cores.  The two types
+// take the same code; every 16-bit step (the copies, the `wgmma` type
+// suffix, the rounding of P and of the output) is keyed on T itself.  With
+// the products there, the work left on the CUDA cores (scale, bias, mask,
+// the running max and sum, exp, the rescale of the accumulator) is what
+// takes the time, so the design spends its effort on doing little of it
+// per element.
 // - One warpgroup (128 threads) per block owns 64 query rows of one
 //   (batch, head); a loop over key tiles (128 keys at head dim 64, 64 at
 //   128) inside the block replaces the TPU's sequential `ki` grid axis,
@@ -63,7 +67,7 @@
 //   register.  Each element's (row, key) follows from the fragment layout,
 //   and a row's max and sum reduce over the 4 threads that share it with
 //   two shuffles.  exp is exp2 of one FMA.
-// - P is rounded to bf16 in registers and is, as it stands, the register A
+// - P is rounded to T in registers and is, as it stands, the register A
 //   operand of the second `wgmma` (m64nDk16), with V from shared memory as
 //   MN-major B; l keeps summing the f32 probabilities, as the plain version
 //   does.  Dropout, when on, multiplies P by the hash's keep mask after l.
@@ -102,8 +106,8 @@
 // NWG, CPW, ROW, SEG>`, the head dim a runtime value, the backward's chunked
 // design (bwd_wide_kernel) with one output accumulator.  Q, K and V do not
 // fit whole (f32 Q hi and lo alone take 96 KB at head dim 192), so S = Q K^T
-// contracts over the head dim in 128-byte column chunks (32 f32 or 64 bf16
-// columns), 32 keys a tile:
+// contracts over the head dim in 128-byte column chunks (32 f32 or 64
+// 16-bit columns), 32 keys a tile:
 // - A block owns 64 query rows and a slice of NWG x CPW output columns,
 //   CPW a warpgroup (blockIdx.x = query tile x slices + slice); each
 //   slice's block forms S over the whole head dim again.  CPW is 64, or
@@ -111,7 +115,7 @@
 //   halves of O, each its own fresh accumulator: half the slices).  NWG is
 //   3 where the head dim has a multiple of 3 warpgroups' columns, else 2.
 //   f32 slices: one at 192, 256 and 384, three at 320, two at 512 and 768;
-//   bf16: one at 192, two at 256 and 384, four at 512.
+//   bf16 and f16: one at 192, two at 256 and 384, four at 512.
 // - Tensor copies (TMA), issued by one thread with an mbarrier a ring slot,
 //   bring the chunks in, 128-byte swizzled as wgmma reads them.  The maps
 //   view an input as (column in chunk, row, chunk, head, batch), so that
@@ -131,15 +135,16 @@
 //   split into hi and lo in registers, is the register A operand of O += P
 //   V (`accumulate`: a fresh accumulator per tile and 64 columns, lo
 //   products first, added into O in f32).  One block an SM (153-217 KB).
-// - bf16: Q's 64 rows stay whole in shared memory, brought by one copy; a
-//   slot holds all of a tile's K chunks and the slice's V chunks, two
-//   slots.  Every warpgroup forms the whole S with bf16 wgmma (sharing it
-//   out and adding the parts through shared memory was slower), rounds P
-//   to bf16 as the register A operand, and reads its 64 columns of V in the
-//   slot (MN-major).  Blocks fit two an SM up to head dim 320 (73-97 KB),
-//   and get the registers for it except the three-warpgroup full-bias
-//   kernel.  Past head dim 832 Q and two slots do not fit: one chunk a
-//   slot, Q with it, V copied out of the ring for the output product.
+// - bf16 and f16: Q's 64 rows stay whole in shared memory, brought by one
+//   copy; a slot holds all of a tile's K chunks and the slice's V chunks,
+//   two slots.  Every warpgroup forms the whole S with 16-bit wgmma
+//   (sharing it out and adding the parts through shared memory was
+//   slower), rounds P to the input type as the register A operand, and
+//   reads its 64 columns of V in the slot (MN-major).  Blocks fit two an
+//   SM up to head dim 320 (73-97 KB), and get the registers for it except
+//   the three-warpgroup full-bias kernel.  Past head dim 832 Q and two
+//   slots do not fit: one chunk a slot, Q with it, V copied out of the
+//   ring for the output product.
 // - The softmax, masks, bias (a one-row bias through shared memory with
 //   each tile, any other read element by element), dropout and statistics
 //   are the tensor-core bodies' above; each warpgroup computes them for the
@@ -172,6 +177,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
@@ -379,7 +385,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a, int D) {
 
 
 // ---------------------------------------------------------------------------
-// bf16, head dim 64 or 128: tensor cores
+// bf16 or f16, head dim 64 or 128: tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int WG_THREADS = 128;  // one warpgroup, 64 query rows
@@ -393,14 +399,14 @@ __host__ __device__ constexpr int wg_smem_bytes(int D) {
   return 64 * D * 2 + 2 * (2 * wg_keys(D) * D * 2 + wg_keys(D) * 4) + 1024;
 }
 
-// Copy rows row0 .. row0 + R - 1 of a (rows, D) bf16 matrix with row
-// stride `ls` elements into a swizzled tile; rows at or past `n` read as
-// zeros.
-template <int D, int R>
-__device__ __forceinline__ void load_rows(uint8_t* dst,
-                                          const __nv_bfloat16* src,
+// Copy rows row0 .. row0 + R - 1 of a (rows, D) matrix of 16-bit T with
+// row stride `ls` elements into a swizzled tile; rows at or past `n` read
+// as zeros.  The copy moves bits: it is the same for bf16 and f16.
+template <typename T, int D, int R>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const T* src,
                                           int64_t ls, int row0, int n,
                                           bool vec) {
+  static_assert(zoo_sm90::is_16bit_v<T>, "bf16 or f16");
   constexpr int CPR = D / 8;  // 16-byte chunks a row
   const int tid = threadIdx.x;
   if (vec) {  // chunk i of a thread: row r + i * RP, chunk j of the row
@@ -408,7 +414,7 @@ __device__ __forceinline__ void load_rows(uint8_t* dst,
     const int r = tid / CPR, j = tid % CPR;
     const uint32_t d0 = zoo_sm90::smem_u32(dst + (j >> 3) * (R * 128)) +
                         zoo_sm90::swz(r, j & 7);
-    const __nv_bfloat16* s0 = src + (row0 + r) * ls + j * 8;
+    const T* s0 = src + (row0 + r) * ls + j * 8;
 #pragma unroll
     for (int i = 0; i < R / RP; ++i) {
       const bool in = row0 + r + i * RP < n;
@@ -418,9 +424,11 @@ __device__ __forceinline__ void load_rows(uint8_t* dst,
   } else {
     for (int e = tid; e < R * D; e += WG_THREADS) {
       const int r = e / D, d = e % D;
-      const __nv_bfloat16 v = row0 + r < n ? src[(row0 + r) * ls + d]
-                                           : __float2bfloat16(0.f);
-      *reinterpret_cast<__nv_bfloat16*>(
+      const uint16_t v =
+          row0 + r < n
+              ? reinterpret_cast<const uint16_t*>(src)[(row0 + r) * ls + d]
+              : 0;
+      *reinterpret_cast<uint16_t*>(
           dst + (d >> 6) * (R * 128) + zoo_sm90::swz(r, (d & 63) >> 3) +
           (d & 7) * 2) = v;
     }
@@ -441,21 +449,21 @@ __device__ __forceinline__ void load_bias_row(float* dst, const float* src,
   }
 }
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_s(float (&d)[N / 2], uint64_t da,
                                         uint64_t db, int scale_d) {
   if constexpr (N == 64)
-    zoo_sm90::wgmma_m64n64k16_ss<0>(d, da, db, scale_d);
+    zoo_sm90::wgmma_m64n64k16_ss<T, 0>(d, da, db, scale_d);
   else
-    zoo_sm90::wgmma_m64n128k16_ss<0>(d, da, db, scale_d);
+    zoo_sm90::wgmma_m64n128k16_ss<T, 0>(d, da, db, scale_d);
 }
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64)
-    zoo_sm90::wgmma_m64n64k16_rs<1>(d, a, db, 1);
+    zoo_sm90::wgmma_m64n64k16_rs<T, 1>(d, a, db, 1);
   else
-    zoo_sm90::wgmma_m64n128k16_rs<1>(d, a, db, 1);
+    zoo_sm90::wgmma_m64n128k16_rs<T, 1>(d, a, db, 1);
 }
 
 // ROW: the bias is one row per (batch, head) (bs_q == 0), contiguous along
@@ -466,11 +474,12 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
 // without them runs no test of them).  At head dim 64 the registers are
 // capped at 128 a thread, for four blocks an SM (measured faster than two
 // blocks with more registers; at head dim 128 shared memory allows two).
-template <int D, bool ROW, bool SEG>
+// T: bf16 or f16.
+template <typename T, int D, bool ROW, bool SEG>
 __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
     flash_fwd_wgmma_kernel(Args a, bool vec) {
   using namespace zoo_sm90;
-  using bf16 = __nv_bfloat16;
+  static_assert(is_16bit_v<T>, "bf16 or f16");
   constexpr int BKV = wg_keys(D);
   constexpr int KV = BKV * D * 2;  // bytes of a K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -487,9 +496,9 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs_b + h * a.qs_h;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks_b + h * a.ks_h;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs_b + h * a.vs_h;
+  const T* q = static_cast<const T*>(a.q) + b * a.qs_b + h * a.qs_h;
+  const T* k = static_cast<const T*>(a.k) + b * a.ks_b + h * a.ks_h;
+  const T* v = static_cast<const T*>(a.v) + b * a.vs_b + h * a.vs_h;
   const float* bias =
       a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
   const int* ksg = SEG ? a.kv_seg + b * a.Lk : nullptr;
@@ -498,15 +507,15 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
   const int kend = a.causal ? min(a.Lk, q0 + 64 + offset) : a.Lk;
   const int n_tiles = kend > 0 ? (kend + BKV - 1) / BKV : 0;
   auto load_tile = [&](int st, int k0) {
-    load_rows<D, BKV>(Ks(st), k, a.ks_l, k0, a.Lk, vec);
-    load_rows<D, BKV>(Vs(st), v, a.vs_l, k0, a.Lk, vec);
+    load_rows<T, D, BKV>(Ks(st), k, a.ks_l, k0, a.Lk, vec);
+    load_rows<T, D, BKV>(Vs(st), v, a.vs_l, k0, a.Lk, vec);
     if (ROW && bias != nullptr)
       load_bias_row<BKV>(Bs + st * BKV, bias, k0, a.Lk);
   };
 
   if (ROW && bias == nullptr)
     for (int i = tid; i < 2 * BKV; i += WG_THREADS) Bs[i] = 0.f;
-  load_rows<D, 64>(Qs, q, a.qs_l, q0, a.Lq, vec);
+  load_rows<T, D, 64>(Qs, q, a.qs_l, q0, a.Lq, vec);
   if (n_tiles > 0) load_tile(0, 0);
   cp_async_commit();
 
@@ -543,7 +552,7 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_s<BKV>(s,
+      wgmma_s<T, BKV>(s,
                    desc_b128(smem_u32(Qs) + (kk >> 2) * 8192 + (kk & 3) * 32,
                              16, 1024),
                    desc_b128(smem_u32(Ks(st)) + (kk >> 2) * (BKV * 128) +
@@ -616,19 +625,19 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
       }
     }
 
-    // O += P V: the accumulator fragment of S is, in bf16 pairs, the
+    // O += P V: the accumulator fragment of S is, in pairs of T, the
     // register fragment of A for keys 16 kk .. 16 kk + 15.
     uint32_t pa[BKV / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        pa[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
     fence_operand(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_pv<D>(o, pa[kk],
+      wgmma_pv<T, D>(o, pa[kk],
                   desc_b128(smem_u32(Vs(st)) + kk * 2048, BKV * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
@@ -637,7 +646,7 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
   }
   cp_async_wait<0>();
 
-  bf16* out = static_cast<bf16*>(a.out) + b * a.os_b + h * a.os_h;
+  T* out = static_cast<T*>(a.out) + b * a.os_b + h * a.os_h;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (qi[hh] >= a.Lq) continue;
@@ -645,9 +654,8 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int col = c * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(&out[qi[hh] * a.os_l + col]) =
-          __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv,
-                                o[4 * c + 2 * hh + 1] * inv);
+      *reinterpret_cast<uint32_t*>(&out[qi[hh] * a.os_l + col]) =
+          pack2<T>(o[4 * c + 2 * hh] * inv, o[4 * c + 2 * hh + 1] * inv);
     }
     if (a.m_out != nullptr && t == 0) {
       const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Lq + qi[hh];
@@ -968,7 +976,7 @@ constexpr int WIDE_REST = WIDE_KEYS * 4 + 9 * 8 + 1024;  // bias row,
 
 // Output columns a warpgroup: f32 128 where the head dim is a multiple of
 // 128 (two 64-column halves, each its own fresh accumulator per tile: half
-// the slices, which each form S again), else 64; bf16 64.
+// the slices, which each form S again), else 64; bf16 and f16 64.
 __host__ __device__ constexpr int fwd_wide_cols(bool exact, int D) {
   return !exact && D % 128 == 0 ? 128 : 64;
 }
@@ -979,7 +987,7 @@ __host__ __device__ constexpr int fwd_wide_warpgroups(int D, int cpw) {
 }
 
 // How the chunked forward stages a tile.  A chunk is one 128-byte column
-// chunk (32 f32 or 64 bf16 columns) of the rows; a group is the `cps`
+// chunk (32 f32 or 64 16-bit columns) of the rows; a group is the `cps`
 // chunks one ring slot holds, brought in by one tensor copy per operand:
 // Q's 64 rows (unless Q stays whole in shared memory, `qres`), K's 32 rows
 // of the tile and, in the groups that hold columns of the block's slice,
@@ -1000,14 +1008,15 @@ __host__ __device__ constexpr WidePlan wide_plan(int nwg, int cpw,
             vbytes + 3 * slot + 2 * cps * (Q_PIECE + KV_PIECE) +
                 nwg * 16 * 128 * 4 + WIDE_REST};
   }
-  // bf16: Q whole, loaded once, and a slot a tile (all its K chunks and the
-  // slice's V, read by wgmma where it landed), two slots, where they fit
-  // (two blocks an SM up to head dim 320; more slots were no faster)
+  // bf16, f16: Q whole, loaded once, and a slot a tile (all its K chunks
+  // and the slice's V, read by wgmma where it landed), two slots, where
+  // they fit (two blocks an SM up to head dim 320; more slots were no
+  // faster)
   const int nch = D / 64;
   const int slot = (nch + nwg) * KV_PIECE;
   if (D * 128 + 2 * slot + WIDE_REST <= 232448)
     return {1, nch, nwg, 2, slot, 0, D * 128 + 2 * slot + WIDE_REST};
-  // wider bf16: one chunk a slot, Q with it, V copied out of the ring
+  // wider 16-bit: one chunk a slot, Q with it, V copied out of the ring
   return {0, 1, 1, 8, Q_PIECE + 2 * KV_PIECE, nwg * KV_PIECE,
           nwg * KV_PIECE + 8 * (Q_PIECE + 2 * KV_PIECE) + WIDE_REST};
 }
@@ -1016,7 +1025,8 @@ static_assert(wide_plan(3, 64, false, 192).smem <= 232448 &&
                   wide_plan(3, 64, true, 4096).smem <= 232448,
               "a block may have 227 KB of shared memory");
 
-// bf16 blocks that fit two to an SM (by shared memory: head dims up to 320)
+// 16-bit blocks that fit two to an SM (by shared memory: head dims up to
+// 320)
 // get the registers for two, except the three-warpgroup full-bias kernel,
 // which then spills; f32 takes one block an SM.
 __host__ __device__ constexpr int wide_min_blocks(bool exact, int nwg,
@@ -1027,16 +1037,16 @@ __host__ __device__ constexpr int wide_min_blocks(bool exact, int nwg,
 // One block per 64 query rows and NWG x CPW output columns (its slice:
 // blockIdx.x = query tile x slices + slice), NWG warpgroups, CPW columns
 // each.  ROW and SEG as in flash_fwd_tf32_kernel.  T = float: 3xTF32;
-// T = bf16: bf16 wgmma.  The tensor maps are (column in chunk, row, chunk,
-// head, batch), with boxes as wide_plan stages them.
+// T = bf16 or f16: wgmma of that type.  The tensor maps are (column in
+// chunk, row, chunk, head, batch), with boxes as wide_plan stages them.
 template <typename T, int NWG, int CPW, bool ROW, bool SEG>
-__global__ void __launch_bounds__(WG_THREADS * NWG,
-                                  wide_min_blocks(sizeof(T) == 2, NWG, ROW))
+__global__ void __launch_bounds__(
+    WG_THREADS * NWG, wide_min_blocks(zoo_sm90::is_16bit_v<T>, NWG, ROW))
     flash_fwd_wide_kernel(Args a, const __grid_constant__ zoo_tma::Maps maps,
                           int D) {
   using namespace zoo_sm90;
   using zoo_tf32::transposed;
-  constexpr bool EXACT = sizeof(T) == 2;  // bf16: no lo pieces
+  constexpr bool EXACT = is_16bit_v<T>;  // bf16, f16: no lo pieces
   constexpr int NT = WG_THREADS * NWG;
   constexpr int CW = 128 / sizeof(T);     // columns a chunk
   constexpr int BKV = WIDE_KEYS;
@@ -1102,8 +1112,8 @@ __global__ void __launch_bounds__(WG_THREADS * NWG,
   };
   // Complete group n (group gi): f32 splits its Q and K values, hi in place
   // and lo into lo slot n % 2, and its V chunks of the slice into the
-  // transposed hi and lo tiles; bf16 one chunk a slot copies a V chunk as
-  // it is (bf16 with Q whole reads V in the slot).  Q and K units: 8 lanes
+  // transposed hi and lo tiles; 16-bit one chunk a slot copies a V chunk
+  // as it is (16-bit with Q whole reads V in the slot).  Q and K units: 8 lanes
   // a row; V units: lane = key, so that the transposed stores hit every
   // bank once a warp.
   auto complete = [&](int n, int gi) {
@@ -1202,7 +1212,7 @@ __global__ void __launch_bounds__(WG_THREADS * NWG,
     const int k0 = j * BKV;
     // ---- S = Q K^T over the head dim, group by group: f32 each
     // warpgroup its part (three: one product each, lo . hi, hi . lo,
-    // hi . hi; two: half the k-steps), bf16 each warpgroup the whole
+    // hi . hi; two: half the k-steps), 16-bit each warpgroup the whole
     float s[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i] = 0.f;
@@ -1213,7 +1223,7 @@ __global__ void __launch_bounds__(WG_THREADS * NWG,
     if (j + 1 < n_tiles) load_row(k0 + BKV);
     fence_proxy_async();
     __syncthreads();
-    const uint8_t* vtile = slots + n % nslot * sbytes + vofs;  // bf16, Q whole
+    const uint8_t* vtile = slots + n % nslot * sbytes + vofs;  // Q whole
     for (int gi = 0; gi < ngr; ++gi, ++n) {
       // group n's products run while group n + nslot - 1 is copied (into
       // the slot group n - 1 left) and group n + 1 is completed
@@ -1229,7 +1239,7 @@ __global__ void __launch_bounds__(WG_THREADS * NWG,
           const uint32_t kb = hi + kofs + c * KV_PIECE;
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_m64n32k16_ss<0>(s, desc(qa, kk), desc(kb, kk), 1);
+            wgmma_m64n32k16_ss<T, 0>(s, desc(qa, kk), desc(kb, kk), 1);
         }
       } else {
         const uint32_t lo = smem_u32(los + n % 2 * LO);
@@ -1357,14 +1367,15 @@ __global__ void __launch_bounds__(WG_THREADS * NWG,
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          pa[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
       const uint32_t vb = smem_u32((qres ? vtile : vs) + wg * KV_PIECE);
       fence_operand(o[0]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
-        wgmma_m64n64k16_rs<1>(o[0], pa[kk],
-                              desc_b128(vb + kk * 2048, KV_PIECE, 1024), 1);
+        wgmma_m64n64k16_rs<T, 1>(o[0], pa[kk],
+                                 desc_b128(vb + kk * 2048, KV_PIECE, 1024),
+                                 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(o[0]);

@@ -2,11 +2,12 @@
 // the backward (flash_attention_bwd.cu) share: the tiles of the CUDA-core
 // bodies and their staging and score products, the running-max floor, the
 // forward's argument block, the reference's dropout hash and the f32 <->
-// input-type conversions.
+// input-type conversions (f32, bf16, f16).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace zoo_flash {
@@ -87,6 +88,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+// rounds to nearest even; above f16's largest finite value (65504) is inf,
+// as the reference's cast
+__device__ __forceinline__ void store_as(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // ---------------------------------------------------------------------------

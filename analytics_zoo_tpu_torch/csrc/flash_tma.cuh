@@ -8,10 +8,26 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace zoo_tma {
+
+// The tensor-map element type of an input type (f32, bf16 or f16).
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  static_assert(std::is_same<T, float>::value ||
+                    std::is_same<T, __nv_bfloat16>::value ||
+                    std::is_same<T, __half>::value,
+                "f32, bf16 or f16");
+  return std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
 
 // The tensor maps of q, k, v and dO (the forward leaves dO unset), passed
 // to a kernel as one __grid_constant__ parameter.
@@ -40,13 +56,15 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (D, L, H, B) map of one input with boxes of 32 columns x 32 rows:
-// f32 into the 128-byte-swizzled layout wgmma reads, bf16 as loaded.
-// Boxes past the tensor's edges read as zeros.  False where the tensor
-// copies cannot take it (a base or a stride not a multiple of 16 bytes).
-inline bool encode_map(CUtensorMap* map, const void* p, int esize, int D,
-                       int L, int H, int B, int64_t s_b, int64_t s_h,
-                       int64_t s_l) {
+// The (D, L, H, B) map of one input of type T with boxes of 32 columns x
+// 32 rows: f32 into the 128-byte-swizzled layout wgmma reads, bf16 and f16
+// as loaded.  Boxes past the tensor's edges read as zeros.  False where
+// the tensor copies cannot take it (a base or a stride not a multiple of
+// 16 bytes).
+template <typename T>
+inline bool encode_map(CUtensorMap* map, const void* p, int D, int L, int H,
+                       int B, int64_t s_b, int64_t s_h, int64_t s_l) {
+  constexpr int esize = sizeof(T);
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(p) % 16 != 0 ||
       s_b * esize % 16 != 0 || s_h * esize % 16 != 0 ||
@@ -61,9 +79,8 @@ inline bool encode_map(CUtensorMap* map, const void* p, int esize, int D,
                                  static_cast<cuuint64_t>(s_b * esize)};
   const cuuint32_t box[4] = {32, 32, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            4, const_cast<void*>(p), dims, strides, box, step,
+  return fn(map, map_type<T>(), 4, const_cast<void*>(p), dims, strides,
+            box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
             esize == 4 ? CU_TENSOR_MAP_SWIZZLE_128B
                        : CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -71,16 +88,17 @@ inline bool encode_map(CUtensorMap* map, const void* p, int esize, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The map of one input (f32 or bf16) as (column in chunk, row, chunk,
-// head, batch): the head dim cut into chunks of 128 bytes (32 f32 or 64
-// bf16 columns), so that one box of `rows` rows x `chunks` chunks lands as
-// `chunks` pieces of 128-byte-swizzled rows, one after another.  False
-// where the tensor copies cannot take it (a base or a stride not a
-// multiple of 16 bytes).
-inline bool encode_chunked_map(CUtensorMap* map, const void* p, int esize,
-                               int D, int L, int H, int B, int64_t s_b,
-                               int64_t s_h, int64_t s_l, int rows,
-                               int chunks) {
+// The map of one input of type T (f32, bf16 or f16) as (column in chunk,
+// row, chunk, head, batch): the head dim cut into chunks of 128 bytes (32
+// f32 or 64 16-bit columns), so that one box of `rows` rows x `chunks`
+// chunks lands as `chunks` pieces of 128-byte-swizzled rows, one after
+// another.  False where the tensor copies cannot take it (a base or a
+// stride not a multiple of 16 bytes).
+template <typename T>
+inline bool encode_chunked_map(CUtensorMap* map, const void* p, int D,
+                               int L, int H, int B, int64_t s_b, int64_t s_h,
+                               int64_t s_l, int rows, int chunks) {
+  constexpr int esize = sizeof(T);
   const EncodeTiled fn = encode_tiled();
   const int cols = 128 / esize;
   if (fn == nullptr || reinterpret_cast<uintptr_t>(p) % 16 != 0 ||
@@ -98,9 +116,8 @@ inline bool encode_chunked_map(CUtensorMap* map, const void* p, int esize,
                              static_cast<cuuint32_t>(rows),
                              static_cast<cuuint32_t>(chunks), 1, 1};
   const cuuint32_t step[5] = {1, 1, 1, 1, 1};
-  return fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            5, const_cast<void*>(p), dims, strides, box, step,
+  return fn(map, map_type<T>(), 5, const_cast<void*>(p), dims, strides,
+            box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

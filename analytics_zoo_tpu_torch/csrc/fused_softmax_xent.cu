@@ -11,6 +11,9 @@
 // - backward `_bwd_kernel` (:134), launched by `_bwd_pallas` (:192,
 //   pl.pallas_call :205): dx = g * (exp(x - lse) - onehot(label)), written
 //   once, in the logits' type.
+// Logits are f32, bf16 or f16, read into f32 as the TPU kernels cast them;
+// dx is rounded to the logits' type once (f16: to nearest even, inf above
+// 65504, as the reference's cast).
 // A label outside [0, V) picks nothing (loss = lse), as in the TPU kernel.
 //
 // What bounds it on an H100: both are bound by bytes (a few operations per
@@ -26,6 +29,7 @@
 //   per thread.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,6 +45,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store_as(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // Merge the online pair (m2, s2) into (m, s).
@@ -112,24 +120,38 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+template <typename T>
+int launch_fwd(const void* logits, const int* labels, float* loss,
+               float* lse, int B, int V, cudaStream_t s) {
+  xent_fwd_kernel<T><<<B, NT, 0, s>>>(static_cast<const T*>(logits), labels,
+                                      loss, lse, V);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* logits, const int* labels, const float* lse,
+               const float* g, void* dx, int B, int V, cudaStream_t s) {
+  const dim3 grid(B, (V + COLS - 1) / COLS);
+  xent_bwd_kernel<T><<<grid, NT, 0, s>>>(static_cast<const T*>(logits),
+                                         labels, lse, g, static_cast<T*>(dx),
+                                         V);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 logits, contiguous (B, V); labels int32
-// (B,); loss and lse f32 (B,).  Returns 0, a cudaError_t code, or -1 for an
-// unknown dtype.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 logits, contiguous (B, V);
+// labels int32 (B,); loss and lse f32 (B,).  Returns 0, a cudaError_t
+// code, or -1 for an unknown dtype.
 extern "C" int zoo_softmax_xent_fwd(int dtype, const void* logits,
                                     const int* labels, float* loss,
                                     float* lse, int B, int V, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    xent_fwd_kernel<float><<<B, NT, 0, s>>>(
-        static_cast<const float*>(logits), labels, loss, lse, V);
-  else if (dtype == 1)
-    xent_fwd_kernel<__nv_bfloat16><<<B, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(logits), labels, loss, lse, V);
-  else
-    return -1;
-  return cudaGetLastError();
+  if (dtype == 0) return launch_fwd<float>(logits, labels, loss, lse, B, V, s);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16>(logits, labels, loss, lse, B, V, s);
+  if (dtype == 2) return launch_fwd<__half>(logits, labels, loss, lse, B, V, s);
+  return -1;
 }
 
 // dx: contiguous (B, V) in the logits' type; g: (B,) f32 cotangent of the
@@ -139,16 +161,11 @@ extern "C" int zoo_softmax_xent_bwd(int dtype, const void* logits,
                                     const float* g, void* dx, int B, int V,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, (V + COLS - 1) / COLS);
   if (dtype == 0)
-    xent_bwd_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(logits), labels, lse, g,
-        static_cast<float*>(dx), V);
-  else if (dtype == 1)
-    xent_bwd_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(logits), labels, lse, g,
-        static_cast<__nv_bfloat16*>(dx), V);
-  else
-    return -1;
-  return cudaGetLastError();
+    return launch_bwd<float>(logits, labels, lse, g, dx, B, V, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(logits, labels, lse, g, dx, B, V, s);
+  if (dtype == 2)
+    return launch_bwd<__half>(logits, labels, lse, g, dx, B, V, s);
+  return -1;
 }

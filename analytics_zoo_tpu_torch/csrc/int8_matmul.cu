@@ -4,7 +4,8 @@
 //
 //   out (M, N) = (x (M, K) @ float(W (K, N) int8)) * scale (N,)
 //
-// x is f32 or bf16, the sum is f32 and the result is cast to x's type.
+// x is f32, bf16 or f16, the sum is f32 and the result is cast to x's
+// type.
 //
 // Replaces the TPU kernel `_mm_kernel` (analytics_zoo_tpu/ops/pallas/
 // int8_matmul.py:70), launched by `_matmul_pallas` (:92, pl.pallas_call
@@ -31,10 +32,10 @@
 // The design:
 // - a block of two warpgroups owns a 128 x 128 output tile, each warpgroup
 //   64 rows, its f32 sums in registers, fed by `wgmma.mma_async` m64n128k16
-//   on bf16 operands;
+//   on 16-bit operands (bf16, or f16 for f16 x);
 // - K goes by in slices of 64 through a ring of 3 shared-memory stages
 //   filled by 16-byte cp.async copies that zero-fill past M, N and K, one
-//   slice ahead; with bf16 x a block takes 105 KB and 128 registers a
+//   slice ahead; with 16-bit x a block takes 105 KB and 128 registers a
 //   thread, so two blocks share an SM and one's copies and conversion run
 //   under the other's products;
 // - W arrives as int8 bytes, and each slice is converted once per block
@@ -43,10 +44,14 @@
 //   byte permute makes the f32 2^23 + 128 + b, one subtraction leaves b,
 //   and the upper 16 bits of that f32 are b as an exact bf16 (an int8 has
 //   at most 8 significant bits), so two weights pack into one register
-//   with one more permute;
-// - bf16 x is copied straight into the swizzled K-major layout and read
-//   by descriptor (A from shared memory); the product of slice s is in
-//   flight while slice s + 1 is converted;
+//   with one more permute.  For f16 x the tile is f16, made the same way
+//   with f16's own magic number: the byte permute makes the f16 1024 + 128
+//   + b (f16's spacing is 1 from 1024 to 2048), and one f16x2 subtraction
+//   leaves b exactly (|b| <= 128 < 2^11); the bf16 bit trick does not
+//   carry over, and which of the two a kernel runs is keyed on x's type;
+// - bf16 and f16 x are copied straight into the swizzled K-major layout
+//   and read by descriptor (A from shared memory); the product of slice s
+//   is in flight while slice s + 1 is converted;
 // - f32 x runs on the tensor cores as three bf16 products: each value is
 //   split in registers into x_hi = bf16(x), x_mid = bf16(x - x_hi) and
 //   x_lo = bf16(x - x_hi - x_mid), which sum to x exactly (24 mantissa
@@ -77,8 +82,11 @@
 // warp-specialised producers.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -91,7 +99,8 @@ constexpr int BN = 128;  // output columns per block
 constexpr int BK = 64;   // K slice per stage
 constexpr int NT = 256;
 constexpr int W_RAW = BK * BN;      // int8 W slice, 128 bytes a row
-constexpr int W_BF = BK * BN * 2;   // converted bf16 W slice, two 64-col blocks
+// converted 16-bit W slice (bf16, or f16 for f16 x), two 64-column blocks
+constexpr int W_BF = BK * BN * 2;
 
 template <typename T>
 struct Cfg;
@@ -100,6 +109,8 @@ struct Cfg<__nv_bfloat16> {
   static constexpr int ST = 3;                 // stages (105 KB a block)
   static constexpr int X_BYTES = BM * BK * 2;  // swizzled bf16 x slice
 };
+template <>
+struct Cfg<__half> : Cfg<__nv_bfloat16> {};    // the same layout in f16
 template <>
 struct Cfg<float> {
   static constexpr int ST = 3;
@@ -116,6 +127,9 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);  // above 65504: inf, as the reference's cast
+}
 
 // Four int8 in one word -> four bf16 in two words, exactly: byte b becomes
 // the f32 with bits 0x4B0000xx (2^23 + 128 + b), minus 2^23 + 128 is b, and
@@ -131,6 +145,20 @@ __device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t w) {
   const uint32_t f2 = byte(0x7542), f3 = byte(0x7543);
   return make_uint2(__byte_perm(f0, f1, 0x7632),
                     __byte_perm(f2, f3, 0x7632));
+}
+
+// Four int8 in one word -> four f16 in two words, exactly: byte b, as
+// u = b + 128 (its sign bit flipped), becomes the low byte of the f16
+// 0x6400 | u = 1024 + u (f16 steps by 1 from 1024 to 2048), and one f16x2
+// subtraction of 1024 + 128 (0x6480) leaves b.
+__device__ __forceinline__ uint2 int8x4_to_f16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  const uint32_t lo = __byte_perm(u, 0x64646464u, 0x4140);  // bytes 0, 1
+  const uint32_t hi = __byte_perm(u, 0x64646464u, 0x4342);  // bytes 2, 3
+  uint2 r;
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(r.x) : "r"(lo), "r"(0x64806480u));
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(r.y) : "r"(hi), "r"(0x64806480u));
+  return r;
 }
 
 // x = hi + mid + lo exactly, each a bf16 (for |x| well inside f32's normal
@@ -168,8 +196,8 @@ __device__ __forceinline__ void load_slice(const Tile<T>& tl, int s, int kt,
   const int tid = threadIdx.x;
   const int k0 = kt * BK;
   uint8_t* xs = tl.x(s);
-  if constexpr (sizeof(T) == 2) {
-    if (vec_x) {  // 128 rows x 8 chunks of 8 bf16: 32 rows a pass
+  if constexpr (is_16bit_v<T>) {
+    if (vec_x) {  // 128 rows x 8 chunks of 8 16-bit values: 32 rows a pass
       const int r = tid >> 3, ch = tid & 7, gk = k0 + ch * 8;
       const T* src = x + (int64_t)(m0 + r) * K + gk;
       const uint32_t dst = smem_u32(xs) + swz(r, ch);
@@ -180,12 +208,13 @@ __device__ __forceinline__ void load_slice(const Tile<T>& tl, int s, int kt,
                    in ? 16 : 0);
       }
     } else {
-      for (int e = tid; e < BM * BK; e += NT) {
+      const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+      for (int e = tid; e < BM * BK; e += NT) {  // the bits, as they are
         const int r = e >> 6, kk = e & 63;
         const int gm = m0 + r, gk = k0 + kk;
-        const T v = (gm < M && gk < K) ? x[(int64_t)gm * K + gk]
-                                       : __float2bfloat16_rn(0.f);
-        *reinterpret_cast<T*>(xs + swz(r, kk >> 3) + (kk & 7) * 2) = v;
+        const uint16_t v = (gm < M && gk < K) ? xb[(int64_t)gm * K + gk] : 0;
+        *reinterpret_cast<uint16_t*>(xs + swz(r, kk >> 3) + (kk & 7) * 2) =
+            v;
       }
     }
   } else {
@@ -230,14 +259,22 @@ __device__ __forceinline__ void load_slice(const Tile<T>& tl, int s, int kt,
   }
 }
 
-// int8 W slice of stage s -> bf16 tile `dst`: two 64-column blocks of 64
-// swizzled rows (row = k), MN-major for wgmma.
+// int8 W slice of stage s -> 16-bit tile `dst` of type W (bf16, or f16
+// for f16 x): two 64-column blocks of 64 swizzled rows (row = k),
+// MN-major for wgmma.
+template <typename W>
 __device__ __forceinline__ void convert_w(const uint8_t* src, uint8_t* dst) {
+  auto conv = [](uint32_t w) {
+    if constexpr (is_f16_v<W>)
+      return int8x4_to_f16x4(w);
+    else
+      return int8x4_to_bf16x4(w);
+  };
 #pragma unroll
   for (int i = 0; i < 4; ++i) {  // 1024 groups of 8 weights
     const int c = threadIdx.x + i * NT, r = c >> 4, j = c & 15;
     const uint2 raw = *reinterpret_cast<const uint2*>(src + r * 128 + j * 8);
-    const uint2 lo = int8x4_to_bf16x4(raw.x), hi = int8x4_to_bf16x4(raw.y);
+    const uint2 lo = conv(raw.x), hi = conv(raw.y);
     *reinterpret_cast<uint4*>(dst + (j >> 3) * (BK * 128) + swz(r, j & 7)) =
         make_uint4(lo.x, lo.y, hi.x, hi.y);
   }
@@ -259,14 +296,14 @@ __device__ __forceinline__ void store_tile(const float* ct,
       if (m0 + r >= M || n0 + col >= N) continue;
       const float* v = ct + r * C_LD + col;
       U* p = dst + (int64_t)(m0 + r) * N + n0 + col;
-      if constexpr (E == 4) {
+      if constexpr (std::is_same<U, float>::value) {
         *reinterpret_cast<float4*>(p) = *reinterpret_cast<const float4*>(v);
       } else {
         uint4 u;
-        u.x = pack_bf16(v[0], v[1]);
-        u.y = pack_bf16(v[2], v[3]);
-        u.z = pack_bf16(v[4], v[5]);
-        u.w = pack_bf16(v[6], v[7]);
+        u.x = pack2<U>(v[0], v[1]);
+        u.y = pack2<U>(v[2], v[3]);
+        u.z = pack2<U>(v[4], v[5]);
+        u.w = pack2<U>(v[6], v[7]);
         *reinterpret_cast<uint4*>(p) = u;
       }
     }
@@ -279,14 +316,16 @@ __device__ __forceinline__ void store_tile(const float* ct,
   }
 }
 
-// bf16 x: two blocks an SM (128 registers a thread); f32 x: one (its
-// stages take 168 KB, and its fragments more registers).
+// bf16 and f16 x: two blocks an SM (128 registers a thread); f32 x: one
+// (its stages take 168 KB, and its fragments more registers).  The W tile
+// is f16 for f16 x and bf16 otherwise (f32 x goes in as bf16 pieces).
 template <typename T>
-__global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
+__global__ void __launch_bounds__(NT, is_16bit_v<T> ? 2 : 1)
     int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                        const float* __restrict__ scale, T* __restrict__ out,
                        int M, int N, int K, bool vec_x, bool vec_w,
                        bool vec_out) {
+  using W = std::conditional_t<is_f16_v<T>, __half, __nv_bfloat16>;
   constexpr int ST = Cfg<T>::ST;
   constexpr int AHEAD = ST - 2;  // slices loaded ahead of the one multiplied
   extern __shared__ uint8_t smem_raw[];
@@ -321,19 +360,20 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
       load_slice<T>(tl, (s + AHEAD) % ST, s + AHEAD, x, w, M, N, K, m0, n0,
                     vec_x, vec_w);
     cp_async_commit();
-    convert_w(tl.wraw(s % ST), tl.wbf(s & 1));
+    convert_w<W>(tl.wraw(s % ST), tl.wbf(s & 1));
     fence_proxy_async();
     __syncthreads();
 
     const uint32_t wb = smem_u32(tl.wbf(s & 1));
-    if constexpr (sizeof(T) == 2) {
+    if constexpr (is_16bit_v<T>) {
       const uint32_t xa = smem_u32(tl.x(s % ST)) + wg * 64 * 128;
       fence_operand(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n128k16_ss<1>(acc, desc_b128(xa + kk * 32, 16, 1024),
-                               desc_b128(wb + kk * 2048, BK * 128, 1024), 1);
+        wgmma_m64n128k16_ss<T, 1>(acc, desc_b128(xa + kk * 32, 16, 1024),
+                                  desc_b128(wb + kk * 2048, BK * 128, 1024),
+                                  1);
       wgmma_commit();
       wgmma_wait<1>();  // the product of slice s - 1 is done
       fence_operand(acc);
@@ -367,7 +407,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
       for (int p = 2; p >= 0; --p) {
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k16_rs<1>(
+          wgmma_m64n128k16_rs<__nv_bfloat16, 1>(
               part, a[kk][p], desc_b128(wb + kk * 2048, BK * 128, 1024),
               p != 2 || kk != 0);
       }
@@ -428,9 +468,9 @@ int launch(const void* x, const int8_t* w, const float* scale, void* out,
 
 }  // namespace
 
-// x (m, k) f32 (dtype 0) or bf16 (dtype 1), w (k, n) int8, scale (n,) f32,
-// out (m, n) in x's type; all contiguous and row-major on one device, with
-// m, n, k >= 1.  Returns 0 or a cudaError_t.
+// x (m, k) f32 (dtype 0), bf16 (dtype 1) or f16 (dtype 2), w (k, n)
+// int8, scale (n,) f32, out (m, n) in x's type; all contiguous and
+// row-major on one device, with m, n, k >= 1.  Returns 0 or a cudaError_t.
 extern "C" int zoo_int8_matmul(const void* x, const int8_t* w,
                                const float* scale, void* out, int m, int n,
                                int k, int dtype, void* stream) {
@@ -439,5 +479,6 @@ extern "C" int zoo_int8_matmul(const void* x, const int8_t* w,
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch<float>(x, w, scale, out, m, n, k, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, w, scale, out, m, n, k, s);
+  if (dtype == 2) return launch<__half>(x, w, scale, out, m, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,10 +4,13 @@
 // 16-byte cp.async copies with zero fill, mbarriers and tensor copies
 // (TMA), the async-proxy fence, the
 // 128-byte-swizzled shared-memory layout that wgmma reads, its matrix
-// descriptors, and `wgmma.mma_async` on bf16 and tf32 operands with f32
-// accumulators, as inline PTX.  For tf32 (4-byte values) the same layout
-// holds 32 values a 128-byte row and the K step of 8 values is again 32
-// bytes; tf32 operands must be K-major.
+// descriptors, and `wgmma.mma_async` on bf16, f16 and tf32 operands with
+// f32 accumulators, as inline PTX.  The 16-bit helpers are templates on
+// the element type (`__nv_bfloat16` or `__half`): the two issue the same
+// instruction shapes and differ only in the type suffix, so a caller
+// instantiated for f16 cannot issue a `.bf16` product.  For tf32 (4-byte
+// values) the same layout holds 32 values a 128-byte row and the K step of
+// 8 values is again 32 bytes; tf32 operands must be K-major.
 //
 // The layout.  An operand tile is stored as "atoms" of 8 rows x 128 bytes
 // (8 rows x 64 bf16).  Row r of an atom sits at r * 128 bytes; its 16-byte
@@ -24,13 +27,25 @@
 // converted int8 W, whose rows run along K with N contiguous) the 8-row
 // groups along K are SBO = 1024 bytes apart and the next 64 columns of N
 // are LBO bytes away (the size of one 64-column block); wgmma reads it
-// with the transpose flag set, which bf16 allows.
+// with the transpose flag set, which bf16 and f16 allow.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace zoo_sm90 {
+
+// The input types of the kernels: f32, or one of the two 16-bit types,
+// which wgmma takes as they are (and which are exact in tf32).
+template <typename T>
+constexpr bool is_f16_v = std::is_same<T, __half>::value;
+template <typename T>
+constexpr bool is_16bit_v =
+    std::is_same<T, __nv_bfloat16>::value || is_f16_v<T>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -146,142 +161,192 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
 }
-
-// d (64 x N, f32) += A (64 x 16) * B (16 x N), bf16 operands.  `_ss`: A
-// and B from shared memory by descriptor; `_rs`: A from registers in the
-// accumulator-shaped fragment (four registers of two bf16 a thread).
-// TB = 1 reads B as MN-major.  scale_d = 0 overwrites d instead of adding.
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
-                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, %19;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+// The same for two f16 (round to nearest even; above 65504 is inf), in
+// the same order: lo in the low half, as the fragments pair them.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+// Two f32 -> one register of two T (bf16 or f16), lo first.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  static_assert(is_16bit_v<T>, "bf16 or f16");
+  if constexpr (is_f16_v<T>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
 }
 
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
-                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+// d (64 x N, f32) += A (64 x 16) * B (16 x N), T operands (bf16 or f16:
+// the same instruction, `.bf16` or `.f16`).  `_ss`: A and B from shared
+// memory by descriptor; `_rs`: A from registers in the accumulator-shaped
+// fragment (four registers of two T a thread).  TB = 1 reads B as
+// MN-major.  scale_d = 0 overwrites d instead of adding.
+#define ZOO_WGMMA_M64N32K16_SS(TY)                                            \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "                              \
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                    \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+template <typename T, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(
+    float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(is_16bit_v<T>, "bf16 or f16 operands");
+  if constexpr (is_f16_v<T>)
+    ZOO_WGMMA_M64N32K16_SS("f16");
+  else
+    ZOO_WGMMA_M64N32K16_SS("bf16");
 }
+#undef ZOO_WGMMA_M64N32K16_SS
 
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
-                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+#define ZOO_WGMMA_M64N64K16_SS(TY)                                            \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                                \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                              \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "                            \
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                    \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+template <typename T, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(is_16bit_v<T>, "bf16 or f16 operands");
+  if constexpr (is_f16_v<T>)
+    ZOO_WGMMA_M64N64K16_SS("f16");
+  else
+    ZOO_WGMMA_M64N64K16_SS("bf16");
 }
+#undef ZOO_WGMMA_M64N64K16_SS
 
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+#define ZOO_WGMMA_M64N128K16_SS(TY)                                           \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                                \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                              \
+      " %24, %25, %26, %27, %28, %29, %30, %31,"                              \
+      " %32, %33, %34, %35, %36, %37, %38, %39,"                              \
+      " %40, %41, %42, %43, %44, %45, %46, %47,"                              \
+      " %48, %49, %50, %51, %52, %53, %54, %55,"                              \
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "                            \
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                   \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                   \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                   \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                   \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+template <typename T, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(is_16bit_v<T>, "bf16 or f16 operands");
+  if constexpr (is_f16_v<T>)
+    ZOO_WGMMA_M64N128K16_SS("f16");
+  else
+    ZOO_WGMMA_M64N128K16_SS("bf16");
 }
+#undef ZOO_WGMMA_M64N128K16_SS
 
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+#define ZOO_WGMMA_M64N64K16_RS(TY)                                            \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                                \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                              \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "                            \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TB))
+template <typename T, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  static_assert(is_16bit_v<T>, "bf16 or f16 operands");
+  if constexpr (is_f16_v<T>)
+    ZOO_WGMMA_M64N64K16_RS("f16");
+  else
+    ZOO_WGMMA_M64N64K16_RS("bf16");
 }
+#undef ZOO_WGMMA_M64N64K16_RS
+
+#define ZOO_WGMMA_M64N128K16_RS(TY)                                           \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                                \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                              \
+      " %24, %25, %26, %27, %28, %29, %30, %31,"                              \
+      " %32, %33, %34, %35, %36, %37, %38, %39,"                              \
+      " %40, %41, %42, %43, %44, %45, %46, %47,"                              \
+      " %48, %49, %50, %51, %52, %53, %54, %55,"                              \
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "                            \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                   \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                   \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                   \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                   \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TB))
+template <typename T, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  static_assert(is_16bit_v<T>, "bf16 or f16 operands");
+  if constexpr (is_f16_v<T>)
+    ZOO_WGMMA_M64N128K16_RS("f16");
+  else
+    ZOO_WGMMA_M64N128K16_RS("bf16");
+}
+#undef ZOO_WGMMA_M64N128K16_RS
 
 // d (64 x 32, f32) += A (64 x 8) * B (8 x 32), tf32 operands read from
 // shared memory by descriptor, both K-major (tf32 has no transpose).  An

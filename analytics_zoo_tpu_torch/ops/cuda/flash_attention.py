@@ -10,7 +10,8 @@ kernels replace the TPU's, for any head dim:
   3xTF32; above 128 in column chunks that tensor copies bring in), on
   CUDA cores at any other; an additive bias broadcast over
   (B|1, H|1, Lq|1, Lk), end-aligned causal masking, segment ids (packed
-  sequences), ragged lengths, f32 or bf16 inputs, in-kernel dropout from
+  sequences), ragged lengths, f32, bf16 or f16 inputs (softmax math in
+  f32, the output in the input type), in-kernel dropout from
   the reference's position hash (:func:`keep_bits`, ported bit for bit),
   and the (m, l) statistics the backward reads;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_pallas``: dq, dk,
@@ -18,7 +19,8 @@ kernels replace the TPU's, for any head dim:
   saved statistics and the dropout mask re-derived from the same hash; on
   the tensor cores at every head dim that is a multiple of 64 (f32 as
   3xTF32, :func:`split_tf32` and :func:`matmul_3xtf32` are its arithmetic
-  in plain PyTorch, bf16 exactly in tf32; above 128 in 32-column chunks
+  in plain PyTorch, bf16 and f16 exactly in tf32; above 128 in 32-column
+  chunks
   that tensor copies bring in), on CUDA cores at any other.
 
 The gradient of a full (…, Lq, Lk) bias takes neither kernel: as in the
@@ -60,7 +62,7 @@ bwd_blockwise_count = 0  # full-bias gradients: the blockwise route
 
 _FWD = "flash_attention_fwd"
 _BWD = "flash_attention_bwd"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the q/k/v dtypes the kernels take
 KERNEL_DTYPES = tuple(_DTYPES)
 
@@ -446,9 +448,9 @@ def _check_cuda(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v on different devices")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
-                        f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}")
+        raise TypeError(f"flash_attention kernel takes float32, bfloat16 "
+                        f"or float16 q/k/v of one dtype, got {q.dtype}/"
+                        f"{k.dtype}/{v.dtype}")
     if k.shape != (b, h, lk, d) or v.shape != (b, h, lk, d):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")

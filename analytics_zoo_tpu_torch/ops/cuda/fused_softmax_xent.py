@@ -27,7 +27,7 @@ fwd_plain_count = 0     # calls that took the plain versions (CPU)
 bwd_plain_count = 0
 
 _KERNEL = "fused_softmax_xent"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def xent_reference(logits, labels):
@@ -89,8 +89,8 @@ def _check(logits, labels):
         raise ValueError(f"softmax_xent: no kernel for device "
                          f"{logits.device}")
     if logits.dtype not in _DTYPES:
-        raise TypeError(f"softmax_xent kernel takes float32 or bfloat16 "
-                        f"logits, got {logits.dtype}")
+        raise TypeError(f"softmax_xent kernel takes float32, bfloat16 or "
+                        f"float16 logits, got {logits.dtype}")
     if labels.device != logits.device:
         raise ValueError("softmax_xent: logits and labels on different "
                          "devices")

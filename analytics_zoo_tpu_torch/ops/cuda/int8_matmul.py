@@ -3,9 +3,10 @@
 Counterpart of ``analytics_zoo_tpu/ops/pallas/int8_matmul.py``.
 ``csrc/int8_matmul.cu`` replaces the TPU kernel ``_mm_kernel`` (launched by
 ``_matmul_pallas``): ``x (M, K) @ W (K, N)`` on the H100's tensor cores,
-with W int8 through device and shared memory, converted to bf16 on chip,
-the f32 sum multiplied by the per-output-channel scale (N,) once at the
-end and cast to x's dtype.  f32 x goes through the tensor cores as the
+with W int8 through device and shared memory, converted on chip to f16
+for f16 x and to bf16 otherwise, the f32 sum multiplied by the
+per-output-channel scale (N,) once at the end and cast to x's dtype (f32,
+bf16 or f16).  f32 x goes through the tensor cores as the
 three bf16 pieces of :func:`split_bf16x3`, which sum to x exactly; each
 64-deep K slice's products are summed apart and then added into the f32
 total, so the tensor cores' own rounding does not build up along K.  The
@@ -27,7 +28,7 @@ launch_count = 0
 plain_count = 0
 
 _KERNEL = "int8_matmul"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -52,7 +53,7 @@ def split_bf16x3(x):
 
 def int8_matmul(x, values, scale):
     """``x @ dequantize(values, scale)`` with the weight kept int8: x (M, K)
-    f32 or bf16, values (K, N) int8, scale (N,) f32 per output channel;
+    f32, bf16 or f16, values (K, N) int8, scale (N,) f32 per output channel;
     returns (M, N) in x's dtype."""
     global plain_count
     if x.device.type == "cpu":
@@ -61,13 +62,16 @@ def int8_matmul(x, values, scale):
     return _int8_matmul_cuda(x, values, scale)
 
 
-def _int8_matmul_cuda(x, values, scale):
-    global launch_count
+def _check(x, values, scale):
+    """Raise on what the kernel does not take: a device other than CUDA, an
+    x that is not a contiguous 2-D f32, bf16 or f16 tensor, values that
+    are not int8 (K, N), a scale that is not f32 (N,), or operands on other
+    devices or not contiguous."""
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: no kernel for device {x.device}")
     if x.dtype not in _DTYPES or x.dim() != 2:
-        raise TypeError(f"int8_matmul kernel takes a 2-D f32 or bf16 x, got "
-                        f"{x.dtype} {tuple(x.shape)}")
+        raise TypeError(f"int8_matmul kernel takes a 2-D f32, bf16 or f16 "
+                        f"x, got {x.dtype} {tuple(x.shape)}")
     if values.dtype != torch.int8 or values.dim() != 2 \
             or values.shape[0] != x.shape[1]:
         raise TypeError(f"int8_matmul kernel takes int8 values (K, N) with "
@@ -85,6 +89,11 @@ def _int8_matmul_cuda(x, values, scale):
             raise ValueError(f"int8_matmul kernel takes a contiguous {name}")
     if not x.is_contiguous():
         raise ValueError("int8_matmul kernel takes a contiguous x")
+
+
+def _int8_matmul_cuda(x, values, scale):
+    global launch_count
+    _check(x, values, scale)
     (m, k), n = x.shape, values.shape[1]
     if max(m, k, n) > _INT32_MAX:
         raise ValueError(f"int8_matmul: dimensions ({m}, {k}, {n}) exceed "

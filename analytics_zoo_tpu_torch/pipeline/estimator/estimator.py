@@ -29,8 +29,10 @@ where autograd records them, so gradients arrive in f32; predictions go up
 to f32 before the loss, the new state keeps the old state's dtypes, and
 the masters and Adam's moments stay f32.  The eval step casts the same way
 under the estimator's own plan (not a fit's ``plan=``), as the reference's
-``_resolved_plan()`` gives it.  On the card a plan whose compute dtype the
-flash kernels do not take (f16) raises before the first step.
+``_resolved_plan()`` gives it.  Every compute dtype a plan can name (bf16,
+f16) has its kernel instances on the card, so an f16 plan
+(``"dp+f16"``, ``ZOO_DTYPE_POLICY=".*=f16"``) trains there as bf16 does,
+with no loss scaling (the reference has none).
 
 Batches come from ``FeatureSet.batches`` with the reference's seeded
 shuffle, so both packages see the same batches in the same order.
@@ -66,7 +68,6 @@ from analytics_zoo_tpu_torch.common.utils import (
     tree_map_many,
 )
 from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
-from analytics_zoo_tpu_torch.ops.cuda.flash_attention import KERNEL_DTYPES
 from analytics_zoo_tpu_torch.parallel.plan import (
     cast_to_compute,
     compile_step,
@@ -251,19 +252,6 @@ class Estimator:
                 'item 19); set a concrete policy such as "bf16_mixed"')
         return with_dtype_policy(plan, policy)
 
-    def _check_compute_dtype(self, plan, device):
-        """Refuse, before any step, a plan whose compute dtype the flash
-        kernels do not take on the card (f16), rather than fail inside a
-        step.  The context's own ``compute_dtype`` is not checked here."""
-        dtype = plan.compute_cast_dtype()
-        if device.type == "cuda" and dtype is not None \
-                and dtype not in KERNEL_DTYPES:
-            raise NotImplementedError(
-                f"plan {plan.name!r} computes in {dtype}, which the flash "
-                "attention kernels do not take on the card yet (ROADMAP "
-                "queue 2 item E: their f16 instances); use bf16 "
-                "(mixed_precision()) there, or f16 on the CPU")
-
     def train(self, train_set: FeatureSet, batch_size: int = 32,
               nb_epoch: int | None = None,
               end_trigger: ZooTrigger | None = None,
@@ -289,11 +277,9 @@ class Estimator:
         seed = self.ctx.seed if seed is None else seed
         params, state = self.model.build_params()
         device = self.model.device
-        self._check_compute_dtype(plan, device)
         casts = self.compute_casts(plan, params)
         eval_casts = None
         if eval_plan is not None:
-            self._check_compute_dtype(eval_plan, device)
             eval_casts = self.compute_casts(eval_plan, params)
         self._plan_record = {"name": plan.name,
                              "dtype_policy": plan.dtype_policy_str()}
@@ -366,7 +352,6 @@ class Estimator:
                 "fresh random weights; metrics reflect an untrained model")
         params, state = self.model.build_params()
         plan = self._resolve_plan()
-        self._check_compute_dtype(plan, self.model.device)
         return compile_step(self._evaluate_with, plan, label="eval_step")(
             params, state, val_set, batch_size,
             self.compute_casts(plan, params))

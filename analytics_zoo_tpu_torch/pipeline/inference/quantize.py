@@ -104,10 +104,13 @@ def quantized_matmul(x, qt):
     ``int8_matmul``, a 2-D weight with its scale on the last axis goes to
     :func:`~analytics_zoo_tpu_torch.ops.cuda.int8_matmul.int8_matmul` (the
     kernel for a CUDA tensor, its plain version for a CPU one): the weight
-    stays one byte per element.  Every other case (no plan, no rule, an
-    explicit ``"xla"`` pick, 3-D values, an axis-0 scale) is
-    dequantize-then-matmul, as in the reference.  A plain tensor is a plain
-    matmul."""
+    stays one byte per element.  x may have any leading dims and strides
+    (a (B, L, K) activation, a transposed view): they are flattened into
+    one contiguous (M, K) operand, so one kernel launch covers the call,
+    and the output takes x's leading dims back.  Every other case (no
+    plan, no rule, an explicit ``"xla"`` pick, 3-D values, an axis-0 scale)
+    is dequantize-then-matmul, as in the reference.  A plain tensor is a
+    plain matmul."""
     if isinstance(qt, QuantizedTensor) and qt.values.dim() == 2 \
             and qt.axis == qt.values.dim() - 1:
         from analytics_zoo_tpu_torch.parallel.plan import resolve_kernel
@@ -117,7 +120,9 @@ def quantized_matmul(x, qt):
                 int8_matmul,
             )
 
-            return int8_matmul(x, qt.values, qt.scale.reshape(-1))
+            x2 = x.reshape(-1, x.shape[-1]).contiguous()
+            out = int8_matmul(x2, qt.values, qt.scale.reshape(-1))
+            return out.reshape(*x.shape[:-1], out.shape[-1])
     if isinstance(qt, QuantizedTensor):
         return x @ qt.dequantize(x.dtype)
     return x @ qt

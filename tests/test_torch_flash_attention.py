@@ -95,19 +95,25 @@ def test_plain_flash_matches_jax(case, monkeypatch):
         np.testing.assert_array_equal(got[:, :, :lq - lk], 0.0)
 
 
-def test_plain_flash_bf16_matches_jax():
-    """bf16 in, f32 math, bf16 out: both round the same f32 result once."""
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2 ** -8),
+                                       ("float16", 2 ** -11)],
+                         ids=["bf16", "f16"])
+def test_plain_flash_bf16_matches_jax(dtype, tol):
+    """16-bit in, f32 math, 16-bit out: both round the same f32 result once,
+    so they agree within one step of the type (bf16 2**-8, f16 2**-11
+    relative; the outputs here lie below 2)."""
     q, k, v, bias = _inputs(2, 2, 256, 256, 64, "padding", seed=7)
-    as_bf16 = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
-    got = tfa.flash_attention(*as_bf16, False, None,
+    as16 = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)]
+    got = tfa.flash_attention(*as16, False, None,
                               bias=torch.from_numpy(bias))
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == getattr(torch, dtype)
     want = _attention_reference(
-        *[jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
-          for t in as_bf16], False, 1.0 / 8.0, bias=jnp.asarray(bias))
+        *[jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype))
+          for t in as16], False, 1.0 / 8.0, bias=jnp.asarray(bias))
+    assert want.dtype == getattr(jnp, dtype)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
-                               rtol=2 ** -8, atol=2 ** -8)
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("q_shape,mask_shape,mask_ndim,k_len", [

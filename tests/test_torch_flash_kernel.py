@@ -1,10 +1,14 @@
 """The port's CUDA flash-attention kernel and its dispatch, without JAX.
 
 The ``cuda``-marked tests hold the kernel against its plain version on a
-GPU (f32 within 1e-4; bf16 inputs within 2e-2 of the plain version run in
-f32: the tensor-core bodies at head dims 64 and 128, f32 as 3xTF32, bf16
-also with dropout and the (m, l) statistics, and the chunked tensor-core
-body at 192 and 256) and skip where none is visible.  This file imports
+GPU (f32 within 1e-4; bf16 inputs within 2e-2 and f16 inputs within 4e-3
+of the plain version run in f32: f16 rounds P and the output to 11
+significant bits, a step of at most 2**-9 for outputs below 4, against
+bf16's 8; the tensor-core bodies at head dims 64 and 128, f32 as 3xTF32,
+bf16 and f16 also with dropout and the (m, l) statistics, and the chunked
+tensor-core body at 192 and 256) and skip where none is visible.  A body
+that read f16 bits as bf16 (or issued a bf16 product on them) would miss
+the f16 tolerance by orders of magnitude.  This file imports
 nothing from the JAX package, so on a machine with a GPU and no JAX it
 runs alone:
 
@@ -32,6 +36,9 @@ CASES = [
     (1, 2, 256, 301, 192, False, "full"),
     (2, 2, 130, 200, 256, False, "heads"),
 ]
+
+
+F16_TOL = 4e-3
 
 
 @pytest.fixture
@@ -69,8 +76,9 @@ def _inputs(b, h, lq, lk, d, bias_kind, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)],
-                         ids=["f32", "bf16"])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, F16_TOL)],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
 def test_cuda_kernel_matches_plain(case, dtype, tol, cuda_device):
     b, h, lq, lk, d, causal, bias_kind = case
@@ -90,13 +98,18 @@ def test_cuda_kernel_matches_plain(case, dtype, tol, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, F16_TOL)],
+                         ids=["bf16", "f16"])
 @pytest.mark.parametrize("d", [64, 128])
-def test_cuda_kernel_bf16_dropout_stats_match_plain(d, cuda_device):
-    """The tensor-core route with dropout 0.1 and the (m, l) statistics:
-    the dropout mask is the hash's, bit for bit, so out, m and l agree with
-    the plain version run in f32 within the bf16 tolerance."""
+def test_cuda_kernel_bf16_dropout_stats_match_plain(d, dtype, tol,
+                                                    cuda_device):
+    """The 16-bit tensor-core route with dropout 0.1 and the (m, l)
+    statistics: the dropout mask is the hash's, bit for bit, so out, m and
+    l agree with the plain version run in f32 within the input type's
+    tolerance."""
     q, k, v, bias = _inputs(4, 3, 320, 320, d, "padding", cuda_device)
-    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
     seed, scale = (0x2545F491, 0x9E3779B9), 1.0 / np.sqrt(d)
     before = tfa.launch_count
     got, m, l = tfa._flash_cuda(q, k, v, False, scale, bias, 0.1, seed,
@@ -105,9 +118,10 @@ def test_cuda_kernel_bf16_dropout_stats_match_plain(d, cuda_device):
     assert tfa.launch_count == before + 1
     want, w_m, w_l = tfa.attention_reference(
         q.float(), k.float(), v.float(), False, scale, bias, 0.1, seed, True)
-    assert (got.float() - want).abs().max().item() <= 2e-2
-    assert (m - w_m).abs().max().item() <= 2e-2
-    assert ((l - w_l).abs() / w_l.abs().clamp_min(1.0)).max().item() <= 2e-2
+    assert got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= tol
+    assert (m - w_m).abs().max().item() <= tol
+    assert ((l - w_l).abs() / w_l.abs().clamp_min(1.0)).max().item() <= tol
     assert got[-1].float().abs().max().item() == 0.0
 
 

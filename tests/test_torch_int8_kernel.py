@@ -6,8 +6,13 @@ tail inside the last 64-slice; K and N that are not 16-byte rows, which
 take the kernel's element loads), the BERT-base head (8, 768, 2) and
 pooler, the QKV and out shapes of one 8 x 512 micro-batch, and K of 3072,
 4096 and 8192, each with f32 x (relative L2 <= 1e-5: three bf16
-tensor-core products a value, summed slice by slice into f32) and bf16 x
-(<= 1e-2 against the plain version in f32: the output's bf16 rounding).
+tensor-core products a value, summed slice by slice into f32), bf16 x
+(<= 1e-2 against the plain version in f32: the output's bf16 rounding)
+and f16 x (<= 2e-3: W converted to f16 on chip, f16 products; the
+output's f16 rounding, 2**-12 relative, and the tensor cores' f32
+accumulator kept over all of K, whose rounding grows with K).  Then
+``quantized_matmul`` under the kernel plan on a (B, L, K) x and on a
+transposed view: one launch each, the output in x's leading dims.
 This file imports nothing from the JAX package, so on a machine with a
 GPU and no JAX it runs alone:
 
@@ -39,6 +44,7 @@ from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
 
 F32_TOL = 1e-5
 BF16_TOL = 1e-2
+F16_TOL = 2e-3
 
 
 @pytest.fixture
@@ -64,8 +70,9 @@ def _rel(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
-                                       (torch.bfloat16, BF16_TOL)],
-                         ids=["f32", "bf16"])
+                                       (torch.bfloat16, BF16_TOL),
+                                       (torch.float16, F16_TOL)],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("shape", [(13, 200, 70), (1, 33, 1), (8, 768, 2),
                                    (8, 768, 768), (130, 3072, 131),
                                    (4096, 768, 2304), (40, 1000, 256),
@@ -97,6 +104,25 @@ def test_quantized_matmul_launches_under_the_kernel_plan(cuda_device):
     torch.cuda.synchronize()
     assert tim.launch_count == before + 1
     assert _rel(out, xla) <= F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nd", "transposed"])
+def test_quantized_matmul_takes_any_x_in_one_launch(layout, cuda_device):
+    """A (B, L, K) x and a transposed (M, K) view: ``quantized_matmul``
+    flattens x into one contiguous (M, K) operand, launches the kernel once
+    and gives the output x's leading dims, as x @ dequantize(values)."""
+    x, w, s = _inputs(2 * 96, 256, 80, cuda_device, seed=2)
+    x = x.reshape(2, 96, 256) if layout == "nd" else x.t().contiguous().t()
+    assert layout == "nd" or not x.is_contiguous()
+    qt = QuantizedTensor(w, s.reshape(1, -1), 1)
+    before = tim.launch_count
+    out = compile_step(lambda: quantized_matmul(x, qt),
+                       with_kernels(int8_serving()))()
+    torch.cuda.synchronize()
+    assert tim.launch_count == before + 1
+    assert out.shape == x.shape[:-1] + (80,)
+    assert _rel(out, x @ qt.dequantize(x.dtype)) <= F32_TOL
 
 
 class _OnCuda:

@@ -10,8 +10,11 @@ Tolerances (relative L2 over the output):
   another order; measured ~1e-7);
 - f32 against the interpret-mode kernel: 1e-5 (it sums over K in blocks of
   256 into a scratch accumulator);
-- bf16 x: both round the f32 result to bf16 once, so they agree within one
-  bf16 step of the output, 2**-8 relative.
+- bf16 and f16 x: both round the f32 result to the type once, so they
+  agree within one step of the output: 2**-8 relative in bf16, 2**-10 in
+  f16 (measured at most 1.8e-8);
+- ``quantized_matmul`` on a (B, L, K) x and on a transposed (M, K) view
+  under each package's ``with_kernels(int8_serving())``: 1e-5 (f32).
 
 ``quantized_matmul`` routing is read from ``kernel_invocation_counts``: a
 kernel pick reaches the wrapper (here its plain version, ``plain`` +1), the
@@ -38,6 +41,7 @@ from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
 
 F32_TOL = 1e-5
 BF16_TOL = 2 ** -8
+F16_TOL = 2 ** -10
 
 # (M, K, N): ragged on every axis, the BERT-base head, K = 3072 (out)
 SHAPES = [(13, 200, 70), (8, 768, 2), (16, 3072, 64)]
@@ -76,19 +80,23 @@ def test_plain_matches_jax_reference_f32(shape):
     assert _rel(_as_np(got), want) <= F32_TOL
 
 
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", BF16_TOL),
+                                       ("float16", F16_TOL)],
+                         ids=["bf16", "f16"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_plain_matches_jax_reference_bf16(shape):
+def test_plain_matches_jax_reference_bf16(shape, dtype, tol):
     from analytics_zoo_tpu.ops.pallas import int8_matmul as jim
 
     x, w, s = _inputs(*shape, seed=1)
-    got = _port(x, w, s, torch.bfloat16)
-    want = jim._reference(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
-                          jnp.asarray(s))
-    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
-    assert _rel(_as_np(got), np.asarray(want, np.float32)) <= BF16_TOL
+    got = _port(x, w, s, getattr(torch, dtype))
+    want = jim._reference(jnp.asarray(x, getattr(jnp, dtype)),
+                          jnp.asarray(w), jnp.asarray(s))
+    assert got.dtype == getattr(torch, dtype) \
+        and want.dtype == getattr(jnp, dtype)
+    assert _rel(_as_np(got), np.asarray(want, np.float32)) <= tol
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_plain_matches_jax_interpret_kernel(shape, dtype, monkeypatch):
     from analytics_zoo_tpu.ops.pallas import int8_matmul as jim
@@ -100,7 +108,8 @@ def test_plain_matches_jax_interpret_kernel(shape, dtype, monkeypatch):
                            jnp.asarray(w), jnp.asarray(s))
     assert jim.invocation_counts["pallas"] == before + 1
     got = _port(x, w, s, getattr(torch, dtype))
-    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    tol = {"float32": F32_TOL, "bfloat16": BF16_TOL,
+           "float16": F16_TOL}[dtype]
     assert _rel(_as_np(got), np.asarray(want, np.float32)) <= tol
 
 
@@ -182,6 +191,39 @@ def test_quantized_matmul_shapes_the_kernel_does_not_take():
     out, moved = _routes(torch.from_numpy(x), dense, plan)
     assert moved == {"kernel": 0, "plain": 0}
     torch.testing.assert_close(out, torch.from_numpy(x) @ dense)
+
+
+@pytest.mark.parametrize("layout", ["nd", "transposed"])
+def test_quantized_matmul_any_x_matches_jax(layout):
+    """A (B, L, K) x and a transposed (M, K) view under each package's
+    ``with_kernels(int8_serving())``: the port flattens x into one
+    contiguous (M, K) operand for one call of the wrapper (its plain
+    version here; one launch on a GPU) and gives the output x's leading
+    dims; the reference's ``x @ dequantize(values)`` agrees."""
+    from analytics_zoo_tpu.parallel.plan import (
+        _active_plan as jax_active,
+        int8_serving as jax_int8,
+        with_kernels as jax_with_kernels,
+    )
+    from analytics_zoo_tpu.pipeline.inference.quantize import (
+        QuantizedTensor as JQT,
+        quantized_matmul as jax_qmm,
+    )
+
+    x, w, s = _inputs(2 * 24, 96, 40, seed=6)
+    if layout == "nd":
+        x = x.reshape(2, 24, 96)
+        tx = torch.from_numpy(x)
+    else:
+        tx = torch.from_numpy(np.ascontiguousarray(x.T)).t()
+        assert not tx.is_contiguous()
+    got, moved = _routes(tx, _qt(w, s), with_kernels(int8_serving()))
+    assert moved == {"kernel": 0, "plain": 1}
+    with jax_active(jax_with_kernels(jax_int8())):
+        want = jax_qmm(jnp.asarray(x), JQT(jnp.asarray(w),
+                                           jnp.asarray(s).reshape(1, -1), 1))
+    assert got.shape == x.shape[:-1] + (40,) == tuple(want.shape)
+    assert _rel(got.numpy(), np.asarray(want)) <= F32_TOL
 
 
 def test_kernel_route_matches_jax_kernel_route(monkeypatch):

@@ -20,16 +20,18 @@ packages:
   ``evaluate`` after the fit on the reference's trained weights, which
   computes in f32 in both packages (1e-5 relative; in bf16 it would be
   ~1e-3 off);
-- the bf16 flash forward with its (m, l) statistics and the bf16 backward
-  (B1 H2 L256 D64): the port's plain versions against the reference's
-  ``_flash_fwd_pallas`` and ``_flash_bwd_pallas`` in interpret mode.
-  (m, l) within 1e-5 relative (f32 sums of exact products of bf16
-  inputs); the output and gradients within 1e-2 of each tensor's largest
-  magnitude (both compute in f32 and round the results to bf16, so f32
-  sums in another order can land one bf16 step, 2**-8 relative, apart;
-  measured at most 1.1e-3).
-- f16 on the card: refused before the first step (the flash kernels take
-  f32 and bf16);
+- the bf16 and f16 flash forward with its (m, l) statistics and the
+  16-bit backward (B1 H2 L256 D64): the port's plain versions against the
+  reference's ``_flash_fwd_pallas`` and ``_flash_bwd_pallas`` in interpret
+  mode.  (m, l) within 1e-5 relative (f32 sums of exact products of
+  16-bit inputs); the output and gradients within 1e-2 (bf16) and 2e-3
+  (f16) of each tensor's largest magnitude (both compute in f32 and round
+  the results to the input type, so f32 sums in another order can land
+  one step apart: 2**-8 relative in bf16, measured at most 1.1e-3; 2**-11
+  in f16).
+- f16 on the card: every kernel's dtype check takes it (``KERNEL_DTYPES``
+  and the wrappers' checks, before any library is loaded), so nothing
+  refuses an f16 plan;
 - the dtype policy in ``fit``: ``ZOO_DTYPE_POLICY`` overlaid on a plan
   without dtype rules and beaten by an explicit one, the same plan records
   and losses as the reference's.
@@ -50,6 +52,7 @@ LOSS_RTOL = 1e-2
 EVAL_RTOL = 1e-5
 FLASH_STATS_RTOL = 1e-5
 FLASH_BF16_TOL = 1e-2
+FLASH_F16_TOL = 2e-3
 
 
 @pytest.fixture(autouse=True)
@@ -258,28 +261,63 @@ def test_dtype_policy_in_fit_matches_jax(plan, monkeypatch, tmp_path):
     assert tnet._estimator._plan_record["name"] == want
 
 
-def test_f16_compute_on_the_card_is_refused_before_a_step():
-    """The flash kernels take f32 and bf16: on a CUDA device a plan that
-    computes in f16 raises before the first step; the CPU trains it
-    through the plain versions.  The context's own ``compute_dtype``
-    (``ZOO_COMPUTE_DTYPE``) is not refused."""
+class _OnCuda:
+    """A CPU tensor that reports a CUDA device: what a wrapper's checks see
+    for a CUDA tensor, on a machine that has none."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda")
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def test_f16_compute_on_the_card_is_refused_before_a_step(monkeypatch):
+    """Nothing refuses f16 on the card any more: every compute dtype a plan
+    or ``ZOO_COMPUTE_DTYPE`` can name is in ``KERNEL_DTYPES``, the
+    estimator has no dtype check left, and the flash, cross-entropy and
+    int8 wrappers' checks take f16 CUDA tensors before any kernel library
+    is loaded (they still refuse f64)."""
+    from analytics_zoo_tpu_torch.ops.cuda import flash_attention as tfa
+    from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as txent
+    from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as tim
     from analytics_zoo_tpu_torch import init_zoo_context
-    from analytics_zoo_tpu_torch.pipeline.api import keras as tk
-    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
     from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
 
-    init_zoo_context(seed=3, device="cpu")
-    est = Estimator(_probe(tk, tl))
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    for plan in ("dp+f16", "dp+f16+kernels"):
-        with pytest.raises(NotImplementedError, match="queue 2 item E"):
-            est._check_compute_dtype(tplan.resolve_plan(plan), cuda)
-        est._check_compute_dtype(tplan.resolve_plan(plan), cpu)
-    for plan in ("dp", "dp+bf16", "dp+int8", tplan.mixed_precision()):
-        est._check_compute_dtype(tplan.resolve_plan(plan), cuda)
-    est.ctx = init_zoo_context(seed=3, device="cpu", compute_dtype="f16")
-    for plan in ("dp", "dp+bf16"):
-        est._check_compute_dtype(tplan.resolve_plan(plan), cuda)
+    assert torch.float16 in tfa.KERNEL_DTYPES
+    ctx = init_zoo_context(seed=3, device="cpu", compute_dtype="f16")
+    assert ctx.compute_dtype == torch.float16 in tfa.KERNEL_DTYPES
+    for plan in ("dp+f16", "dp+f16+kernels", "dp+bf16", "dp",
+                 tplan.with_dtype_policy(tplan.resolve_plan("dp"),
+                                         ".*=f16")):
+        dtype = tplan.resolve_plan(plan).compute_cast_dtype()
+        assert dtype is None or dtype in tfa.KERNEL_DTYPES
+    assert not hasattr(Estimator, "_check_compute_dtype")
+
+    def no_library(*a):
+        raise AssertionError("a kernel library was loaded")
+
+    for mod in (tfa, txent, tim):
+        monkeypatch.setattr(mod, "_library", no_library)
+    for dtype in (torch.float16, torch.bfloat16, torch.float32):
+        q = _OnCuda(torch.zeros(1, 2, 128, 64, dtype=dtype))
+        tfa._check_cuda(q, q, q)
+        txent._check(_OnCuda(torch.zeros(8, 2, dtype=dtype)),
+                     _OnCuda(torch.zeros(8, dtype=torch.int64)))
+        tim._check(_OnCuda(torch.zeros(8, 64, dtype=dtype)),
+                   _OnCuda(torch.zeros(64, 16, dtype=torch.int8)),
+                   _OnCuda(torch.zeros(16)))
+    q = _OnCuda(torch.zeros(1, 2, 128, 64, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float16"):
+        tfa._check_cuda(q, q, q)
+    with pytest.raises(TypeError, match="float16"):
+        txent._check(_OnCuda(torch.zeros(8, 2, dtype=torch.float64)),
+                     _OnCuda(torch.zeros(8, dtype=torch.int64)))
+    with pytest.raises(TypeError, match="f16"):
+        tim._check(_OnCuda(torch.zeros(8, 64, dtype=torch.float64)),
+                   _OnCuda(torch.zeros(64, 16, dtype=torch.int8)),
+                   _OnCuda(torch.zeros(16)))
 
 
 def test_fit_mixed_precision_dense_probe_matches_jax(tmp_path):
@@ -347,9 +385,14 @@ def test_fit_mixed_precision_bert_matches_jax(monkeypatch, tmp_path):
     _check_evaluates_like_reference(jnet, tnet, x, y, 8)
 
 
-def test_flash_bf16_forward_stats_and_backward_match_jax(monkeypatch):
-    """bf16 q, k, v, a padding bias and dropout 0.1 (the hash is the same
-    in both packages): the forward with (m, l) and dq, dk, dv."""
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", FLASH_BF16_TOL),
+                                       ("float16", FLASH_F16_TOL)],
+                         ids=["bf16", "f16"])
+def test_flash_bf16_forward_stats_and_backward_match_jax(dtype, tol,
+                                                         monkeypatch):
+    """16-bit q, k, v, a padding bias and dropout 0.1 (the hash is the same
+    in both packages): the forward with (m, l) and dq, dk, dv, the
+    backward through the reference's ``_flash_bwd_pallas``."""
     from analytics_zoo_tpu.ops.pallas import flash_attention as jfa
     from analytics_zoo_tpu_torch.ops.cuda import flash_attention as tfa
 
@@ -362,7 +405,8 @@ def test_flash_bf16_forward_stats_and_backward_match_jax(monkeypatch):
     bias = np.where(keep, 0.0, np.finfo(np.float32).min).astype(
         np.float32)[None, None, None, :]
     seed = np.array([-1234567, 987654321], np.int32)
-    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    jq, jk, jv, jg = (jnp.asarray(a, getattr(jnp, dtype))
+                      for a in (q, k, v, g))
     tq, tk, tv, tg = (params_from_jax(np.asarray(a), device="cpu")
                       for a in (jq, jk, jv, jg))
     scale = 1.0 / np.sqrt(d)
@@ -375,8 +419,9 @@ def test_flash_bf16_forward_stats_and_backward_match_jax(monkeypatch):
                                   torch.from_numpy(bias), p,
                                   tfa.normalize_seed(seed),
                                   return_stats=True)
-    assert got[0].dtype == torch.bfloat16 and want[0].dtype == jnp.bfloat16
-    _close(got[0], want[0], FLASH_BF16_TOL)
+    assert got[0].dtype == getattr(torch, dtype) \
+        and want[0].dtype == getattr(jnp, dtype)
+    _close(got[0], want[0], tol)
     for a, w in zip(got[1:], want[1:]):
         np.testing.assert_allclose(a.numpy(), np.asarray(w),
                                    rtol=FLASH_STATS_RTOL)
@@ -395,10 +440,10 @@ def test_flash_bf16_forward_stats_and_backward_match_jax(monkeypatch):
                               bias=torch.from_numpy(bias), dropout_p=p,
                               dropout_seed=seed)
     out.backward(tg)
-    _close(out.detach(), jout, FLASH_BF16_TOL)
+    _close(out.detach(), jout, tol)
     for t, w in zip(leaves, jgrads):
-        assert t.grad.dtype == torch.bfloat16
-        _close(t.grad, w, FLASH_BF16_TOL)
+        assert t.grad.dtype == getattr(torch, dtype)
+        _close(t.grad, w, tol)
 
 
 def _close(got, want, tol):

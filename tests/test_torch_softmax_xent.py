@@ -60,20 +60,30 @@ def test_forward_backward_match_jax(shape, monkeypatch):
                                atol=TOL)
 
 
-def test_bf16_logits_give_bf16_gradients():
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2 ** -7),
+                                       ("float16", 2 ** -10)],
+                         ids=["bf16", "f16"])
+def test_bf16_logits_give_bf16_gradients(dtype, tol):
+    """16-bit logits: the loss in f32, the gradient in the logits' type,
+    within one step of it of the reference's (bf16 2**-7, f16 2**-10: both
+    round an f32 gradient of magnitude below 2 once); the loss and lse as
+    the reference's on the same 16-bit logits."""
     x, labels, g = _inputs(8, 300, seed=1)
-    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
     loss = tfx.softmax_xent(tx, torch.from_numpy(labels))
     loss.backward(torch.from_numpy(g))
-    assert loss.dtype == torch.float32 and tx.grad.dtype == torch.bfloat16
-    want = jfx._reference_bwd(
-        jnp.asarray(tx.detach().float().numpy()).astype(jnp.bfloat16),
-        jnp.asarray(labels), jnp.asarray(tfx.xent_reference(
-            tx.detach(), torch.from_numpy(labels))[1].numpy()),
-        jnp.asarray(g))
+    assert loss.dtype == torch.float32 \
+        and tx.grad.dtype == getattr(torch, dtype)
+    jx = jnp.asarray(tx.detach().float().numpy()).astype(getattr(jnp, dtype))
+    want_loss, want_lse = jfx._reference_fwd(jx, jnp.asarray(labels))
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(want_loss),
+                               rtol=TOL, atol=TOL)
+    want = jfx._reference_bwd(jx, jnp.asarray(labels), want_lse,
+                              jnp.asarray(g))
+    assert want.dtype == getattr(jnp, dtype)
     np.testing.assert_allclose(tx.grad.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
-                               rtol=2 ** -7, atol=2 ** -7)
+                               rtol=tol, atol=tol)
 
 
 def test_labels_get_no_gradient_and_shapes_are_checked():

@@ -9,32 +9,37 @@ against its plain version on a GPU and skip where none is visible:
   lq > lk, dropout 0.1, a fully masked row; f32 within 2e-4 of the plain
   version (relative to the largest value when it exceeds 1: both sum
   512-long products in f32, in different orders), bf16 inputs within
-  2e-2 of the plain version run in f32;
+  2e-2 and f16 inputs within 4e-3 of the plain version run in f32 (both
+  compute in f32 and round P, the output and the gradients to the input
+  type: 8 significant bits in bf16, 11 in f16);
 - the f32 forward on the tensor cores (3xTF32) within 1e-4 of the plain
   version on every case and at head dims 192 to 1024 (the chunked
-  tensor-core body, also in bf16 within the bf16 tolerance), and the f32
+  tensor-core body, also in bf16 and f16 within their tolerances), and
+  the f32
   backward within 1e-5 of the largest gradient, fed the same forward
   outputs as its plain version, on every case and at head dims 192, 256
   and 384 (the chunked tensor-core body);
 - every body of both kernels with segment ids (2-4 packed sequences a
   row), causal masking, the padding bias and dropout 0.1, at head dims 64
   and 128 (tensor cores in both), 192, 256, 320 and 512 (the chunked
-  tensor-core bodies) and 96 (CUDA cores in both), f32 and bf16, within
-  the tolerances above;
+  tensor-core bodies) and 96 (CUDA cores in both), f32, bf16 and f16,
+  within the tolerances above;
 - the gradient of a full bias through autograd: the blockwise route,
   against the plain backward;
 - one ``fit`` step of a BERT classifier with head dim 192 (hidden 384, 2
   heads) on the GPU against the same step on the CPU;
 - ``fit`` under ``mixed_precision()`` (hidden 128, head dim 64): every
-  flash launch on bf16 q/k/v, f32 masters and moments, and an ``f16`` plan
-  refused before any step (the kernels take f32 and bf16);
+  flash launch on bf16 q/k/v, f32 masters and moments; then under
+  ``plan="dp+f16"``: every flash launch on f16 q/k/v, finite losses, the
+  masters and moments still f32;
 - the fused Adam update over leaves of odd sizes, within 1e-6 relative
   (the kernel rounds each operation as the plain formula does), and over
   whole trees (BERT-base's leaf shapes; odd sizes and unaligned views):
   one launch, bit for bit the plain version's outputs;
 - the fused softmax cross-entropy forward and backward at the classifier
   head (8, 2) and an LM head (4096, 30522), within 1e-5 (f32 sums over the
-  vocab in different orders).
+  vocab in different orders), f32, bf16 and f16 logits (the gradient in
+  the logits' type: within one step of it, 1e-2 in bf16, 2e-3 in f16).
 
 This file imports nothing from the JAX package, so on a machine with a GPU
 and no JAX it runs alone:
@@ -59,6 +64,7 @@ from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as txent
 
 F32_TOL = 2e-4
 BF16_TOL = 2e-2
+F16_TOL = 4e-3
 
 
 @pytest.fixture
@@ -123,8 +129,9 @@ ATTN_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
-                                       (torch.bfloat16, BF16_TOL)],
-                         ids=["f32", "bf16"])
+                                       (torch.bfloat16, BF16_TOL),
+                                       (torch.float16, F16_TOL)],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("case", ATTN_CASES,
                          ids=lambda c: "x".join(map(str, c)))
 def test_flash_fwd_bwd_kernels_match_plain(case, dtype, tol, cuda_device):
@@ -292,13 +299,16 @@ def _case_id(c):
     [pytest.param(c, torch.float32, id=_case_id(c))
      for c in ATTN_CASES + WIDE_FWD_CASES]
     + [pytest.param(c, torch.bfloat16, id=_case_id(c) + "-bf16")
+       for c in WIDE_FWD_CASES]
+    + [pytest.param(c, torch.float16, id=_case_id(c) + "-f16")
        for c in WIDE_FWD_CASES])
 def test_flash_fwd_f32_tensor_cores_within_1e4(case, dtype, cuda_device):
     """The f32 forward runs 3xTF32 on the tensor cores at every multiple of
     64 (head dims 64 and 128 whole, above 128 in 32-column chunks): out
     within 1e-4 of the plain version (measured ~1e-6), m and l as the plain
-    version's.  The chunked body's bf16 instances (bf16 wgmma) are held to
-    the bf16 tolerance against the plain version run in f32."""
+    version's.  The chunked body's bf16 and f16 instances (wgmma of that
+    type) are held to their tolerances against the plain version run in
+    f32."""
     b, h, lq, lk, d, causal, bias_kind, _, p, *layout = case
     q, k, v, _, bias = _attn_inputs(b, h, lq, lk, d, bias_kind, cuda_device,
                                     seed=9, layout=(layout or [None])[0])
@@ -314,16 +324,16 @@ def test_flash_fwd_f32_tensor_cores_within_1e4(case, dtype, cuda_device):
             return_stats=True)
         torch.cuda.synchronize()
         assert tfa.launch_count == before + 1 and out.dtype == dtype
+        tol = {torch.float32: 1e-4, torch.bfloat16: BF16_TOL,
+               torch.float16: F16_TOL}[dtype]
         if dtype == torch.float32:
             err = (out - w_out).abs().max().item()
-            assert torch.isfinite(out).all() and err <= 1e-4, err
+            assert torch.isfinite(out).all() and err <= tol, err
         else:
-            _close(out, w_out, BF16_TOL)
+            _close(out, w_out, tol)
         if stats:
             torch.testing.assert_close(m, w_m, rtol=1e-5, atol=1e-5)
-            torch.testing.assert_close(
-                l, w_l, rtol=1e-4 if dtype == torch.float32 else BF16_TOL,
-                atol=1e-5)
+            torch.testing.assert_close(l, w_l, rtol=tol, atol=1e-5)
         if bias_kind == "padding":  # the fully masked batch row
             assert out[-1].float().abs().max().item() == 0.0
 
@@ -340,8 +350,9 @@ def _segment_ids(b, n, gen, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
-                                       (torch.bfloat16, BF16_TOL)],
-                         ids=["f32", "bf16"])
+                                       (torch.bfloat16, BF16_TOL),
+                                       (torch.float16, F16_TOL)],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("d", [64, 96, 128, 192, 256, 320, 512])
 def test_flash_every_body_with_segments(d, dtype, tol, cuda_device):
     """Forward (with statistics) and backward of every kernel body with
@@ -457,7 +468,8 @@ def test_fit_mixed_precision_launches_bf16_kernels(cuda_device,
     """Two ``fit`` steps of a 2-block BERT (hidden 128, 2 heads of 64,
     sequence 256) under ``mixed_precision()``: 4 forward and 4 backward
     flash launches, each on bf16 q/k/v, finite losses, f32 masters and Adam
-    moments; then ``plan="dp+f16"`` raises before any step or launch."""
+    moments; then two more under ``plan="dp+f16"``: 4 + 4 launches, each
+    on f16 q/k/v, with the same checks."""
     from analytics_zoo_tpu_torch import init_zoo_context
     from analytics_zoo_tpu_torch.common.utils import tree_leaves
     from analytics_zoo_tpu_torch.parallel import mixed_precision
@@ -492,21 +504,20 @@ def test_fit_mixed_precision_launches_bf16_kernels(cuda_device,
             return _launch(q, k, v, *args, **kwargs)
 
         monkeypatch.setattr(tfa, name, record)
-    before = tfa.launch_count, tfa.bwd_launch_count
-    net.fit(x, y, batch_size=n // 2, nb_epoch=1, plan=mixed_precision())
-    torch.cuda.synchronize()
-    assert (tfa.launch_count, tfa.bwd_launch_count) == \
-        (before[0] + 4, before[1] + 4)
-    assert seen == [(torch.bfloat16,) * 3] * 8
-    est = net._estimator
-    assert np.isfinite([v for _, v in est.loss_log]).all()
-    assert {t.dtype for t in tree_leaves(net.params)
-            + tree_leaves(est._opt_state.mu)
-            + tree_leaves(est._opt_state.nu)} == {torch.float32}
-    step = est.global_step
-    with pytest.raises(NotImplementedError, match="queue 2 item E"):
-        net.fit(x, y, batch_size=n // 2, nb_epoch=1, plan="dp+f16")
-    assert est.global_step == step and len(seen) == 8
+    for plan, dtype in ((mixed_precision(), torch.bfloat16),
+                        ("dp+f16", torch.float16)):
+        seen.clear()
+        before = tfa.launch_count, tfa.bwd_launch_count
+        net.fit(x, y, batch_size=n // 2, nb_epoch=1, plan=plan)
+        torch.cuda.synchronize()
+        assert (tfa.launch_count, tfa.bwd_launch_count) == \
+            (before[0] + 4, before[1] + 4)
+        assert seen == [(dtype,) * 3] * 8
+        est = net._estimator
+        assert np.isfinite([v for _, v in est.loss_log]).all()
+        assert {t.dtype for t in tree_leaves(net.params)
+                + tree_leaves(est._opt_state.mu)
+                + tree_leaves(est._opt_state.nu)} == {torch.float32}
 
 
 def _bert_base_leaf_shapes():
@@ -568,8 +579,8 @@ def test_adam_one_launch_bit_identical(tree, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("shape", [(8, 2), (4096, 30522)],
                          ids=["head", "lm_head"])
 def test_softmax_xent_kernels_match_plain(shape, dtype, cuda_device):
@@ -591,7 +602,8 @@ def test_softmax_xent_kernels_match_plain(shape, dtype, cuda_device):
     torch.testing.assert_close(lse, w_lse, rtol=1e-5, atol=1e-5)
     w_dx = txent.xent_bwd_reference(x, labels, w_lse, g)
     assert dx.dtype == dtype
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+           torch.float16: 2e-3}[dtype]
     torch.testing.assert_close(dx.float(), w_dx.float(), rtol=tol, atol=tol)
 
 

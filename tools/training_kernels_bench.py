@@ -7,9 +7,9 @@ the flash-attention backward and fused Adam, on one CUDA GPU.
 The flash-attention backward at BERT-base's training shape (B=8, H=12,
 L=512, D=64, f32, the padding bias of chip_smoke.py with a fully masked
 last record, dropout 0.1 from the hash), and beside it at head dim 128 (6
-heads) in f32 and at D=64 and 128 in bf16: the error of dq, dk and dv
-against the plain version on the same inputs, relative to each output's largest
-gradient, and the time through the Python wrapper (CUDA events over calls
+heads) in f32 and at D=64 and 128 in bf16 and in f16: the error of dq, dk
+and dv against the plain version on the same inputs, relative to each
+output's largest gradient, and the time through the Python wrapper (CUDA events over calls
 issued one by one) and from a CUDA-graph replay of the same calls, with
 SDPA's backward (the memory-efficient attention backward op SDPA runs
 here, without dropout) timed the same two ways, and the bound of the
@@ -43,8 +43,10 @@ BERT_BASE_LEAVES = BLOCK * 12 + [(30522, 768), (512, 768), (2, 768), (768,),
 # (label, heads, head dim, dtype name)
 BWD_CASES = (("f32_d64", 12, 64, "float32"), ("f32_d128", 6, 128, "float32"),
              ("bf16_d64", 12, 64, "bfloat16"),
-             ("bf16_d128", 6, 128, "bfloat16"))
+             ("bf16_d128", 6, 128, "bfloat16"),
+             ("f16_d64", 12, 64, "float16"), ("f16_d128", 6, 128, "float16"))
 # published H100 SXM peaks (dense): HBM bytes/s, FLOP/s per input type
+# (bf16 and f16 alike)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "tfloat32": 494.7e12, "bfloat16": 989e12}
 
@@ -53,7 +55,8 @@ def bound(nbytes, flops, f32):
     """The backward's bound on its tensor-core route: each input read and
     each output written once at the HBM rate, or the five products at the
     tensor cores' rate (f32 as three tf32 products a value, with the f32
-    CUDA-core figure beside it)."""
+    CUDA-core figure beside it; bf16 and f16 at their common 16-bit
+    rate)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     row = {}
     if f32:
