@@ -31,22 +31,89 @@
 // the five a one-kernel design with atomic dq adds would need.
 //
 // What bounds it on an H100.  At the BERT-base training shape (B=8, H=12,
-// L=512, D=64) the seven products are ~22 GFLOP on dense tiles; f32 on the
-// CUDA cores (67 TFLOP/s) that is ~0.33 ms, so the products go to the
-// tensor cores.  There f32 needs care: a tf32 product keeps 11 bits of
-// each factor.  Each f32 operand x is split into hi = tf32(x) and
-// lo = x - hi, and a product is lo*hi + hi*lo + hi*hi (3xTF32, as CUTLASS's
-// OpMultiplyAddFastF32): three tf32 `wgmma`s at 495 TFLOP/s, ~0.13 ms on
-// dense tiles, ~2^-21 relative per product, i.e. f32 math in another order.
-// bf16 and f16 inputs are exact in tf32 (their lo pieces are zero: tf32
-// keeps f32's exponent range and 10 mantissa bits, bf16 has 7 and f16 10,
-// and f16's exponents, subnormals included, lie inside f32's normal
-// range), so only the products of the f32 probabilities keep their lo
-// halves.  The 16-bit types differ only in how a loaded value widens to
-// f32 (a shift for bf16, a conversion for f16): `Raw4` and `to_float4` key
-// that on the type, and everything after the widening is shared.
+// L=512, D=64, the padding bias, dropout 0.1) each kernel moves q, k, v,
+// dO, the statistics and the outputs once: 50 MB in bf16 or f16, 0.0151 ms
+// at 3.35 TB/s.  The seven products are ~22.5 GFLOP on dense tiles: 0.023
+// ms at the 16-bit tensor cores' 989 TFLOP/s, 0.13 ms as f32's three tf32
+// products a value at 495, 0.33 ms in f32 on the CUDA cores.  What takes
+// the time is neither: it is the work on the CUDA cores for each (query,
+// key) pair, in both kernels (the softmax recompute, the live select, the
+// dropout hash, dS, the operands' rounding), and the latency of the
+// phases a block walks through in order.
 //
-// The design, shared by both kernels (`bwd_kernel<T, D, KV>`):
+// bf16 and f16 at head dims 64 and 128: `bwd16_kernel<T, D, KV, ROW>`, on
+// the 16-bit tensor cores.  T's own `wgmma` (`.bf16` or `.f16`, chosen by
+// the type through sm90.cuh's `wgmma_*<T, TB>`), f32 accumulators.
+// - One warpgroup a block owns 64 rows; the streamed rows come in tiles of
+//   NS = 64 (32 in the dk/dv kernel at head dim 128, whose dK and dV
+//   accumulators alone take 128 registers a thread).  Three blocks an SM
+//   at head dim 64, two at 128: while one block runs its softmax on the
+//   CUDA cores, another's products run on the tensor cores.
+// - Tensor copies (TMA) bring the own tiles once and the streamed tiles
+//   through a ring of two stages, one mbarrier a stage, issued by one
+//   thread a tile ahead; the maps (flash_tma.cuh, `encode_chunked_map`)
+//   cut a row into 64-column chunks of 128 bytes that land 128-byte
+//   swizzled, as `wgmma` reads them.  Rows past the lengths land as zeros.
+//   The split_heads views of one fused projection are read through their
+//   strides; an input whose base or strides are not multiples of 16 bytes
+//   is copied by the wrapper first.
+// - Every operand stays in T in shared memory: no widening, no hi and lo
+//   pieces, and no transposed copy.  S = own0 . str0^T and dP = own1 .
+//   str1^T read both tiles K-major; each output product reads its streamed
+//   tile MN-major (the transpose bit 16-bit `wgmma` has and tf32 lacks)
+//   and takes, as its register A operand, the accumulator it was computed
+//   from: an m64nN f32 fragment, two values packed to a T register, is the
+//   k16 A fragment.  The dq kernel (own rows: queries) forms S = Q K^T,
+//   dP = dO V^T, then dQ = dS K; the dk/dv kernel (own rows: keys) forms
+//   S^T = K Q^T and dP^T = V dO^T directly, then dV = (P t)^T dO and
+//   dK = dS^T Q (the reference's tile math and contractions,
+//   analytics_zoo_tpu/ops/pallas/flash_attention.py:552-566, :595, :645,
+//   :648).  Seven products a pair of tiles in all.
+// - S and dP go out as two `wgmma` groups; the softmax recompute runs when
+//   S is done, while dP is multiplied, and in the dk/dv kernel dV's
+//   product runs while dS is formed.  (Issuing tile j + 1's S and dP at
+//   the end of tile j, behind its last output product, measured 8-19%
+//   slower in both kernels: tools/flash_bwd_variants.py.)
+//   p = 2^(x scale log2 e + u), u the
+//   key's bias times log2 e less the query's m log2 e + log2 l: one FMA
+//   and one ex2 an element (the bias row and the streamed rows' terms come
+//   through shared memory with each tile, ROW; a full bias is read element
+//   by element).  The dropout hash is the forward's, its streamed-row part
+//   a tile's constant plus an element's.  Tiles inside the lengths and the
+//   causal triangle, without segment ids, skip the live test; under causal
+//   masking a block skips the tiles none of its rows can see.
+// - Each output element is written once, by one thread, from one f32 sum
+//   (the wgmma accumulator over all tiles): no atomics, and two calls give
+//   the same bits.  The bias-gradient partial of a key sums its dS row in
+//   f32 in the dk/dv kernel.
+// - Numerics.  P t and dS are rounded to T as the A operands (2^-9
+//   relative in bf16, 2^-12 in f16); every product of two T values is
+//   exact and sums in f32.  f16 has no loss scaling, and in the f16 step
+//   of BERT-base dS lies below f16's normal range (2^-14) almost
+//   everywhere and mostly below 2^-25, where it would round to zero
+//   (tools/flash_bwd_magnitudes.py).  So in f16 each own row's dS is
+//   lifted by 2^e before it is rounded, e = 14 - floor(log2 of the row's
+//   largest |dS| in the tile), clamped to [0, 100]: e starts at 100 and
+//   only falls along the row, and when it does the row's accumulator is
+//   brought to the new scale first; the output is scaled by 2^-e at the
+//   end.  Powers of two: exact.  The lift costs little: p is formed
+//   lifted (2^e in its exponent), so dS comes out lifted; a tile's largest
+//   lifted |dS| at or above 2^15 is what lowers e.  P t <= 1/(1-p) needs
+//   no lift (its 2^-e rides on 1/(1-p)), nor does bf16, which has f32's
+//   range.  attention_bwd16_model (ops/cuda/flash_attention.py) repeats
+//   this order in plain PyTorch.
+// - ptxas -v (CUDA 12.9), registers (bytes spilled) with a bias row, dq /
+//   dk-dv kernel: bf16 D64 159 / 168 (112), D128 191 / 208; f16 D64 164 /
+//   168 (128), D128 195 / 210.  At D64 the registers are capped at 168
+//   for three blocks an SM; the dk/dv kernel's small spill (to L1) costs
+//   less than the third block gains.  The full-bias instances (on no
+//   model path) hold 168-238 registers and spill up to 524 bytes at D64.
+//
+// f32 at head dims 64 and 128: `bwd_kernel<D, KV>`, on the tf32 tensor
+// cores.  A tf32 product keeps 11 bits of each factor, so each f32 operand
+// x is split into hi = tf32(x) and lo = x - hi, and a product is lo*hi +
+// hi*lo + hi*hi (3xTF32, as CUTLASS's OpMultiplyAddFastF32), ~2^-21
+// relative per product: f32 math in another order.
 // - D / 64 warpgroups a block; all of them compute the 64 x 32 score and
 //   dO.v tiles of the block's 64 own rows and the current 32 streamed rows
 //   (S = own0 . str0^T, dP = own1 . str1^T, `wgmma` m64n32k8 with both
@@ -72,12 +139,12 @@
 //   accumulator before it grows.  Each output's per-tile contribution goes
 //   into a fresh accumulator that is added into the f32 total on the CUDA
 //   cores, so the accumulator's rounding does not build up over a 512-long
-//   sequence (PR 4's lesson from the int8 matmul).
+//   sequence (as in the int8 matmul).
 // - Under causal masking a block skips the streamed tiles none of its rows
 //   can see.  Segment ids: the own rows' in registers, the streamed rows'
 //   read where a pair is tested; with segment ids every tile tests every
-//   pair.  These kernels take head dims 64 and 128; at 128, two warpgroups
-//   and 192 KB of shared memory a block.
+//   pair.  At head dim 128, two warpgroups and 192 KB of shared memory a
+//   block.
 //
 // Head dims above 128 that are multiples of 64 (`bwd_wide_kernel<T, KV,
 // NWG>`, the head dim a runtime value).  The whole own tile does not fit
@@ -164,6 +231,7 @@ using zoo_tf32::issue_scores;
 using zoo_tf32::kmajor;
 using zoo_tf32::split4;
 using zoo_tf32::transposed;
+using zoo_tma::Maps;
 
 struct Args {
   const void* q;
@@ -205,37 +273,17 @@ __host__ __device__ constexpr int smem_bytes(int D) {
   return 4 * own_bytes(D) + 4 * str_bytes(D) + (3 * SR + OWN) * 4 + 1024;
 }
 
-// Four values as loaded: f32 as they are, bf16 and f16 still packed two
-// to a register, so a load in flight is not waited for until its values
-// are stored.  f16's eight bytes have a type of their own (Half4), so the
-// widening (to_float4) is picked by the type, never by the size.
+// Four 16-bit values as the chunked body's staging slot holds them, still
+// packed two to a register.  f16's eight bytes have a type of their own
+// (Half4), so the widening (to_float4) is picked by the type, never by the
+// size.
 struct Half4 {
   uint2 bits;
 };
-template <typename T> struct Raw4 { using type = float4; };
+template <typename T> struct Raw4;
 template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
 template <> struct Raw4<__half> { using type = Half4; };
 
-__device__ __forceinline__ float4 load4(const float* p, bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
-  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
-}
-__device__ __forceinline__ uint2 load4(const __nv_bfloat16* p, bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const uint2*>(p));
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
-  return make_uint2(u[0] | (static_cast<uint32_t>(u[1]) << 16),
-                    u[2] | (static_cast<uint32_t>(u[3]) << 16));
-}
-__device__ __forceinline__ Half4 load4(const __half* p, bool vec) {
-  // the same bits as bf16's load
-  return {load4(reinterpret_cast<const __nv_bfloat16*>(p), vec)};
-}
-__device__ __forceinline__ float4 zero4(float4) {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-__device__ __forceinline__ uint2 zero4(uint2) { return make_uint2(0u, 0u); }
-__device__ __forceinline__ Half4 zero4(Half4) { return {make_uint2(0u, 0u)}; }
-__device__ __forceinline__ float4 to_float4(const float4& x) { return x; }
 __device__ __forceinline__ float4 to_float4(const uint2& x) {
   // bf16 -> f32 is a 16-bit shift
   return make_float4(__uint_as_float(x.x << 16),
@@ -252,17 +300,22 @@ __device__ __forceinline__ float4 to_float4(const Half4& x) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// The chunks of an R-row tile a thread loads, converts and writes: rows
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+// The chunks of an R-row tile a thread loads, splits and writes: rows
 // lane + 32 rr, chunks warp + NW i (NW = D / 16 warps a block), so the
 // 32 lanes of a store are 32 rows: the row-major stores hit every bank once
 // per 8 lanes, the transposed ones once per warp.
 template <int R>
 __host__ __device__ constexpr int tile_chunks() { return R / 32 * 4; }
 
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(
-    typename Raw4<T>::type (&raw)[tile_chunks<R>()], const T* src,
-    int64_t ls, int r0, int len, bool vec) {
+template <int D, int R>
+__device__ __forceinline__ void load_tile(float4 (&raw)[tile_chunks<R>()],
+                                          const float* src, int64_t ls,
+                                          int r0, int len, bool vec) {
   constexpr int NW = D / 16;
   const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
 #pragma unroll
@@ -272,7 +325,7 @@ __device__ __forceinline__ void load_tile(
     for (int i = 0; i < 4; ++i) {
       const int ch = wi + NW * i;
       raw[rr * 4 + i] = row < len ? load4(src + row * ls + 4 * ch, vec)
-                                  : zero4(raw[0]);
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
@@ -285,9 +338,9 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // Write a loaded tile as hi and lo pieces, K-major (row-major in D).
-template <int D, int R, bool EXACT, typename RT>
+template <int D, int R>
 __device__ __forceinline__ void store_kmajor(
-    const RT (&raw)[tile_chunks<R>()], uint8_t* hi, uint8_t* lo) {
+    const float4 (&raw)[tile_chunks<R>()], uint8_t* hi, uint8_t* lo) {
   constexpr int NW = D / 16;
   const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
 #pragma unroll
@@ -296,41 +349,41 @@ __device__ __forceinline__ void store_kmajor(
     for (int i = 0; i < 4; ++i) {
       const uint32_t off = kmajor<R>(lane + 32 * rr, wi + NW * i);
       uint4 h, l;
-      split4(to_float4(raw[rr * 4 + i]), h, l);
+      split4(raw[rr * 4 + i], h, l);
       *reinterpret_cast<uint4*>(hi + off) = h;
-      if (!EXACT) *reinterpret_cast<uint4*>(lo + off) = l;
+      *reinterpret_cast<uint4*>(lo + off) = l;
     }
 }
 
 // Write a loaded 32-row streamed tile as hi and lo pieces, transposed.
-template <int D, bool EXACT, typename RT>
+template <int D>
 __device__ __forceinline__ void store_transposed(
-    const RT (&raw)[tile_chunks<SR>()], uint8_t* hi, uint8_t* lo) {
+    const float4 (&raw)[tile_chunks<SR>()], uint8_t* hi, uint8_t* lo) {
   constexpr int NW = D / 16;
   const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int d0 = 4 * (wi + NW * i);
     uint4 h, l;
-    split4(to_float4(raw[i]), h, l);
+    split4(raw[i], h, l);
     const uint32_t hv[4] = {h.x, h.y, h.z, h.w};
     const uint32_t lv[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const uint32_t off = transposed(d0 + e, lane);
       *reinterpret_cast<uint32_t*>(hi + off) = hv[e];
-      if (!EXACT) *reinterpret_cast<uint32_t*>(lo + off) = lv[e];
+      *reinterpret_cast<uint32_t*>(lo + off) = lv[e];
     }
   }
 }
 
-// KV = false: the dq kernel (own rows: queries; streamed: keys).
-// KV = true: the dk/dv kernel (own rows: keys; streamed: queries), which
-// also writes the bias-gradient partials.
-template <typename T, int D, bool KV>
+// f32 inputs.  KV = false: the dq kernel (own rows: queries; streamed:
+// keys).  KV = true: the dk/dv kernel (own rows: keys; streamed: queries),
+// which also writes the bias-gradient partials.
+template <int D, bool KV>
 __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
   using namespace zoo_sm90;
-  constexpr bool EXACT = zoo_sm90::is_16bit_v<T>;  // lo pieces are zero
+  using T = float;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   uint8_t* own[4];  // own0 hi, own0 lo, own1 hi, own1 lo
@@ -392,14 +445,13 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
     else send = min(a.Lk, r0 + OWN + offset);
   }
 
-  using RT = typename Raw4<T>::type;
-  RT raw0[tile_chunks<SR>()], raw1[tile_chunks<SR>()];
+  float4 raw0[tile_chunks<SR>()], raw1[tile_chunks<SR>()];
   // this thread's value of the streamed m, l or D rows (dk/dv kernel) or
   // of the streamed keys' bias row (dq kernel)
   float mld = 0.f;
   auto load_streamed = [&](int s) {
-    load_tile<T, D, SR>(raw0, s0, s0s, s, str_len, vec);
-    load_tile<T, D, SR>(raw1, s1, s1s, s, str_len, vec);
+    load_tile<D, SR>(raw0, s0, s0s, s, str_len, vec);
+    load_tile<D, SR>(raw1, s1, s1s, s, str_len, vec);
     if (KV && tid < 3 * SR) {
       const int qi = s + tid % SR;
       const int which = tid / SR;
@@ -417,11 +469,11 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
     Bs[tid] = bias != nullptr && row_bias && r0 + tid < a.Lk
                   ? bias[(r0 + tid) * a.bs_k] : 0.f;
   {
-    RT own_raw[tile_chunks<OWN>()];
-    load_tile<T, D, OWN>(own_raw, o0, o0s, r0, own_len, vec);
-    store_kmajor<D, OWN, EXACT>(own_raw, own[0], own[1]);
-    load_tile<T, D, OWN>(own_raw, o1, o1s, r0, own_len, vec);
-    store_kmajor<D, OWN, EXACT>(own_raw, own[2], own[3]);
+    float4 own_raw[tile_chunks<OWN>()];
+    load_tile<D, OWN>(own_raw, o0, o0s, r0, own_len, vec);
+    store_kmajor<D, OWN>(own_raw, own[0], own[1]);
+    load_tile<D, OWN>(own_raw, o1, o1s, r0, own_len, vec);
+    store_kmajor<D, OWN>(own_raw, own[2], own[3]);
   }
 
   // this thread's own rows: warp * 16 + g + 8 hh, hh = 0, 1, with their
@@ -450,8 +502,8 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
   for (int s = sbeg; s < send; s += SR) {
     // ---- phase 1: the streamed rows, row-major; S and dP ----------------
     __syncthreads();  // the previous tile's products are done
-    store_kmajor<D, SR, EXACT>(raw0, str[0], str[1]);
-    store_kmajor<D, SR, EXACT>(raw1, str[2], str[3]);
+    store_kmajor<D, SR>(raw0, str[0], str[1]);
+    store_kmajor<D, SR>(raw1, str[2], str[3]);
     if (KV && tid < 3 * SR) Ms[tid] = mld;  // Ms, Ls, Dm are contiguous
     if (!KV && tid < SR) Bs[tid] = mld;
     fence_proxy_async();
@@ -459,10 +511,10 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
 
     float sc[16], dp[16];
     wgmma_fence();
-    issue_scores<D, EXACT>(sc, smem_u32(own[0]), smem_u32(own[1]),
-                           smem_u32(str[0]), smem_u32(str[1]));
-    issue_scores<D, EXACT>(dp, smem_u32(own[2]), smem_u32(own[3]),
-                           smem_u32(str[2]), smem_u32(str[3]));
+    issue_scores<D>(sc, smem_u32(own[0]), smem_u32(own[1]),
+                    smem_u32(str[0]), smem_u32(str[1]));
+    issue_scores<D>(dp, smem_u32(own[2]), smem_u32(own[3]),
+                    smem_u32(str[2]), smem_u32(str[3]));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operand(sc);
@@ -524,8 +576,8 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
 
     // ---- phase 2: the streamed rows, transposed; the output products ----
     __syncthreads();  // every warpgroup's S and dP products are done
-    store_transposed<D, EXACT>(raw0, str[0], str[1]);
-    if (KV) store_transposed<D, EXACT>(raw1, str[2], str[3]);
+    store_transposed<D>(raw0, str[0], str[1]);
+    if (KV) store_transposed<D>(raw1, str[2], str[3]);
     if (s + SR < send) load_streamed(s + SR);
     fence_proxy_async();
     __syncthreads();
@@ -533,11 +585,11 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
     uint32_t hi[4][4], lo[4][4];
     if (KV) {
       a_frags(pt, hi, lo);  // dv += (p t)^T dO
-      accumulate<EXACT>(acc1, hi, lo, smem_u32(str[2]), smem_u32(str[3]),
+      accumulate<false>(acc1, hi, lo, smem_u32(str[2]), smem_u32(str[3]),
                         wg);
     }
     a_frags(ds, hi, lo);  // dq += dS k, or dk += dS^T q
-    accumulate<EXACT>(acc0, hi, lo, smem_u32(str[0]), smem_u32(str[1]), wg);
+    accumulate<false>(acc0, hi, lo, smem_u32(str[0]), smem_u32(str[1]), wg);
   }
 
   // element i: own row rw[(i >> 1) & 1], output column
@@ -558,6 +610,414 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
     }
   }
   if (KV && a.dbias != nullptr && wg == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float x = db[hh];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (t == 0 && rw[hh] < a.Lk) a.dbias[keys + rw[hh]] = x;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 and f16, head dims 64 and 128: 16-bit wgmma (design note at the top
+// of the file)
+// ---------------------------------------------------------------------------
+
+// Streamed rows a tile: 64, but 32 in the dk/dv kernel at head dim 128,
+// whose dK and dV accumulators alone take 128 registers a thread.
+__host__ __device__ constexpr int rows16(int D, bool kv) {
+  return D == 128 && kv ? 32 : 64;
+}
+constexpr int NSTAGE = 2;  // ring stages of streamed tiles
+// Bytes of an R-row 16-bit tile: D / 64 blocks of R 128-byte swizzled rows.
+__host__ __device__ constexpr int tile16_bytes(int R, int D) {
+  return R * D * 2;
+}
+// Shared memory: the own tiles (own0, own1), NSTAGE stages of the streamed
+// tiles (str0, str1), each stage's streamed row values (2 NS f32), NSTAGE
+// + 1 mbarriers and room to align to 1024 bytes.
+__host__ __device__ constexpr int smem16_bytes(int D, bool kv) {
+  return 2 * tile16_bytes(OWN, D) +
+         NSTAGE * (2 * tile16_bytes(rows16(D, kv), D) + 2 * rows16(D, kv) * 4) +
+         (NSTAGE + 1) * 8 + 1024;
+}
+static_assert(2 * smem16_bytes(128, false) <= 232448 &&
+                  3 * smem16_bytes(64, false) <= 232448,
+              "two blocks an SM at head dim 128, three at 64");
+
+// f16: the exponent e = 14 - floor(log2 x) that brings a row's largest
+// |dS| x (> 0, normal) into [2^14, 2^15) before it is rounded to f16.
+// The kernel lifts each row's dS by 2^e clamped to [0, 100]
+// (attention_bwd16_model's lift_exp), 100 for x = 0 or subnormal.
+__device__ __forceinline__ int lift_exp_signed(float x) {
+  return 141 - ((__float_as_int(x) >> 23) & 0xff);
+}
+__device__ __forceinline__ float exp2i(int e) {  // 2^e, |e| <= 126
+  return __int_as_float((e + 127) << 23);
+}
+
+// d (64 x N) (+)= A . B^T, both K-major in shared memory (N = 32 or 64)
+template <typename T, int N>
+__device__ __forceinline__ void wgmma16_ss(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  if constexpr (N == 64)
+    zoo_sm90::wgmma_m64n64k16_ss<T, 0>(d, da, db, scale_d);
+  else
+    zoo_sm90::wgmma_m64n32k16_ss<T, 0>(d, da, db, scale_d);
+}
+// d (64 x D) += A . B, A from registers, B MN-major in shared memory
+template <typename T, int D>
+__device__ __forceinline__ void wgmma16_rs(float (&d)[D / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (D == 64)
+    zoo_sm90::wgmma_m64n64k16_rs<T, 1>(d, a, db, 1);
+  else
+    zoo_sm90::wgmma_m64n128k16_rs<T, 1>(d, a, db, 1);
+}
+
+// The two kernels for 16-bit T (bf16 or f16) at head dim D (64 or 128),
+// KV as in bwd_kernel: one warpgroup a block owns 64 rows; NS streamed rows
+// a tile come through a ring of NSTAGE stages by tensor copies.  ROW: the
+// bias is one row per (batch, head) or there is none (its values, times
+// log2 e, go through shared memory with each tile in the dq kernel and sit
+// in registers in the dk/dv kernel); otherwise each bias element is read
+// from global memory.  Three blocks an SM at head dim 64 (registers capped
+// at 168 a thread), two at 128 (shared memory).
+template <typename T, int D, bool KV, bool ROW>
+__global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
+    bwd16_kernel(Args a, const __grid_constant__ Maps maps) {
+  using namespace zoo_sm90;
+  static_assert(is_16bit_v<T>, "bf16 or f16");
+  constexpr int NS = rows16(D, KV);
+  constexpr int OWNB = tile16_bytes(OWN, D), STRB = tile16_bytes(NS, D);
+  constexpr int NV = (KV ? 2 : 1) * NS;  // streamed row values a tile
+  constexpr int NU = (NV + 127) / 128;   // of them a thread
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t own0 = smem_u32(base), own1 = own0 + OWNB;
+  const uint32_t stages = own1 + OWNB;  // stage st: str0, then str1
+  float* rowv = reinterpret_cast<float*>(base + 2 * OWNB + NSTAGE * 2 * STRB);
+  const uint32_t bars = smem_u32(rowv + NSTAGE * 2 * NS);  // NSTAGE + own
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * OWN;  // first own row
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
+  const float* bias =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bs_b + h * a.bs_h;
+  const int64_t rows = (static_cast<int64_t>(b) * a.H + h) * a.Lq;
+  const int64_t keys = (static_cast<int64_t>(b) * a.H + h) * a.Lk;
+  const bool seg = a.q_seg != nullptr;
+  const int* own_seg = !seg ? nullptr
+                       : KV ? a.kv_seg + b * a.Lk : a.q_seg + b * a.Lq;
+  const int* str_seg = !seg ? nullptr
+                       : KV ? a.q_seg + b * a.Lq : a.kv_seg + b * a.Lk;
+  const int own_len = KV ? a.Lk : a.Lq;
+  const int str_len = KV ? a.Lq : a.Lk;
+  int sbeg = 0, send = str_len;
+  if (a.causal) {
+    if (KV) sbeg = max(0, r0 - offset) / NS * NS;
+    else send = min(a.Lk, r0 + OWN + offset);
+  }
+  const int ntiles = sbeg < send ? (send - sbeg + NS - 1) / NS : 0;
+
+  // tile j of the streamed rows into stage j % NSTAGE: two tensor copies
+  // from one thread, complete on the stage's mbarrier; rows past the
+  // length read as zeros
+  const CUtensorMap* sm0 = KV ? &maps.q : &maps.k;
+  const CUtensorMap* sm1 = KV ? &maps.g : &maps.v;
+  auto issue = [&](int j) {
+    const int st = j % NSTAGE;
+    const uint32_t bar = bars + 8 * st;
+    const uint32_t dst = stages + st * 2 * STRB;
+    fence_proxy_async();  // the stage's last readers are done
+    mbar_arrive_tx(bar, 2 * STRB);
+    tma_load_5d(dst, sm0, 0, sbeg + j * NS, 0, h, b, bar);
+    tma_load_5d(dst + STRB, sm1, 0, sbeg + j * NS, 0, h, b, bar);
+  };
+  // the softmax recompute p = exp(x scale + bias - m) / l is
+  // 2^(x scale log2 e + (bias log2 e - (m log2 e + log2 l))): one FMA of
+  // the score with a bias term of its key and a term of its query.  This
+  // thread's NU values of tile j's streamed rows, loaded one tile ahead
+  // and stored into the tile's stage: the queries' m log2 e + log2 l and
+  // D (dk/dv kernel), or the keys' bias times log2 e (dq kernel)
+  float rv[NU];
+  auto load_rows = [&](int j) {
+    const int s = sbeg + j * NS;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int idx = tid + 128 * u;
+      const int sr = s + idx % NS;
+      if (KV)
+        rv[u] = sr >= a.Lq ? 0.f
+                : idx < NS ? fmaf(a.m[rows + sr], LOG2E,
+                                  __log2f(fmaxf(a.l[rows + sr], 1e-20f)))
+                           : a.dsum[rows + sr];
+      else
+        rv[u] = ROW && bias != nullptr && sr < a.Lk
+                    ? bias[sr * a.bs_k] * LOG2E : 0.f;
+    }
+  };
+  auto store_rows = [&](int j) {
+    float* dst = rowv + j % NSTAGE * 2 * NS;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      if (tid + 128 * u < NV) dst[tid + 128 * u] = rv[u];
+  };
+
+  if (tid == 0)
+    for (int j = 0; j <= NSTAGE; ++j) mbar_init(bars + 8 * j, 1);
+  __syncthreads();
+  if (tid == 0 && ntiles > 0) {
+    const uint32_t bar = bars + 8 * NSTAGE;
+    mbar_arrive_tx(bar, 2 * OWNB);
+    tma_load_5d(own0, KV ? &maps.k : &maps.q, 0, r0, 0, h, b, bar);
+    tma_load_5d(own1, KV ? &maps.v : &maps.g, 0, r0, 0, h, b, bar);
+    for (int j = 0; j < NSTAGE && j < ntiles; ++j) issue(j);
+  }
+  if (ntiles > 0) {
+    load_rows(0);
+    store_rows(0);
+  }
+
+  // this thread's own rows: warp * 16 + g + 8 hh, hh = 0, 1, with their
+  // part of the dropout hash, segment ids and, in the dq kernel, their m
+  // log2 e + log2 l and D; in the dk/dv kernel their bias times log2 e
+  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  int rw[2], rseg[2] = {0, 0};
+  uint32_t rhash[2];
+  float ml[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f}, ob[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    rw[hh] = r0 + warp * 16 + g + 8 * hh;
+    rhash[hh] = hash ^ (KV ? keep_k(rw[hh]) : keep_q(rw[hh]));
+    if (seg && rw[hh] < own_len) rseg[hh] = own_seg[rw[hh]];
+    if (!KV && rw[hh] < a.Lq) {
+      ml[hh] = fmaf(a.m[rows + rw[hh]], LOG2E,
+                    __log2f(fmaxf(a.l[rows + rw[hh]], 1e-20f)));
+      dr[hh] = a.dsum[rows + rw[hh]];
+    }
+    if (KV && ROW && bias != nullptr && rw[hh] < a.Lk)
+      ob[hh] = bias[rw[hh] * a.bs_k] * LOG2E;
+  }
+  const float sl2 = a.scale * LOG2E;
+  float acc0[D / 2], acc1[KV ? D / 2 : 1];  // dq, or dk and dv
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (KV ? D / 2 : 1); ++i) acc1[i] = 0.f;
+  float db[2] = {0.f, 0.f};
+  // f16: acc0's own rows hold 2^ex[hh] times their sums (ex only falls)
+  int ex[2] = {100, 100};
+  __syncthreads();  // tile 0's row values
+  if (ntiles > 0) mbar_wait(bars + 8 * NSTAGE, 0);
+
+  auto kdesc = [](uint32_t tile, int r, int kk) {  // K-major, k-step kk
+    return desc_b128(tile + (kk >> 2) * (r * 128) + (kk & 3) * 32, 16, 1024);
+  };
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = sbeg + j * NS;
+    const int st = j % NSTAGE;
+    const uint32_t s0 = stages + st * 2 * STRB, s1 = s0 + STRB;
+    const float* rvs = rowv + st * 2 * NS;
+    if (j + 1 < ntiles) load_rows(j + 1);
+    mbar_wait(bars + 8 * st, (j / NSTAGE) & 1);
+
+    // S = own0 . str0^T and dP = own1 . str1^T, two groups: the softmax
+    // recompute runs while dP is multiplied
+    float sc[NS / 2], dp[NS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma16_ss<T, NS>(sc, kdesc(own0, OWN, kk), kdesc(s0, NS, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma16_ss<T, NS>(dp, kdesc(own1, OWN, kk), kdesc(s1, NS, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operand(sc);
+
+    // element i: own row rw[(i >> 1) & 1], streamed row s + c,
+    // c = 8 (i >> 2) + 2 t + (i & 1)
+    const bool whole = !seg && s + NS <= str_len && r0 + OWN <= own_len &&
+                       (!a.causal || (KV ? s + offset >= r0 + OWN - 1
+                                         : r0 + offset >= s + NS - 1));
+    // the hash's streamed-row part, (s + c) times its constant: a part of
+    // the tile and the thread, plus one of the element
+    const uint32_t sh = KV ? keep_q(s + 2 * t) : keep_k(s + 2 * t);
+    uint32_t kept = 0;  // bit i: the hash keeps element i
+    // f16: p is formed lifted, 2^(... + ex), so that dS comes out lifted
+    // with no multiply; P t is brought back by the row's 2^-ex
+    float ik[2] = {a.inv_keep, a.inv_keep};  // 1 / (1 - p) 2^-ex
+    auto lifted = [&](float x, int hh) {
+      if constexpr (is_f16_v<T>)
+        return x + static_cast<float>(ex[hh]);
+      else
+        return x;
+    };
+    if constexpr (is_f16_v<T>) {
+      ik[0] = a.inv_keep * exp2i(-ex[0]);
+      ik[1] = a.inv_keep * exp2i(-ex[1]);
+    }
+    // p (f16: lifted) and the keep bits; with a bias row, tiles inside the
+    // lengths and the causal triangle, without segment ids (WHOLE), take a
+    // body with no live test (a sixth off the dk/dv kernel's time,
+    // tools/flash_bwd_variants.py; a second body for the full bias would
+    // only add spills)
+    auto probs = [&](auto whole_tag) {
+      constexpr bool WHOLE = decltype(whole_tag)::value;
+#pragma unroll
+      for (int i = 0; i < NS / 2; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int c = 8 * (i >> 2) + 2 * t + (i & 1);
+        const int sr = s + c;
+        const int qi = KV ? sr : rw[hh];
+        const int kj = KV ? rw[hh] : sr;
+        const bool live = WHOLE || (qi < a.Lq && kj < a.Lk &&
+                                    (!a.causal || qi + offset >= kj) &&
+                                    (!seg || rseg[hh] == str_seg[sr]));
+        float u;  // bias log2 e - (m log2 e + log2 l) (+ ex in f16)
+        if constexpr (ROW)
+          u = KV ? lifted(ob[hh], hh) - rvs[c]
+                 : rvs[c] - (ml[hh] - lifted(0.f, hh));
+        else
+          u = fmaf(bias[min(qi, a.Lq - 1) * a.bs_q +
+                        min(kj, a.Lk - 1) * a.bs_k],
+                   LOG2E, lifted(-(KV ? rvs[c] : ml[hh]), hh));
+        const float e = fast_exp2(fmaf(sc[i], sl2, u));
+        sc[i] = live ? e : 0.f;
+        const uint32_t part =
+            sh + (KV ? keep_q(8 * (i >> 2) + (i & 1))
+                     : keep_k(8 * (i >> 2) + (i & 1)));
+        const bool keep =
+            !a.dropout || mix32(rhash[hh] ^ part) >= a.drop_thr;
+        kept |= static_cast<uint32_t>(keep) << i;
+      }
+    };
+    if (ROW && whole)
+      probs(std::bool_constant<ROW>());
+    else
+      probs(std::false_type());
+    if constexpr (KV) {  // dv += (P t)^T dO, while dP finishes
+      uint32_t pa[NS / 16][4];  // P t in T, the register A operand
+#pragma unroll
+      for (int kk = 0; kk < NS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          pa[kk][r] = pack2<T>(kept >> i & 1 ? sc[i] * ik[r & 1] : 0.f,
+                               kept >> (i + 1) & 1 ? sc[i + 1] * ik[r & 1]
+                                                    : 0.f);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NS / 16; ++kk)
+        wgmma16_rs<T, D>(acc1, pa[kk], desc_b128(s1 + kk * 2048, NS * 128,
+                                                 1024));
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_operand(dp);
+
+    // dS = p (t dP - D), zero where p is (f16: lifted by 2^ex)
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      const int c = 8 * (i >> 2) + 2 * t + (i & 1);
+      const float keep = kept >> i & 1 ? a.inv_keep : 0.f;
+      dp[i] = sc[i] * (keep * dp[i] - (KV ? rvs[NS + c] : dr[(i >> 1) & 1]));
+    }
+    if constexpr (is_f16_v<T>) {
+      // each own row's dS lifted by 2^ex before it is rounded to f16; where
+      // the tile's largest lifted |dS| reaches 2^15, ex falls to this
+      // tile's lift (lift_exp of its largest |dS|, no lower than 0), and
+      // acc0's row is brought to the new scale first (powers of two:
+      // exact).  Where ex stays the multiplies are by 1: a warp-uniform
+      // branch around them measured no faster in this body, and a quarter
+      // slower in an earlier one (tools/flash_bwd_variants.py).
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = 0.f;
+#pragma unroll
+        for (int i = 0; i < NS / 2; ++i)
+          if (((i >> 1) & 1) == hh) mx = fmaxf(mx, fabsf(dp[i]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const int fall = mx >= 32768.f ? max(lift_exp_signed(mx), -ex[hh])
+                                       : 0;
+        ex[hh] += fall;
+        const float f = exp2i(fall);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i)
+          if (((i >> 1) & 1) == hh) acc0[i] *= f;
+#pragma unroll
+        for (int i = 0; i < NS / 2; ++i)
+          if (((i >> 1) & 1) == hh) dp[i] *= f;
+      }
+    }
+    if (KV && a.dbias != nullptr) {  // the bias gradient sums dS
+      float il[2] = {1.f, 1.f};
+      if constexpr (is_f16_v<T>) {
+        il[0] = exp2i(-ex[0]);
+        il[1] = exp2i(-ex[1]);
+      }
+#pragma unroll
+      for (int i = 0; i < NS / 2; ++i)
+        db[(i >> 1) & 1] = fmaf(dp[i], il[(i >> 1) & 1], db[(i >> 1) & 1]);
+    }
+    // dq += dS k, or dk += dS^T q
+    uint32_t da[NS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < NS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack2<T>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+    fence_operand(acc0);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 16; ++kk)
+      wgmma16_rs<T, D>(acc0, da[kk], desc_b128(s0 + kk * 2048, NS * 128,
+                                               1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc0);
+    if (KV) fence_operand(acc1);
+    if (j + 1 < ntiles) store_rows(j + 1);
+    __syncthreads();  // stage st and its row values are free
+    if (tid == 0 && j + NSTAGE < ntiles) issue(j + NSTAGE);
+  }
+
+  // element i: own row rw[(i >> 1) & 1], output column 8 (i >> 2) + 2 t
+  // + (i & 1); stored in pairs
+  T* out0 = static_cast<T*>(KV ? a.dk : a.dq);
+  T* out1 = static_cast<T*>(a.dv);
+  const int64_t first = KV ? keys : rows;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rw[hh];
+    if (r >= own_len) continue;
+    const float post = a.scale * (is_f16_v<T> ? exp2i(-ex[hh]) : 1.f);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int i = 4 * c + 2 * hh;
+      const int64_t e = (first + r) * D + 8 * c + 2 * t;
+      *reinterpret_cast<uint32_t*>(&out0[e]) =
+          pack2<T>(acc0[i] * post, acc0[i + 1] * post);
+      if (KV)
+        *reinterpret_cast<uint32_t*>(&out1[e]) =
+            pack2<T>(acc1[i], acc1[i + 1]);
+    }
+  }
+  if (KV && a.dbias != nullptr) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float x = db[hh];
@@ -611,10 +1071,8 @@ __host__ __device__ constexpr int wide_smem_bytes(bool kv, int nwg,
          NSLOT * 8 + 1024;
 }
 
-// The tensor maps of q, k, v and dO, (D, L, H, B) with boxes of 32 columns
-// x 32 rows, for the tensor copies (TMA) of the chunked kernels
-// (flash_tma.cuh).
-using zoo_tma::Maps;
+// The chunked kernels' tensor maps of q, k, v and dO: (D, L, H, B) with
+// boxes of 32 columns x 32 rows (flash_tma.cuh).
 static_assert(wide_smem_bytes(true, 3, false) <= 232448,
               "a block may have 227 KB of shared memory");
 
@@ -1282,11 +1740,11 @@ cudaError_t launch_simt(const Args& a, int D, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = smem_bytes(D);
-  auto dqk = bwd_kernel<T, D, false>;
-  auto dkvk = bwd_kernel<T, D, true>;
+  auto dqk = bwd_kernel<D, false>;
+  auto dkvk = bwd_kernel<D, true>;
   cudaError_t err = cudaFuncSetAttribute(
       dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1300,6 +1758,49 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 kgrid((a.Lk + OWN - 1) / OWN, a.H, a.B);
   dkvk<<<kgrid, 2 * D, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int D, bool KV>
+cudaError_t launch16_kernel(const Args& a, const Maps& maps,
+                            cudaStream_t stream) {
+  constexpr int smem = smem16_bytes(D, KV);
+  auto kern = a.bias == nullptr || a.bs_q == 0 ? bwd16_kernel<T, D, KV, true>
+                                               : bwd16_kernel<T, D, KV, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((KV ? a.Lk : a.Lq) + OWN - 1) / OWN, a.H, a.B);
+  kern<<<grid, 128, smem, stream>>>(a, maps);
+  return cudaGetLastError();
+}
+
+// 16-bit T at head dim 64 or 128: the inputs' tensor maps (64-row boxes of
+// the own rows, NS-row boxes of the streamed rows), then the dq and the
+// dk/dv kernels.  Returns -2 when an input's base or strides are not
+// multiples of 16 bytes (the wrapper copies such an input first).
+template <typename T, int D>
+int launch16(const Args& a, cudaStream_t stream) {
+  auto enc = [&](CUtensorMap* map, const void* p, int L, int64_t s_b,
+                 int64_t s_h, int64_t s_l, int rows) {
+    return zoo_tma::encode_chunked_map<T>(map, p, D, L, a.H, a.B, s_b, s_h,
+                                          s_l, rows, D / 64);
+  };
+  auto maps_for = [&](Maps* m, int q_rows, int k_rows) {
+    return enc(&m->q, a.q, a.Lq, a.qs_b, a.qs_h, a.qs_l, q_rows) &&
+           enc(&m->g, a.g, a.Lq, a.gs_b, a.gs_h, a.gs_l, q_rows) &&
+           enc(&m->k, a.k, a.Lk, a.ks_b, a.ks_h, a.ks_l, k_rows) &&
+           enc(&m->v, a.v, a.Lk, a.vs_b, a.vs_h, a.vs_l, k_rows);
+  };
+  // the dq kernel streams keys, the dk/dv kernel queries
+  Maps dq_maps, kv_maps;
+  if (!maps_for(&dq_maps, OWN, rows16(D, false))) return -2;
+  if (rows16(D, true) == OWN)
+    kv_maps = dq_maps;
+  else if (!maps_for(&kv_maps, rows16(D, true), OWN))
+    return -2;
+  const cudaError_t err = launch16_kernel<T, D, false>(a, dq_maps, stream);
+  if (err != cudaSuccess) return err;
+  return launch16_kernel<T, D, true>(a, kv_maps, stream);
 }
 
 template <typename T, bool KV, int NWG>
@@ -1343,17 +1844,20 @@ int launch_wide(const Args& a, int D, cudaStream_t stream) {
                : launch_wide_kernel<T, true, 2>(a, maps, D, stream);
 }
 
-// Head dims 64 and 128: bwd_kernel; every other multiple of 64: the
-// chunked bwd_wide_kernel; any other head dim: the CUDA-core kernels.
+// Head dims 64 and 128: bwd16_kernel for bf16 and f16, bwd_kernel for
+// f32; every other multiple of 64: the chunked bwd_wide_kernel; any other
+// head dim: the CUDA-core kernels.
 template <typename T>
 int dispatch(int head_dim, const Args& a, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    default:
-      return head_dim % 64 == 0 ? launch_wide<T>(a, head_dim, stream)
-                                : launch_simt<T>(a, head_dim, stream);
+  if (head_dim == 64 || head_dim == 128) {
+    if constexpr (zoo_sm90::is_16bit_v<T>)
+      return head_dim == 64 ? launch16<T, 64>(a, stream)
+                            : launch16<T, 128>(a, stream);
+    else
+      return head_dim == 64 ? launch<64>(a, stream) : launch<128>(a, stream);
   }
+  return head_dim % 64 == 0 ? launch_wide<T>(a, head_dim, stream)
+                            : launch_simt<T>(a, head_dim, stream);
 }
 
 // Vector loads need every row start aligned to 4 elements: the base pointer

@@ -844,8 +844,8 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)
     // S = Q K^T, 64 x 32, f32 as 3xTF32
     float s[BKV / 2];
     wgmma_fence();
-    zoo_tf32::issue_scores<D, false>(s, smem_u32(Qhi), smem_u32(Qlo),
-                                     smem_u32(Khi), smem_u32(Klo));
+    zoo_tf32::issue_scores<D>(s, smem_u32(Qhi), smem_u32(Qlo),
+                              smem_u32(Khi), smem_u32(Klo));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operand(s);

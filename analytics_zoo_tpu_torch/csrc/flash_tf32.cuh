@@ -41,9 +41,8 @@ __device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
 }
 
 // acc (64 x 32) = A . B^T over D, A a 64-row and B a 32-row K-major tile in
-// hi and lo pieces: lo products first, then hi * hi.  EXACT: the inputs
-// are exact in tf32 (bf16), so the lo pieces are zero and skipped.
-template <int D, bool EXACT>
+// hi and lo pieces: lo products first, then hi * hi.
+template <int D>
 __device__ __forceinline__ void issue_scores(float (&acc)[16], uint32_t a_hi,
                                              uint32_t a_lo, uint32_t b_hi,
                                              uint32_t b_lo) {
@@ -54,20 +53,14 @@ __device__ __forceinline__ void issue_scores(float (&acc)[16], uint32_t a_hi,
   auto db = [](uint32_t base, int kk) {
     return desc_b128(base + (kk >> 2) * (SR * 128) + (kk & 3) * 32, 16, 1024);
   };
-  int first = 0;
-  if (!EXACT) {
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(a_lo, kk), db(b_hi, kk), first);
-      first = 1;
-      zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(a_hi, kk), db(b_lo, kk), 1);
-    }
-  }
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
-    zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(a_hi, kk), db(b_hi, kk), first);
-    first = 1;
+    zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(a_lo, kk), db(b_hi, kk), kk > 0);
+    zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(a_hi, kk), db(b_lo, kk), 1);
   }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    zoo_sm90::wgmma_tf32_m64n32k8_ss(acc, da(a_hi, kk), db(b_hi, kk), 1);
 }
 
 // A fragments of a 64 x 32 accumulator-shaped tile for the four k-steps

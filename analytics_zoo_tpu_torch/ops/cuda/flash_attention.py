@@ -19,9 +19,11 @@ kernels replace the TPU's, for any head dim:
   saved statistics and the dropout mask re-derived from the same hash; on
   the tensor cores at every head dim that is a multiple of 64 (f32 as
   3xTF32, :func:`split_tf32` and :func:`matmul_3xtf32` are its arithmetic
-  in plain PyTorch, bf16 and f16 exactly in tf32; above 128 in 32-column
-  chunks
-  that tensor copies bring in), on CUDA cores at any other.
+  in plain PyTorch; bf16 and f16 at 64 and 128 on 16-bit ``wgmma``, P t
+  and dS rounded to the input type and, in f16, dS lifted by a power of
+  two, :func:`attention_bwd16_model` its order in plain PyTorch; above 128
+  in 32-column chunks that tensor copies bring in, bf16 and f16 exactly
+  in tf32), on CUDA cores at any other.
 
 The gradient of a full (…, Lq, Lk) bias takes neither kernel: as in the
 reference (``_bwd``, which leaves it to a blockwise ``lax.scan``), it is
@@ -163,6 +165,89 @@ def matmul_3xtf32(a, b):
     a_hi, a_lo = (tf32_read(t).double() for t in split_tf32(a))
     b_hi, b_lo = (tf32_read(t).double() for t in split_tf32(b))
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+# ---------------------------------------------------------------------------
+# The 16-bit backward's order of sums (bf16 and f16 at head dims 64 and 128)
+# ---------------------------------------------------------------------------
+def bwd16_rows(d, kv):
+    """Streamed rows a tile of the 16-bit backward (``rows16``,
+    ``csrc/flash_attention_bwd.cu``): 64, but 32 in the dk/dv kernel
+    (``kv``) at head dim 128."""
+    return 32 if d == 128 and kv else 64
+
+
+def lift_exp(x):
+    """The f16 backward's lift of a row whose largest |dS| is ``x`` (f32
+    tensor, >= 0): e = 14 - floor(log2 x) clamped to [0, 100], so that
+    x 2^e lies in [2^14, 2^15); 100 for 0 and subnormals (``lift_exp``,
+    csrc/flash_attention_bwd.cu)."""
+    biased = (x.float().contiguous().view(torch.int32) >> 23) & 0xFF
+    return (141 - biased).clamp(0, 100)
+
+
+def _side16(ds, pt, str0, str1, ns, lift):
+    """One 16-bit backward kernel on whole tensors, own rows first: per
+    ``ns``-row streamed tile, dS (and P t) rounded to the input type as the
+    register A operands, the products (exact in f64) added into f32 sums;
+    with ``lift`` each own row's dS is lifted by 2^e first, e falling to
+    the tile's :func:`lift_exp` where that is lower and the row's sum
+    brought to the new scale (powers of two: exact).  Returns (out0, out1);
+    out1 is None without ``pt``."""
+    dtype = str0.dtype
+    shape = ds.shape[:-1] + str0.shape[-1:]
+    acc0 = torch.zeros(shape)
+    acc1 = None if pt is None else torch.zeros(shape)
+    ex = torch.full(ds.shape[:-1] + (1,), 100 if lift else 0)
+    for s0 in range(0, ds.shape[-1], ns):
+        tile = slice(s0, s0 + ns)
+        d = ds[..., tile]
+        if lift:
+            e = torch.minimum(ex, lift_exp(d.abs().amax(-1, keepdim=True)))
+            acc0 = acc0 * torch.exp2((e - ex).float())
+            ex = e
+            d = d * torch.exp2(ex.float())
+        acc0 = (acc0.double() + d.to(dtype).double()
+                @ str0[..., tile, :].double()).float()
+        if pt is not None:
+            acc1 = (acc1.double() + pt[..., tile].to(dtype).double()
+                    @ str1[..., tile, :].double()).float()
+    return acc0 * torch.exp2(-ex.float()), acc1
+
+
+def attention_bwd16_model(q, k, v, g, out, m, l, causal, scale, bias=None,
+                          dropout_p=0.0, seed=None, bias_grad=False,
+                          q_seg=None, kv_seg=None, lift=True,
+                          out_dtype=None):
+    """The 16-bit backward (``bwd16_kernel``) in plain PyTorch, in the
+    kernel's order: p, P t and dS in f32 as :func:`attention_bwd_reference`
+    forms them; then dq = scale dS k over key tiles of
+    ``bwd16_rows(d, False)`` rows, dk = scale dS^T q and dv = (P t)^T dO
+    over query tiles of ``bwd16_rows(d, True)``, with dS and P t rounded to
+    the input type (bf16 or f16) as the kernel's register A operands and
+    each tile's products added into f32 sums.  f16 lifts each own row's dS
+    by a power of two before it is rounded (``lift``; off only to show what
+    the lift prevents).  Returns (dq, dk, dv, dbias) as the reference
+    does, dq, dk and dv in ``out_dtype`` (default the input type; f32
+    gives the kernel's sums before they are rounded)."""
+    dtype = q.dtype
+    out_dtype = out_dtype or dtype
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    gf = g.float()
+    dsum = (gf * out.float()).sum(dim=-1)
+    live = _live(lq, lk, causal, q_seg, kv_seg, q.device)
+    ds, pt = _tile_grads(
+        q.float(), gf, k.float(), v.float(), m, l.clamp_min(1e-20), dsum,
+        live, scale, None if bias is None else bias.float(),
+        _keep_scale(seed, dropout_p, b, h, lq, 0, lk, q.device))[:2]
+    f16 = lift and dtype == torch.float16
+    dq, _ = _side16(ds, None, k, None, bwd16_rows(d, False), f16)
+    dk, dv = _side16(ds.transpose(-1, -2), pt.transpose(-1, -2), q, g,
+                     bwd16_rows(d, True), f16)
+    dbias = _sum_to(ds, bias.shape).to(bias.dtype) if bias_grad else None
+    return ((dq * scale).to(out_dtype), (dk * scale).to(out_dtype),
+            dv.to(out_dtype), dbias)
 
 
 # ---------------------------------------------------------------------------
@@ -463,21 +548,26 @@ def _row_major(t):
 
 
 def _tma_ready(t):
-    """The chunked kernels (the forward's and the backward's at head dims
-    above 128 that are multiples of 64) read their inputs with tensor
-    copies, which need the base and the batch, head and row strides in
-    multiples of 16 bytes."""
+    """The kernels that read their inputs with tensor copies (the chunked
+    bodies at head dims above 128 that are multiples of 64, and the 16-bit
+    backward at 64 and 128) need the base and the batch, head and row
+    strides in multiples of 16 bytes."""
     es = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         s > 0 and s * es % 16 == 0 for s in t.stride()[:3])
 
 
-def _kernel_inputs(d, *ts):
-    """``ts`` as the kernels take them: a contiguous head dim, and at head
-    dims above 128 that are multiples of 64 (the chunked kernels) a copy of
-    any tensor that tensor copies cannot read (:func:`_tma_ready`)."""
+def _kernel_inputs(d, *ts, backward=False):
+    """``ts`` as the kernels take them: a contiguous head dim, and a copy
+    of any tensor that tensor copies cannot read (:func:`_tma_ready`) where
+    the kernel reads with them: at head dims above 128 that are multiples
+    of 64 (the chunked kernels) and, for the ``backward`` of bf16 or f16,
+    at 64 and 128 too."""
     ts = [_row_major(t) for t in ts]
-    if d > 128 and d % 64 == 0:
+    tma = d > 128 and d % 64 == 0
+    if backward and ts[0].dtype in (torch.bfloat16, torch.float16):
+        tma = tma or d in (64, 128)
+    if tma:
         ts = [t if _tma_ready(t) else
               t.clone(memory_format=torch.contiguous_format) for t in ts]
     return ts
@@ -492,7 +582,7 @@ def _check_rc(rc, what):
     if rc == -2:
         raise RuntimeError(f"{what} launch failed: an input's base or "
                            f"strides are not multiples of 16 bytes, which "
-                           f"the chunked kernels' tensor copies need")
+                           f"the kernels' tensor copies need")
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
@@ -568,11 +658,12 @@ def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
                          "attention_bwd_blockwise")
     if g.dtype != q.dtype:
         g = g.to(q.dtype)
-    q, k, v, g = _kernel_inputs(d, q, k, v, g)
+    q, k, v, g = _kernel_inputs(d, q, k, v, g, backward=True)
     bias_f, bias_strides = _bias_args(bias, b, h, lq, lk, q.device)
     q_seg, kv_seg = _seg_args(q_seg, kv_seg, q.device)
     # D = rowsum(dO * O) in f32, outside the kernels as in the reference
-    dsum = (g.float() * out.float()).sum(dim=-1).contiguous()
+    # (O widens to f32 inside the product, exactly)
+    dsum = (g.float() * out).sum(dim=-1).contiguous()
     dq = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, h, lk, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)

@@ -9,9 +9,13 @@ against its plain version on a GPU and skip where none is visible:
   lq > lk, dropout 0.1, a fully masked row; f32 within 2e-4 of the plain
   version (relative to the largest value when it exceeds 1: both sum
   512-long products in f32, in different orders), bf16 inputs within
-  2e-2 and f16 inputs within 4e-3 of the plain version run in f32 (both
-  compute in f32 and round P, the output and the gradients to the input
-  type: 8 significant bits in bf16, 11 in f16);
+  2e-2 and f16 inputs within 4e-3 of the plain version run in f32 (the
+  forward computes in f32 and rounds P and the output to the input type:
+  8 significant bits in bf16, 11 in f16; the 16-bit backward rounds P t,
+  dS and the gradients); the 16-bit backward also within 1.6e-2 (bf16)
+  and 2e-3 (f16) of each output's largest gradient of the plain version fed
+  the same inputs, also with an f16 dO of 1e-4 (where dS falls below f16's
+  normal range), and bit for bit the same in two calls;
 - the f32 forward on the tensor cores (3xTF32) within 1e-4 of the plain
   version on every case and at head dims 192 to 1024 (the chunked
   tensor-core body, also in bf16 and f16 within their tolerances), and
@@ -65,6 +69,12 @@ from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as txent
 F32_TOL = 2e-4
 BF16_TOL = 2e-2
 F16_TOL = 4e-3
+# the 16-bit backward against the plain version fed the same inputs,
+# relative to each output's largest gradient: four units of roundoff of the
+# input type (P t, dS and the outputs rounded to 8 significant bits in
+# bf16, 11 in f16), the bounds of the CPU model of its order
+# (tests/test_torch_bwd16_order.py)
+TOP_TOL = {torch.bfloat16: 4 * 2.0 ** -8, torch.float16: 4 * 2.0 ** -11}
 
 
 @pytest.fixture
@@ -117,6 +127,15 @@ def _close(got, want, tol):
     assert err <= tol * scale, (err, tol * scale)
 
 
+def _close_to_top(got, want, tol):
+    """Within ``tol`` of the largest gradient of ``want``, however small
+    that is (``_close`` holds gradients below 1 to an absolute bound)."""
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    assert torch.isfinite(got.float()).all()
+    assert err <= tol * top, (err, tol * top)
+
+
 # (b, h, lq, lk, d, causal, bias kind, bias needs grad, dropout)
 ATTN_CASES = [
     (8, 12, 512, 512, 64, False, "padding", False, 0.1),  # BERT-base train
@@ -163,10 +182,65 @@ def test_flash_fwd_bwd_kernels_match_plain(case, dtype, tol, cuda_device):
     if bias_grad:
         assert db.shape == bias.shape
         _close(db, want[3], tol)
+    if dtype != torch.float32:
+        # the 16-bit backward against the plain version fed its own inputs
+        # (the forward's 16-bit output), relative to the largest gradient
+        same = tfa.attention_bwd_reference(
+            qf, kf, vf, gf, out.float(), m, l, causal, scale, bias, p, seed,
+            bias_grad)
+        for got_t, want_t in zip((dq, dk, dv), same[:3]):
+            _close_to_top(got_t, want_t, TOP_TOL[dtype])
     if bias_kind == "padding":
         # the fully masked batch row: zero output, zero gradients
         for t in (out, dq, dk, dv):
             assert t[-1].float().abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd16_is_deterministic(d, dtype, cuda_device):
+    """Two calls of the 16-bit backward give the same bits: each output
+    element is written once by one thread, summed in one order, with no
+    atomics (padding bias with its gradient, dropout 0.1)."""
+    q, k, v, g, bias = _attn_inputs(2, 128 // d * 3, 512, 512, d, "padding",
+                                    cuda_device, seed=d)
+    q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+    seed, scale = (0x1234ABCD, 0x9E3779B9), 1.0 / np.sqrt(d)
+    out, m, l = tfa._flash_cuda(q, k, v, False, scale, bias, 0.1, seed,
+                                stats=True)
+    args = (q, k, v, g, out, m, l, False, scale, bias, 0.1, seed, True)
+    first = tfa._flash_bwd_cuda(*args)
+    second = tfa._flash_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_f16_small_grads_within_top_tol(d, cuda_device):
+    """An f16 dO of ~1e-4, where dS falls below f16's smallest normal value
+    (2^-14) and would keep few bits, or none, if it were rounded as it is:
+    dq, dk and dv within 2e-3 of each output's largest gradient of the
+    plain version fed the same inputs, the fully masked record's gradients
+    exactly zero."""
+    q, k, v, g, bias = _attn_inputs(4, 768 // d, 512, 512, d, "padding",
+                                    cuda_device, seed=11)
+    q, k, v = (x.to(torch.float16) for x in (q, k, v))
+    g = (g * 1e-4).to(torch.float16)
+    seed, scale = (0x1234ABCD, 0x9E3779B9), 1.0 / np.sqrt(d)
+    out, m, l = tfa._flash_cuda(q, k, v, False, scale, bias, 0.1, seed,
+                                stats=True)
+    args = (q, k, v, g, out, m, l, False, scale, bias, 0.1, seed)
+    got = tfa._flash_bwd_cuda(*args)
+    want = tfa.attention_bwd_reference(*(x.float() for x in args[:5]),
+                                       *args[5:])
+    torch.cuda.synchronize()
+    for got_t, want_t in zip(got[:3], want[:3]):
+        _close_to_top(got_t, want_t, TOP_TOL[torch.float16])
+        assert got_t[-1].float().abs().max().item() == 0.0
 
 
 @pytest.mark.cuda
@@ -653,6 +727,32 @@ def test_chunked_backward_inputs_suit_tensor_copies():
     assert tfa._tma_ready(odd.clone(memory_format=torch.contiguous_format))
     assert not tfa._tma_ready(
         torch.zeros(2, 4, 8, 196, dtype=torch.bfloat16)[..., 4:])
+
+
+@pytest.mark.parametrize("d,dtype,backward,copied", [
+    (64, torch.bfloat16, True, True),
+    (128, torch.float16, True, True),
+    (64, torch.float32, True, False),
+    (64, torch.bfloat16, False, False),
+    (96, torch.float16, True, False),
+], ids=["d64-bf16-bwd", "d128-f16-bwd", "d64-f32-bwd", "d64-bf16-fwd",
+        "d96-f16-bwd"])
+def test_bwd16_inputs_suit_tensor_copies(d, dtype, backward, copied):
+    """The 16-bit backward at head dims 64 and 128 reads q, k, v and dO with
+    tensor copies: the wrapper hands it a copy of a view whose base or row
+    stride is not a multiple of 16 bytes, and a split-heads view of a fused
+    projection as it is.  The f32 backward, the 16-bit forward at those
+    head dims and the CUDA-core bodies read rows through their strides and
+    get the views."""
+    b, h, n = 2, 3, 8
+    x = torch.zeros(b, n, 3 * h * d, dtype=dtype)
+    fused = [t.reshape(b, n, h, d).transpose(1, 2)
+             for t in torch.chunk(x, 3, dim=-1)]
+    odd = torch.zeros(b, h, n, d + 1, dtype=dtype)[..., 1:]
+    got = tfa._kernel_inputs(d, odd, *fused, backward=backward)
+    assert (got[0].data_ptr() != odd.data_ptr()) == copied
+    assert tfa._tma_ready(got[0]) == (copied or tfa._tma_ready(odd))
+    assert [t.data_ptr() for t in got[1:]] == [t.data_ptr() for t in fused]
 
 
 @pytest.mark.parametrize("d,dtype,layout,copied", [

@@ -10,7 +10,8 @@ last record, dropout 0.1 from the hash), and beside it at head dim 128 (6
 heads) in f32 and at D=64 and 128 in bf16 and in f16: the error of dq, dk
 and dv against the plain version on the same inputs, relative to each
 output's largest gradient, and the time through the Python wrapper (CUDA events over calls
-issued one by one) and from a CUDA-graph replay of the same calls, with
+issued one by one), from a CUDA-graph replay of the same calls and, for
+the backward's own kernels alone, from a ``torch.profiler`` trace, with
 SDPA's backward (the memory-efficient attention backward op SDPA runs
 here, without dropout) timed the same two ways, and the bound of the
 kernel's tensor-core route.  Then fused
@@ -84,6 +85,25 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps):
+    """Mean device time of the backward's own kernels (names in the
+    ``zoo_flash_bwd`` namespace) per call of ``fn``, from a
+    ``torch.profiler`` trace of ``reps`` calls: the kernels without the
+    wrapper's PyTorch operations (D = rowsum(dO * O), the outputs, the bias
+    gradient's sum)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if "zoo_flash_bwd" in e.key) / reps / 1e3
 
 
 def graph_ms(fn, reps):
@@ -174,6 +194,7 @@ def bwd_case(heads, d, dtype, reps, dev):
     live_keys = int((bias[:, 0, 0, :] == 0).sum().item())
     return {"rel_to_largest_grad": err, "masked_row_max": masked,
             "ms": cuda_ms(call, reps), "graph_ms": graph_ms(call, reps),
+            "kernel_ms": kernel_ms(call, reps),
             "library_ms": cuda_ms(lib, reps),
             "library_graph_ms": graph_ms(lib, reps),
             **bound(8 * b * heads * l * d * q.element_size()
@@ -236,7 +257,8 @@ def main() -> int:
         print(f"{args.tag} bwd {label} B=8 H={heads} L=512: error relative "
               f"to the largest gradient {row['rel_to_largest_grad']:.3e}, "
               f"{row['ms']:.4f} ms through the wrapper, {row['graph_ms']:.4f}"
-              f" ms graph; sdpa backward {row['library_ms']:.4f} ms, graph "
+              f" ms graph, {row['kernel_ms']:.4f} ms in its kernels; sdpa "
+              f"backward {row['library_ms']:.4f} ms, graph "
               f"{row['library_graph_ms']:.4f} ms; bound {row['bound_ms']:.4f}"
               f" ms ({row['bound_by']})", flush=True)
     row = result["adam"] = adam_case(args.reps, dev)
