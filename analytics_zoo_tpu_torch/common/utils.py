@@ -17,6 +17,12 @@ def to_tuple_shape(shape) -> tuple:
     return tuple(shape)
 
 
+def _tuple_like(tree, items):
+    """``items`` as a tuple of ``tree``'s type (a named tuple stays one,
+    as in ``jax.tree_util``)."""
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
 def tree_map(fn, tree):
     """Apply ``fn`` to every leaf of a nested dict/list/tuple tree."""
     if isinstance(tree, dict):
@@ -24,7 +30,7 @@ def tree_map(fn, tree):
     if isinstance(tree, list):
         return [tree_map(fn, v) for v in tree]
     if isinstance(tree, tuple):
-        return tuple(tree_map(fn, v) for v in tree)
+        return _tuple_like(tree, [tree_map(fn, v) for v in tree])
     return fn(tree)
 
 
@@ -38,7 +44,7 @@ def tree_map_many(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         out = [tree_map_many(fn, v, *(r[i] for r in rest))
                for i, v in enumerate(tree)]
-        return out if isinstance(tree, list) else tuple(out)
+        return out if isinstance(tree, list) else _tuple_like(tree, out)
     return fn(tree, *rest)
 
 

@@ -218,6 +218,7 @@
 namespace zoo_flash_bwd {
 
 using zoo_flash::keep_base;
+using zoo_flash::load_seed;
 using zoo_flash::keep_k;
 using zoo_flash::keep_q;
 using zoo_flash::mix32;
@@ -257,7 +258,8 @@ struct Args {
   float scale;
   int causal;
   int dropout;
-  uint32_t seed0, seed1, drop_thr;
+  const uint32_t* seed;  // the (seed0, seed1) pair; null without dropout
+  uint32_t drop_thr;
   float inv_keep;
   int vec;  // every row start aligned to 4 elements: vector loads
 };
@@ -478,7 +480,8 @@ __global__ void __launch_bounds__(2 * D, 1) bwd_kernel(Args a) {
 
   // this thread's own rows: warp * 16 + g + 8 hh, hh = 0, 1, with their
   // part of the dropout hash and, in the dq kernel, their m, 1 / l and D
-  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  const uint2 sd = load_seed(a);
+  const uint32_t hash = keep_base(sd.x, sd.y, b, h);
   int rw[2];
   uint32_t rhash[2];
   float mr[2] = {0.f, 0.f}, lr[2] = {1.f, 1.f}, dr[2] = {0.f, 0.f};
@@ -790,7 +793,8 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
   // this thread's own rows: warp * 16 + g + 8 hh, hh = 0, 1, with their
   // part of the dropout hash, segment ids and, in the dq kernel, their m
   // log2 e + log2 l and D; in the dk/dv kernel their bias times log2 e
-  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  const uint2 sd = load_seed(a);
+  const uint32_t hash = keep_base(sd.x, sd.y, b, h);
   int rw[2], rseg[2] = {0, 0};
   uint32_t rhash[2];
   float ml[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f}, ob[2] = {0.f, 0.f};
@@ -1309,7 +1313,8 @@ __global__ void __launch_bounds__(128 * NWG, 1)
     Bs[tid] = bias != nullptr && row_bias && r0 + tid < a.Lk
                   ? bias[(r0 + tid) * a.bs_k] : 0.f;
 
-  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  const uint2 sd = load_seed(a);
+  const uint32_t hash = keep_base(sd.x, sd.y, b, h);
   int rw[2];
   uint32_t rhash[2];
   float mr[2] = {0.f, 0.f}, lr[2] = {1.f, 1.f}, dr[2] = {0.f, 0.f};
@@ -1608,7 +1613,8 @@ __global__ void __launch_bounds__(SIMT_NT) bwd_simt_kernel(Args a, int D) {
 
   // the own rows ty + 16 i: their segment ids and, in the dq kernel, m,
   // 1 / l and D
-  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  const uint2 sd = load_seed(a);
+  const uint32_t hash = keep_base(sd.x, sd.y, b, h);
   float mr[4], lr[4], dr[4];
   int rseg[4];
 #pragma unroll
@@ -1871,7 +1877,8 @@ bool rows_aligned(const void* p, int bytes, int64_t s_b, int64_t s_h,
 }  // namespace zoo_flash_bwd
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  m, l, dsum: (B, H, Lq)
-// f32.  dq, dk, dv: contiguous outputs in the input type.  dbias: (B, H,
+// f32.  seed: the dropout (seed0, seed1) pair in device memory, read by
+// each block; null without dropout.  dq, dk, dv: contiguous outputs in the input type.  dbias: (B, H,
 // Lk) f32 partials, or null when the bias needs no gradient.  q_seg, kv_seg:
 // contiguous (B, Lq) and (B, Lk) int32 segment ids, or both null.  Head
 // dims 64 and 128 take the tensor-core kernels, every other multiple of 64
@@ -1889,7 +1896,7 @@ extern "C" int zoo_flash_attention_bwd(
     long long vs_b, long long vs_h, long long vs_l,
     long long gs_b, long long gs_h, long long gs_l,
     long long bs_b, long long bs_h, long long bs_q, long long bs_k,
-    float scale, int causal, int dropout, unsigned seed0, unsigned seed1,
+    float scale, int causal, int dropout, const unsigned* seed,
     unsigned drop_thr, float inv_keep, void* stream) {
   using zoo_flash_bwd::rows_aligned;
   const int bytes = dtype == 0 ? 16 : 8;
@@ -1905,7 +1912,7 @@ extern "C" int zoo_flash_attention_bwd(
                         q_seg, kv_seg, B, H, Lq, Lk,
                         qs_b, qs_h, qs_l, ks_b, ks_h, ks_l, vs_b, vs_h, vs_l,
                         gs_b, gs_h, gs_l, bs_b, bs_h, bs_q, bs_k,
-                        scale, causal, dropout, seed0, seed1, drop_thr,
+                        scale, causal, dropout, seed, drop_thr,
                         inv_keep, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return zoo_flash_bwd::dispatch<float>(head_dim, a, s);

@@ -197,7 +197,9 @@ int dispatch_16bit(int head_dim, const zoo_flash::Args& a,
 // f32 outputs of the softmax statistics, or both null.  q_seg, kv_seg:
 // contiguous (B, Lq) and (B, Lk) int32 segment ids, or both null.
 // dropout != 0 drops with the hash threshold drop_thr and scales kept
-// values by inv_keep.  out must be contiguous.  Any head dim.  Returns 0
+// values by inv_keep; seed is then the (seed0, seed1) pair in device
+// memory, read by each block (a captured step rewrites it between
+// replays), else null.  out must be contiguous.  Any head dim.  Returns 0
 // on success, a cudaError_t code when the launch failed, -1 for a dtype
 // the kernels do not take, or -2 when the chunked kernel (head dims above
 // 128 that are multiples of 64) cannot map an input (a base or a stride
@@ -211,13 +213,13 @@ extern "C" int zoo_flash_attention_fwd(
     long long vs_b, long long vs_h, long long vs_l,
     long long bs_b, long long bs_h, long long bs_q, long long bs_k,
     long long os_b, long long os_h, long long os_l,
-    float scale, int causal, int dropout, unsigned seed0, unsigned seed1,
+    float scale, int causal, int dropout, const unsigned* seed,
     unsigned drop_thr, float inv_keep, void* stream) {
   zoo_flash::Args a{q, k, v, bias, out, B, H, Lq, Lk,
                     qs_b, qs_h, qs_l, ks_b, ks_h, ks_l, vs_b, vs_h, vs_l,
                     bs_b, bs_h, bs_q, bs_k, os_b, os_h, os_l,
                     scale, causal, m_out, l_out,
-                    dropout, seed0, seed1, drop_thr, inv_keep, q_seg, kv_seg};
+                    dropout, seed, drop_thr, inv_keep, q_seg, kv_seg};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(head_dim, a, s);
   if (dtype == 1) return dispatch_16bit<__nv_bfloat16>(head_dim, a, s);

@@ -230,6 +230,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a, int D) {
   const int q0 = blockIdx.x / ngr * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint2 sd = load_seed(a);  // the dropout seed pair
   const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
   const T* q = static_cast<const T*>(a.q) + b * a.qs_b + h * a.qs_h;
   const T* k = static_cast<const T*>(a.k) + b * a.ks_b + h * a.ks_h;
@@ -312,7 +313,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Args a, int D) {
         rs += p;  // l is the denominator before dropout
         if (a.dropout) {
           const uint32_t bits =
-              keep_bits(a.seed0, a.seed1, b, h, q0 + ty + 16 * i,
+              keep_bits(sd.x, sd.y, b, h, q0 + ty + 16 * i,
                         k0 + tx + 16 * j);
           p = bits >= a.drop_thr ? p * a.inv_keep : 0.f;
         }
@@ -495,6 +496,7 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
   const int q0 = blockIdx.x * 64;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint2 sd = load_seed(a);  // the dropout seed pair
   const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
   const T* q = static_cast<const T*>(a.q) + b * a.qs_b + h * a.qs_h;
   const T* k = static_cast<const T*>(a.k) + b * a.ks_b + h * a.ks_h;
@@ -619,7 +621,7 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 1)
 #pragma unroll
       for (int i = 0; i < BKV / 2; ++i) {
         const int kj = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
-        s[i] = keep_bits(a.seed0, a.seed1, b, h, qi[(i >> 1) & 1], kj) >=
+        s[i] = keep_bits(sd.x, sd.y, b, h, qi[(i >> 1) & 1], kj) >=
                        a.drop_thr
                    ? s[i] * a.inv_keep : 0.f;
       }
@@ -724,6 +726,7 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)
   const int q0 = blockIdx.x * 64;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint2 sd = load_seed(a);  // the dropout seed pair
   const int offset = a.Lk - a.Lq;  // end-aligned causal diagonal
   const float* q = static_cast<const float*>(a.q) + b * a.qs_b + h * a.qs_h;
   const float* k = static_cast<const float*>(a.k) + b * a.ks_b + h * a.ks_h;
@@ -908,7 +911,7 @@ __global__ void __launch_bounds__(WG_THREADS, D == 64 ? 2 : 1)
 #pragma unroll
       for (int i = 0; i < BKV / 2; ++i) {
         const int kj = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
-        s[i] = keep_bits(a.seed0, a.seed1, b, h, qi[(i >> 1) & 1], kj) >=
+        s[i] = keep_bits(sd.x, sd.y, b, h, qi[(i >> 1) & 1], kj) >=
                        a.drop_thr
                    ? s[i] * a.inv_keep : 0.f;
       }
@@ -1188,7 +1191,8 @@ __global__ void __launch_bounds__(
 
   // this thread's rows of the tile: warp * 16 + g + 8 hh, hh = 0, 1, with
   // their segment ids and dropout hashes
-  const uint32_t hash = keep_base(a.seed0, a.seed1, b, h);
+  const uint2 sd = load_seed(a);
+  const uint32_t hash = keep_base(sd.x, sd.y, b, h);
   int qi[2], qseg[2];
   uint32_t rhash[2];
   float m[2], l[2];

@@ -37,15 +37,25 @@ struct Args {
   // both null when the caller needs no statistics
   float* m_out;
   float* l_out;
-  // dropout: keep an element when keep_bits(...) >= drop_thr
+  // dropout: keep an element when keep_bits(...) >= drop_thr; the
+  // (seed0, seed1) pair is read from device memory (load_seed), so a
+  // captured step's replays each take the pair written before them
   int dropout;
-  uint32_t seed0, seed1, drop_thr;
+  const uint32_t* seed;  // null without dropout
+  uint32_t drop_thr;
   float inv_keep;  // 1 / (1 - p)
   // contiguous (B, Lq) and (B, Lk) int32 segment ids, or both null: a
   // (query, key) pair is live only where the two are equal
   const int* q_seg;
   const int* kv_seg;
 };
+
+// The dropout seed pair (seed0, seed1), read from device memory at the
+// start of a block; (0, 0) without dropout, when the pointer is null.
+template <typename A>
+__device__ __forceinline__ uint2 load_seed(const A& a) {
+  return a.dropout ? make_uint2(a.seed[0], a.seed[1]) : make_uint2(0u, 0u);
+}
 
 // The reference's counter-based dropout hash (`_mix32`, `_keep_bits`,
 // flash_attention.py:73-90), bit for bit: uint32 arithmetic wraps.

@@ -14,7 +14,8 @@ masked: the dense softmax gives a uniform row, flash gives zeros.
 
 Attention dropout: on the flash route the mask comes from the kernel's
 position hash, seeded with the (seed0, seed1) pair of the call's generator
-(:func:`~analytics_zoo_tpu_torch.common.engine.seed_pair`), so it is the
+(:func:`~analytics_zoo_tpu_torch.common.engine.seed_pair`; a train step's
+``StepKey`` gives the same pair in device memory), so it is the
 reference's mask for the same pair and the same on every device.  The
 dense route draws its mask from the generator with ``torch.rand``; the
 reference draws it with ``jax.random.bernoulli``, so that mask is not
@@ -27,6 +28,7 @@ import math
 
 import torch
 
+from analytics_zoo_tpu_torch.common.engine import generator_of
 from analytics_zoo_tpu_torch.ops.cuda.flash_attention import (
     _NEG,
     flash_attention,
@@ -68,7 +70,8 @@ def dot_product_attention(q, k, v, mask=None, dropout_p=0.0, rng=None,
       mask: optional additive mask broadcastable to (B, H, Lq, Lk) — 0 for
         keep, large-negative for drop — or a boolean mask (True = keep).
       dropout_p: attention-prob dropout, applied when ``rng`` (a
-        ``torch.Generator`` on q's device) is given.
+        ``torch.Generator`` on q's device, or a train step's ``StepKey``)
+        is given.
       causal: end-aligned lower-triangular masking.
       scale: score scale; defaults to 1/sqrt(D).
     """
@@ -106,7 +109,7 @@ def dot_product_attention(q, k, v, mask=None, dropout_p=0.0, rng=None,
             scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
     if dropout_p > 0.0 and rng is not None:
-        keep = torch.rand(probs.shape, generator=rng,
+        keep = torch.rand(probs.shape, generator=generator_of(rng),
                           device=probs.device) < 1.0 - dropout_p
         probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)

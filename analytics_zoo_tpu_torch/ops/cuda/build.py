@@ -2,9 +2,13 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc into a shared library with a
 plain C interface, at first use, into ``build/kernels/`` beside the
-package (a directory git ignores).  The file name carries a hash of the
-sources and flags, so an edited source builds anew and an unchanged one
-is reused.  Nothing here runs at import time.
+package (a directory git ignores), or into the persistent directory of
+the compile plane (``common.compile_cache.maybe_enable_persistent_cache``,
+``ZOO_COMPILE_CACHE``) when one is set.  The file name carries a hash of
+the sources and flags, so an edited source builds anew and an unchanged
+one is reused.  Every build and first load goes through the compile
+plane's choke point under ``kernel_<name>``: a library found is a hit, an
+nvcc run a miss.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,6 +21,13 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from analytics_zoo_tpu_torch.common.compile_cache import (
+    cache_dir,
+    maybe_enable_persistent_cache,
+    record,
+    timed_compile,
+)
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
@@ -43,6 +54,13 @@ def nvcc_path() -> str:
                        "to build the CUDA kernels")
 
 
+def build_dir() -> Path:
+    """The compile plane's persistent directory when one is set, else
+    ``BUILD_DIR``."""
+    maybe_enable_persistent_cache()
+    return Path(cache_dir() or BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by the sources (the .cu
     and every header in csrc/) and the flags."""
@@ -50,19 +68,20 @@ def library_path(name: str) -> Path:
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, dict]:
     """Compile every named kernel source that is not built yet, one nvcc
-    process each, all started together.  Returns ``{name: {"seconds",
+    process each, all started together; each counts as a miss under
+    ``kernel_<name>`` with its seconds.  Returns ``{name: {"seconds",
     "log"}}`` for the sources it compiled (``log`` holds ptxas's register
     and spill report).  Raises with nvcc's output if any build fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
@@ -80,17 +99,33 @@ def build(names) -> dict[str, dict]:
             continue
         os.replace(tmp, dest)  # atomic: a reader never sees half a library
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        record(f"kernel_{name}", report[name]["seconds"])  # a miss
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use (a
+    miss); a library already built is loaded as a hit under
+    ``kernel_<name>``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            import torch
+
+            if torch.cuda.is_available() \
+                    and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"kernel library {name} first needed inside a CUDA "
+                    "graph capture: a captured step's eager run loads its "
+                    "libraries before the capture")
+            path = library_path(name)
+            if path.exists():
+                lib = timed_compile(lambda: ctypes.CDLL(str(path)),
+                                    f"kernel_{name}", hit=True)
+            else:
+                build([name])
+                lib = ctypes.CDLL(str(path))
             _LIBS[name] = lib
         return lib

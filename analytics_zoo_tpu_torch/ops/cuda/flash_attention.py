@@ -49,7 +49,11 @@ import math
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common.engine import seed_pair
+from analytics_zoo_tpu_torch.common.engine import (
+    StepKey,
+    pair_tensor,
+    seed_pair,
+)
 
 _NEG = -1e30
 _U32 = 0xFFFFFFFF
@@ -111,16 +115,26 @@ def drop_threshold(dropout_p: float) -> int:
 
 def normalize_seed(seed):
     """(seed0, seed1) as unsigned 32-bit values from an int (-> (seed, 0)),
-    a ``torch.Generator`` (:func:`seed_pair`), or one or two integers in a
-    tensor, array or sequence (their 32-bit patterns)."""
+    a ``torch.Generator`` (:func:`seed_pair`), or one or two integers in an
+    array or sequence (their 32-bit patterns).  A tensor stays where it
+    is, read by the kernels and the plain versions alike: a train step's
+    ``StepKey`` gives its site's (2,) int32 pair in device memory, and any
+    other integer tensor becomes its first two values' 32-bit patterns
+    (one value: (seed, 0)) as a (2,) int32 tensor on its own device."""
     if seed is None:
         return None
+    if isinstance(seed, StepKey):
+        return seed.flash_seed()
+    if torch.is_tensor(seed):
+        if seed.dtype == torch.int32 and seed.shape == (2,):
+            return seed
+        t = seed.reshape(-1)[:2].to(torch.int32)
+        return t if t.numel() == 2 else torch.cat([t, t.new_zeros(1)])
     if isinstance(seed, torch.Generator):
         return seed_pair(seed)
     if isinstance(seed, (int, np.integer)):
         return int(seed) & _U32, 0
-    vals = [int(x) & _U32 for x in np.asarray(
-        seed.cpu() if torch.is_tensor(seed) else seed).reshape(-1)[:2]]
+    vals = [int(x) & _U32 for x in np.asarray(seed).reshape(-1)[:2]]
     return (vals[0], vals[1] if len(vals) > 1 else 0)
 
 
@@ -489,6 +503,8 @@ class _FlashAttention(torch.autograd.Function):
                                             return_stats=True, q_seg=q_seg,
                                             kv_seg=kv_seg)
         else:
+            if dropout_p > 0.0:
+                seed = _seed_on(seed, q.device)  # the backward's too
             out, m, l = _flash_cuda(q, k, v, causal, scale, bias, dropout_p,
                                     seed, stats=grad, q_seg=q_seg,
                                     kv_seg=kv_seg)
@@ -606,10 +622,38 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _drop_args(dropout_p, seed):
+_HOST_SEEDS: dict = {}  # (pair, device) -> its device copy
+_HOST_SEEDS_KEPT = 256
+
+
+def _seed_on(seed, device):
+    """The seed pair as the kernels read it: a (2,) int32 tensor on
+    ``device``.  A host pair is copied there once, without waiting for the
+    device, and kept (the last ``_HOST_SEEDS_KEPT`` pairs), so repeated
+    calls with one pair, captured ones too, read one buffer."""
+    if torch.is_tensor(seed):
+        return seed if seed.device == device else seed.to(device)
+    key = (tuple(seed), str(device))
+    t = _HOST_SEEDS.get(key)
+    if t is None:
+        while len(_HOST_SEEDS) >= _HOST_SEEDS_KEPT:
+            _HOST_SEEDS.pop(next(iter(_HOST_SEEDS)))
+        t = _HOST_SEEDS[key] = pair_tensor(seed, device)
+    return t
+
+
+def _drop_args(dropout_p, seed, device):
+    """(dropout, seed pointer, threshold, 1/(1-p)): the kernels read the
+    (seed0, seed1) pair from device memory, once per block."""
     if dropout_p <= 0.0:
-        return 0, 0, 0, 0, 1.0
-    return (1, seed[0], seed[1], drop_threshold(dropout_p),
+        return 0, None, 0, 1.0
+    seed = _seed_on(seed, device)
+    if seed.dtype != torch.int32 or seed.shape != (2,) \
+            or not seed.is_contiguous():
+        raise ValueError(f"the flash kernels read the seed pair as a "
+                         f"contiguous (2,) int32 tensor, got "
+                         f"{seed.dtype} {tuple(seed.shape)}")
+    return (1, seed.data_ptr(), drop_threshold(dropout_p),
             1.0 / (1.0 - dropout_p))
 
 
@@ -635,7 +679,7 @@ def _flash_cuda(q, k, v, causal, scale, bias, dropout_p=0.0, seed=None,
         _ptr(bias), out.data_ptr(), _ptr(m), _ptr(l), _ptr(q_seg),
         _ptr(kv_seg), b, h, lq, lk, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *bias_strides, *out.stride()[:3], scale,
-        int(causal), *_drop_args(dropout_p, seed), _stream(device))
+        int(causal), *_drop_args(dropout_p, seed, device), _stream(device))
     _check_rc(rc, "flash_attention kernel")
     launch_count += 1
     return out, m, l
@@ -675,7 +719,7 @@ def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
         _ptr(bias_f), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(db),
         _ptr(q_seg), _ptr(kv_seg), b, h, lq, lk, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *g.stride()[:3], *bias_strides,
-        scale, int(causal), *_drop_args(dropout_p, seed),
+        scale, int(causal), *_drop_args(dropout_p, seed, q.device),
         _stream(q.device))
     _check_rc(rc, "flash_attention backward")
     bwd_launch_count += 1
@@ -685,15 +729,17 @@ def _flash_bwd_cuda(q, k, v, g, out, m, l, causal, scale, bias,
     return dq, dk, dv, dbias
 
 
+# ... scale, causal, dropout, seed (a device pointer), drop_thr, inv_keep,
+# stream
 _ARGTYPES = {
     _FWD: ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
            + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 16
-           + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 3
-           + [ctypes.c_float, ctypes.c_void_p]),
+           + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]),
     _BWD: ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 14
            + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 16
-           + [ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 3
-           + [ctypes.c_float, ctypes.c_void_p]),
+           + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]),
 }
 _LIBS: dict = {}
 

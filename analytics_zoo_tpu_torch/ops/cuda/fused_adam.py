@@ -21,6 +21,16 @@ leaf goes through :func:`adam_leaf`, which takes :func:`adam_leaf_reference`
 for a CPU tensor; :func:`adam_leaf` on a CUDA tensor is a table of one.
 ``launch_count`` counts the kernel launches, ``leaf_count`` the leaves
 they updated, ``plain_count`` the leaves that took the plain version.
+
+:func:`fused_update_` is the same update in place, as the reference's
+train step donates its buffers (``donate_argnums=(0, 1, 2)``): mu and nu
+become mu' and nu' where they are, and only the updates are new.  The
+kernel writes its mu' and nu' outputs at the layout's offsets of two flat
+buffers, so in place it takes moments that are views of such buffers
+(:func:`in_layout` puts them there once); each element is read and then
+written by the same thread, so reading and writing one address is safe.
+A captured train step then holds no copy of the moments: the kernel's
+launch, its table of pointers included, is replayed as it is.
 """
 
 from __future__ import annotations
@@ -134,8 +144,7 @@ def fused_update(grads, mu, nu, scalars, kernel=True):
     out = [None] * n
     table = []  # indices of the kernel leaves on the card
     for i, g in enumerate(grads):
-        if kernel and g.dtype == torch.float32 \
-                and g.numel() >= MIN_KERNEL_LEAF:
+        if kernel and _kernel_leaf(g):
             if g.device.type == "cpu":
                 out[i] = adam_leaf(g, mu[i], nu[i], scalars)
             else:
@@ -148,6 +157,70 @@ def fused_update(grads, mu, nu, scalars, kernel=True):
         for j, i in enumerate(table):
             out[i] = (got[0][j], got[1][j], got[2][j])
     return ([t[0] for t in out], [t[1] for t in out], [t[2] for t in out])
+
+
+def fused_update_(grads, mu, nu, scalars, kernel=True):
+    """:func:`fused_update` in place: every leaf of ``mu`` and ``nu``
+    becomes mu' and nu' (the kernel's leaves on the card written by the
+    kernel where they are, which needs them :func:`in_layout`); returns the
+    updates.  The same arithmetic, so the same bits."""
+    upd = [None] * len(grads)
+    table = []
+    for i, g in enumerate(grads):
+        if kernel and _kernel_leaf(g) and g.device.type != "cpu":
+            table.append(i)
+            continue
+        if kernel and _kernel_leaf(g):
+            u, m2, v2 = adam_leaf(g, mu[i], nu[i], scalars)
+        else:
+            u, m2, v2 = adam_leaf_reference(g, mu[i], nu[i], scalars)
+        mu[i].copy_(m2)
+        nu[i].copy_(v2)
+        upd[i] = u
+    if table:
+        got = _adam_cuda([grads[i] for i in table], [mu[i] for i in table],
+                         [nu[i] for i in table], scalars, in_place=True)[0]
+        for j, i in enumerate(table):
+            upd[i] = got[j]
+    return upd
+
+
+def _kernel_leaf(t) -> bool:
+    """The reference's gate: an f32 leaf of at least MIN_KERNEL_LEAF."""
+    return t.dtype == torch.float32 and t.numel() >= MIN_KERNEL_LEAF
+
+
+def in_layout(leaves) -> list:
+    """``leaves`` (moments) with those the kernel updates on the card as
+    views of one flat buffer at the kernel layout's offsets, which
+    :func:`fused_update_` writes in place: copied there once, or returned
+    as they are when they are laid out already.  CPU leaves stay."""
+    idx = [i for i, t in enumerate(leaves)
+           if _kernel_leaf(t) and t.device.type == "cuda"]
+    out = list(leaves)
+    if not idx:
+        return out
+    sel = [leaves[i] for i in idx]
+    layout = _Layout([tuple(t.shape) for t in sel])
+    if _flat_base(sel, layout) is not None:
+        return out
+    flat = torch.empty(layout.total, dtype=torch.float32,
+                       device=sel[0].device)
+    for i, view, t in zip(idx, layout.views(flat), sel):
+        out[i] = view.copy_(t)
+    return out
+
+
+def _flat_base(ts, layout):
+    """The address of the flat buffer whose views at ``layout``'s offsets
+    ``ts`` are, or None when they are not."""
+    base = ts[0].data_ptr() - 4 * layout.offsets[0]
+    storage = ts[0].untyped_storage().data_ptr()
+    for t, off in zip(ts, layout.offsets):
+        if t.data_ptr() != base + 4 * off or not t.is_contiguous() \
+                or t.untyped_storage().data_ptr() != storage:
+            return None
+    return base
 
 
 class _Layout:
@@ -212,9 +285,11 @@ def _layout(grads, mu, nu):
     return layout
 
 
-def _adam_cuda(grads, mu, nu, scalars):
+def _adam_cuda(grads, mu, nu, scalars, in_place=False):
     """One launch (per ``TABLE_LEAVES`` leaves) over the given f32 leaves:
-    lists of (updates, mu', nu'), each leaf a view into a flat buffer."""
+    lists of (updates, mu', nu'), each leaf a view into a flat buffer; with
+    ``in_place`` mu' and nu' are written over mu and nu, which must be laid
+    out by :func:`in_layout`."""
     global launch_count, leaf_count
     layout = _layout(grads, mu, nu)
     if scalars.dtype != torch.float32 or scalars.shape != (6,) \
@@ -228,16 +303,25 @@ def _adam_cuda(grads, mu, nu, scalars):
     table[:, 1] = [t.data_ptr() for t in mu]
     table[:, 2] = [t.data_ptr() for t in nu]
     dev = grads[0].device
+    n_new = 1 if in_place else 3
     flats = [torch.empty(layout.total, dtype=torch.float32, device=dev)
-             for _ in range(3)]
+             for _ in range(n_new)]
+    outs = [f.data_ptr() for f in flats]
+    if in_place:
+        bases = [_flat_base(ts, layout) for ts in (mu, nu)]
+        if None in bases:
+            raise ValueError("fused_adam in place takes moments laid out "
+                             "by in_layout()")
+        outs += bases
     rc = _library().zoo_fused_adam_multi(
         table.ctypes.data, len(grads), scalars.contiguous().data_ptr(),
-        *(f.data_ptr() for f in flats),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *outs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_adam kernel launch failed: cudaError {rc}")
     launch_count += layout.launches
     leaf_count += len(grads)
+    if in_place:
+        return layout.views(flats[0]), mu, nu
     return tuple(layout.views(f) for f in flats)  # while the kernel runs
 
 

@@ -26,9 +26,10 @@ rule tables:
   takes the int8 kernel only when a rule names it, as there.
 
 A plan becomes active the way it does in the reference: the step function
-runs under :func:`compile_step`.  Eager PyTorch has nothing to compile, so
-:class:`PlannedStep` only enters the plan around each call; the timed
-compile choke point waits for ROADMAP queue 1 item 12.  The sharded plans
+runs under :func:`compile_step`, the compile plane's choke point: on the
+card :class:`PlannedStep` captures the step into a CUDA graph per input
+signature and replays it, timed and counted by
+``common.compile_cache``.  The sharded plans
 (zero1/2/3, fsdp, ``+overlap``) and the param/opt/grad/remat tables wait
 for the distribution slice (queue 1 item 13); their names raise
 ``NotImplementedError``.  ``ZOO_DTYPE_POLICY`` is read by
@@ -424,23 +425,211 @@ def resolve_plan(value=None) -> ShardingPlan:
     return with_kernels(plan) if kernels else plan
 
 
-class PlannedStep:
-    """A step function bound to a plan: each call runs under it, so
-    :func:`resolve_kernel` inside sees the plan's rule tables."""
+def _leaves(tree, out: list) -> list:
+    """The leaves of a nest of dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _leaves(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    else:
+        out.append(tree)
+    return out
 
-    def __init__(self, fn, label: str, plan: ShardingPlan):
+
+def _rebuild(tree, it):
+    """``tree``'s structure (named tuples kept) with leaves from ``it``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_rebuild(v, it) for v in tree]
+    if isinstance(tree, tuple):
+        vals = [_rebuild(v, it) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return next(it)
+
+
+_BY_VALUE = (bool, int, float, str, type(None), torch.dtype, torch.device)
+
+
+def _sig(tree):
+    """The signature of a nest: its structure, each tensor's shape, dtype
+    and device, a step's random keys by the randomness they draw from,
+    python scalars (and dtypes, devices) by value: a graph bakes them as
+    constants, so another value is another program.  Any other leaf keys
+    on its type, as in the reference."""
+    from analytics_zoo_tpu_torch.common.engine import StepKeys
+
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, _sig(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_sig(v) for v in tree)
+    if torch.is_tensor(tree):
+        return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, StepKeys):
+        return ("keys", id(tree.source))
+    if isinstance(tree, _BY_VALUE):
+        return (type(tree), tree)
+    return (type(tree),)
+
+
+def _same_buffer(a, b) -> bool:
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride())
+
+
+class _Capture:
+    """One signature's CUDA graph: its static inputs (the leaves of the
+    arguments it was captured on), its outputs, the kernel counters its
+    capture moved, and the randomness state (``common.engine.SiteState``)
+    of each random-key input, which it reseeds before a replay."""
+
+    def __init__(self, graph, static, outputs, counts, states):
+        self.graph, self.static = graph, static
+        self.outputs, self.counts = outputs, counts
+        self.states = states  # static position -> SiteState
+
+    def replay(self, call):
+        """Copy ``call``'s tensors into the static inputs (a tensor that is
+        its static input already stays), reseed the random keys, replay,
+        and count the capture's kernel launches once more."""
+        from analytics_zoo_tpu_torch.common.engine import StepKeys
+        from analytics_zoo_tpu_torch.ops.cuda import add_counters
+
+        for i, (new, static) in enumerate(zip(_leaves(call, []),
+                                              self.static)):
+            if torch.is_tensor(static):
+                if not _same_buffer(new, static):
+                    static.copy_(new)
+            elif isinstance(static, StepKeys):
+                new.source.reseed(new, self.states[i])
+        self.graph.replay()
+        add_counters(self.counts)
+        return self.outputs
+
+
+class PlannedStep:
+    """A step function bound to a plan, through the compile plane's choke
+    point (the reference's ``PlannedStep``, parallel/plan.py:1190-1300).
+
+    Each call runs under the plan, so :func:`resolve_kernel` inside sees
+    its rule tables.  Calls are cached by input signature (:func:`_sig`;
+    at most ``_MAX_EXES``, the oldest evicted).  The first call for a
+    signature is a miss, timed under ``label`` by
+    ``common.compile_cache.timed_compile``; later ones are hits.
+
+    On the card (a CUDA tensor among the inputs, ``capture`` on) the first
+    call runs the function eagerly on a side stream (the capture's
+    warm-up: cuBLAS, the kernel libraries, the sites of the step's
+    randomness), then captures it into a ``torch.cuda.CUDAGraph`` on that
+    stream, and returns the eager run's result.  Its static inputs are the
+    arguments of that call: a donated argument (``donate_argnums``, which
+    the function updates in place, as the reference's donated buffers) as
+    it is, any other tensor as a copy.  A later call copies each tensor
+    argument into its static input, unless it is that buffer already,
+    reseeds the step's random keys (``common.engine.StepKeys``: their
+    generators are registered with the graph), replays, and returns the
+    capture's outputs, which the next replay overwrites.  A replay runs no
+    Python, so the kernel counters' moves during the capture are put back
+    and added again on every replay.  A capture that fails raises: nothing
+    runs the step eagerly on the card instead.  On the CPU, or with
+    ``capture`` off (the eval step), every call runs eagerly.
+    """
+
+    _MAX_EXES = 32  # signature churn bound; the oldest is evicted
+
+    def __init__(self, fn, label: str, plan: ShardingPlan,
+                 donate_argnums=(), capture: bool = True):
         self.fn = fn
         self.label = label
         self.plan = plan
+        self.donate_argnums = tuple(donate_argnums)
+        self.capture = capture
+        self._exes: dict = {}  # signature -> _Capture, or None (eager)
 
     def __call__(self, *args, **kwargs):
-        with _active_plan(self.plan):
-            return self.fn(*args, **kwargs)
+        from analytics_zoo_tpu_torch.common.compile_cache import (
+            record,
+            timed_compile,
+        )
+
+        call = (args, kwargs)
+        key = _sig(call)
+        if key in self._exes:
+            record(self.label, hit=True)
+            exe = self._exes[key]
+            if exe is not None:
+                return exe.replay(call)
+            with _active_plan(self.plan):
+                return self.fn(*args, **kwargs)
+        cuda = self.capture and any(
+            torch.is_tensor(t) and t.device.type == "cuda"
+            for t in _leaves(call, []))
+        if cuda:
+            exe, out = timed_compile(lambda: self._capture(call), self.label)
+        else:
+            exe = None
+            with _active_plan(self.plan):
+                out = timed_compile(lambda: self.fn(*args, **kwargs),
+                                    self.label)
+        while len(self._exes) >= self._MAX_EXES:
+            self._exes.pop(next(iter(self._exes)))
+        self._exes[key] = exe
+        return out
+
+    def _capture(self, call):
+        """The eager run and the capture of a new signature (``call`` is
+        (args, kwargs)): (its :class:`_Capture`, the eager run's result)."""
+        from analytics_zoo_tpu_torch.common.engine import StepKeys
+        from analytics_zoo_tpu_torch.ops.cuda import (
+            add_counters,
+            counter_delta,
+            counter_snapshot,
+        )
+
+        args, kwargs = call
+        static = []
+        for i, arg in enumerate(list(args) + list(kwargs.values())):
+            for leaf in _leaves(arg, []):
+                copy = torch.is_tensor(leaf) and i not in self.donate_argnums
+                static.append(leaf.clone() if copy else leaf)
+        static_args, static_kwargs = _rebuild(call, iter(static))
+        device = next(t.device for t in static
+                      if torch.is_tensor(t) and t.device.type == "cuda")
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), _active_plan(self.plan):
+            eager = self.fn(*static_args, **static_kwargs)
+        graph = torch.cuda.CUDAGraph()
+        states = {i: k.source.prepare_capture(k)
+                  for i, k in enumerate(static) if isinstance(k, StepKeys)}
+        for state in states.values():
+            for gen in state.generators():
+                graph.register_generator_state(gen)
+        before = counter_snapshot()
+        with contextlib.ExitStack() as stack:
+            for i, state in states.items():
+                stack.enter_context(static[i].source.capturing(state))
+            stack.enter_context(_active_plan(self.plan))
+            stack.enter_context(torch.cuda.graph(graph, stream=side))
+            outputs = self.fn(*static_args, **static_kwargs)
+        counts = counter_delta(before, counter_snapshot())
+        add_counters(counts, -1)  # the capture launched nothing
+        main.wait_stream(side)
+        return _Capture(graph, static, outputs, counts, states), eager
 
 
 def compile_step(step_fn, plan: ShardingPlan | str | None = None, *,
-                 label: str | None = None) -> PlannedStep:
-    """``step_fn`` under ``plan`` (resolved by :func:`resolve_plan`), as a
-    callable; ``label`` names the program (default ``<plan.name>_step``)."""
+                 label: str | None = None, donate_argnums=(),
+                 capture: bool = True) -> PlannedStep:
+    """``step_fn`` under ``plan`` (resolved by :func:`resolve_plan`)
+    through the compile plane's choke point, as a callable
+    (:class:`PlannedStep`): captured into a CUDA graph on the card unless
+    ``capture`` is off.  ``label`` names the program (default
+    ``<plan.name>_step``); ``donate_argnums`` are the arguments the step
+    updates in place."""
     plan = resolve_plan(plan)
-    return PlannedStep(step_fn, label or f"{plan.name}_step", plan)
+    return PlannedStep(step_fn, label or f"{plan.name}_step", plan,
+                       donate_argnums=donate_argnums, capture=capture)

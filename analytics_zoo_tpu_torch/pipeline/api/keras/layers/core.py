@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from analytics_zoo_tpu_torch.common.engine import generator_of
 from analytics_zoo_tpu_torch.ops.activations import get_activation
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
 
@@ -42,9 +43,9 @@ class Dense(Layer):
 
 class Dropout(Layer):
     """Inverted dropout; the identity at inference.  In training the mask
-    comes from ``rng``, a ``torch.Generator`` on the inputs' device (the
-    reference draws it with ``jax.random.bernoulli``: equal in
-    distribution, not bit for bit)."""
+    comes from ``rng``, a ``torch.Generator`` on the inputs' device or a
+    train step's ``StepKey`` (the reference draws it with
+    ``jax.random.bernoulli``: equal in distribution, not bit for bit)."""
 
     def __init__(self, p, input_shape=None, name=None, **kwargs):
         super().__init__(input_shape=input_shape, name=name, **kwargs)
@@ -60,5 +61,6 @@ class Dropout(Layer):
 def dropout(x, p, rng):
     """Keep each element with probability 1 - p and scale it by 1/(1-p)."""
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    mask = torch.rand(x.shape, generator=generator_of(rng),
+                      device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)

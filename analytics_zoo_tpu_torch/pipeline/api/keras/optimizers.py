@@ -12,6 +12,13 @@ update of every f32 leaf of at least 128 elements runs the CUDA kernel of
 ``"xla"`` for ``optimizer.adam``; then every leaf takes the plain formula.  The oracle is ``optax.adam``, not
 ``torch.optim.Adam``, which groups its arithmetic differently.
 
+A captured train step updates in place, as the reference's step donates
+its buffers: :meth:`Optimizer.update_` writes the new state over the old
+and returns the updates, and :func:`apply_updates_` adds them to the
+parameters where they are, with the arithmetic of the functional
+``update`` and :func:`apply_updates`, so with their bits.  Adam's moments
+go :meth:`~Optimizer.in_layout` once first, where its kernel writes them.
+
 Schedules are functions of the step count (a 0-d int tensor) returning a
 multiplier, written with torch ops so they run on the count's device.
 Ported so far: ``Adam`` and the ``warmup_linear_decay`` schedule; the
@@ -32,6 +39,8 @@ from analytics_zoo_tpu_torch.common.utils import (
 from analytics_zoo_tpu_torch.ops.cuda.fused_adam import (
     adam_scalars,
     fused_update,
+    fused_update_,
+    in_layout,
 )
 from analytics_zoo_tpu_torch.parallel.plan import resolve_kernel
 
@@ -84,6 +93,15 @@ class Optimizer:
     def update(self, grads, opt_state, params=None):
         raise NotImplementedError
 
+    def update_(self, grads, opt_state, params=None):
+        """:meth:`update` in place: ``opt_state``'s leaves become the new
+        state; returns the updates."""
+        raise NotImplementedError
+
+    def in_layout(self, opt_state):
+        """``opt_state`` as :meth:`update_` takes it."""
+        raise NotImplementedError
+
 
 class Adam(Optimizer):
     """The reference's ``Adam`` (schedule-aware; ``decay`` is the
@@ -106,9 +124,10 @@ class Adam(Optimizer):
             mu=tree_map(torch.zeros_like, params),
             nu=tree_map(torch.zeros_like, params))
 
-    def update(self, grads, opt_state, params=None):
-        """(updates, new_state): the updates are added to the parameters
-        by the caller, as ``optax.apply_updates`` does."""
+    def _operands(self, grads, opt_state):
+        """(scalars, count_inc, [g], [mu], [nu], kernel): the step's device
+        scalars and incremented count, the leaves matched by key, and
+        whether the plan leaves ``optimizer.adam`` to the kernel."""
         hp = self.hyperparams
         lr = hp["learning_rate"]
         lr_fn = lr if callable(lr) else (lambda _count: lr)
@@ -117,11 +136,40 @@ class Adam(Optimizer):
         triples = []  # (g, mu, nu) per leaf, matched by key
         tree_map_many(lambda *t: triples.append(t), grads, opt_state.mu,
                       opt_state.nu)
-        kernel = resolve_kernel("optimizer.adam") != "xla"
-        upd, mu, nu = fused_update(*zip(*triples), scalars, kernel=kernel)
+        g, mu, nu = (list(ts) for ts in zip(*triples))
+        return (scalars, count_inc, g, mu, nu,
+                resolve_kernel("optimizer.adam") != "xla")
+
+    def update(self, grads, opt_state, params=None):
+        """(updates, new_state): the updates are added to the parameters
+        by the caller, as ``optax.apply_updates`` does."""
+        scalars, count_inc, g, mu, nu, kernel = self._operands(grads,
+                                                               opt_state)
+        upd, mu, nu = fused_update(g, mu, nu, scalars, kernel=kernel)
         return (_unflatten(grads, upd),
                 AdamState(count_inc, _unflatten(grads, mu),
                           _unflatten(grads, nu)))
+
+    def update_(self, grads, opt_state, params=None):
+        """:meth:`update` in place: the moments take mu' and nu' where
+        they are (the kernel's leaves, laid out by :meth:`in_layout`, from
+        the kernel itself) and the count its increment; returns the
+        updates."""
+        scalars, count_inc, g, mu, nu, kernel = self._operands(grads,
+                                                               opt_state)
+        upd = fused_update_(g, mu, nu, scalars, kernel=kernel)
+        opt_state.count.copy_(count_inc)
+        return _unflatten(grads, upd)
+
+    def in_layout(self, opt_state):
+        """The moments that the kernel updates on the card as views of one
+        flat buffer each (a copy, once), as :meth:`update_` takes them."""
+        out = []
+        for tree in (opt_state.mu, opt_state.nu):
+            leaves = []
+            tree_map_many(leaves.append, tree)
+            out.append(_unflatten(tree, in_layout(leaves)))
+        return AdamState(opt_state.count, *out)
 
 
 def _unflatten(like, leaves):
@@ -133,6 +181,19 @@ def _unflatten(like, leaves):
 def apply_updates(params, updates):
     """``optax.apply_updates``: p + u in the parameter's dtype."""
     return tree_map_many(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def apply_updates_(params, updates) -> None:
+    """:func:`apply_updates` in place: p += u, one multi-tensor add over
+    the leaves whose update has their dtype (each leaf else on its own)."""
+    pairs = []
+    tree_map_many(lambda p, u: pairs.append((p, u)), params, updates)
+    same = [(p, u) for p, u in pairs if p.dtype == u.dtype]
+    if same:
+        torch._foreach_add_(*map(list, zip(*same)))
+    for p, u in pairs:
+        if p.dtype != u.dtype:
+            p.copy_((p + u).to(p.dtype))
 
 
 _OPTIMIZERS = {"adam": Adam}

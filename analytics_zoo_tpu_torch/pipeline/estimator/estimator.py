@@ -34,13 +34,38 @@ f16) has its kernel instances on the card, so an f16 plan
 (``"dp+f16"``, ``ZOO_DTYPE_POLICY=".*=f16"``) trains there as bf16 does,
 with no loss scaling (the reference has none).
 
+``fit`` runs through the compile plane, as the reference's does
+(estimator.py:1012-1051): each dispatch is :meth:`Estimator._dispatch`,
+K train steps (``ZOO_STEPS_PER_DISPATCH``, the context's
+``steps_per_dispatch``) that update the parameters, the optimizer state
+and the model state in place (the reference donates them), through
+``compile_step`` under the labels ``train_step{tag}`` and
+``train_step_scan{k}{tag}`` (``tag`` is ``_<plan>`` for a plan other than
+``dp``).  On the card the first dispatch of a signature runs eagerly (it
+is step 1: it warms cuBLAS and loads the kernel libraries) and is
+captured into a CUDA graph, which every later dispatch replays: one host
+call a dispatch.  Inner step i takes global step step0 + i for its
+randomness (``common.engine.StepRandomness``, the reference's in-graph
+``fold_in``), so the masks are those of :meth:`train_step`, which stays
+the uncaptured yardstick, and every K gives the K=1 trajectory bit for
+bit.  An epoch's tail shorter than K runs the K=1 step.  Each dispatch's
+losses go into a per-epoch device buffer, read once at the epoch
+boundary; triggers fire once per dispatch, at its K-step boundary, as in
+the reference.  ``fit`` works on its own copies of the parameters and
+state (the model's tensors stay as they were until it hands the trained
+ones over at the end); a later ``fit`` of the same estimator continues on
+them in place.  :meth:`Estimator.warmup` captures the steps before the
+first real batch.  The eval step goes through ``compile_step``'s
+telemetry (``eval_step``) uncaptured.
+
 Batches come from ``FeatureSet.batches`` with the reference's seeded
-shuffle, so both packages see the same batches in the same order.
+shuffle, so both packages see the same batches in the same order; on the
+card they go up from pinned memory without waiting for the device.
 ``history`` holds one record per epoch, as in the reference;
 ``loss_log`` holds every step's ``(iteration, loss)``, the values the
 reference writes as TensorBoard ``Loss`` scalars.  Not ported yet (ROADMAP
-queue 1, item 6): sharded plans, fused multi-step dispatch, checkpoints
-and resume, the prefetch and autotune planes, TensorBoard and metrics.
+queue 1, item 6): sharded plans, checkpoints and resume, the prefetch and
+autotune planes, TensorBoard and metrics.
 """
 
 from __future__ import annotations
@@ -52,9 +77,9 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.engine import (
+    StepRandomness,
     cast_floats,
     get_zoo_context,
-    step_generator,
 )
 from analytics_zoo_tpu_torch.common.triggers import (
     EveryEpoch,
@@ -77,6 +102,7 @@ from analytics_zoo_tpu_torch.parallel.plan import (
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
     _unflatten,
     apply_updates,
+    apply_updates_,
 )
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -124,11 +150,27 @@ def _cast_params(params, casts):
 
 def _tensor(a, device):
     """A batch array as a tensor on ``device``; float64 becomes float32, as
-    JAX's default (x64 off) makes it."""
+    JAX's default (x64 off) makes it.  To a CUDA device it goes from
+    pinned memory, without waiting for the device."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if t.dtype == torch.float64:
         t = t.float()
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _chunks(batches, k: int):
+    """Lists of K batches, then the tail one batch a list (the reference's
+    ``_chunk_batches``: the same batch sequence as K=1)."""
+    chunk = []
+    for b in batches:
+        chunk.append(b)
+        if len(chunk) == k:
+            yield chunk
+            chunk = []
+    for b in chunk:
+        yield [b]
 
 
 def _to_device(batch, device):
@@ -165,6 +207,12 @@ class Estimator:
         # the plan the last fit ran under: its name and dtype policy
         # ("" = none), as the reference's checkpoint plan record holds them
         self._plan_record: dict | None = None
+        # the compile plane: train and eval steps per (K or None, plan),
+        # the randomness of each K-step dispatch per (K, device), and the
+        # buffers the last dispatch updated in place
+        self._steps: dict = {}
+        self._randomness: dict = {}
+        self._buffers = None
 
     # ------------------------------------------------------------------
     # the train step
@@ -234,6 +282,71 @@ class Estimator:
             params = apply_updates(params, self._mask_frozen(updates))
         return params, opt_state, state, loss
 
+    def _step_(self, params, opt_state, state, rng, batch, casts):
+        """:meth:`train_step` in place, as the reference's donated step:
+        ``params``, ``opt_state`` and ``state`` take their new values where
+        they are, with the same arithmetic; returns the loss."""
+        loss, grads, new_state = self.loss_and_grads(params, state, batch,
+                                                     rng, casts)
+        grads = _clip_grads(self._mask_frozen(grads), self.grad_clip)
+        with torch.no_grad():
+            updates = self.optimizer.update_(grads, opt_state, params)
+            apply_updates_(params, self._mask_frozen(updates))
+            tree_map_many(lambda old, new: old.copy_(new), state, new_state)
+        return loss
+
+    def _dispatch(self, params, opt_state, state, keys, batches, casts):
+        """``len(batches)`` train steps in place, inner step i under
+        ``keys[i]`` (global step ``keys.step0 + i``): (params, opt_state,
+        state, the (K,) f32 losses)."""
+        losses = [self._step_(params, opt_state, state, keys[i], batch,
+                              casts) for i, batch in enumerate(batches)]
+        return params, opt_state, state, torch.stack(losses)
+
+    def _train_step_for(self, k: int, plan):
+        """The planned K-step dispatch under ``plan``, made once."""
+        key = (k, plan.cache_key())
+        step = self._steps.get(key)
+        if step is None:
+            tag = "" if plan.name == "dp" else f"_{plan.name}"
+            label = f"train_step{tag}" if k == 1 \
+                else f"train_step_scan{k}{tag}"
+            step = self._steps[key] = compile_step(
+                self._dispatch, plan, label=label, donate_argnums=(0, 1, 2))
+        return step
+
+    def _eval_step_for(self, plan):
+        key = (None, plan.cache_key())
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = compile_step(
+                self._evaluate_with, plan, label="eval_step", capture=False)
+        return step
+
+    def _keys(self, k: int, device, seed: int, step0: int):
+        """The root keys of a K-step dispatch from global step ``step0``."""
+        key = (k, str(device))
+        src = self._randomness.get(key)
+        if src is None:
+            src = self._randomness[key] = StepRandomness(device, k)
+        return src.keys(seed & 0x7FFFFFFF, step0)
+
+    def _steps_per_dispatch(self, value=None) -> int:
+        k = self.ctx.steps_per_dispatch if value is None else int(value)
+        if k < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
+        return k
+
+    def _own(self, params, opt_state, state):
+        """The buffers a fit updates in place: those of this estimator's
+        last dispatch when ``params`` are them, else copies (the moments
+        laid out where the fused Adam kernel writes them)."""
+        if self._buffers is not None and self._buffers[0] is params:
+            return self._buffers
+        return (tree_map(torch.clone, params),
+                self.optimizer.in_layout(tree_map(torch.clone, opt_state)),
+                tree_map(torch.clone, state))
+
     # ------------------------------------------------------------------
     # train / evaluate
     # ------------------------------------------------------------------
@@ -268,7 +381,7 @@ class Estimator:
         # reference; resolved only when there is a validation set
         eval_plan = (self._resolve_plan() if validation_set is not None
                      else None)
-        step = compile_step(self.train_step, plan, label="train_step")
+        k = self._steps_per_dispatch()
         if end_trigger is None:
             end_trigger = MaxEpoch(
                 self.epoch - 1 + (nb_epoch if nb_epoch is not None else 10))
@@ -285,29 +398,35 @@ class Estimator:
                              "dtype_policy": plan.dtype_policy_str()}
         opt_state = (self._opt_state if self._opt_state is not None
                      else self.optimizer.init(params))
+        params, opt_state, state = self._own(params, opt_state, state)
         tstate = TrainingState(epoch=self.epoch, iteration=self.global_step)
         epoch = self.epoch
         while not end_trigger(tstate):
             t0 = time.perf_counter()
-            losses = []
-            for batch in train_set.batches(batch_size, shuffle=True,
-                                           seed=seed, epoch=epoch,
-                                           drop_last=True):
-                rng = step_generator(seed & 0x7FFFFFFF, self.global_step,
-                                     device)
-                params, opt_state, state, loss = step(
-                    params, opt_state, state, rng,
-                    _to_device(batch, device), casts)
-                self.global_step += 1
-                losses.append(loss)
+            # every step's loss, read once at the epoch boundary
+            losses = torch.empty(train_set.num_samples // batch_size,
+                                 dtype=torch.float32, device=device)
+            done = 0
+            for chunk in _chunks(train_set.batches(
+                    batch_size, shuffle=True, seed=seed, epoch=epoch,
+                    drop_last=True), k):
+                n = len(chunk)
+                params, opt_state, state, out = self._train_step_for(
+                    n, plan)(params, opt_state, state,
+                             self._keys(n, device, seed, self.global_step),
+                             [_to_device(b, device) for b in chunk], casts)
+                self._buffers = (params, opt_state, state)
+                losses[done:done + n].copy_(out)
+                done += n
+                self.global_step += n
                 tstate.iteration = self.global_step
                 tstate.epoch_finished = False
-                tstate.loss = loss
+                tstate.loss = losses[done - 1]
                 self._maybe_validate(tstate, params, state, validation_set,
                                      validation_trigger, batch_size,
                                      eval_plan, eval_casts)
             # the epoch boundary: the one host sync of the loop
-            values = torch.stack(losses).tolist() if losses else []
+            values = losses[:done].tolist()
             first = self.global_step - len(values) + 1
             self.loss_log.extend(
                 (first + i, v) for i, v in enumerate(values))
@@ -335,7 +454,7 @@ class Estimator:
         if validation_set is None or validation_trigger is None \
                 or not validation_trigger(tstate):
             return
-        results = compile_step(self._evaluate_with, plan, label="eval_step")(
+        results = self._eval_step_for(plan)(
             params, state, validation_set, batch_size, casts)
         tstate.score = next((v for k, v in results.items() if k != "loss"),
                             -results.get("loss", 0.0))
@@ -352,9 +471,43 @@ class Estimator:
                 "fresh random weights; metrics reflect an untrained model")
         params, state = self.model.build_params()
         plan = self._resolve_plan()
-        return compile_step(self._evaluate_with, plan, label="eval_step")(
+        return self._eval_step_for(plan)(
             params, state, val_set, batch_size,
             self.compute_casts(plan, params))
+
+    def warmup(self, batch: dict, steps_per_dispatch: int | None = None,
+               plan=None) -> dict:
+        """Capture the train steps before the first real batch (the
+        reference's ``warmup``, estimator.py:1863-1940): the K=1 step and,
+        when ``steps_per_dispatch`` (default: the context's
+        ``ZOO_STEPS_PER_DISPATCH``) is K > 1, the K-step one, each by one
+        dispatch on ``batch`` (an example host batch ``{"x": ..., "y":
+        ...}`` of the batch size fit will use) against fresh buffers: the
+        model's parameters and the optimizer state are left untouched.  A
+        later ``fit`` under the same plan replays these captures.  Returns
+        ``{label: seconds}``, each dispatch's time to ready (on the card
+        its eager run and its capture; on the CPU the eager step)."""
+        plan = self._resolve_plan(plan)
+        k = self._steps_per_dispatch(steps_per_dispatch)
+        params, state = self.model.build_params()
+        device = self.model.device
+        casts = self.compute_casts(plan, params)
+        params, opt_state, state = (
+            tree_map(torch.clone, params),
+            self.optimizer.in_layout(self.optimizer.init(params)),
+            tree_map(torch.clone, state))
+        out = {}
+        for kk in sorted({1, k}):
+            step = self._train_step_for(kk, plan)
+            t0 = time.perf_counter()
+            res = step(params, opt_state, state,
+                       self._keys(kk, device, self.ctx.seed, 0),
+                       [_to_device(batch, device) for _ in range(kk)], casts)
+            res[-1].tolist()  # ready: the dispatch has run
+            out[step.label] = time.perf_counter() - t0
+            params, opt_state, state = res[:3]
+        logger.info("warmup captured %s", out)
+        return out
 
     def _evaluate_with(self, params, state, val_set, batch_size=32,
                        casts=None) -> dict:

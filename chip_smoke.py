@@ -106,7 +106,20 @@ and prints no result):
    forward and 12 backward flash launches a step), and BERT-base with 2
    heads (head dim 384) answering one 8-record request through
    ``InferenceModel`` (12 launches);
-8. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
+8. captured training: every ``fit`` above runs through the compile
+   plane (step 1 eager and captured into a CUDA graph, later steps
+   replayed; the launch counts above are the replays'). Here BERT-base at
+   full width with dropout 0.1, in f32, bf16 (``mixed_precision()``) and
+   f16 (``"dp+f16"``): 5 steps of ``Estimator.train_step`` called eagerly,
+   twice (the two runs must agree on every leaf, or the phase names the
+   leaves that differ and fails), against 5 steps through ``fit``:
+   losses, parameters and Adam moments bit for bit; 5 more replayed steps
+   launch 12 + 12 flash, 1 Adam and 1 + 1 cross-entropy kernels a step;
+   then under ``ZOO_STEPS_PER_DISPATCH``'s K=4, after ``warmup``, 8 steps
+   in two dispatches equal 8 steps at K=1.  Logs the host clock a step,
+   eager and captured, and each capture's and kernel build's seconds
+   (``compile_stats()``);
+9. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
    of its own), then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -1483,6 +1496,20 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
     net.compile(optimizer=Adam(2e-5), loss=loss_name, metrics=["accuracy"])
     n = TRAIN_BATCH * TRAIN_STEPS
     x, y = train_data(n, gen)
+    # every flash launch the step's Python makes (its eager run and its
+    # capture; replays run none) records its q/k/v dtypes, then launches
+    seen = {"fwd": [], "bwd": []}
+    launch_fwd, launch_bwd = fa._flash_cuda, fa._flash_bwd_cuda
+
+    def record_fwd(q, k, v, *args, **kwargs):
+        seen["fwd"].append((q.dtype, k.dtype, v.dtype))
+        return launch_fwd(q, k, v, *args, **kwargs)
+
+    def record_bwd(q, k, v, *args, **kwargs):
+        seen["bwd"].append((q.dtype, k.dtype, v.dtype))
+        return launch_bwd(q, k, v, *args, **kwargs)
+
+    fa._flash_cuda, fa._flash_bwd_cuda = record_fwd, record_bwd
     net.fit([a[:TRAIN_BATCH] for a in x], y[:TRAIN_BATCH],
             batch_size=TRAIN_BATCH, nb_epoch=1, plan=plan)
     torch.cuda.synchronize()
@@ -1498,19 +1525,6 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
         1 for t in tree_leaves(net.params)
         if t.dtype == torch.float32 and t.numel() >= fad.MIN_KERNEL_LEAF)
 
-    # every flash launch records its q/k/v dtypes, then launches
-    seen = {"fwd": [], "bwd": []}
-    launch_fwd, launch_bwd = fa._flash_cuda, fa._flash_bwd_cuda
-
-    def record_fwd(q, k, v, *args, **kwargs):
-        seen["fwd"].append((q.dtype, k.dtype, v.dtype))
-        return launch_fwd(q, k, v, *args, **kwargs)
-
-    def record_bwd(q, k, v, *args, **kwargs):
-        seen["bwd"].append((q.dtype, k.dtype, v.dtype))
-        return launch_bwd(q, k, v, *args, **kwargs)
-
-    fa._flash_cuda, fa._flash_bwd_cuda = record_fwd, record_bwd
     reset_counters()  # this training path: from here to the read below
     t0 = time.perf_counter()
     net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1, plan=plan)
@@ -1532,15 +1546,15 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
                 "softmax_xent_bwd": TRAIN_STEPS, "int8_matmul": 0}
     qkv = (dtype,) * 3
     log(f"training {tag} launches: {launches} (expected {expected}); flash "
-        f"launches on {tag} q/k/v: {seen['fwd'].count(qkv)} of "
-        f"{len(seen['fwd'])} forward, {seen['bwd'].count(qkv)} of "
-        f"{len(seen['bwd'])} backward; Adam leaves {adam_leaves} (expected "
-        f"{kernel_leaves} x {TRAIN_STEPS})")
+        f"launches made by the step's eager run and its capture on {tag} "
+        f"q/k/v: {seen['fwd'].count(qkv)} of {len(seen['fwd'])} forward, "
+        f"{seen['bwd'].count(qkv)} of {len(seen['bwd'])} backward; Adam "
+        f"leaves {adam_leaves} (expected {kernel_leaves} x {TRAIN_STEPS})")
     if launches != expected or adam_leaves != kernel_leaves * TRAIN_STEPS:
         raise AssertionError(f"a {tag} training call did not run through "
                              "its kernel")
-    if seen["fwd"] != [qkv] * (blocks * TRAIN_STEPS) \
-            or seen["bwd"] != [qkv] * (blocks * TRAIN_STEPS):
+    if seen["fwd"] != [qkv] * (2 * blocks) \
+            or seen["bwd"] != [qkv] * (2 * blocks):
         raise AssertionError(f"a flash launch of the {tag} path was not "
                              f"{tag}")
     wide = [t.dtype for t in tree_leaves(net.params)
@@ -1595,7 +1609,8 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
         small.build_params(rng=torch.Generator().manual_seed(SEED),
                            device=device)
         est = Estimator(small, loss=get_loss(loss_name))
-        loss, grads, _ = compile_step(est.loss_and_grads, plan)(
+        loss, grads, _ = compile_step(est.loss_and_grads, plan,
+                                      capture=False)(
             small.params, small.state, _to_device(batch, small.device),
             step_generator(SEED, 0, small.device),
             est.compute_casts(plan, small.params))
@@ -1650,6 +1665,183 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
             raise AssertionError(f"the {tag} gradient check passed the "
                                  f"{name!r} control")
     return launches
+
+
+CAPTURE_STEPS, K_STEPS, K = 5, 8, 4  # the captured-training phase
+
+
+def named_leaves(tree, prefix="") -> list:
+    """(path, leaf) pairs of a tree, in the port's visiting order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        fields = getattr(tree, "_fields", range(len(tree)))
+        return [x for k, v in zip(fields, tree)
+                for x in named_leaves(v, f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def differing(a, b) -> list:
+    """Paths of the leaves where two trees of one structure differ."""
+    import torch
+
+    return [p for (p, u), (_, v) in zip(named_leaves(a), named_leaves(b))
+            if not torch.equal(u, v)]
+
+
+def eager_steps(net, plan, x, y, steps):
+    """``Estimator.train_step`` called step by step (the uncaptured
+    yardstick), from the model's weights and a fresh Adam state over the
+    ``steps`` batches of (x, y) that one epoch of ``fit`` takes: (state
+    after the steps, losses, host ms a step)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.engine import step_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.parallel import compile_step
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _to_device,
+    )
+
+    est = net._make_estimator()
+    plan = est._resolve_plan(plan)
+    step = compile_step(est.train_step, plan, capture=False)
+    params = tree_map(torch.clone, net.params)
+    opt, state = est.optimizer.init(params), net.state
+    casts = est.compute_casts(plan, params)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(FeatureSet.of(x, y).batches(
+            TRAIN_BATCH, shuffle=True, seed=SEED, epoch=1, drop_last=True)):
+        params, opt, state, loss = step(
+            params, opt, state, step_generator(SEED, i, net.device),
+            _to_device(batch, net.device), casts)
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return {"params": params, "opt": opt}, losses, ms
+
+
+def captured_training_phase(card_line: str) -> tuple[dict, dict]:
+    """``fit`` through the captured train step against the eager step,
+    BERT-base at full width with dropout 0.1, in f32, bf16
+    (``mixed_precision()``) and f16 (``"dp+f16"``): from one state, 5 steps
+    of ``Estimator.train_step`` called eagerly (twice: the two runs must
+    agree on every leaf) and 5 steps through ``fit`` (the first eager and
+    captured, four replays) must give the same losses, parameters and
+    Adam moments bit for bit; 5 more replayed steps launch 12 + 12 flash,
+    1 Adam and 1 + 1 cross-entropy kernels a step.  Then bf16 under
+    ``ZOO_STEPS_PER_DISPATCH``'s K=4: ``warmup`` (the K=1 and the K=4
+    captures on fresh buffers), 8 steps (two replays of 4) equal to 8
+    steps at K=1.  Logs the host clock a step, eager and captured, and
+    each capture's seconds.  Returns the replayed steps' launch counts and
+    the captured host clocks."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.compile_cache import compile_stats
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    gen = np.random.default_rng(SEED + 9)
+    x, y = train_data(TRAIN_BATCH * K_STEPS, gen)
+    blocks = BERT_BASE["n_block"]
+    per_step = {"flash_attention_fwd": blocks, "flash_attention_bwd": blocks,
+                "fused_adam": 1, "softmax_xent_fwd": 1,
+                "softmax_xent_bwd": 1, "int8_matmul": 0}
+
+    def fresh(k=1):
+        init_zoo_context(seed=SEED, device="cuda", steps_per_dispatch=k)
+        net = bert_classifier(blocks, DROPOUT, DROPOUT)
+        net.build_params()
+        net.compile(optimizer=Adam(2e-5),
+                    loss="sparse_categorical_crossentropy_from_logits")
+        return net
+
+    launches, host = {}, {}
+    for tag, plan in (("f32", None), ("bf16", mixed_precision()),
+                      ("f16", "dp+f16")):
+        net = fresh()
+        cx = [a[:TRAIN_BATCH * CAPTURE_STEPS] for a in x]
+        cy = y[:TRAIN_BATCH * CAPTURE_STEPS]
+        first, l_first, _ = eager_steps(net, plan, cx, cy, CAPTURE_STEPS)
+        want, l_want, eager_ms = eager_steps(net, plan, cx, cy,
+                                             CAPTURE_STEPS)
+        drift = differing(first, want)
+        if drift or l_first != l_want:
+            log(f"captured training {tag}: two eager runs differ at "
+                f"{drift[:8]} ({len(drift)} leaves); losses {l_first} / "
+                f"{l_want}")
+            raise AssertionError(f"the eager {tag} step is not "
+                                 "deterministic")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(cx, cy, batch_size=TRAIN_BATCH, nb_epoch=1, plan=plan)
+        torch.cuda.synchronize()
+        first_fit_ms = (time.perf_counter() - t0) * 1e3
+        est = net._estimator
+        losses = [v for _, v in est.loss_log]
+        got = {"params": net.params, "opt": est._opt_state}
+        off = differing(got, want)
+        log(f"captured training {tag}: {CAPTURE_STEPS} steps through fit "
+            f"(step 1 eager and captured, then replays) against "
+            f"train_step eagerly: losses equal {losses == l_want}, "
+            f"{len(named_leaves(got)) - len(off)} of "
+            f"{len(named_leaves(got))} parameter and Adam leaves equal bit "
+            f"for bit{'; differ: ' + str(off[:8]) if off else ''}")
+        if losses != l_want or off:
+            raise AssertionError(f"the captured {tag} step is not the eager "
+                                 "step")
+        reset_counters()  # the replayed steps: from here to the read below
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(cx, cy, batch_size=TRAIN_BATCH, nb_epoch=1, plan=plan)
+        torch.cuda.synchronize()
+        host[tag] = (time.perf_counter() - t0) * 1e3 / CAPTURE_STEPS
+        counted = counters()  # end of the replayed steps
+        launches = {k: launches.get(k, 0) + v for k, v in counted.items()}
+        expected = {k: v * CAPTURE_STEPS for k, v in per_step.items()}
+        log(f"captured training {tag}: host clock {host[tag]:.2f} ms a "
+            f"replayed step, {eager_ms:.2f} eager ({card_line}); the first "
+            f"fit (eager step 1, the capture, 4 replays) {first_fit_ms:.0f}"
+            f" ms; launches under replay {counted} (expected {expected})")
+        if counted != expected:
+            raise AssertionError(f"the {tag} replays did not count their "
+                                 "kernels")
+
+    # K-step dispatch: K=4 over 8 steps (warmed up first) against K=1
+    ref = fresh(1)
+    ref.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1,
+            plan=mixed_precision())
+    net = fresh(K)
+    net._estimator = net._make_estimator()
+    warm = net._estimator.warmup({"x": [a[:TRAIN_BATCH] for a in x],
+                                  "y": y[:TRAIN_BATCH]},
+                                 plan=mixed_precision())
+    reset_counters()  # the K=4 dispatches: from here to the read below
+    net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1,
+            plan=mixed_precision())
+    torch.cuda.synchronize()
+    counted = counters()
+    kl = [v for _, v in net._estimator.loss_log]
+    rl = [v for _, v in ref._estimator.loss_log]
+    off = differing({"p": net.params, "o": net._estimator._opt_state},
+                    {"p": ref.params, "o": ref._estimator._opt_state})
+    log(f"captured training bf16, K={K}: warmup {warm}; {K_STEPS} steps in "
+        f"{K_STEPS // K} dispatches against K=1: losses equal {kl == rl}, "
+        f"leaves differing {off[:8]}; launches {counted}")
+    if kl != rl or off or counted != {k: v * K_STEPS
+                                      for k, v in per_step.items()}:
+        raise AssertionError(f"K={K} is not K=1")
+    stats = compile_stats()
+    log("compile plane: " + "; ".join(
+        f"{label} {row['misses']} miss(es) "
+        f"[{', '.join(f'{t:.2f}' for t in row['seconds'])} s], "
+        f"{row['hits']} hit(s)" for label, row in sorted(stats.items())))
+    return launches, host
 
 
 def training_d192_phase(card_line: str) -> dict:
@@ -2118,6 +2310,7 @@ def main() -> int:
     int8_serving = int8_serving_phase(card_line, weights, int8)
     training_d192 = training_d192_phase(card_line)
     serving_d384 = serving_d384_phase(card_line)
+    captured, _ = captured_training_phase(card_line)
     for entry in entries:
         name = entry["name"]
         paths = {"serving": serving.get(name, 0),
@@ -2126,14 +2319,16 @@ def main() -> int:
                  "training_f16": training_f16.get(name, 0),
                  "int8_serving": int8_serving.get(name, 0),
                  "training_d192": training_d192.get(name, 0),
-                 "serving_d384": serving_d384.get(name, 0)}
+                 "serving_d384": serving_d384.get(name, 0),
+                 "training_captured": captured.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},
                          training=training["flash_attention_fwd"],
                          training_bf16=training_bf16["flash_attention_fwd"],
                          training_f16=training_f16["flash_attention_fwd"],
-                         training_d192=training_d192["flash_attention_fwd"])
+                         training_d192=training_d192["flash_attention_fwd"],
+                         training_captured=captured["flash_attention_fwd"])
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",

@@ -9,8 +9,8 @@ into, beside SDPA.
                                      [--only fwd|bwd]
 
 Forward cases: f32 and bf16 at head dims 64 (12 heads), 128 (6), 192 (4),
-256 (3) and 384 (2), and f32 at D 64 with dropout 0.1 and the (m, l)
-statistics (the training call).  Backward cases: f32 and bf16 at D 192,
+256 (3) and 384 (2), and f32 and bf16 at D 64 with dropout 0.1 and the
+(m, l) statistics (the training calls).  Backward cases: f32 and bf16 at D 192,
 256 and 384 (a tree whose kernels do not take a head dim reports
 "raises").  ``--dtype`` keeps the cases of one input type (a kernel's
 time can depend on what ran on the card before it), ``--only`` the
@@ -271,7 +271,9 @@ def main() -> int:
     cases = [(fwd_case, d, dtype, {}) for dtype in (torch.float32,
                                                    torch.bfloat16)
              for d in FWD_DIMS]
-    cases.append((fwd_case, 64, torch.float32, {"dropout": 0.1}))
+    # the training calls: dropout 0.1 and the (m, l) statistics
+    cases += [(fwd_case, 64, dtype, {"dropout": 0.1})
+              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(bwd_case, d, dtype, {}) for dtype in (torch.float32,
                                                     torch.bfloat16)
               for d in BWD_DIMS]
