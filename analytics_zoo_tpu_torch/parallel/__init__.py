@@ -5,6 +5,7 @@ from analytics_zoo_tpu_torch.parallel.plan import (  # noqa: F401
     DTYPE_POLICY_NAMES,
     DTYPE_ROLES,
     KERNEL_NAMES,
+    CaptureGroup,
     ShardingPlan,
     compile_step,
     data_parallel,

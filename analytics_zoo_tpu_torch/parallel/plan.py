@@ -29,19 +29,23 @@ A plan becomes active the way it does in the reference: the step function
 runs under :func:`compile_step`, the compile plane's choke point: on the
 card :class:`PlannedStep` captures the step into a CUDA graph per input
 signature and replays it, timed and counted by
-``common.compile_cache``.  The sharded plans
-(zero1/2/3, fsdp, ``+overlap``) and the param/opt/grad/remat tables wait
-for the distribution slice (queue 1 item 13); their names raise
-``NotImplementedError``.  ``ZOO_DTYPE_POLICY`` is read by
-``common.engine.init_zoo_context`` and overlaid by the estimator; the
-``ZOO_SHARDING_PLAN``/``ZOO_USE_PALLAS`` env tier waits for ``ZooConfig``
-(queue 1 item 2).
+``common.compile_cache``: the train step (its parameters donated), the
+eval step, ``KerasNet.predict`` and ``InferenceModel``'s bucket forwards
+(their parameters and state passed by reference; the steps of one
+:class:`CaptureGroup` replay one at a time and share a memory pool).
+The sharded plans (zero1/2/3, fsdp, ``+overlap``) and the
+param/opt/grad/remat tables wait for the distribution slice (queue 1
+item 13); their names raise ``NotImplementedError``.
+``ZOO_DTYPE_POLICY`` is read by ``common.engine.init_zoo_context`` and
+overlaid by the estimator; the ``ZOO_SHARDING_PLAN``/``ZOO_USE_PALLAS``
+env tier waits for ``ZooConfig`` (queue 1 item 2).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import re
 import threading
 
@@ -59,7 +63,8 @@ __all__ = [
     "mixed_precision", "int8_serving", "resolve_dtype_rules",
     "DTYPE_ROLES", "DTYPE_POLICY_NAMES", "with_kernels",
     "resolve_kernel", "KERNEL_NAMES", "DEFAULT_KERNEL_RULES",
-    "resolve_plan", "compile_step", "PlannedStep", "PLAN_NAMES",
+    "resolve_plan", "compile_step", "PlannedStep", "CaptureGroup",
+    "PLAN_NAMES",
 ]
 
 #: names :func:`resolve_plan` knows (only the single-device ``dp`` family
@@ -450,28 +455,37 @@ def _rebuild(tree, it):
     return next(it)
 
 
+
+
 _BY_VALUE = (bool, int, float, str, type(None), torch.dtype, torch.device)
 
 
-def _sig(tree):
+def _sig(tree, ref: bool = False):
     """The signature of a nest: its structure, each tensor's shape, dtype
     and device, a step's random keys by the randomness they draw from,
     python scalars (and dtypes, devices) by value: a graph bakes them as
     constants, so another value is another program.  Any other leaf keys
-    on its type, as in the reference."""
+    on its type, as in the reference.  In an argument passed by reference
+    (``ref``) a tensor keys on its identity and its address, and any other
+    leaf that is not a value (a ``QuantizedTensor``) on its identity: the
+    capture reads those buffers where they are, so other buffers are
+    another capture (and the capture holds the objects, so their
+    identities are not reused while it lives)."""
     from analytics_zoo_tpu_torch.common.engine import StepKeys
 
     if isinstance(tree, dict):
-        return ("dict",) + tuple((k, _sig(v)) for k, v in tree.items())
+        return ("dict",) + tuple((k, _sig(v, ref)) for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
-        return (type(tree).__name__,) + tuple(_sig(v) for v in tree)
+        return (type(tree).__name__,) + tuple(_sig(v, ref) for v in tree)
     if torch.is_tensor(tree):
+        if ref:
+            return ("ref", id(tree), tree.data_ptr())
         return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
     if isinstance(tree, StepKeys):
         return ("keys", id(tree.source))
     if isinstance(tree, _BY_VALUE):
         return (type(tree), tree)
-    return (type(tree),)
+    return ("ref", id(tree)) if ref else (type(tree),)
 
 
 def _same_buffer(a, b) -> bool:
@@ -479,31 +493,77 @@ def _same_buffer(a, b) -> bool:
                       and a.stride() == b.stride())
 
 
+def _static_leaves(args, kwargs, donate_argnums, ref_argnums) -> list:
+    """The static inputs a capture of ``(args, kwargs)`` reads, as one list
+    of leaves per argument: a donated or by-reference argument's tensors
+    as they are, every other tensor as a copy (made outside inference
+    mode, so that a later replay can copy into it), any other leaf as it
+    is."""
+    keep = set(donate_argnums) | set(ref_argnums)
+    with torch.inference_mode(False):
+        return [[leaf.clone() if torch.is_tensor(leaf) and i not in keep
+                 else leaf for leaf in _leaves(arg, [])]
+                for i, arg in enumerate(list(args) + list(kwargs.values()))]
+
+
+class CaptureGroup:
+    """Captures that run one at a time: one lock, which a caller holds from
+    the copy into a capture's static inputs until it has read the outputs
+    (the next replay overwrites them), and one CUDA graph memory pool for
+    all of them, captured on one side stream (the caching allocator hands
+    a freed block only to allocations on the stream it was freed on).
+    Sharing the pool is safe because of the lock: a replay may reuse
+    memory another capture's replay used for its intermediates, or for
+    outputs that its caller has read."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self._pool = self._stream = None  # guarded-by: lock
+
+    def pool(self):
+        """The pool's handle, made on the group's first capture."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def stream(self, device):
+        """The side stream the group's captures run on."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        return self._stream
+
+
 class _Capture:
     """One signature's CUDA graph: its static inputs (the leaves of the
-    arguments it was captured on), its outputs, the kernel counters its
-    capture moved, and the randomness state (``common.engine.SiteState``)
-    of each random-key input, which it reseeds before a replay."""
+    arguments it was captured on, a list for each argument), the arguments
+    it reads by reference, its outputs, the kernel counters its capture
+    moved, and the randomness state (``common.engine.SiteState``) of each
+    random-key input, which it reseeds before a replay."""
 
-    def __init__(self, graph, static, outputs, counts, states):
-        self.graph, self.static = graph, static
+    def __init__(self, graph, static, refs, outputs, counts, states):
+        self.graph, self.static, self.refs = graph, static, refs
         self.outputs, self.counts = outputs, counts
-        self.states = states  # static position -> SiteState
+        self.states = states  # (argument, leaf) -> SiteState
 
     def replay(self, call):
         """Copy ``call``'s tensors into the static inputs (a tensor that is
-        its static input already stays), reseed the random keys, replay,
-        and count the capture's kernel launches once more."""
+        its static input already stays; the by-reference arguments are
+        theirs, as the signature says), reseed the random keys, replay, and
+        count the capture's kernel launches once more."""
         from analytics_zoo_tpu_torch.common.engine import StepKeys
         from analytics_zoo_tpu_torch.ops.cuda import add_counters
 
-        for i, (new, static) in enumerate(zip(_leaves(call, []),
-                                              self.static)):
-            if torch.is_tensor(static):
-                if not _same_buffer(new, static):
-                    static.copy_(new)
-            elif isinstance(static, StepKeys):
-                new.source.reseed(new, self.states[i])
+        args, kwargs = call
+        for i, arg in enumerate(list(args) + list(kwargs.values())):
+            if i in self.refs:
+                continue
+            for j, (new, static) in enumerate(zip(_leaves(arg, []),
+                                                  self.static[i])):
+                if torch.is_tensor(static):
+                    if not _same_buffer(new, static):
+                        static.copy_(new)
+                elif isinstance(static, StepKeys):
+                    new.source.reseed(new, self.states[i, j])
         self.graph.replay()
         add_counters(self.counts)
         return self.outputs
@@ -525,28 +585,51 @@ class PlannedStep:
     randomness), then captures it into a ``torch.cuda.CUDAGraph`` on that
     stream, and returns the eager run's result.  Its static inputs are the
     arguments of that call: a donated argument (``donate_argnums``, which
-    the function updates in place, as the reference's donated buffers) as
-    it is, any other tensor as a copy.  A later call copies each tensor
-    argument into its static input, unless it is that buffer already,
-    reseeds the step's random keys (``common.engine.StepKeys``: their
-    generators are registered with the graph), replays, and returns the
-    capture's outputs, which the next replay overwrites.  A replay runs no
-    Python, so the kernel counters' moves during the capture are put back
-    and added again on every replay.  A capture that fails raises: nothing
-    runs the step eagerly on the card instead.  On the CPU, or with
-    ``capture`` off (the eval step), every call runs eagerly.
+    the function updates in place, as the reference's donated buffers) or
+    one passed by reference (``ref_argnums``: parameters and model state,
+    which the graph reads where they are; other buffers are another
+    signature) as it is, any other tensor as a copy.  A later call copies
+    each tensor argument into its static input, unless it is that buffer
+    already, reseeds the step's random keys (``common.engine.StepKeys``:
+    their generators are registered with the graph), replays, and returns
+    the capture's outputs.  A replay runs no Python, so the kernel
+    counters' moves during the capture are put back and added again on
+    every replay.  A capture that fails raises: nothing runs the step
+    eagerly on the card instead.  On the CPU, or with ``capture`` off,
+    every call runs eagerly.
+
+    The next replay overwrites the outputs, so the steps of one
+    :class:`CaptureGroup` (``group``; by default one of the step's own)
+    run one at a time and share its memory pool: each call holds the
+    group's lock (``lock``), and so do the capture of a new signature
+    (two callers that miss on one signature capture it once) and the
+    eviction of an old one.  A caller that shares the step with other
+    threads holds ``lock`` itself until it has read the outputs.
     """
 
     _MAX_EXES = 32  # signature churn bound; the oldest is evicted
 
     def __init__(self, fn, label: str, plan: ShardingPlan,
-                 donate_argnums=(), capture: bool = True):
+                 donate_argnums=(), ref_argnums=(), capture: bool = True,
+                 group: CaptureGroup | None = None):
         self.fn = fn
         self.label = label
         self.plan = plan
         self.donate_argnums = tuple(donate_argnums)
+        self.ref_argnums = tuple(ref_argnums)
         self.capture = capture
-        self._exes: dict = {}  # signature -> _Capture, or None (eager)
+        self.group = group or CaptureGroup()
+        self._exes: dict = {}  # guarded-by: lock -- signature -> _Capture
+        # or None (eager)
+
+    @property
+    def lock(self):
+        """The lock of the step's capture group (re-entrant)."""
+        return self.group.lock
+
+    def _key(self, args, kwargs):
+        return (tuple(_sig(a, i in self.ref_argnums)
+                      for i, a in enumerate(args)), _sig(kwargs))
 
     def __call__(self, *args, **kwargs):
         from analytics_zoo_tpu_torch.common.compile_cache import (
@@ -555,28 +638,49 @@ class PlannedStep:
         )
 
         call = (args, kwargs)
-        key = _sig(call)
-        if key in self._exes:
-            record(self.label, hit=True)
-            exe = self._exes[key]
-            if exe is not None:
-                return exe.replay(call)
-            with _active_plan(self.plan):
+        key = self._key(args, kwargs)
+        with self.lock:
+            hit = key in self._exes
+            if hit:
+                record(self.label, hit=True)
+                exe = self._exes[key]
+                if exe is not None:
+                    return exe.replay(call)
+            elif self.capture and any(
+                    torch.is_tensor(t) and t.device.type == "cuda"
+                    for t in _leaves(call, [])):
+                exe, out = timed_compile(lambda: self._capture(call),
+                                         self.label)
+                self._remember(key, exe)
+                return out
+        # eager: the CPU, or capture off
+        with _active_plan(self.plan):
+            if hit:
                 return self.fn(*args, **kwargs)
-        cuda = self.capture and any(
-            torch.is_tensor(t) and t.device.type == "cuda"
-            for t in _leaves(call, []))
-        if cuda:
-            exe, out = timed_compile(lambda: self._capture(call), self.label)
-        else:
-            exe = None
-            with _active_plan(self.plan):
-                out = timed_compile(lambda: self.fn(*args, **kwargs),
-                                    self.label)
-        while len(self._exes) >= self._MAX_EXES:
+            out = timed_compile(lambda: self.fn(*args, **kwargs),
+                                self.label)
+        with self.lock:
+            self._remember(key, None)
+        return out
+
+    def _remember(self, key, exe) -> None:
+        while key not in self._exes and len(self._exes) >= self._MAX_EXES:
             self._exes.pop(next(iter(self._exes)))
         self._exes[key] = exe
-        return out
+
+    def static_inputs(self, *args, **kwargs):
+        """The (args, kwargs) the capture of this call's signature reads
+        (the copied arguments' static buffers, by-reference and donated
+        ones as they are), or None where there is no capture (the CPU,
+        ``capture`` off, or no call of the signature yet).  A caller may
+        write the next call's inputs straight into them, holding
+        ``lock`` until it has read that call's outputs."""
+        with self.lock:
+            exe = self._exes.get(self._key(args, kwargs))
+        if exe is None:
+            return None
+        return _rebuild((args, kwargs),
+                        iter([leaf for arg in exe.static for leaf in arg]))
 
     def _capture(self, call):
         """The eager run and the capture of a new signature (``call`` is
@@ -589,47 +693,59 @@ class PlannedStep:
         )
 
         args, kwargs = call
-        static = []
-        for i, arg in enumerate(list(args) + list(kwargs.values())):
-            for leaf in _leaves(arg, []):
-                copy = torch.is_tensor(leaf) and i not in self.donate_argnums
-                static.append(leaf.clone() if copy else leaf)
-        static_args, static_kwargs = _rebuild(call, iter(static))
-        device = next(t.device for t in static
+        static = _static_leaves(args, kwargs, self.donate_argnums,
+                                self.ref_argnums)
+        leaves = [leaf for arg in static for leaf in arg]
+        static_args, static_kwargs = _rebuild(call, iter(leaves))
+        device = next(t.device for t in leaves
                       if torch.is_tensor(t) and t.device.type == "cuda")
         main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
+        side = self.group.stream(device)
         side.wait_stream(main)
         with torch.cuda.stream(side), _active_plan(self.plan):
             eager = self.fn(*static_args, **static_kwargs)
         graph = torch.cuda.CUDAGraph()
-        states = {i: k.source.prepare_capture(k)
-                  for i, k in enumerate(static) if isinstance(k, StepKeys)}
+        states = {(i, j): k.source.prepare_capture(k)
+                  for i, arg in enumerate(static)
+                  for j, k in enumerate(arg) if isinstance(k, StepKeys)}
         for state in states.values():
             for gen in state.generators():
                 graph.register_generator_state(gen)
         before = counter_snapshot()
         with contextlib.ExitStack() as stack:
-            for i, state in states.items():
-                stack.enter_context(static[i].source.capturing(state))
+            # a graph the garbage collector frees during a capture (one in
+            # a reference cycle, as a step's own captures are) ends the
+            # capture: collect first, and not again until it is over
+            gc.collect()
+            if gc.isenabled():
+                gc.disable()
+                stack.callback(gc.enable)
+            for (i, j), state in states.items():
+                stack.enter_context(static[i][j].source.capturing(state))
             stack.enter_context(_active_plan(self.plan))
-            stack.enter_context(torch.cuda.graph(graph, stream=side))
+            stack.enter_context(torch.cuda.graph(
+                graph, pool=self.group.pool(), stream=side))
             outputs = self.fn(*static_args, **static_kwargs)
         counts = counter_delta(before, counter_snapshot())
         add_counters(counts, -1)  # the capture launched nothing
         main.wait_stream(side)
-        return _Capture(graph, static, outputs, counts, states), eager
+        return _Capture(graph, static, set(self.ref_argnums), outputs,
+                        counts, states), eager
 
 
 def compile_step(step_fn, plan: ShardingPlan | str | None = None, *,
                  label: str | None = None, donate_argnums=(),
-                 capture: bool = True) -> PlannedStep:
+                 ref_argnums=(), capture: bool = True,
+                 group: CaptureGroup | None = None) -> PlannedStep:
     """``step_fn`` under ``plan`` (resolved by :func:`resolve_plan`)
     through the compile plane's choke point, as a callable
     (:class:`PlannedStep`): captured into a CUDA graph on the card unless
     ``capture`` is off.  ``label`` names the program (default
     ``<plan.name>_step``); ``donate_argnums`` are the arguments the step
-    updates in place."""
+    updates in place, ``ref_argnums`` those it reads in place (never
+    copied), and ``group`` the :class:`CaptureGroup` whose lock and pool
+    the step's captures share."""
     plan = resolve_plan(plan)
     return PlannedStep(step_fn, label or f"{plan.name}_step", plan,
-                       donate_argnums=donate_argnums, capture=capture)
+                       donate_argnums=donate_argnums,
+                       ref_argnums=ref_argnums, capture=capture, group=group)

@@ -2,11 +2,16 @@
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/topology.py``:
 parameter materialization, the pure forward, weights in and out,
-whole-model save/load, and training: ``compile``/``fit``/``evaluate``
+whole-model save/load, training: ``compile``/``fit``/``evaluate``
 through :class:`~analytics_zoo_tpu_torch.pipeline.estimator.Estimator`,
-gradient clipping and freezing layers.  ``predict`` waits for its slice;
-serving goes through
-:class:`analytics_zoo_tpu_torch.pipeline.inference.InferenceModel`.
+gradient clipping and freezing layers, and ``predict``,
+``predict_classes`` and ``summary``.  ``predict`` runs each batch through
+one planned forward (``compile_step(..., label="predict_step")``, captured
+into a CUDA graph per batch shape on the card), with the parameters and
+state passed by reference and the casts to the context's compute dtype
+inside the step, as in the reference; it is cached on the compute dtype
+and dropped wherever the parameters are replaced.  Pooled serving goes
+through :class:`analytics_zoo_tpu_torch.pipeline.inference.InferenceModel`.
 
 A net's parameters are a tree of tensors on one device (``net.device``),
 initialised on the CPU from a seeded ``torch.Generator`` and then moved,
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.engine import (
+    cast_floats,
     get_zoo_context,
     resolve_device,
 )
@@ -68,6 +74,7 @@ class KerasNet(_ContainerBase):
         self._grad_clip = None    # ("l2norm", v) | ("const", lo, hi)
         self._estimator = None
         self._frozen: set = set()  # layer names excluded from training
+        self._predict_fn = None   # (compute dtype, planned forward)
 
     # ------------------------------------------------------------------
     # parameter materialization
@@ -86,6 +93,7 @@ class KerasNet(_ContainerBase):
             else ctx.device
         self.params = _to_device(self.init_params(rng), self.device)
         self.state = _to_device(self.init_state(), self.device)
+        self._predict_fn = None  # its captures read the old buffers
         return self.params, self.state
 
     def forward(self, params, inputs, state=None, training=False, rng=None):
@@ -157,6 +165,7 @@ class KerasNet(_ContainerBase):
         self._estimator.train(train_set, batch_size=batch_size,
                               nb_epoch=nb_epoch, validation_set=val_set,
                               plan=plan)
+        self._predict_fn = None  # the trained parameters are new buffers
         return self
 
     def evaluate(self, x, y=None, batch_size=32):
@@ -167,6 +176,65 @@ class KerasNet(_ContainerBase):
             self._estimator = self._make_estimator()
         return self._estimator.evaluate(FeatureSet.of(x, y),
                                         batch_size=batch_size)
+
+    def predict(self, x, batch_size=32, distributed=True):
+        """The outputs over ``x`` (an array or a list of arrays), batch by
+        batch in order; a multi-output model gives a list.  Each batch runs
+        through the planned forward under the ``predict_step`` label, in
+        the context's compute dtype, with f32 outputs."""
+        from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+        from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+            _tensor,
+        )
+
+        self.build_params()
+        ctx = get_zoo_context()
+        fs = FeatureSet.of(x)
+        n = fs.num_samples
+        cached = getattr(self, "_predict_fn", None)
+        if cached is None or cached[0] is not ctx.compute_dtype:
+            from analytics_zoo_tpu_torch.parallel.plan import (
+                CaptureGroup,
+                compile_step,
+            )
+
+            dtype = ctx.compute_dtype
+
+            def _fwd(p, s, xb):
+                # the state stays as stored (f32 running statistics)
+                with torch.no_grad():
+                    out, _ = self.forward(cast_floats(p, dtype),
+                                          cast_floats(xb, dtype), state=s,
+                                          training=False)
+                return cast_floats(out, torch.float32)
+
+            cached = (dtype, compile_step(_fwd, label="predict_step",
+                                          ref_argnums=(0, 1),
+                                          group=CaptureGroup()))
+            self._predict_fn = cached
+        fwd = cached[1]
+        outs = []
+        for batch in fs.batches(batch_size, shuffle=False, drop_last=False,
+                                pad_to_batch=1):
+            xb = batch["x"]
+            xb = ([_tensor(a, self.device) for a in xb]
+                  if isinstance(xb, list) else _tensor(xb, self.device))
+            with fwd.lock:  # the next replay overwrites the outputs
+                out = fwd(self.params, self.state, xb)
+                outs.append([_to_numpy(o) for o in out]
+                            if isinstance(out, (list, tuple))
+                            else _to_numpy(out))
+        if isinstance(outs[0], list):  # multi-output graph
+            return [np.concatenate([o[i] for o in outs], axis=0)[:n]
+                    for i in range(len(outs[0]))]
+        return np.concatenate(outs, axis=0)[:n]
+
+    def predict_classes(self, x, batch_size=32, zero_based_label=True):
+        """The argmax over the last axis of :meth:`predict`'s output (plus
+        one unless ``zero_based_label``)."""
+        probs = self.predict(x, batch_size)
+        cls = np.argmax(probs, axis=-1)
+        return cls if zero_based_label else cls + 1
 
     # ------------------------------------------------------------------
     # transfer learning: frozen layers get their gradients and optimizer
@@ -217,6 +285,7 @@ class KerasNet(_ContainerBase):
             raise ValueError("weights do not match the model's parameter "
                              "tree")
         self.params = _to_device(weights, self.device)
+        self._predict_fn = None  # its captures read the old buffers
 
     def save(self, path, over_write=True):
         """Whole-model save: config + weights (as numpy) in one pickle."""
@@ -226,7 +295,8 @@ class KerasNet(_ContainerBase):
                    if self.params is not None else None)
         # runtime state stays out of the file: the estimator and the
         # compiled optimizer/loss (which may hold schedule closures)
-        keys = ("params", "state", "device", "_estimator", "_compiled")
+        keys = ("params", "state", "device", "_estimator", "_compiled",
+                "_predict_fn")
         stashed = {k: getattr(self, k, None) for k in keys}
         for k in keys:
             setattr(self, k, None)
@@ -260,6 +330,32 @@ class KerasNet(_ContainerBase):
     def layers(self) -> list[Layer]:
         raise NotImplementedError
 
+    def summary(self, line_length: int = 100):
+        """The layer table (name and type, output shape, parameter count)
+        and the total, printed and returned, as the reference's."""
+        lines = ["_" * line_length,
+                 f"{'Layer (type)':<44}{'Output Shape':<28}{'Param #':<12}",
+                 "=" * line_length]
+        total = 0
+        for layer in self.layers:
+            if isinstance(layer, InputLayer):
+                shape, count = layer._build_shape, 0
+            else:
+                try:
+                    shape = layer.compute_output_shape(
+                        (None,) + tuple(layer._build_shape or ()))
+                except Exception:
+                    shape = "?"
+                count = layer.param_count() if layer.built else 0
+            total += count
+            name = f"{layer.name} ({type(layer).__name__})"
+            lines.append(f"{name:<44}{str(shape):<28}{count:<12}")
+        lines += ["=" * line_length, f"Total params: {total:,}",
+                  "_" * line_length]
+        text = "\n".join(lines)
+        print(text)
+        return text
+
 
 class Sequential(KerasNet):
     """Linear stack of layers."""
@@ -291,6 +387,7 @@ class Sequential(KerasNet):
         self._output_shape = tuple(out_full[1:])
         self._layers.append(layer)
         canonicalize_names(self._layers)
+        self._predict_fn = None  # a cached planned forward is stale now
         return self
 
     def build(self, input_shape):

@@ -55,8 +55,13 @@ the reference.  ``fit`` works on its own copies of the parameters and
 state (the model's tensors stay as they were until it hands the trained
 ones over at the end); a later ``fit`` of the same estimator continues on
 them in place.  :meth:`Estimator.warmup` captures the steps before the
-first real batch.  The eval step goes through ``compile_step``'s
-telemetry (``eval_step``) uncaptured.
+first real batch.  The eval step (:meth:`Estimator.eval_step`, the
+reference's per-batch ``eval_step``) goes through ``compile_step`` under
+the ``eval_step`` label, captured on the card per batch shape, with the
+parameters and state passed by reference (the buffers ``fit`` updates in
+place); the loop over the set, the sums of the per-batch statistics and
+``finalize`` stay outside it, as in the reference.  ``evaluate`` and
+``fit``'s validation both run it.
 
 Batches come from ``FeatureSet.batches`` with the reference's seeded
 shuffle, so both packages see the same batches in the same order; on the
@@ -94,6 +99,7 @@ from analytics_zoo_tpu_torch.common.utils import (
 )
 from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
 from analytics_zoo_tpu_torch.parallel.plan import (
+    CaptureGroup,
     cast_to_compute,
     compile_step,
     resolve_plan,
@@ -174,10 +180,13 @@ def _chunks(batches, k: int):
 
 
 def _to_device(batch, device):
+    """A host batch's arrays as tensors on ``device``; ``n_valid`` (the
+    real rows of a padded batch) as a 0-d int32 tensor there, so that a
+    captured eval step reads it from device memory."""
     out = {}
     for k, v in batch.items():
         if k == "n_valid":
-            out[k] = int(v)
+            out[k] = _tensor(np.asarray(v, np.int32), device)
         elif isinstance(v, list):
             out[k] = [_tensor(a, device) for a in v]
         else:
@@ -316,11 +325,14 @@ class Estimator:
         return step
 
     def _eval_step_for(self, plan):
+        """The planned per-batch eval step under ``plan``, made once: the
+        parameters and state by reference, its captures in one pool."""
         key = (None, plan.cache_key())
         step = self._steps.get(key)
         if step is None:
             step = self._steps[key] = compile_step(
-                self._evaluate_with, plan, label="eval_step", capture=False)
+                self.eval_step, plan, label="eval_step", ref_argnums=(0, 1),
+                group=CaptureGroup())
         return step
 
     def _keys(self, k: int, device, seed: int, step0: int):
@@ -343,6 +355,9 @@ class Estimator:
         laid out where the fused Adam kernel writes them)."""
         if self._buffers is not None and self._buffers[0] is params:
             return self._buffers
+        # the eval captures read the buffers they were made on: drop them
+        self._steps = {k: v for k, v in self._steps.items()
+                       if k[0] is not None}
         return (tree_map(torch.clone, params),
                 self.optimizer.in_layout(tree_map(torch.clone, opt_state)),
                 tree_map(torch.clone, state))
@@ -454,8 +469,8 @@ class Estimator:
         if validation_set is None or validation_trigger is None \
                 or not validation_trigger(tstate):
             return
-        results = self._eval_step_for(plan)(
-            params, state, validation_set, batch_size, casts)
+        results = self._evaluate_with(params, state, validation_set,
+                                      batch_size, casts, plan)
         tstate.score = next((v for k, v in results.items() if k != "loss"),
                             -results.get("loss", 0.0))
         logger.info("validation @ step %d: %s", tstate.iteration, results)
@@ -471,9 +486,8 @@ class Estimator:
                 "fresh random weights; metrics reflect an untrained model")
         params, state = self.model.build_params()
         plan = self._resolve_plan()
-        return self._eval_step_for(plan)(
-            params, state, val_set, batch_size,
-            self.compute_casts(plan, params))
+        return self._evaluate_with(params, state, val_set, batch_size,
+                                   self.compute_casts(plan, params), plan)
 
     def warmup(self, batch: dict, steps_per_dispatch: int | None = None,
                plan=None) -> dict:
@@ -509,35 +523,51 @@ class Estimator:
         logger.info("warmup captured %s", out)
         return out
 
-    def _evaluate_with(self, params, state, val_set, batch_size=32,
-                       casts=None) -> dict:
-        device = self.model.device
+    def eval_step(self, params, state, batch, casts=None) -> list:
+        """One batch's statistics (the reference's ``eval_step``,
+        estimator.py:1053-1098): the forward with the compute casts of
+        ``casts`` (:meth:`compute_casts`; None: the context's
+        ``compute_dtype``), predictions up to f32, the rows past
+        ``batch["n_valid"]`` (a device scalar) masked out, then the loss's
+        (sum, count) and each metric's ``batch_stats``, all on the
+        device.  The state stays as stored (f32 running statistics)."""
         casts = casts or (None, self.ctx.compute_dtype)
-        accum = None
         with torch.no_grad():
-            # one compute copy for the pass; the state stays as stored
-            # (f32 running statistics)
-            pc = _cast_params(params, casts)
-            for batch in val_set.batches(batch_size, shuffle=False,
-                                         drop_last=False, pad_to_batch=1):
-                batch = _to_device(batch, device)
-                preds, _ = self.model.forward(
-                    pc, cast_floats(batch["x"], casts[1]), state=state,
-                    training=False)
-                preds = cast_floats(preds, torch.float32)
-                rows = preds[0].shape[0] if isinstance(preds, list) \
-                    else preds.shape[0]
-                mask = (torch.arange(rows, device=device)
-                        < batch["n_valid"]).float()
-                stats = []
-                if self.loss is not None and "y" in batch:
-                    per = self.loss(batch["y"], preds)
-                    stats.append(((per * mask).sum(), mask.sum()))
-                for m in self.metrics:
-                    stats.append(m.batch_stats(batch["y"], preds, mask=mask))
-                accum = stats if accum is None else [
-                    [a + b for a, b in zip(ga, gb)]
-                    for ga, gb in zip(accum, stats)]
+            preds, _ = self.model.forward(
+                _cast_params(params, casts),
+                cast_floats(batch["x"], casts[1]), state=state,
+                training=False)
+            preds = cast_floats(preds, torch.float32)
+            first = preds[0] if isinstance(preds, list) else preds
+            mask = (torch.arange(first.shape[0], device=first.device)
+                    < batch["n_valid"]).float()
+            stats = []
+            if self.loss is not None and "y" in batch:
+                per = self.loss(batch["y"], preds)
+                stats.append(((per * mask).sum(), mask.sum()))
+            for m in self.metrics:
+                stats.append(m.batch_stats(batch["y"], preds, mask=mask))
+        return stats
+
+    def _evaluate_with(self, params, state, val_set, batch_size=32,
+                       casts=None, plan=None, step=None) -> dict:
+        """Loss and metrics over ``val_set``: each batch through the
+        planned eval step (``step``, default :meth:`eval_step` under
+        ``plan`` through ``compile_step``, captured on the card), its
+        statistics summed on the device in batch order, ``finalize`` on
+        the host at the end."""
+        device = self.model.device
+        step = step or self._eval_step_for(self._resolve_plan(plan))
+        accum = None
+        for batch in val_set.batches(batch_size, shuffle=False,
+                                     drop_last=False, pad_to_batch=1):
+            batch = _to_device(batch, device)
+            with step.lock:  # the next replay overwrites the statistics
+                stats = step(params, state, batch, casts)
+                accum = [[s.clone() for s in g] for g in stats] \
+                    if accum is None else [
+                        [a + b for a, b in zip(ga, gb)]
+                        for ga, gb in zip(accum, stats)]
         results = {}
         idx = 0
         if self.loss is not None:

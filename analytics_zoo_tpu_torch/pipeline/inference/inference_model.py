@@ -3,23 +3,38 @@
 Counterpart of ``analytics_zoo_tpu/pipeline/inference/inference_model.py``
 with the same surface and the same batching: each micro-batch is padded
 with zero records to a power-of-two bucket and the outputs are sliced back
-to the real records.  The reference keeps one compiled XLA executable per
-bucket; eager PyTorch has nothing to compile, so the per-bucket map here
-records the buckets seen, and ``warmup`` runs one forward per bucket
-(which also builds the CUDA kernels before the first request).
+to the real records.  The reference compiles one XLA executable per bucket
+shape through the compile plane; here each bucket shape gets one planned
+forward (``parallel.plan.compile_step``, labelled ``inference_b<bucket>``),
+which on the card captures the forward into a CUDA graph on its first call
+and replays it on every later one.  ``warmup`` captures every bucket it
+names.  The parameters and the model state go into the capture by
+reference (never cloned or copied); the micro-batch is written straight
+into the capture's static inputs, from numpy through a pinned staging
+buffer per input, so the host-to-device copy stays outside the graph.
 
-``concurrent_num`` bounds in-flight predict calls with a semaphore, and
-outputs are copied back to numpy inside it, so the bound covers the
-device work.  Telemetry is plain counters on the instance; the metrics
+A replay's outputs are overwritten by the next one, and a model's
+captures share one CUDA graph memory pool, so the buckets of one model
+form one ``CaptureGroup``: a micro-batch holds its lock from the copy in
+until its outputs are on the host.  ``concurrent_num`` bounds in-flight
+predict calls with a semaphore, and the outputs are copied back to numpy
+inside it.  Telemetry is plain counters on the instance (``records``,
+``bucket_stats``) and the compile plane's ``compile_stats()``; the metrics
 registry comes with the serving-host slice.
 
-``optimize("int8")`` is weight-only (dequantized before each forward, as
-in the reference); ``optimize("int8", calibration_data=x)`` builds a
-calibrated :class:`~analytics_zoo_tpu_torch.pipeline.inference.quantize.
-Int8Model` whose int8 ``apply`` hooks are installed around each forward.
-The reference bakes those hooks into one compiled executable per bucket;
-here every calibrated forward installs them under the global
-``HOOK_LOCK``, so calibrated forwards run one at a time.
+``optimize("int8")`` is weight-only: the graph dequantizes the weights
+before each forward, as the reference's executable does;
+``optimize("int8", calibration_data=x)`` builds a calibrated
+:class:`~analytics_zoo_tpu_torch.pipeline.inference.quantize.Int8Model`
+whose int8 ``apply`` hooks are installed (under the global ``HOOK_LOCK``)
+only while a bucket's forward runs in Python: its eager run and its
+capture on the card, every call on the CPU.  Replays take no
+``HOOK_LOCK``.  Float forwards hold ``HOOK_LOCK`` the same way, so no
+capture can see another model's hooks.  ``from_keras_net`` and
+``optimize`` drop every capture.
+
+``load_torch`` runs a torch module on the host behind the same
+``predict``, the reference's escape hatch for models not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ import torch
 
 from analytics_zoo_tpu_torch.common.utils import tree_map
 from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
+    HOOK_LOCK,
     dequantize_params,
     quantize_model,
     quantize_params,
@@ -45,6 +61,16 @@ def _bucket(n: int, max_batch: int) -> int:
     while b < n and b < max_batch:
         b *= 2
     return min(b, max_batch)
+
+
+class _Bucket:
+    """One bucket shape's planned forward and, once it is captured, the
+    capture's static batch inputs with a pinned staging buffer each."""
+
+    def __init__(self, step):
+        self.step = step
+        self.static = None   # guarded-by: step.lock
+        self.staging = None  # guarded-by: step.lock
 
 
 class InferenceModel:
@@ -60,10 +86,13 @@ class InferenceModel:
         self.max_batch = int(max_batch)
         self._sem = threading.Semaphore(self.concurrent_num)
         self._net = None
+        self._torch = None  # a host module from load_torch
         self._params = None
         self._state = None
         self._lock = threading.Lock()
         self._buckets = {}  # guarded-by: _lock -- input-shape key -> bucket
+        self._steps = {}  # guarded-by: _lock -- input-shape key -> _Bucket
+        self._group = None  # guarded-by: _lock -- the buckets' CaptureGroup
         self._quantized = False
         self._bf16 = False
         self._int8_model = None  # calibrated int8 (optimize + calibration)
@@ -90,16 +119,26 @@ class InferenceModel:
         self._net = net
         self._params = net.params
         self._state = net.state
-        with self._lock:
-            self._buckets = {}
         self._quantized = False
         self._bf16 = False
         self._int8_model = None
+        self._drop_captures()
+        return self
+
+    def load_torch(self, module, input_shape=None) -> "InferenceModel":
+        """Run a torch module on the host behind the same ``predict`` (the
+        reference's ``doLoadPyTorch``): the escape hatch for models not
+        ported; ported models should use :meth:`load` or
+        :meth:`from_keras_net`."""
+        module.eval()
+        self._torch = module
+        self._net = None
+        self._drop_captures()
         return self
 
     def optimize(self, precision: str = "int8",
                  calibration_data=None) -> "InferenceModel":
-        """``int8``: weight-only per-channel quantization, dequantized before
+        """``int8``: weight-only per-channel quantization, dequantized inside
         each forward; with ``calibration_data`` (representative inputs, one
         array) the activations are calibrated too and the top-level Dense
         layers run int8 x int8 -> int32; ``bf16``: weights (and floating
@@ -126,54 +165,128 @@ class InferenceModel:
                 else a, self._net.params)
             self._quantized = False
             self._bf16 = True
-        with self._lock:
-            self._buckets = {}
+        self._drop_captures()
         return self
 
-    # ------------------------------------------------------------------
-    # forward
-    # ------------------------------------------------------------------
-    def _forward(self, xs: Sequence[np.ndarray]):
-        device = self._net.device
-        params = self._params
-        int8 = self._int8_model
-        if self._quantized and int8 is None:
-            params = dequantize_params(params)
-        ts = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-              for a in xs]
-        if self._bf16:
-            ts = [t.to(torch.bfloat16) if t.is_floating_point() else t
-                  for t in ts]
-        x = ts[0] if len(ts) == 1 else ts
-        if int8 is not None:
-            # the hooked layers read their int8 kernels from the hooks;
-            # params supplies the float leaves (biases, other layers)
-            return int8.forward(x)
-        with torch.inference_mode():
-            out, _ = self._net.forward(params, x, state=self._state,
-                                       training=False)
-        if self._bf16:
-            out = tree_map(lambda o: o.float(), out)
-        return out
+    @staticmethod
+    def enable_persistent_compile_cache(cache_dir: str) -> None:
+        """Keep what the compile plane builds in ``cache_dir``, so that a
+        second process finds it there (the kernel libraries; a CUDA graph
+        lives in its process).  Delegates to
+        ``common.compile_cache.maybe_enable_persistent_cache``, as
+        ``ZOO_COMPILE_CACHE`` does."""
+        from analytics_zoo_tpu_torch.common.compile_cache import (
+            maybe_enable_persistent_cache,
+        )
 
-    def _note_bucket(self, xs: Sequence[np.ndarray]) -> None:
+        maybe_enable_persistent_cache(cache_dir)
+
+    # ------------------------------------------------------------------
+    # the planned forward of each bucket
+    # ------------------------------------------------------------------
+    def _drop_captures(self) -> None:
+        from analytics_zoo_tpu_torch.parallel.plan import CaptureGroup
+
+        with self._lock:
+            self._buckets = {}
+            self._steps = {}
+            self._group = CaptureGroup()
+
+    def _forward_fn(self):
+        """The forward a bucket's step runs: ``(params, state, xs)`` ->
+        outputs, under ``no_grad``, with the model's precision choices."""
+        net, quantized = self._net, self._quantized
+        int8, bf16 = self._int8_model, self._bf16
+
+        def fwd(params, state, xs):
+            # calibrated int8: the hooked layers read their int8 kernels
+            # from the hooks (params supplies the float leaves), so there is
+            # no dequantization pass
+            with (int8.installed() if int8 is not None else HOOK_LOCK), \
+                    torch.no_grad():
+                if quantized and int8 is None:
+                    params = dequantize_params(params)
+                if bf16:
+                    xs = [x.to(torch.bfloat16) if x.is_floating_point()
+                          else x for x in xs]
+                x = xs[0] if len(xs) == 1 else list(xs)
+                out, _ = net.forward(params, x, state=state, training=False)
+                if bf16:
+                    out = tree_map(lambda o: o.float(), out)
+            return out
+
+        return fwd
+
+    def _bucket_for(self, xs: Sequence[np.ndarray]) -> _Bucket:
+        """The bucket shape's :class:`_Bucket`, made on its first use."""
+        from analytics_zoo_tpu_torch.common.compile_cache import (
+            maybe_enable_persistent_cache,
+        )
+        from analytics_zoo_tpu_torch.parallel.plan import compile_step
+
         key = tuple((a.shape, str(a.dtype)) for a in xs)
         with self._lock:
-            self._buckets.setdefault(
-                key, int(xs[0].shape[0]) if np.ndim(xs[0]) else 0)
+            entry = self._steps.get(key)
+            if entry is None:
+                b = int(xs[0].shape[0]) if np.ndim(xs[0]) else 0
+                self._buckets[key] = b
+                # ZOO_COMPILE_CACHE: the kernel libraries a capture loads
+                maybe_enable_persistent_cache()
+                entry = self._steps[key] = _Bucket(compile_step(
+                    self._forward_fn(), label=f"inference_b{b}",
+                    ref_argnums=(0, 1), group=self._group))
+        return entry
+
+    def _run(self, xs: Sequence[np.ndarray], m: int):
+        """One bucket-sized micro-batch through its bucket's step: the
+        outputs of its first ``m`` records as numpy (a list for several
+        outputs)."""
+        entry = self._bucket_for(xs)
+        device = self._net.device
+        with entry.step.lock:
+            if entry.static is not None:
+                # a replay: the batch goes straight into the capture's
+                # static inputs, through pinned memory
+                for stage, static, a in zip(entry.staging, entry.static,
+                                            xs):
+                    stage.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+                    static.copy_(stage, non_blocking=True)
+                batch = entry.static
+            else:
+                batch = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in xs]
+            out = entry.step(self._params, self._state, batch)
+            if entry.static is None and device.type == "cuda":
+                captured = entry.step.static_inputs(self._params,
+                                                    self._state, batch)
+                if captured is not None:
+                    entry.static = captured[0][2]
+                    entry.staging = [torch.empty(
+                        t.shape, dtype=t.dtype, pin_memory=True)
+                        for t in entry.static]
+            # copied out under the lock: the next replay overwrites them
+            if isinstance(out, (list, tuple)):
+                return [o.cpu().numpy()[:m] for o in out]
+            return out.cpu().numpy()[:m]
 
     def warmup(self, input_shapes, dtype=np.float32,
                batch_sizes=(1,)) -> None:
-        """One forward per bucket that the given batch sizes round up to,
-        so the first request finds its bucket warm."""
+        """Capture the forward of every bucket that the given batch sizes
+        round up to (one forward each on the CPU), so the first request
+        finds its bucket ready.  ``dtype`` is every input's, or a sequence
+        of one per input: a bucket is keyed on its inputs' shapes and
+        dtypes, so warm it with the dtypes requests bring.  The largest
+        bucket is captured first: the smaller ones then take their memory
+        from what it freed in the model's shared pool."""
         shapes = input_shapes
         if shapes and not isinstance(shapes[0], (list, tuple)):
             shapes = [shapes]
+        dtypes = list(dtype) if isinstance(dtype, (list, tuple)) \
+            else [dtype] * len(shapes)
         for b in sorted({_bucket(int(b), self.max_batch)
-                         for b in batch_sizes}):
-            xs = [np.zeros((b,) + tuple(s), dtype) for s in shapes]
-            self._note_bucket(xs)
-            self._forward(xs)
+                         for b in batch_sizes}, reverse=True):
+            self._run([np.zeros((b,) + tuple(s), d)
+                       for s, d in zip(shapes, dtypes)], b)
 
     # ------------------------------------------------------------------
     # doPredict
@@ -181,6 +294,8 @@ class InferenceModel:
     def predict(self, inputs, batch_size: int | None = None):
         """Batched inference.  Pads each micro-batch to a power-of-two
         bucket, bounded by the concurrency semaphore."""
+        if self._torch is not None and self._net is None:
+            return self._predict_host(inputs, batch_size)
         if self._net is None:
             raise RuntimeError("no model loaded")
         xs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
@@ -189,13 +304,8 @@ class InferenceModel:
         if n == 0:
             # a padded singleton through the bucket-1 forward learns the
             # output shape, which is returned empty
-            dummy = [np.zeros((1,) + a.shape[1:], a.dtype) for a in xs]
-            self._note_bucket(dummy)
-            out = self._forward(dummy)
-            if isinstance(out, (list, tuple)):
-                return [np.zeros((0,) + tuple(o.shape[1:]),
-                                 _numpy_dtype(o)) for o in out]
-            return np.zeros((0,) + tuple(out.shape[1:]), _numpy_dtype(out))
+            return self._run([np.zeros((1,) + a.shape[1:], a.dtype)
+                              for a in xs], 0)
         step = min(batch_size or n, self.max_batch)
         outs = []
         for lo in range(0, n, step):
@@ -209,21 +319,36 @@ class InferenceModel:
                     )
                     for a in chunk
                 ]
-            self._note_bucket(chunk)
             with self._sem:
                 t0 = time.perf_counter()
-                out = self._forward(chunk)
-                # copy back inside the semaphore so concurrent_num bounds
+                # ends in the device-to-host copy, so concurrent_num bounds
                 # in-flight device work (kernel launches are asynchronous)
-                if isinstance(out, (list, tuple)):
-                    out = [o.cpu().numpy()[:m] for o in out]
-                else:
-                    out = out.cpu().numpy()[:m]
+                out = self._run(chunk, m)
                 self._record(b, m, time.perf_counter() - t0)
             outs.append(out)
         if isinstance(outs[0], list):
             return [np.concatenate([o[i] for o in outs])
                     for i in range(len(outs[0]))]
+        return np.concatenate(outs, axis=0)
+
+    def _predict_host(self, inputs, batch_size):
+        """``predict`` of a :meth:`load_torch` module, on the host."""
+        module = self._torch
+        xs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        xs = [np.asarray(a) for a in xs]
+        n = xs[0].shape[0]
+        step = min(batch_size or max(n, 1), self.max_batch)
+        outs = []
+        for lo in range(0, n, step):
+            args = [torch.as_tensor(a[lo:lo + step]) for a in xs]
+            with self._sem, torch.no_grad():
+                outs.append(module(*args).numpy())
+        if not outs:
+            with torch.no_grad():
+                probe = module(*[torch.as_tensor(
+                    np.zeros((1,) + a.shape[1:], a.dtype)) for a in xs])
+            return np.zeros((0,) + tuple(probe.shape[1:]),
+                            probe.numpy().dtype)
         return np.concatenate(outs, axis=0)
 
     def _record(self, bucket: int, m: int, seconds: float) -> None:
@@ -238,10 +363,6 @@ class InferenceModel:
     # camelCase aliases matching the reference Java/Scala POJO surface
     doPredict = predict
     doLoad = load
-
-
-def _numpy_dtype(t):
-    return torch.empty((), dtype=t.dtype).numpy().dtype
 
 
 class AbstractInferenceModel(InferenceModel):

@@ -192,9 +192,11 @@ def _target_layers(net):
 # Serializes every apply-hook installation and every forward that could
 # observe one: a layer's ``apply`` is shared by every user of the net, so
 # a float forward of the same net racing an int8 installation would run the
-# int8 path.  PyTorch has no trace to bake the hooks into, so they are
-# installed for each calibrated forward, and calibrated forwards of any
-# model run one at a time.
+# int8 path.  A captured forward bakes the hooks into its CUDA graph, as
+# the reference's executable does: they are installed only for its eager
+# run and its capture, and its replays take no lock.  Every forward that
+# runs in Python (on the CPU, every one) installs them anew, and such
+# forwards of any model run one at a time.
 HOOK_LOCK = threading.RLock()
 
 

@@ -60,11 +60,17 @@ and prints no result):
    requests of 1, 3, 8 and 2 records and one bf16 request, checks the
    outputs, holds two requests against the same model run on the CPU, and
    checks from the launch counters that every attention call went through
-   the kernel; then times the 8-record bf16 request five more times;
+   the kernel; then times the 8-record bf16 request five more times (every
+   ``InferenceModel`` here and below replays one captured CUDA graph per
+   bucket, captured by ``warmup`` with the requests' dtypes);
 5. training slice: the BERT-base classifier (Dense(2) logits, hidden and
    attention dropout 0.1) through ``compile(Adam(2e-5),
    "sparse_categorical_crossentropy_from_logits", ["accuracy"])``, ``fit``
-   for 5 steps at batch 8 x 512 and ``evaluate``; checks finite losses,
+   for 5 steps at batch 8 x 512 and ``evaluate`` (the per-batch eval step,
+   captured, held against the same loop with the step uncaptured: the
+   results bit for bit, 12 flash forwards and one cross-entropy a batch
+   under replay, as after the bf16 and f16 fine-tunes); checks finite
+   losses,
    that every attention and loss call went through its kernel and Adam
    through one launch a step covering every f32 leaf of >= 128 elements,
    that the loss falls when one batch is repeated at a higher learning
@@ -119,7 +125,18 @@ and prints no result):
    in two dispatches equal 8 steps at K=1.  Logs the host clock a step,
    eager and captured, and each capture's and kernel build's seconds
    (``compile_stats()``);
-9. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
+9. captured serving: BERT-base at full width served from captures in
+   f32, bf16, weight-only and calibrated int8 at buckets 1, 2, 4 and 8,
+   each request bit for bit the eager forward; four threads sending their
+   own 8-record request 20 times each to one bucket, each answer its
+   request's eager one; 12 flash launches a replayed micro-batch;
+   ``KerasNet.predict`` at batch 8 bit for bit ``InferenceModel``'s
+   answer and ``predict_classes`` its argmax.  Logs the memory reserved
+   after the warmups, the host clock of the 1-, 3-, 8- and 2-record f32
+   requests and the 8-record bf16 request, eager and replayed, and what
+   a graph pool holds at 1, 8 and 64 records (pools of their own, and
+   one shared pool captured largest first);
+10. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
    of its own), then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -1171,6 +1188,11 @@ def bert_model(n_head=BERT_BASE["n_head"]):
     return Model(ins, Dense(2, activation="softmax")(pooled))
 
 
+# the dtypes of a request's four inputs (``requests_of``), with which
+# ``InferenceModel.warmup`` captures the buckets requests use
+REQ_DTYPES = [np.int32, np.int32, np.int32, np.float32]
+
+
 def requests_of(n: int, gen: np.random.Generator):
     """n records of real lengths 64-512: token ids, segment types,
     positions and the attention mask."""
@@ -1210,9 +1232,10 @@ def slice_phase(card_line: str) -> int:
     net = bert_model()
     net.build_params()
     im = InferenceModel().from_keras_net(net)
-    im.warmup([(SEQ,)] * 4, batch_sizes=REQUEST_SIZES)
+    im.warmup([(SEQ,)] * 4, dtype=REQ_DTYPES, batch_sizes=REQUEST_SIZES)
     im_bf16 = InferenceModel().from_keras_net(net).optimize("bf16")
-    im_bf16.warmup([(SEQ,)] * 4, batch_sizes=REQUEST_SIZES)
+    im_bf16.warmup([(SEQ,)] * 4, dtype=REQ_DTYPES,
+                   batch_sizes=REQUEST_SIZES)
     torch.cuda.synchronize()
     log(f"slice: BERT-base built and warmed up in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1384,6 +1407,7 @@ def training_phase(card_line: str) -> tuple[dict, dict]:
     log(f"evaluate: {res}")
     if not (np.isfinite(res["loss"]) and 0.0 <= res["accuracy"] <= 1.0):
         raise AssertionError(f"bad evaluate result {res}")
+    captured_eval("f32", net._estimator, x, y, card_line)
 
     # one batch the model has not seen, repeated at a higher learning rate
     # (fresh Adam moments): the loss falls
@@ -1571,10 +1595,9 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
     # evaluate under the plan (an Estimator that holds it), and as
     # Model.evaluate does after fit(plan=...): under the model's own plan,
     # in f32, as in the reference
-    low_eval = Estimator(net, loss=get_loss(loss_name),
-                         metrics=[get_metric("accuracy")],
-                         plan=plan).evaluate(FeatureSet.of(x, y),
-                                             batch_size=TRAIN_BATCH)
+    low_est = Estimator(net, loss=get_loss(loss_name),
+                        metrics=[get_metric("accuracy")], plan=plan)
+    low_eval = low_est.evaluate(FeatureSet.of(x, y), batch_size=TRAIN_BATCH)
     f32_eval = net.evaluate(x, y, batch_size=TRAIN_BATCH)
     eval_gap = abs(low_eval["loss"] - f32_eval["loss"]) / f32_eval["loss"]
     log(f"evaluate under {plan.name}: {low_eval}; in f32: {f32_eval} (loss"
@@ -1584,6 +1607,7 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
             raise AssertionError(f"bad evaluate result {res}")
     if not eval_gap <= BF16_F32_LOSS_TOL:
         raise AssertionError(f"{tag} evaluate is not within 5% of f32")
+    captured_eval(tag, low_est, x, y, card_line)
 
     # one unseen batch (drawn in every phase, so that the 2-record batch
     # below is the f32 phase's), repeated at a higher learning rate: the
@@ -1903,7 +1927,7 @@ def serving_d384_phase(card_line: str) -> dict:
     net = bert_model(n_head=D384_HEADS)
     net.build_params()
     im = InferenceModel().from_keras_net(net)
-    im.warmup([(SEQ,)] * 4, batch_sizes=(D384_RECORDS,))
+    im.warmup([(SEQ,)] * 4, dtype=REQ_DTYPES, batch_sizes=(D384_RECORDS,))
     xs = requests_of(D384_RECORDS, np.random.default_rng(SEED + 8))
     torch.cuda.synchronize()
 
@@ -1921,6 +1945,271 @@ def serving_d384_phase(card_line: str) -> dict:
             or launches["flash_attention_bwd"] != 0:
         raise AssertionError("head-dim-384 attention did not run through "
                              "the kernel")
+    return launches
+
+
+# the captured-serving phase: the buckets whose replays are held against
+# the eager forward, the four-thread check, the request sizes timed eager
+# and replayed, and the buckets whose graph memory pools are measured
+SERVE_BUCKETS = (1, 2, 4, 8)
+THREADS, THREAD_REQUESTS = 4, 20
+HOST_REPEATS = 5
+POOL_BUCKETS = (1, 8, 64)
+# the launch counts of the captured evaluations (tag -> counts), filled by
+# the training phases
+EVAL_LAUNCHES: dict = {}
+
+
+def captured_eval(tag: str, est, x, y, card_line: str) -> dict:
+    """``est.evaluate`` over (x, y) at batch TRAIN_BATCH: its first call
+    captured the eval step, this one replays it.  The results must equal
+    bit for bit those of the same loop with the step uncaptured, and the
+    replays must launch 12 flash forwards and one cross-entropy a batch.
+    Records the replays' launch counts in ``EVAL_LAUNCHES[tag]``."""
+    import torch
+
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.parallel import compile_step
+
+    plan = est._resolve_plan()
+    params, state = est.model.params, est.model.state
+    fs = FeatureSet.of(x, y)
+    eager = est._evaluate_with(
+        params, state, fs, TRAIN_BATCH, est.compute_casts(plan, params),
+        step=compile_step(est.eval_step, plan, label="eval_step_eager",
+                          capture=False))
+    reset_counters()  # the replayed evaluation: from here to the read
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = est.evaluate(fs, batch_size=TRAIN_BATCH)
+    ms = (time.perf_counter() - t0) * 1e3
+    counted = counters()  # end of the replayed evaluation
+    batches = -(-len(y) // TRAIN_BATCH)
+    expected = dict({k: 0 for k in counted},
+                    flash_attention_fwd=BERT_BASE["n_block"] * batches,
+                    softmax_xent_fwd=batches)
+    log(f"captured eval {tag}: {batches} batches replayed in {ms:.2f} ms "
+        f"({card_line}); {got} against the uncaptured step's {eager}"
+        f" (equal: {got == eager}); launches {counted} (expected "
+        f"{expected})")
+    if got != eager:
+        raise AssertionError(f"the captured {tag} eval is not the eager one")
+    if counted != expected:
+        raise AssertionError(f"the captured {tag} eval did not count its "
+                             "kernels")
+    EVAL_LAUNCHES[tag] = counted
+    return counted
+
+
+def eager_predict(im, xs):
+    """What ``InferenceModel.predict`` ran before its forward was captured:
+    one micro-batch padded to its bucket, copied up, the model's forward
+    run eagerly, the outputs copied back."""
+    from analytics_zoo_tpu_torch.pipeline.inference.inference_model import (
+        _bucket,
+    )
+
+    n = len(xs[0])
+    b = _bucket(n, im.max_batch)
+    ts = [torch_from(np.concatenate(
+        [a, np.zeros((b - n,) + a.shape[1:], a.dtype)]), im._net.device)
+        for a in xs]
+    return im._forward_fn()(im._params, im._state, ts).cpu().numpy()[:n]
+
+
+def torch_from(a, device):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def pool_sizes(im, gen, share: bool) -> list:
+    """The bytes each of the POOL_BUCKETS f32 captures of ``im``'s forward
+    adds to ``torch.cuda.memory_reserved()`` (the eager run's memory given
+    back first), each in a pool of its own (a capture group of its own),
+    or all in one shared pool, captured largest first as ``warmup`` does
+    (returned in POOL_BUCKETS' order)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.parallel import CaptureGroup, compile_step
+
+    fwd = im._forward_fn()
+    group = CaptureGroup() if share else None
+    steps, sizes = [], {}
+    for b in sorted(POOL_BUCKETS, reverse=share):
+        xs = [torch_from(a, "cuda") for a in requests_of(b, gen)]
+        step = compile_step(fwd, label=f"pool_b{b}", ref_argnums=(0, 1),
+                            group=group or CaptureGroup())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        step(im._params, im._state, xs)
+        torch.cuda.synchronize()
+        del xs
+        torch.cuda.empty_cache()
+        sizes[b] = torch.cuda.memory_reserved() - before
+        steps.append(step)  # the capture holds its pool while it lives
+    del steps
+    torch.cuda.empty_cache()
+    return [sizes[b] for b in POOL_BUCKETS]
+
+
+def captured_serving_phase(card_line: str) -> dict:
+    """``InferenceModel.predict`` through its captured buckets, BERT-base
+    at full width, sequence 512: f32, bf16, weight-only int8 (the 4-input
+    model) and calibrated int8 (the token-ids model) warmed up at buckets
+    1, 2, 4 and 8; a request of each bucket's size must equal the eager
+    forward bit for bit; four threads each send their own 8-record request
+    20 times to the f32 model and get its eager answer each time; the
+    replays launch 12 flash forwards a micro-batch; ``KerasNet.predict`` at
+    batch 8 equals the f32 model's 8-record answer bit for bit and
+    ``predict_classes`` its argmax.  Logs the memory reserved after the
+    warmups, what each capture's graph pool holds at 1, 8 and 64 records
+    (pools of their own and one shared pool), and the host clock of the
+    1-, 3-, 8- and 2-record f32 requests and the 8-record bf16 request,
+    eager and replayed.  Returns the replays' launch counts."""
+    import gc
+    import threading
+
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.compile_cache import compile_stats
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    init_zoo_context(seed=SEED, device="cuda")
+    gen = np.random.default_rng(SEED + 10)
+    net, tok_net = bert_model(), bert_tokens_model()
+    net.build_params()
+    tok_net.build_params()
+    calib = requests_of(N_CALIB, gen)[0]
+    models = {
+        "f32": InferenceModel().from_keras_net(net),
+        "bf16": InferenceModel().from_keras_net(net).optimize("bf16"),
+        "int8 weight-only": InferenceModel().from_keras_net(net).optimize(
+            "int8"),
+        "int8 calibrated": InferenceModel().from_keras_net(tok_net).optimize(
+            "int8", calibration_data=calib)}
+    torch.cuda.synchronize()
+    gc.collect()  # the earlier phases' captures and models
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    for tag, im in models.items():
+        if tag == "int8 calibrated":
+            im.warmup([(SEQ,)], dtype=np.int32, batch_sizes=SERVE_BUCKETS)
+        else:
+            im.warmup([(SEQ,)] * 4, dtype=REQ_DTYPES,
+                      batch_sizes=SERVE_BUCKETS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    stats = compile_stats()
+    log(f"captured serving: {len(models)} models x {len(SERVE_BUCKETS)} "
+        f"buckets warmed up (captured) in {warm_s:.1f} s; memory reserved "
+        f"after warmup {torch.cuda.memory_reserved()} B, "
+        f"{torch.cuda.memory_reserved() - before} B more than with the "
+        f"models' weights alone ({card_line}); captures: " + "; ".join(
+            f"{b}: {stats[b]['misses']} miss(es) "
+            f"[{', '.join(f'{t:.2f}' for t in stats[b]['seconds'])} s]"
+            for b in sorted(stats) if b.startswith("inference_b")))
+
+    def pick(tag, r):
+        return r[0] if tag == "int8 calibrated" else r
+
+    reqs = {b: requests_of(b, gen) for b in SERVE_BUCKETS}
+    thread_reqs = [requests_of(8, gen) for _ in range(THREADS)]
+    # the eager answers first: their launches are not the replays'
+    want = {(tag, b): eager_predict(im, [pick(tag, reqs[b])]
+                                    if tag == "int8 calibrated"
+                                    else reqs[b])
+            for tag, im in models.items() for b in SERVE_BUCKETS}
+    thread_want = [eager_predict(models["f32"], r) for r in thread_reqs]
+    torch.cuda.synchronize()
+
+    reset_counters()  # captured serving: from here to the read below
+    got = {(tag, b): im.predict(pick(tag, reqs[b]))
+           for tag, im in models.items() for b in SERVE_BUCKETS}
+    wrong = []
+    start = threading.Barrier(THREADS)
+
+    def send(i):
+        start.wait()
+        for _ in range(THREAD_REQUESTS):
+            if not np.array_equal(models["f32"].predict(thread_reqs[i]),
+                                  thread_want[i]):
+                wrong.append(i)
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    thread_s = time.perf_counter() - t0
+    launches = counters()  # end of captured serving
+    for (tag, b), out in got.items():
+        same = np.array_equal(out, want[tag, b])
+        log(f"captured serving {tag}, bucket {b}: replay equal to the eager "
+            f"forward bit for bit: {same} (max|d| "
+            f"{float(np.abs(out - want[tag, b]).max()):.3e})")
+        if not same:
+            raise AssertionError(f"the {tag} bucket-{b} replay is not the "
+                                 "eager forward")
+    replays = len(got) + THREADS * THREAD_REQUESTS
+    expected = dict({k: 0 for k in launches},
+                    flash_attention_fwd=BERT_BASE["n_block"] * replays)
+    log(f"captured serving: {THREADS} threads x {THREAD_REQUESTS} 8-record "
+        f"requests on one bucket in {thread_s:.2f} s, {len(wrong)} answers "
+        f"not their request's eager answer; launches under replay "
+        f"{launches} (expected {expected}: {BERT_BASE['n_block']} flash a "
+        f"micro-batch x {replays})")
+    if wrong:
+        raise AssertionError(f"concurrent requests got other answers: "
+                             f"threads {sorted(set(wrong))}")
+    if launches != expected:
+        raise AssertionError("a replayed request did not count its kernels")
+
+    # KerasNet.predict (the predict_step program) against InferenceModel on
+    # the same weights and the same 8 records
+    kp = [net.predict(reqs[8], batch_size=8) for _ in range(2)]
+    classes = net.predict_classes(reqs[8], batch_size=8)
+    same = all(np.array_equal(k, got["f32", 8]) for k in kp)
+    log(f"KerasNet.predict at batch 8 (captured, then replayed) against "
+        f"InferenceModel.predict: equal bit for bit {same}; predict_classes "
+        f"{classes.tolist()}")
+    if not same or not np.array_equal(classes, np.argmax(kp[0], axis=-1)):
+        raise AssertionError("KerasNet.predict disagrees with "
+                             "InferenceModel.predict")
+
+    # the host clock of a request, eager (the forward as predict ran it
+    # before) and replayed, interleaved
+    f32, bf16 = models["f32"], models["bf16"]
+    cases = [(f"f32 {n} records", f32, requests_of(n, gen))
+             for n in REQUEST_SIZES]
+    cases.append(("bf16 8 records", bf16, reqs[8]))
+    times = {name: {"eager": [], "replayed": []} for name, _, _ in cases}
+    for _ in range(HOST_REPEATS):
+        for name, im, xs in cases:
+            for kind, run in (("eager", eager_predict),
+                              ("replayed", InferenceModel.predict)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(im, xs)
+                times[name][kind].append((time.perf_counter() - t0) * 1e3)
+    for name, row in times.items():
+        log(f"request host clock, {name}: eager "
+            f"{', '.join(f'{t:.3f}' for t in row['eager'])} ms (median "
+            f"{float(np.median(row['eager'])):.3f}); replayed "
+            f"{', '.join(f'{t:.3f}' for t in row['replayed'])} ms (median "
+            f"{float(np.median(row['replayed'])):.3f}; {card_line})")
+
+    own = pool_sizes(f32, gen, share=False)
+    shared = pool_sizes(f32, gen, share=True)
+    log(f"graph memory pools of the f32 forward at {POOL_BUCKETS} records x "
+        f"{SEQ}: own pools {own} B (sum {sum(own)}); one shared pool, "
+        f"captured largest first, {shared} B more each (sum {sum(shared)})")
     return launches
 
 
@@ -2163,8 +2452,8 @@ def int8_serving_phase(card_line: str, weights, int8_entry) -> dict:
     w8 = InferenceModel().from_keras_net(net).optimize("int8")
     cal = InferenceModel().from_keras_net(tok_net).optimize(
         "int8", calibration_data=calib)
-    w8.warmup([(SEQ,)] * 4, batch_sizes=INT8_REQUESTS)
-    cal.warmup([(SEQ,)], batch_sizes=INT8_REQUESTS)
+    w8.warmup([(SEQ,)] * 4, dtype=REQ_DTYPES, batch_sizes=INT8_REQUESTS)
+    cal.warmup([(SEQ,)], dtype=np.int32, batch_sizes=INT8_REQUESTS)
     reqs = [requests_of(n, gen) for n in INT8_REQUESTS]
     want = [f32_im.predict(r) for r in reqs]
     want_tok = [f32_tok.predict(r[0]) for r in reqs]
@@ -2311,6 +2600,9 @@ def main() -> int:
     training_d192 = training_d192_phase(card_line)
     serving_d384 = serving_d384_phase(card_line)
     captured, _ = captured_training_phase(card_line)
+    serving_captured = captured_serving_phase(card_line)
+    eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
+                     for k in counters()}
     for entry in entries:
         name = entry["name"]
         paths = {"serving": serving.get(name, 0),
@@ -2320,7 +2612,9 @@ def main() -> int:
                  "int8_serving": int8_serving.get(name, 0),
                  "training_d192": training_d192.get(name, 0),
                  "serving_d384": serving_d384.get(name, 0),
-                 "training_captured": captured.get(name, 0)}
+                 "training_captured": captured.get(name, 0),
+                 "serving_captured": serving_captured.get(name, 0),
+                 "eval_captured": eval_captured.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},

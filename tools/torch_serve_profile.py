@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Where the time of one BERT-base request goes, on one CUDA GPU.
+
+    python3 tools/torch_serve_profile.py [--requests 10] [--trace DIR]
+
+Serves the PyTorch port's serving slice as ``chip_smoke.py`` does
+(BERT-base at full width, Dense(2, softmax) head, sequence 512, random
+weights and requests from a seed) through ``InferenceModel``, in f32 and
+bf16 (``optimize("bf16")``), at 1 and 8 records a request, two ways: the
+captured forward ``predict`` replays (one CUDA graph a micro-batch, the
+batch written into its static inputs), and the eager forward (the same
+forward function called on a batch copied up, as ``predict`` ran it
+before it was captured).  Each case warms up (``warmup`` captures the
+bucket), then times ``--requests`` requests on the host clock, then
+traces as many more with ``torch.profiler`` (CPU and CUDA activity).
+Prints the card's name and power limit, and for each case the host-clock
+time a request without the profiler (and under it), the device time a
+request by kernel group (the flash forward, cuBLAS matrix products,
+copies and casts, host-device copies, everything else: elementwise work
+and reductions), the device's busy and idle shares of the unprofiled
+request; then all cases as one JSON line last.  ``--trace DIR`` also
+writes the Chrome traces there.  Needs one GPU and nvcc; imports nothing
+of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from chip_smoke import (  # noqa: E402
+    REQ_DTYPES,
+    SEED,
+    SEQ,
+    bert_model,
+    requests_of,
+)
+from torch_train_profile import measure  # noqa: E402
+
+RECORDS = (1, 8)
+
+
+def report(name: str, r: dict, card: str) -> None:
+    print(f"{name}: {r['step_ms']:.3f} ms a request on the host clock "
+          f"({r['profiled_step_ms']:.3f} under the profiler; {card}); "
+          f"device busy {r['device_busy_ms']:.3f} ms, idle "
+          f"{r['idle_share']:.1%}", flush=True)
+    for g, ms in sorted(r["groups_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"  {g}: {ms:.4f} ms a request, {r['launches'][g]} launches",
+              flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=10)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_serve_profile: no CUDA GPU is visible")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    init_zoo_context(seed=SEED, device="cuda")
+    net = bert_model()
+    net.build_params()
+    gen = np.random.default_rng(SEED + 1)
+    if args.trace:
+        os.makedirs(args.trace, exist_ok=True)
+    out = {}
+    for precision in ("f32", "bf16"):
+        im = InferenceModel().from_keras_net(net)
+        if precision == "bf16":
+            im.optimize("bf16")
+        im.warmup([(SEQ,)] * 4, dtype=REQ_DTYPES, batch_sizes=RECORDS)
+        fwd = im._forward_fn()
+        for n in RECORDS:
+            xs = requests_of(n, gen)
+
+            def captured():
+                for _ in range(args.requests):
+                    im.predict(xs)
+
+            def eager():
+                for _ in range(args.requests):
+                    ts = [torch.from_numpy(a).to(net.device) for a in xs]
+                    fwd(im._params, im._state, ts).cpu().numpy()
+
+            eager()  # warm-up: cuBLAS and the kernel libraries
+            for kind, run in (("captured", captured), ("eager", eager)):
+                name = f"{precision} {n} records {kind}"
+                trace = os.path.join(
+                    args.trace, f"serve_{precision}_{n}_{kind}.json") \
+                    if args.trace else None
+                torch.cuda.synchronize()
+                out[name] = measure(run, args.requests, trace)
+                report(name, out[name], card)
+    print(json.dumps({"card": card, "requests": args.requests, **out}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -56,6 +56,8 @@ GROUPS = (
                          "splitKreduce", "nvjet")),
     # dtype casts and layout copies (the bf16 plan's per-leaf casts)
     ("copies and casts", ("direct_copy_kernel",)),
+    # copies between the host and the device, and fills
+    ("host-device copies", ("Memcpy", "Memset")),
 )
 
 
