@@ -12,8 +12,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Ported so far: serving (``Input``/``Model`` → ``InferenceModel`` over
 Dense, Dropout, BERT and TransformerLayer, in f32, bf16 and int8),
 fine-tuning (``compile``/``fit``/``evaluate``), the single-device kernel
-and precision planes (``parallel``), and every TPU kernel of the
-reference as a CUDA kernel.
+and precision planes (``parallel``), the compile plane, the
+convolutional path (conv, pooling, BatchNorm, Merge and shape layers,
+SGD, ``models.build_lenet`` and ``models.ResNet``), and every TPU kernel
+of the reference as a CUDA kernel.
 """
 
 __version__ = "0.1.0"

@@ -374,12 +374,17 @@ def init_zoo_context(*, seed: int | None = None, device=None,
     ``ZOO_STEPS_PER_DISPATCH`` (``steps_per_dispatch`` beats it) are read
     and validated here.  TF32 is switched off for matmuls and
     cuDNN: the reference computes in full f32 off-TPU, and the port's
-    parity tolerances assume full f32.
+    parity tolerances assume full f32.  cuDNN runs deterministic
+    algorithms only (and no benchmarking): its default weight-gradient
+    algorithms add atomically, so two eager ResNet-50 steps from one state
+    differ, and a captured step could not be its eager step bit for bit.
     """
     global _CONTEXT
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     ctx = ZooContext(device=dev, seed=int(seed or 0),
                      compute_dtype=_resolve_compute_dtype(compute_dtype),
                      dtype_policy=_resolve_dtype_policy(),
@@ -388,7 +393,8 @@ def init_zoo_context(*, seed: int | None = None, device=None,
     with _LOCK:
         _CONTEXT = ctx
     logger.info("init_zoo_context: device %s, seed %d; TF32 off for "
-                "matmul and cuDNN (full-f32 numerics)", dev, ctx.seed)
+                "matmul and cuDNN (full-f32 numerics), cuDNN deterministic",
+                dev, ctx.seed)
     return ctx
 
 

@@ -7,7 +7,10 @@ package's ``QuantizedTensor`` (anything with ``values``, ``scale`` and
 ``axis``) or as a ``(values, scale, axis)`` triple, and becomes the port's
 ``QuantizedTensor``.  ``opt_state_from_jax`` carries optax's
 Adam state (``ScaleByAdamState``: count, mu, nu) into the port's
-:class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.AdamState`.
+:class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.AdamState`,
+and optax's SGD state (the empty ``add_decayed_weights`` state, the
+momentum ``TraceState`` and the schedule's ``ScaleByScheduleState``) into
+its :class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.SGDState`.
 The JAX package is never imported: the caller hands over plain arrays.
 """
 
@@ -17,7 +20,10 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.engine import resolve_device
-from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import AdamState
+from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
+    AdamState,
+    SGDState,
+)
 from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
     QuantizedTensor,
 )
@@ -61,19 +67,48 @@ def params_from_jax(tree, device=None):
     return conv(tree)
 
 
+def _has(stage, name: str) -> bool:
+    """Whether an optax state stage holds the field ``name`` (a named
+    tuple's field or an attribute, not a tuple method such as count)."""
+    fields = getattr(stage, "_fields", None)
+    if fields is not None:
+        return name in fields
+    return hasattr(stage, name) and not callable(getattr(stage, name))
+
+
+def _stages(state) -> list:
+    """The stages of a (nested) optax chain state, in order."""
+    if isinstance(state, tuple) and not hasattr(state, "_fields"):
+        return [s for part in state for s in _stages(part)]
+    return [state]
+
+
 def opt_state_from_jax(state, device=None):
-    """The port's ``AdamState`` for an optax Adam state: a
-    ``ScaleByAdamState`` (anything with ``count``, ``mu`` and ``nu``), or
-    the tuple ``optax.adam(...).init`` returns, whose first such element is
-    taken (the learning-rate stage after it holds no arrays the port
-    keeps: its count equals the Adam count)."""
-    adam = state
-    if not hasattr(adam, "mu"):
-        adam = next((s for s in state if hasattr(s, "mu")), None)
-        if adam is None:
-            raise ValueError("no Adam state (count, mu, nu) in the given "
-                             "optimizer state")
+    """The port's optimizer state for an optax state.
+
+    Adam: a ``ScaleByAdamState`` (anything with ``count``, ``mu`` and
+    ``nu``), or the tuple ``optax.adam(...).init`` returns, whose first
+    such element is taken (the learning-rate stage after it holds no
+    arrays the port keeps: its count equals the Adam count); an
+    ``AdamState``.  SGD: the (nested) tuple ``optax.chain(
+    add_decayed_weights, sgd)`` gives, its ``trace`` (absent without
+    momentum) and its schedule's ``count`` (absent for a constant rate:
+    then 0); an ``SGDState``."""
     dev = resolve_device(device)
+    stages = _stages(state)
+    adam = next((s for s in stages if _has(s, "mu")), None)
+    if adam is None:
+        traces = [s for s in stages if _has(s, "trace")]
+        counts = [s for s in stages if _has(s, "count")]
+        if not traces and not counts:
+            raise ValueError(
+                "no Adam (count, mu, nu) or SGD (trace, count) state in the "
+                "given optimizer state (a constant-rate SGD without momentum "
+                "keeps no arrays: take the port optimizer's init)")
+        count = int(np.asarray(counts[0].count)) if counts else 0
+        return SGDState(
+            count=torch.tensor(count, dtype=torch.int32, device=dev),
+            trace=params_from_jax(traces[0].trace, dev) if traces else ())
     return AdamState(
         count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
                            device=dev),

@@ -109,11 +109,17 @@ def _int_pow(bases, n):
     return r
 
 
+def safe_increment(count):
+    """optax's saturating ``safe_increment`` of a 0-d int32 step count, on
+    its device."""
+    return torch.where(count < _INT32_MAX, count + 1, count)
+
+
 def adam_scalars(count, lr_fn, b1, b2, eps):
     """(scalars, count_inc): the (6,) f32 device array (lr, b1, b2, eps,
     bc1, bc2) and the incremented step count (optax's saturating
     ``safe_int32_increment``), all computed on ``count``'s device."""
-    count_inc = torch.where(count < _INT32_MAX, count + 1, count)
+    count_inc = safe_increment(count)
     lr = lr_fn(count)
     if not torch.is_tensor(lr):  # a constant: made on the device once
         lr = _const((lr,), count.device)

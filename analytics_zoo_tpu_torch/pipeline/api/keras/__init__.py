@@ -1,4 +1,4 @@
-"""Keras-1-style API (serving subset)."""
+"""Keras-1-style API."""
 
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (  # noqa: F401
     Input,
@@ -9,4 +9,5 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.topology import (  # noqa: F401
     KerasNet,
     Model,
     Sequential,
+    merge,
 )

@@ -4,8 +4,9 @@ Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/metrics.py``: each
 metric maps a batch to a small tuple of device scalars (``batch_stats``),
 the estimator sums them over the batches, and ``finalize`` turns the sums
 into the value on the host.  Ported so far: ``Accuracy`` (and its
-``SparseCategoricalAccuracy``/``CategoricalAccuracy`` names) and ``Loss``;
-the others wait for their slice (ROADMAP queue 1, item 4).
+``SparseCategoricalAccuracy``/``CategoricalAccuracy`` names),
+``BinaryAccuracy``, ``Top5Accuracy`` and ``Loss``; the others wait for
+their slice (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -71,6 +72,37 @@ class CategoricalAccuracy(Accuracy):
     name = "categorical_accuracy"
 
 
+class BinaryAccuracy(Metric):
+    name = "binary_accuracy"
+
+    def __init__(self, threshold: float = 0.5):
+        self.threshold = threshold
+
+    def batch_stats(self, y_true, y_pred, mask=None):
+        yp = y_pred.reshape(y_pred.shape[0], -1)
+        yt = y_true.reshape(y_true.shape[0], -1).to(torch.int32)
+        correct = (yp > self.threshold).to(torch.int32) == yt
+        return _masked_num_den(correct.float(), mask)
+
+
+class Top5Accuracy(Metric):
+    """Whether the target is among the five highest predictions: the last
+    five of a stable ascending sort, so that ties pick the classes
+    ``jnp.argsort`` picks (``torch.topk`` may pick others)."""
+
+    name = "top5_accuracy"
+
+    def batch_stats(self, y_true, y_pred, mask=None):
+        true = y_true
+        if true.dim() == y_pred.dim():
+            true = true.argmax(dim=-1) if true.shape[-1] > 1 \
+                else true[..., 0]
+        true = true.to(torch.int64)
+        top5 = torch.argsort(y_pred, dim=-1, stable=True)[..., -5:]
+        correct = (top5 == true[..., None]).any(dim=-1)
+        return _masked_num_den(correct.float(), mask)
+
+
 class Loss(Metric):
     """The compiled loss as a validation metric."""
 
@@ -89,6 +121,10 @@ _METRICS = {
     "acc": Accuracy,
     "sparse_categorical_accuracy": SparseCategoricalAccuracy,
     "categorical_accuracy": CategoricalAccuracy,
+    "binary_accuracy": BinaryAccuracy,
+    "top5accuracy": Top5Accuracy,
+    "top5_accuracy": Top5Accuracy,
+    "top5": Top5Accuracy,
 }
 
 

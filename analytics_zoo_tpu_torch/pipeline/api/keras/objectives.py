@@ -13,11 +13,16 @@ which the JAX package routes the same way under ``ZOO_USE_PALLAS=1``;
 every other shape, and a plan whose ``kernel_rules`` pick ``"xla"`` for
 the scope, takes the f32 log-softmax path, as there.
 
-Ported so far: the two sparse categorical cross-entropies; the other
-losses wait for their slice (ROADMAP queue 1, item 4).
+Ported so far: the two sparse categorical cross-entropies, the binary
+cross-entropy (on probabilities and on logits) and the categorical
+cross-entropy, with the reference's clipping and its ``_align`` of the
+targets to the predictions' shape; the other losses wait for their slice
+(ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -43,6 +48,59 @@ class LossFunction:
             return torch.sum(per_sample * sample_weight) / (
                 torch.sum(sample_weight) + _EPS)
         return torch.mean(per_sample)
+
+
+def _align(y_true, y_pred):
+    """``y_true`` reshaped to ``y_pred``'s shape when they hold the same
+    number of elements (so (B,) targets never broadcast against (B, 1)
+    predictions to (B, B)); other shapes raise."""
+    ts, ps = tuple(y_true.shape), tuple(y_pred.shape)
+    if ts == ps:
+        return y_true
+    if math.prod(ts) == math.prod(ps):
+        return y_true.reshape(ps)
+    raise ValueError(
+        f"loss target shape {ts} is incompatible with prediction shape {ps}"
+    )
+
+
+def _reduce_rest(x):
+    """Mean over all non-batch axes -> (batch,)."""
+    if x.dim() <= 1:
+        return x
+    return x.reshape(x.shape[0], -1).mean(dim=-1)
+
+
+def _sum_rest(x):
+    if x.dim() <= 1:
+        return x
+    return x.reshape(x.shape[0], -1).sum(dim=-1)
+
+
+def binary_crossentropy(y_true, y_pred):
+    """Probabilities in (0, 1), clipped to [eps, 1 - eps]."""
+    y_true = _align(y_true, y_pred)
+    y_pred = torch.clamp(y_pred, _EPS, 1.0 - _EPS)
+    return _reduce_rest(
+        -(y_true * torch.log(y_pred) + (1.0 - y_true) * torch.log1p(-y_pred))
+    )
+
+
+def binary_crossentropy_from_logits(y_true, logits):
+    logits = logits.float()  # f32 cross-entropy under 16-bit compute
+    return _reduce_rest(
+        torch.clamp(logits, min=0) - logits * y_true
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    )
+
+
+def categorical_crossentropy(y_true, y_pred):
+    """One-hot targets, probability predictions (renormalised, then
+    clipped to [eps, 1])."""
+    y_pred = y_pred / torch.clamp(y_pred.sum(dim=-1, keepdim=True),
+                                  min=_EPS)
+    y_pred = torch.clamp(y_pred, _EPS, 1.0)
+    return _sum_rest(-y_true * torch.log(y_pred))
 
 
 def _labels(y_true, ndim):
@@ -76,6 +134,9 @@ def sparse_categorical_crossentropy_from_logits(y_true, logits):
 
 
 _LOSSES = {
+    "binary_crossentropy": binary_crossentropy,
+    "binary_crossentropy_from_logits": binary_crossentropy_from_logits,
+    "categorical_crossentropy": categorical_crossentropy,
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
     "sparse_categorical_crossentropy_from_logits":
         sparse_categorical_crossentropy_from_logits,

@@ -19,10 +19,22 @@ parameters where they are, with the arithmetic of the functional
 ``update`` and :func:`apply_updates`, so with their bits.  Adam's moments
 go :meth:`~Optimizer.in_layout` once first, where its kernel writes them.
 
+``SGD`` is optax's ``chain(add_decayed_weights(weight_decay),
+sgd(lr, momentum, nesterov))``: the weight decay is added to the gradient
+of every leaf (biases and BatchNorm's gamma and beta included) before the
+momentum trace, and the step is ``-lr(count) · update``.  Its state,
+:class:`SGDState`, holds the trace (none without momentum) and the
+schedule's count.  SGD has no kernel: its update is a few multi-tensor
+(``torch._foreach_*``) passes over the leaves, the same ops in ``update``
+and ``update_``.
+
 Schedules are functions of the step count (a 0-d int tensor) returning a
-multiplier, written with torch ops so they run on the count's device.
-Ported so far: ``Adam`` and the ``warmup_linear_decay`` schedule; the
-other optimizers and schedules wait for their slice (ROADMAP queue 1).
+multiplier, written with torch ops so they run on the count's device: a
+captured step computes its learning rate on the device from the count it
+reads there, never from a Python float baked in at capture.  Ported so
+far: ``Adam`` and ``SGD``, and the ``warmup_linear_decay``,
+``warmup_epoch_decay`` and ``poly_decay`` schedules; the other optimizers
+wait for their slice (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from analytics_zoo_tpu_torch.ops.cuda.fused_adam import (
     fused_update,
     fused_update_,
     in_layout,
+    safe_increment,
 )
 from analytics_zoo_tpu_torch.parallel.plan import resolve_kernel
 
@@ -58,6 +71,37 @@ def warmup_linear_decay(warmup_steps: int, total_steps: int) -> Schedule:
         return torch.where(
             step < warmup_steps, step / warm,
             torch.clamp(1.0 - (step - warmup_steps) / lin, min=0.0))
+
+    return fn
+
+
+def warmup_epoch_decay(warmup_steps: int, steps_per_epoch: int,
+                       boundaries_epochs=(30, 60, 80), decay: float = 0.1,
+                       warmup_start: float = 0.0) -> Schedule:
+    """ResNet-ImageNet multiplier: linear warmup from ``warmup_start`` to
+    1 over ``warmup_steps``, then ``decay`` at each epoch boundary (the
+    reference's ``warmup_epoch_decay``)."""
+
+    def fn(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        frac = torch.clamp(step / float(max(warmup_steps, 1)), max=1.0)
+        warm = warmup_start + (1.0 - warmup_start) * frac
+        epoch = step / steps_per_epoch
+        mult = torch.ones((), dtype=torch.float32, device=step.device)
+        for b in boundaries_epochs:
+            mult = mult * torch.where(epoch >= b, decay, 1.0)
+        return torch.where(step < warmup_steps, warm, mult)
+
+    return fn
+
+
+def poly_decay(power: float, max_steps: int) -> Schedule:
+    """``max(0, 1 - step / max_steps) ** power`` (the reference's
+    ``poly_decay``)."""
+
+    def fn(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        return torch.clamp(1.0 - step / max_steps, min=0.0) ** power
 
     return fn
 
@@ -172,6 +216,97 @@ class Adam(Optimizer):
         return AdamState(opt_state.count, *out)
 
 
+class SGDState(NamedTuple):
+    """optax ``sgd``'s state after ``add_decayed_weights``: the schedule's
+    step count (0-d int32; optax keeps it only for a scheduled rate, the
+    port always) and the momentum trace, a tree shaped like the
+    parameters, or ``()`` without momentum."""
+
+    count: torch.Tensor
+    trace: object
+
+
+class SGD(Optimizer):
+    """The reference's ``SGD``: momentum (optax's ``trace``), Nesterov,
+    ``decay`` (the 1/(1 + decay*step) schedule) and ``weight_decay``
+    (``add_decayed_weights``, before the trace)."""
+
+    def __init__(self, lr=0.01, momentum=0.0, decay=0.0, nesterov=False,
+                 weight_decay=0.0, schedule: Optional[Schedule] = None):
+        sched = schedule
+        if decay and sched is None:
+            sched = lambda step: 1.0 / (1.0 + decay * step.to(torch.float32))  # noqa: E731
+        super().__init__("sgd", lr, sched)
+        self.momentum = float(momentum or 0.0)
+        self.nesterov = bool(nesterov)
+        self.weight_decay = float(weight_decay or 0.0)
+        self._lr = _scheduled(lr, sched)
+
+    def init(self, params):
+        leaves = tree_leaves(params)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        trace = tree_map(torch.zeros_like, params) if self.momentum else ()
+        return SGDState(torch.zeros((), dtype=torch.int32, device=device),
+                        trace)
+
+    def _step_size(self, count):
+        """``-lr(count)``: a device scalar for a schedule (optax's
+        ``scale_by_schedule``), a float for a constant rate (``scale``)."""
+        if callable(self._lr):
+            return -(self._lr(count).to(torch.float32))
+        return -float(self._lr)
+
+    def _run(self, grads, opt_state, params, in_place: bool):
+        """(updates, new trace leaves, count_inc), all the leaves matched
+        by key; ``in_place`` writes the gradients' and the trace's new
+        values over them (the same ops, so the same bits)."""
+        if self.weight_decay and params is None:
+            raise ValueError("SGD with weight_decay needs the parameters")
+        leaves = []  # (g, p, t) per leaf, matched by key
+        trace = opt_state.trace if self.momentum else tree_map(
+            lambda _: None, grads)
+        tree_map_many(lambda *t: leaves.append(t), grads,
+                      params if params is not None else grads, trace)
+        g, p, t = (list(x) for x in zip(*leaves))
+        if self.weight_decay:
+            decayed = torch._foreach_mul(p, self.weight_decay)
+            if in_place:
+                torch._foreach_add_(g, decayed)
+            else:
+                g = torch._foreach_add(g, decayed)
+        if self.momentum:
+            if in_place:
+                torch._foreach_mul_(t, self.momentum)
+                torch._foreach_add_(t, g)
+            else:
+                t = torch._foreach_add(g, torch._foreach_mul(
+                    t, self.momentum))
+            u = t
+            if self.nesterov:
+                u = torch._foreach_add(g, torch._foreach_mul(
+                    t, self.momentum))
+        else:
+            u = g
+        upd = torch._foreach_mul(u, self._step_size(opt_state.count))
+        return upd, t, safe_increment(opt_state.count)
+
+    def update(self, grads, opt_state, params=None):
+        upd, t, count_inc = self._run(grads, opt_state, params, False)
+        trace = _unflatten(grads, t) if self.momentum else ()
+        return _unflatten(grads, upd), SGDState(count_inc, trace)
+
+    def update_(self, grads, opt_state, params=None):
+        """:meth:`update` in place: the trace and the count take their new
+        values where they are (the gradients are overwritten too);
+        returns the updates."""
+        upd, _, count_inc = self._run(grads, opt_state, params, True)
+        opt_state.count.copy_(count_inc)
+        return _unflatten(grads, upd)
+
+    def in_layout(self, opt_state):
+        return opt_state
+
+
 def _unflatten(like, leaves):
     """A tree shaped like ``like`` with ``leaves`` in visiting order."""
     it = iter(leaves)
@@ -196,7 +331,7 @@ def apply_updates_(params, updates) -> None:
             p.copy_((p + u).to(p.dtype))
 
 
-_OPTIMIZERS = {"adam": Adam}
+_OPTIMIZERS = {"adam": Adam, "sgd": SGD}
 
 
 def get_optimizer(identifier) -> Optimizer:

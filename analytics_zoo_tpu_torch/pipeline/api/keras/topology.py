@@ -370,9 +370,13 @@ class Sequential(KerasNet):
         return self._layers
 
     def add(self, layer: Layer) -> "Sequential":
-        if self.params is not None:
-            raise RuntimeError("add() after the weights were built is not "
-                               "ported yet (ROADMAP queue 1, training slice)")
+        """Append ``layer``.  After the weights exist (a built stack being
+        extended with a new head), they are kept and only the new layer's
+        parameters and state are initialised, from the child of the
+        context's seed that a full initialisation gives its position; the
+        cached ``predict_step`` captures and the estimator (its captures,
+        its buffers and its optimizer state, which do not hold the new
+        layer) are dropped."""
         if not self._layers:
             in_shape = layer._input_shape
             if in_shape is None and not layer.built:
@@ -387,6 +391,18 @@ class Sequential(KerasNet):
         self._output_shape = tuple(out_full[1:])
         self._layers.append(layer)
         canonicalize_names(self._layers)
+        if self.params is not None and not isinstance(layer, InputLayer):
+            rng = fold_in(make_generator(get_zoo_context().seed),
+                          len(self._layers) - 1)
+            p = layer.init_params(rng)
+            if p:
+                self.params[layer.name] = _to_device(p, self.device)
+            s = layer.init_state()
+            if s:
+                if self.state is None:
+                    self.state = {}
+                self.state[layer.name] = _to_device(s, self.device)
+            self._estimator = None
         self._predict_fn = None  # a cached planned forward is stale now
         return self
 
@@ -494,3 +510,10 @@ class Model(KerasNet):
     def compute_output_shape(self, input_shape):
         shapes = [v.shape for v in self._graph.outputs]
         return shapes[0] if len(shapes) == 1 else shapes
+
+
+def merge(inputs, mode="sum", concat_axis=-1, name=None):
+    """Functional merge of symbolic Variables (the reference's ``merge``)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.merge import Merge
+
+    return Merge(mode=mode, concat_axis=concat_axis, name=name)(inputs)

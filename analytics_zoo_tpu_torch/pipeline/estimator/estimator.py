@@ -9,6 +9,11 @@ masking, gradient clipping, the optimizer update and
 ``step_generator(seed, global_step)`` on the model's device, the
 counterpart of ``fold_in(PRNGKey(seed), step)``.
 
+A conv net trains the same way: BatchNorm's moving statistics are the
+model state, updated in place by each step (f32 under every compute
+dtype), and ``SGD`` updates its momentum and count in place, with its
+learning rate computed on the device from the count.
+
 On the card the three training scopes take their kernels, as the JAX
 package does under ``ZOO_USE_PALLAS=1``: attention (flash forward and
 backward, where ``flash_eligible`` holds), ``loss.softmax_xent`` (2-D

@@ -16,8 +16,9 @@ Calibrated: :func:`calibrate_activations` records each top-level Dense
 layer's input range over calibration batches; :class:`Int8Model` then runs
 those layers as int8 x int8 -> int32 with one rescale to float after
 (:func:`_int8_dense`), through per-layer ``apply`` hooks installed for the
-duration of a forward (:func:`_hooked`).  Conv targets wait for the conv
-layers (ROADMAP queue 1 item 3).
+duration of a forward (:func:`_hooked`).  A conv layer is a target too,
+as in the reference, and raises: its int8 x int8 -> int32 convolution
+(``_int8_conv``) is not ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.utils import tree_leaves, tree_map
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import _ConvND
 
 
 class QuantizedTensor:
@@ -167,15 +169,17 @@ def quantization_error(params, qparams) -> float:
 # Activation calibration + int8 x int8 execution
 # ---------------------------------------------------------------------------
 
-#: conv layer classes that are calibration targets; the port has no conv
-#: layer yet (ROADMAP queue 1 item 3), and a target of such a class raises
-_CONV_TYPES: tuple = ()
+#: conv layer classes that are calibration targets (the reference's
+#: ``_ConvND``); a target of such a class raises: ``_int8_conv`` is not
+#: ported (ROADMAP queue 1 item 8)
+_CONV_TYPES: tuple = (_ConvND,)
 
 
 def _target_layers(net):
-    """The net's top-level Dense layers (and conv layers, which raise), as
-    in the reference: layers nested inside another layer (BERT's own
-    projections) are not targets."""
+    """The net's top-level Dense and conv layers, as in the reference:
+    layers nested inside another layer (BERT's own projections) are not
+    targets.  A conv target raises: calibrated int8 would otherwise serve
+    the convs in float without a word."""
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import Dense
 
     targets = [l for l in net.layers
@@ -185,7 +189,10 @@ def _target_layers(net):
     if convs:
         raise NotImplementedError(
             f"calibrated int8 for conv layers {convs} is not ported yet: "
-            "_int8_conv waits for the conv layers (ROADMAP queue 1 item 3)")
+            "_int8_conv (ROADMAP queue 1 item 8) needs an int8 x int8 -> "
+            "int32 convolution, which PyTorch has no CUDA op for; the conv "
+            "layers (queue 1 item 3) serve in float and weight-only int8 "
+            "(optimize(\"int8\") without calibration data)")
     return targets
 
 

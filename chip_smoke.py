@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving, training and int8 serving slices on one
-CUDA GPU and check them.
+"""Run the PyTorch port's serving, training and int8 serving slices and
+its convolutional path on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -136,10 +136,31 @@ and prints no result):
    requests and the 8-record bf16 request, eager and replayed, and what
    a graph pool holds at 1, 8 and 64 records (pools of their own, and
    one shared pool captured largest first);
-10. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
+10. lenet: LeNet-5 (28x28x1, 10 classes) through ``compile("adam",
+   ...)`` and ``fit`` at batch 128 on a synthetic task (class = the
+   quadrant of the largest mean) until the training accuracy passes 0.8:
+   one fused Adam launch a step over its five kernels; ``evaluate`` on a
+   held-out set, ``predict``, ``save``/``load`` with equal predictions;
+11. resnet50_training: ResNet-50 (224x224x3, 1000 classes, random
+   weights from the seed) with ``ResNet.imagenet_optimizer(batch_size=64)``
+   at batch 64, f32 and bf16 (``mixed_precision()``): ``fit`` at K=1 bit
+   for bit ``train_step`` called eagerly (twice: cuDNN runs deterministic
+   algorithms), K=4 bit for bit K=1 (parameters, momentum, BatchNorm
+   state, losses); a replayed step's host clock, device time, idle share,
+   images/s and bound; on a fixed batch the loss falls and each step's
+   rate (read back from the fc kernel's change and momentum) is the
+   schedule's on the host; ``evaluate`` (accuracy, top-5) through the
+   captured eval step, bit for bit the uncaptured one;
+12. resnet50_serving: the trained ResNet-50 (its moving statistics set to
+   one batch's first) through ``InferenceModel`` in f32 and bf16 at 1, 8
+   and 32 images: each replay bit for bit its eager forward, finite rows
+   summing to 1, bf16 within 0.02 of f32; latency, device time, idle
+   share, images/s and bound of each request.  Logs each new phase's
+   seconds and the memory reserved between phases;
+13. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
-   of its own), then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   of its own; launches by path, the three new paths included), then the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
 """
@@ -1041,9 +1062,12 @@ def flash_f16_phase(dev, fwd_entry, bwd_entry) -> None:
             d, torch.float16, dev, gen, dropout=dropout)
 
 
-def adam_phase(dev, leaf_shapes) -> dict:
-    """Fused Adam over the BERT-base parameter tree: ``fused_update``, the
-    call the training step makes, one launch for every kernel leaf."""
+def adam_parity(dev, leaf_shapes, tag: str):
+    """``fused_update`` (one launch over every kernel leaf) on random
+    (g, mu, nu) leaves of ``leaf_shapes`` on the card, held bit for bit
+    against ``adam_leaf_reference`` leaf by leaf; raises unless they agree.
+    Returns (leaves, kernel leaves, scalars, max relative error, bit
+    identical, launches, leaves launched)."""
     import torch
 
     from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
@@ -1074,14 +1098,34 @@ def adam_phase(dev, leaf_shapes) -> dict:
             err = max(err, ((x - y).abs().max()
                             / y.abs().max().clamp_min(1e-30)).item())
     n = sum(t[0].numel() for t in kernel_leaves)
-    log(f"kernel adam: {len(kernel_leaves)} leaves of {len(leaves)}, "
-        f"{n / 1e6:.1f} M parameters, {launches} launch(es) for "
-        f"{leaf_launched} leaves per step: bit for bit the plain version's "
-        f"outputs: {same}; max relative |d| {err:.3e} (tol {ADAM_TOL:g})")
+    sizes = sorted({t[0].numel() for t in kernel_leaves})
+    log(f"kernel adam ({tag}): {len(kernel_leaves)} leaves of "
+        f"{len(leaves)}, {n / 1e6:.3f} M parameters (kernel leaves of "
+        f"{sizes[0]}..{sizes[-1]} elements; "
+        f"{sum(k % 4 != 0 for k in sizes)} size(s) not a multiple of 4), "
+        f"{launches} launch(es) for {leaf_launched} leaves per step: bit "
+        f"for bit the plain version's outputs: {same}; max relative |d| "
+        f"{err:.3e} (tol {ADAM_TOL:g})")
     if not (same and err <= ADAM_TOL) or launches != 1 \
             or leaf_launched != len(kernel_leaves):
-        raise AssertionError(f"fused adam disagrees: {err}, {launches} "
-                             f"launches, {leaf_launched} leaves")
+        raise AssertionError(f"fused adam ({tag}) disagrees: {err}, "
+                             f"{launches} launches, {leaf_launched} leaves")
+    return (leaves, kernel_leaves, scalars, err, same, launches,
+            leaf_launched)
+
+
+def adam_phase(dev, leaf_shapes) -> dict:
+    """Fused Adam over the BERT-base parameter tree: ``fused_update``, the
+    call the training step makes, one launch for every kernel leaf, held
+    against its plain version and timed."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+
+    (leaves, kernel_leaves, scalars, err, same, launches,
+     leaf_launched) = adam_parity(dev, leaf_shapes, "BERT-base")
+    gs, mus, nus = (list(x) for x in zip(*leaves))
+    n = sum(t[0].numel() for t in kernel_leaves)
     params = [torch.zeros(s, device=dev, requires_grad=True)
               for s in leaf_shapes]
     for p, (g, _, _) in zip(params, leaves):
@@ -1714,11 +1758,12 @@ def differing(a, b) -> list:
             if not torch.equal(u, v)]
 
 
-def eager_steps(net, plan, x, y, steps):
+def eager_steps(net, plan, x, y, steps, batch=TRAIN_BATCH):
     """``Estimator.train_step`` called step by step (the uncaptured
-    yardstick), from the model's weights and a fresh Adam state over the
-    ``steps`` batches of (x, y) that one epoch of ``fit`` takes: (state
-    after the steps, losses, host ms a step)."""
+    yardstick), from the model's weights and state and a fresh optimizer
+    state over the ``steps`` batches of (x, y) that one epoch of ``fit``
+    takes: (parameters, optimizer state and model state after the steps,
+    losses, host ms a step)."""
     import torch
 
     from analytics_zoo_tpu_torch.common.engine import step_generator
@@ -1733,20 +1778,21 @@ def eager_steps(net, plan, x, y, steps):
     plan = est._resolve_plan(plan)
     step = compile_step(est.train_step, plan, capture=False)
     params = tree_map(torch.clone, net.params)
-    opt, state = est.optimizer.init(params), net.state
+    opt = est.optimizer.init(params)
+    state = tree_map(torch.clone, net.state)
     casts = est.compute_casts(plan, params)
     losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i, batch in enumerate(FeatureSet.of(x, y).batches(
-            TRAIN_BATCH, shuffle=True, seed=SEED, epoch=1, drop_last=True)):
+    for i, b in enumerate(FeatureSet.of(x, y).batches(
+            batch, shuffle=True, seed=SEED, epoch=1, drop_last=True)):
         params, opt, state, loss = step(
             params, opt, state, step_generator(SEED, i, net.device),
-            _to_device(batch, net.device), casts)
+            _to_device(b, net.device), casts)
         losses.append(loss)
     losses = torch.stack(losses).tolist()
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    return {"params": params, "opt": opt}, losses, ms
+    return {"params": params, "opt": opt, "state": state}, losses, ms
 
 
 def captured_training_phase(card_line: str) -> tuple[dict, dict]:
@@ -2569,6 +2615,556 @@ def int8_serving_phase(card_line: str, weights, int8_entry) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the convolutional path: LeNet-5 and ResNet-50
+# ---------------------------------------------------------------------------
+# LeNet-5 on the quadrant task (class = the 14x14 quadrant of the largest
+# mean): fit at batch 128 until the training set's accuracy passes 0.8
+LENET_N, LENET_HELD_OUT, LENET_BATCH = 8192, 1024, 128
+LENET_MAX_EPOCHS, LENET_ACC = 10, 0.8
+# steps of the LeNet-5 check of the captured Adam step against the plain
+# per-leaf update
+LENET_CHECK_STEPS = 4
+# ResNet-50 at 224x224x3, 1000 classes: RESNET_STEPS steps a fit at batch
+# 64 (the synthetic set's epoch, so the recipe's steps per epoch), K=1 and
+# K=4; the fixed-batch run takes FIXED_STEPS steps with a warmup of 5
+RESNET_BATCH, RESNET_STEPS, RESNET_K, FIXED_STEPS = 64, 8, 4, 8
+RESNET_SHAPE, RESNET_CLASSES = (224, 224, 3), 1000
+RESNET_REQUESTS = (1, 8, 32)
+# the rate a step applied (the fc kernel's change against its momentum
+# trace, least squares) vs the schedule evaluated on the host, relative to
+# the recipe's peak rate: p + u rounds each element to ~1e-4 of u
+RATE_TOL = 1e-3
+# bf16 vs f32 serving of ResNet-50 (probabilities; moving statistics from
+# one batch): the bounds tests/test_torch_conv_models.py states, on the
+# largest difference of a probability and on ``logit_gap``
+RESNET_BF16_SERVE_TOL = 0.02
+RESNET_BF16_LOGIT_TOL = 0.3
+
+
+def quadrant_task(n: int, gen: np.random.Generator):
+    x = gen.standard_normal((n, 28, 28, 1), dtype=np.float32)
+    q = np.stack([x[:, :14, :14, 0].mean((1, 2)),
+                  x[:, :14, 14:, 0].mean((1, 2)),
+                  x[:, 14:, :14, 0].mean((1, 2)),
+                  x[:, 14:, 14:, 0].mean((1, 2))], axis=1)
+    return x, q.argmax(axis=1).astype(np.int32)
+
+
+def logit_gap(p, q) -> float:
+    """Rows of probabilities ``p`` against ``q`` as the logits they come
+    from: the largest, over rows, of the L2 distance between the two rows'
+    log-probabilities, each centred on its mean (the logits up to a
+    row's constant), relative to the centred log-probabilities of
+    ``q``."""
+    lp, lq = (np.log(np.maximum(np.asarray(a, np.float64), 1e-30))
+              for a in (p, q))
+    lp = lp - lp.mean(-1, keepdims=True)
+    lq = lq - lq.mean(-1, keepdims=True)
+    return float((np.linalg.norm(lp - lq, axis=-1) / np.maximum(
+        np.linalg.norm(lq, axis=-1), 1e-30)).max())
+
+
+def free_device_memory(tag: str) -> None:
+    """Collect the models and captures no one holds any more, give their
+    memory back, and log what stays reserved and the peak so far."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"memory {tag}: reserved {torch.cuda.memory_reserved()} B, peak "
+        f"reserved {torch.cuda.max_memory_reserved()} B")
+
+
+def lenet_phase(card_line: str) -> tuple[dict, float]:
+    """LeNet-5 (28x28x1, 10 classes) through ``compile("adam", ...)`` and
+    ``fit`` at batch 128 until the training accuracy passes 0.8: one fused
+    Adam launch a step over its five kernels (the biases take the plain
+    update, as in the reference), no other kernel; then ``evaluate`` on a
+    held-out set, ``predict``, and ``save``/``load`` with equal
+    predictions.  Then the kernel at LeNet's own leaves, whose
+    150-element conv kernel takes the kernel's scalar tail: ``adam_parity``
+    at their shapes, and LENET_CHECK_STEPS steps of a fresh LeNet through
+    ``fit`` (the captured in-place step) bit for bit ``train_step`` called
+    eagerly with the plain update on every leaf (``optimizer.adam`` ->
+    ``"xla"``): losses, parameters and both moments.  Returns the fit's
+    launch counts and the kernel's largest relative error there."""
+    import tempfile
+
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models import build_lenet
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+    from analytics_zoo_tpu_torch.parallel import with_kernels
+    from analytics_zoo_tpu_torch.pipeline.api.keras import KerasNet
+
+    t_phase = time.perf_counter()
+    init_zoo_context(seed=SEED, device="cuda")
+    gen = np.random.default_rng(SEED + 20)
+    x, y = quadrant_task(LENET_N, gen)
+    xv, yv = quadrant_task(LENET_HELD_OUT, gen)
+    net = build_lenet()
+    net.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                metrics=["accuracy"])
+    reset_counters()  # the LeNet fit: from here to the read below
+    accs, epoch_ms = [], []
+    while len(accs) < LENET_MAX_EPOCHS and (not accs or accs[-1]
+                                            <= LENET_ACC):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y, batch_size=LENET_BATCH, nb_epoch=1)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        accs.append(net.evaluate(x, y, batch_size=LENET_BATCH)["accuracy"])
+    counted = counters()  # end of the LeNet fit
+    leaves = fad.leaf_count
+    steps = net._estimator.global_step
+    kernel_leaves = sum(t.numel() >= fad.MIN_KERNEL_LEAF
+                        for t in (v for p in net.params.values()
+                                  for v in p.values()))
+    losses = [v for _, v in net._estimator.loss_log]
+    held = net.evaluate(xv, yv, batch_size=LENET_BATCH)
+    p1 = net.predict(xv, batch_size=LENET_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/lenet.model"
+        net.save(path)
+        p2 = KerasNet.load(path).predict(xv, batch_size=LENET_BATCH)
+    steps_per_epoch = LENET_N // LENET_BATCH
+    log(f"lenet: {len(accs)} epoch(s), {steps} steps at batch "
+        f"{LENET_BATCH}: training accuracy {accs} (> {LENET_ACC}), loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; held-out {held}; epoch host "
+        f"clock {', '.join(f'{t:.1f}' for t in epoch_ms)} ms (the last "
+        f"{epoch_ms[-1] / steps_per_epoch:.3f} ms a step, "
+        f"{LENET_BATCH * steps_per_epoch / epoch_ms[-1] * 1e3:.0f} "
+        f"images/s; {card_line}); launches {counted}, fused Adam leaves "
+        f"{leaves} ({kernel_leaves} kernel leaves a step)")
+    expected = dict({k: 0 for k in counted}, fused_adam=steps)
+    if accs[-1] <= LENET_ACC or counted != expected \
+            or leaves != kernel_leaves * steps:
+        raise AssertionError(f"lenet: accuracy {accs}, launches {counted} "
+                             f"(expected {expected}), leaves {leaves}")
+    same = np.array_equal(p1, p2)
+    log(f"lenet: predict {p1.shape}, rows sum to 1 within "
+        f"{float(np.abs(p1.sum(-1) - 1).max()):.2e}; after save/load "
+        f"equal bit for bit {same}")
+    if not (np.isfinite(p1).all() and same
+            and np.allclose(p1.sum(-1), 1.0, rtol=1e-5)):
+        raise AssertionError("lenet: predictions wrong or changed by "
+                             "save/load")
+    err = adam_parity(torch.device("cuda"),
+                      [tuple(t.shape) for p in net.params.values()
+                       for t in p.values()], "LeNet-5")[3]
+    chk = build_lenet()
+    chk.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                metrics=["accuracy"])
+    chk.build_params()
+    n = LENET_CHECK_STEPS * LENET_BATCH
+    want, l_want, _ = eager_steps(
+        chk, with_kernels(None, (("optimizer.adam", "xla"),)), x[:n],
+        y[:n], LENET_CHECK_STEPS, LENET_BATCH)
+    before = fad.launch_count
+    chk.fit(x[:n], y[:n], batch_size=LENET_BATCH, nb_epoch=1)
+    launched = fad.launch_count - before
+    l_got = [v for _, v in chk._estimator.loss_log]
+    off = differing(trained(chk), want)
+    log(f"lenet: {LENET_CHECK_STEPS} steps through fit (the captured step, "
+        f"{launched} fused Adam launches) against train_step eagerly with "
+        f"the plain update: losses equal {l_got == l_want}, "
+        f"{len(named_leaves(want)) - len(off)} of {len(named_leaves(want))} "
+        f"parameter and moment leaves equal bit for bit"
+        f"{'; differ: ' + str(off[:8]) if off else ''}")
+    if off or l_got != l_want or launched != LENET_CHECK_STEPS:
+        raise AssertionError("lenet: the captured Adam step is not the plain "
+                             "per-leaf update")
+    log(f"phase lenet: {time.perf_counter() - t_phase:.1f} s")
+    return counted, err
+
+
+def conv_flops(net) -> tuple[float, float]:
+    """(forward, training) FLOPs of one image through ``net``'s conv and
+    Dense layers: 2 x the multiply-adds; training adds the weight
+    gradients (as many as the forward) and the input gradients (as many,
+    but for the first layer, whose input needs none)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
+        _ConvND,
+    )
+
+    fwd, first = [], None
+    for layer in net.layers:
+        if isinstance(layer, _ConvND):
+            shape = tuple(layer._build_shape)
+            out = layer.compute_output_shape((None,) + shape)
+            fwd.append(2.0 * np.prod(out[1:-1]) * np.prod(layer.kernel_size)
+                       * shape[-1] * layer.nb_filter)
+        elif isinstance(layer, Dense):
+            fwd.append(2.0 * layer._build_shape[-1] * layer.output_dim)
+        else:
+            continue
+        first = fwd[0] if first is None else first
+    forward = float(sum(fwd))
+    return forward, 3 * forward - first
+
+
+def graph_of(step):
+    """The CUDA graph of a planned step's one capture."""
+    return next(e for e in step._exes.values() if e is not None).graph
+
+
+def replay_ms(graph, reps: int = 5) -> float:
+    """Device time of one replay of ``graph``, back to back (CUDA
+    events): the step or request without the host's work around it."""
+    import torch
+
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def resnet_net(weights, k: int = 1, steps_per_epoch: int = RESNET_STEPS):
+    """ResNet-50 with the given (params, state) (copies) on the card,
+    compiled with the recipe (``imagenet_optimizer(batch_size=64)``) under
+    a context with K steps a dispatch."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.models import ResNet
+
+    ctx = init_zoo_context(seed=SEED, device="cuda", steps_per_dispatch=k)
+    net = ResNet.image_net(50, classes=RESNET_CLASSES,
+                           input_shape=RESNET_SHAPE)
+    net.device = ctx.device
+    net.params = tree_map(torch.clone, weights[0])
+    net.state = tree_map(torch.clone, weights[1])
+    net.compile(optimizer=ResNet.imagenet_optimizer(
+        batch_size=RESNET_BATCH, steps_per_epoch=steps_per_epoch),
+        loss="sparse_categorical_crossentropy",
+        metrics=["accuracy", "top5_accuracy"])
+    return net
+
+
+def trained(net) -> dict:
+    """A model's trained trees as the eager yardstick holds them."""
+    return {"params": net.params, "opt": net._estimator._opt_state,
+            "state": net.state}
+
+
+def resnet_training_phase(card_line: str, x, y, weights, flops) -> dict:
+    """ResNet-50 fine-tuned with the recipe in f32 and bf16
+    (``mixed_precision()``) at batch 64: ``fit`` at K=1 (step 1 eager and
+    captured, then replays) bit for bit ``train_step`` called eagerly
+    (parameters, momentum, BatchNorm state, losses; the eager run twice),
+    K=4 bit for bit K=1; the host clock, the device time and the idle
+    share of a replayed step against its bound.  Then a fixed batch: the
+    loss falls and each step's rate is the schedule's on the host.  Then
+    ``evaluate`` (accuracy, top-5) through the captured eval step, bit for
+    bit the uncaptured one.  Returns the launch counts and the trained f32
+    model."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.parallel import compile_step, mixed_precision
+
+    t_phase = time.perf_counter()
+    reset_counters()  # the ResNet-50 training path: to the read below
+    served = None
+    for tag, plan, peak in (("f32", None, PEAK_FLOPS["float32"]),
+                            ("bf16", mixed_precision(),
+                             PEAK_FLOPS["bfloat16"])):
+        net = resnet_net(weights)
+        first, l_first, eager_ms = eager_steps(net, plan, x, y,
+                                               RESNET_STEPS, RESNET_BATCH)
+        want, l_want, eager_ms2 = eager_steps(net, plan, x, y, RESNET_STEPS,
+                                              RESNET_BATCH)
+        drift = differing(first, want)
+        log(f"resnet50 {tag}: two eager runs of {RESNET_STEPS} steps: "
+            f"{len(named_leaves(want)) - len(drift)} of "
+            f"{len(named_leaves(want))} leaves equal, losses equal "
+            f"{l_first == l_want}; eager host clock {eager_ms:.2f} / "
+            f"{eager_ms2:.2f} ms a step")
+        if drift or l_first != l_want:
+            log(f"resnet50 {tag}: differ at {drift[:8]}")
+            raise AssertionError(f"the eager ResNet-50 {tag} step is not "
+                                 "deterministic")
+        del first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=1, plan=plan)
+        torch.cuda.synchronize()
+        first_fit_ms = (time.perf_counter() - t0) * 1e3
+        losses = [v for _, v in net._estimator.loss_log]
+        off = differing(trained(net), want)
+        log(f"resnet50 {tag}: {RESNET_STEPS} steps through fit (K=1: step "
+            f"1 eager and captured, then replays; {first_fit_ms:.0f} ms) "
+            f"against train_step eagerly: losses equal {losses == l_want} "
+            f"({losses[0]:.4f} .. {losses[-1]:.4f}), "
+            f"{len(named_leaves(want)) - len(off)} of "
+            f"{len(named_leaves(want))} parameter, momentum and BatchNorm "
+            f"leaves equal bit for bit"
+            f"{'; differ: ' + str(off[:8]) if off else ''}")
+        if losses != l_want or off:
+            raise AssertionError(f"the captured ResNet-50 {tag} step is not "
+                                 "the eager step")
+        k1 = tree_map(torch.clone, trained(net))
+        del want
+        # the host clock of a replayed epoch, and a replay's device time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=1, plan=plan)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / RESNET_STEPS
+        est = net._estimator
+        step = est._train_step_for(1, est._resolve_plan(plan))
+        dev_ms = replay_ms(graph_of(step))
+        bound_ms = RESNET_BATCH * flops[1] / peak * 1e3
+        log(f"resnet50 {tag} step (batch {RESNET_BATCH}, replayed): host "
+            f"clock {host_ms:.2f} ms, device {dev_ms:.2f} ms, idle "
+            f"{max(0.0, 1 - dev_ms / host_ms):.1%}, "
+            f"{RESNET_BATCH / host_ms * 1e3:.1f} images/s "
+            f"({RESNET_BATCH / dev_ms * 1e3:.1f} on the device time); "
+            f"eager {eager_ms2:.2f} ms; bound {bound_ms:.2f} ms "
+            f"({RESNET_BATCH} x {flops[1] / 1e9:.2f} GFLOP at "
+            f"{peak / 1e12:.0f} TFLOP/s; device time {bound_ms / dev_ms:.1%}"
+            f" of it) ({card_line})")
+        est._steps.clear()  # the train captures and their graph pool
+        if tag == "f32":
+            served = net
+        del net, est, step
+        # K=4: two dispatches of four steps, bit for bit K=1
+        knet = resnet_net(weights, RESNET_K)
+        knet.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=1, plan=plan)
+        kl = [v for _, v in knet._estimator.loss_log]
+        off = differing(trained(knet), k1)
+        log(f"resnet50 {tag}, K={RESNET_K}: {RESNET_STEPS} steps in "
+            f"{RESNET_STEPS // RESNET_K} dispatches against K=1: losses "
+            f"equal {kl == losses}, leaves differing {off[:8]}")
+        if kl != losses or off:
+            raise AssertionError(f"ResNet-50 {tag}: K={RESNET_K} is not K=1")
+        del knet, k1
+        free_device_memory(f"after resnet50 {tag}")
+
+    # a fixed batch: the loss falls; each step's rate against the host's
+    from analytics_zoo_tpu_torch.models import ResNet
+
+    fixed = resnet_net(weights, steps_per_epoch=1)
+    sched_opt = ResNet.imagenet_optimizer(batch_size=RESNET_BATCH,
+                                          steps_per_epoch=1)
+    peak_lr = sched_opt.learning_rate
+    xf, yf = x[:RESNET_BATCH], y[:RESNET_BATCH]
+    rates = []
+    for i in range(FIXED_STEPS):
+        before = (fixed.params["fc"]["kernel"].clone()
+                  if i else weights[0]["fc"]["kernel"].clone())
+        fixed.fit(xf, yf, batch_size=RESNET_BATCH, nb_epoch=1)
+        after = fixed.params["fc"]["kernel"]
+        trace = fixed._estimator._opt_state.trace["fc"]["kernel"]
+        got = (-((after - before).double() * trace.double()).sum()
+               / (trace.double() ** 2).sum().clamp_min(1e-300)).item()
+        want = float(sched_opt._lr(torch.tensor(i, dtype=torch.int32)))
+        rates.append((got, want))
+    fl = [v for _, v in fixed._estimator.loss_log]
+    worst = max(abs(g - w) for g, w in rates) / peak_lr
+    log(f"resnet50 fixed batch, {FIXED_STEPS} steps (warmup of 5): losses "
+        f"{', '.join(f'{v:.4f}' for v in fl)}; rates applied on the card "
+        f"(from the fc kernel's change and momentum) "
+        f"{', '.join(f'{g:.6f}' for g, _ in rates)} against the schedule "
+        f"on the host {', '.join(f'{w:.6f}' for _, w in rates)}: worst "
+        f"{worst:.2e} of the peak {peak_lr}")
+    if not fl[-1] < fl[0] or worst > RATE_TOL \
+            or int(fixed._estimator._opt_state.count) != FIXED_STEPS:
+        raise AssertionError("ResNet-50 fixed batch: the loss did not fall "
+                             "or a step's rate is not the schedule's")
+    del fixed
+
+    # evaluate through the captured eval step, against the uncaptured one
+    est = served._estimator
+    plan = est._resolve_plan()
+    fs = FeatureSet.of(x, y)
+    eager = est._evaluate_with(
+        served.params, served.state, fs, RESNET_BATCH,
+        est.compute_casts(plan, served.params),
+        step=compile_step(est.eval_step, plan, label="eval_step_eager",
+                          capture=False))
+    first = served.evaluate(x, y, batch_size=RESNET_BATCH)  # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = served.evaluate(x, y, batch_size=RESNET_BATCH)  # replays
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"resnet50 captured eval: {got} in {ms:.1f} ms over "
+        f"{len(y)} images; the capture's {first}; uncaptured {eager} "
+        f"(equal: {got == eager == first})")
+    if not got == eager == first or not all(
+            0.0 <= got[k] <= 1.0 for k in ("accuracy", "top5_accuracy")):
+        raise AssertionError("the captured ResNet-50 eval is not the eager "
+                             "one")
+    launches = counters()  # end of the ResNet-50 training path
+    log(f"resnet50 training launches {launches} (SGD, cuDNN and plain "
+        f"torch: no kernel of the table); phase resnet50_training: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, served
+
+
+def resnet_serving_phase(card_line: str, net, initial, gen,
+                         flops) -> dict:
+    """The trained ResNet-50 served by ``InferenceModel`` in f32 and bf16
+    at 1, 8 and 32 images a request, each bucket warmed up (captured):
+    each replay bit for bit its eager forward, finite rows summing to 1,
+    bf16 within RESNET_BF16_SERVE_TOL of f32 and within
+    RESNET_BF16_LOGIT_TOL of it by ``logit_gap``; the same gaps of the
+    untrained model (``initial``: (params, state)) on the same requests,
+    eagerly; the host clock (median of 5), device time, idle share and
+    images/s of each request, with its bound.  The served model's moving
+    statistics are first set to one batch's (``recalibrate_batchnorm``): a
+    few steps leave them near (0, 1), under which 53 layers saturate the
+    softmax, and a served ResNet holds converged ones."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.models import ResNet
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        recalibrate_batchnorm,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    t_phase = time.perf_counter()
+    calib = gen.standard_normal((RESNET_BATCH,) + RESNET_SHAPE,
+                                dtype=np.float32)
+    recalibrate_batchnorm(net, calib)
+    models = {"f32": InferenceModel().from_keras_net(net),
+              "bf16": InferenceModel().from_keras_net(net).optimize("bf16")}
+    t0 = time.perf_counter()
+    for im in models.values():
+        im.warmup([RESNET_SHAPE], dtype=np.float32,
+                  batch_sizes=RESNET_REQUESTS)
+    torch.cuda.synchronize()
+    log(f"resnet50 serving: {len(models)} models x {len(RESNET_REQUESTS)} "
+        f"buckets warmed up (captured) in {time.perf_counter() - t0:.1f} "
+        f"s; memory reserved {torch.cuda.memory_reserved()} B")
+    reqs = {n: gen.standard_normal((n,) + RESNET_SHAPE, dtype=np.float32)
+            for n in RESNET_REQUESTS}
+    want = {(tag, n): eager_predict(im, [reqs[n]])
+            for tag, im in models.items() for n in RESNET_REQUESTS}
+    torch.cuda.synchronize()
+    reset_counters()  # the ResNet-50 serving path: to the read below
+    got = {(tag, n): im.predict(reqs[n])
+           for tag, im in models.items() for n in RESNET_REQUESTS}
+    launches = counters()  # end of the ResNet-50 serving path
+    for (tag, n), out in got.items():
+        same = np.array_equal(out, want[tag, n])
+        sums = float(np.abs(out.sum(-1) - 1).max())
+        log(f"resnet50 serving {tag}, {n} image(s): {out.shape}, replay "
+            f"equal to the eager forward bit for bit: {same}; rows sum to "
+            f"1 within {sums:.2e}")
+        if not same or not np.isfinite(out).all() or out.shape != (
+                n, RESNET_CLASSES) or sums > (1e-4 if tag == "f32"
+                                              else 1e-2):
+            raise AssertionError(f"ResNet-50 {tag} serving of {n} is wrong")
+    def gaps(out):
+        """(max |d|, logit_gap, top-1 agreement, largest f32 probability)
+        of bf16 against f32 at each request size."""
+        return {n: (float(np.abs(out["bf16", n] - out["f32", n]).max()),
+                    logit_gap(out["bf16", n], out["f32", n]),
+                    float(np.mean(out["bf16", n].argmax(-1)
+                                  == out["f32", n].argmax(-1))),
+                    float(out["f32", n].max()))
+                for n in RESNET_REQUESTS}
+
+    # the untrained model, recalibrated on the same batch, on the same
+    # requests: what training adds to the gap
+    fresh = ResNet.image_net(50, classes=RESNET_CLASSES,
+                             input_shape=RESNET_SHAPE)
+    fresh.device = net.device
+    fresh.params = tree_map(torch.clone, initial[0])
+    fresh.state = tree_map(torch.clone, initial[1])
+    recalibrate_batchnorm(fresh, calib)
+    base = {"f32": InferenceModel().from_keras_net(fresh)}
+    base["bf16"] = InferenceModel().from_keras_net(fresh).optimize("bf16")
+    untrained = gaps({(tag, n): eager_predict(im, [reqs[n]])
+                      for tag, im in base.items() for n in RESNET_REQUESTS})
+    del fresh, base
+    served = gaps(got)
+    for tag, g in (("trained", served), ("untrained", untrained)):
+        log(f"resnet50 serving bf16 vs f32, {tag} model, at "
+            f"{'/'.join(map(str, RESNET_REQUESTS))} image(s): max |d| "
+            f"{', '.join(f'{v[0]:.3e}' for v in g.values())} (tol "
+            f"{RESNET_BF16_SERVE_TOL}); logit gap "
+            f"{', '.join(f'{v[1]:.4f}' for v in g.values())} (tol "
+            f"{RESNET_BF16_LOGIT_TOL}); top-1 agreement "
+            f"{', '.join(f'{v[2]:.3f}' for v in g.values())}; largest f32 "
+            f"probability {', '.join(f'{v[3]:.4f}' for v in g.values())}")
+    if max(v[0] for v in served.values()) > RESNET_BF16_SERVE_TOL \
+            or max(v[1] for v in served.values()) > RESNET_BF16_LOGIT_TOL:
+        raise AssertionError("ResNet-50 bf16 serving is too far from f32")
+    for tag, im in models.items():
+        peak = PEAK_FLOPS["float32" if tag == "f32" else "bfloat16"]
+        for n in RESNET_REQUESTS:
+            host = []
+            for _ in range(HOST_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                im.predict(reqs[n])
+                host.append((time.perf_counter() - t0) * 1e3)
+            key = ((reqs[n].shape, str(reqs[n].dtype)),)
+            dev = replay_ms(graph_of(im._steps[key].step))
+            med = float(np.median(host))
+            bound_ms = n * flops[0] / peak * 1e3
+            log(f"resnet50 request {tag}, {n} image(s): host clock "
+                f"{', '.join(f'{t:.3f}' for t in host)} ms (median "
+                f"{med:.3f}), device {dev:.3f} ms, idle "
+                f"{max(0.0, 1 - dev / med):.1%}, {n / med * 1e3:.1f} "
+                f"images/s; bound {bound_ms:.3f} ms ({card_line})")
+    log(f"resnet50 serving launches {launches}; phase resnet50_serving: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def resnet50_phases(card_line: str) -> tuple[dict, dict]:
+    """ResNet-50 (``ResNet.image_net(50)``, 224x224x3, 1000 classes,
+    random weights from the seed): the training phase, then serving the
+    trained model.  Returns both paths' launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models import ResNet
+
+    free_device_memory("before resnet50 (the earlier phases freed)")
+    torch.cuda.reset_peak_memory_stats()
+    init_zoo_context(seed=SEED, device="cuda")
+    net = ResNet.image_net(50, classes=RESNET_CLASSES,
+                           input_shape=RESNET_SHAPE)
+    net.build_params()
+    weights = (net.params, net.state)
+    flops = conv_flops(net)
+    gen = np.random.default_rng(SEED + 30)
+    n = RESNET_BATCH * RESNET_STEPS
+    x = gen.standard_normal((n,) + RESNET_SHAPE, dtype=np.float32)
+    y = gen.integers(0, RESNET_CLASSES, n).astype(np.int32)
+    log(f"resnet50: {sum(t.numel() for p in net.params.values() for t in p.values())} "
+        f"parameters, {flops[0] / 1e9:.2f} GFLOP an image forward, "
+        f"{flops[1] / 1e9:.2f} a training step's image; {n} images of "
+        f"{RESNET_SHAPE} ({x.nbytes} B, {x.nbytes // RESNET_STEPS} a batch)")
+    training, served = resnet_training_phase(card_line, x, y, weights,
+                                             flops)
+    del x, y, net
+    free_device_memory("after resnet50 training")
+    serving = resnet_serving_phase(card_line, served, weights, gen, flops)
+    free_device_memory("after resnet50 serving")
+    return training, serving
+
+
 def main() -> int:
     import torch
 
@@ -2601,6 +3197,9 @@ def main() -> int:
     serving_d384 = serving_d384_phase(card_line)
     captured, _ = captured_training_phase(card_line)
     serving_captured = captured_serving_phase(card_line)
+    lenet, lenet_err = lenet_phase(card_line)
+    adam["max_abs_err"] = max(adam["max_abs_err"], lenet_err)
+    resnet_training, resnet_serving = resnet50_phases(card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -2614,7 +3213,10 @@ def main() -> int:
                  "serving_d384": serving_d384.get(name, 0),
                  "training_captured": captured.get(name, 0),
                  "serving_captured": serving_captured.get(name, 0),
-                 "eval_captured": eval_captured.get(name, 0)}
+                 "eval_captured": eval_captured.get(name, 0),
+                 "training_lenet": lenet.get(name, 0),
+                 "resnet50_training": resnet_training.get(name, 0),
+                 "resnet50_serving": resnet_serving.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},

@@ -314,7 +314,7 @@ def test_compile_contract(tmp_path):
     with pytest.raises(RuntimeError, match="compile"):
         m.fit(x, y, batch_size=2, nb_epoch=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.compile(optimizer="sgd", loss="mse")
+        m.compile(optimizer="rmsprop", loss="mse")
     m.compile(optimizer=Adam(1e-2, schedule=warmup_linear_decay(1, 4)),
               loss="sparse_categorical_crossentropy_from_logits",
               metrics=["accuracy"])

@@ -193,6 +193,6 @@ def test_get_optimizer():
     opt = topt.Adam(1e-3)
     assert topt.get_optimizer(opt) is opt
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.get_optimizer("sgd")
+        topt.get_optimizer("rmsprop")
     with pytest.raises(ValueError):
         topt.get_optimizer(3)

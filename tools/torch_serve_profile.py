@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
-"""Where the time of one BERT-base request goes, on one CUDA GPU.
+"""Where the time of one request goes, on one CUDA GPU.
 
-    python3 tools/torch_serve_profile.py [--requests 10] [--trace DIR]
+    python3 tools/torch_serve_profile.py [--model bert|resnet50]
+        [--requests 10] [--trace DIR]
 
-Serves the PyTorch port's serving slice as ``chip_smoke.py`` does
-(BERT-base at full width, Dense(2, softmax) head, sequence 512, random
-weights and requests from a seed) through ``InferenceModel``, in f32 and
-bf16 (``optimize("bf16")``), at 1 and 8 records a request, two ways: the
-captured forward ``predict`` replays (one CUDA graph a micro-batch, the
-batch written into its static inputs), and the eager forward (the same
-forward function called on a batch copied up, as ``predict`` ran it
-before it was captured).  Each case warms up (``warmup`` captures the
-bucket), then times ``--requests`` requests on the host clock, then
-traces as many more with ``torch.profiler`` (CPU and CUDA activity).
-Prints the card's name and power limit, and for each case the host-clock
-time a request without the profiler (and under it), the device time a
-request by kernel group (the flash forward, cuBLAS matrix products,
-copies and casts, host-device copies, everything else: elementwise work
-and reductions), the device's busy and idle shares of the unprofiled
-request; then all cases as one JSON line last.  ``--trace DIR`` also
-writes the Chrome traces there.  Needs one GPU and nvcc; imports nothing
-of the JAX package.
+Serves a model of ``chip_smoke.py`` through ``InferenceModel`` as it
+does, with random weights and requests from a seed: ``--model bert`` (the
+default) BERT-base at full width with a Dense(2, softmax) head, sequence
+512, at 1 and 8 records a request; ``--model resnet50`` ResNet-50
+(224x224x3, 1000 classes; its moving statistics set to one batch's, as
+the smoke's serving phase sets them) at 1, 8 and 32 images.  Each in f32
+and bf16 (``optimize("bf16")``), two ways: the captured forward
+``predict`` replays (one CUDA graph a micro-batch, the batch written into
+its static inputs), and the eager forward (the same forward function
+called on a batch copied up, as ``predict`` ran it before it was
+captured).  Each case warms up (``warmup`` captures the bucket), then
+times ``--requests`` requests on the host clock, then traces as many more
+with ``torch.profiler`` (CPU and CUDA activity).  Prints the card's name
+and power limit, and for each case the host-clock time a request without
+the profiler (and under it), the device time a request by kernel group
+(BERT: the flash forward, cuBLAS matrix products, copies and casts,
+host-device copies, everything else: elementwise work and reductions;
+ResNet-50: cuDNN convolutions, pooling, copies and casts, host-device
+copies, BatchNorm, ReLU and the rest), the device's busy and idle shares
+of the unprofiled request; then all cases as one JSON line last.
+``--trace DIR`` also writes the Chrome traces there.  Needs one GPU (and
+nvcc for BERT's kernels); imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -39,12 +44,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from chip_smoke import (  # noqa: E402
     REQ_DTYPES,
+    RESNET_BATCH,
+    RESNET_CLASSES,
+    RESNET_REQUESTS,
+    RESNET_SHAPE,
     SEED,
     SEQ,
     bert_model,
     requests_of,
 )
-from torch_train_profile import measure  # noqa: E402
+from torch_train_profile import CONV_GROUPS, GROUPS, measure  # noqa: E402
 
 RECORDS = (1, 8)
 
@@ -61,6 +70,7 @@ def report(name: str, r: dict, card: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
@@ -76,12 +86,34 @@ def main() -> int:
     print(card, flush=True)
 
     from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models import ResNet
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        recalibrate_batchnorm,
+    )
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 
     init_zoo_context(seed=SEED, device="cuda")
-    net = bert_model()
-    net.build_params()
     gen = np.random.default_rng(SEED + 1)
+    if args.model == "resnet50":
+        net = ResNet.image_net(50, classes=RESNET_CLASSES,
+                               input_shape=RESNET_SHAPE)
+        net.build_params()
+        recalibrate_batchnorm(net, gen.standard_normal(
+            (RESNET_BATCH,) + RESNET_SHAPE, dtype=np.float32))
+        records, groups = RESNET_REQUESTS, CONV_GROUPS
+        shapes, dtypes, unit = [RESNET_SHAPE], [np.float32], "images"
+
+        def request(n):
+            return [gen.standard_normal((n,) + RESNET_SHAPE,
+                                        dtype=np.float32)]
+    else:
+        net = bert_model()
+        net.build_params()
+        records, groups = RECORDS, GROUPS
+        shapes, dtypes, unit = [(SEQ,)] * 4, REQ_DTYPES, "records"
+
+        def request(n):
+            return requests_of(n, gen)
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
     out = {}
@@ -89,10 +121,10 @@ def main() -> int:
         im = InferenceModel().from_keras_net(net)
         if precision == "bf16":
             im.optimize("bf16")
-        im.warmup([(SEQ,)] * 4, dtype=REQ_DTYPES, batch_sizes=RECORDS)
+        im.warmup(shapes, dtype=dtypes, batch_sizes=records)
         fwd = im._forward_fn()
-        for n in RECORDS:
-            xs = requests_of(n, gen)
+        for n in records:
+            xs = request(n)
 
             def captured():
                 for _ in range(args.requests):
@@ -103,16 +135,18 @@ def main() -> int:
                     ts = [torch.from_numpy(a).to(net.device) for a in xs]
                     fwd(im._params, im._state, ts).cpu().numpy()
 
-            eager()  # warm-up: cuBLAS and the kernel libraries
+            eager()  # warm-up: cuBLAS, cuDNN and the kernel libraries
             for kind, run in (("captured", captured), ("eager", eager)):
-                name = f"{precision} {n} records {kind}"
+                name = f"{precision} {n} {unit} {kind}"
                 trace = os.path.join(
-                    args.trace, f"serve_{precision}_{n}_{kind}.json") \
+                    args.trace,
+                    f"serve_{args.model}_{precision}_{n}_{kind}.json") \
                     if args.trace else None
                 torch.cuda.synchronize()
-                out[name] = measure(run, args.requests, trace)
+                out[name] = measure(run, args.requests, trace, groups)
                 report(name, out[name], card)
-    print(json.dumps({"card": card, "requests": args.requests, **out}),
+    print(json.dumps({"card": card, "model": args.model,
+                      "requests": args.requests, **out}),
           flush=True)
     return 0
 

@@ -1,30 +1,40 @@
 #!/usr/bin/env python3
-"""Where the time of one BERT-base fine-tuning step goes, on one CUDA GPU.
+"""Where the time of one training step goes, on one CUDA GPU.
 
-    python3 tools/torch_train_profile.py [--steps 3] [--heads 12]
-                                         [--plan PLAN] [--trace DIR]
+    python3 tools/torch_train_profile.py [--model bert|resnet50]
+        [--steps 3] [--heads 12] [--plan PLAN] [--trace DIR]
 
-Runs the PyTorch port's training slice as ``chip_smoke.py`` does (BERT-base
-at full width, Dense(2) logits head, hidden and attention dropout 0.1,
-``Adam(2e-5)``, ``sparse_categorical_crossentropy_from_logits``, batch
-8 x 512, random weights and data from a seed), twice: the captured step
-``fit`` replays (one CUDA graph a step), and the eager step
-(``Estimator.train_step`` called step by step, the uncaptured yardstick).
-Each warms up one step (``fit``'s eager step and capture), then times
-``--steps`` steps on the host clock, then traces ``--steps`` more with
-``torch.profiler`` (CPU and CUDA activity).
-``--heads 4`` gives the same width with head dim 192, as ``chip_smoke.py``
-fine-tunes it; ``--plan`` trains under a plan (a name such as ``dp+bf16``,
-or ``mixed_precision``: bf16 compute copies of the f32 masters).
-Prints the card's name and power limit, and for each of the two: the
-host-clock time per step without the profiler (and under it, which runs
-slower), the device time per step by kernel group (the port's kernels by
-name, cuBLAS matrix products, copies and casts, everything else), the
-operators that launch the most device time (eager only: a graph replay
-launches its kernels under no operator), the device's busy and idle
-shares of the unprofiled step; then both as one JSON line last.
-``--trace DIR`` also writes the Chrome traces there.  Needs one GPU and
-nvcc; imports nothing of the JAX package.
+``--model bert`` (the default) runs the PyTorch port's BERT fine-tuning as
+``chip_smoke.py`` does (BERT-base at full width, Dense(2) logits head,
+hidden and attention dropout 0.1, ``Adam(2e-5)``,
+``sparse_categorical_crossentropy_from_logits``, batch 8 x 512);
+``--model resnet50`` its ResNet-50 training (``ResNet.image_net(50)``,
+224x224x3, 1000 classes, the recipe's ``imagenet_optimizer(batch_size=64)``,
+``sparse_categorical_crossentropy``, batch 64).  Random weights and data
+come from a seed.  Each runs twice: the captured step ``fit`` replays (one
+CUDA graph a step), and the eager step (``Estimator.train_step`` called
+step by step, the uncaptured yardstick).  Each warms up one step (``fit``'s
+eager step and capture), then times ``--steps`` steps on the host clock,
+then traces ``--steps`` more with ``torch.profiler`` (CPU and CUDA
+activity).  ``--cudnn-nondeterministic`` lets cuDNN take its default
+algorithms, which ``init_zoo_context`` rules out, to show what
+determinism costs.  ``--heads 4`` gives BERT the same width with head
+dim 192, as
+``chip_smoke.py`` fine-tunes it; ``--plan`` trains under a plan (a name
+such as ``dp+bf16``, or ``mixed_precision``: bf16 compute copies of the
+f32 masters).  Prints the card's name and power limit, and for each of
+the two: the host-clock time per step without the profiler (and under
+it, which runs slower), the device time per step by kernel group (BERT:
+the port's kernels by name, cuBLAS matrix products, copies and casts,
+everything else; ResNet-50: the convolutions (with the Dense head's
+product), pooling, SGD's multi-tensor passes, copies and casts (the
+weights' layout copies among them), and BatchNorm, ReLU and the rest of
+the elementwise work and reductions), the operators that launch the most device time (eager
+only: a graph replay launches its kernels under no operator), the
+device's busy and idle shares of the unprofiled step; then both as one
+JSON line last.  ``--trace DIR`` also writes the Chrome traces there.
+Needs one GPU (and nvcc for BERT's kernels); imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -61,17 +71,36 @@ GROUPS = (
 )
 
 
+# the groups of a conv net's step or request (ResNet-50)
+# (cuDNN runs some convolutions, 1x1 ones among them, as kernels named
+# like cuBLAS's GEMMs, and its bf16 engines as cutlass kernels: by name
+# they cannot be told from the one Dense layer's products, a few
+# microseconds a step, so those share the group)
+CONV_GROUPS = (
+    ("convolutions (cuDNN; the Dense head's product)",
+     ("fprop", "dgrad", "wgrad", "conv", "implicit", "xmma", "cutlass",
+      "cudnn", "gemm", "gemv", "nvjet", "splitKreduce", "Kernel2")),
+    ("pooling", ("pool",)),
+    ("SGD (multi-tensor)", ("multi_tensor_apply",)),
+    ("copies and casts", ("direct_copy_kernel", "copy_kernel")),
+    ("host-device copies", ("Memcpy", "Memset")),
+)
+OTHER = {GROUPS: "other (elementwise, reductions, copies)",
+         CONV_GROUPS: "BatchNorm, ReLU and other elementwise and reductions"}
+
+
 TOP_OPS = 12  # operators listed by the device time they launch
 
 
-def group_of(name: str) -> str:
-    for group, frags in GROUPS:
+def group_of(name: str, kernel_groups=GROUPS) -> str:
+    for group, frags in kernel_groups:
         if any(f in name for f in frags):
             return group
-    return "other (elementwise, reductions, copies)"
+    return OTHER[kernel_groups]
 
 
-def measure(run, steps: int, trace: str | None) -> dict:
+def measure(run, steps: int, trace: str | None,
+            kernel_groups=GROUPS) -> dict:
     """``run()`` (``steps`` training steps, ending in a device sync) timed
     on the host clock, then traced: the step's host and device time, the
     device time by kernel group and by launching operator, the idle
@@ -95,7 +124,7 @@ def measure(run, steps: int, trace: str | None) -> dict:
         # kernel rows only: an operator's row repeats its kernels' time
         if ev.device_type != DeviceType.CUDA:
             continue
-        g = group_of(ev.key)
+        g = group_of(ev.key, kernel_groups)
         groups[g] = groups.get(g, 0.0) + ev.self_device_time_total / 1e3 \
             / steps
         launches[g] = launches.get(g, 0) + ev.count
@@ -131,12 +160,61 @@ def report(kind: str, plan: str, r: dict, card: str) -> None:
               f"calls", flush=True)
 
 
+def bert_training(args):
+    """The BERT-base classifier compiled as ``chip_smoke.py`` fine-tunes
+    it, and ``--steps`` batches: (net, x, y, batch size)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    ins = [Input((SEQ,)) for _ in range(4)]
+    _, pooled = BERT(**dict(BERT_BASE, n_head=args.heads))(ins)
+    net = Model(ins, Dense(2)(pooled))
+    net.build_params()
+    net.compile(optimizer=Adam(2e-5),
+                loss="sparse_categorical_crossentropy_from_logits")
+    gen = np.random.default_rng(SEED)
+    n = BATCH * args.steps
+    lengths = gen.integers(64, SEQ + 1, n)
+    pos = np.arange(SEQ)[None, :]
+    mask = (pos < lengths[:, None]).astype(np.float32)
+    ids = (gen.integers(1, BERT_BASE["vocab"], (n, SEQ)) * mask).astype(
+        np.int32)
+    x = [ids, np.zeros((n, SEQ), np.int32),
+         np.tile(pos.astype(np.int32), (n, 1)), mask]
+    return net, x, gen.integers(0, 2, n).astype(np.int32), BATCH
+
+
+def resnet_training(args):
+    """ResNet-50 compiled with the recipe, as ``chip_smoke.py`` trains it,
+    and ``--steps`` batches of 64: (net, x, y, batch size)."""
+    from chip_smoke import RESNET_BATCH, RESNET_CLASSES, RESNET_SHAPE
+
+    from analytics_zoo_tpu_torch.models import ResNet
+
+    net = ResNet.image_net(50, classes=RESNET_CLASSES,
+                           input_shape=RESNET_SHAPE)
+    net.build_params()
+    net.compile(optimizer=ResNet.imagenet_optimizer(
+        batch_size=RESNET_BATCH, steps_per_epoch=args.steps),
+        loss="sparse_categorical_crossentropy")
+    gen = np.random.default_rng(SEED)
+    n = RESNET_BATCH * args.steps
+    x = gen.standard_normal((n,) + RESNET_SHAPE, dtype=np.float32)
+    return (net, x, gen.integers(0, RESNET_CLASSES, n).astype(np.int32),
+            RESNET_BATCH)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--heads", type=int, default=BERT_BASE["n_head"])
     ap.add_argument("--plan", default=None)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--cudnn-nondeterministic", action="store_true",
+                    help="let cuDNN pick its default algorithms, which "
+                    "init_zoo_context rules out (the cost of determinism)")
     args = ap.parse_args()
 
     import torch
@@ -154,39 +232,24 @@ def main() -> int:
     from analytics_zoo_tpu_torch.common.utils import tree_map
     from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
     from analytics_zoo_tpu_torch.parallel import compile_step, mixed_precision
-    from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
-    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense
-    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
     from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
         _to_device,
     )
 
     init_zoo_context(seed=SEED, device="cuda")
+    torch.backends.cudnn.deterministic = not args.cudnn_nondeterministic
     plan = mixed_precision() if args.plan == "mixed_precision" else args.plan
-    ins = [Input((SEQ,)) for _ in range(4)]
-    _, pooled = BERT(**dict(BERT_BASE, n_head=args.heads))(ins)
-    net = Model(ins, Dense(2)(pooled))
-    net.build_params()
-    net.compile(optimizer=Adam(2e-5),
-                loss="sparse_categorical_crossentropy_from_logits")
-    gen = np.random.default_rng(SEED)
-    n = BATCH * args.steps
-    lengths = gen.integers(64, SEQ + 1, n)
-    pos = np.arange(SEQ)[None, :]
-    mask = (pos < lengths[:, None]).astype(np.float32)
-    ids = (gen.integers(1, BERT_BASE["vocab"], (n, SEQ)) * mask).astype(
-        np.int32)
-    x = [ids, np.zeros((n, SEQ), np.int32),
-         np.tile(pos.astype(np.int32), (n, 1)), mask]
-    y = gen.integers(0, 2, n).astype(np.int32)
+    build, groups = ((resnet_training, CONV_GROUPS)
+                     if args.model == "resnet50" else (bert_training, GROUPS))
+    net, x, y, batch = build(args)
+    first = ([a[:batch] for a in x] if isinstance(x, list) else x[:batch])
     # the step fit replays: its first dispatch is the eager step and the
     # capture
-    net.fit([a[:BATCH] for a in x], y[:BATCH], batch_size=BATCH, nb_epoch=1,
-            plan=plan)
+    net.fit(first, y[:batch], batch_size=batch, nb_epoch=1, plan=plan)
     torch.cuda.synchronize()
 
     def captured():
-        net.fit(x, y, batch_size=BATCH, nb_epoch=1, plan=plan)
+        net.fit(x, y, batch_size=batch, nb_epoch=1, plan=plan)
         torch.cuda.synchronize()
 
     # the eager step on the same model, batches and plan
@@ -197,7 +260,7 @@ def main() -> int:
     state["o"] = est.optimizer.init(state["p"])
     casts = est.compute_casts(eplan, state["p"])
     batches = list(FeatureSet.of(x, y).batches(
-        BATCH, shuffle=True, seed=SEED, epoch=1, drop_last=True))
+        batch, shuffle=True, seed=SEED, epoch=1, drop_last=True))
 
     def eager():
         for i, b in enumerate(batches):
@@ -211,15 +274,19 @@ def main() -> int:
     trace = {}
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
-        trace = {k: os.path.join(args.trace, f"train_step_{k}.json")
+        trace = {k: os.path.join(args.trace,
+                                 f"train_step_{args.model}_{k}.json")
                  for k in ("captured", "eager")}
     name = net._estimator._plan_record["name"]
     out = {}
     for kind, run in (("captured", captured), ("eager", eager)):
-        out[kind] = measure(run, args.steps, trace.get(kind))
+        out[kind] = measure(run, args.steps, trace.get(kind), groups)
         report(kind, name, out[kind], card)
-    print(json.dumps({"card": card, "steps": args.steps, "heads": args.heads,
-                      "plan": name, **out}), flush=True)
+    print(json.dumps({"card": card, "model": args.model, "batch": batch,
+                      "steps": args.steps, "heads": args.heads,
+                      "plan": name, "cudnn_deterministic":
+                      torch.backends.cudnn.deterministic, **out}),
+          flush=True)
     return 0
 
 
