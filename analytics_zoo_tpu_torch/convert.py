@@ -12,6 +12,13 @@ and optax's SGD state (the empty ``add_decayed_weights`` state, the
 momentum ``TraceState`` and the schedule's ``ScaleByScheduleState``) into
 its :class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.SGDState`.
 The JAX package is never imported: the caller hands over plain arrays.
+
+Every layer of the port keeps the reference's parameter names, shapes and
+dtypes (the depthwise kernel (kh, kw, 1, in·dm), the pointwise (1, 1,
+in·dm, out), the transposed convolution's (kh, kw, in, out), the locally
+connected kernels (positions, patch, out)), so a tree converts leaf for
+leaf, with no layout change; any layout a torch op wants is made inside
+the layer's call.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Normalization layers: BatchNormalization and LayerNormalization.
+"""Normalization layers: BatchNormalization, LayerNormalization and
+WithinChannelLRN2D.
 
 Counterpart of
 ``analytics_zoo_tpu/pipeline/api/keras/layers/normalization.py``, with its
@@ -13,8 +14,9 @@ normalises with them.  ``F.batch_norm`` is not used: it updates its
 running variance with the unbiased variance and takes 1 − m as its
 momentum.  ``recalibrate_batchnorm`` sets a model's moving statistics to
 one batch's (a served model whose training left them near their initial
-values).  ``WithinChannelLRN2D`` waits for its slice (ROADMAP queue 1,
-item 3).
+values).  ``WithinChannelLRN2D`` sums the squares over a size x size
+spatial window with XLA's SAME padding (``conv.pad_same``), each channel
+on its own.
 """
 
 from __future__ import annotations
@@ -22,6 +24,14 @@ from __future__ import annotations
 import torch
 
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
+    channels_first,
+    channels_last,
+    pad_same,
+)
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.pooling import (
+    _window_sum,
+)
 
 
 class BatchNormalization(Layer):
@@ -120,3 +130,24 @@ class LayerNormalization(Layer):
         inv = torch.reciprocal(torch.sqrt(var + self.epsilon))
         y = (inputs - mean.to(inputs.dtype)) * inv.to(inputs.dtype)
         return y * params["gamma"] + params["beta"]
+
+
+class WithinChannelLRN2D(Layer):
+    """Local response normalization within each channel, NHWC: ``x / (1 +
+    alpha · sum_window x^2 / size^2) ** beta`` over a size x size SAME
+    window."""
+
+    def __init__(self, size=5, alpha=1.0, beta=0.75, input_shape=None,
+                 name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        self.size = int(size)
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+
+    def call(self, params, inputs, state=None, training=False, rng=None):
+        window, ones = (self.size, self.size), (1, 1)
+        sq = pad_same(channels_first(inputs * inputs), window, ones)
+        summed = channels_last(_window_sum(sq, window, ones))
+        norm = (1.0 + self.alpha * summed / (self.size * self.size)) \
+            ** self.beta
+        return inputs / norm

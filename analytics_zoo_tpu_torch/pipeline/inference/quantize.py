@@ -190,8 +190,8 @@ def _target_layers(net):
         raise NotImplementedError(
             f"calibrated int8 for conv layers {convs} is not ported yet: "
             "_int8_conv (ROADMAP queue 1 item 8) needs an int8 x int8 -> "
-            "int32 convolution, which PyTorch has no CUDA op for; the conv "
-            "layers (queue 1 item 3) serve in float and weight-only int8 "
+            "int32 convolution, which PyTorch has no CUDA op for; conv "
+            "nets serve in float and weight-only int8 "
             "(optimize(\"int8\") without calibration data)")
     return targets
 

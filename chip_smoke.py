@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving, training and int8 serving slices and
-its convolutional path on one CUDA GPU and check them.
+"""Run the PyTorch port's serving, training and int8 serving slices, its
+convolutional path and its ImageNet zoo on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -157,9 +157,33 @@ and prints no result):
    summing to 1, bf16 within 0.02 of f32; latency, device time, idle
    share, images/s and bound of each request.  Logs each new phase's
    seconds and the memory reserved between phases;
-13. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
+13. inception_v1: Inception-v1 (224x224x3, 1000 classes) trained with the
+   reference's recipe (SGD 0.065, momentum 0.9, weight decay 1e-4,
+   warmup then epoch decay) at batch 128 in f32 and bf16: ``fit`` at K=1
+   bit for bit ``train_step`` called eagerly, K=4 bit for bit K=1, a
+   replayed step's host clock, device time, idle share and bound; on a
+   fixed batch the loss falls and each rate is the schedule's; the
+   captured ``evaluate`` bit for bit the uncaptured one; then served at
+   1, 8 and 32 images in f32 and bf16, each replay bit for bit its eager
+   forward, bf16 within 0.3 of f32 by ``logit_gap``;
+14. inception_v1_adam: the port twin of the reference's
+   ``test_trains_on_tiny_task`` (Inception-v1 at 64x64x3, ``"adam"``):
+   the training accuracy passes 0.8 with one fused Adam launch a step;
+   fused Adam bit for bit ``adam_leaf_reference`` at the full-width
+   model's leaf shapes;
+15. mobilenet_v2: 4 steps of ``fit`` at batch 64 in f32 bit for bit
+   ``train_step`` called eagerly, a replayed step's times, each distinct
+   depthwise layer's forward and backward device time (cuDNN
+   deterministic, replayed from a CUDA graph);
+   served at 1, 8 and 32 images in f32 and bf16 as Inception-v1;
+16. zoo_serving: AlexNet (227), VGG-16, VGG-19, SqueezeNet, DenseNet-121,
+   DenseNet-161, MobileNet and Inception-v3 (299) at full width, each
+   answering one replayed 8-image f32 request bit for bit its eager
+   forward, finite rows summing to 1; logs each model's parameter count,
+   request time and peak memory;
+17. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
-   of its own; launches by path, the three new paths included), then the
+   of its own; launches by path, the new paths included), then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
@@ -2635,11 +2659,12 @@ RESNET_REQUESTS = (1, 8, 32)
 # trace, least squares) vs the schedule evaluated on the host, relative to
 # the recipe's peak rate: p + u rounds each element to ~1e-4 of u
 RATE_TOL = 1e-3
-# bf16 vs f32 serving of ResNet-50 (probabilities; moving statistics from
-# one batch): the bounds tests/test_torch_conv_models.py states, on the
-# largest difference of a probability and on ``logit_gap``
+# bf16 vs f32 serving (probabilities; moving statistics from one batch):
+# the bounds tests/test_torch_conv_models.py states for ResNet-50, on the
+# largest difference of a probability, and on ``logit_gap`` for every model
+# served in both (tests/test_torch_imagenet_zoo.py holds the zoo to it)
 RESNET_BF16_SERVE_TOL = 0.02
-RESNET_BF16_LOGIT_TOL = 0.3
+BF16_LOGIT_TOL = 0.3
 
 
 def quadrant_task(n: int, gen: np.random.Generator):
@@ -2785,11 +2810,15 @@ def lenet_phase(card_line: str) -> tuple[dict, float]:
 
 
 def conv_flops(net) -> tuple[float, float]:
-    """(forward, training) FLOPs of one image through ``net``'s conv and
-    Dense layers: 2 x the multiply-adds; training adds the weight
-    gradients (as many as the forward) and the input gradients (as many,
-    but for the first layer, whose input needs none)."""
-    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    """(forward, training) FLOPs of one image through ``net``'s conv
+    (dense and depthwise) and Dense layers: 2 x the multiply-adds;
+    training adds the weight gradients (as many as the forward) and the
+    input gradients (as many, but for the first layer, whose input needs
+    none)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense,
+        DepthwiseConvolution2D,
+    )
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
         _ConvND,
     )
@@ -2801,6 +2830,10 @@ def conv_flops(net) -> tuple[float, float]:
             out = layer.compute_output_shape((None,) + shape)
             fwd.append(2.0 * np.prod(out[1:-1]) * np.prod(layer.kernel_size)
                        * shape[-1] * layer.nb_filter)
+        elif isinstance(layer, DepthwiseConvolution2D):
+            out = layer.compute_output_shape(
+                (None,) + tuple(layer._build_shape))
+            fwd.append(2.0 * np.prod(out[1:]) * np.prod(layer.kernel_size))
         elif isinstance(layer, Dense):
             fwd.append(2.0 * layer._build_shape[-1] * layer.output_dim)
         else:
@@ -2836,29 +2869,261 @@ def resnet_net(weights, k: int = 1, steps_per_epoch: int = RESNET_STEPS):
     """ResNet-50 with the given (params, state) (copies) on the card,
     compiled with the recipe (``imagenet_optimizer(batch_size=64)``) under
     a context with K steps a dispatch."""
-    import torch
-
-    from analytics_zoo_tpu_torch import init_zoo_context
-    from analytics_zoo_tpu_torch.common.utils import tree_map
     from analytics_zoo_tpu_torch.models import ResNet
 
-    ctx = init_zoo_context(seed=SEED, device="cuda", steps_per_dispatch=k)
-    net = ResNet.image_net(50, classes=RESNET_CLASSES,
-                           input_shape=RESNET_SHAPE)
-    net.device = ctx.device
-    net.params = tree_map(torch.clone, weights[0])
-    net.state = tree_map(torch.clone, weights[1])
-    net.compile(optimizer=ResNet.imagenet_optimizer(
-        batch_size=RESNET_BATCH, steps_per_epoch=steps_per_epoch),
-        loss="sparse_categorical_crossentropy",
-        metrics=["accuracy", "top5_accuracy"])
-    return net
+    return zoo_net(
+        lambda: ResNet.image_net(50, classes=RESNET_CLASSES,
+                                 input_shape=RESNET_SHAPE),
+        weights, ResNet.imagenet_optimizer(batch_size=RESNET_BATCH,
+                                           steps_per_epoch=steps_per_epoch),
+        k)
 
 
 def trained(net) -> dict:
     """A model's trained trees as the eager yardstick holds them."""
     return {"params": net.params, "opt": net._estimator._opt_state,
             "state": net.state}
+
+
+def param_count(net) -> int:
+    return sum(t.numel() for p in net.params.values() for t in p.values())
+
+
+def zoo_net(build, weights, optimizer, k: int = 1):
+    """``build()`` with the given (params, state) (copies) on the card,
+    compiled with ``optimizer`` under a context with K steps a dispatch."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+
+    ctx = init_zoo_context(seed=SEED, device="cuda", steps_per_dispatch=k)
+    net = build()
+    net.device = ctx.device
+    net.params = tree_map(torch.clone, weights[0])
+    net.state = tree_map(torch.clone, weights[1])
+    net.compile(optimizer=optimizer, loss="sparse_categorical_crossentropy",
+                metrics=["accuracy", "top5_accuracy"])
+    return net
+
+
+def captured_fit_check(tag, net, plan, x, y, steps, batch) -> list:
+    """``train_step`` called eagerly twice (the two runs must agree on
+    every leaf: cuDNN runs deterministic algorithms), then ``fit`` at K=1
+    (step 1 eager and captured, then replays) bit for bit the eager run:
+    losses, parameters, momentum and model state.  Returns the losses."""
+    import torch
+
+    first, l_first, eager_ms = eager_steps(net, plan, x, y, steps, batch)
+    want, l_want, eager_ms2 = eager_steps(net, plan, x, y, steps, batch)
+    drift = differing(first, want)
+    log(f"{tag}: two eager runs of {steps} steps: "
+        f"{len(named_leaves(want)) - len(drift)} of {len(named_leaves(want))} "
+        f"leaves equal, losses equal {l_first == l_want}; eager host clock "
+        f"{eager_ms:.2f} / {eager_ms2:.2f} ms a step")
+    if drift or l_first != l_want:
+        log(f"{tag}: differ at {drift[:8]}")
+        raise AssertionError(f"the eager {tag} step is not deterministic")
+    del first
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=batch, nb_epoch=1, plan=plan)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    losses = [v for _, v in net._estimator.loss_log]
+    off = differing(trained(net), want)
+    log(f"{tag}: {steps} steps through fit (K=1: step 1 eager and "
+        f"captured, then replays; {fit_ms:.0f} ms) against train_step "
+        f"eagerly: losses equal {losses == l_want} ({losses[0]:.4f} .. "
+        f"{losses[-1]:.4f}), {len(named_leaves(want)) - len(off)} of "
+        f"{len(named_leaves(want))} parameter, momentum and state leaves "
+        f"equal bit for bit{'; differ: ' + str(off[:8]) if off else ''}")
+    if losses != l_want or off:
+        raise AssertionError(f"the captured {tag} step is not the eager "
+                             "step")
+    return losses
+
+
+def train_checks(tag, make, plan, x, y, steps, batch, k, flops, peak,
+                 card_line):
+    """``make(K)``, a compiled model from one set of weights with K steps a
+    dispatch, trained for one epoch of ``steps`` batches under ``plan``:
+    ``captured_fit_check`` at K=1, a replayed step's times
+    (``replayed_step``), then K=``k`` bit for bit K=1.  Returns the K=1
+    model, its train captures dropped."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+
+    net = make(1)
+    losses = captured_fit_check(tag, net, plan, x, y, steps, batch)
+    k1 = tree_map(torch.clone, trained(net))
+    replayed_step(tag, net, plan, x, y, batch, steps, flops, peak, card_line)
+    net._estimator._steps.clear()  # the train captures and their pool
+    knet = make(k)
+    knet.fit(x, y, batch_size=batch, nb_epoch=1, plan=plan)
+    kl = [v for _, v in knet._estimator.loss_log]
+    off = differing(trained(knet), k1)
+    log(f"{tag}, K={k}: {steps} steps in {steps // k} dispatches against "
+        f"K=1: losses equal {kl == losses}, leaves differing {off[:8]}")
+    if kl != losses or off:
+        raise AssertionError(f"{tag}: K={k} is not K=1")
+    return net
+
+
+def captured_eval_check(tag, net, x, y, batch) -> None:
+    """``evaluate`` through the captured eval step (its capture, then a
+    replay) bit for bit the uncaptured per-batch step."""
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.parallel import compile_step
+
+    est = net._estimator
+    plan = est._resolve_plan()
+    eager = est._evaluate_with(
+        net.params, net.state, FeatureSet.of(x, y), batch,
+        est.compute_casts(plan, net.params),
+        step=compile_step(est.eval_step, plan, label="eval_step_eager",
+                          capture=False))
+    first = net.evaluate(x, y, batch_size=batch)  # captures
+    got = net.evaluate(x, y, batch_size=batch)    # replays
+    log(f"{tag} captured eval: {got}; the capture's {first}; uncaptured "
+        f"{eager} (equal: {got == eager == first})")
+    if not got == eager == first or not all(
+            0.0 <= got[k] <= 1.0 for k in ("accuracy", "top5_accuracy")):
+        raise AssertionError(f"the captured {tag} eval is not the eager "
+                             "one")
+
+
+def replayed_step(tag, net, plan, x, y, batch, steps, flops, peak,
+                  card_line) -> None:
+    """The host clock of a replayed epoch a step, one replay's device time
+    and the idle share, against the step's bound."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=batch, nb_epoch=1, plan=plan)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    est = net._estimator
+    dev_ms = replay_ms(graph_of(est._train_step_for(1,
+                                                    est._resolve_plan(plan))))
+    bound_ms = batch * flops[1] / peak * 1e3
+    log(f"{tag} step (batch {batch}, replayed): host clock {host_ms:.2f} "
+        f"ms, device {dev_ms:.2f} ms, idle "
+        f"{max(0.0, 1 - dev_ms / host_ms):.1%}, "
+        f"{batch / host_ms * 1e3:.1f} images/s ({batch / dev_ms * 1e3:.1f} "
+        f"on the device time); bound {bound_ms:.2f} ms ({batch} x "
+        f"{flops[1] / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s; device "
+        f"time {bound_ms / dev_ms:.1%} of it) ({card_line})")
+
+
+def serve_zoo_model(tag, net, shape, sizes, gen, flops, card_line,
+                    precisions=("f32", "bf16")) -> dict:
+    """``net`` through ``InferenceModel`` in each precision at each request
+    size, each bucket warmed up (captured): each replay bit for bit its
+    eager forward, finite rows summing to 1, bf16 within BF16_LOGIT_TOL
+    of f32 by ``logit_gap``; the host clock (median of HOST_REPEATS), device
+    time, idle share and images/s of each request beside its bound.
+    Returns the launch counts of the replayed requests, the requests and
+    the replays' outputs by (precision, size)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    models = {"f32": InferenceModel().from_keras_net(net)}
+    if "bf16" in precisions:
+        models["bf16"] = InferenceModel().from_keras_net(net).optimize(
+            "bf16")
+    t0 = time.perf_counter()
+    for im in models.values():
+        im.warmup([shape], dtype=np.float32, batch_sizes=sizes)
+    torch.cuda.synchronize()
+    log(f"{tag} serving: {len(models)} model(s) x {len(sizes)} bucket(s) "
+        f"warmed up (captured) in {time.perf_counter() - t0:.1f} s")
+    reqs = {n: gen.standard_normal((n,) + shape, dtype=np.float32)
+            for n in sizes}
+    want = {(p, n): eager_predict(im, [reqs[n]])
+            for p, im in models.items() for n in sizes}
+    torch.cuda.synchronize()
+    reset_counters()  # this model's serving path: to the read below
+    got = {(p, n): im.predict(reqs[n])
+           for p, im in models.items() for n in sizes}
+    launches = counters()  # end of this model's serving path
+    classes = int(net.compute_output_shape((None,) + shape)[-1])
+    for (p, n), out in got.items():
+        same = np.array_equal(out, want[p, n])
+        sums = float(np.abs(out.sum(-1) - 1).max())
+        log(f"{tag} serving {p}, {n} image(s): {out.shape}, replay equal to "
+            f"the eager forward bit for bit: {same}; rows sum to 1 within "
+            f"{sums:.2e}")
+        if not same or not np.isfinite(out).all() \
+                or out.shape != (n, classes) \
+                or sums > (1e-4 if p == "f32" else 1e-2):
+            raise AssertionError(f"{tag} {p} serving of {n} is wrong")
+    if "bf16" in models:
+        gaps = [logit_gap(got["bf16", n], got["f32", n]) for n in sizes]
+        diffs = [float(np.abs(got["bf16", n] - got["f32", n]).max())
+                 for n in sizes]
+        log(f"{tag} serving bf16 vs f32 at {'/'.join(map(str, sizes))} "
+            f"image(s): logit gap {', '.join(f'{g:.4f}' for g in gaps)} "
+            f"(tol {BF16_LOGIT_TOL}); max |d| "
+            f"{', '.join(f'{d:.3e}' for d in diffs)}")
+        if max(gaps) > BF16_LOGIT_TOL:
+            raise AssertionError(f"{tag} bf16 serving is too far from f32")
+    for p, im in models.items():
+        peak = PEAK_FLOPS["float32" if p == "f32" else "bfloat16"]
+        for n in sizes:
+            host = []
+            for _ in range(HOST_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                im.predict(reqs[n])
+                host.append((time.perf_counter() - t0) * 1e3)
+            key = ((reqs[n].shape, str(reqs[n].dtype)),)
+            dev = replay_ms(graph_of(im._steps[key].step))
+            med = float(np.median(host))
+            log(f"{tag} request {p}, {n} image(s): host clock "
+                f"{', '.join(f'{t:.3f}' for t in host)} ms (median "
+                f"{med:.3f}), device {dev:.3f} ms, idle "
+                f"{max(0.0, 1 - dev / med):.1%}, {n / med * 1e3:.1f} "
+                f"images/s; bound {n * flops[0] / peak * 1e3:.3f} ms "
+                f"({card_line})")
+    return launches, reqs, got
+
+
+def rates_on_a_fixed_batch(tag, net, kernel_path, x, y, batch, steps,
+                           sched_opt) -> None:
+    """``steps`` one-step fits on one batch: the loss falls, and each
+    step's rate (read back from a kernel's change and momentum trace,
+    least squares) is the schedule's on the host within RATE_TOL of the
+    peak rate."""
+    import torch
+
+    layer, leaf = kernel_path
+    peak_lr = sched_opt.learning_rate
+    rates = []
+    for i in range(steps):
+        before = net.params[layer][leaf].clone()
+        net.fit(x, y, batch_size=batch, nb_epoch=1)
+        after = net.params[layer][leaf]
+        trace = net._estimator._opt_state.trace[layer][leaf]
+        got = (-((after - before).double() * trace.double()).sum()
+               / (trace.double() ** 2).sum().clamp_min(1e-300)).item()
+        want = float(sched_opt._lr(torch.tensor(i, dtype=torch.int32)))
+        rates.append((got, want))
+    losses = [v for _, v in net._estimator.loss_log]
+    worst = max(abs(g - w) for g, w in rates) / peak_lr
+    log(f"{tag} fixed batch, {steps} steps: losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; rates applied on the card "
+        f"(from {layer}'s {leaf}) {', '.join(f'{g:.6f}' for g, _ in rates)} "
+        f"against the schedule on the host "
+        f"{', '.join(f'{w:.6f}' for _, w in rates)}: worst {worst:.2e} of "
+        f"the peak {peak_lr}")
+    if not losses[-1] < losses[0] or worst > RATE_TOL \
+            or int(net._estimator._opt_state.count) != steps:
+        raise AssertionError(f"{tag} fixed batch: the loss did not fall or "
+                             "a step's rate is not the schedule's")
 
 
 def resnet_training_phase(card_line: str, x, y, weights, flops) -> dict:
@@ -2872,11 +3137,7 @@ def resnet_training_phase(card_line: str, x, y, weights, flops) -> dict:
     ``evaluate`` (accuracy, top-5) through the captured eval step, bit for
     bit the uncaptured one.  Returns the launch counts and the trained f32
     model."""
-    import torch
-
-    from analytics_zoo_tpu_torch.common.utils import tree_map
-    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
-    from analytics_zoo_tpu_torch.parallel import compile_step, mixed_precision
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
 
     t_phase = time.perf_counter()
     reset_counters()  # the ResNet-50 training path: to the read below
@@ -2884,132 +3145,26 @@ def resnet_training_phase(card_line: str, x, y, weights, flops) -> dict:
     for tag, plan, peak in (("f32", None, PEAK_FLOPS["float32"]),
                             ("bf16", mixed_precision(),
                              PEAK_FLOPS["bfloat16"])):
-        net = resnet_net(weights)
-        first, l_first, eager_ms = eager_steps(net, plan, x, y,
-                                               RESNET_STEPS, RESNET_BATCH)
-        want, l_want, eager_ms2 = eager_steps(net, plan, x, y, RESNET_STEPS,
-                                              RESNET_BATCH)
-        drift = differing(first, want)
-        log(f"resnet50 {tag}: two eager runs of {RESNET_STEPS} steps: "
-            f"{len(named_leaves(want)) - len(drift)} of "
-            f"{len(named_leaves(want))} leaves equal, losses equal "
-            f"{l_first == l_want}; eager host clock {eager_ms:.2f} / "
-            f"{eager_ms2:.2f} ms a step")
-        if drift or l_first != l_want:
-            log(f"resnet50 {tag}: differ at {drift[:8]}")
-            raise AssertionError(f"the eager ResNet-50 {tag} step is not "
-                                 "deterministic")
-        del first
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=1, plan=plan)
-        torch.cuda.synchronize()
-        first_fit_ms = (time.perf_counter() - t0) * 1e3
-        losses = [v for _, v in net._estimator.loss_log]
-        off = differing(trained(net), want)
-        log(f"resnet50 {tag}: {RESNET_STEPS} steps through fit (K=1: step "
-            f"1 eager and captured, then replays; {first_fit_ms:.0f} ms) "
-            f"against train_step eagerly: losses equal {losses == l_want} "
-            f"({losses[0]:.4f} .. {losses[-1]:.4f}), "
-            f"{len(named_leaves(want)) - len(off)} of "
-            f"{len(named_leaves(want))} parameter, momentum and BatchNorm "
-            f"leaves equal bit for bit"
-            f"{'; differ: ' + str(off[:8]) if off else ''}")
-        if losses != l_want or off:
-            raise AssertionError(f"the captured ResNet-50 {tag} step is not "
-                                 "the eager step")
-        k1 = tree_map(torch.clone, trained(net))
-        del want
-        # the host clock of a replayed epoch, and a replay's device time
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=1, plan=plan)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / RESNET_STEPS
-        est = net._estimator
-        step = est._train_step_for(1, est._resolve_plan(plan))
-        dev_ms = replay_ms(graph_of(step))
-        bound_ms = RESNET_BATCH * flops[1] / peak * 1e3
-        log(f"resnet50 {tag} step (batch {RESNET_BATCH}, replayed): host "
-            f"clock {host_ms:.2f} ms, device {dev_ms:.2f} ms, idle "
-            f"{max(0.0, 1 - dev_ms / host_ms):.1%}, "
-            f"{RESNET_BATCH / host_ms * 1e3:.1f} images/s "
-            f"({RESNET_BATCH / dev_ms * 1e3:.1f} on the device time); "
-            f"eager {eager_ms2:.2f} ms; bound {bound_ms:.2f} ms "
-            f"({RESNET_BATCH} x {flops[1] / 1e9:.2f} GFLOP at "
-            f"{peak / 1e12:.0f} TFLOP/s; device time {bound_ms / dev_ms:.1%}"
-            f" of it) ({card_line})")
-        est._steps.clear()  # the train captures and their graph pool
+        net = train_checks(f"resnet50 {tag}",
+                           lambda k: resnet_net(weights, k), plan, x, y,
+                           RESNET_STEPS, RESNET_BATCH, RESNET_K, flops, peak,
+                           card_line)
         if tag == "f32":
             served = net
-        del net, est, step
-        # K=4: two dispatches of four steps, bit for bit K=1
-        knet = resnet_net(weights, RESNET_K)
-        knet.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=1, plan=plan)
-        kl = [v for _, v in knet._estimator.loss_log]
-        off = differing(trained(knet), k1)
-        log(f"resnet50 {tag}, K={RESNET_K}: {RESNET_STEPS} steps in "
-            f"{RESNET_STEPS // RESNET_K} dispatches against K=1: losses "
-            f"equal {kl == losses}, leaves differing {off[:8]}")
-        if kl != losses or off:
-            raise AssertionError(f"ResNet-50 {tag}: K={RESNET_K} is not K=1")
-        del knet, k1
+        del net
         free_device_memory(f"after resnet50 {tag}")
 
     # a fixed batch: the loss falls; each step's rate against the host's
     from analytics_zoo_tpu_torch.models import ResNet
 
     fixed = resnet_net(weights, steps_per_epoch=1)
-    sched_opt = ResNet.imagenet_optimizer(batch_size=RESNET_BATCH,
-                                          steps_per_epoch=1)
-    peak_lr = sched_opt.learning_rate
-    xf, yf = x[:RESNET_BATCH], y[:RESNET_BATCH]
-    rates = []
-    for i in range(FIXED_STEPS):
-        before = (fixed.params["fc"]["kernel"].clone()
-                  if i else weights[0]["fc"]["kernel"].clone())
-        fixed.fit(xf, yf, batch_size=RESNET_BATCH, nb_epoch=1)
-        after = fixed.params["fc"]["kernel"]
-        trace = fixed._estimator._opt_state.trace["fc"]["kernel"]
-        got = (-((after - before).double() * trace.double()).sum()
-               / (trace.double() ** 2).sum().clamp_min(1e-300)).item()
-        want = float(sched_opt._lr(torch.tensor(i, dtype=torch.int32)))
-        rates.append((got, want))
-    fl = [v for _, v in fixed._estimator.loss_log]
-    worst = max(abs(g - w) for g, w in rates) / peak_lr
-    log(f"resnet50 fixed batch, {FIXED_STEPS} steps (warmup of 5): losses "
-        f"{', '.join(f'{v:.4f}' for v in fl)}; rates applied on the card "
-        f"(from the fc kernel's change and momentum) "
-        f"{', '.join(f'{g:.6f}' for g, _ in rates)} against the schedule "
-        f"on the host {', '.join(f'{w:.6f}' for _, w in rates)}: worst "
-        f"{worst:.2e} of the peak {peak_lr}")
-    if not fl[-1] < fl[0] or worst > RATE_TOL \
-            or int(fixed._estimator._opt_state.count) != FIXED_STEPS:
-        raise AssertionError("ResNet-50 fixed batch: the loss did not fall "
-                             "or a step's rate is not the schedule's")
+    rates_on_a_fixed_batch(
+        "resnet50", fixed, ("fc", "kernel"), x[:RESNET_BATCH],
+        y[:RESNET_BATCH], RESNET_BATCH, FIXED_STEPS,
+        ResNet.imagenet_optimizer(batch_size=RESNET_BATCH, steps_per_epoch=1))
     del fixed
 
-    # evaluate through the captured eval step, against the uncaptured one
-    est = served._estimator
-    plan = est._resolve_plan()
-    fs = FeatureSet.of(x, y)
-    eager = est._evaluate_with(
-        served.params, served.state, fs, RESNET_BATCH,
-        est.compute_casts(plan, served.params),
-        step=compile_step(est.eval_step, plan, label="eval_step_eager",
-                          capture=False))
-    first = served.evaluate(x, y, batch_size=RESNET_BATCH)  # captures
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = served.evaluate(x, y, batch_size=RESNET_BATCH)  # replays
-    ms = (time.perf_counter() - t0) * 1e3
-    log(f"resnet50 captured eval: {got} in {ms:.1f} ms over "
-        f"{len(y)} images; the capture's {first}; uncaptured {eager} "
-        f"(equal: {got == eager == first})")
-    if not got == eager == first or not all(
-            0.0 <= got[k] <= 1.0 for k in ("accuracy", "top5_accuracy")):
-        raise AssertionError("the captured ResNet-50 eval is not the eager "
-                             "one")
+    captured_eval_check("resnet50", served, x, y, RESNET_BATCH)
     launches = counters()  # end of the ResNet-50 training path
     log(f"resnet50 training launches {launches} (SGD, cuDNN and plain "
         f"torch: no kernel of the table); phase resnet50_training: "
@@ -3020,16 +3175,15 @@ def resnet_training_phase(card_line: str, x, y, weights, flops) -> dict:
 def resnet_serving_phase(card_line: str, net, initial, gen,
                          flops) -> dict:
     """The trained ResNet-50 served by ``InferenceModel`` in f32 and bf16
-    at 1, 8 and 32 images a request, each bucket warmed up (captured):
-    each replay bit for bit its eager forward, finite rows summing to 1,
-    bf16 within RESNET_BF16_SERVE_TOL of f32 and within
-    RESNET_BF16_LOGIT_TOL of it by ``logit_gap``; the same gaps of the
-    untrained model (``initial``: (params, state)) on the same requests,
-    eagerly; the host clock (median of 5), device time, idle share and
-    images/s of each request, with its bound.  The served model's moving
-    statistics are first set to one batch's (``recalibrate_batchnorm``): a
-    few steps leave them near (0, 1), under which 53 layers saturate the
-    softmax, and a served ResNet holds converged ones."""
+    at 1, 8 and 32 images a request (``serve_zoo_model``: each replay bit
+    for bit its eager forward, bf16 within BF16_LOGIT_TOL of f32 by
+    ``logit_gap``, each request's times), bf16 also within
+    RESNET_BF16_SERVE_TOL of f32 on the largest probability difference;
+    the same gaps of the untrained model (``initial``: (params, state)) on
+    the same requests, eagerly.  The served model's moving statistics are
+    first set to one batch's (``recalibrate_batchnorm``): a few steps
+    leave them near (0, 1), under which 53 layers saturate the softmax,
+    and a served ResNet holds converged ones."""
     import torch
 
     from analytics_zoo_tpu_torch.common.utils import tree_map
@@ -3043,35 +3197,10 @@ def resnet_serving_phase(card_line: str, net, initial, gen,
     calib = gen.standard_normal((RESNET_BATCH,) + RESNET_SHAPE,
                                 dtype=np.float32)
     recalibrate_batchnorm(net, calib)
-    models = {"f32": InferenceModel().from_keras_net(net),
-              "bf16": InferenceModel().from_keras_net(net).optimize("bf16")}
-    t0 = time.perf_counter()
-    for im in models.values():
-        im.warmup([RESNET_SHAPE], dtype=np.float32,
-                  batch_sizes=RESNET_REQUESTS)
-    torch.cuda.synchronize()
-    log(f"resnet50 serving: {len(models)} models x {len(RESNET_REQUESTS)} "
-        f"buckets warmed up (captured) in {time.perf_counter() - t0:.1f} "
-        f"s; memory reserved {torch.cuda.memory_reserved()} B")
-    reqs = {n: gen.standard_normal((n,) + RESNET_SHAPE, dtype=np.float32)
-            for n in RESNET_REQUESTS}
-    want = {(tag, n): eager_predict(im, [reqs[n]])
-            for tag, im in models.items() for n in RESNET_REQUESTS}
-    torch.cuda.synchronize()
-    reset_counters()  # the ResNet-50 serving path: to the read below
-    got = {(tag, n): im.predict(reqs[n])
-           for tag, im in models.items() for n in RESNET_REQUESTS}
-    launches = counters()  # end of the ResNet-50 serving path
-    for (tag, n), out in got.items():
-        same = np.array_equal(out, want[tag, n])
-        sums = float(np.abs(out.sum(-1) - 1).max())
-        log(f"resnet50 serving {tag}, {n} image(s): {out.shape}, replay "
-            f"equal to the eager forward bit for bit: {same}; rows sum to "
-            f"1 within {sums:.2e}")
-        if not same or not np.isfinite(out).all() or out.shape != (
-                n, RESNET_CLASSES) or sums > (1e-4 if tag == "f32"
-                                              else 1e-2):
-            raise AssertionError(f"ResNet-50 {tag} serving of {n} is wrong")
+    launches, reqs, got = serve_zoo_model(
+        "resnet50", net, RESNET_SHAPE, RESNET_REQUESTS, gen, flops,
+        card_line)
+
     def gaps(out):
         """(max |d|, logit_gap, top-1 agreement, largest f32 probability)
         of bf16 against f32 at each request size."""
@@ -3102,30 +3231,12 @@ def resnet_serving_phase(card_line: str, net, initial, gen,
             f"{', '.join(f'{v[0]:.3e}' for v in g.values())} (tol "
             f"{RESNET_BF16_SERVE_TOL}); logit gap "
             f"{', '.join(f'{v[1]:.4f}' for v in g.values())} (tol "
-            f"{RESNET_BF16_LOGIT_TOL}); top-1 agreement "
+            f"{BF16_LOGIT_TOL}); top-1 agreement "
             f"{', '.join(f'{v[2]:.3f}' for v in g.values())}; largest f32 "
             f"probability {', '.join(f'{v[3]:.4f}' for v in g.values())}")
     if max(v[0] for v in served.values()) > RESNET_BF16_SERVE_TOL \
-            or max(v[1] for v in served.values()) > RESNET_BF16_LOGIT_TOL:
+            or max(v[1] for v in served.values()) > BF16_LOGIT_TOL:
         raise AssertionError("ResNet-50 bf16 serving is too far from f32")
-    for tag, im in models.items():
-        peak = PEAK_FLOPS["float32" if tag == "f32" else "bfloat16"]
-        for n in RESNET_REQUESTS:
-            host = []
-            for _ in range(HOST_REPEATS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                im.predict(reqs[n])
-                host.append((time.perf_counter() - t0) * 1e3)
-            key = ((reqs[n].shape, str(reqs[n].dtype)),)
-            dev = replay_ms(graph_of(im._steps[key].step))
-            med = float(np.median(host))
-            bound_ms = n * flops[0] / peak * 1e3
-            log(f"resnet50 request {tag}, {n} image(s): host clock "
-                f"{', '.join(f'{t:.3f}' for t in host)} ms (median "
-                f"{med:.3f}), device {dev:.3f} ms, idle "
-                f"{max(0.0, 1 - dev / med):.1%}, {n / med * 1e3:.1f} "
-                f"images/s; bound {bound_ms:.3f} ms ({card_line})")
     log(f"resnet50 serving launches {launches}; phase resnet50_serving: "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -3152,8 +3263,8 @@ def resnet50_phases(card_line: str) -> tuple[dict, dict]:
     n = RESNET_BATCH * RESNET_STEPS
     x = gen.standard_normal((n,) + RESNET_SHAPE, dtype=np.float32)
     y = gen.integers(0, RESNET_CLASSES, n).astype(np.int32)
-    log(f"resnet50: {sum(t.numel() for p in net.params.values() for t in p.values())} "
-        f"parameters, {flops[0] / 1e9:.2f} GFLOP an image forward, "
+    log(f"resnet50: {param_count(net)} parameters, "
+        f"{flops[0] / 1e9:.2f} GFLOP an image forward, "
         f"{flops[1] / 1e9:.2f} a training step's image; {n} images of "
         f"{RESNET_SHAPE} ({x.nbytes} B, {x.nbytes // RESNET_STEPS} a batch)")
     training, served = resnet_training_phase(card_line, x, y, weights,
@@ -3163,6 +3274,337 @@ def resnet50_phases(card_line: str) -> tuple[dict, dict]:
     serving = resnet_serving_phase(card_line, served, weights, gen, flops)
     free_device_memory("after resnet50 serving")
     return training, serving
+
+
+# ---------------------------------------------------------------------------
+# The ImageNet zoo at full width, random weights from the seed, synthetic
+# images.  Inception-v1 (224x224x3, 1000 classes) with the reference's
+# recipe (examples/inception/train.py: SGD 0.065, momentum 0.9, weight
+# decay 1e-4, linear warmup over 2 epochs, then 0.1 at epochs 30 and 60)
+# at batch 128, INCEPTION_STEPS steps a fit (the synthetic set's epoch);
+# the fixed-batch run takes FIXED_STEPS steps with an epoch of
+# INCEPTION_FIXED_EPOCH steps (a warmup over 2 * that)
+INCEPTION_BATCH, INCEPTION_STEPS, INCEPTION_K = 128, 8, 4
+INCEPTION_FIXED_EPOCH = 4
+ZOO_SHAPE, ZOO_CLASSES = (224, 224, 3), 1000
+ZOO_REQUESTS = (1, 8, 32)
+# the port twin of the reference's test_trains_on_tiny_task: Inception-v1
+# at 64x64x3, 2 classes, "adam", 8 epochs of 32 images at batch 8
+ADAM_TWIN_N, ADAM_TWIN_BATCH, ADAM_TWIN_EPOCHS, ADAM_TWIN_ACC = 32, 8, 8, 0.8
+# MobileNet-v2 (224x224x3, 1000 classes): MOBILENET_STEPS steps at batch 64
+MOBILENET_BATCH, MOBILENET_STEPS = 64, 4
+# the other builders: one replayed 8-image f32 request each
+ZOO_REQUEST = 8
+
+
+def zoo_builders() -> list:
+    """(name, builder, input shape) of the zoo's other full-width models."""
+    from analytics_zoo_tpu_torch.models import imagenet_zoo as z
+    from analytics_zoo_tpu_torch.models import inception_v3
+
+    return [("alexnet", z.alexnet, (227, 227, 3)),
+            ("vgg16", lambda: z.vgg(16), ZOO_SHAPE),
+            ("vgg19", lambda: z.vgg(19), ZOO_SHAPE),
+            ("squeezenet", z.squeezenet, ZOO_SHAPE),
+            ("densenet121", lambda: z.densenet(121), ZOO_SHAPE),
+            ("densenet161", lambda: z.densenet(161), ZOO_SHAPE),
+            ("mobilenet", z.mobilenet, ZOO_SHAPE),
+            ("inception_v3", inception_v3, (299, 299, 3))]
+
+
+def inception_optimizer(steps_per_epoch: int):
+    """The reference's Inception-v1 recipe (examples/inception/train.py)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
+        SGD,
+        warmup_epoch_decay,
+    )
+
+    sched = warmup_epoch_decay(warmup_steps=2 * steps_per_epoch,
+                               steps_per_epoch=steps_per_epoch,
+                               boundaries_epochs=(30, 60), decay=0.1)
+    return SGD(lr=0.065, momentum=0.9, weight_decay=1e-4, schedule=sched)
+
+
+def inception_phases(card_line: str) -> tuple[dict, dict, list]:
+    """Inception-v1 (``Inception.v1(classes=1000)``, 224x224x3) trained
+    with the reference's recipe at batch 128 in f32 and bf16
+    (``mixed_precision()``): ``fit`` at K=1 bit for bit ``train_step``
+    called eagerly, K=4 bit for bit K=1, a replayed step's host clock,
+    device time, idle share and bound; on a fixed batch the loss falls and
+    each rate is the schedule's; ``evaluate`` through the captured eval
+    step, bit for bit the uncaptured one.  Then the trained f32 model
+    served at 1, 8 and 32 images in f32 and bf16.  Returns the training
+    and serving paths' launch counts and the model's leaf shapes."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models import Inception
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
+
+    t_phase = time.perf_counter()
+    free_device_memory("before inception_v1")
+    torch.cuda.reset_peak_memory_stats()
+    init_zoo_context(seed=SEED, device="cuda")
+    net = Inception.v1(classes=ZOO_CLASSES, input_shape=ZOO_SHAPE)
+    net.build_params()
+    weights = (net.params, net.state)
+    shapes = [tuple(t.shape) for p in net.params.values() for t in p.values()]
+    flops = conv_flops(net)
+    gen = np.random.default_rng(SEED + 40)
+    n = INCEPTION_BATCH * INCEPTION_STEPS
+    x = gen.standard_normal((n,) + ZOO_SHAPE, dtype=np.float32)
+    y = gen.integers(0, ZOO_CLASSES, n).astype(np.int32)
+    log(f"inception_v1: {param_count(net)} parameters in {len(shapes)} "
+        f"leaves, {flops[0] / 1e9:.2f} GFLOP an image forward, "
+        f"{flops[1] / 1e9:.2f} a training step's image; {n} images of "
+        f"{ZOO_SHAPE}")
+
+    def build():
+        return Inception.v1(classes=ZOO_CLASSES, input_shape=ZOO_SHAPE)
+
+    reset_counters()  # the Inception-v1 training path: to the read below
+    served = None
+    for tag, plan, peak in (("f32", None, PEAK_FLOPS["float32"]),
+                            ("bf16", mixed_precision(),
+                             PEAK_FLOPS["bfloat16"])):
+        net = train_checks(
+            f"inception_v1 {tag}",
+            lambda k: zoo_net(build, weights,
+                              inception_optimizer(INCEPTION_STEPS), k),
+            plan, x, y, INCEPTION_STEPS, INCEPTION_BATCH, INCEPTION_K, flops,
+            peak, card_line)
+        if tag == "f32":
+            served = net
+        del net
+        free_device_memory(f"after inception_v1 {tag}")
+
+    fixed = zoo_net(build, weights, inception_optimizer(INCEPTION_FIXED_EPOCH))
+    rates_on_a_fixed_batch(
+        "inception_v1", fixed, ("loss3/classifier", "kernel"),
+        x[:INCEPTION_BATCH], y[:INCEPTION_BATCH], INCEPTION_BATCH,
+        FIXED_STEPS, inception_optimizer(INCEPTION_FIXED_EPOCH))
+    del fixed
+
+    captured_eval_check("inception_v1", served, x, y, INCEPTION_BATCH)
+    training = counters()  # end of the Inception-v1 training path
+    served._estimator._steps.clear()
+    free_device_memory("after inception_v1 training")
+    log(f"inception_v1 training launches {training} (SGD, cuDNN and plain "
+        f"torch: no kernel of the table); phase inception_v1_training: "
+        f"{time.perf_counter() - t_phase:.1f} s; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    t_phase = time.perf_counter()
+    serving = serve_zoo_model("inception_v1", served, ZOO_SHAPE,
+                              ZOO_REQUESTS, gen, flops, card_line)[0]
+    del served
+    free_device_memory("after inception_v1 serving")
+    log(f"inception_v1 serving launches {serving}; phase "
+        f"inception_v1_serving: {time.perf_counter() - t_phase:.1f} s")
+    return training, serving, shapes
+
+
+def inception_adam_phase(card_line: str, shapes) -> tuple[dict, float]:
+    """The port twin of the reference's ``test_trains_on_tiny_task``:
+    Inception-v1 at 64x64x3, 2 classes, no dropout, ``"adam"`` at batch 8
+    for 8 epochs of 32 images (channel 0 lifted by the label): the
+    training accuracy passes 0.8, with one fused Adam launch a step over
+    every kernel leaf.  Then ``adam_parity`` at the full-width model's
+    leaf shapes (``shapes``).  Returns the fit's launch counts and the
+    kernel's largest relative error there."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models import Inception
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+
+    t_phase = time.perf_counter()
+    init_zoo_context(seed=0, device="cuda")
+    net = Inception.v1(classes=2, input_shape=(64, 64, 3), has_dropout=False)
+    rng = np.random.default_rng(0)
+    n = ADAM_TWIN_N
+    x = np.zeros((n, 64, 64, 3), np.float32)
+    y = rng.integers(0, 2, size=(n,)).astype(np.int32)
+    x[np.arange(n), :, :, 0] += y[:, None, None] * 1.0
+    net.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                metrics=["accuracy"])
+    reset_counters()  # the Inception-v1 Adam path: to the read below
+    net.fit(x, y, batch_size=ADAM_TWIN_BATCH, nb_epoch=ADAM_TWIN_EPOCHS)
+    counted = counters()  # end of the Inception-v1 Adam path
+    leaves = fad.leaf_count
+    res = net.evaluate(x, y, batch_size=ADAM_TWIN_BATCH)
+    steps = net._estimator.global_step
+    kernel_leaves = sum(t.numel() >= fad.MIN_KERNEL_LEAF
+                        for p in net.params.values() for t in p.values())
+    losses = [v for _, v in net._estimator.loss_log]
+    log(f"inception_v1 adam (64x64x3, 2 classes): {steps} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {res} (> {ADAM_TWIN_ACC}); "
+        f"launches {counted}, fused Adam leaves {leaves} ({kernel_leaves} "
+        f"kernel leaves a step)")
+    expected = dict({k: 0 for k in counted}, fused_adam=steps)
+    if res["accuracy"] <= ADAM_TWIN_ACC or counted != expected \
+            or leaves != kernel_leaves * steps:
+        raise AssertionError(f"inception_v1 adam: {res}, launches {counted} "
+                             f"(expected {expected}), leaves {leaves}")
+    err = adam_parity(torch.device("cuda"), shapes,
+                      "Inception-v1 at full width")[3]
+    log(f"phase inception_v1_adam: {time.perf_counter() - t_phase:.1f} s")
+    return counted, err
+
+
+def depthwise_times(net, batch: int, card_line: str) -> None:
+    """Device time of each distinct depthwise layer of ``net`` at
+    ``batch``: its convolution (``F.conv2d``, ``groups=in``) and that
+    convolution's backward (``aten.convolution_backward``: the input and
+    kernel gradients), each replayed from a CUDA graph (``graph_ms``; cuDNN
+    deterministic, as every run of the port), and their sums over the
+    layers."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        DepthwiseConvolution2D,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
+        pad_same,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    seen: dict = {}
+    for layer in net.layers:
+        if isinstance(layer, DepthwiseConvolution2D):
+            key = (tuple(layer._build_shape), layer.subsample)
+            seen.setdefault(key, [layer, 0])[1] += 1
+    total_f = total_b = 0.0
+    for (shape, stride), (layer, count) in seen.items():
+        h, w, c = shape
+        x = pad_same(torch.randn((batch, c, h, w), generator=gen,
+                                 device=dev), layer.kernel_size, stride)
+        x = x.contiguous(memory_format=torch.channels_last)
+        k = net.params[layer.name]["depthwise_kernel"].permute(3, 2, 0, 1)
+        y = F.conv2d(x, k, stride=stride, groups=c)
+        g = torch.randn(y.shape, generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last)
+
+        def fwd():
+            return F.conv2d(x, k, stride=stride, groups=c)
+
+        def bwd():
+            return torch.ops.aten.convolution_backward(
+                g, x, k, None, list(stride), [0, 0], [1, 1], False, [0, 0],
+                c, [True, True, False])
+
+        f, b = graph_ms(fwd), graph_ms(bwd)
+        total_f += f * count
+        total_b += b * count
+        log(f"mobilenet_v2 depthwise {shape} stride {stride} x{count}: "
+            f"forward {f:.3f} ms, backward {b:.3f} ms at batch {batch}")
+    log(f"mobilenet_v2 depthwise, all {sum(c for _, c in seen.values())} "
+        f"layers at batch {batch}: forward {total_f:.2f} ms, backward "
+        f"{total_b:.2f} ms of device time (cuDNN deterministic; "
+        f"{card_line})")
+
+
+def mobilenet_v2_phases(card_line: str) -> tuple[dict, dict]:
+    """MobileNet-v2 (``mobilenet_v2()``, 224x224x3, 1000 classes): 4
+    steps of ``fit`` in f32 at batch 64 (SGD, momentum 0.9) bit for bit
+    ``train_step`` called eagerly, a replayed step's times, the depthwise
+    layers' forward and backward times; then served (moving statistics
+    set to one batch's) at 1, 8 and 32 images in f32 and bf16.  Returns
+    the training and serving paths' launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models.imagenet_zoo import mobilenet_v2
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        recalibrate_batchnorm,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    init_zoo_context(seed=SEED, device="cuda")
+    net = mobilenet_v2()
+    net.build_params()
+    weights = (net.params, net.state)
+    flops = conv_flops(net)
+    gen = np.random.default_rng(SEED + 50)
+    n = MOBILENET_BATCH * MOBILENET_STEPS
+    x = gen.standard_normal((n,) + ZOO_SHAPE, dtype=np.float32)
+    y = gen.integers(0, ZOO_CLASSES, n).astype(np.int32)
+    log(f"mobilenet_v2: {param_count(net)} parameters, "
+        f"{flops[0] / 1e9:.3f} GFLOP an image forward, {flops[1] / 1e9:.3f} "
+        f"a training image")
+
+    def sgd():
+        return SGD(lr=0.045, momentum=0.9, weight_decay=4e-5)
+
+    reset_counters()  # the MobileNet-v2 training path: to the read below
+    tnet = zoo_net(mobilenet_v2, weights, sgd())
+    captured_fit_check("mobilenet_v2 f32", tnet, None, x, y,
+                       MOBILENET_STEPS, MOBILENET_BATCH)
+    replayed_step("mobilenet_v2 f32", tnet, None, x, y, MOBILENET_BATCH,
+                  MOBILENET_STEPS, flops, PEAK_FLOPS["float32"], card_line)
+    training = counters()  # end of the MobileNet-v2 training path
+    depthwise_times(tnet, MOBILENET_BATCH, card_line)
+    tnet._estimator._steps.clear()
+    del tnet
+    free_device_memory("after mobilenet_v2 training")
+    log(f"mobilenet_v2 training launches {training}; phase "
+        f"mobilenet_v2_training: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    recalibrate_batchnorm(net, gen.standard_normal(
+        (MOBILENET_BATCH,) + ZOO_SHAPE, dtype=np.float32))
+    serving = serve_zoo_model("mobilenet_v2", net, ZOO_SHAPE, ZOO_REQUESTS,
+                              gen, flops, card_line)[0]
+    del net
+    free_device_memory("after mobilenet_v2 serving")
+    log(f"mobilenet_v2 serving launches {serving}; phase "
+        f"mobilenet_v2_serving: {time.perf_counter() - t_phase:.1f} s; peak "
+        f"memory allocated {torch.cuda.max_memory_allocated()} B")
+    return training, serving
+
+
+def zoo_serving_phase(card_line: str) -> dict:
+    """The other builders at full width (``zoo_builders``), random weights
+    from the seed (moving statistics set to one batch's): each serves one
+    replayed ZOO_REQUEST-image f32 request, bit for bit its eager forward,
+    finite rows summing to 1.  Logs each model's parameter count, request
+    time and peak memory.  Returns the path's launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        recalibrate_batchnorm,
+    )
+
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(SEED + 60)
+    total = {k: 0 for k in counters()}
+    for name, build, shape in zoo_builders():
+        t0 = time.perf_counter()
+        free_device_memory(f"before {name}")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        init_zoo_context(seed=SEED, device="cuda")
+        net = build()
+        net.build_params()
+        if net.state:
+            recalibrate_batchnorm(net, gen.standard_normal(
+                (ZOO_REQUEST,) + shape, dtype=np.float32))
+        flops = conv_flops(net)
+        launches = serve_zoo_model(name, net, shape, (ZOO_REQUEST,), gen,
+                                   flops, card_line, precisions=("f32",))[0]
+        total = {k: total[k] + launches[k] for k in total}
+        log(f"{name} ({shape}): {param_count(net)} parameters, "
+            f"{flops[0] / 1e9:.2f} GFLOP an image forward; peak memory "
+            f"allocated {torch.cuda.max_memory_allocated() - held} B above "
+            f"the {held} B held before it; {time.perf_counter() - t0:.1f} s")
+        del net
+    free_device_memory("after the zoo")
+    log(f"zoo serving launches {total}; phase zoo_serving: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def main() -> int:
@@ -3200,6 +3642,11 @@ def main() -> int:
     lenet, lenet_err = lenet_phase(card_line)
     adam["max_abs_err"] = max(adam["max_abs_err"], lenet_err)
     resnet_training, resnet_serving = resnet50_phases(card_line)
+    inc_training, inc_serving, inc_shapes = inception_phases(card_line)
+    inc_adam, inc_err = inception_adam_phase(card_line, inc_shapes)
+    adam["max_abs_err"] = max(adam["max_abs_err"], inc_err)
+    mnv2_training, mnv2_serving = mobilenet_v2_phases(card_line)
+    zoo_serving = zoo_serving_phase(card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -3216,7 +3663,13 @@ def main() -> int:
                  "eval_captured": eval_captured.get(name, 0),
                  "training_lenet": lenet.get(name, 0),
                  "resnet50_training": resnet_training.get(name, 0),
-                 "resnet50_serving": resnet_serving.get(name, 0)}
+                 "resnet50_serving": resnet_serving.get(name, 0),
+                 "inception_v1_training": inc_training.get(name, 0),
+                 "inception_v1_serving": inc_serving.get(name, 0),
+                 "inception_v1_adam": inc_adam.get(name, 0),
+                 "mobilenet_v2_training": mnv2_training.get(name, 0),
+                 "mobilenet_v2_serving": mnv2_serving.get(name, 0),
+                 "zoo_serving": zoo_serving.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},

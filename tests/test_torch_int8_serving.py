@@ -369,7 +369,8 @@ def test_from_keras_net_resets():
 
 
 def test_conv_target_raises(monkeypatch):
-    """Calibrated conv layers wait for the conv layers (queue 1 item 3)."""
+    """Calibrated conv layers raise: ``_int8_conv`` waits for its slice
+    (queue 1 item 8)."""
     from analytics_zoo_tpu_torch.pipeline.api.keras import Layer, Sequential
 
     class Conv(Layer):
@@ -388,5 +389,5 @@ def test_conv_target_raises(monkeypatch):
     m = Sequential()
     m.add(Conv(input_shape=(16,), name="conv_0"))
     m.build_params(rng=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tq.quantize_model(m, _mlp_x(8)[:, :16])
