@@ -6,11 +6,15 @@ port's tree of tensors on a device.  A quantized leaf comes as the JAX
 package's ``QuantizedTensor`` (anything with ``values``, ``scale`` and
 ``axis``) or as a ``(values, scale, axis)`` triple, and becomes the port's
 ``QuantizedTensor``.  ``opt_state_from_jax`` carries optax's
-Adam state (``ScaleByAdamState``: count, mu, nu) into the port's
+state of each optimizer of the reference's table into the port's: Adam's,
+AdamW's and Adamax's ``ScaleByAdamState`` (count, mu, nu) into
 :class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.AdamState`,
-and optax's SGD state (the empty ``add_decayed_weights`` state, the
-momentum ``TraceState`` and the schedule's ``ScaleByScheduleState``) into
-its :class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.SGDState`.
+SGD's (the empty ``add_decayed_weights`` state, the momentum
+``TraceState`` and the schedule's ``ScaleByScheduleState``) into
+``SGDState``, and RMSprop's ``ScaleByRmsState``, Adagrad's
+``ScaleByRssState`` and Adadelta's ``ScaleByAdaDeltaState``, each with the
+schedule's count, into ``RMSpropState``, ``AdagradState`` and
+``AdadeltaState``.
 The JAX package is never imported: the caller hands over plain arrays.
 
 Every layer of the port keeps the reference's parameter names, shapes and
@@ -28,7 +32,10 @@ import torch
 
 from analytics_zoo_tpu_torch.common.engine import resolve_device
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
+    AdadeltaState,
+    AdagradState,
     AdamState,
+    RMSpropState,
     SGDState,
 )
 from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
@@ -91,32 +98,48 @@ def _stages(state) -> list:
 
 
 def opt_state_from_jax(state, device=None):
-    """The port's optimizer state for an optax state.
+    """The port's optimizer state for an optax state (a stage or the
+    nested tuple a chain's ``init`` returns), by the fields its stages
+    hold.
 
-    Adam: a ``ScaleByAdamState`` (anything with ``count``, ``mu`` and
-    ``nu``), or the tuple ``optax.adam(...).init`` returns, whose first
-    such element is taken (the learning-rate stage after it holds no
-    arrays the port keeps: its count equals the Adam count); an
-    ``AdamState``.  SGD: the (nested) tuple ``optax.chain(
-    add_decayed_weights, sgd)`` gives, its ``trace`` (absent without
-    momentum) and its schedule's ``count`` (absent for a constant rate:
-    then 0); an ``SGDState``."""
+    ``mu`` (a ``ScaleByAdamState``: Adam, AdamW, Adamax): an
+    ``AdamState`` with that stage's count (a learning-rate stage after it
+    counts the same steps).  ``sum_of_squares`` (Adagrad), ``e_g`` and
+    ``e_x`` (Adadelta) or ``nu`` alone (RMSprop): an ``AdagradState``,
+    ``AdadeltaState`` or ``RMSpropState``.  Otherwise SGD's ``trace``
+    (absent without momentum): an ``SGDState``.  Where no stage holds a
+    count (a constant rate), the count is 0."""
     dev = resolve_device(device)
     stages = _stages(state)
-    adam = next((s for s in stages if _has(s, "mu")), None)
-    if adam is None:
-        traces = [s for s in stages if _has(s, "trace")]
-        counts = [s for s in stages if _has(s, "count")]
-        if not traces and not counts:
-            raise ValueError(
-                "no Adam (count, mu, nu) or SGD (trace, count) state in the "
-                "given optimizer state (a constant-rate SGD without momentum "
-                "keeps no arrays: take the port optimizer's init)")
-        count = int(np.asarray(counts[0].count)) if counts else 0
-        return SGDState(
-            count=torch.tensor(count, dtype=torch.int32, device=dev),
-            trace=params_from_jax(traces[0].trace, dev) if traces else ())
-    return AdamState(
-        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
-                           device=dev),
-        mu=params_from_jax(adam.mu, dev), nu=params_from_jax(adam.nu, dev))
+
+    def stage(name):
+        return next((s for s in stages if _has(s, name)), None)
+
+    def tree(x):
+        return params_from_jax(x, dev)
+
+    counts = [s for s in stages if _has(s, "count")]
+    adam = stage("mu")
+    if adam is not None:
+        counts = [adam]
+    count = torch.tensor(int(np.asarray(counts[0].count)) if counts else 0,
+                         dtype=torch.int32, device=dev)
+    if adam is not None:
+        return AdamState(count=count, mu=tree(adam.mu), nu=tree(adam.nu))
+    if stage("sum_of_squares") is not None:
+        return AdagradState(count, tree(stage("sum_of_squares")
+                                        .sum_of_squares))
+    if stage("e_g") is not None:
+        s = stage("e_g")
+        return AdadeltaState(count, tree(s.e_g), tree(s.e_x))
+    if stage("nu") is not None:
+        return RMSpropState(count, tree(stage("nu").nu))
+    traces = [s for s in stages if _has(s, "trace")]
+    if not traces and not counts:
+        raise ValueError(
+            "no Adam (count, mu, nu), RMSprop, Adagrad, Adadelta or SGD "
+            "(trace, count) state in the given optimizer state (a "
+            "constant-rate SGD without momentum keeps no arrays: take the "
+            "port optimizer's init)")
+    return SGDState(count=count,
+                    trace=tree(traces[0].trace) if traces else ())

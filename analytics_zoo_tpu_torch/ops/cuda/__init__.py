@@ -34,6 +34,7 @@ _COUNTERS = {
     "softmax_xent_bwd": ("fused_softmax_xent", "bwd_launch_count",
                          "bwd_plain_count"),
     "int8_matmul": ("int8_matmul", "launch_count", "plain_count"),
+    "int8_conv": ("int8_conv", "launch_count", "plain_count"),
 }
 
 
@@ -45,6 +46,7 @@ _ALL_COUNTERS = {
     "fused_softmax_xent": ("fwd_launch_count", "bwd_launch_count",
                            "fwd_plain_count", "bwd_plain_count"),
     "int8_matmul": ("launch_count", "plain_count"),
+    "int8_conv": ("launch_count", "plain_count"),
 }
 
 

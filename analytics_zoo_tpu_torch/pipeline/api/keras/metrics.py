@@ -3,14 +3,18 @@
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/metrics.py``: each
 metric maps a batch to a small tuple of device scalars (``batch_stats``),
 the estimator sums them over the batches, and ``finalize`` turns the sums
-into the value on the host.  Ported so far: ``Accuracy`` (and its
-``SparseCategoricalAccuracy``/``CategoricalAccuracy`` names),
-``BinaryAccuracy``, ``Top5Accuracy`` and ``Loss``; the others wait for
-their slice (ROADMAP queue 1, item 4).
+into the value on the host.  Every metric of the reference's table is
+here: ``Accuracy`` (and its ``SparseCategoricalAccuracy``/
+``CategoricalAccuracy`` names), ``BinaryAccuracy``, ``Top5Accuracy``,
+``MAE``, ``MSE``, ``AUC`` and ``Loss``.  ``AUC`` sums true and false
+positives and negatives at 200 thresholds (``>=``) on the device, padding
+rows masked out, and integrates the ROC by the trapezoid on the host in
+float64, as the reference does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -103,6 +107,20 @@ class Top5Accuracy(Metric):
         return _masked_num_den(correct.float(), mask)
 
 
+class MAE(Metric):
+    name = "mae"
+
+    def batch_stats(self, y_true, y_pred, mask=None):
+        return _masked_num_den(torch.abs(y_pred - y_true), mask)
+
+
+class MSE(Metric):
+    name = "mse"
+
+    def batch_stats(self, y_true, y_pred, mask=None):
+        return _masked_num_den((y_pred - y_true) ** 2, mask)
+
+
 class Loss(Metric):
     """The compiled loss as a validation metric."""
 
@@ -116,6 +134,56 @@ class Loss(Metric):
         return _masked_num_den(self.loss_fn(y_true, y_pred), mask)
 
 
+class AUC(Metric):
+    """Thresholded ROC-AUC: per-threshold (tp, fp, fn, tn) sums on the
+    device (a prediction is positive at a threshold it reaches, a target
+    above 0.5), the trapezoid over the ROC on the host in float64."""
+
+    name = "auc"
+    n_stats = 4
+
+    def __init__(self, thresholds: int = 200):
+        self.thresholds = np.linspace(0.0, 1.0, thresholds)
+        self._device_thresholds = {}
+
+    def _th(self, device):
+        """The thresholds as an f32 (T, 1) tensor on ``device``, copied
+        there once (a captured eval step must not copy from the host)."""
+        th = self._device_thresholds.get(str(device))
+        if th is None:
+            th = self._device_thresholds[str(device)] = torch.tensor(
+                self.thresholds, dtype=torch.float32, device=device)[:, None]
+        return th
+
+    def batch_stats(self, y_true, y_pred, mask=None):
+        b = y_pred.shape[0]
+        per_row = max(1, y_pred.numel() // max(b, 1))
+        yp = y_pred.reshape(-1)
+        yt = y_true.reshape(-1)
+        if mask is None:
+            w = torch.ones_like(yp)
+        else:
+            w = torch.repeat_interleave(mask.to(yp.dtype), per_row)
+        pred_pos = (yp[None, :] >= self._th(yp.device)).to(yp.dtype)
+        pos = (yt[None, :] > 0.5).to(yp.dtype)
+        wf = w[None, :]
+        tp = (pred_pos * pos * wf).sum(dim=1)
+        fp = (pred_pos * (1 - pos) * wf).sum(dim=1)
+        fn = ((1 - pred_pos) * pos * wf).sum(dim=1)
+        tn = ((1 - pred_pos) * (1 - pos) * wf).sum(dim=1)
+        return tp, fp, fn, tn
+
+    def finalize(self, stats) -> float:
+        tp, fp, fn, tn = (np.asarray(s, dtype=np.float64) for s in stats)
+        tpr = tp / np.maximum(tp + fn, 1e-12)
+        fpr = fp / np.maximum(fp + tn, 1e-12)
+        order = np.argsort(fpr)
+        x, y = fpr[order], tpr[order]
+        # numpy's trapezoid rule, written out (numpy before 2.0 names it
+        # trapz)
+        return float(np.add.reduce(np.diff(x) * (y[1:] + y[:-1]) / 2.0))
+
+
 _METRICS = {
     "accuracy": Accuracy,
     "acc": Accuracy,
@@ -125,6 +193,9 @@ _METRICS = {
     "top5accuracy": Top5Accuracy,
     "top5_accuracy": Top5Accuracy,
     "top5": Top5Accuracy,
+    "mae": MAE,
+    "mse": MSE,
+    "auc": AUC,
 }
 
 
@@ -135,8 +206,4 @@ def get_metric(identifier) -> Metric:
         return _METRICS[identifier.lower()]()
     if isinstance(identifier, type) and issubclass(identifier, Metric):
         return identifier()
-    if isinstance(identifier, str):
-        raise NotImplementedError(
-            f"metric {identifier!r} is not ported yet or unknown (ROADMAP "
-            f"queue 1, item 4); ported: {sorted(_METRICS)}")
     raise ValueError(f"unknown metric {identifier!r}")

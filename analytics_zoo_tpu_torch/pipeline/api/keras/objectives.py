@@ -13,11 +13,16 @@ which the JAX package routes the same way under ``ZOO_USE_PALLAS=1``;
 every other shape, and a plan whose ``kernel_rules`` pick ``"xla"`` for
 the scope, takes the f32 log-softmax path, as there.
 
-Ported so far: the two sparse categorical cross-entropies, the binary
-cross-entropy (on probabilities and on logits) and the categorical
-cross-entropy, with the reference's clipping and its ``_align`` of the
-targets to the predictions' shape; the other losses wait for their slice
-(ROADMAP queue 1, item 4).
+Every loss of the reference's table is here, with its clipping and its
+``_align`` of the targets to the predictions' shape: the squared,
+absolute, absolute-percentage and squared-logarithmic errors, the binary,
+categorical and sparse categorical cross-entropies (on probabilities and
+on logits), the Kullback-Leibler divergence, Poisson, cosine proximity,
+hinge, squared hinge and the pairwise ``rank_hinge``, under the
+reference's short and long names, with the factories
+``MeanSquaredError``, ``MeanAbsoluteError``, ``BinaryCrossEntropy``,
+``CategoricalCrossEntropy`` and ``SparseCategoricalCrossEntropy`` and the
+class ``RankHinge``.
 """
 
 from __future__ import annotations
@@ -133,14 +138,126 @@ def sparse_categorical_crossentropy_from_logits(y_true, logits):
     return _picked_mean(logp.gather(-1, labels[..., None])[..., 0])
 
 
+def mean_squared_error(y_true, y_pred):
+    y_true = _align(y_true, y_pred)
+    return _reduce_rest((y_pred - y_true) ** 2)
+
+
+def mean_absolute_error(y_true, y_pred):
+    y_true = _align(y_true, y_pred)
+    return _reduce_rest(torch.abs(y_pred - y_true))
+
+
+def mean_absolute_percentage_error(y_true, y_pred):
+    y_true = _align(y_true, y_pred)
+    diff = torch.abs((y_true - y_pred)
+                     / torch.clamp(torch.abs(y_true), min=_EPS))
+    return 100.0 * _reduce_rest(diff)
+
+
+def mean_squared_logarithmic_error(y_true, y_pred):
+    y_true = _align(y_true, y_pred)
+    a = torch.log(torch.clamp(y_pred, min=_EPS) + 1.0)
+    b = torch.log(torch.clamp(y_true, min=_EPS) + 1.0)
+    return _reduce_rest((a - b) ** 2)
+
+
+def kullback_leibler_divergence(y_true, y_pred):
+    y_true_c = torch.clamp(y_true, _EPS, 1.0)
+    y_pred_c = torch.clamp(y_pred, _EPS, 1.0)
+    return _sum_rest(y_true_c * torch.log(y_true_c / y_pred_c))
+
+
+def poisson(y_true, y_pred):
+    y_true = _align(y_true, y_pred)
+    return _reduce_rest(y_pred - y_true * torch.log(y_pred + _EPS))
+
+
+def cosine_proximity(y_true, y_pred):
+    def l2(x):
+        return x / torch.clamp(torch.linalg.vector_norm(
+            x, dim=-1, keepdim=True), min=_EPS)
+
+    return -_sum_rest(l2(y_true) * l2(y_pred))
+
+
+def hinge(y_true, y_pred):
+    y_true = _align(y_true, y_pred)
+    return _reduce_rest(torch.clamp(1.0 - y_true * y_pred, min=0.0))
+
+
+def squared_hinge(y_true, y_pred):
+    y_true = _align(y_true, y_pred)
+    return _reduce_rest(torch.clamp(1.0 - y_true * y_pred, min=0.0) ** 2)
+
+
+def rank_hinge(y_true, y_pred, margin: float = 1.0):
+    """Pairwise ranking hinge over a batch laid out as alternating
+    (positive, negative) rows: ``max(0, margin - pos + neg)`` per pair,
+    given to both rows of the pair (the reference's ``rank_hinge``)."""
+    pos = y_pred[0::2]
+    neg = y_pred[1::2]
+    loss = torch.clamp(margin - pos + neg, min=0.0)
+    return torch.repeat_interleave(_reduce_rest(loss), 2)[:y_pred.shape[0]]
+
+
 _LOSSES = {
+    "mse": mean_squared_error,
+    "mean_squared_error": mean_squared_error,
+    "mae": mean_absolute_error,
+    "mean_absolute_error": mean_absolute_error,
+    "mape": mean_absolute_percentage_error,
+    "mean_absolute_percentage_error": mean_absolute_percentage_error,
+    "msle": mean_squared_logarithmic_error,
+    "mean_squared_logarithmic_error": mean_squared_logarithmic_error,
     "binary_crossentropy": binary_crossentropy,
     "binary_crossentropy_from_logits": binary_crossentropy_from_logits,
     "categorical_crossentropy": categorical_crossentropy,
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
     "sparse_categorical_crossentropy_from_logits":
         sparse_categorical_crossentropy_from_logits,
+    "kld": kullback_leibler_divergence,
+    "kullback_leibler_divergence": kullback_leibler_divergence,
+    "poisson": poisson,
+    "cosine_proximity": cosine_proximity,
+    "hinge": hinge,
+    "squared_hinge": squared_hinge,
+    "rank_hinge": rank_hinge,
 }
+
+
+# the reference's class-style names
+def MeanSquaredError():
+    return LossFunction(mean_squared_error, "mse")
+
+
+def MeanAbsoluteError():
+    return LossFunction(mean_absolute_error, "mae")
+
+
+def BinaryCrossEntropy():
+    return LossFunction(binary_crossentropy, "binary_crossentropy")
+
+
+def CategoricalCrossEntropy():
+    return LossFunction(categorical_crossentropy, "categorical_crossentropy")
+
+
+def SparseCategoricalCrossEntropy():
+    return LossFunction(sparse_categorical_crossentropy,
+                        "sparse_categorical_crossentropy")
+
+
+class RankHinge(LossFunction):
+    """Pairwise ranking hinge with its margin (the reference's
+    ``RankHinge``)."""
+
+    def __init__(self, margin: float = 1.0):
+        self.margin = margin
+        super().__init__(self._fn, "rank_hinge")
+
+    def _fn(self, y_true, y_pred):
+        return rank_hinge(y_true, y_pred, self.margin)
 
 
 def get_loss(identifier) -> LossFunction:
@@ -153,7 +270,4 @@ def get_loss(identifier) -> LossFunction:
         key = identifier.lower()
         if key in _LOSSES:
             return LossFunction(_LOSSES[key], key)
-        raise NotImplementedError(
-            f"loss {identifier!r} is not ported yet or unknown (ROADMAP "
-            f"queue 1, item 4); ported: {sorted(_LOSSES)}")
     raise ValueError(f"unknown loss {identifier!r}")

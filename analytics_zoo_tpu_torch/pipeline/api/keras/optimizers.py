@@ -31,10 +31,25 @@ and ``update_``.
 Schedules are functions of the step count (a 0-d int tensor) returning a
 multiplier, written with torch ops so they run on the count's device: a
 captured step computes its learning rate on the device from the count it
-reads there, never from a Python float baked in at capture.  Ported so
-far: ``Adam`` and ``SGD``, and the ``warmup_linear_decay``,
-``warmup_epoch_decay`` and ``poly_decay`` schedules; the other optimizers
-wait for their slice (ROADMAP queue 1, item 4).
+reads there, never from a Python float baked in at capture.
+
+The other optimizers of the reference's table have optax's state and
+arithmetic too, and no kernel (in the reference the kernel plane rebuilds
+only ``Adam``): ``AdamWeightDecay`` (optax ``adamw``: Adam's moments and
+bias correction, then ``weight_decay * p`` added for every leaf, biases
+and norms included, then the scheduled rate; the BERT recipe's
+``warmup_linear_decay`` from ``warmup_portion`` and ``total``),
+``RMSprop`` (eps inside the square root), ``Adagrad`` (an accumulator
+that starts at 0.1, ``rsqrt(acc + eps)`` where it is positive),
+``Adadelta`` and ``Adamax`` (only the first moment bias-corrected; the
+infinity norm ``max(|g| + eps, b2 u)``).  Each keeps its step count on the
+device and evaluates its schedule there at the count before the
+increment, as ``SGD`` does, and runs its update as multi-tensor
+(``torch._foreach_*``) passes over the leaves, the same ops in ``update``
+and ``update_`` (``rsqrt`` and ``where``, which have none, leaf by leaf).
+``get_optimizer`` resolves every name of the reference's table; the
+schedules are ``warmup_linear_decay``, ``warmup_epoch_decay`` and
+``poly_decay``.
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ from analytics_zoo_tpu_torch.common.utils import (
     tree_map_many,
 )
 from analytics_zoo_tpu_torch.ops.cuda.fused_adam import (
+    _int_pow,
     adam_scalars,
     fused_update,
     fused_update_,
@@ -110,6 +126,14 @@ def _scheduled(lr, schedule):
     if schedule is None:
         return lr
     return lambda step: lr * schedule(step)
+
+
+def _step_size(lr, count):
+    """``-lr(count)``: a device scalar for a schedule (optax's
+    ``scale_by_schedule``), a float for a constant rate (``scale``)."""
+    if callable(lr):
+        return -(lr(count).to(torch.float32))
+    return -float(lr)
 
 
 class AdamState(NamedTuple):
@@ -249,13 +273,6 @@ class SGD(Optimizer):
         return SGDState(torch.zeros((), dtype=torch.int32, device=device),
                         trace)
 
-    def _step_size(self, count):
-        """``-lr(count)``: a device scalar for a schedule (optax's
-        ``scale_by_schedule``), a float for a constant rate (``scale``)."""
-        if callable(self._lr):
-            return -(self._lr(count).to(torch.float32))
-        return -float(self._lr)
-
     def _run(self, grads, opt_state, params, in_place: bool):
         """(updates, new trace leaves, count_inc), all the leaves matched
         by key; ``in_place`` writes the gradients' and the trace's new
@@ -287,7 +304,7 @@ class SGD(Optimizer):
                     t, self.momentum))
         else:
             u = g
-        upd = torch._foreach_mul(u, self._step_size(opt_state.count))
+        upd = torch._foreach_mul(u, _step_size(self._lr, opt_state.count))
         return upd, t, safe_increment(opt_state.count)
 
     def update(self, grads, opt_state, params=None):
@@ -305,6 +322,232 @@ class SGD(Optimizer):
 
     def in_layout(self, opt_state):
         return opt_state
+
+
+def _ema(t, x, decay, in_place):
+    """optax's ``update_moment``: ``(1 - decay) * x + decay * t`` per leaf;
+    ``in_place`` writes it over ``t``."""
+    a = torch._foreach_mul(x, 1.0 - decay)
+    if in_place:
+        torch._foreach_mul_(t, decay)
+        torch._foreach_add_(t, a)
+        return t
+    return torch._foreach_add(a, torch._foreach_mul(t, decay))
+
+
+class _MultiTensor(Optimizer):
+    """An optimizer whose state is its schedule's step count and trees
+    shaped like the parameters (``STATE``'s fields after ``count``, made
+    by ``init`` filled with ``FILLS``), updated by multi-tensor passes:
+    :meth:`_direction` turns the gradients into the update's direction and
+    the new moments, and the scheduled rate scales it (optax's
+    ``scale_by_learning_rate``)."""
+
+    STATE: type = None
+    FILLS: tuple = ()
+    NEEDS_PARAMS = False
+
+    def __init__(self, name, lr, schedule):
+        super().__init__(name, lr, schedule)
+        self._lr = _scheduled(lr, schedule)
+
+    def init(self, params):
+        leaves = tree_leaves(params)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        return self.STATE(
+            torch.zeros((), dtype=torch.int32, device=device),
+            *(tree_map(lambda t, v=v: torch.full_like(t, v), params)
+              for v in self.FILLS))
+
+    def _direction(self, g, p, moments, count_inc, in_place):
+        """(direction, new moments), lists of leaves; ``in_place`` writes
+        the new moments over ``moments`` (the same ops)."""
+        raise NotImplementedError
+
+    def _run(self, grads, opt_state, params, in_place):
+        if self.NEEDS_PARAMS and params is None:
+            raise ValueError(f"{type(self).__name__} needs the parameters")
+        rows = []  # (g, p, *moments) per leaf, matched by key
+        tree_map_many(lambda *t: rows.append(t), grads,
+                      params if params is not None else grads,
+                      *opt_state[1:])
+        g, p, *moments = (list(c) for c in zip(*rows))
+        count_inc = safe_increment(opt_state.count)
+        u, new = self._direction(g, p, moments, count_inc, in_place)
+        upd = torch._foreach_mul(u, _step_size(self._lr, opt_state.count))
+        return upd, new, count_inc
+
+    def update(self, grads, opt_state, params=None):
+        upd, new, count_inc = self._run(grads, opt_state, params, False)
+        return _unflatten(grads, upd), self.STATE(
+            count_inc, *(_unflatten(grads, m) for m in new))
+
+    def update_(self, grads, opt_state, params=None):
+        """:meth:`update` in place: the moments and the count take their
+        new values where they are; returns the updates."""
+        upd, _, count_inc = self._run(grads, opt_state, params, True)
+        opt_state.count.copy_(count_inc)
+        return _unflatten(grads, upd)
+
+    def in_layout(self, opt_state):
+        return opt_state
+
+
+def _bias_corrections(decays, count):
+    """optax's bias corrections ``1 - decay ** count`` (f32, the power
+    rounded as the reference rounds it), one 0-d device tensor each."""
+    return (1.0 - _int_pow(tuple(decays), count)).unbind(0)
+
+
+class AdamWeightDecay(_MultiTensor):
+    """The reference's BERT optimizer, optax ``adamw``: Adam's update
+    ``mu_hat / (sqrt(nu_hat) + eps)``, plus ``weight_decay * p`` on every
+    leaf, times the scheduled rate.  With ``total`` > 0 and no
+    ``schedule``, the rate follows ``warmup_linear_decay(int(
+    warmup_portion * total), total)``.  No kernel: the state is optax's
+    ``ScaleByAdamState``, :class:`AdamState`."""
+
+    STATE = AdamState
+    FILLS = (0.0, 0.0)
+
+    def __init__(self, lr=0.001, warmup_portion=-1.0, total=-1,
+                 schedule=None, beta_1=0.9, beta_2=0.999, epsilon=1e-6,
+                 weight_decay=0.01):
+        sched = schedule
+        if sched is None and total > 0:
+            warmup = int(max(warmup_portion, 0.0) * total)
+            sched = warmup_linear_decay(warmup, total)
+        super().__init__("adamw", lr, sched)
+        self.b1, self.b2, self.eps = beta_1, beta_2, epsilon
+        self.weight_decay = weight_decay
+
+    NEEDS_PARAMS = True
+
+    def _direction(self, g, p, moments, count_inc, in_place):
+        mu = _ema(moments[0], g, self.b1, in_place)
+        nu = _ema(moments[1], torch._foreach_mul(g, g), self.b2, in_place)
+        bc1, bc2 = _bias_corrections((self.b1, self.b2), count_inc)
+        den = torch._foreach_add(torch._foreach_sqrt(
+            torch._foreach_div(nu, bc2)), self.eps)
+        u = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        return torch._foreach_add(
+            u, torch._foreach_mul(p, self.weight_decay)), [mu, nu]
+
+
+class RMSpropState(NamedTuple):
+    """optax ``scale_by_rms``'s second moment and the schedule's count."""
+
+    count: torch.Tensor
+    nu: object
+
+
+class RMSprop(_MultiTensor):
+    """optax ``rmsprop(lr, decay=rho, eps)``: ``g * rsqrt(nu + eps)``, eps
+    inside the square root."""
+
+    STATE = RMSpropState
+    FILLS = (0.0,)
+
+    def __init__(self, lr=0.001, rho=0.9, epsilon=1e-8,
+                 schedule: Optional[Schedule] = None):
+        super().__init__("rmsprop", lr, schedule)
+        self.rho, self.eps = rho, epsilon
+
+    def _direction(self, g, p, moments, count_inc, in_place):
+        nu = _ema(moments[0], torch._foreach_mul(g, g), self.rho, in_place)
+        scale = [torch.rsqrt(n) for n in torch._foreach_add(nu, self.eps)]
+        return torch._foreach_mul(scale, g), [nu]
+
+
+class AdagradState(NamedTuple):
+    """optax ``scale_by_rss``'s sum of squares (from 0.1) and the
+    schedule's count."""
+
+    count: torch.Tensor
+    sum_of_squares: object
+
+
+class Adagrad(_MultiTensor):
+    """optax ``adagrad(lr, eps)``: the sum of squared gradients from 0.1,
+    and ``g * rsqrt(sum + eps)`` where the sum is positive (0 elsewhere)."""
+
+    STATE = AdagradState
+    FILLS = (0.1,)
+
+    def __init__(self, lr=0.01, epsilon=1e-8,
+                 schedule: Optional[Schedule] = None):
+        super().__init__("adagrad", lr, schedule)
+        self.eps = epsilon
+
+    def _direction(self, g, p, moments, count_inc, in_place):
+        sq = torch._foreach_mul(g, g)
+        if in_place:
+            torch._foreach_add_(moments[0], sq)
+            acc = moments[0]
+        else:
+            acc = torch._foreach_add(sq, moments[0])
+        scale = [torch.where(a > 0, torch.rsqrt(a + self.eps), 0.0)
+                 for a in acc]
+        return torch._foreach_mul(scale, g), [acc]
+
+
+class AdadeltaState(NamedTuple):
+    """optax ``scale_by_adadelta``'s averages of squared gradients and of
+    squared updates, and the schedule's count."""
+
+    count: torch.Tensor
+    e_g: object
+    e_x: object
+
+
+class Adadelta(_MultiTensor):
+    """optax ``adadelta(lr, rho, eps)``: ``g * sqrt(e_x + eps) /
+    sqrt(e_g + eps)`` with e_g updated first and e_x after, from the new
+    direction (optax's zero weight decay adds ``0 * p``, which changes no
+    finite value, and is left out)."""
+
+    STATE = AdadeltaState
+    FILLS = (0.0, 0.0)
+
+    def __init__(self, lr=1.0, rho=0.95, epsilon=1e-8,
+                 schedule: Optional[Schedule] = None):
+        super().__init__("adadelta", lr, schedule)
+        self.rho, self.eps = rho, epsilon
+
+    def _direction(self, g, p, moments, count_inc, in_place):
+        e_g = _ema(moments[0], torch._foreach_mul(g, g), self.rho, in_place)
+        num = torch._foreach_sqrt(torch._foreach_add(moments[1], self.eps))
+        den = torch._foreach_sqrt(torch._foreach_add(e_g, self.eps))
+        u = torch._foreach_mul(torch._foreach_div(num, den), g)
+        e_x = _ema(moments[1], torch._foreach_mul(u, u), self.rho, in_place)
+        return u, [e_g, e_x]
+
+
+class Adamax(_MultiTensor):
+    """optax ``adamax(lr, b1, b2, eps)``: the first moment bias-corrected,
+    over the infinity norm ``u = max(|g| + eps, b2 u)``.  Its state is
+    optax's ``ScaleByAdamState`` (nu is u), :class:`AdamState`."""
+
+    STATE = AdamState
+    FILLS = (0.0, 0.0)
+
+    def __init__(self, lr=0.002, beta_1=0.9, beta_2=0.999, epsilon=1e-8,
+                 schedule: Optional[Schedule] = None):
+        super().__init__("adamax", lr, schedule)
+        self.b1, self.b2, self.eps = beta_1, beta_2, epsilon
+
+    def _direction(self, g, p, moments, count_inc, in_place):
+        mu = _ema(moments[0], g, self.b1, in_place)
+        norm = torch._foreach_add(torch._foreach_abs(g), self.eps)
+        if in_place:
+            torch._foreach_mul_(moments[1], self.b2)
+            torch._foreach_maximum_(moments[1], norm)
+            nu = moments[1]
+        else:
+            nu = torch._foreach_maximum(
+                norm, torch._foreach_mul(moments[1], self.b2))
+        (bc1,) = _bias_corrections((self.b1,), count_inc)
+        return torch._foreach_div(torch._foreach_div(mu, bc1), nu), [mu, nu]
 
 
 def _unflatten(like, leaves):
@@ -331,7 +574,15 @@ def apply_updates_(params, updates) -> None:
             p.copy_((p + u).to(p.dtype))
 
 
-_OPTIMIZERS = {"adam": Adam, "sgd": SGD}
+_OPTIMIZERS = {
+    "sgd": SGD,
+    "adam": Adam,
+    "adamw": AdamWeightDecay,
+    "rmsprop": RMSprop,
+    "adagrad": Adagrad,
+    "adadelta": Adadelta,
+    "adamax": Adamax,
+}
 
 
 def get_optimizer(identifier) -> Optimizer:
@@ -339,8 +590,4 @@ def get_optimizer(identifier) -> Optimizer:
         return identifier
     if isinstance(identifier, str) and identifier.lower() in _OPTIMIZERS:
         return _OPTIMIZERS[identifier.lower()]()
-    if isinstance(identifier, str):
-        raise NotImplementedError(
-            f"optimizer {identifier!r} is not ported yet (ROADMAP queue 1, "
-            f"item 4); ported: {sorted(_OPTIMIZERS)}")
     raise ValueError(f"unknown optimizer {identifier!r}")

@@ -580,6 +580,7 @@ class Estimator:
             results["loss"] = float(num) / max(float(den), 1e-12)
             idx += 1
         for m in self.metrics:
-            results[m.name] = m.finalize([float(s) for s in accum[idx]])
+            results[m.name] = m.finalize([s.cpu().numpy()
+                                          for s in accum[idx]])
             idx += 1
         return results

@@ -141,7 +141,8 @@ class InferenceModel:
         """``int8``: weight-only per-channel quantization, dequantized inside
         each forward; with ``calibration_data`` (representative inputs, one
         array) the activations are calibrated too and the top-level Dense
-        layers run int8 x int8 -> int32; ``bf16``: weights (and floating
+        and conv layers run int8 x int8 -> int32 (the ``int8_conv``
+        kernel on the card); ``bf16``: weights (and floating
         inputs) in bfloat16, outputs returned in float32 (calibration data
         is ignored).  Every call starts from the float model."""
         if self._net is None:

@@ -12,13 +12,21 @@ plan whose ``kernel_rules`` route ``serving.int8_matmul`` to
 ``int8_matmul`` it takes the CUDA kernel (``ops/cuda/int8_matmul.py``),
 otherwise dequantize-then-matmul, as in the reference.
 
-Calibrated: :func:`calibrate_activations` records each top-level Dense
-layer's input range over calibration batches; :class:`Int8Model` then runs
-those layers as int8 x int8 -> int32 with one rescale to float after
-(:func:`_int8_dense`), through per-layer ``apply`` hooks installed for the
-duration of a forward (:func:`_hooked`).  A conv layer is a target too,
-as in the reference, and raises: its int8 x int8 -> int32 convolution
-(``_int8_conv``) is not ported (ROADMAP queue 1 item 8).
+Calibrated: :func:`calibrate_activations` records the input range of
+each top-level Dense and conv layer (the reference's ``_ConvND``:
+``Convolution1D/2D/3D``, ``AtrousConvolution1D/2D``,
+``ShareConvolution2D``) over calibration batches; :class:`Int8Model` then
+runs those layers as int8 x int8 -> int32 with one rescale to float after,
+in the reference's order (:func:`_int8_dense`, :func:`_int8_conv`),
+through per-layer ``apply`` hooks installed for the duration of a forward
+(:func:`_hooked`).  Both take their int32 sums from the ``int8_conv``
+kernel on the card (``ops/cuda/int8_conv.py``; a Dense is a 1x1
+convolution over its rows) and from its plain version on the CPU, exact
+either way.  The kernel reads each hooked kernel as a (Cout, K) copy that
+:class:`Int8Model` makes once, before any capture, and holds for its
+life: a replayed forward reads the copies by address.  The depthwise,
+separable, transposed and locally connected convolutions are no targets,
+in either package, and stay float.
 """
 
 from __future__ import annotations
@@ -30,7 +38,12 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.utils import tree_leaves, tree_map
-from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import _ConvND
+from analytics_zoo_tpu_torch.ops.cuda.int8_conv import conv_weight_t, int8_conv
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
+    ShareConvolution2D,
+    _ConvND,
+    same_pads,
+)
 
 
 class QuantizedTensor:
@@ -170,30 +183,19 @@ def quantization_error(params, qparams) -> float:
 # ---------------------------------------------------------------------------
 
 #: conv layer classes that are calibration targets (the reference's
-#: ``_ConvND``); a target of such a class raises: ``_int8_conv`` is not
-#: ported (ROADMAP queue 1 item 8)
+#: ``_ConvND``), run by :func:`_int8_conv`
 _CONV_TYPES: tuple = (_ConvND,)
 
 
 def _target_layers(net):
     """The net's top-level Dense and conv layers, as in the reference:
     layers nested inside another layer (BERT's own projections) are not
-    targets.  A conv target raises: calibrated int8 would otherwise serve
-    the convs in float without a word."""
+    targets."""
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import Dense
 
-    targets = [l for l in net.layers
-               if isinstance(l, (Dense,) + _CONV_TYPES)
-               and getattr(l, "name", None)]
-    convs = [l.name for l in targets if not isinstance(l, Dense)]
-    if convs:
-        raise NotImplementedError(
-            f"calibrated int8 for conv layers {convs} is not ported yet: "
-            "_int8_conv (ROADMAP queue 1 item 8) needs an int8 x int8 -> "
-            "int32 convolution, which PyTorch has no CUDA op for; conv "
-            "nets serve in float and weight-only int8 "
-            "(optimize(\"int8\") without calibration data)")
-    return targets
+    return [l for l in net.layers
+            if isinstance(l, (Dense,) + _CONV_TYPES)
+            and getattr(l, "name", None)]
 
 
 # Serializes every apply-hook installation and every forward that could
@@ -257,22 +259,23 @@ def _quantize_act(x, scale):
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
-def _int8_acc(xs, values):
-    """The exact int32 accumulator of an int8 x int8 product over the last
-    axis of ``xs``.  On the CPU the operands are int32.  On the card the
-    product runs in float64: each term is at most 127 * 127 in magnitude,
-    so every partial sum of K terms is an integer below K * 127**2, exact
-    in float64 for any K below 2**53 / 127**2 (~5.6e11), whatever the sum
-    order; f32 is exact only up to K = 1040.  (``torch._int_mm`` would need
-    M, K and N padded to its shape rules.)"""
-    if xs.device.type == "cpu":
-        return xs.to(torch.int32) @ values.to(torch.int32)
-    return (xs.to(torch.float64) @ values.to(torch.float64)).to(torch.int32)
+def _int8_acc(xs, values, w_t=None):
+    """The exact int32 sums of an int8 x int8 product over the last axis of
+    ``xs`` with the int8 ``values`` (K, Cout): ``int8_conv`` over the rows
+    as a 1x1 convolution (the kernel on the card, its plain int32 matmul
+    on the CPU), reading the kernel as its (Cout, K) copy ``w_t`` (made
+    here when not given)."""
+    if w_t is None:
+        w_t = conv_weight_t(values)
+    k = xs.shape[-1]
+    acc = int8_conv(xs.reshape(-1, 1, k).contiguous(), w_t, (1,), (1,),
+                    (1,), ((0, 0),))
+    return acc.reshape(*xs.shape[:-1], w_t.shape[0])
 
 
-def _int8_dense(layer, qt, act_scale, params, x):
+def _int8_dense(layer, qt, act_scale, params, x, w_t=None):
     xs = _quantize_act(x, act_scale)
-    acc = _int8_acc(xs, qt.values)
+    acc = _int8_acc(xs, qt.values, w_t)
     w_scale = qt.scale.reshape(-1)  # per output channel
     y = acc.to(torch.float32) * (act_scale * w_scale)
     if layer.bias:
@@ -280,29 +283,101 @@ def _int8_dense(layer, qt, act_scale, params, x):
     return layer.activation(y)
 
 
+def _conv_pads(layer, spatial):
+    """(before, after) per spatial dim: the reference pads by
+    ``layer.border_mode`` alone (XLA's SAME with the dilated window, or
+    none)."""
+    if layer.border_mode == "same":
+        return tuple(same_pads(int(n), k, s, d) for n, k, s, d in zip(
+            spatial, layer.kernel_size, layer.subsample, layer.dilation))
+    return ((0, 0),) * len(spatial)
+
+
+def _int8_conv(layer, qt, act_scale, params, x, w_t=None):
+    """The reference's ``_int8_conv``: the input quantized, the int32 sums
+    of its convolution with the int8 kernel (``int8_conv``, reading the
+    kernel as its (Cout, K) copy ``w_t``, made here when not given), then
+    ``acc * (act_scale * w_scale)``, the bias and the activation, in that
+    order."""
+    if w_t is None:
+        w_t = conv_weight_t(qt.values)
+    xs = _quantize_act(x, act_scale).contiguous()
+    acc = int8_conv(xs, w_t, layer.kernel_size, layer.subsample,
+                    layer.dilation, _conv_pads(layer, xs.shape[1:-1]))
+    w_scale = qt.scale.reshape(-1)
+    y = acc.to(torch.float32) * (act_scale * w_scale)
+    if layer.bias:
+        y = y + params["bias"]
+    return layer.activation(y)
+
+
+def _check_target(layer):
+    """Raise for a hooked layer whose int8 path would serve another
+    function than its float one."""
+    if isinstance(layer, ShareConvolution2D) and (layer.pad_h
+                                                  or layer.pad_w):
+        raise ValueError(
+            f"calibrated int8 of {layer.name}: a ShareConvolution2D with "
+            f"pad_h={layer.pad_h}, pad_w={layer.pad_w} is not served: the "
+            "reference's _int8_conv pads by border_mode ('valid') and "
+            "never applies the layer's explicit pads, so its int8 path "
+            "computes another output shape than the float layer (a fault "
+            "of the reference)")
+
+
 class Int8Model:
     """Calibrated int8 inference wrapper around a KerasNet.
 
     ``quantize_model(net, calib_x)`` builds one; ``predict`` runs the
-    hooked Dense layers as int8 x int8 -> int32 with calibrated activation
-    scales, everything else in float.
+    hooked Dense and conv layers as int8 x int8 -> int32 with calibrated
+    activation scales, everything else in float.  ``weights_t`` holds each
+    hooked layer's kernel as the (Cout, K) int8 copy the ``int8_conv``
+    kernel reads, and ``scales_t`` its activation scale as an f32 scalar
+    tensor on the kernel's device, both made here once and kept as long
+    as the model (a captured forward reads them by address); neither is
+    part of ``qparams``, whose tree stays the reference's.  The hooks
+    divide by the scale tensor, not the Python float: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal, which rounds
+    some quotients one ulp away from the reference's ``x / scale`` and so
+    moves activations that sit at a rounding boundary by one int8 step.
     """
 
     def __init__(self, net, qparams, act_scales):
         self.net = net
         self.qparams = qparams
         self.act_scales = dict(act_scales)
+        self.weights_t, self.scales_t = {}, {}
+        for layer in self._targets():
+            _check_target(layer)
+            qt = self.qparams[layer.name]["kernel"]
+            self.weights_t[layer.name] = conv_weight_t(qt.values)
+            self.scales_t[layer.name] = torch.tensor(
+                self.act_scales[layer.name], dtype=torch.float32,
+                device=qt.values.device)
+
+    def _targets(self):
+        """The target layers with an int8 kernel and an activation scale:
+        the layers the hooks run."""
+        return [l for l in _target_layers(self.net)
+                if isinstance(self.qparams.get(l.name, {}).get("kernel"),
+                              QuantizedTensor)
+                and self.act_scales.get(l.name) is not None]
 
     def _assignments(self):
-        assignments = {}
-        for layer in _target_layers(self.net):
-            qt = self.qparams.get(layer.name, {}).get("kernel")
-            scale = self.act_scales.get(layer.name)
-            if not isinstance(qt, QuantizedTensor) or scale is None:
-                continue
+        from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import (
+            Dense,
+        )
 
-            def wrapped(p, inputs, *, _l=layer, _qt=qt, _s=scale, **kw):
-                return _int8_dense(_l, _qt, _s, p, inputs), kw.get("state")
+        assignments = {}
+        for layer in self._targets():
+            kernel_fn = _int8_dense if isinstance(layer, Dense) \
+                else _int8_conv
+
+            def wrapped(p, inputs, *, _l=layer,
+                        _qt=self.qparams[layer.name]["kernel"],
+                        _s=self.scales_t[layer.name],
+                        _w=self.weights_t[layer.name], _fn=kernel_fn, **kw):
+                return _fn(_l, _qt, _s, p, inputs, _w), kw.get("state")
 
             assignments[layer] = wrapped
         return assignments
@@ -341,8 +416,11 @@ def quantize_model(net, calib_x, batch_size: int = 32,
 
     ``calib_x``: representative inputs, a single array (multi-input models
     are not calibratable, as in the reference).  Only the kernels of the
-    layers that get int8 hooks (top-level Dense with a calibration scale)
-    are quantized; every other weight stays float.
+    layers that get int8 hooks (top-level Dense and conv layers with a
+    calibration scale and a kernel of at least ``min_size`` elements) are
+    quantized; every other weight stays float.  Raises ``ValueError`` for
+    a hooked ``ShareConvolution2D`` with explicit pads (see
+    :func:`_check_target`).
     """
     if isinstance(calib_x, (list, tuple)):
         raise ValueError(

@@ -8,9 +8,10 @@ Phases, each of which raises on failure (the process then exits non-zero
 and prints no result):
 
 1. card: a CUDA GPU must be visible; prints its name and power limit;
-2. build: compiles every CUDA kernel of the three slices from ``csrc/``
-   (one nvcc per source, all started together), prints ptxas's register
-   report, and checks with ``cuobjdump -sass`` that the tensor-core
+2. build: compiles every CUDA kernel from ``csrc/`` (one nvcc per
+   source, all started together), prints ptxas's register report, checks
+   with ``cuobjdump -sass`` that ``int8_conv`` issues integer tensor-core
+   products (IMMA) in every function, and that the tensor-core
    kernels issue ``wgmma`` (HGMMA) of their input types: bf16 and f16 in
    the int8 matmul, bf16, f16 and tf32 in the flash forward (in every
    function of its tensor-core bodies, only of the function's own type:
@@ -44,7 +45,13 @@ and prints no result):
    weight-only int8 matmul at BERT-base's six Dense shapes for one 8 x 512
    micro-batch, f32, bf16 and f16 x at all six, its weights from
    ``quantize_params_for_plan(params, int8_serving())`` on the seeded
-   tree.  Times each kernel through its Python wrapper, its plain version
+   tree; and ``int8_conv`` (the calibrated convolutions' int8 x int8 ->
+   int32 kernel, which replaces no TPU kernel) bit for bit its plain
+   version (int32 matmuls on the host CPU: CUDA has none) at each
+   distinct conv shape of ResNet-50 at 32 images, its fc, BERT's
+   calibrated head, one rank-1 atrous and one rank-3 case, beside cuDNN's
+   f32 convolution and ``torch._int_mm`` over an im2col copy.  Times each
+   kernel through its Python wrapper, its plain version
    and one PyTorch library call computing the same function (the
    yardstick only; the port never calls it) with CUDA events over calls
    issued one by one, and for the tensor-core kernels also the same calls
@@ -97,7 +104,7 @@ and prints no result):
    array, as in the reference, and only the head Dense is a target), each
    answering requests of 1, 3 and 8 records held against the f32 model;
    the calibrated request 0 is held against the same calibrated model on
-   the CPU.  Then ``quantized_matmul`` over all 50 quantized Dense kernels
+   the CPU (its head Dense runs ``int8_conv``, a 1x1 over the rows).  Then ``quantized_matmul`` over all 50 quantized Dense kernels
    of BERT-base (48 encoder, pooler, head) under
    ``compile_step(..., plan=with_kernels(int8_serving()))``, which must
    launch the int8 kernel exactly 50 times and agree with the plain
@@ -143,14 +150,16 @@ and prints no result):
    held-out set, ``predict``, ``save``/``load`` with equal predictions;
 11. resnet50_training: ResNet-50 (224x224x3, 1000 classes, random
    weights from the seed) with ``ResNet.imagenet_optimizer(batch_size=64)``
-   at batch 64, f32 and bf16 (``mixed_precision()``): ``fit`` at K=1 bit
-   for bit ``train_step`` called eagerly (twice: cuDNN runs deterministic
-   algorithms), K=4 bit for bit K=1 (parameters, momentum, BatchNorm
-   state, losses); a replayed step's host clock, device time, idle share,
-   images/s and bound; on a fixed batch the loss falls and each step's
-   rate (read back from the fc kernel's change and momentum) is the
-   schedule's on the host; ``evaluate`` (accuracy, top-5) through the
-   captured eval step, bit for bit the uncaptured one;
+   at batch 64, f32, bf16 (``mixed_precision()``) and f16 (``"dp+f16"``,
+   no loss scaling): ``fit`` at K=1 bit for bit ``train_step`` called
+   eagerly (twice: cuDNN runs deterministic algorithms), K=4 bit for bit
+   K=1 (f32 and bf16; parameters, momentum, BatchNorm state, losses); a
+   replayed step's host clock, device time, idle share, images/s and
+   bound; f16: step 1's loss within 5% of f32's, masters, momentum and
+   moving statistics f32; on a fixed batch (f32 and f16) the loss falls
+   and each step's rate (read back from the fc kernel's change and
+   momentum) is the schedule's on the host; ``evaluate`` (accuracy,
+   top-5) through the captured eval step, bit for bit the uncaptured one;
 12. resnet50_serving: the trained ResNet-50 (its moving statistics set to
    one batch's first) through ``InferenceModel`` in f32 and bf16 at 1, 8
    and 32 images: each replay bit for bit its eager forward, finite rows
@@ -181,10 +190,35 @@ and prints no result):
    answering one replayed 8-image f32 request bit for bit its eager
    forward, finite rows summing to 1; logs each model's parameter count,
    request time and peak memory;
-17. summary: a ``kernels`` JSON line (the seven TPU kernels: the flash
+17. bert_adamw: the BERT-base classifier under the reference's BERT
+   optimizer, ``AdamWeightDecay(lr=2e-5, warmup_portion=0.1, total=50)``,
+   f32 at 8 x 512: 5 steps through ``fit`` bit for bit 5 eager
+   ``train_step`` calls (twice), 12 + 12 flash and 1 + 1 cross-entropy
+   launches a replayed step and no Adam launch, each step's rate read back
+   from the classifier kernel against the schedule on the host, step 1 at
+   2 blocks against the CPU;
+18. optimizers: LeNet-5 at batch 128 under ``RMSprop``, ``Adagrad``,
+   ``Adadelta`` and ``Adamax``: 4 captured steps bit for bit the eager
+   ones, a loss that falls on a fixed batch; a binary LeNet-5 head
+   evaluated with ``["auc", "mae", "mse"]`` through the captured eval
+   step, bit for bit the uncaptured one; every loss of the table and its
+   gradient against the CPU;
+19. resnet50_int8: ResNet-50 (moving statistics from one batch) served in
+   calibrated int8 (``optimize("int8", calibration_data=...)`` on 32
+   seeded images) at 1, 8 and 32 images: each replay bit for bit its eager
+   forward, 54 ``int8_conv`` launches a micro-batch (53 convolutions, the
+   fc), no float64 convolution or matmul, request 0 against the same
+   ``Int8Model`` on the CPU, argmax agreement and logit gap against f32,
+   each request's times beside f32's and the bound;
+20. zoo_int8: Inception-v1 and MobileNet-v2 calibrated the same way, one
+   replayed 8-image request each (MobileNet-v2's depthwise convolutions
+   stay float);
+21. summary: ``phase seconds`` of every phase (each also logged as it
+   ends), a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
-   of its own; launches by path, the new paths included), then the
-   result line ``{"ok": true, "device": {...}}`` last.
+   of its own; and ``int8_conv``, which replaces none; launches by path,
+   the new paths included), then the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
 """
@@ -292,7 +326,10 @@ N_CALIB = 16
 # pooler and the head
 DENSE_KERNELS = r"(qkv|proj|fc|out|pooler)_kernel$|^dense_0/kernel$"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
-           "fused_softmax_xent", "int8_matmul")
+           "fused_softmax_xent", "int8_matmul", "int8_conv")
+# the kernels on the integer tensor cores: IMMA (mma.sync on s8) in their
+# machine code
+IMMA_KERNELS = ("int8_conv",)
 # the tensor-core kernels and the wgmma input types their machine code must
 # show: the f32 flash bodies run tf32 (3xTF32), bf16 bf16, f16 f16 (the
 # chunked backward widens 16-bit inputs to f32, exactly, and runs tf32)
@@ -350,12 +387,17 @@ REPLACES = {
     "softmax_xent_bwd":
         "analytics_zoo_tpu/ops/pallas/fused_softmax_xent.py:192",
     "int8_matmul": "analytics_zoo_tpu/ops/pallas/int8_matmul.py:92",
+    # no TPU kernel: the reference's calibrated conv is a lax convolution
+    # with int32 accumulation, which PyTorch has no CUDA op for
+    "int8_conv": "none (no pl.pallas_call: the reference's _int8_conv, "
+                 "analytics_zoo_tpu/pipeline/inference/quantize.py:282, "
+                 "is lax.conv_general_dilated with int32 sums)",
 }
 # Published H100 SXM peaks (dense): HBM bytes/s and FLOP/s per input type
 # (f32 outside the tensor cores; tf32, bf16 and f16 on them).
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "tfloat32": 494.7e12, "bfloat16": 989e12,
-              "float16": 989e12}
+              "float16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -414,6 +456,23 @@ def build_kernels() -> None:
         check_functions(name, sass, TF32_FUNCTIONS, "TF32")
         check_functions(name, sass, BF16_FUNCTIONS, "BF16")
         check_functions(name, sass, F16_FUNCTIONS, "F16")
+    # the int8 kernels must issue integer tensor-core products (IMMA) in
+    # every kernel function
+    for name in IMMA_KERNELS:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path(name))], check=True,
+                              capture_output=True, text=True).stdout
+        counts = {}
+        for block in sass.split("Function : ")[1:]:
+            fn, _, body = block.partition("\n")
+            counts[fn.strip()] = body.count("IMMA")
+        imma = [ln.strip() for ln in sass.splitlines() if "IMMA" in ln]
+        log(f"sass {name}: {len(imma)} IMMA instructions in "
+            f"{len(counts)} functions {sorted(counts.values())}, e.g. "
+            f"{imma[0] if imma else '-'}")
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"{name}: a kernel function issues no "
+                                 f"IMMA: {counts}")
 
 
 def hgmma_type(line: str):
@@ -1379,6 +1438,7 @@ def counters() -> dict:
     from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
     from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
     from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as fx
+    from analytics_zoo_tpu_torch.ops.cuda import int8_conv as ic8
     from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as im8
 
     return {"flash_attention_fwd": fa.launch_count,
@@ -1386,19 +1446,22 @@ def counters() -> dict:
             "fused_adam": fad.launch_count,
             "softmax_xent_fwd": fx.fwd_launch_count,
             "softmax_xent_bwd": fx.bwd_launch_count,
-            "int8_matmul": im8.launch_count}
+            "int8_matmul": im8.launch_count,
+            "int8_conv": ic8.launch_count}
 
 
 def reset_counters() -> None:
     from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
     from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
     from analytics_zoo_tpu_torch.ops.cuda import fused_softmax_xent as fx
+    from analytics_zoo_tpu_torch.ops.cuda import int8_conv as ic8
     from analytics_zoo_tpu_torch.ops.cuda import int8_matmul as im8
 
     fa.launch_count = fa.bwd_launch_count = 0
     fad.launch_count = fad.leaf_count = 0
     fx.fwd_launch_count = fx.bwd_launch_count = 0
     im8.launch_count = 0
+    ic8.launch_count = 0
 
 
 def train_data(n: int, gen: np.random.Generator):
@@ -1462,7 +1525,7 @@ def training_phase(card_line: str) -> tuple[dict, dict]:
                 "fused_adam": TRAIN_STEPS,  # one launch a step
                 "softmax_xent_fwd": TRAIN_STEPS,
                 "softmax_xent_bwd": TRAIN_STEPS,
-                "int8_matmul": 0}
+                "int8_matmul": 0, "int8_conv": 0}
     log(f"training launches: {launches} (expected {expected}); Adam leaves "
         f"through the kernel: {adam_leaves} (expected {kernel_leaves} f32 "
         f"leaves of >= {fad.MIN_KERNEL_LEAF} x {TRAIN_STEPS} steps)")
@@ -1635,7 +1698,8 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
     expected = {"flash_attention_fwd": blocks * TRAIN_STEPS,
                 "flash_attention_bwd": blocks * TRAIN_STEPS,
                 "fused_adam": TRAIN_STEPS, "softmax_xent_fwd": TRAIN_STEPS,
-                "softmax_xent_bwd": TRAIN_STEPS, "int8_matmul": 0}
+                "softmax_xent_bwd": TRAIN_STEPS, "int8_matmul": 0,
+                "int8_conv": 0}
     qkv = (dtype,) * 3
     log(f"training {tag} launches: {launches} (expected {expected}); flash "
         f"launches made by the step's eager run and its capture on {tag} "
@@ -1845,7 +1909,7 @@ def captured_training_phase(card_line: str) -> tuple[dict, dict]:
     blocks = BERT_BASE["n_block"]
     per_step = {"flash_attention_fwd": blocks, "flash_attention_bwd": blocks,
                 "fused_adam": 1, "softmax_xent_fwd": 1,
-                "softmax_xent_bwd": 1, "int8_matmul": 0}
+                "softmax_xent_bwd": 1, "int8_matmul": 0, "int8_conv": 0}
 
     def fresh(k=1):
         init_zoo_context(seed=SEED, device="cuda", steps_per_dispatch=k)
@@ -1971,7 +2035,8 @@ def training_d192_phase(card_line: str) -> dict:
     expected = {"flash_attention_fwd": blocks * D192_STEPS,
                 "flash_attention_bwd": blocks * D192_STEPS,
                 "fused_adam": D192_STEPS, "softmax_xent_fwd": D192_STEPS,
-                "softmax_xent_bwd": D192_STEPS, "int8_matmul": 0}
+                "softmax_xent_bwd": D192_STEPS, "int8_matmul": 0,
+                "int8_conv": 0}
     log(f"training at head dim 192 ({D192_HEADS} heads): {D192_STEPS} steps"
         f" at batch {TRAIN_BATCH} x {SEQ}: {step_ms:.1f} ms per step "
         f"({card_line}); losses " + ", ".join(f"{v:.4f}" for v in losses)
@@ -2228,8 +2293,12 @@ def captured_serving_phase(card_line: str) -> dict:
             raise AssertionError(f"the {tag} bucket-{b} replay is not the "
                                  "eager forward")
     replays = len(got) + THREADS * THREAD_REQUESTS
+    # the calibrated model's int8 layers (its Dense head) run int8_conv
+    int8_layers = len(models["int8 calibrated"]._int8_model.weights_t)
     expected = dict({k: 0 for k in launches},
-                    flash_attention_fwd=BERT_BASE["n_block"] * replays)
+                    flash_attention_fwd=BERT_BASE["n_block"] * replays,
+                    int8_conv=int8_layers * sum(
+                        tag == "int8 calibrated" for tag, _ in got))
     log(f"captured serving: {THREADS} threads x {THREAD_REQUESTS} 8-record "
         f"requests on one bucket in {thread_s:.2f} s, {len(wrong)} answers "
         f"not their request's eager answer; launches under replay "
@@ -2463,6 +2532,172 @@ def any_x_check(qt) -> None:
         if launched != 1 or tuple(out.shape) != tuple(xx.shape[:-1]) + (n,) \
                 or not rel <= INT8_F32_TOL:
             raise AssertionError(f"quantized_matmul on a {tag} x disagrees")
+
+
+# ---------------------------------------------------------------------------
+# the int8 convolution kernel (csrc/int8_conv.cu): ResNet-50's distinct
+# conv shapes and its fc (a 1x1 over the rows) at INT8_CONV_BATCH images,
+# BERT's calibrated head (a 1x1 over 8 rows), one rank-1 atrous and one
+# rank-3 case.  Its plain version sums int32 matmuls, which CUDA has not:
+# it runs on the host CPU, on copies of the same int8 operands
+INT8_CONV_BATCH = 32
+INT8_CONV_EXTRA = (
+    ("bert_head", 8, (1,), 768, 2, (1,), (1,), (1,), ((0, 0),), 0),
+    ("atrous_1d", 8, (512,), 64, 64, (3,), (1,), (2,), ((2, 2),), 0),
+    ("conv_3d", 4, (8, 28, 28), 32, 64, (3, 3, 3), (1, 2, 2), (1, 1, 1),
+     ((1, 1), (0, 1), (0, 1)), 0),
+)
+
+
+def resnet50_int8_shapes(batch: int) -> list:
+    """(label, images, spatial, cin, cout, kernel, strides, dilation, pads,
+    count in the net) of each distinct conv of ResNet-50 at ``batch``
+    images (224x224x3, pads as ``_int8_conv`` pads it) and its fc."""
+    from analytics_zoo_tpu_torch.models import ResNet
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
+        _ConvND,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
+        _conv_pads,
+    )
+
+    net = ResNet.image_net(50, classes=RESNET_CLASSES,
+                           input_shape=RESNET_SHAPE)
+    seen = {}
+    for layer in net.layers:
+        shape = tuple(layer._build_shape) if isinstance(
+            layer, (_ConvND, Dense)) else None
+        if isinstance(layer, _ConvND):
+            key = (shape[:-1], shape[-1], layer.nb_filter,
+                   layer.kernel_size, layer.subsample, layer.dilation,
+                   _conv_pads(layer, shape[:-1]))
+        elif isinstance(layer, Dense):
+            key = ((1,), shape[-1], layer.output_dim, (1,), (1,), (1,),
+                   ((0, 0),))
+        else:
+            continue
+        seen[key] = seen.get(key, 0) + 1
+    out = []
+    for (spatial, cin, cout, ks, st, dil, pads), count in seen.items():
+        label = ("fc" if spatial == (1,) else
+                 f"{'x'.join(map(str, ks))}/{st[0]} {cin}->{cout} at "
+                 f"{spatial[0]}")
+        out.append((label, batch, spatial, cin, cout, ks, st, dil, pads,
+                    count))
+    return out
+
+
+def int8_conv_case(dev, case, gen) -> dict:
+    """One shape: the kernel against its plain version bit for bit, timed
+    through the wrapper and from a graph, beside its bound, the plain
+    version's host time and two yardsticks the port never calls: cuDNN's
+    f32 convolution and ``torch._int_mm`` over an im2col copy."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.cuda import int8_conv as ic8
+
+    label, n, spatial, cin, cout, ks, st, dil, pads, count = case
+    r = len(spatial)
+    x = torch.from_numpy(gen.integers(-127, 128, (n,) + spatial + (cin,),
+                                      dtype=np.int8))
+    w_t = ic8.conv_weight_t(torch.from_numpy(gen.integers(
+        -127, 128, ks + (cin, cout), dtype=np.int8)))
+    xd, wd = x.to(dev), w_t.to(dev)
+    args = (ks, st, dil, pads)
+    got = ic8.int8_conv(xd, wd, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ic8.int8_conv_reference(x, w_t, *args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (got.cpu().long() - want.long()).abs().max().item()
+    out = tuple(got.shape[1:-1])
+    m, k = n * int(np.prod(out)), w_t.shape[1]
+    log(f"kernel int8_conv {label} ({n} x {spatial} x {cin} -> "
+        f"{out} x {cout}, K {k}): equal to the plain version bit for bit "
+        f"{err == 0}")
+    if err != 0 or got.dtype != torch.int32:
+        raise AssertionError(f"int8_conv {label} disagrees with its plain "
+                             f"version: max |d| {err}")
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    xcf = F.pad(xd.float().permute(0, r + 1, *range(1, r + 1)), flat)
+    wcf = wd.float().reshape(cout, *ks, cin).permute(
+        0, r + 1, *range(1, r + 1)).contiguous()
+    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[r]
+
+    def im2col_int_mm():
+        xp = F.pad(xd, [0, 0] + flat)
+        cols = torch.cat([xp[(slice(None),) + tuple(
+            slice(i * d, i * d + (o - 1) * s + 1, s)
+            for i, d, o, s in zip(tap, dil, out, st))]
+            for tap in np.ndindex(*ks)], dim=-1)
+        return torch._int_mm(cols.reshape(m, k), wd.t())
+
+    mm = library_call(lambda: im2col_int_mm)
+    row = {"shape": label, "count": count, "m": m, "k": k, "n": cout,
+           "ms": cuda_ms(lambda: ic8.int8_conv(xd, wd, *args)),
+           "graph_ms": graph_ms(lambda: ic8.int8_conv(xd, wd, *args)),
+           "plain_ms": plain_ms,
+           "library_ms": cuda_ms(lambda: conv(xcf, wcf, stride=st,
+                                              dilation=dil)),
+           "int_mm_ms": None if mm is None else cuda_ms(mm),
+           "max_abs_err": err}
+    if mm is not None:
+        row["int_mm_equal"] = bool(torch.equal(mm().reshape(got.shape),
+                                               got))
+    # x and the kernel copy (one byte an element) read once, the int32 sums
+    # written once; 2 M K N operations at the int8 tensor-core peak
+    row.update(bound(x.numel() + w_t.numel() + 4 * m * cout,
+                     2.0 * m * k * cout, "int8"))
+    int_mm = "none" if mm is None else f"{row['int_mm_ms']:.4f} ms"
+    log(f"kernel int8_conv {label}: {row['ms']:.4f} ms (graph "
+        f"{row['graph_ms']:.4f}), plain {plain_ms:.1f} ms on the host CPU, "
+        f"cuDNN f32 {row['library_ms']:.4f} ms, im2col + _int_mm {int_mm}, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def int8_conv_kernel_phase(dev) -> dict:
+    """``int8_conv`` against its plain version bit for bit at each distinct
+    conv shape of ResNet-50 at INT8_CONV_BATCH images, its fc, BERT's
+    calibrated head, one rank-1 atrous and one rank-3 case, each timed
+    (``int8_conv_case``); the ResNet-50 pass (each shape times its count
+    in the net) is the entry's headline."""
+    import torch
+
+    t_phase = time.perf_counter()
+    # the cuDNN yardstick in full f32, as the port's context runs it
+    torch.backends.cudnn.allow_tf32 = False
+    gen = np.random.default_rng(SEED + 70)
+    rows = [int8_conv_case(dev, case, gen) for case in
+            resnet50_int8_shapes(INT8_CONV_BATCH) + list(INT8_CONV_EXTRA)]
+    net = [r for r in rows if r["count"]]
+    total = {key: sum(r[key] * r["count"] for r in net)
+             for key in ("ms", "graph_ms", "plain_ms", "library_ms",
+                         "bound_ms")}
+    ops_ms = sum(r["bound_ms"] * r["count"] for r in net
+                 if r["bound_by"] == "operations")
+    total["bound_by"] = "operations" if 2 * ops_ms >= total["bound_ms"] \
+        else "bytes"
+    have = [r for r in net if r["int_mm_ms"] is not None]
+    total["int_mm_ms"] = sum(r["int_mm_ms"] * r["count"] for r in have)
+    log(f"kernel int8_conv, one ResNet-50 pass at {INT8_CONV_BATCH} images "
+        f"({sum(r['count'] for r in net)} calls): {total['ms']:.3f} ms "
+        f"(graph {total['graph_ms']:.3f}), bound {total['bound_ms']:.3f} "
+        f"ms ({total['bound_by']}), plain {total['plain_ms']:.0f} ms on "
+        f"the host CPU, cuDNN f32 {total['library_ms']:.3f} ms; im2col + "
+        f"_int_mm {total['int_mm_ms']:.3f} ms over the "
+        f"{sum(r['count'] for r in have)} calls its shape rules take; "
+        f"phase int8_conv_kernel: {time.perf_counter() - t_phase:.1f} s")
+    entry = {"name": "int8_conv", "route": "cuda",
+             "source": "analytics_zoo_tpu_torch/csrc/int8_conv.cu",
+             "replaces": REPLACES["int8_conv"],
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "plain_device": "host cpu (no int32 matmul on CUDA)",
+             "pass": f"ResNet-50 at {INT8_CONV_BATCH} images, 54 calls",
+             **total, "shapes": rows}
+    return entry
 
 
 def bert_tokens_model():
@@ -2949,8 +3184,9 @@ def train_checks(tag, make, plan, x, y, steps, batch, k, flops, peak,
     """``make(K)``, a compiled model from one set of weights with K steps a
     dispatch, trained for one epoch of ``steps`` batches under ``plan``:
     ``captured_fit_check`` at K=1, a replayed step's times
-    (``replayed_step``), then K=``k`` bit for bit K=1.  Returns the K=1
-    model, its train captures dropped."""
+    (``replayed_step``), then K=``k`` bit for bit K=1 (``k`` None: no
+    K-step run).  Returns the K=1 model, its train captures dropped, and
+    its losses."""
     import torch
 
     from analytics_zoo_tpu_torch.common.utils import tree_map
@@ -2960,6 +3196,8 @@ def train_checks(tag, make, plan, x, y, steps, batch, k, flops, peak,
     k1 = tree_map(torch.clone, trained(net))
     replayed_step(tag, net, plan, x, y, batch, steps, flops, peak, card_line)
     net._estimator._steps.clear()  # the train captures and their pool
+    if k is None:
+        return net, losses
     knet = make(k)
     knet.fit(x, y, batch_size=batch, nb_epoch=1, plan=plan)
     kl = [v for _, v in knet._estimator.loss_log]
@@ -2968,7 +3206,7 @@ def train_checks(tag, make, plan, x, y, steps, batch, k, flops, peak,
         f"K=1: losses equal {kl == losses}, leaves differing {off[:8]}")
     if kl != losses or off:
         raise AssertionError(f"{tag}: K={k} is not K=1")
-    return net
+    return net, losses
 
 
 def captured_eval_check(tag, net, x, y, batch) -> None:
@@ -3093,11 +3331,11 @@ def serve_zoo_model(tag, net, shape, sizes, gen, flops, card_line,
 
 
 def rates_on_a_fixed_batch(tag, net, kernel_path, x, y, batch, steps,
-                           sched_opt) -> None:
-    """``steps`` one-step fits on one batch: the loss falls, and each
-    step's rate (read back from a kernel's change and momentum trace,
-    least squares) is the schedule's on the host within RATE_TOL of the
-    peak rate."""
+                           sched_opt, plan=None) -> None:
+    """``steps`` one-step fits on one batch under ``plan``: the loss falls,
+    and each step's rate (read back from a kernel's change and momentum
+    trace, least squares) is the schedule's on the host within RATE_TOL
+    of the peak rate."""
     import torch
 
     layer, leaf = kernel_path
@@ -3105,7 +3343,7 @@ def rates_on_a_fixed_batch(tag, net, kernel_path, x, y, batch, steps,
     rates = []
     for i in range(steps):
         before = net.params[layer][leaf].clone()
-        net.fit(x, y, batch_size=batch, nb_epoch=1)
+        net.fit(x, y, batch_size=batch, nb_epoch=1, plan=plan)
         after = net.params[layer][leaf]
         trace = net._estimator._opt_state.trace[layer][leaf]
         got = (-((after - before).double() * trace.double()).sum()
@@ -3127,42 +3365,69 @@ def rates_on_a_fixed_batch(tag, net, kernel_path, x, y, batch, steps,
 
 
 def resnet_training_phase(card_line: str, x, y, weights, flops) -> dict:
-    """ResNet-50 fine-tuned with the recipe in f32 and bf16
-    (``mixed_precision()``) at batch 64: ``fit`` at K=1 (step 1 eager and
+    """ResNet-50 fine-tuned with the recipe in f32, bf16
+    (``mixed_precision()``) and f16 (``"dp+f16"``, no loss scaling, as
+    the reference) at batch 64: ``fit`` at K=1 (step 1 eager and
     captured, then replays) bit for bit ``train_step`` called eagerly
     (parameters, momentum, BatchNorm state, losses; the eager run twice),
-    K=4 bit for bit K=1; the host clock, the device time and the idle
-    share of a replayed step against its bound.  Then a fixed batch: the
-    loss falls and each step's rate is the schedule's on the host.  Then
-    ``evaluate`` (accuracy, top-5) through the captured eval step, bit for
-    bit the uncaptured one.  Returns the launch counts and the trained f32
-    model."""
+    K=4 bit for bit K=1 (f32 and bf16); the host clock, the device time
+    and the idle share of a replayed step against its bound.  f16: step
+    1's loss within BF16_F32_LOSS_TOL of the f32 step's, the masters,
+    momentum and moving statistics f32.  Then a fixed batch, f32 and f16:
+    the loss falls and each step's rate is the schedule's on the host.
+    Then ``evaluate`` (accuracy, top-5) through the captured eval step,
+    bit for bit the uncaptured one.  Returns the launch counts and the
+    trained f32 model."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
     from analytics_zoo_tpu_torch.parallel import mixed_precision
 
     t_phase = time.perf_counter()
     reset_counters()  # the ResNet-50 training path: to the read below
-    served = None
-    for tag, plan, peak in (("f32", None, PEAK_FLOPS["float32"]),
-                            ("bf16", mixed_precision(),
-                             PEAK_FLOPS["bfloat16"])):
-        net = train_checks(f"resnet50 {tag}",
-                           lambda k: resnet_net(weights, k), plan, x, y,
-                           RESNET_STEPS, RESNET_BATCH, RESNET_K, flops, peak,
-                           card_line)
+    served, first = None, {}
+    for tag, plan, peak, k in (
+            ("f32", None, PEAK_FLOPS["float32"], RESNET_K),
+            ("bf16", mixed_precision(), PEAK_FLOPS["bfloat16"], RESNET_K),
+            ("f16", "dp+f16", PEAK_FLOPS["float16"], None)):
+        t0 = time.perf_counter()
+        net, losses = train_checks(
+            f"resnet50 {tag}", lambda k: resnet_net(weights, k), plan, x, y,
+            RESNET_STEPS, RESNET_BATCH, k, flops, peak, card_line)
+        first[tag] = losses[0]
+        if tag == "f16":
+            kept = {name: sorted({str(t.dtype) for t in tree_leaves(tree)})
+                    for name, tree in (
+                        ("params", net.params),
+                        ("momentum", net._estimator._opt_state.trace),
+                        ("moving statistics", net.state))}
+            rel = abs(first["f16"] - first["f32"]) / abs(first["f32"])
+            log(f"resnet50 f16: step 1 loss {first['f16']:.6f} against f32 "
+                f"{first['f32']:.6f} (rel {rel:.2e}, tol "
+                f"{BF16_F32_LOSS_TOL}); dtypes kept {kept}; no loss scaling"
+                f" (finite losses {all(np.isfinite(losses))})")
+            if rel > BF16_F32_LOSS_TOL or not all(np.isfinite(losses)) \
+                    or any(v != ["torch.float32"] for v in kept.values()):
+                raise AssertionError("the f16 ResNet-50 step is off the "
+                                     "f32 one or keeps a 16-bit state")
         if tag == "f32":
             served = net
         del net
         free_device_memory(f"after resnet50 {tag}")
+        log(f"resnet50 training {tag}: {time.perf_counter() - t0:.1f} s")
 
     # a fixed batch: the loss falls; each step's rate against the host's
     from analytics_zoo_tpu_torch.models import ResNet
 
-    fixed = resnet_net(weights, steps_per_epoch=1)
-    rates_on_a_fixed_batch(
-        "resnet50", fixed, ("fc", "kernel"), x[:RESNET_BATCH],
-        y[:RESNET_BATCH], RESNET_BATCH, FIXED_STEPS,
-        ResNet.imagenet_optimizer(batch_size=RESNET_BATCH, steps_per_epoch=1))
-    del fixed
+    for tag, plan in (("f32", None), ("f16", "dp+f16")):
+        fixed = resnet_net(weights, steps_per_epoch=1)
+        rates_on_a_fixed_batch(
+            f"resnet50 {tag}", fixed, ("fc", "kernel"), x[:RESNET_BATCH],
+            y[:RESNET_BATCH], RESNET_BATCH, FIXED_STEPS,
+            ResNet.imagenet_optimizer(batch_size=RESNET_BATCH,
+                                      steps_per_epoch=1), plan)
+        del fixed
+    torch.cuda.synchronize()
 
     captured_eval_check("resnet50", served, x, y, RESNET_BATCH)
     launches = counters()  # end of the ResNet-50 training path
@@ -3367,7 +3632,7 @@ def inception_phases(card_line: str) -> tuple[dict, dict, list]:
     for tag, plan, peak in (("f32", None, PEAK_FLOPS["float32"]),
                             ("bf16", mixed_precision(),
                              PEAK_FLOPS["bfloat16"])):
-        net = train_checks(
+        net, _ = train_checks(
             f"inception_v1 {tag}",
             lambda k: zoo_net(build, weights,
                               inception_optimizer(INCEPTION_STEPS), k),
@@ -3607,46 +3872,655 @@ def zoo_serving_phase(card_line: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Calibrated int8 serving of conv nets (the role of the reference's
+# examples/vnni/perf.py): ResNet-50 (moving statistics set to one batch's)
+# calibrated on INT8_CALIB seeded images through ``optimize("int8",
+# calibration_data=...)``, its 53 convolutions and its fc on the
+# ``int8_conv`` kernel; Inception-v1 and MobileNet-v2 calibrated the same
+# way, one ZOO_REQUEST-image request each
+INT8_CALIB = 32
+RESNET_INT8_LAUNCHES = 54
+
+
+def f64_ops(fn) -> list:
+    """The names of the ops ``fn()`` runs on a float64 tensor (an input
+    or an output), in order."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves as leaves
+
+    seen = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.dtype == torch.float64
+                   for t in leaves((args, kwargs, out))):
+                seen.append(str(func))
+            return out
+
+    with Watch():
+        fn()
+    return seen
+
+
+def resnet50_int8_phase(card_line: str) -> dict:
+    """ResNet-50 (224x224x3, 1000 classes, random weights from the seed,
+    moving statistics set to one batch's) served in calibrated int8
+    through ``InferenceModel().from_keras_net(net).optimize("int8",
+    calibration_data=...)``, ``warmup`` and ``predict`` at 1, 8 and 32
+    images: each replay bit for bit its eager forward, finite rows
+    summing to 1, RESNET_INT8_LAUNCHES ``int8_conv`` launches a replayed
+    micro-batch (53 convolutions and the fc) and no other kernel of the
+    table, no float64 convolution or matmul in an eager forward; request
+    0 against the same ``Int8Model`` (its qparams and activation scales)
+    on the CPU within INT8_CPU_TOL; argmax agreement and ``logit_gap``
+    against the f32 model printed (no bound: how far calibrated int8
+    moves a random net is the reference's algorithm's, which the CPU tests
+    hold the port to); each request's host clock, device time, idle share
+    and images/s beside the f32 request's and its bound.  Returns the
+    path's launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.models import ResNet
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        recalibrate_batchnorm,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
+        Int8Model,
+        QuantizedTensor,
+    )
+
+    t_phase = time.perf_counter()
+    free_device_memory("before resnet50_int8")
+    init_zoo_context(seed=SEED, device="cuda")
+    gen = np.random.default_rng(SEED + 80)
+    net = ResNet.image_net(50, classes=RESNET_CLASSES,
+                           input_shape=RESNET_SHAPE)
+    net.build_params()
+    recalibrate_batchnorm(net, gen.standard_normal(
+        (RESNET_BATCH,) + RESNET_SHAPE, dtype=np.float32))
+    flops = conv_flops(net)
+    calib = gen.standard_normal((INT8_CALIB,) + RESNET_SHAPE,
+                                dtype=np.float32)
+    t0 = time.perf_counter()
+    models = {"f32": InferenceModel().from_keras_net(net),
+              "int8": InferenceModel().from_keras_net(net).optimize(
+                  "int8", calibration_data=calib)}
+    qm = models["int8"]._int8_model
+    cal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for im in models.values():
+        im.warmup([RESNET_SHAPE], dtype=np.float32,
+                  batch_sizes=RESNET_REQUESTS)
+    torch.cuda.synchronize()
+    log(f"resnet50_int8: calibrated on {INT8_CALIB} images in {cal_s:.1f} s "
+        f"({len(qm.act_scales)} scales, {len(qm.weights_t)} int8 kernels "
+        f"held as (Cout, K) copies); f32 and int8 warmed up (captured) at "
+        f"{RESNET_REQUESTS} in {time.perf_counter() - t0:.1f} s")
+    if len(qm.weights_t) != RESNET_INT8_LAUNCHES:
+        raise AssertionError(f"expected {RESNET_INT8_LAUNCHES} int8 layers, "
+                             f"got {sorted(qm.weights_t)}")
+    reqs = {n: gen.standard_normal((n,) + RESNET_SHAPE, dtype=np.float32)
+            for n in RESNET_REQUESTS}
+    want = {n: eager_predict(models["int8"], [reqs[n]])
+            for n in RESNET_REQUESTS}
+    wide = [op for op in f64_ops(lambda: eager_predict(
+        models["int8"], [reqs[1]])) if "conv" in op or "mm" in op]
+    torch.cuda.synchronize()
+    reset_counters()  # the calibrated ResNet-50 path: to the read below
+    got = {n: models["int8"].predict(reqs[n]) for n in RESNET_REQUESTS}
+    launches = counters()  # end of the calibrated ResNet-50 path
+    expected = dict({k: 0 for k in launches},
+                    int8_conv=RESNET_INT8_LAUNCHES * len(RESNET_REQUESTS))
+    log(f"resnet50_int8 launches {launches} (expected {expected}); float64 "
+        f"convolutions or matmuls in an eager forward: {wide}")
+    if launches != expected or wide:
+        raise AssertionError("the calibrated ResNet-50 did not run its "
+                             "convolutions on int8_conv alone")
+    f32 = {n: models["f32"].predict(reqs[n]) for n in RESNET_REQUESTS}
+    for n in RESNET_REQUESTS:
+        out = got[n]
+        same = np.array_equal(out, want[n])
+        sums = float(np.abs(out.sum(-1) - 1).max())
+        agree = float(np.mean(out.argmax(-1) == f32[n].argmax(-1)))
+        log(f"resnet50_int8 {n} image(s): {out.shape}, replay equal to the "
+            f"eager forward bit for bit {same}; rows sum to 1 within "
+            f"{sums:.2e}; against f32: argmax agreement {agree:.3f}, logit "
+            f"gap {logit_gap(out, f32[n]):.4f}, max |d| "
+            f"{float(np.abs(out - f32[n]).max()):.3e}")
+        if not same or not np.isfinite(out).all() or sums > 1e-4 \
+                or out.shape != (n, RESNET_CLASSES):
+            raise AssertionError(f"calibrated ResNet-50 serving of {n} is "
+                                 "wrong")
+    # request 0 against the same Int8Model on the CPU
+    cpu = ResNet.image_net(50, classes=RESNET_CLASSES,
+                           input_shape=RESNET_SHAPE)
+    cpu.device = torch.device("cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), net.params)
+    cpu.state = tree_map(lambda t: t.cpu(), net.state)
+    cpu_q = Int8Model(cpu, tree_map(
+        lambda l: QuantizedTensor(l.values.cpu(), l.scale.cpu(), l.axis)
+        if isinstance(l, QuantizedTensor) else l.cpu(), qm.qparams),
+        qm.act_scales)
+    t0 = time.perf_counter()
+    n0 = RESNET_REQUESTS[0]
+    err = float(np.abs(cpu_q.predict(reqs[n0], batch_size=n0)
+                       - got[n0]).max())
+    log(f"resnet50_int8 request 0 ({n0} image) vs the same Int8Model on the "
+        f"CPU ({time.perf_counter() - t0:.1f} s there): max|d| {err:.3e} "
+        f"(tol {INT8_CPU_TOL:g})")
+    if not err <= INT8_CPU_TOL:
+        raise AssertionError("the calibrated ResNet-50 request disagrees "
+                             "with the CPU")
+    del cpu, cpu_q
+    for tag, im in models.items():
+        peak = PEAK_FLOPS["int8" if tag == "int8" else "float32"]
+        for n in RESNET_REQUESTS:
+            host = []
+            for _ in range(HOST_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                im.predict(reqs[n])
+                host.append((time.perf_counter() - t0) * 1e3)
+            key = ((reqs[n].shape, str(reqs[n].dtype)),)
+            dev = replay_ms(graph_of(im._steps[key].step))
+            med = float(np.median(host))
+            log(f"resnet50_int8 request {tag}, {n} image(s): host clock "
+                f"{', '.join(f'{t:.3f}' for t in host)} ms (median "
+                f"{med:.3f}), device {dev:.3f} ms, idle "
+                f"{max(0.0, 1 - dev / med):.1%}, {n / med * 1e3:.1f} "
+                f"images/s; bound {n * flops[0] / peak * 1e3:.3f} ms "
+                f"({flops[0] / 1e9:.2f} GFLOP an image at "
+                f"{peak / 1e12:.0f} T/s) ({card_line})")
+    del models, net
+    free_device_memory("after resnet50_int8")
+    log(f"phase resnet50_int8: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def zoo_int8_phase(card_line: str) -> dict:
+    """Inception-v1 and MobileNet-v2 (224x224x3, 1000 classes, moving
+    statistics set to one batch's) calibrated on ZOO_REQUEST seeded images
+    and served one replayed ZOO_REQUEST-image request each: bit for bit its
+    eager forward, finite rows summing to 1, one ``int8_conv`` launch per
+    int8 layer.  MobileNet-v2's depthwise convolutions are no targets and
+    stay float (as in the reference); its 1x1 convolutions run int8.
+    Returns the path's launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models import Inception
+    from analytics_zoo_tpu_torch.models.imagenet_zoo import mobilenet_v2
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        DepthwiseConvolution2D,
+        recalibrate_batchnorm,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(SEED + 90)
+    total = {k: 0 for k in counters()}
+    for name, build in (("inception_v1", lambda: Inception.v1(
+            classes=ZOO_CLASSES, input_shape=ZOO_SHAPE)),
+                        ("mobilenet_v2", mobilenet_v2)):
+        init_zoo_context(seed=SEED, device="cuda")
+        net = build()
+        net.build_params()
+        if net.state:
+            recalibrate_batchnorm(net, gen.standard_normal(
+                (ZOO_REQUEST,) + ZOO_SHAPE, dtype=np.float32))
+        im = InferenceModel().from_keras_net(net).optimize(
+            "int8", calibration_data=gen.standard_normal(
+                (ZOO_REQUEST,) + ZOO_SHAPE, dtype=np.float32))
+        hooked = sorted(im._int8_model.weights_t)
+        depthwise = [ly.name for ly in net.layers
+                     if isinstance(ly, DepthwiseConvolution2D)]
+        im.warmup([ZOO_SHAPE], dtype=np.float32, batch_sizes=[ZOO_REQUEST])
+        x = gen.standard_normal((ZOO_REQUEST,) + ZOO_SHAPE, dtype=np.float32)
+        want = eager_predict(im, [x])
+        torch.cuda.synchronize()
+        reset_counters()  # this model's calibrated request: to the read
+        got = im.predict(x)
+        launches = counters()  # end of this model's calibrated request
+        total = {k: total[k] + launches[k] for k in total}
+        same = np.array_equal(got, want)
+        sums = float(np.abs(got.sum(-1) - 1).max())
+        log(f"{name} int8: {len(hooked)} int8 layers, {len(depthwise)} "
+            f"depthwise layers kept float ({sorted(set(depthwise) & set(hooked))}"
+            f" hooked); {ZOO_REQUEST}-image request equal to the eager "
+            f"forward bit for bit {same}, rows sum to 1 within {sums:.2e}; "
+            f"launches {launches}")
+        expected = dict({k: 0 for k in launches}, int8_conv=len(hooked))
+        if not same or sums > 1e-4 or not np.isfinite(got).all() \
+                or launches != expected or set(depthwise) & set(hooked) \
+                or not hooked:
+            raise AssertionError(f"calibrated {name} serving is wrong")
+        del net, im
+        free_device_memory(f"after {name} int8")
+    log(f"zoo int8 launches {total}; phase zoo_int8: "
+        f"{time.perf_counter() - t_phase:.1f} s ({card_line})")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# BERT-base fine-tuned under the reference's BERT optimizer:
+# ``AdamWeightDecay(lr=2e-5, warmup_portion=0.1, total=50)`` (optax
+# adamw, weight decay 0.01 on every leaf, epsilon 1e-6, a warmup over 5
+# steps then a linear decay), f32, 5 captured steps at 8 x 512
+ADAMW = dict(lr=2e-5, warmup_portion=0.1, total=50)
+
+
+def adamw_rate(net, path, before) -> float:
+    """The rate the last step applied to the leaf at ``path``: its change
+    against the direction the step computed from the new moments and the
+    old value (least squares, float64)."""
+    import torch
+
+    opt = net._estimator.optimizer
+    state = net._estimator._opt_state
+    layer, leaf = path
+    t = int(state.count)
+    mu, nu = (getattr(state, f)[layer][leaf].double() for f in ("mu", "nu"))
+    d = (mu / (1 - opt.b1 ** t)) / (torch.sqrt(nu / (1 - opt.b2 ** t))
+                                    + opt.eps) + opt.weight_decay \
+        * before.double()
+    delta = net.params[layer][leaf].double() - before.double()
+    return (-(delta * d).sum() / (d * d).sum().clamp_min(1e-300)).item()
+
+
+def bert_adamw_phase(card_line: str) -> dict:
+    """The BERT-base classifier through ``compile(AdamWeightDecay(...),
+    "sparse_categorical_crossentropy_from_logits", ["accuracy"])``, f32:
+    5 steps through ``fit`` (step 1 eager and captured, then replays) bit
+    for bit 5 ``train_step`` calls made eagerly (twice); 5 more replayed
+    steps launch 12 + 12 flash and 1 + 1 cross-entropy kernels a step and
+    no Adam kernel (the reference's kernel plane takes only ``Adam``); on
+    one repeated batch each step's rate, read back from the classifier
+    kernel's change and the moments, is the schedule's on the host; then
+    step 1 at 2 blocks (batch 2, attention dropout on) against the CPU:
+    the loss, the moments and the parameters within TRAIN_CPU_TOL of each
+    leaf's largest value (the warmup gives step 1 the rate 0, so the
+    parameters stay where they were and the moments carry the step).
+    Returns the replayed steps' launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.engine import step_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.parallel import compile_step
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import (
+        get_loss,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
+        AdamWeightDecay,
+    )
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _to_device,
+    )
+
+    t_phase = time.perf_counter()
+    free_device_memory("before bert_adamw")
+    gen = np.random.default_rng(SEED + 100)
+    blocks = BERT_BASE["n_block"]
+    x, y = train_data(TRAIN_BATCH * CAPTURE_STEPS, gen)
+
+    def fresh(n_block=blocks, hidden=DROPOUT, device="cuda"):
+        init_zoo_context(seed=SEED, device=device)
+        net = bert_classifier(n_block, hidden, DROPOUT)
+        net.build_params()
+        net.compile(optimizer=AdamWeightDecay(**ADAMW),
+                    loss="sparse_categorical_crossentropy_from_logits",
+                    metrics=["accuracy"])
+        return net
+
+    net = fresh()
+    first, l_first, _ = eager_steps(net, None, x, y, CAPTURE_STEPS)
+    want, l_want, eager_ms = eager_steps(net, None, x, y, CAPTURE_STEPS)
+    drift = differing(first, want)
+    if drift or l_first != l_want:
+        raise AssertionError(f"the eager AdamW step is not deterministic: "
+                             f"{drift[:8]}")
+    del first
+    net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    est = net._estimator
+    losses = [v for _, v in est.loss_log]
+    off = differing({"params": net.params, "opt": est._opt_state}, want)
+    log(f"bert_adamw: {CAPTURE_STEPS} steps through fit against train_step "
+        f"eagerly: losses equal {losses == l_want} "
+        f"({', '.join(f'{v:.4f}' for v in losses)}), "
+        f"{len(named_leaves(want)) - len(off)} of {len(named_leaves(want))} "
+        f"parameter and moment leaves equal bit for bit"
+        f"{'; differ: ' + str(off[:8]) if off else ''}")
+    if losses != l_want or off:
+        raise AssertionError("the captured AdamW step is not the eager step")
+    del want
+    reset_counters()  # the replayed AdamW steps: to the read below
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / CAPTURE_STEPS
+    launches = counters()  # end of the replayed AdamW steps
+    per_step = {"flash_attention_fwd": blocks, "flash_attention_bwd": blocks,
+                "fused_adam": 0, "softmax_xent_fwd": 1,
+                "softmax_xent_bwd": 1, "int8_matmul": 0, "int8_conv": 0}
+    expected = {k: v * CAPTURE_STEPS for k, v in per_step.items()}
+    dev_ms = replay_ms(graph_of(est._train_step_for(1,
+                                                    est._resolve_plan())))
+    log(f"bert_adamw: replayed step host clock {host_ms:.2f} ms, device "
+        f"{dev_ms:.2f} ms, idle {max(0.0, 1 - dev_ms / host_ms):.1%}, "
+        f"{eager_ms:.2f} ms eager ({card_line}); launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError("the AdamW replays did not count their kernels")
+    del net
+    free_device_memory("after bert_adamw fit")
+
+    # one repeated batch, one step a fit: each step's rate against the
+    # schedule on the host
+    net = fresh()
+    opt = net._compiled["optimizer"]
+    xb, yb = [a[:TRAIN_BATCH] for a in x], y[:TRAIN_BATCH]
+    path = ("dense_0", "kernel")
+    rates = []
+    for i in range(FIXED_STEPS):
+        before = net.params[path[0]][path[1]].clone()
+        net.fit(xb, yb, batch_size=TRAIN_BATCH, nb_epoch=1)
+        host = ADAMW["lr"] * float(opt.schedule(torch.tensor(i)))
+        rates.append((adamw_rate(net, path, before), host))
+    rep = [v for _, v in net._estimator.loss_log]
+    worst = max(abs(g - w) for g, w in rates) / ADAMW["lr"]
+    log(f"bert_adamw fixed batch, {FIXED_STEPS} steps: losses "
+        f"{', '.join(f'{v:.4f}' for v in rep)}; rates applied on the card "
+        f"{', '.join(f'{g:.3e}' for g, _ in rates)} against the schedule on "
+        f"the host {', '.join(f'{w:.3e}' for _, w in rates)}: worst "
+        f"{worst:.2e} of the peak {ADAMW['lr']}")
+    if worst > RATE_TOL or not np.all(np.isfinite(rep)):
+        raise AssertionError("a step's AdamW rate is not the schedule's")
+    del net
+    free_device_memory("after bert_adamw fixed batch")
+
+    # step 1 at 2 blocks on the card against the CPU
+    xs, ys = train_data(2, gen)
+    batch = {"x": xs, "y": ys}
+    results = []
+    for device in ("cuda", "cpu"):
+        small = bert_classifier(2, 0.0, DROPOUT)
+        small.build_params(rng=torch.Generator().manual_seed(SEED),
+                           device=device)
+        est = Estimator(small, optimizer=AdamWeightDecay(**ADAMW),
+                        loss=get_loss(
+                            "sparse_categorical_crossentropy_from_logits"))
+        step = compile_step(est.train_step, est._resolve_plan(),
+                            capture=False)
+        params, opt_state, _, loss = step(
+            small.params, est.optimizer.init(small.params), small.state,
+            step_generator(SEED, 0, small.device),
+            _to_device(batch, small.device), est.compute_casts(
+                est._resolve_plan(), small.params))
+        results.append((float(loss), [t.cpu() for t in tree_leaves(
+            (params, opt_state.mu, opt_state.nu))]))
+    (g_loss, g_leaves), (c_loss, c_leaves) = results
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    leaf_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(g_leaves, c_leaves))
+    log(f"bert_adamw step 1 vs CPU (2 blocks, batch 2): loss {g_loss:.6f} "
+        f"vs {c_loss:.6f} (rel {loss_err:.2e}), parameters and moments max "
+        f"rel to leaf max {leaf_err:.2e} (tol {TRAIN_CPU_TOL:g}); phase "
+        f"bert_adamw: {time.perf_counter() - t_phase:.1f} s")
+    if not (loss_err <= TRAIN_CPU_TOL and leaf_err <= TRAIN_CPU_TOL):
+        raise AssertionError("the AdamW step on the card disagrees with the "
+                             "CPU")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The rest of the optimizers, metrics and losses: LeNet-5 at batch 128 on
+# the quadrant task under each optimizer, OPT_STEPS captured steps; a
+# binary LeNet-5 head evaluated with ``["auc", "mae", "mse"]``; every loss
+# of the reference's table on a seeded (64, 10) batch against the CPU
+OPT_STEPS, OPT_BATCH, OPT_FIXED_STEPS = 4, 128, 6
+LOSS_CPU_TOL = 1e-6
+
+
+def optimizer_builders() -> list:
+    from analytics_zoo_tpu_torch.pipeline.api.keras import optimizers as o
+
+    return [("rmsprop", lambda: o.RMSprop(1e-3)),
+            ("adagrad", lambda: o.Adagrad(1e-2)),
+            ("adadelta", lambda: o.Adadelta()),
+            ("adamax", lambda: o.Adamax(2e-3))]
+
+
+def loss_inputs(name, gen):
+    """(y_true, y_pred) of a loss's domain, (64, 10) (the ranking hinge's
+    (64, 1)), as numpy."""
+    logits = gen.normal(size=(64, 10)).astype(np.float32)
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    labels = gen.integers(0, 10, 64).astype(np.int32)
+    if name.startswith("sparse"):
+        return labels, logits if "logits" in name else probs
+    if name == "categorical_crossentropy":
+        return np.eye(10, dtype=np.float32)[labels], probs
+    if name in ("kld", "kullback_leibler_divergence"):
+        return gen.random((64, 10)).astype(np.float32), probs
+    if name == "binary_crossentropy":
+        return gen.integers(0, 2, (64, 10)).astype(np.float32), \
+            gen.uniform(0.01, 0.99, (64, 10)).astype(np.float32)
+    if name == "binary_crossentropy_from_logits":
+        return gen.integers(0, 2, (64, 10)).astype(np.float32), logits
+    if name in ("hinge", "squared_hinge"):
+        return np.sign(gen.normal(size=(64, 10))).astype(np.float32), logits
+    if name == "poisson":
+        return gen.poisson(2.0, (64, 10)).astype(np.float32), \
+            np.exp(logits).astype(np.float32)
+    if name in ("msle", "mean_squared_logarithmic_error"):
+        return np.abs(logits) * 3, gen.random((64, 10)).astype(np.float32)
+    if name == "rank_hinge":
+        return np.ones((64, 1), np.float32), logits[:, :1]
+    return gen.normal(size=(64, 10)).astype(np.float32), logits
+
+
+def losses_against_the_cpu(gen, card="cuda") -> float:
+    """Every loss of the table and its gradient (of the mean, with respect
+    to the predictions) on the device ``card`` against the same call on
+    the CPU: the largest error relative to each value's largest
+    magnitude."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras import objectives as o
+
+    worst = {}
+    for name in sorted(o._LOSSES):
+        y_true, y_pred = loss_inputs(name, gen)
+        out = []
+        for device in (card, "cpu"):
+            p = torch.from_numpy(y_pred).to(device).requires_grad_(True)
+            val = o.get_loss(name)(torch.from_numpy(y_true).to(device), p)
+            (g,) = torch.autograd.grad(val.mean(), p)
+            out.append((val.detach().cpu(), g.cpu()))
+        (gv, gg), (cv, cg) = out
+        worst[name] = max(((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)).item() for a, b in ((gv, cv), (gg, cg)))
+    log(f"losses on the card vs the CPU (value and gradient, relative to "
+        f"the largest): worst {max(worst.values()):.2e} (tol "
+        f"{LOSS_CPU_TOL:g}) over {len(worst)} names; "
+        + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+    if max(worst.values()) > LOSS_CPU_TOL:
+        raise AssertionError("a loss on the card disagrees with the CPU")
+    return max(worst.values())
+
+
+def optimizers_phase(card_line: str) -> dict:
+    """LeNet-5 (28x28x1, 10 classes) at batch OPT_BATCH under each of
+    ``RMSprop``, ``Adagrad``, ``Adadelta`` and ``Adamax``: OPT_STEPS steps
+    through ``fit`` (step 1 eager and captured, then replays) bit for bit
+    ``train_step`` called eagerly, and on a fixed batch a loss lower after
+    OPT_FIXED_STEPS steps than before.  A binary LeNet-5 head
+    (``Dense(1, sigmoid)``, ``"binary_crossentropy"``) evaluated with
+    ``["auc", "mae", "mse"]`` through the captured eval step, bit for bit
+    the uncaptured one, after one epoch under ``"rmsprop"``.  Every loss
+    of the table against the CPU.
+    Returns the path's launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.models import build_lenet
+    from analytics_zoo_tpu_torch.parallel import compile_step
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Convolution2D,
+        Dense,
+        Flatten,
+        MaxPooling2D,
+    )
+
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(SEED + 110)
+    x, y = quadrant_task(OPT_BATCH * OPT_STEPS, gen)
+    reset_counters()  # the optimizers path: to the read below
+    for name, make in optimizer_builders():
+        init_zoo_context(seed=SEED, device="cuda")
+        net = build_lenet()
+        net.compile(optimizer=make(), loss="sparse_categorical_crossentropy")
+        net.build_params()
+        want, l_want, eager_ms = eager_steps(net, None, x, y, OPT_STEPS,
+                                             OPT_BATCH)
+        net.fit(x, y, batch_size=OPT_BATCH, nb_epoch=1)
+        losses = [v for _, v in net._estimator.loss_log]
+        got = {"params": net.params, "opt": net._estimator._opt_state,
+               "state": net.state}
+        off = differing(got, want)
+        fixed = build_lenet()
+        fixed.compile(optimizer=make(),
+                      loss="sparse_categorical_crossentropy")
+        fixed.build_params()
+        xb, yb = x[:OPT_BATCH], y[:OPT_BATCH]
+        before = fixed.evaluate(xb, yb, batch_size=OPT_BATCH)["loss"]
+        fixed.fit(xb, yb, batch_size=OPT_BATCH, nb_epoch=OPT_FIXED_STEPS)
+        after = fixed.evaluate(xb, yb, batch_size=OPT_BATCH)["loss"]
+        log(f"optimizers {name}: {OPT_STEPS} steps through fit against "
+            f"train_step eagerly ({eager_ms:.2f} ms a step): losses equal "
+            f"{losses == l_want}, {len(named_leaves(want)) - len(off)} of "
+            f"{len(named_leaves(want))} parameter and state leaves equal bit "
+            f"for bit{'; differ: ' + str(off[:8]) if off else ''}; fixed "
+            f"batch loss {before:.4f} -> {after:.4f} after "
+            f"{OPT_FIXED_STEPS} steps")
+        if losses != l_want or off or not after < before:
+            raise AssertionError(f"the captured {name} step is not the eager "
+                                 "step, or the loss did not fall")
+    # the binary head: AUC, MAE and MSE through the captured eval step
+    init_zoo_context(seed=SEED, device="cuda")
+    head = Sequential()
+    head.add(Convolution2D(6, 5, 5, activation="tanh", border_mode="same",
+                           input_shape=(28, 28, 1)))
+    head.add(MaxPooling2D())
+    head.add(Convolution2D(16, 5, 5, activation="tanh"))
+    head.add(MaxPooling2D())
+    head.add(Flatten())
+    head.add(Dense(120, activation="tanh"))
+    head.add(Dense(84, activation="tanh"))
+    head.add(Dense(1, activation="sigmoid"))
+    head.compile(optimizer="rmsprop", loss="binary_crossentropy",
+                 metrics=["auc", "mae", "mse"])
+    head.build_params()
+    yb = (y % 2).astype(np.float32)[:, None]
+    head.fit(x, yb, batch_size=OPT_BATCH, nb_epoch=1)
+    est = head._estimator
+    plan = est._resolve_plan()
+    eager = est._evaluate_with(
+        head.params, head.state, FeatureSet.of(x, yb), OPT_BATCH,
+        est.compute_casts(plan, head.params),
+        step=compile_step(est.eval_step, plan, label="eval_step_eager",
+                          capture=False))
+    first = head.evaluate(x, yb, batch_size=OPT_BATCH)  # captures
+    got = head.evaluate(x, yb, batch_size=OPT_BATCH)    # replays
+    log(f"optimizers binary head: captured eval {got}; the capture's "
+        f"{first}; uncaptured {eager} (equal: {got == eager == first})")
+    if not got == eager == first or not 0.0 <= got["auc"] <= 1.0:
+        raise AssertionError("the captured AUC/MAE/MSE eval is not the "
+                             "eager one")
+    launches = counters()  # end of the optimizers path
+    losses_against_the_cpu(gen)
+    torch.cuda.synchronize()
+    log(f"optimizers launches {launches} (no kernel of the table: the "
+        f"updates are multi-tensor passes); phase optimizers: "
+        f"{time.perf_counter() - t_phase:.1f} s ({card_line})")
+    return launches
+
+
 def main() -> int:
     import torch
 
+    seconds = {}
+
+    def phase(name, fn, *args):
+        """``fn(*args)``, its seconds logged and kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase seconds {name}: {seconds[name]:.1f}")
+        return out
+
     card_line = card()
     dev = torch.device("cuda")
-    build_kernels()
-    fwd = kernel_phase(dev)
-    bwd = flash_train_phase(dev, fwd)
-    flash_dims_phase(dev, fwd, bwd)
-    flash_f16_phase(dev, fwd, bwd)
+    phase("build", build_kernels)
+    fwd = phase("kernels_flash_fwd", kernel_phase, dev)
+    bwd = phase("kernels_flash_bwd", flash_train_phase, dev, fwd)
+    phase("kernels_flash_dims", flash_dims_phase, dev, fwd, bwd)
+    phase("kernels_flash_f16", flash_f16_phase, dev, fwd, bwd)
     shapes = [tuple(t.shape) for t in tree_leaves_of_bert()]
-    adam = adam_phase(dev, shapes)
-    xent = xent_phase(dev)
+    adam = phase("kernels_adam", adam_phase, dev, shapes)
+    xent = phase("kernels_xent", xent_phase, dev)
     weights = int8_weights(dev)
-    int8 = int8_kernel_phase(dev, weights)
+    int8 = phase("kernels_int8_matmul", int8_kernel_phase, dev, weights)
+    conv8 = phase("kernels_int8_conv", int8_conv_kernel_phase, dev)
     # the forward with its (m, l) statistics: the TPU's attention_stats,
     # one kernel with row 1, launched with statistics wherever a gradient
     # is needed (the training path)
     stats = {"name": "attention_stats", "route": "cuda",
              "source": fwd["source"], "replaces": REPLACES["attention_stats"],
              **fwd["train"]}
-    entries = [fwd, stats, bwd, adam] + xent + [int8]
+    entries = [fwd, stats, bwd, adam] + xent + [int8, conv8]
     reset_counters()  # serving main path: counted inside slice_phase
-    serving = {"flash_attention_fwd": slice_phase(card_line)}
-    training, f32_training = training_phase(card_line)
-    training_bf16 = training_bf16_phase(card_line, f32_training)
-    training_f16 = training_f16_phase(card_line, f32_training)
-    int8_serving = int8_serving_phase(card_line, weights, int8)
-    training_d192 = training_d192_phase(card_line)
-    serving_d384 = serving_d384_phase(card_line)
-    captured, _ = captured_training_phase(card_line)
-    serving_captured = captured_serving_phase(card_line)
-    lenet, lenet_err = lenet_phase(card_line)
+    serving = {"flash_attention_fwd": phase("serving", slice_phase,
+                                            card_line)}
+    training, f32_training = phase("training", training_phase, card_line)
+    training_bf16 = phase("training_bf16", training_bf16_phase, card_line,
+                          f32_training)
+    training_f16 = phase("training_f16", training_f16_phase, card_line,
+                         f32_training)
+    int8_serving = phase("int8_serving", int8_serving_phase, card_line,
+                         weights, int8)
+    training_d192 = phase("training_d192", training_d192_phase, card_line)
+    serving_d384 = phase("serving_d384", serving_d384_phase, card_line)
+    captured, _ = phase("captured_training", captured_training_phase,
+                        card_line)
+    serving_captured = phase("captured_serving", captured_serving_phase,
+                             card_line)
+    bert_adamw = phase("bert_adamw", bert_adamw_phase, card_line)
+    lenet, lenet_err = phase("lenet", lenet_phase, card_line)
     adam["max_abs_err"] = max(adam["max_abs_err"], lenet_err)
-    resnet_training, resnet_serving = resnet50_phases(card_line)
-    inc_training, inc_serving, inc_shapes = inception_phases(card_line)
-    inc_adam, inc_err = inception_adam_phase(card_line, inc_shapes)
+    optimizers = phase("optimizers", optimizers_phase, card_line)
+    resnet_training, resnet_serving = phase("resnet50", resnet50_phases,
+                                            card_line)
+    resnet_int8 = phase("resnet50_int8", resnet50_int8_phase, card_line)
+    inc_training, inc_serving, inc_shapes = phase(
+        "inception_v1", inception_phases, card_line)
+    inc_adam, inc_err = phase("inception_v1_adam", inception_adam_phase,
+                              card_line, inc_shapes)
     adam["max_abs_err"] = max(adam["max_abs_err"], inc_err)
-    mnv2_training, mnv2_serving = mobilenet_v2_phases(card_line)
-    zoo_serving = zoo_serving_phase(card_line)
+    mnv2_training, mnv2_serving = phase("mobilenet_v2", mobilenet_v2_phases,
+                                        card_line)
+    zoo_serving = phase("zoo_serving", zoo_serving_phase, card_line)
+    zoo_int8 = phase("zoo_int8", zoo_int8_phase, card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -3669,7 +4543,11 @@ def main() -> int:
                  "inception_v1_adam": inc_adam.get(name, 0),
                  "mobilenet_v2_training": mnv2_training.get(name, 0),
                  "mobilenet_v2_serving": mnv2_serving.get(name, 0),
-                 "zoo_serving": zoo_serving.get(name, 0)}
+                 "zoo_serving": zoo_serving.get(name, 0),
+                 "bert_adamw": bert_adamw.get(name, 0),
+                 "optimizers": optimizers.get(name, 0),
+                 "resnet50_int8": resnet_int8.get(name, 0),
+                 "zoo_int8": zoo_int8.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},
@@ -3677,12 +4555,15 @@ def main() -> int:
                          training_bf16=training_bf16["flash_attention_fwd"],
                          training_f16=training_f16["flash_attention_fwd"],
                          training_d192=training_d192["flash_attention_fwd"],
-                         training_captured=captured["flash_attention_fwd"])
+                         training_captured=captured["flash_attention_fwd"],
+                         bert_adamw=bert_adamw["flash_attention_fwd"])
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    log("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()}))
     log(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: v for k, v in e.items()
                                          if k not in keys}}

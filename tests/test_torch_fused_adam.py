@@ -192,7 +192,8 @@ def test_get_optimizer():
     assert isinstance(topt.get_optimizer("adam"), topt.Adam)
     opt = topt.Adam(1e-3)
     assert topt.get_optimizer(opt) is opt
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.get_optimizer("rmsprop")
+    assert isinstance(topt.get_optimizer("rmsprop"), topt.RMSprop)
+    with pytest.raises(ValueError):
+        topt.get_optimizer("no_such_optimizer")
     with pytest.raises(ValueError):
         topt.get_optimizer(3)

@@ -4,8 +4,8 @@ Plan-aware weight-only quantization, activation calibration and the
 calibrated ``Int8Model``/``InferenceModel.optimize("int8",
 calibration_data=...)``, on the same weights (the reference's, copied with
 ``params_from_jax``) and the same seeded numpy inputs, plus twins of
-``tests/test_int8_calibration.py`` for Dense models (the port has no conv
-layer yet).
+``tests/test_int8_calibration.py`` for Dense models (the conv ones are in
+``tests/test_torch_int8_conv.py``).
 
 Tolerances:
 - quantized values and scales: bitwise (both round half to even);
@@ -369,13 +369,16 @@ def test_from_keras_net_resets():
 
 
 def test_conv_target_raises(monkeypatch):
-    """Calibrated conv layers raise: ``_int8_conv`` waits for its slice
-    (queue 1 item 8)."""
+    """A ``Convolution2D`` is a calibration target: its kernel is
+    quantized and its forward goes through ``_int8_conv`` once a forward;
+    a layer with a kernel that is neither ``Dense`` nor a ``_ConvND`` is no
+    target (no scale, a float kernel, no hook), as in the reference."""
     from analytics_zoo_tpu_torch.pipeline.api.keras import Layer, Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as tl
 
-    class Conv(Layer):
+    class Mix(Layer):
         def build(self, input_shape):
-            self.add_weight("kernel", (int(input_shape[-1]), 8),
+            self.add_weight("kernel", (int(input_shape[-1]), 64),
                             "glorot_uniform")
 
         def call(self, params, inputs, state=None, training=False,
@@ -383,11 +386,28 @@ def test_conv_target_raises(monkeypatch):
             return inputs @ params["kernel"]
 
         def compute_output_shape(self, input_shape):
-            return tuple(input_shape[:-1]) + (8,)
+            return tuple(input_shape[:-1]) + (64,)
 
-    monkeypatch.setattr(tq, "_CONV_TYPES", (Conv,))
     m = Sequential()
-    m.add(Conv(input_shape=(16,), name="conv_0"))
+    m.add(tl.Convolution2D(16, 3, 3, border_mode="same", activation="relu",
+                           input_shape=(6, 6, 8), name="conv_0"))
+    m.add(Mix(name="mix_0"))
+    m.add(tl.Flatten())
+    m.add(tl.Dense(3, activation="softmax", name="dense_0"))
     m.build_params(rng=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tq.quantize_model(m, _mlp_x(8)[:, :16])
+    assert [l.name for l in tq._target_layers(m)] == ["conv_0", "dense_0"]
+    x = np.random.default_rng(0).normal(size=(8, 6, 6, 8)).astype(
+        np.float32)
+    q = tq.quantize_model(m, x)
+    assert sorted(q.act_scales) == ["conv_0", "dense_0"]
+    assert isinstance(q.qparams["conv_0"]["kernel"], tq.QuantizedTensor)
+    assert not isinstance(q.qparams["mix_0"]["kernel"], tq.QuantizedTensor)
+    assert q.weights_t["conv_0"].shape == (16, 3 * 3 * 8)
+    calls = []
+    conv = tq._int8_conv
+    monkeypatch.setattr(tq, "_int8_conv",
+                        lambda *a: calls.append(a[0].name) or conv(*a))
+    out = q.predict(x, batch_size=8)
+    assert calls == ["conv_0"]
+    assert out.shape == (8, 3) and np.isfinite(out).all()
+    np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-5)

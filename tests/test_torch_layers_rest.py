@@ -452,34 +452,85 @@ def test_random_layers_draw_anew_each_step_key():
 
 
 def test_calibrated_int8_of_a_share_convolution_raises():
-    """ShareConvolution2D is a ``_ConvND``, as in the reference, so a
-    calibrated int8 net that holds one raises like the other convs
-    (``_int8_conv`` is not ported); weight-only int8 serves it."""
-    from analytics_zoo_tpu_torch import init_zoo_context
-    from analytics_zoo_tpu_torch.common import engine
-
-    saved = engine._CONTEXT
-    init_zoo_context(seed=0, device="cpu")
-    try:
-        _int8_of_a_share_convolution()
-    finally:
-        engine._CONTEXT = saved
-
-
-def _int8_of_a_share_convolution():
-    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+    """ShareConvolution2D is a ``_ConvND``, as in the reference.  With
+    explicit pads its int8 path would not apply them (the reference's
+    ``_int8_conv`` pads by ``border_mode``, which is ``"valid"``, and then
+    fails on the next layer's shape), so calibrating a net that hooks one
+    raises a ValueError naming that fault; weight-only int8 serves it."""
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 
-    net = Sequential()
-    net.add(tl.ShareConvolution2D(4, 3, 3, pad_h=1, pad_w=1,
-                                  input_shape=(6, 6, 2)))
-    net.add(tl.Flatten())
-    net.add(tl.Dense(3, activation="softmax"))
-    net.build_params()
-    x = np.random.default_rng(0).normal(size=(4, 6, 6, 2)).astype(
-        np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        InferenceModel().from_keras_net(net).optimize(
-            "int8", calibration_data=x)
-    out = InferenceModel().from_keras_net(net).optimize("int8").predict(x)
+    with _cpu_context():
+        net, x = _share_convolution_net(tl, pad=1)
+        with pytest.raises(ValueError, match="explicit pads"):
+            InferenceModel().from_keras_net(net).optimize(
+                "int8", calibration_data=x)
+        out = InferenceModel().from_keras_net(net).optimize(
+            "int8").predict(x)
     assert out.shape == (4, 3) and np.isfinite(out).all()
+
+
+def test_calibrated_int8_of_an_unpadded_share_convolution_matches():
+    """Without pads the calibrated ShareConvolution2D runs ``_int8_conv``
+    in both packages: on the reference's weights and calibration data the
+    same activation scales, the same int8 kernel and, through the int8
+    conv, the same rows within 1e-6."""
+    from analytics_zoo_tpu import init_zoo_context as jax_init
+    from analytics_zoo_tpu.pipeline.inference import quantize as jq
+
+    from analytics_zoo_tpu_torch.pipeline.inference import quantize as tq
+
+    jax_init(seed=0)
+    jnet, x = _share_convolution_net(jl, pad=0)
+    with _cpu_context():
+        tnet, _ = _share_convolution_net(tl, pad=0)
+        tnet.set_weights(params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jnet.params), device="cpu"))
+        jm = jq.quantize_model(jnet, x)
+        tm = tq.quantize_model(tnet, x)
+        assert sorted(tm.act_scales) == sorted(jm.act_scales)
+        for name, s in jm.act_scales.items():
+            assert tm.act_scales[name] == pytest.approx(s, rel=1e-6)
+        # the Dense kernel (768 elements) stays float, as in the reference
+        (conv,) = tm.weights_t
+        assert conv.startswith("shareconvolution2d")
+        np.testing.assert_array_equal(
+            tm.qparams[conv]["kernel"].values.numpy(),
+            np.asarray(jm.qparams[conv]["kernel"].values))
+        np.testing.assert_allclose(tm.predict(x, batch_size=4),
+                                   jm.predict(x, batch_size=4), atol=1e-6)
+
+
+class _cpu_context:
+    """The port's context on the CPU for a block, the old one back
+    after."""
+
+    def __enter__(self):
+        from analytics_zoo_tpu_torch import init_zoo_context
+        from analytics_zoo_tpu_torch.common import engine
+
+        self.saved = engine._CONTEXT
+        init_zoo_context(seed=0, device="cpu")
+
+    def __exit__(self, *exc):
+        from analytics_zoo_tpu_torch.common import engine
+
+        engine._CONTEXT = self.saved
+
+
+def _share_convolution_net(layers, pad):
+    """ShareConvolution2D (kernel 3x3x8x16: 1,152 elements, above
+    min_size, so it is hooked) -> Flatten -> Dense(3, softmax), built,
+    and four seeded inputs."""
+    from analytics_zoo_tpu.pipeline.api.keras import Sequential as JSeq
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+
+    net = (Sequential if layers is tl else JSeq)()
+    net.add(layers.ShareConvolution2D(16, 3, 3, pad_h=pad, pad_w=pad,
+                                      input_shape=(6, 6, 8)))
+    net.add(layers.Flatten())
+    net.add(layers.Dense(3, activation="softmax"))
+    net.build_params()
+    x = np.random.default_rng(0).normal(size=(4, 6, 6, 8)).astype(
+        np.float32)
+    return net, x

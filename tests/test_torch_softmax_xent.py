@@ -141,8 +141,9 @@ def test_probability_loss_matches_jax():
     named = tobj.get_loss("sparse_categorical_crossentropy")
     assert tobj.get_loss(named) is named and named.name == \
         "sparse_categorical_crossentropy"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tobj.get_loss("hinge")
+    assert tobj.get_loss("hinge").fn is tobj.hinge
+    with pytest.raises(ValueError, match="unknown loss"):
+        tobj.get_loss("no_such_loss")
 
 
 @pytest.mark.parametrize("name", ["accuracy", "acc",
@@ -167,5 +168,6 @@ def test_accuracy_matches_jax(name):
     num, den = loss.batch_stats(torch.from_numpy(labels),
                                 torch.from_numpy(preds))
     assert float(den) == 9 and np.isfinite(float(num))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmetrics.get_metric("auc")
+    assert isinstance(tmetrics.get_metric("auc"), tmetrics.AUC)
+    with pytest.raises(ValueError, match="unknown metric"):
+        tmetrics.get_metric("no_such_metric")
