@@ -1,7 +1,8 @@
 // Tensor maps for the tensor copies (TMA) of the chunked flash kernels, host
 // side, shared by the forward (flash_attention_fwd.cu) and the backward
 // (flash_attention_bwd.cu): `cuTensorMapEncodeTiled` reached through the
-// runtime (no link to libcuda), the (D, L, H, B) map of one input with
+// runtime (no link to libcuda; int8_conv.cu encodes its weight map with it
+// too), the (D, L, H, B) map of one input with
 // boxes of 32 columns x 32 rows (the backward), and the map whose boxes are
 // several 128-byte column chunks (the forward).
 

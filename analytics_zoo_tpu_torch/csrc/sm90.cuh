@@ -1,16 +1,19 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (int8_matmul.cu, flash_attention_fwd.cuh, flash_attention_bwd.cu,
-// flash_tf32.cuh):
+// (int8_matmul.cu, int8_conv.cu, flash_attention_fwd.cuh,
+// flash_attention_bwd.cu, flash_tf32.cuh):
 // 16-byte cp.async copies with zero fill, mbarriers and tensor copies
 // (TMA), the async-proxy fence, the
 // 128-byte-swizzled shared-memory layout that wgmma reads, its matrix
 // descriptors, and `wgmma.mma_async` on bf16, f16 and tf32 operands with
-// f32 accumulators, as inline PTX.  The 16-bit helpers are templates on
+// f32 accumulators and on s8 operands with s32 accumulators, as inline
+// PTX.  The 16-bit helpers are templates on
 // the element type (`__nv_bfloat16` or `__half`): the two issue the same
 // instruction shapes and differ only in the type suffix, so a caller
 // instantiated for f16 cannot issue a `.bf16` product.  For tf32 (4-byte
 // values) the same layout holds 32 values a 128-byte row and the K step of
-// 8 values is again 32 bytes; tf32 operands must be K-major.
+// 8 values is again 32 bytes; tf32 operands must be K-major.  For s8
+// (1-byte values) a 128-byte row holds 128 values and the K step of 32
+// values is again 32 bytes; s8 operands must be K-major too.
 //
 // The layout.  An operand tile is stored as "atoms" of 8 rows x 128 bytes
 // (8 rows x 64 bf16).  Row r of an atom sits at r * 128 bytes; its 16-byte
@@ -64,6 +67,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
+// The same through L1 (.ca): for gathers whose neighbours re-read the
+// same lines (the taps of a convolution).
+__device__ __forceinline__ void cp_async16_ca(uint32_t dst, const void* src,
+                                              int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -95,6 +105,41 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
 }
+// The box at coordinates (c0, c1), innermost first, of the 2-dimensional
+// tensor map at `map` (a __grid_constant__ kernel parameter) into shared
+// memory at dst; it completes its bytes on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
+
+// Shared memory at src into the box at coordinates (c0, c1) of the
+// 2-dimensional tensor map at `map` (a tensor store, in the bulk group of
+// the issuing thread; the parts past the tensor's edges are not written).
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];\n"
+      :: "l"(map), "r"(c0), "r"(c1), "r"(src) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until the issuing thread's tensor stores have read their shared
+// memory (the writes to device memory may still be in flight).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Fetches a tensor map (a __grid_constant__ kernel parameter) ahead of
+// its first use.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(map) : "memory");
+}
+
 // The box at coordinates (c0, c1, c2, c3), innermost first, of the tensor
 // map at `map` (a __grid_constant__ kernel parameter) into shared memory
 // at dst; it completes its bytes on the mbarrier `bar`.
@@ -143,6 +188,12 @@ template <int N>
 __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operand(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // Matrix descriptor of a 128-byte-swizzled tile starting at shared address
@@ -429,6 +480,68 @@ __device__ __forceinline__ void wgmma_tf32_m64n128k8_rs(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, s32) += A (64 x 32) * B (32 x 64), s8 operands read from
+// shared memory by descriptor, both K-major (8-bit wgmma has no transpose).
+__device__ __forceinline__ void wgmma_s8_m64n64k32_ss(int (&d)[32],
+                                                     uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, s32) += A (64 x 32) * B (32 x 128), s8 operands read from
+// shared memory by descriptor, both K-major (8-bit wgmma has no transpose).
+__device__ __forceinline__ void wgmma_s8_m64n128k32_ss(int (&d)[64],
+                                                     uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // x = hi + lo exactly: hi is x rounded to tf32 (10 mantissa bits, to

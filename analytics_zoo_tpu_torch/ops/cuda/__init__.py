@@ -35,6 +35,8 @@ _COUNTERS = {
                          "bwd_plain_count"),
     "int8_matmul": ("int8_matmul", "launch_count", "plain_count"),
     "int8_conv": ("int8_conv", "launch_count", "plain_count"),
+    "quantize_act": ("int8_conv", "quantize_launch_count",
+                     "quantize_plain_count"),
 }
 
 
@@ -46,7 +48,8 @@ _ALL_COUNTERS = {
     "fused_softmax_xent": ("fwd_launch_count", "bwd_launch_count",
                            "fwd_plain_count", "bwd_plain_count"),
     "int8_matmul": ("launch_count", "plain_count"),
-    "int8_conv": ("launch_count", "plain_count"),
+    "int8_conv": ("launch_count", "plain_count", "quantize_launch_count",
+                  "quantize_plain_count"),
 }
 
 

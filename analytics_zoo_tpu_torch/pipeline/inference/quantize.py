@@ -19,14 +19,18 @@ each top-level Dense and conv layer (the reference's ``_ConvND``:
 runs those layers as int8 x int8 -> int32 with one rescale to float after,
 in the reference's order (:func:`_int8_dense`, :func:`_int8_conv`),
 through per-layer ``apply`` hooks installed for the duration of a forward
-(:func:`_hooked`).  Both take their int32 sums from the ``int8_conv``
-kernel on the card (``ops/cuda/int8_conv.py``; a Dense is a 1x1
-convolution over its rows) and from its plain version on the CPU, exact
-either way.  The kernel reads each hooked kernel as a (Cout, K) copy that
-:class:`Int8Model` makes once, before any capture, and holds for its
-life: a replayed forward reads the copies by address.  The depthwise,
-separable, transposed and locally connected convolutions are no targets,
-in either package, and stay float.
+(:func:`_hooked`).  Each hooked layer is two calls of
+``ops/cuda/int8_conv.py`` (two kernel launches on the card, their plain
+versions on the CPU): ``quantize_act`` (the input quantized, its channels
+zero-padded to a multiple of 16) and ``int8_conv`` with its fused
+epilogue (the int32 sums times ``act_scale * w_scale``, the bias, and a
+relu activation; a Dense is a 1x1 convolution over its rows); any other
+activation follows in torch.  The kernel reads each hooked kernel as a
+(Cout, K) copy with zero rows for the padded channels, the epilogue its
+``act_scale * w_scale``, and a split launch the layer's own tickets, all
+made by :class:`Int8Model` once, before any capture, and held for its life: a replayed forward reads them by
+address.  The depthwise, separable, transposed and locally connected
+convolutions are no targets, in either package, and stay float.
 """
 
 from __future__ import annotations
@@ -38,7 +42,12 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.utils import tree_leaves, tree_map
-from analytics_zoo_tpu_torch.ops.cuda.int8_conv import conv_weight_t, int8_conv
+from analytics_zoo_tpu_torch.ops.cuda.int8_conv import (
+    conv_weight_t,
+    int8_conv,
+    new_tickets,
+    quantize_act,
+)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
     ShareConvolution2D,
     _ConvND,
@@ -255,32 +264,34 @@ def calibrate_activations(net, x_batches, params=None, state=None):
     return {k: (v / 127.0 if v > 0 else 1.0) for k, v in amax.items()}
 
 
-def _quantize_act(x, scale):
-    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+def _epilogue(layer, qt, act_scale, params, mult, tickets):
+    """The fused convolution's epilogue arguments of a hooked layer:
+    ``mult`` (made here as the reference makes it, ``act_scale *
+    w_scale``, when not given), the bias or None, whether its activation
+    is relu (fused; any other activation runs after the kernel), and the
+    layer's split-K tickets."""
+    if mult is None:
+        mult = act_scale * qt.scale.reshape(-1)  # per output channel
+    relu = getattr(layer.activation, "name", None) == "relu"
+    return dict(mult=mult, bias=params["bias"] if layer.bias else None,
+                relu=relu, tickets=tickets)
 
 
-def _int8_acc(xs, values, w_t=None):
-    """The exact int32 sums of an int8 x int8 product over the last axis of
-    ``xs`` with the int8 ``values`` (K, Cout): ``int8_conv`` over the rows
-    as a 1x1 convolution (the kernel on the card, its plain int32 matmul
-    on the CPU), reading the kernel as its (Cout, K) copy ``w_t`` (made
-    here when not given)."""
+def _int8_dense(layer, qt, act_scale, params, x, w_t=None, mult=None,
+                tickets=None):
+    """The reference's ``_int8_dense``: the input quantized (its features
+    zero-padded to the (Cout, K_p) copy ``w_t``'s K_p, made here when not
+    given), its int8 product with the kernel as a 1x1 ``int8_conv`` over
+    the rows with the epilogue ``acc * (act_scale * w_scale)``, the bias
+    and a relu fused, then any other activation."""
     if w_t is None:
-        w_t = conv_weight_t(values)
-    k = xs.shape[-1]
-    acc = int8_conv(xs.reshape(-1, 1, k).contiguous(), w_t, (1,), (1,),
-                    (1,), ((0, 0),))
-    return acc.reshape(*xs.shape[:-1], w_t.shape[0])
-
-
-def _int8_dense(layer, qt, act_scale, params, x, w_t=None):
-    xs = _quantize_act(x, act_scale)
-    acc = _int8_acc(xs, qt.values, w_t)
-    w_scale = qt.scale.reshape(-1)  # per output channel
-    y = acc.to(torch.float32) * (act_scale * w_scale)
-    if layer.bias:
-        y = y + params["bias"]
-    return layer.activation(y)
+        w_t = conv_weight_t(qt.values, pad=True)
+    xs = quantize_act(x.contiguous(), act_scale, w_t.shape[1])
+    ep = _epilogue(layer, qt, act_scale, params, mult, tickets)
+    y = int8_conv(xs.reshape(-1, 1, w_t.shape[1]), w_t, (1,), (1,), (1,),
+                  ((0, 0),), **ep)
+    y = y.reshape(*x.shape[:-1], w_t.shape[0])
+    return y if ep["relu"] else layer.activation(y)
 
 
 def _conv_pads(layer, spatial):
@@ -293,22 +304,22 @@ def _conv_pads(layer, spatial):
     return ((0, 0),) * len(spatial)
 
 
-def _int8_conv(layer, qt, act_scale, params, x, w_t=None):
-    """The reference's ``_int8_conv``: the input quantized, the int32 sums
-    of its convolution with the int8 kernel (``int8_conv``, reading the
-    kernel as its (Cout, K) copy ``w_t``, made here when not given), then
-    ``acc * (act_scale * w_scale)``, the bias and the activation, in that
-    order."""
+def _int8_conv(layer, qt, act_scale, params, x, w_t=None, mult=None,
+               tickets=None):
+    """The reference's ``_int8_conv``: the input quantized (its channels
+    zero-padded to those of the (Cout, K) kernel copy ``w_t``, made here
+    padded to a multiple of 16 when not given), its convolution with the
+    int8 kernel (``int8_conv``) with the epilogue ``acc * (act_scale *
+    w_scale)``, the bias and a relu fused, in that order, then any other
+    activation."""
     if w_t is None:
-        w_t = conv_weight_t(qt.values)
-    xs = _quantize_act(x, act_scale).contiguous()
-    acc = int8_conv(xs, w_t, layer.kernel_size, layer.subsample,
-                    layer.dilation, _conv_pads(layer, xs.shape[1:-1]))
-    w_scale = qt.scale.reshape(-1)
-    y = acc.to(torch.float32) * (act_scale * w_scale)
-    if layer.bias:
-        y = y + params["bias"]
-    return layer.activation(y)
+        w_t = conv_weight_t(qt.values, pad=True)
+    taps = int(np.prod(layer.kernel_size))
+    xs = quantize_act(x.contiguous(), act_scale, w_t.shape[1] // taps)
+    ep = _epilogue(layer, qt, act_scale, params, mult, tickets)
+    y = int8_conv(xs, w_t, layer.kernel_size, layer.subsample,
+                  layer.dilation, _conv_pads(layer, xs.shape[1:-1]), **ep)
+    return y if ep["relu"] else layer.activation(y)
 
 
 def _check_target(layer):
@@ -332,28 +343,38 @@ class Int8Model:
     hooked Dense and conv layers as int8 x int8 -> int32 with calibrated
     activation scales, everything else in float.  ``weights_t`` holds each
     hooked layer's kernel as the (Cout, K) int8 copy the ``int8_conv``
-    kernel reads, and ``scales_t`` its activation scale as an f32 scalar
-    tensor on the kernel's device, both made here once and kept as long
-    as the model (a captured forward reads them by address); neither is
-    part of ``qparams``, whose tree stays the reference's.  The hooks
-    divide by the scale tensor, not the Python float: PyTorch's CUDA
-    division by a Python scalar multiplies by its reciprocal, which rounds
-    some quotients one ulp away from the reference's ``x / scale`` and so
-    moves activations that sit at a rounding boundary by one int8 step.
+    kernel reads (each tap's channels zero-padded to a multiple of 16),
+    ``scales_t`` its activation scale as an f32 scalar tensor on the
+    kernel's device, ``mults_t`` the epilogue's per-channel f32
+    ``act_scale * w_scale`` (the product the reference forms on every
+    call), and ``tickets_t`` its own zeroed split-K tickets (so no two
+    layers or models share one, whichever streams they run on), all made
+    here once and kept as long as the model (a captured forward reads
+    them by address); none is part of ``qparams``, whose tree stays the
+    reference's.  One model's forwards run one at a time: two overlapping
+    forwards of the same model on two streams would share its tickets.  The quantization divides by the scale
+    tensor, not the Python float: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which rounds some quotients one
+    ulp away from the reference's ``x / scale`` and so moves activations
+    that sit at a rounding boundary by one int8 step.
     """
 
     def __init__(self, net, qparams, act_scales):
         self.net = net
         self.qparams = qparams
         self.act_scales = dict(act_scales)
-        self.weights_t, self.scales_t = {}, {}
+        self.weights_t, self.scales_t, self.mults_t = {}, {}, {}
+        self.tickets_t = {}
         for layer in self._targets():
             _check_target(layer)
             qt = self.qparams[layer.name]["kernel"]
-            self.weights_t[layer.name] = conv_weight_t(qt.values)
-            self.scales_t[layer.name] = torch.tensor(
+            self.weights_t[layer.name] = conv_weight_t(qt.values, pad=True)
+            scale = self.scales_t[layer.name] = torch.tensor(
                 self.act_scales[layer.name], dtype=torch.float32,
                 device=qt.values.device)
+            self.mults_t[layer.name] = (
+                scale * qt.scale.reshape(-1)).contiguous()
+            self.tickets_t[layer.name] = new_tickets(qt.values.device)
 
     def _targets(self):
         """The target layers with an int8 kernel and an activation scale:
@@ -376,8 +397,11 @@ class Int8Model:
             def wrapped(p, inputs, *, _l=layer,
                         _qt=self.qparams[layer.name]["kernel"],
                         _s=self.scales_t[layer.name],
-                        _w=self.weights_t[layer.name], _fn=kernel_fn, **kw):
-                return _fn(_l, _qt, _s, p, inputs, _w), kw.get("state")
+                        _w=self.weights_t[layer.name],
+                        _m=self.mults_t[layer.name],
+                        _k=self.tickets_t[layer.name], _fn=kernel_fn, **kw):
+                return (_fn(_l, _qt, _s, p, inputs, _w, _m, _k),
+                        kw.get("state"))
 
             assignments[layer] = wrapped
         return assignments

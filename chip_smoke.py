@@ -10,8 +10,9 @@ and prints no result):
 1. card: a CUDA GPU must be visible; prints its name and power limit;
 2. build: compiles every CUDA kernel from ``csrc/`` (one nvcc per
    source, all started together), prints ptxas's register report, checks
-   with ``cuobjdump -sass`` that ``int8_conv`` issues integer tensor-core
-   products (IMMA) in every function, and that the tensor-core
+   with ``cuobjdump -sass`` that every convolution function of
+   ``int8_conv`` issues s8 ``wgmma`` (GMMA of type S8), none issues IMMA
+   and none spills, and that the tensor-core
    kernels issue ``wgmma`` (HGMMA) of their input types: bf16 and f16 in
    the int8 matmul, bf16, f16 and tf32 in the flash forward (in every
    function of its tensor-core bodies, only of the function's own type:
@@ -45,12 +46,18 @@ and prints no result):
    weight-only int8 matmul at BERT-base's six Dense shapes for one 8 x 512
    micro-batch, f32, bf16 and f16 x at all six, its weights from
    ``quantize_params_for_plan(params, int8_serving())`` on the seeded
-   tree; and ``int8_conv`` (the calibrated convolutions' int8 x int8 ->
-   int32 kernel, which replaces no TPU kernel) bit for bit its plain
-   version (int32 matmuls on the host CPU: CUDA has none) at each
-   distinct conv shape of ResNet-50 at 32 images, its fc, BERT's
-   calibrated head, one rank-1 atrous and one rank-3 case, beside cuDNN's
-   f32 convolution and ``torch._int_mm`` over an im2col copy.  Times each
+   tree; and ``int8_conv`` (the calibrated layers' int8 x int8
+   convolution with its fused f32 epilogue, which replaces no TPU kernel)
+   bit for bit its plain version (int32 matmuls on the host CPU: CUDA has
+   none; then the plain epilogue) in its int32 mode and its fused mode
+   (with and without bias, with ReLU) at each distinct conv shape of
+   ResNet-50 at 32 images and at 1 image (the split-K shapes), its fc,
+   BERT's calibrated head, one rank-1 atrous and one rank-3 case, beside
+   cuDNN's f32 convolution and ``torch._int_mm`` over an im2col copy, a
+   split-K call replayed twice from one graph; and ``quantize_act`` (the
+   activation quantization before it) bit for bit its plain version at
+   each input shape of ResNet-50 at 32 images, on inputs with exact .5
+   ties and +-127.5, beside ``torch.quantize_per_tensor``.  Times each
    kernel through its Python wrapper, its plain version
    and one PyTorch library call computing the same function (the
    yardstick only; the port never calls it) with CUDA events over calls
@@ -104,8 +111,9 @@ and prints no result):
    array, as in the reference, and only the head Dense is a target), each
    answering requests of 1, 3 and 8 records held against the f32 model;
    the calibrated request 0 is held against the same calibrated model on
-   the CPU (its head Dense runs ``int8_conv``, a 1x1 over the rows).  Then ``quantized_matmul`` over all 50 quantized Dense kernels
-   of BERT-base (48 encoder, pooler, head) under
+   the CPU (its head Dense runs ``quantize_act`` and ``int8_conv``, a
+   1x1 over the rows).  Then ``quantized_matmul`` over all 50 quantized
+   Dense kernels of BERT-base (48 encoder, pooler, head) under
    ``compile_step(..., plan=with_kernels(int8_serving()))``, which must
    launch the int8 kernel exactly 50 times and agree with the plain
    version, and under a plan that picks ``"xla"`` for
@@ -206,17 +214,19 @@ and prints no result):
 19. resnet50_int8: ResNet-50 (moving statistics from one batch) served in
    calibrated int8 (``optimize("int8", calibration_data=...)`` on 32
    seeded images) at 1, 8 and 32 images: each replay bit for bit its eager
-   forward, 54 ``int8_conv`` launches a micro-batch (53 convolutions, the
-   fc), no float64 convolution or matmul, request 0 against the same
-   ``Int8Model`` on the CPU, argmax agreement and logit gap against f32,
-   each request's times beside f32's and the bound;
+   forward, 54 ``quantize_act`` and 54 ``int8_conv`` launches a
+   micro-batch (53 convolutions, the fc), no float64 convolution or
+   matmul, request 0 against the same ``Int8Model`` on the CPU, argmax
+   agreement and logit gap against f32, each request's times beside
+   f32's, bf16's and the bound;
 20. zoo_int8: Inception-v1 and MobileNet-v2 calibrated the same way, one
    replayed 8-image request each (MobileNet-v2's depthwise convolutions
    stay float);
 21. summary: ``phase seconds`` of every phase (each also logged as it
    ends), a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
-   of its own; and ``int8_conv``, which replaces none; launches by path,
+   of its own; and ``int8_conv`` and ``quantize_act``, which replace
+   none; launches by path,
    the new paths included), then the result line ``{"ok": true,
    "device": {...}}`` last.
 
@@ -327,9 +337,10 @@ N_CALIB = 16
 DENSE_KERNELS = r"(qkv|proj|fc|out|pooler)_kernel$|^dense_0/kernel$"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_adam",
            "fused_softmax_xent", "int8_matmul", "int8_conv")
-# the kernels on the integer tensor cores: IMMA (mma.sync on s8) in their
-# machine code
-IMMA_KERNELS = ("int8_conv",)
+# the kernels on the integer tensor cores, and the functions of each that
+# must issue s8 wgmma (GMMA of type S8 in SASS, IGMMA on Hopper) and no
+# warp-level IMMA
+S8_GMMA_FUNCTIONS = {"int8_conv": ("16int8_conv_kernel",)}
 # the tensor-core kernels and the wgmma input types their machine code must
 # show: the f32 flash bodies run tf32 (3xTF32), bf16 bf16, f16 f16 (the
 # chunked backward widens 16-bit inputs to f32, exactly, and runs tf32)
@@ -388,10 +399,14 @@ REPLACES = {
         "analytics_zoo_tpu/ops/pallas/fused_softmax_xent.py:192",
     "int8_matmul": "analytics_zoo_tpu/ops/pallas/int8_matmul.py:92",
     # no TPU kernel: the reference's calibrated conv is a lax convolution
-    # with int32 accumulation, which PyTorch has no CUDA op for
+    # with int32 accumulation, which PyTorch has no CUDA op for, and its
+    # activation quantization is jnp
     "int8_conv": "none (no pl.pallas_call: the reference's _int8_conv, "
                  "analytics_zoo_tpu/pipeline/inference/quantize.py:282, "
                  "is lax.conv_general_dilated with int32 sums)",
+    "quantize_act": "none (no pl.pallas_call: the reference's "
+                    "_quantize_act, analytics_zoo_tpu/pipeline/inference/"
+                    "quantize.py:263, is jnp)",
 }
 # Published H100 SXM peaks (dense): HBM bytes/s and FLOP/s per input type
 # (f32 outside the tensor cores; tf32, bf16 and f16 on them).
@@ -456,23 +471,33 @@ def build_kernels() -> None:
         check_functions(name, sass, TF32_FUNCTIONS, "TF32")
         check_functions(name, sass, BF16_FUNCTIONS, "BF16")
         check_functions(name, sass, F16_FUNCTIONS, "F16")
-    # the int8 kernels must issue integer tensor-core products (IMMA) in
-    # every kernel function
-    for name in IMMA_KERNELS:
+    # the int8 kernels' convolution functions must issue s8 wgmma, none
+    # of their functions IMMA, and nothing may spill
+    for name, parts in S8_GMMA_FUNCTIONS.items():
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(build.library_path(name))], check=True,
                               capture_output=True, text=True).stdout
-        counts = {}
+        counts, imma = {}, 0
         for block in sass.split("Function : ")[1:]:
             fn, _, body = block.partition("\n")
-            counts[fn.strip()] = body.count("IMMA")
-        imma = [ln.strip() for ln in sass.splitlines() if "IMMA" in ln]
-        log(f"sass {name}: {len(imma)} IMMA instructions in "
-            f"{len(counts)} functions {sorted(counts.values())}, e.g. "
-            f"{imma[0] if imma else '-'}")
-        if not counts or not all(counts.values()):
-            raise AssertionError(f"{name}: a kernel function issues no "
-                                 f"IMMA: {counts}")
+            lines = body.splitlines()
+            imma += sum("IMMA" in ln for ln in lines)
+            if any(part in fn for part in parts):
+                counts[fn.strip()] = sum(
+                    "GMMA" in ln and ".S8" in ln for ln in lines)
+        s8 = [ln.strip() for ln in sass.splitlines()
+              if "GMMA" in ln and ".S8" in ln]
+        spilled = {fn: sp for fn, _, sp in ptxas_report(
+            report[name]["log"])} if name in report else {}
+        log(f"sass {name}: {len(s8)} s8 GMMA instructions in {len(counts)} "
+            f"convolution functions {sorted(counts.values())}, e.g. "
+            f"{s8[0] if s8 else '-'}; IMMA {imma}; bytes spilled "
+            f"{sorted(spilled.values())}")
+        if not counts or not all(counts.values()) or imma \
+                or any(spilled.values()):
+            raise AssertionError(f"{name}: a convolution function issues no "
+                                 f"s8 wgmma, or IMMA remains ({imma}), or a "
+                                 f"function spills: {counts} {spilled}")
 
 
 def hgmma_type(line: str):
@@ -1447,7 +1472,8 @@ def counters() -> dict:
             "softmax_xent_fwd": fx.fwd_launch_count,
             "softmax_xent_bwd": fx.bwd_launch_count,
             "int8_matmul": im8.launch_count,
-            "int8_conv": ic8.launch_count}
+            "int8_conv": ic8.launch_count,
+            "quantize_act": ic8.quantize_launch_count}
 
 
 def reset_counters() -> None:
@@ -1461,7 +1487,7 @@ def reset_counters() -> None:
     fad.launch_count = fad.leaf_count = 0
     fx.fwd_launch_count = fx.bwd_launch_count = 0
     im8.launch_count = 0
-    ic8.launch_count = 0
+    ic8.launch_count = ic8.quantize_launch_count = 0
 
 
 def train_data(n: int, gen: np.random.Generator):
@@ -1525,7 +1551,8 @@ def training_phase(card_line: str) -> tuple[dict, dict]:
                 "fused_adam": TRAIN_STEPS,  # one launch a step
                 "softmax_xent_fwd": TRAIN_STEPS,
                 "softmax_xent_bwd": TRAIN_STEPS,
-                "int8_matmul": 0, "int8_conv": 0}
+                "int8_matmul": 0, "int8_conv": 0,
+                "quantize_act": 0}
     log(f"training launches: {launches} (expected {expected}); Adam leaves "
         f"through the kernel: {adam_leaves} (expected {kernel_leaves} f32 "
         f"leaves of >= {fad.MIN_KERNEL_LEAF} x {TRAIN_STEPS} steps)")
@@ -1699,7 +1726,8 @@ def training_mixed_phase(card_line: str, f32: dict, plan, dtype, floor,
                 "flash_attention_bwd": blocks * TRAIN_STEPS,
                 "fused_adam": TRAIN_STEPS, "softmax_xent_fwd": TRAIN_STEPS,
                 "softmax_xent_bwd": TRAIN_STEPS, "int8_matmul": 0,
-                "int8_conv": 0}
+                "int8_conv": 0,
+                "quantize_act": 0}
     qkv = (dtype,) * 3
     log(f"training {tag} launches: {launches} (expected {expected}); flash "
         f"launches made by the step's eager run and its capture on {tag} "
@@ -1909,7 +1937,8 @@ def captured_training_phase(card_line: str) -> tuple[dict, dict]:
     blocks = BERT_BASE["n_block"]
     per_step = {"flash_attention_fwd": blocks, "flash_attention_bwd": blocks,
                 "fused_adam": 1, "softmax_xent_fwd": 1,
-                "softmax_xent_bwd": 1, "int8_matmul": 0, "int8_conv": 0}
+                "softmax_xent_bwd": 1, "int8_matmul": 0, "int8_conv": 0,
+                "quantize_act": 0}
 
     def fresh(k=1):
         init_zoo_context(seed=SEED, device="cuda", steps_per_dispatch=k)
@@ -2036,7 +2065,8 @@ def training_d192_phase(card_line: str) -> dict:
                 "flash_attention_bwd": blocks * D192_STEPS,
                 "fused_adam": D192_STEPS, "softmax_xent_fwd": D192_STEPS,
                 "softmax_xent_bwd": D192_STEPS, "int8_matmul": 0,
-                "int8_conv": 0}
+                "int8_conv": 0,
+                "quantize_act": 0}
     log(f"training at head dim 192 ({D192_HEADS} heads): {D192_STEPS} steps"
         f" at batch {TRAIN_BATCH} x {SEQ}: {step_ms:.1f} ms per step "
         f"({card_line}); losses " + ", ".join(f"{v:.4f}" for v in losses)
@@ -2293,12 +2323,14 @@ def captured_serving_phase(card_line: str) -> dict:
             raise AssertionError(f"the {tag} bucket-{b} replay is not the "
                                  "eager forward")
     replays = len(got) + THREADS * THREAD_REQUESTS
-    # the calibrated model's int8 layers (its Dense head) run int8_conv
+    # the calibrated model's int8 layers (its Dense head) run quantize_act
+    # and int8_conv
     int8_layers = len(models["int8 calibrated"]._int8_model.weights_t)
+    int8_replays = int8_layers * sum(tag == "int8 calibrated"
+                                     for tag, _ in got)
     expected = dict({k: 0 for k in launches},
                     flash_attention_fwd=BERT_BASE["n_block"] * replays,
-                    int8_conv=int8_layers * sum(
-                        tag == "int8 calibrated" for tag, _ in got))
+                    int8_conv=int8_replays, quantize_act=int8_replays)
     log(f"captured serving: {THREADS} threads x {THREAD_REQUESTS} 8-record "
         f"requests on one bucket in {thread_s:.2f} s, {len(wrong)} answers "
         f"not their request's eager answer; launches under replay "
@@ -2535,18 +2567,26 @@ def any_x_check(qt) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the int8 convolution kernel (csrc/int8_conv.cu): ResNet-50's distinct
-# conv shapes and its fc (a 1x1 over the rows) at INT8_CONV_BATCH images,
-# BERT's calibrated head (a 1x1 over 8 rows), one rank-1 atrous and one
-# rank-3 case.  Its plain version sums int32 matmuls, which CUDA has not:
-# it runs on the host CPU, on copies of the same int8 operands
-INT8_CONV_BATCH = 32
+# the calibrated int8 layer's kernels (csrc/int8_conv.cu): ``int8_conv``
+# at ResNet-50's distinct conv shapes and its fc (a 1x1 over the rows) at
+# INT8_CONV_BATCHES images, BERT's calibrated head (a 1x1 over 8 rows), one
+# rank-1 atrous and one rank-3 case; ``quantize_act`` at ResNet-50's input
+# shapes.  The convolution's plain version sums int32 matmuls, which CUDA
+# has not: it runs on the host CPU, on copies of the same int8 operands
+# (unpadded: the kernel takes the channels padded to 16)
+INT8_CONV_BATCHES = (32, 1)
 INT8_CONV_EXTRA = (
     ("bert_head", 8, (1,), 768, 2, (1,), (1,), (1,), ((0, 0),), 0),
     ("atrous_1d", 8, (512,), 64, 64, (3,), (1,), (2,), ((2, 2),), 0),
     ("conv_3d", 4, (8, 28, 28), 32, 64, (3, 3, 3), (1, 2, 2), (1, 1, 1),
      ((1, 1), (0, 1), (0, 1)), 0),
 )
+# the fused modes held against the plain epilogue: (bias, relu)
+INT8_FUSED_MODES = ((False, False), (True, False), (True, True))
+# the split-K shape replayed twice from one graph: ResNet-50's last 3x3
+# at one image
+SPLIT_K_CASE = ("3x3/1 512->512 at 7, 1 image", 1, (7, 7), 512, 512,
+                (3, 3), (1, 1), (1, 1), ((1, 1), (1, 1)), 0)
 
 
 def resnet50_int8_shapes(batch: int) -> list:
@@ -2583,16 +2623,35 @@ def resnet50_int8_shapes(batch: int) -> list:
         label = ("fc" if spatial == (1,) else
                  f"{'x'.join(map(str, ks))}/{st[0]} {cin}->{cout} at "
                  f"{spatial[0]}")
+        if batch == 1:
+            label += ", 1 image"
         out.append((label, batch, spatial, cin, cout, ks, st, dil, pads,
                     count))
     return out
 
 
+def epilogue_operands(cout: int, gen):
+    """An epilogue's mult (act_scale * w_scale sized) and bias, f32, with
+    every 7th channel's mult 0 and bias -0 (a negative sum there gives -0,
+    which ReLU turns to +0)."""
+    import torch
+
+    mult = (np.float32(0.0123) * gen.uniform(1e-3, 1e-2, cout).astype(
+        np.float32)).astype(np.float32)
+    bias = gen.standard_normal(cout, dtype=np.float32)
+    mult[::7] = 0.0
+    bias[::7] = -0.0
+    return torch.from_numpy(mult), torch.from_numpy(bias)
+
+
 def int8_conv_case(dev, case, gen) -> dict:
-    """One shape: the kernel against its plain version bit for bit, timed
-    through the wrapper and from a graph, beside its bound, the plain
-    version's host time and two yardsticks the port never calls: cuDNN's
-    f32 convolution and ``torch._int_mm`` over an im2col copy."""
+    """One shape: the kernel on padded operands against its plain version
+    on the unpadded ones, bit for bit, in the int32 mode and in each fused
+    mode of INT8_FUSED_MODES; the fused mode the calibrated ResNet-50 runs
+    (mult alone) timed through the wrapper and from a graph, beside its
+    bound, the plain version's host time and two yardsticks the port never
+    calls: cuDNN's f32 convolution and ``torch._int_mm`` over an im2col
+    copy of the padded operands."""
     import torch
     import torch.nn.functional as F
 
@@ -2602,27 +2661,43 @@ def int8_conv_case(dev, case, gen) -> dict:
     r = len(spatial)
     x = torch.from_numpy(gen.integers(-127, 128, (n,) + spatial + (cin,),
                                       dtype=np.int8))
-    w_t = ic8.conv_weight_t(torch.from_numpy(gen.integers(
-        -127, 128, ks + (cin, cout), dtype=np.int8)))
-    xd, wd = x.to(dev), w_t.to(dev)
+    w = torch.from_numpy(gen.integers(-127, 128, ks + (cin, cout),
+                                      dtype=np.int8))
+    w_t = ic8.conv_weight_t(w)
+    cp = ic8.padded_channels(cin)
+    xd = F.pad(x, (0, cp - cin)).to(dev)
+    wd = ic8.conv_weight_t(w, pad=True).to(dev)
+    mult, bias = epilogue_operands(cout, gen)
+    md, bd = mult.to(dev), bias.to(dev)
+    tk = ic8.new_tickets(dev)
     args = (ks, st, dil, pads)
-    got = ic8.int8_conv(xd, wd, *args)
+    got = ic8.int8_conv(xd, wd, *args, tickets=tk)
+    fused = {mode: ic8.int8_conv(xd, wd, *args, mult=md,
+                                 bias=bd if mode[0] else None, relu=mode[1],
+                                 tickets=tk)
+             for mode in INT8_FUSED_MODES}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = ic8.int8_conv_reference(x, w_t, *args)
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = (got.cpu().long() - want.long()).abs().max().item()
+    unequal = [mode for mode, y in fused.items() if not torch.equal(
+        y.cpu().view(torch.int32), ic8.int8_epilogue_reference(
+            want, mult, bias if mode[0] else None, mode[1]).view(
+                torch.int32))]
     out = tuple(got.shape[1:-1])
-    m, k = n * int(np.prod(out)), w_t.shape[1]
-    log(f"kernel int8_conv {label} ({n} x {spatial} x {cin} -> "
-        f"{out} x {cout}, K {k}): equal to the plain version bit for bit "
-        f"{err == 0}")
-    if err != 0 or got.dtype != torch.int32:
+    m, k = n * int(np.prod(out)), wd.shape[1]
+    bn, split, _ = ic8.plan(m, k, cout, int(np.prod(ks)))
+    log(f"kernel int8_conv {label} ({n} x {spatial} x {cin} (padded {cp}) "
+        f"-> {out} x {cout}, K {k}; tile 128 x {bn}, K split {split}): "
+        f"int32 sums equal to the plain version bit for bit {err == 0}; "
+        f"fused (bias, relu) modes not bit for bit: {unequal}")
+    if err != 0 or got.dtype != torch.int32 or unequal:
         raise AssertionError(f"int8_conv {label} disagrees with its plain "
-                             f"version: max |d| {err}")
+                             f"version: max |d| {err}, fused {unequal}")
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]
-    xcf = F.pad(xd.float().permute(0, r + 1, *range(1, r + 1)), flat)
-    wcf = wd.float().reshape(cout, *ks, cin).permute(
+    xcf = F.pad(x.to(dev).float().permute(0, r + 1, *range(1, r + 1)), flat)
+    wcf = w_t.to(dev).float().reshape(cout, *ks, cin).permute(
         0, r + 1, *range(1, r + 1)).contiguous()
     conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[r]
 
@@ -2634,11 +2709,13 @@ def int8_conv_case(dev, case, gen) -> dict:
             for tap in np.ndindex(*ks)], dim=-1)
         return torch._int_mm(cols.reshape(m, k), wd.t())
 
+    def call():
+        return ic8.int8_conv(xd, wd, *args, mult=md, tickets=tk)
+
     mm = library_call(lambda: im2col_int_mm)
     row = {"shape": label, "count": count, "m": m, "k": k, "n": cout,
-           "ms": cuda_ms(lambda: ic8.int8_conv(xd, wd, *args)),
-           "graph_ms": graph_ms(lambda: ic8.int8_conv(xd, wd, *args)),
-           "plain_ms": plain_ms,
+           "tile_n": bn, "split": split, "ms": cuda_ms(call),
+           "graph_ms": graph_ms(call), "plain_ms": plain_ms,
            "library_ms": cuda_ms(lambda: conv(xcf, wcf, stride=st,
                                               dilation=dil)),
            "int_mm_ms": None if mm is None else cuda_ms(mm),
@@ -2646,58 +2723,240 @@ def int8_conv_case(dev, case, gen) -> dict:
     if mm is not None:
         row["int_mm_equal"] = bool(torch.equal(mm().reshape(got.shape),
                                                got))
-    # x and the kernel copy (one byte an element) read once, the int32 sums
-    # written once; 2 M K N operations at the int8 tensor-core peak
-    row.update(bound(x.numel() + w_t.numel() + 4 * m * cout,
-                     2.0 * m * k * cout, "int8"))
+    # the function's bound, over the unpadded operands: x and the kernel
+    # (one byte an element) read once, mult read once, the f32 output
+    # written once; 2 M (taps Cin) Cout operations at the int8 tensor-core
+    # peak.  The same over the padded operands the kernel reads is the
+    # padding's cost, kept beside it
+    row.update(bound(x.numel() + w_t.numel() + 4 * cout + 4 * m * cout,
+                     2.0 * m * w_t.shape[1] * cout, "int8"))
+    row["padded_bound_ms"] = bound(
+        xd.numel() + wd.numel() + 4 * cout + 4 * m * cout,
+        2.0 * m * k * cout, "int8")["bound_ms"]
     int_mm = "none" if mm is None else f"{row['int_mm_ms']:.4f} ms"
     log(f"kernel int8_conv {label}: {row['ms']:.4f} ms (graph "
         f"{row['graph_ms']:.4f}), plain {plain_ms:.1f} ms on the host CPU, "
         f"cuDNN f32 {row['library_ms']:.4f} ms, im2col + _int_mm {int_mm}, "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; over the "
+        f"padded operands {row['padded_bound_ms']:.4f})")
     return row
 
 
-def int8_conv_kernel_phase(dev) -> dict:
-    """``int8_conv`` against its plain version bit for bit at each distinct
-    conv shape of ResNet-50 at INT8_CONV_BATCH images, its fc, BERT's
-    calibrated head, one rank-1 atrous and one rank-3 case, each timed
-    (``int8_conv_case``); the ResNet-50 pass (each shape times its count
-    in the net) is the entry's headline."""
+def split_k_replay(dev, gen) -> None:
+    """SPLIT_K_CASE captured once with tickets of its own (no memset in
+    the graph) and replayed twice: both replays give the plain sums, so
+    the last block of each tile set its ticket back to 0.  Then the same
+    call on two streams at once, each with its own tickets, as two
+    calibrated models' layers would run: every result the plain sums."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.cuda import int8_conv as ic8
+
+    label, n, spatial, cin, cout, ks, st, dil, pads, _ = SPLIT_K_CASE
+    x = torch.from_numpy(gen.integers(-127, 128, (n,) + spatial + (cin,),
+                                      dtype=np.int8))
+    w = torch.from_numpy(gen.integers(-127, 128, ks + (cin, cout),
+                                      dtype=np.int8))
+    want = ic8.int8_conv_reference(x, ic8.conv_weight_t(w), ks, st, dil,
+                                   pads)
+    xd = F.pad(x, (0, ic8.padded_channels(cin) - cin)).to(dev)
+    wd = ic8.conv_weight_t(w, pad=True).to(dev)
+    split = ic8.plan(n * int(np.prod(want.shape[1:-1])), wd.shape[1],
+                     cout, int(np.prod(ks)))[1]
+    tk = ic8.new_tickets(dev)
+    ic8.int8_conv(xd, wd, ks, st, dil, pads, tickets=tk)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ic8.int8_conv(xd, wd, ks, st, dil, pads, tickets=tk)
+    equal = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        equal.append(torch.equal(out.cpu(), want))
+    del graph
+    log(f"kernel int8_conv split-K ({label}, K split {split}): two replays "
+        f"of one graph equal to the plain sums {equal}")
+    if split < 2 or not all(equal):
+        raise AssertionError("a split-K replay disagrees: the tickets did "
+                             "not reset")
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    tickets = [ic8.new_tickets(dev) for _ in streams]
+    outs = []
+    for st_ in streams:
+        st_.wait_stream(torch.cuda.current_stream())
+    for _ in range(16):
+        for st_, tk_ in zip(streams, tickets):
+            with torch.cuda.stream(st_):
+                outs.append(ic8.int8_conv(xd, wd, ks, st, dil, pads,
+                                          tickets=tk_))
+    torch.cuda.synchronize()
+    bad = sum(not torch.equal(o.cpu(), want) for o in outs)
+    log(f"kernel int8_conv split-K on two streams at once, tickets of "
+        f"their own: {len(outs) - bad} of {len(outs)} results equal to the "
+        f"plain sums")
+    if bad:
+        raise AssertionError(f"split-K on two streams: {bad} results "
+                             "disagree")
+
+
+def quantize_inputs(shape, scale, gen):
+    """f32 activations of ``shape`` at ``scale`` whose first values are
+    exact .5 ties of the quotient (both parities) and whose last are
+    +-127.5, past the clamp and -0."""
+    import torch
+
+    x = (gen.standard_normal(shape, dtype=np.float32) * 40 * scale).astype(
+        np.float32)
+    ties = (np.arange(-130, 130) + 0.5).astype(np.float32) * np.float32(
+        scale)
+    flat = x.reshape(-1)
+    flat[:ties.size] = ties[:flat.size]
+    flat[-4:] = np.array(
+        [127.5, -127.5, 1e4, -0.0], np.float32) * np.float32(scale)
+    return torch.from_numpy(x)
+
+
+def quantize_case(dev, shape, count, gen) -> dict:
+    """``quantize_act`` at one input shape: bit for bit its plain version
+    on the card (the reference's f32 division by the scale tensor, round,
+    clamp and cast, then the channel padding), timed through the wrapper
+    and from a graph beside its bound (4 bytes read and 1 written an
+    output, the padding included), its plain version's time and
+    ``torch.quantize_per_tensor`` (clamps to [-128, 127] and multiplies by
+    the reciprocal: not bit for bit the reference; unpadded)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.cuda import int8_conv as ic8
+
+    scale = 0.0371
+    xd = quantize_inputs(shape, scale, gen).to(dev)
+    sd = torch.tensor(scale, dtype=torch.float32, device=dev)
+    cp = ic8.padded_channels(shape[-1])
+    got = ic8.quantize_act(xd, sd, cp)
+    want = ic8.quantize_act_reference(xd, sd, cp)
+    err = (got.long() - want.long()).abs().max().item()
+    if err != 0:
+        raise AssertionError(f"quantize_act at {shape} disagrees with its "
+                             f"plain version: max |d| {err}")
+
+    def call():
+        return ic8.quantize_act(xd, sd, cp)
+
+    def plain():
+        return ic8.quantize_act_reference(xd, sd, cp)
+
+    lib = library_call(lambda: lambda: torch.quantize_per_tensor(
+        xd, scale, 0, torch.qint8))
+    row = {"shape": "x".join(map(str, shape)), "count": count,
+           "ms": cuda_ms(call), "graph_ms": graph_ms(call),
+           "plain_ms": cuda_ms(plain), "plain_graph_ms": graph_ms(plain),
+           "library_ms": None if lib is None else cuda_ms(lib),
+           "max_abs_err": err}
+    # the function's bound: 4 bytes read and 1 written an input element;
+    # the padding channels' bytes are the design's cost, kept beside it
+    row.update(bound(5 * xd.numel(), 0.0))
+    row["padded_bound_ms"] = bound(4 * xd.numel() + got.numel(),
+                                   0.0)["bound_ms"]
+    lib_ms = "none" if lib is None else f"{row['library_ms']:.4f} ms"
+    log(f"kernel quantize_act {row['shape']} (padded to {cp}; {count} in "
+        f"the net): bit for bit its plain version True; {row['ms']:.4f} ms "
+        f"(graph {row['graph_ms']:.4f}), plain {row['plain_ms']:.4f} ms "
+        f"(graph {row['plain_graph_ms']:.4f}), quantize_per_tensor {lib_ms},"
+        f" bound {row['bound_ms']:.4f} ms ({row['bound_by']}; with the "
+        f"padding {row['padded_bound_ms']:.4f})")
+    return row
+
+
+def pass_total(rows: list, keys) -> dict:
+    """Each key summed over ``rows`` times their count in the net (None
+    where a row has none), and the bound's kind where most of it lies."""
+    net = [r for r in rows if r["count"]]
+    total = {key: sum(r[key] * r["count"] for r in net
+                      if r.get(key) is not None)
+             if any(r.get(key) is not None for r in net) else None
+             for key in keys}
+    ops_ms = sum(r["bound_ms"] * r["count"] for r in net
+                 if r["bound_by"] == "operations")
+    total["bound_by"] = "operations" if 2 * ops_ms >= total["bound_ms"] \
+        else "bytes"
+    total["calls"] = sum(r["count"] for r in net)
+    return total
+
+
+def int8_conv_kernel_phase(dev) -> tuple[dict, dict]:
+    """``int8_conv`` against its plain version bit for bit, in the int32
+    and the fused modes, at each distinct conv shape of ResNet-50 at each
+    of INT8_CONV_BATCHES images, its fc, BERT's calibrated head, one
+    rank-1 atrous and one rank-3 case, each timed (``int8_conv_case``); a
+    split-K call replayed twice from one graph; ``quantize_act`` at each
+    input shape of ResNet-50's int8 layers at 32 images
+    (``quantize_case``).  The ResNet-50 pass (each shape times its count
+    in the net) is each entry's headline."""
     import torch
 
     t_phase = time.perf_counter()
     # the cuDNN yardstick in full f32, as the port's context runs it
     torch.backends.cudnn.allow_tf32 = False
     gen = np.random.default_rng(SEED + 70)
+    batch, *others = INT8_CONV_BATCHES
     rows = [int8_conv_case(dev, case, gen) for case in
-            resnet50_int8_shapes(INT8_CONV_BATCH) + list(INT8_CONV_EXTRA)]
-    net = [r for r in rows if r["count"]]
-    total = {key: sum(r[key] * r["count"] for r in net)
-             for key in ("ms", "graph_ms", "plain_ms", "library_ms",
-                         "bound_ms")}
-    ops_ms = sum(r["bound_ms"] * r["count"] for r in net
-                 if r["bound_by"] == "operations")
-    total["bound_by"] = "operations" if 2 * ops_ms >= total["bound_ms"] \
-        else "bytes"
-    have = [r for r in net if r["int_mm_ms"] is not None]
-    total["int_mm_ms"] = sum(r["int_mm_ms"] * r["count"] for r in have)
-    log(f"kernel int8_conv, one ResNet-50 pass at {INT8_CONV_BATCH} images "
-        f"({sum(r['count'] for r in net)} calls): {total['ms']:.3f} ms "
-        f"(graph {total['graph_ms']:.3f}), bound {total['bound_ms']:.3f} "
-        f"ms ({total['bound_by']}), plain {total['plain_ms']:.0f} ms on "
-        f"the host CPU, cuDNN f32 {total['library_ms']:.3f} ms; im2col + "
-        f"_int_mm {total['int_mm_ms']:.3f} ms over the "
-        f"{sum(r['count'] for r in have)} calls its shape rules take; "
-        f"phase int8_conv_kernel: {time.perf_counter() - t_phase:.1f} s")
+            resnet50_int8_shapes(batch) + list(INT8_CONV_EXTRA)]
+    more = {n: [int8_conv_case(dev, case, gen)
+                for case in resnet50_int8_shapes(n)] for n in others}
+    split_k_replay(dev, gen)
+    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms",
+            "padded_bound_ms", "int_mm_ms")
+    total = pass_total(rows, keys)
+    passes = {n: pass_total(r, keys) for n, r in more.items()}
+    for n, t in [(batch, total)] + list(passes.items()):
+        log(f"kernel int8_conv, one ResNet-50 pass at {n} image(s) "
+            f"({t['calls']} calls, fused mode): {t['ms']:.3f} ms (graph "
+            f"{t['graph_ms']:.3f}), bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}; over the padded operands "
+            f"{t['padded_bound_ms']:.3f}), plain {t['plain_ms']:.0f} ms on "
+            f"the host CPU, cuDNN f32 {t['library_ms']:.3f} ms; im2col + _int_mm "
+            f"{t['int_mm_ms'] or 0:.3f} ms over the calls its shape rules "
+            f"take")
+    # quantize_act at the inputs of the net's int8 layers
+    inputs = {}
+    for case in resnet50_int8_shapes(batch):
+        _, n, spatial, cin, *_, count = case
+        key = (n,) + (spatial if spatial != (1,) else ()) + (cin,)
+        inputs[key] = inputs.get(key, 0) + count
+    qrows = [quantize_case(dev, shape, count, gen)
+             for shape, count in inputs.items()]
+    qtotal = pass_total(qrows, ("ms", "graph_ms", "plain_ms",
+                                "plain_graph_ms", "library_ms", "bound_ms",
+                                "padded_bound_ms"))
+    log(f"kernel quantize_act, one ResNet-50 pass at {batch} images "
+        f"({qtotal['calls']} calls): {qtotal['ms']:.3f} ms (graph "
+        f"{qtotal['graph_ms']:.3f}), bound {qtotal['bound_ms']:.3f} ms "
+        f"({qtotal['bound_by']}; with the padding "
+        f"{qtotal['padded_bound_ms']:.3f}), plain {qtotal['plain_ms']:.3f} ms (graph "
+        f"{qtotal['plain_graph_ms']:.3f}), quantize_per_tensor "
+        f"{qtotal['library_ms'] or 0:.3f} ms; phase int8_conv_kernel: "
+        f"{time.perf_counter() - t_phase:.1f} s")
     entry = {"name": "int8_conv", "route": "cuda",
              "source": "analytics_zoo_tpu_torch/csrc/int8_conv.cu",
              "replaces": REPLACES["int8_conv"],
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "plain_device": "host cpu (no int32 matmul on CUDA)",
-             "pass": f"ResNet-50 at {INT8_CONV_BATCH} images, 54 calls",
-             **total, "shapes": rows}
-    return entry
+             "pass": f"ResNet-50 at {batch} images, {total['calls']} calls, "
+                     "fused mode (mult)",
+             **total, "shapes": rows,
+             "passes": {n: {**passes[n], "shapes": more[n]} for n in more}}
+    qentry = {"name": "quantize_act", "route": "cuda",
+              "source": "analytics_zoo_tpu_torch/csrc/int8_conv.cu",
+              "replaces": REPLACES["quantize_act"],
+              "max_abs_err": max(r["max_abs_err"] for r in qrows),
+              "library": "torch.quantize_per_tensor (reciprocal multiply, "
+                         "[-128, 127]: not bit for bit)",
+              "pass": f"ResNet-50 at {batch} images, {qtotal['calls']} "
+                      "calls",
+              **qtotal, "shapes": qrows}
+    return entry, qentry
 
 
 def bert_tokens_model():
@@ -2850,10 +3109,14 @@ def int8_serving_phase(card_line: str, weights, int8_entry) -> dict:
                     f"{v['graph_ms']:.3f} ms" for lb, v in by_shape.items()))
     blocks = BERT_BASE["n_block"]
     expected_flash = 2 * blocks * len(INT8_REQUESTS)
+    int8_layers = len(cal._int8_model.weights_t) * len(INT8_REQUESTS)
     log(f"int8 serving launches: {launches} (expected flash "
-        f"{expected_flash}, int8_matmul {len(weights)})")
+        f"{expected_flash}, int8_matmul {len(weights)}, int8_conv and "
+        f"quantize_act {int8_layers})")
     if flash != expected_flash or launches["flash_attention_fwd"] != flash \
-            or launches["int8_matmul"] != len(weights):
+            or launches["int8_matmul"] != len(weights) \
+            or launches["int8_conv"] != int8_layers \
+            or launches["quantize_act"] != int8_layers:
         raise AssertionError("an int8 serving call did not run through its "
                              "kernel")
 
@@ -3911,16 +4174,16 @@ def resnet50_int8_phase(card_line: str) -> dict:
     through ``InferenceModel().from_keras_net(net).optimize("int8",
     calibration_data=...)``, ``warmup`` and ``predict`` at 1, 8 and 32
     images: each replay bit for bit its eager forward, finite rows
-    summing to 1, RESNET_INT8_LAUNCHES ``int8_conv`` launches a replayed
-    micro-batch (53 convolutions and the fc) and no other kernel of the
-    table, no float64 convolution or matmul in an eager forward; request
-    0 against the same ``Int8Model`` (its qparams and activation scales)
-    on the CPU within INT8_CPU_TOL; argmax agreement and ``logit_gap``
-    against the f32 model printed (no bound: how far calibrated int8
-    moves a random net is the reference's algorithm's, which the CPU tests
-    hold the port to); each request's host clock, device time, idle share
-    and images/s beside the f32 request's and its bound.  Returns the
-    path's launch counts."""
+    summing to 1, RESNET_INT8_LAUNCHES ``quantize_act`` and as many
+    ``int8_conv`` launches a replayed micro-batch (53 convolutions and the
+    fc) and no other kernel of the table, no float64 convolution or matmul
+    in an eager forward; request 0 against the same ``Int8Model`` (its
+    qparams and activation scales) on the CPU within INT8_CPU_TOL; argmax
+    agreement and ``logit_gap`` against the f32 model printed (no bound:
+    how far calibrated int8 moves a random net is the reference's
+    algorithm's, which the CPU tests hold the port to); each request's
+    host clock, device time, idle share and images/s beside the f32 and
+    bf16 requests' and the bound.  Returns the path's launch counts."""
     import torch
 
     from analytics_zoo_tpu_torch import init_zoo_context
@@ -3949,6 +4212,7 @@ def resnet50_int8_phase(card_line: str) -> dict:
                                 dtype=np.float32)
     t0 = time.perf_counter()
     models = {"f32": InferenceModel().from_keras_net(net),
+              "bf16": InferenceModel().from_keras_net(net).optimize("bf16"),
               "int8": InferenceModel().from_keras_net(net).optimize(
                   "int8", calibration_data=calib)}
     qm = models["int8"]._int8_model
@@ -3960,8 +4224,8 @@ def resnet50_int8_phase(card_line: str) -> dict:
     torch.cuda.synchronize()
     log(f"resnet50_int8: calibrated on {INT8_CALIB} images in {cal_s:.1f} s "
         f"({len(qm.act_scales)} scales, {len(qm.weights_t)} int8 kernels "
-        f"held as (Cout, K) copies); f32 and int8 warmed up (captured) at "
-        f"{RESNET_REQUESTS} in {time.perf_counter() - t0:.1f} s")
+        f"held as (Cout, K) copies); f32, bf16 and int8 warmed up (captured) "
+        f"at {RESNET_REQUESTS} in {time.perf_counter() - t0:.1f} s")
     if len(qm.weights_t) != RESNET_INT8_LAUNCHES:
         raise AssertionError(f"expected {RESNET_INT8_LAUNCHES} int8 layers, "
                              f"got {sorted(qm.weights_t)}")
@@ -3976,12 +4240,14 @@ def resnet50_int8_phase(card_line: str) -> dict:
     got = {n: models["int8"].predict(reqs[n]) for n in RESNET_REQUESTS}
     launches = counters()  # end of the calibrated ResNet-50 path
     expected = dict({k: 0 for k in launches},
-                    int8_conv=RESNET_INT8_LAUNCHES * len(RESNET_REQUESTS))
+                    int8_conv=RESNET_INT8_LAUNCHES * len(RESNET_REQUESTS),
+                    quantize_act=RESNET_INT8_LAUNCHES * len(RESNET_REQUESTS))
     log(f"resnet50_int8 launches {launches} (expected {expected}); float64 "
         f"convolutions or matmuls in an eager forward: {wide}")
     if launches != expected or wide:
         raise AssertionError("the calibrated ResNet-50 did not run its "
-                             "convolutions on int8_conv alone")
+                             "int8 layers on quantize_act and int8_conv "
+                             "alone")
     f32 = {n: models["f32"].predict(reqs[n]) for n in RESNET_REQUESTS}
     for n in RESNET_REQUESTS:
         out = got[n]
@@ -4019,7 +4285,8 @@ def resnet50_int8_phase(card_line: str) -> dict:
                              "with the CPU")
     del cpu, cpu_q
     for tag, im in models.items():
-        peak = PEAK_FLOPS["int8" if tag == "int8" else "float32"]
+        peak = PEAK_FLOPS[{"int8": "int8", "bf16": "bfloat16"}.get(
+            tag, "float32")]
         for n in RESNET_REQUESTS:
             host = []
             for _ in range(HOST_REPEATS):
@@ -4047,9 +4314,10 @@ def zoo_int8_phase(card_line: str) -> dict:
     """Inception-v1 and MobileNet-v2 (224x224x3, 1000 classes, moving
     statistics set to one batch's) calibrated on ZOO_REQUEST seeded images
     and served one replayed ZOO_REQUEST-image request each: bit for bit its
-    eager forward, finite rows summing to 1, one ``int8_conv`` launch per
-    int8 layer.  MobileNet-v2's depthwise convolutions are no targets and
-    stay float (as in the reference); its 1x1 convolutions run int8.
+    eager forward, finite rows summing to 1, one ``quantize_act`` and one
+    ``int8_conv`` launch per int8 layer.  MobileNet-v2's depthwise
+    convolutions are no targets and stay float (as in the reference); its
+    1x1 convolutions run int8.
     Returns the path's launch counts."""
     import torch
 
@@ -4095,7 +4363,8 @@ def zoo_int8_phase(card_line: str) -> dict:
             f" hooked); {ZOO_REQUEST}-image request equal to the eager "
             f"forward bit for bit {same}, rows sum to 1 within {sums:.2e}; "
             f"launches {launches}")
-        expected = dict({k: 0 for k in launches}, int8_conv=len(hooked))
+        expected = dict({k: 0 for k in launches}, int8_conv=len(hooked),
+                        quantize_act=len(hooked))
         if not same or sums > 1e-4 or not np.isfinite(got).all() \
                 or launches != expected or set(depthwise) & set(hooked) \
                 or not hooked:
@@ -4209,7 +4478,8 @@ def bert_adamw_phase(card_line: str) -> dict:
     launches = counters()  # end of the replayed AdamW steps
     per_step = {"flash_attention_fwd": blocks, "flash_attention_bwd": blocks,
                 "fused_adam": 0, "softmax_xent_fwd": 1,
-                "softmax_xent_bwd": 1, "int8_matmul": 0, "int8_conv": 0}
+                "softmax_xent_bwd": 1, "int8_matmul": 0, "int8_conv": 0,
+                "quantize_act": 0}
     expected = {k: v * CAPTURE_STEPS for k, v in per_step.items()}
     dev_ms = replay_ms(graph_of(est._train_step_for(1,
                                                     est._resolve_plan())))
@@ -4481,14 +4751,14 @@ def main() -> int:
     xent = phase("kernels_xent", xent_phase, dev)
     weights = int8_weights(dev)
     int8 = phase("kernels_int8_matmul", int8_kernel_phase, dev, weights)
-    conv8 = phase("kernels_int8_conv", int8_conv_kernel_phase, dev)
+    conv8, quant8 = phase("kernels_int8_conv", int8_conv_kernel_phase, dev)
     # the forward with its (m, l) statistics: the TPU's attention_stats,
     # one kernel with row 1, launched with statistics wherever a gradient
     # is needed (the training path)
     stats = {"name": "attention_stats", "route": "cuda",
              "source": fwd["source"], "replaces": REPLACES["attention_stats"],
              **fwd["train"]}
-    entries = [fwd, stats, bwd, adam] + xent + [int8, conv8]
+    entries = [fwd, stats, bwd, adam] + xent + [int8, conv8, quant8]
     reset_counters()  # serving main path: counted inside slice_phase
     serving = {"flash_attention_fwd": phase("serving", slice_phase,
                                             card_line)}

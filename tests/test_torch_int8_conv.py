@@ -17,10 +17,20 @@ package.
   ``ROW_TOL``;
 - the port twin of the reference's ``test_int8_conv_accuracy``.
 
-The ``cuda`` tests hold ``csrc/int8_conv.cu`` against its plain version
-bit for bit on a GPU and skip where none is visible; JAX is imported only
-inside the tests that compare with it, so on a machine with a GPU and no
-JAX they run alone:
+- the padded operands (channels zero-padded to a multiple of 16, the
+  weight copy with zero rows per tap) give the unpadded sums; the plain
+  epilogue with the precomputed ``mult`` is the reference's rescale, bias
+  and activation bit for bit (a -0 before ReLU included);
+  ``quantize_act_reference`` is the reference's ``_quantize_act`` bit for
+  bit (ties, +-127.5 and the padding); ``Int8Model``'s padded copies and
+  its ``mult``; each calibrated layer is one quantization and one
+  convolution; the wrapper's tile and split-K plans.
+
+The ``cuda`` tests hold ``csrc/int8_conv.cu`` (the convolution in its
+int32 and fused modes, split-K replayed from a graph, the quantization)
+against its plain versions bit for bit on a GPU and skip where none is
+visible; JAX is imported only inside the tests that compare with it, so
+on a machine with a GPU and no JAX they run alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_int8_conv.py
@@ -35,6 +45,7 @@ import inspect
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.common import engine
 from analytics_zoo_tpu_torch.ops.cuda import int8_conv as ic
@@ -183,7 +194,8 @@ def test_int8_conv_is_the_references(case, bias, activation):
     # the int32 sums of the same int8 input
     xs = np.asarray(jq._quantize_act(jnp.asarray(x), act_scale))
     np.testing.assert_array_equal(
-        tq._quantize_act(torch.from_numpy(x), act_scale).numpy(), xs)
+        ic.quantize_act_reference(torch.from_numpy(x), act_scale,
+                                  cin).numpy(), xs)
     acc = lax.conv_general_dilated(
         xs, np.asarray(jqt.values), window_strides=st,
         padding=mode.upper(), rhs_dilation=dil,
@@ -411,6 +423,272 @@ def test_largest_k_cannot_wrap():
 
 
 # ---------------------------------------------------------------------------
+# padding, the epilogue, the quantization and the plans, on the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_padded_operands_give_the_unpadded_sums(case):
+    """x's channels and each tap's rows of the weight copy zero-padded to
+    a multiple of 16: the plain sums equal the unpadded ones."""
+    r, n, spatial, cin, cout, ks, st, dil, mode = case
+    x, w = _operands(case, seed=6)
+    args = (ks, st, dil, _pads(spatial, ks, st, dil, mode))
+    want = ic.int8_conv(torch.from_numpy(x),
+                        ic.conv_weight_t(torch.from_numpy(w)), *args)
+    xp, w_t = _padded(x, w)
+    cp = ic.padded_channels(cin)
+    assert xp.shape[-1] == cp and cp % 16 == 0 and cp - cin < 16
+    assert w_t.shape == (cout, int(np.prod(ks)) * cp)
+    taps = w_t.reshape(cout, -1, cp)
+    assert not taps[..., cin:].any()
+    assert torch.equal(taps[..., :cin].reshape(cout, -1),
+                       ic.conv_weight_t(torch.from_numpy(w)))
+    assert torch.equal(ic.int8_conv(xp, w_t, *args), want)
+
+
+@pytest.mark.parametrize("activation", ["linear", "relu"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+def test_epilogue_is_the_references(bias, activation):
+    """``int8_epilogue_reference`` with ``mult`` made once (the f32 scale
+    tensor times w_scale, as ``Int8Model`` makes it) against the
+    reference's ``acc.astype(f32) * (act_scale * w_scale)``, ``+ bias``
+    and the activation, bit for bit: zero channels of w_scale make
+    negative sums -0 (and -0 + -0 stays -0), which jax.nn.relu turns to
+    +0."""
+    import jax
+    import jax.numpy as jnp
+
+    gen = np.random.default_rng(7)
+    cout = 40
+    acc = gen.integers(-3_000_000, 3_000_000, (6, 5, cout)).astype(np.int32)
+    acc[0, 0] = -5
+    acc[1, 1] = 2 ** 30 + 7  # rounds to f32
+    w_scale = gen.uniform(1e-4, 1e-2, (1, 1, 1, cout)).astype(np.float32)
+    w_scale[..., ::7] = 0.0
+    b = gen.normal(size=cout).astype(np.float32)
+    b[::7] = -0.0
+    act_scale = float(np.float32(0.0371))
+    y = jnp.asarray(acc).astype(jnp.float32) * (
+        act_scale * jnp.asarray(w_scale).reshape(-1))
+    if bias:
+        y = y + jnp.asarray(b)
+    want = np.asarray(jax.nn.relu(y) if activation == "relu" else y)
+    mult = torch.tensor(act_scale, dtype=torch.float32) * torch.from_numpy(
+        w_scale).reshape(-1)
+    got = ic.int8_epilogue_reference(
+        torch.from_numpy(acc), mult,
+        torch.from_numpy(b) if bias else None, activation == "relu")
+    assert np.signbit(want).any() == (activation != "relu")
+    np.testing.assert_array_equal(_bits(got).numpy(),
+                                  want.view(np.int32))
+
+
+def _quantize_inputs(cin, seed=8):
+    """f32 activations at a scale, with exact .5 ties of the quotient
+    (both parities), +-127.5, values past the clamp and zeros."""
+    gen = np.random.default_rng(seed)
+    scale = np.float32(0.05)
+    x = (gen.normal(size=(3, 5, 4, cin)) * 3).astype(np.float32)
+    ties = (np.arange(-130, 130) + 0.5).astype(np.float32) * scale
+    flat = x.reshape(-1)
+    flat[:ties.size] = ties[:flat.size]
+    flat[-4:] = np.array([127.5, -127.5, 1e4, -0.0], np.float32) * scale
+    return torch.from_numpy(x), float(scale)
+
+
+@pytest.mark.parametrize("cin", [3, 16, 20])
+def test_quantize_act_reference_is_the_references(cin):
+    """``quantize_act_reference`` (and ``quantize_act`` on the CPU) against
+    the reference's ``_quantize_act`` bit for bit, by the f32 scale
+    tensor and by the float, the padding channels zero."""
+    import jax.numpy as jnp
+
+    from analytics_zoo_tpu.pipeline.inference import quantize as jq
+
+    x, scale = _quantize_inputs(cin)
+    want = np.asarray(jq._quantize_act(jnp.asarray(x.numpy()), scale))
+    cp = ic.padded_channels(cin)
+    before = ic.quantize_plain_count
+    for s in (torch.tensor(scale, dtype=torch.float32), scale):
+        got = ic.quantize_act(x, s)
+        assert got.dtype == torch.int8 and got.shape[-1] == cp
+        np.testing.assert_array_equal(got[..., :cin].numpy(), want)
+        assert not got[..., cin:].any()
+    assert ic.quantize_plain_count == before + 2
+    assert (want == 127).any() and (want == -127).any()
+
+
+def test_int8_model_holds_padded_copies_and_mult():
+    """``Int8Model``: each hooked kernel's (Cout, K) copy with each tap's
+    channels zero-padded to a multiple of 16 (the stem-like conv of 3
+    channels, a Dense over 9 x 5 x 5 features), ``mults_t`` the f32
+    ``act_scale * w_scale`` of the reference, and its output the
+    reference's when the copies are not padded."""
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Convolution2D,
+        Dense,
+        Flatten,
+    )
+
+    init_zoo_context(seed=9, device="cpu")
+    m = Sequential()
+    m.add(Convolution2D(9, 3, 3, activation="relu", border_mode="valid",
+                        input_shape=(7, 7, 3)))
+    m.add(Flatten())
+    m.add(Dense(4, activation="softmax"))
+    m.build_params()
+    x = np.random.default_rng(9).normal(size=(8, 7, 7, 3)).astype(
+        np.float32)
+    q = tq.quantize_model(m, x, min_size=1)
+    conv, dense = m.layers[0].name, m.layers[2].name
+    for name, k, cp in ((conv, 9, 16), (dense, 1, 240)):
+        qt = q.qparams[name]["kernel"]
+        w_t = q.weights_t[name]
+        cin = qt.values.shape[-2]
+        assert w_t.shape == (qt.values.shape[-1], k * cp)
+        taps = w_t.reshape(w_t.shape[0], k, cp)
+        assert not taps[..., cin:].any()
+        assert torch.equal(taps[..., :cin].reshape(w_t.shape[0], -1),
+                           ic.conv_weight_t(qt.values))
+        want = (np.float32(q.act_scales[name])
+                * qt.scale.numpy().reshape(-1))
+        assert q.mults_t[name].dtype == torch.float32
+        np.testing.assert_array_equal(q.mults_t[name].numpy(), want)
+    got = q.predict(x, batch_size=8)
+    q.weights_t = {n: ic.conv_weight_t(q.qparams[n]["kernel"].values)
+                   for n in q.weights_t}
+    np.testing.assert_array_equal(q.predict(x, batch_size=8), got)
+
+
+def test_each_calibrated_layer_holds_tickets_of_its_own(monkeypatch):
+    """``Int8Model.tickets_t``: one zeroed int32 array of TICKETS per
+    hooked layer, shared by no other layer and no other model, and the
+    one each layer's ``int8_conv`` call is given."""
+    m, x, _ = _train_cnn(n=128, epochs=1)
+    q1 = tq.quantize_model(m, x[:64], min_size=1)
+    q2 = tq.quantize_model(m, x[:64], min_size=1)
+    arrays = list(q1.tickets_t.values()) + list(q2.tickets_t.values())
+    assert sorted(q1.tickets_t) == sorted(q1.weights_t)
+    assert len({t.data_ptr() for t in arrays}) == len(arrays) == 6
+    for t in arrays:
+        assert t.dtype == torch.int32 and t.shape == (ic.TICKETS,)
+        assert not t.any()
+    given = []
+    conv = tq.int8_conv
+
+    def spy(*args, tickets=None, **kw):
+        given.append(tickets)
+        return conv(*args, tickets=tickets, **kw)
+
+    monkeypatch.setattr(tq, "int8_conv", spy)
+    q1.predict(x[:64], batch_size=64)
+    assert [t.data_ptr() for t in given] == [
+        q1.tickets_t[l.name].data_ptr() for l in q1._targets()]
+
+
+@pytest.mark.parametrize("case", ["dtype", "short", "device"])
+def test_wrapper_raises_on_tickets_the_kernel_does_not_take(case):
+    """Checked before the library is loaded, so no launch happens."""
+    x, w = _operands(CASES[3], 0)
+    xp, w_t = _padded(x, w)
+    tickets = _OnCuda(torch.zeros(ic.TICKETS, dtype=torch.int32))
+    if case == "dtype":
+        tickets = _OnCuda(torch.zeros(ic.TICKETS, dtype=torch.int64))
+    elif case == "short":
+        tickets = _OnCuda(torch.zeros(8, dtype=torch.int32))
+    elif case == "device":
+        tickets = torch.zeros(ic.TICKETS, dtype=torch.int32)
+    before = ic.launch_count
+    with pytest.raises(ValueError, match="tickets"):
+        ic.int8_conv(_OnCuda(xp), _OnCuda(w_t), *ARGS, tickets=tickets)
+    assert ic.launch_count == before
+
+
+def test_a_calibrated_layer_is_one_quantize_and_one_conv():
+    """Each hooked layer of a forward calls ``quantize_act`` once and
+    ``int8_conv`` once, on the CPU their plain versions."""
+    m, x, _ = _train_cnn(n=128, epochs=1)
+    q = tq.quantize_model(m, x[:64], min_size=1)
+    before = ic.plain_count, ic.quantize_plain_count
+    q.predict(x[:64], batch_size=64)
+    assert (ic.plain_count - before[0],
+            ic.quantize_plain_count - before[1]) == (3, 3)
+
+
+# (m, k, cout, taps) of ResNet-50's layers at 32 and 1 images, BERT's head
+PLAN_SHAPES = [(401408, 784, 64, 49), (100352, 576, 64, 9),
+               (25088, 1152, 128, 9), (6272, 2304, 256, 9),
+               (1568, 4608, 512, 9), (1568, 2048, 512, 1),
+               (25088, 512, 128, 1), (32, 2048, 1000, 1),
+               (12544, 784, 64, 49), (784, 1152, 128, 9),
+               (49, 4608, 512, 9), (1, 2048, 1000, 1), (8, 768, 2, 1)]
+
+
+@pytest.mark.parametrize("m,k,cout,taps", PLAN_SHAPES)
+def test_plan_fills_the_card_and_covers_k(m, k, cout, taps):
+    """The N tile is 64 or 128 (128 only for at least 128 columns, 512
+    bytes of K and 8 row tiles); K is split only where the output tiles
+    fill less than one block an SM and K has SPLIT_K_TILES K tiles, into
+    blocks of at least two K tiles that cover K with none empty."""
+    bn, split, per = ic.plan(m, k, cout, taps)
+    nk = -(-k // ic.BK)
+    tiles = -(-m // ic.BM) * -(-cout // bn)
+    assert bn in (64, 128)
+    if bn == 128:
+        assert cout >= 128 and k >= 512 and m >= 8 * ic.BM - ic.BM + 1
+    assert (split - 1) * per < nk <= split * per
+    if split > 1:
+        assert tiles < ic.SMS and nk >= ic.SPLIT_K_TILES
+        assert per >= 2 and split <= ic.MAX_SPLIT and tiles <= ic.TICKETS
+    if tiles >= ic.SMS:
+        assert split == 1
+
+
+@pytest.mark.parametrize("case,error", [
+    ("bias_without_mult", ValueError), ("mult_dtype", TypeError),
+    ("mult_shape", ValueError), ("bias_shape", ValueError),
+    ("cin_unaligned", ValueError),
+])
+def test_wrapper_raises_on_epilogue_operands(case, error):
+    """Checked before the library is loaded, so no launch happens."""
+    x, w = _operands(CASES[3], 0)
+    xp, w_t = _padded(x, w)
+    kw = dict(mult=torch.ones(w_t.shape[0]))
+    if case == "bias_without_mult":
+        kw = dict(bias=torch.ones(w_t.shape[0]))
+    elif case == "mult_dtype":
+        kw = dict(mult=torch.ones(w_t.shape[0], dtype=torch.float64))
+    elif case == "mult_shape":
+        kw = dict(mult=torch.ones(w_t.shape[0] + 1))
+    elif case == "bias_shape":
+        kw["bias"] = torch.ones(3)
+    elif case == "cin_unaligned":
+        xp, w_t = _small()
+    before = ic.launch_count
+    with pytest.raises(error):
+        ic.int8_conv(_OnCuda(xp), _OnCuda(w_t), *ARGS,
+                     **{k: _OnCuda(v) for k, v in kw.items()})
+    assert ic.launch_count == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "cin_p", "scale"])
+def test_quantize_wrapper_raises_on_what_the_kernel_does_not_take(case):
+    x = torch.zeros((2, 4, 4, 3))
+    scale, cin_p = torch.tensor(0.5), 16
+    if case == "dtype":
+        x = x.double()
+    elif case == "cin_p":
+        cin_p = 8
+    elif case == "scale":
+        scale = torch.tensor([0.5, 0.5])
+    before = ic.quantize_launch_count
+    with pytest.raises((TypeError, ValueError)):
+        ic.quantize_act(_OnCuda(x), _OnCuda(scale), cin_p)
+    assert ic.quantize_launch_count == before
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -430,23 +708,145 @@ CUDA_CASES = CASES + [
     (2, 2, (56, 56), 256, 512, (1, 1), (2, 2), (1, 1), "valid"),
     (1, 8, (1,), 768, 2, (1,), (1,), (1,), "valid"),
     (1, 33, (1,), 203, 70, (1,), (1,), (1,), "valid"),
+    # split-K: ResNet-50's last 3x3 and its fc at one image
+    (2, 1, (7, 7), 512, 512, (3, 3), (1, 1), (1, 1), "same"),
+    (1, 1, (1,), 2048, 1000, (1,), (1,), (1,), "valid"),
 ]
+
+
+def _padded(x, w):
+    """(x, w_t) as the card takes them: x's channels and each tap's rows
+    of the weight copy zero-padded to a multiple of 16."""
+    x = torch.from_numpy(x)
+    xp = F.pad(x, (0, ic.padded_channels(x.shape[-1]) - x.shape[-1]))
+    return xp, ic.conv_weight_t(torch.from_numpy(w), pad=True)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CUDA_CASES)
 def test_kernel_matches_plain_bit_for_bit(case, cuda_device):
+    """The int32 sums over the padded operands, against the plain sums
+    over the unpadded ones."""
     r, n, spatial, cin, cout, ks, st, dil, mode = case
     x, w = _operands(case, seed=2)
-    x = torch.from_numpy(x)
-    w_t = ic.conv_weight_t(torch.from_numpy(w))
     args = (ks, st, dil, _pads(spatial, ks, st, dil, mode))
-    want = ic.int8_conv(x, w_t, *args)
+    want = ic.int8_conv(torch.from_numpy(x),
+                        ic.conv_weight_t(torch.from_numpy(w)), *args)
+    xp, w_t = _padded(x, w)
     before = ic.launch_count
-    got = ic.int8_conv(x.to(cuda_device), w_t.to(cuda_device), *args)
+    got = ic.int8_conv(xp.to(cuda_device), w_t.to(cuda_device), *args)
     torch.cuda.synchronize()
     assert ic.launch_count == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _epilogue_operands(cout, seed):
+    """mult as act_scale * w_scale, with a few zero channels (a negative
+    sum then gives -0, which ReLU must turn to +0), and a bias with -0 at
+    those channels."""
+    gen = np.random.default_rng(seed)
+    mult = (np.float32(0.0123) * gen.uniform(
+        1e-3, 1e-2, cout).astype(np.float32)).astype(np.float32)
+    bias = gen.normal(size=cout).astype(np.float32)
+    mult[::7] = 0.0
+    bias[::7] = -0.0
+    return torch.from_numpy(mult), torch.from_numpy(bias)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+FUSED_MODES = [(False, False), (True, False), (True, True), (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias,relu", FUSED_MODES,
+                         ids=["mult", "bias", "bias-relu", "relu"])
+@pytest.mark.parametrize("case", CUDA_CASES)
+def test_fused_kernel_matches_plain_bit_for_bit(case, bias, relu,
+                                                cuda_device):
+    r, n, spatial, cin, cout, ks, st, dil, mode = case
+    x, w = _operands(case, seed=3)
+    args = (ks, st, dil, _pads(spatial, ks, st, dil, mode))
+    mult, b = _epilogue_operands(cout, 4)
+    b = b if bias else None
+    want = ic.int8_epilogue_reference(
+        ic.int8_conv(torch.from_numpy(x),
+                     ic.conv_weight_t(torch.from_numpy(w)), *args),
+        mult, b, relu)
+    xp, w_t = _padded(x, w)
+    got = ic.int8_conv(xp.to(cuda_device), w_t.to(cuda_device), *args,
+                       mult=mult.to(cuda_device),
+                       bias=None if b is None else b.to(cuda_device),
+                       relu=relu)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [3, 16, 64, 203])
+def test_quantize_kernel_matches_plain_bit_for_bit(cin, cuda_device):
+    x, scale = _quantize_inputs(cin)
+    want = ic.quantize_act_reference(x, torch.tensor(scale),
+                                     ic.padded_channels(cin))
+    before = ic.quantize_launch_count
+    got = ic.quantize_act(x.to(cuda_device),
+                          torch.tensor(scale, device=cuda_device))
+    torch.cuda.synchronize()
+    assert ic.quantize_launch_count == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_split_k_replay_resets_the_tickets(cuda_device):
+    """A 3x3 over 512 channels at 7x7 on one image splits K: two replays
+    of one captured call give the plain sums both times."""
+    case = (2, 1, (7, 7), 512, 512, (3, 3), (1, 1), (1, 1), "same")
+    x, w = _operands(case, seed=5)
+    args = ((3, 3), (1, 1), (1, 1), ((1, 1), (1, 1)))
+    want = ic.int8_conv(torch.from_numpy(x),
+                        ic.conv_weight_t(torch.from_numpy(w)), *args)
+    assert ic.plan(49, 9 * 512, 512, 9)[1] > 1
+    xd, wd = (t.to(cuda_device) for t in _padded(x, w))
+    # tickets of the call's own, made before the capture: the graph holds
+    # no memset of them, so only the kernel leaves them zeroed
+    tk = ic.new_tickets(cuda_device)
+    ic.int8_conv(xd, wd, *args, tickets=tk)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ic.int8_conv(xd, wd, *args, tickets=tk)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want)
+        assert not tk.any()
+
+
+@pytest.mark.cuda
+def test_split_k_on_two_streams_with_tickets_of_their_own(cuda_device):
+    """The split-K call of the test above, 16 times on each of two
+    streams at once, each stream with its own tickets (as two calibrated
+    models' layers hold them): every result is the plain sums."""
+    case = (2, 1, (7, 7), 512, 512, (3, 3), (1, 1), (1, 1), "same")
+    x, w = _operands(case, seed=6)
+    args = ((3, 3), (1, 1), (1, 1), ((1, 1), (1, 1)))
+    want = ic.int8_conv(torch.from_numpy(x),
+                        ic.conv_weight_t(torch.from_numpy(w)), *args)
+    xd, wd = (t.to(cuda_device) for t in _padded(x, w))
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    tickets = [ic.new_tickets(cuda_device) for _ in streams]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(16):
+        for s, tk in zip(streams, tickets):
+            with torch.cuda.stream(s):
+                outs.append(ic.int8_conv(xd, wd, *args, tickets=tk))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o.cpu(), want) for o in outs)
 
 
 @pytest.mark.cuda
@@ -469,8 +869,9 @@ def test_calibrated_conv_request_replay_is_the_eager_forward(cuda_device):
     x = gen.normal(size=(8, 32, 32, 3)).astype(np.float32)
     eager = im._forward_fn()(im._params, im._state,
                              [torch.from_numpy(x).to(cuda_device)]).cpu()
-    before = ic.launch_count
+    before = ic.launch_count, ic.quantize_launch_count
     got = im.predict(x)
     hooked = len(im._int8_model.weights_t)
-    assert ic.launch_count - before == hooked
+    assert (ic.launch_count - before[0],
+            ic.quantize_launch_count - before[1]) == (hooked, hooked)
     assert np.array_equal(got, eager.numpy())

@@ -26,6 +26,7 @@ import torch
 from analytics_zoo_tpu_torch import init_zoo_context as torch_init
 from analytics_zoo_tpu_torch.common.utils import tree_leaves
 from analytics_zoo_tpu_torch.convert import params_from_jax
+from analytics_zoo_tpu_torch.ops.cuda import int8_conv as ic
 from analytics_zoo_tpu_torch.parallel import int8_serving
 from analytics_zoo_tpu_torch.parallel.partition import (
     leaf_path_name,
@@ -190,11 +191,14 @@ def test_calibrated_model_matches_reference(builder, data):
     if inp is not None:
         jqt, tqt = jm.qparams[first]["kernel"], tm.qparams[first]["kernel"]
         jxs = jq._quantize_act(jax.numpy.asarray(inp), jm.act_scales[first])
-        txs = tq._quantize_act(torch.from_numpy(inp), tm.act_scales[first])
+        txs = ic.quantize_act_reference(torch.from_numpy(inp),
+                                        tm.act_scales[first], inp.shape[-1])
         np.testing.assert_array_equal(txs.numpy(), np.asarray(jxs))
         jacc = jax.lax.dot_general(jxs, jqt.values, (((1,), (0,)), ((), ())),
                                    preferred_element_type=jax.numpy.int32)
-        tacc = tq._int8_acc(txs, tqt.values)
+        tacc = ic.int8_conv(txs.reshape(-1, 1, txs.shape[-1]),
+                            ic.conv_weight_t(tqt.values), (1,), (1,), (1,),
+                            ((0, 0),)).reshape(txs.shape[0], -1)
         assert tacc.dtype == torch.int32
         np.testing.assert_array_equal(tacc.numpy(), np.asarray(jacc))
 
@@ -402,7 +406,9 @@ def test_conv_target_raises(monkeypatch):
     assert sorted(q.act_scales) == ["conv_0", "dense_0"]
     assert isinstance(q.qparams["conv_0"]["kernel"], tq.QuantizedTensor)
     assert not isinstance(q.qparams["mix_0"]["kernel"], tq.QuantizedTensor)
-    assert q.weights_t["conv_0"].shape == (16, 3 * 3 * 8)
+    # the (Cout, K) copy the kernel reads: each tap's 8 channels
+    # zero-padded to 16
+    assert q.weights_t["conv_0"].shape == (16, 3 * 3 * 16)
     calls = []
     conv = tq._int8_conv
     monkeypatch.setattr(tq, "_int8_conv",

@@ -2,15 +2,26 @@
 """Where the time of one request goes, on one CUDA GPU.
 
     python3 tools/torch_serve_profile.py [--model bert|resnet50]
-        [--requests 10] [--trace DIR]
+        [--precision f32 bf16 int8] [--sizes 1 32] [--requests 10]
+        [--trace DIR] [--root DIR]
 
 Serves a model of ``chip_smoke.py`` through ``InferenceModel`` as it
 does, with random weights and requests from a seed: ``--model bert`` (the
 default) BERT-base at full width with a Dense(2, softmax) head, sequence
 512, at 1 and 8 records a request; ``--model resnet50`` ResNet-50
 (224x224x3, 1000 classes; its moving statistics set to one batch's, as
-the smoke's serving phase sets them) at 1, 8 and 32 images.  Each in f32
-and bf16 (``optimize("bf16")``), two ways: the captured forward
+the smoke's serving phase sets them) at 1, 8 and 32 images (``--sizes``
+picks some).  Each in f32 and bf16 (``optimize("bf16")``), or the
+precisions ``--precision`` names: ``int8`` is ResNet-50 calibrated as
+``chip_smoke.py``'s ``resnet50_int8`` phase builds it
+(``optimize("int8", calibration_data=...)`` on INT8_CALIB seeded images),
+its device time split into the ``int8_conv`` kernel, the activation
+quantization (the ``quantize_act`` kernel), copies and casts (where an
+older tree quantizes, its int8 cast), pooling, host-device copies, and
+BatchNorm, ReLU and the rest (where an older tree rescales, its
+rescale).  ``--root DIR`` imports the port's package from another
+checkout (an older tree, held against this one in the same call).  Each
+precision is served two ways: the captured forward
 ``predict`` replays (one CUDA graph a micro-batch, the batch written into
 its static inputs), and the eager forward (the same forward function
 called on a batch copied up, as ``predict`` ran it before it was
@@ -43,6 +54,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from chip_smoke import (  # noqa: E402
+    INT8_CALIB,
     REQ_DTYPES,
     RESNET_BATCH,
     RESNET_CLASSES,
@@ -53,7 +65,12 @@ from chip_smoke import (  # noqa: E402
     bert_model,
     requests_of,
 )
-from torch_train_profile import CONV_GROUPS, GROUPS, measure  # noqa: E402
+from torch_train_profile import (  # noqa: E402
+    CONV_GROUPS,
+    GROUPS,
+    INT8_GROUPS,
+    measure,
+)
 
 RECORDS = (1, 8)
 
@@ -71,9 +88,18 @@ def report(name: str, r: dict, card: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    ap.add_argument("--precision", nargs="+", default=["f32", "bf16"],
+                    choices=("f32", "bf16", "int8"))
+    ap.add_argument("--sizes", nargs="+", type=int, default=None)
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--root", default=None)
     args = ap.parse_args()
+    if "int8" in args.precision and args.model != "resnet50":
+        raise SystemExit("torch_serve_profile: --precision int8 serves "
+                         "--model resnet50")
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
 
@@ -85,6 +111,7 @@ def main() -> int:
         text=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
+    import analytics_zoo_tpu_torch
     from analytics_zoo_tpu_torch import init_zoo_context
     from analytics_zoo_tpu_torch.models import ResNet
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
@@ -114,13 +141,22 @@ def main() -> int:
 
         def request(n):
             return requests_of(n, gen)
+    print(f"package from "
+          f"{os.path.dirname(analytics_zoo_tpu_torch.__file__)}", flush=True)
+    records = tuple(args.sizes) if args.sizes else records
+    calib = gen.standard_normal((INT8_CALIB,) + RESNET_SHAPE,
+                                dtype=np.float32) \
+        if "int8" in args.precision else None
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
     out = {}
-    for precision in ("f32", "bf16"):
+    for precision in args.precision:
         im = InferenceModel().from_keras_net(net)
         if precision == "bf16":
             im.optimize("bf16")
+        elif precision == "int8":
+            im.optimize("int8", calibration_data=calib)
+        kernel_groups = INT8_GROUPS if precision == "int8" else groups
         im.warmup(shapes, dtype=dtypes, batch_sizes=records)
         fwd = im._forward_fn()
         for n in records:
@@ -143,9 +179,12 @@ def main() -> int:
                     f"serve_{args.model}_{precision}_{n}_{kind}.json") \
                     if args.trace else None
                 torch.cuda.synchronize()
-                out[name] = measure(run, args.requests, trace, groups)
+                out[name] = measure(run, args.requests, trace,
+                                    kernel_groups)
                 report(name, out[name], card)
     print(json.dumps({"card": card, "model": args.model,
+                      "package": os.path.dirname(
+                          analytics_zoo_tpu_torch.__file__),
                       "requests": args.requests, **out}),
           flush=True)
     return 0

@@ -85,8 +85,18 @@ CONV_GROUPS = (
     ("copies and casts", ("direct_copy_kernel", "copy_kernel")),
     ("host-device copies", ("Memcpy", "Memset")),
 )
+# the groups of a calibrated int8 conv net's request: the int8 layers'
+# two kernels first (a tree whose int8 layers quantize in torch shows that
+# work under copies and casts, the int8 cast, and the last group)
+INT8_GROUPS = (
+    ("int8_conv", ("int8_conv_kernel",)),
+    ("quantize_act", ("quantize_act_kernel",)),
+) + CONV_GROUPS
 OTHER = {GROUPS: "other (elementwise, reductions, copies)",
-         CONV_GROUPS: "BatchNorm, ReLU and other elementwise and reductions"}
+         CONV_GROUPS: "BatchNorm, ReLU and other elementwise and reductions",
+         INT8_GROUPS: "BatchNorm, ReLU and other elementwise and reductions "
+                      "(an older tree's quantize and rescale passes among "
+                      "them)"}
 
 
 TOP_OPS = 12  # operators listed by the device time they launch
