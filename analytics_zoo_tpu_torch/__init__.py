@@ -14,13 +14,16 @@ Dense, Dropout, BERT and TransformerLayer, in f32, bf16 and int8),
 fine-tuning (``compile``/``fit``/``evaluate``), the single-device kernel
 and precision planes (``parallel``), the compile plane, the
 convolutional path (conv, pooling, BatchNorm, Merge and shape layers,
-SGD, ``models.build_lenet`` and ``models.ResNet``), and every TPU kernel
-of the reference as a CUDA kernel.
+SGD, ``models.build_lenet`` and ``models.ResNet``), the ImageNet zoo,
+fault-tolerant training (``ZooConfig``'s env tier, checkpoints with
+mid-epoch resume and retry, TensorBoard summaries, the DISK and PMEM data
+tiers), and every TPU kernel of the reference as a CUDA kernel.
 """
 
 __version__ = "0.1.0"
 
 from analytics_zoo_tpu_torch.common.engine import (  # noqa: E402,F401
+    ZooConfig,
     ZooContext,
     get_zoo_context,
     init_zoo_context,

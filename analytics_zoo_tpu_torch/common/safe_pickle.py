@@ -4,10 +4,13 @@ Counterpart of ``analytics_zoo_tpu/common/safe_pickle.py``: a model file
 is untrusted input, and a pickle can name any callable, so every load goes
 through :func:`safe_load`, which refuses every class outside an exact set.
 
-The set covers what the port's ``KerasNet.save`` writes: this package's
-classes, numpy arrays (weights are stored as numpy), torch dtype objects
-named by weight specs, and a few builtins.  Files written by the JAX
-package hold JAX objects and are refused.
+The set covers what the port writes: ``KerasNet.save``'s model files
+(this package's classes, numpy arrays — weights are stored as numpy —,
+torch dtype objects named by weight specs, and a few builtins) and the
+estimator's checkpoints (dicts, lists, numpy arrays and scalars, ints,
+floats and strings: no class of either package).  A checkpoint written by
+the JAX package has the same format and loads; its model files hold JAX
+objects and are refused.
 """
 
 from __future__ import annotations

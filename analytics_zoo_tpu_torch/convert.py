@@ -17,6 +17,17 @@ schedule's count, into ``RMSpropState``, ``AdagradState`` and
 ``AdadeltaState``.
 The JAX package is never imported: the caller hands over plain arrays.
 
+A checkpoint holds the optimizer state as ``opt_flat``: optax's leaves in
+its flatten order (a chain's stages in order, each named tuple's fields in
+order, dict keys sorted).  :func:`opt_flat_leaves` gives the port state's
+tensors in that order for each optimizer of the table (Adam, AdamW and
+Adamax: count, mu, nu; SGD: the momentum trace, none without momentum;
+RMSprop's nu, Adagrad's sum of squares, Adadelta's e_g and e_x; then the
+schedule's count where the learning rate has a schedule, which counts the
+same steps), and :func:`load_opt_flat_` writes a checkpoint's ``opt_flat``
+into a port state in place, as ``opt_state_from_jax`` reads the same
+stages by their fields.
+
 Every layer of the port keeps the reference's parameter names, shapes and
 dtypes (the depthwise kernel (kh, kw, 1, in·dm), the pointwise (1, 1,
 in·dm, out), the transposed convolution's (kh, kw, in, out), the locally
@@ -143,3 +154,53 @@ def opt_state_from_jax(state, device=None):
             "port optimizer's init)")
     return SGDState(count=count,
                     trace=tree(traces[0].trace) if traces else ())
+
+
+def _sorted_leaves(tree, out: list) -> list:
+    """``tree``'s leaves in JAX's flatten order: dict keys sorted, lists
+    and tuples by position."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _sorted_leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _sorted_leaves(v, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def opt_flat_leaves(optimizer, opt_state) -> list:
+    """The tensors of ``opt_state`` (``optimizer``'s state) in the leaf
+    order of the reference's optax state for the same optimizer: what a
+    checkpoint stores as ``opt_flat``.  The count appears a second time,
+    last, where the rate has a schedule (optax's ``scale_by_schedule``
+    stage counts the same steps)."""
+    fields = [f for f in type(opt_state)._fields if f != "count"]
+    out = [opt_state.count] if isinstance(opt_state, AdamState) else []
+    for f in fields:
+        _sorted_leaves(getattr(opt_state, f), out)
+    if getattr(optimizer, "schedule", None) is not None:
+        out.append(opt_state.count)
+    return out
+
+
+def load_opt_flat_(optimizer, opt_state, flat, global_step: int) -> None:
+    """Write a checkpoint's ``opt_flat`` (arrays in optax's leaf order,
+    from either package) into ``opt_state`` in place.  A state whose optax
+    counterpart keeps no count (a constant rate off Adam) takes
+    ``global_step``, the steps it has counted."""
+    leaves = opt_flat_leaves(optimizer, opt_state)
+    if len(leaves) != len(flat):
+        raise ValueError(
+            f"checkpoint opt_flat has {len(flat)} leaves, "
+            f"{type(optimizer).__name__}'s state {len(leaves)}")
+    for t, a in zip(leaves, flat):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint opt_flat leaf of shape {a.shape} "
+                             f"against {tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(a)).to(t.dtype))
+    if not any(t is opt_state.count for t in leaves):
+        opt_state.count.fill_(int(global_step))
+

@@ -36,9 +36,12 @@ eval step, ``KerasNet.predict`` and ``InferenceModel``'s bucket forwards
 The sharded plans (zero1/2/3, fsdp, ``+overlap``) and the
 param/opt/grad/remat tables wait for the distribution slice (queue 1
 item 13); their names raise ``NotImplementedError``.
-``ZOO_DTYPE_POLICY`` is read by ``common.engine.init_zoo_context`` and
-overlaid by the estimator; the ``ZOO_SHARDING_PLAN``/``ZOO_USE_PALLAS``
-env tier waits for ``ZooConfig`` (queue 1 item 2).
+The env tier comes from ``common.engine.ZooConfig``: ``resolve_plan(None,
+config)`` takes ``ZOO_SHARDING_PLAN`` (or ``ZOO_SHARD_OPTIMIZER``'s zero1),
+with the same names, suffixes and raises as an explicit name;
+``ZOO_DTYPE_POLICY`` is overlaid by the estimator, and an explicit
+``ZOO_USE_PALLAS=0`` by :func:`kernels_off` (the user's opt-out: every
+scope takes its plain PyTorch path).
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ __all__ = [
     "DTYPE_ROLES", "DTYPE_POLICY_NAMES", "with_kernels",
     "resolve_kernel", "KERNEL_NAMES", "DEFAULT_KERNEL_RULES",
     "resolve_plan", "compile_step", "PlannedStep", "CaptureGroup",
-    "PLAN_NAMES",
+    "PLAN_NAMES", "kernels_off",
 ]
 
 #: names :func:`resolve_plan` knows (only the single-device ``dp`` family
@@ -379,13 +382,27 @@ def with_dtype_policy(plan: ShardingPlan, policy) -> ShardingPlan:
         plan, name=name, dtype_rules=plan.dtype_rules + rules)
 
 
-def resolve_plan(value=None) -> ShardingPlan:
-    """A plan argument: a :class:`ShardingPlan` passes through, ``None`` is
-    :func:`data_parallel`, and a name maps to its plan.  Suffixes strip in
-    the reverse of construction order: ``+kernels``, then a dtype role,
-    then ``+overlap`` (``"dp+int8+kernels"``)."""
+def kernels_off(plan: ShardingPlan) -> ShardingPlan:
+    """``plan`` with every scope on its plain PyTorch path (the ``"xla"``
+    rule), unless it has kernel rules of its own (explicit beats the
+    environment): the env tier of an explicit ``ZOO_USE_PALLAS=0``."""
+    if plan.kernel_rules:
+        return plan
+    return dataclasses.replace(plan, kernel_rules=((r".*", "xla"),))
+
+
+def resolve_plan(value=None, config=None) -> ShardingPlan:
+    """A plan argument: a :class:`ShardingPlan` passes through, and a name
+    maps to its plan.  ``None`` defers to ``config``'s env tier (a
+    ``common.engine.ZooConfig``: ``sharding_plan``, then the legacy
+    ``shard_optimizer`` flag as ``"zero1"``), then :func:`data_parallel`.
+    Suffixes strip in the reverse of construction order: ``+kernels``,
+    then a dtype role, then ``+overlap`` (``"dp+int8+kernels"``)."""
     if isinstance(value, ShardingPlan):
         return value
+    if value is None and config is not None:
+        value = config.sharding_plan or (
+            "zero1" if config.shard_optimizer else None)
     if value is None:
         return data_parallel()
     name = str(value).strip().lower()
@@ -723,8 +740,12 @@ class PlannedStep:
             for (i, j), state in states.items():
                 stack.enter_context(static[i][j].source.capturing(state))
             stack.enter_context(_active_plan(self.plan))
+            # thread_local: the fit's infeed thread (pinned staging) and
+            # checkpoint writer (its own stream's copies) run on during a
+            # capture; only this thread's calls are checked
             stack.enter_context(torch.cuda.graph(
-                graph, pool=self.group.pool(), stream=side))
+                graph, pool=self.group.pool(), stream=side,
+                capture_error_mode="thread_local"))
             outputs = self.fn(*static_args, **static_kwargs)
         counts = counter_delta(before, counter_snapshot())
         add_counters(counts, -1)  # the capture launched nothing

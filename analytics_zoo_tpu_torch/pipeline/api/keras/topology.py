@@ -1,8 +1,10 @@
 """KerasNet / Sequential / Model — the user-facing model API.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/topology.py``:
-parameter materialization, the pure forward, weights in and out,
-whole-model save/load, training: ``compile``/``fit``/``evaluate``
+parameter materialization, the pure forward, weights in and out
+(``save_weights``/``load_weights``, ``load_checkpoint`` from a training
+checkpoint), whole-model save/load, training: ``compile``/``fit``/
+``evaluate`` (with ``set_checkpoint`` and ``set_tensorboard``)
 through :class:`~analytics_zoo_tpu_torch.pipeline.estimator.Estimator`,
 gradient clipping and freezing layers, and ``predict``,
 ``predict_classes`` and ``summary``.  ``predict`` runs each batch through
@@ -31,8 +33,12 @@ from analytics_zoo_tpu_torch.common.engine import (
     get_zoo_context,
     resolve_device,
 )
-from analytics_zoo_tpu_torch.common.safe_pickle import safe_load
-from analytics_zoo_tpu_torch.common.utils import tree_map, tree_structure
+from analytics_zoo_tpu_torch.common.safe_pickle import safe_load, safe_loads
+from analytics_zoo_tpu_torch.common.utils import (
+    tree_leaves,
+    tree_map,
+    tree_structure,
+)
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
     GraphFunction,
     InputLayer,
@@ -75,6 +81,8 @@ class KerasNet(_ContainerBase):
         self._estimator = None
         self._frozen: set = set()  # layer names excluded from training
         self._predict_fn = None   # (compute dtype, planned forward)
+        self._tensorboard = None  # (log_dir, app_name)
+        self._checkpoint = None   # (path, over_write)
 
     # ------------------------------------------------------------------
     # parameter materialization
@@ -125,6 +133,18 @@ class KerasNet(_ContainerBase):
         self._estimator = None
         return self
 
+    def set_tensorboard(self, log_dir, app_name):
+        """Write the fit's summaries under ``log_dir/app_name/{train,
+        validation}`` (reference Topology.scala:183-202)."""
+        self._tensorboard = (log_dir, app_name)
+        self._estimator = None
+
+    def set_checkpoint(self, path, over_write=True):
+        """Checkpoint the fit into ``path`` and resume from it (reference
+        Topology.scala:245-255)."""
+        self._checkpoint = (path, over_write)
+        self._estimator = None
+
     def set_gradient_clipping_by_l2_norm(self, clip_norm):
         self._grad_clip = ("l2norm", float(clip_norm))
         self._estimator = None
@@ -146,7 +166,9 @@ class KerasNet(_ContainerBase):
         return Estimator(self, optimizer=self._compiled["optimizer"],
                          loss=self._compiled["loss"],
                          metrics=self._compiled["metrics"],
-                         grad_clip=getattr(self, "_grad_clip", None))
+                         grad_clip=getattr(self, "_grad_clip", None),
+                         tensorboard=getattr(self, "_tensorboard", None),
+                         checkpoint=getattr(self, "_checkpoint", None))
 
     def fit(self, x, y=None, batch_size=32, nb_epoch=10,
             validation_data=None, distributed=True, sample_weight=None,
@@ -286,6 +308,57 @@ class KerasNet(_ContainerBase):
                              "tree")
         self.params = _to_device(weights, self.device)
         self._predict_fn = None  # its captures read the old buffers
+
+    def save_weights(self, path, over_write=True):
+        """The parameters and the model state as one ``.npz``: the leaves
+        in order, and the trees' structure (dicts and lists, leaves
+        numbered) as a pickle in ``treedef``."""
+        self.build_params()
+        if os.path.exists(path) and not over_write:
+            raise IOError(f"{path} exists and over_write=False")
+        flat = tree_leaves((self.params, self.state))
+        numbered = iter(range(len(flat)))
+        skeleton = tree_map(lambda _: next(numbered),
+                            (self.params, self.state))
+        np.savez(path, treedef=np.frombuffer(pickle.dumps(skeleton),
+                                             dtype=np.uint8),
+                 **{str(i): _to_numpy(a) for i, a in enumerate(flat)})
+
+    def load_weights(self, path):
+        """Parameters and state from :meth:`save_weights`'s file, onto the
+        model's device (the context's when it has none)."""
+        data = np.load(path if path.endswith(".npz") else path + ".npz",
+                       allow_pickle=False)
+        skeleton = safe_loads(data["treedef"].tobytes())
+        self.device = self.device or get_zoo_context().device
+        self.params, self.state = tree_map(
+            lambda i: torch.from_numpy(np.array(data[str(i)])).to(
+                self.device), skeleton)
+        self._predict_fn = None  # its captures read the old buffers
+        return self
+
+    def load_checkpoint(self, path) -> "KerasNet":
+        """Parameters and state from the ``LATEST`` training checkpoint in
+        ``path`` (as ``set_checkpoint`` writes during fit, by this package
+        or the JAX package), without training: the reference's
+        evaluate-from-checkpoint flow."""
+        from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+            _Checkpointer,
+            _restore_,
+        )
+
+        blob = _Checkpointer(path).latest()
+        if blob is None:
+            raise FileNotFoundError(f"no checkpoint found under {path}")
+        self.build_params()
+        self.params = tree_map(torch.clone, self.params)
+        self.state = tree_map(torch.clone, self.state)
+        with torch.no_grad():
+            _restore_(self.params, blob["params"])
+            _restore_(self.state, blob["state"])
+        self._predict_fn = None
+        self._estimator = None
+        return self
 
     def save(self, path, over_write=True):
         """Whole-model save: config + weights (as numpy) in one pickle."""

@@ -69,18 +69,65 @@ place); the loop over the set, the sums of the per-batch statistics and
 ``fit``'s validation both run it.
 
 Batches come from ``FeatureSet.batches`` with the reference's seeded
-shuffle, so both packages see the same batches in the same order; on the
-card they go up from pinned memory without waiting for the device.
-``history`` holds one record per epoch, as in the reference;
-``loss_log`` holds every step's ``(iteration, loss)``, the values the
-reference writes as TensorBoard ``Loss`` scalars.  Not ported yet (ROADMAP
-queue 1, item 6): sharded plans, checkpoints and resume, the prefetch and
-autotune planes, TensorBoard and metrics.
+shuffle, so both packages see the same batches in the same order.  The
+infeed is the reference's ``_DeviceFeeder`` (``ZOO_INFEED_DEPTH``, default
+2): a host thread assembles up to ``depth`` dispatches' batches ahead
+(shard loads included; a sharded set also reads one shard ahead on a pool
+thread) and stages them, in pinned memory on the card; the fit's thread
+copies each one up without waiting for the device.  The batch sequence,
+and so the trajectory, is the same at every depth.  ``history`` holds one
+record per epoch, as in the reference; ``loss_log`` holds every step's
+``(iteration, loss)``.  With ``tensorboard=(log_dir, app_name)`` the epoch
+boundary writes those losses as ``Loss`` scalars (each step once, on the
+reference's iteration numbers), the epoch's ``Throughput``, and each
+validation's results to the ``ValidationSummary``.
+
+Fault tolerance, as the reference (estimator.py:335-588, 1286-1429):
+
+- :class:`_Checkpointer` writes ``ckpt-<iteration>.pkl`` with the
+  reference's payload (``params``, ``state``, ``opt_flat``: the optimizer
+  state's leaves in optax's order, ``convert.opt_flat_leaves``, so either
+  package resumes the other's file, ``global_step``, ``epoch``,
+  ``next_batch``, ``seed``, the ``plan`` record and ``__ckpt_meta__``),
+  each file and then the ``LATEST`` pointer through a temporary name and a
+  rename, ``keep=3`` files.  Saves are asynchronous unless
+  ``ZOO_ASYNC_CHECKPOINT=0``: the fit's thread only enqueues device copies
+  of the live buffers on its stream (the captured steps update them in
+  place on that stream, so the copies see exactly this step's values and
+  the next replay waits behind them) and records an event; a writer thread
+  waits on the event, copies to reusable pinned buffers on its own
+  stream, pickles, fsyncs and renames.  At most one save is in flight.
+- Resume: ``fit`` continues from ``LATEST`` at ``(epoch, next_batch)``
+  with its ``seed`` and ``global_step``; the restored values are copied in
+  place into the buffers the captured graphs read (no re-capture), and
+  ``StepRandomness`` derives the resumed steps' keys from the global step,
+  so the uninterrupted run's masks follow.  A checkpoint saved under
+  another dtype policy is refused unless ``ZOO_DTYPE_RESUME=cast``.
+- Retry: any exception but ``KeyboardInterrupt``, ``ValueError`` and
+  ``TypeError`` is retried from ``LATEST`` up to
+  ``ZOO_FAILURE_RETRY_TIMES`` times, then re-raised.
+- ``ZOO_PROFILE_DIR``: one ``torch.profiler`` trace (``*.trace.json.gz``)
+  of ``profile_steps`` warm steps, armed once per estimator.
+
+The end trigger is checked at every dispatch boundary, as BigDL's
+``endWhen`` is checked every iteration (the reference checks it at epoch
+boundaries only), so ``MaxIteration`` stops mid-epoch; a later ``fit`` of
+the same estimator continues from the next batch.
+
+Not ported yet: multi-host batch sharding and sharded plans (ROADMAP
+queue 1 item 13), the prefetch and autotune planes (16), metrics, the
+flight recorder, health and straggler detection (18), elastic training
+(21).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import pickle
+import queue
+import socket
+import threading
 import time
 
 import numpy as np
@@ -91,6 +138,7 @@ from analytics_zoo_tpu_torch.common.engine import (
     cast_floats,
     get_zoo_context,
 )
+from analytics_zoo_tpu_torch.common.safe_pickle import safe_load
 from analytics_zoo_tpu_torch.common.triggers import (
     EveryEpoch,
     MaxEpoch,
@@ -102,11 +150,15 @@ from analytics_zoo_tpu_torch.common.utils import (
     tree_map,
     tree_map_many,
 )
-from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+from analytics_zoo_tpu_torch.feature.dataset import (
+    FeatureSet,
+    ShardedFeatureSet,
+)
 from analytics_zoo_tpu_torch.parallel.plan import (
     CaptureGroup,
     cast_to_compute,
     compile_step,
+    kernels_off,
     resolve_plan,
     with_dtype_policy,
 )
@@ -159,16 +211,45 @@ def _cast_params(params, casts):
     return cast_to_compute(params, param_dtypes)
 
 
-def _tensor(a, device):
-    """A batch array as a tensor on ``device``; float64 becomes float32, as
-    JAX's default (x64 off) makes it.  To a CUDA device it goes from
-    pinned memory, without waiting for the device."""
+def _host_tensor(a, pin: bool):
+    """A batch array as a host tensor (float64 becomes float32, as JAX's
+    default, x64 off, makes it), pinned when ``pin``."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if t.dtype == torch.float64:
         t = t.float()
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    return t.pin_memory() if pin else t
+
+
+def _tensor(a, device):
+    """A batch array as a tensor on ``device``; to a CUDA device it goes
+    from pinned memory, without waiting for the device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _host_tensor(a, True).to(device, non_blocking=True)
+    return _host_tensor(a, False).to(device)
+
+
+def _stage(batch: dict, pin: bool) -> dict:
+    """A host batch as host tensors (pinned when ``pin``); ``n_valid`` (the
+    real rows of a padded batch) as a 0-d int32 tensor."""
+    out = {}
+    for k, v in batch.items():
+        if k == "n_valid":
+            out[k] = _host_tensor(np.asarray(v, np.int32), pin)
+        elif isinstance(v, list):
+            out[k] = [_host_tensor(a, pin) for a in v]
+        else:
+            out[k] = _host_tensor(v, pin)
+    return out
+
+
+def _upload(staged: dict, device) -> dict:
+    """A staged batch on ``device`` (from pinned memory without waiting
+    for the device)."""
+    def up(t):
+        return t.to(device, non_blocking=t.is_pinned())
+    return {k: [up(a) for a in v] if isinstance(v, list) else up(v)
+            for k, v in staged.items()}
 
 
 def _chunks(batches, k: int):
@@ -185,41 +266,419 @@ def _chunks(batches, k: int):
 
 
 def _to_device(batch, device):
-    """A host batch's arrays as tensors on ``device``; ``n_valid`` (the
-    real rows of a padded batch) as a 0-d int32 tensor there, so that a
-    captured eval step reads it from device memory."""
-    out = {}
-    for k, v in batch.items():
-        if k == "n_valid":
-            out[k] = _tensor(np.asarray(v, np.int32), device)
-        elif isinstance(v, list):
-            out[k] = [_tensor(a, device) for a in v]
-        else:
-            out[k] = _tensor(v, device)
+    """A host batch's arrays as tensors on ``device``; ``n_valid`` as a 0-d
+    int32 tensor there, so that a captured eval step reads it from device
+    memory."""
+    device = torch.device(device)
+    return _upload(_stage(batch, device.type == "cuda"), device)
+
+
+class _DeviceFeeder:
+    """The reference's double-buffered infeed (estimator.py:176-257): a
+    host thread runs ``items`` (the batch stream, shard loads included)
+    and ``stage`` on each item, up to ``depth`` items ahead of the fit's
+    thread; an error on the thread is raised on the consumer's side, at
+    the item where it happened."""
+
+    _END = object()
+
+    def __init__(self, items, stage, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, int(depth)))
+        self._stop = threading.Event()
+        self._err: BaseException | None = None
+
+        def put(item) -> bool:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def run():
+            try:
+                for item in items:
+                    if not put(stage(item)):
+                        return
+            except BaseException as e:  # raised on the consumer side
+                self._err = e
+            put(self._END)
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="zoo-infeed")
+        self._thread.start()
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._END:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield item
+
+    def stop(self):
+        """Stop the thread and wait for it (a shard load in progress
+        finishes first), so no later stream shares the set's state with
+        it."""
+        self._stop.set()
+        self._thread.join()
+
+
+def _async_checkpoint_enabled() -> bool:
+    """``ZOO_ASYNC_CHECKPOINT``, default on; ``0`` writes inline."""
+    raw = os.environ.get("ZOO_ASYNC_CHECKPOINT")
+    if raw is None:
+        return True
+    s = str(raw).strip().lower()
+    if s in ("", "1", "true", "yes", "on"):
+        return True
+    if s in ("0", "false", "no", "off"):
+        return False
+    raise ValueError(
+        f"ZOO_ASYNC_CHECKPOINT must be a boolean "
+        f"(1/0/true/false/yes/no/on/off), got {raw!r}")
+
+
+def _map_tensors(tree, fn):
+    """``tree`` (dicts, lists, tuples) with ``fn`` applied to each tensor
+    leaf; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return fn(tree) if torch.is_tensor(tree) else tree
+
+
+def _tensors(tree) -> list:
+    out = []
+    _map_tensors(tree, out.append)
     return out
 
 
+class _Checkpointer:
+    """Snapshots of (params, optimizer state, model state, step, epoch,
+    iterator position) in ``path`` (the reference's ``_Checkpointer``,
+    estimator.py:335-588; BigDL's ``model.<iter>``/``optimMethod.<iter>``,
+    Topology.scala:245-255).
+
+    :meth:`save` copies the payload's tensors into reusable device buffers
+    on the caller's current stream, records an event, and leaves the rest
+    to a writer thread: it waits on the event, copies the snapshot into
+    reusable pinned host buffers on a stream of its own, pickles, fsyncs
+    and renames ``ckpt-<tag>.pkl.tmp`` into place, then writes ``LATEST``
+    the same way and keeps the newest ``keep`` files.  So the caller never
+    waits for the device, and no other thread reads the live buffers.  At
+    most one save is in flight: the next save, :meth:`list` and
+    :meth:`latest` wait for it, and its error is raised there.
+    ``ZOO_ASYNC_CHECKPOINT=0`` runs the write on the caller's thread.
+    ``stall_seconds``, ``write_seconds`` and ``bytes`` hold each save's
+    stall of the caller, the writer's seconds and the file's size."""
+
+    LATEST = "LATEST"
+    FORMAT_VERSION = 1
+
+    def __init__(self, path: str, over_write: bool = True, keep: int = 3):
+        self.path = path
+        self.over_write = over_write
+        self.keep = keep
+        self._pending: threading.Thread | None = None
+        self._pending_err: BaseException | None = None
+        self._snap = None    # reusable device buffers of the last payload
+        self._host = None    # and their pinned host copies
+        self._stream = None  # the writer's stream
+        self.stall_seconds: list[float] = []
+        self.write_seconds: list[float] = []
+        self.bytes: list[int] = []
+
+    def _wait(self):
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+            if self._pending_err is not None:
+                err, self._pending_err = self._pending_err, None
+                raise err
+
+    def _device_buffers(self, leaves) -> list:
+        """The reusable device buffers for ``leaves``' shapes (the pinned
+        host buffers are made on the writer thread: pinning a snapshot's
+        bytes takes a while)."""
+        spec = [(t.shape, t.dtype, t.device) for t in leaves]
+        if self._snap is None or [(t.shape, t.dtype, t.device)
+                                  for t in self._snap] != spec:
+            self._snap = [torch.empty_like(t) for t in leaves]
+            self._host = None
+        return self._snap
+
+    def _host_buffers(self, snap) -> list:
+        """The reusable pinned host copies of the CUDA leaves of ``snap``
+        (None for a CPU leaf, which is its own host copy)."""
+        if self._host is None:
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+                          if t.device.type == "cuda" else None
+                          for t in snap]
+        return self._host
+
+    def save(self, tag, payload: dict) -> str:
+        """Snapshot ``payload`` (a dict of trees of tensors and python
+        values) as ``ckpt-<tag>.pkl``."""
+        t0 = time.perf_counter()
+        fname = os.path.join(self.path, f"ckpt-{tag}.pkl")
+        self._wait()
+        os.makedirs(self.path, exist_ok=True)
+        leaves = _tensors(payload)
+        snap = self._device_buffers(leaves)
+        with torch.no_grad():
+            for s, t in zip(snap, leaves):
+                s.copy_(t)
+        cuda = [s.device for s in snap if s.device.type == "cuda"]
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(cuda[0]))
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(cuda[0])
+
+        def write():
+            t_w = time.perf_counter()
+            try:
+                host = self._host_buffers(snap)
+                if event is not None:
+                    with torch.cuda.stream(self._stream):
+                        self._stream.wait_event(event)
+                        for h, s in zip(host, snap):
+                            if h is not None:
+                                h.copy_(s, non_blocking=True)
+                    self._stream.synchronize()
+                arrays = iter([(h if h is not None else s).numpy()
+                               for h, s in zip(host, snap)])
+                blob = _map_tensors(payload, lambda _: next(arrays))
+                blob["__ckpt_meta__"] = {
+                    "format_version": self.FORMAT_VERSION,
+                    "saved_unix": time.time(),
+                    "torch_version": str(torch.__version__),
+                }
+                tmp = fname + ".tmp"
+                with open(tmp, "wb") as f:
+                    pickle.dump(blob, f)
+                    # fsync before the rename: the name must not become
+                    # durable before the data
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, fname)
+                self._write_latest(os.path.basename(fname))
+                self._gc()
+                self.bytes.append(os.path.getsize(fname))
+                self.write_seconds.append(time.perf_counter() - t_w)
+            except BaseException as e:  # raised on the next save/_wait
+                self._pending_err = e
+
+        if _async_checkpoint_enabled():
+            self._pending = threading.Thread(target=write, daemon=True,
+                                             name="zoo-ckpt")
+            self._pending.start()
+            self.stall_seconds.append(time.perf_counter() - t0)
+        else:
+            write()
+            self.stall_seconds.append(time.perf_counter() - t0)
+            if self._pending_err is not None:
+                err, self._pending_err = self._pending_err, None
+                raise err
+        return fname
+
+    def _write_latest(self, basename: str):
+        ptr = os.path.join(self.path, self.LATEST)
+        tmp = ptr + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(basename)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, ptr)
+        # fsync the directory so both renames are durable
+        try:
+            dfd = os.open(self.path, os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:
+            pass
+
+    def _gc(self):
+        for f in self._list_files()[:-self.keep]:
+            try:
+                os.remove(f)
+            except OSError:
+                pass
+
+    def _list_files(self) -> list[str]:
+        if not os.path.isdir(self.path):
+            return []
+        files = [os.path.join(self.path, f) for f in os.listdir(self.path)
+                 if f.startswith("ckpt-") and f.endswith(".pkl")]
+        return sorted(files, key=os.path.getmtime)
+
+    def list(self) -> list[str]:
+        self._wait()  # a half-written snapshot must not be resumed from
+        return self._list_files()
+
+    def latest(self) -> dict | None:
+        """The newest complete snapshot's payload (the reference's
+        ``getLatestFile``, Topology.scala:1511-1528): the file ``LATEST``
+        names, or the newest ``ckpt-*.pkl`` when that is newer or there is
+        no pointer; None when there is none.  A newer ``format_version``
+        is refused."""
+        files = self.list()
+        fname = None
+        try:
+            with open(os.path.join(self.path, self.LATEST)) as f:
+                name = f.read().strip()
+            cand = os.path.join(self.path, name)
+            if name and os.path.exists(cand):
+                fname = cand
+        except OSError:
+            fname = None
+        if fname is None:
+            if not files:
+                return None
+            fname = files[-1]
+        elif files and files[-1] != fname:
+            # a snapshot dropped in out of band can be newer than the
+            # pointer's; any file under its final name is complete
+            try:
+                if os.path.getmtime(files[-1]) > os.path.getmtime(fname):
+                    fname = files[-1]
+            except OSError:
+                pass
+        with open(fname, "rb") as f:
+            payload = safe_load(f)
+        meta = payload.pop("__ckpt_meta__", {"format_version": 0})
+        if meta.get("format_version", 0) > self.FORMAT_VERSION:
+            raise ValueError(
+                f"checkpoint {fname} has format_version "
+                f"{meta['format_version']} > supported "
+                f"{self.FORMAT_VERSION}; upgrade the framework to resume "
+                "from it")
+        return payload
+
+
+def _restore_(live, saved, where: str = "") -> None:
+    """Copy ``saved`` (a tree of arrays from a checkpoint, dicts matched
+    by key) into the tensors of ``live`` in place."""
+    if isinstance(live, dict):
+        if set(live) != set(saved):
+            raise ValueError(
+                f"checkpoint tree {where or '/'} has keys {sorted(saved)}, "
+                f"the model {sorted(live)}")
+        for k, v in live.items():
+            _restore_(v, saved[k], f"{where}/{k}")
+    elif isinstance(live, (list, tuple)):
+        for i, (v, s) in enumerate(zip(live, saved, strict=True)):
+            _restore_(v, s, f"{where}/{i}")
+    else:
+        arr = np.asarray(saved)
+        if tuple(arr.shape) != tuple(live.shape):
+            raise ValueError(f"checkpoint leaf {where} has shape "
+                             f"{arr.shape}, the model {tuple(live.shape)}")
+        live.copy_(torch.from_numpy(np.array(arr)).to(
+            live.dtype))
+
+
+class _Profile:
+    """``ZOO_PROFILE_DIR``: one ``torch.profiler`` trace of
+    ``profile_steps`` warm train steps, armed once per estimator from
+    global step ``start + 3`` (the reference's ``jax.profiler`` capture,
+    estimator.py:1445-1451), written as ``*.trace.json.gz``."""
+
+    def __init__(self, est, device):
+        cfg = est.ctx.config
+        self.est, self.dir, self.steps = est, cfg.profile_dir, \
+            int(cfg.profile_steps)
+        self.at = (est.global_step + 3
+                   if self.dir and not est._profiled else None)
+        self.device = torch.device(device)
+        self.prof = None
+
+    def before(self, step: int) -> None:
+        if self.at is not None and self.prof is None \
+                and not self.est._profiled and step >= self.at:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+            self.at = step
+
+    def after(self, step: int) -> None:
+        if self.prof is not None and step >= self.at + self.steps:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"{socket.gethostname()}."
+                            f"{os.getpid()}.{time.time_ns()}"
+                            ".pt.trace.json.gz")
+        self.prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
+        self.prof = None
+        self.est._profiled = True
+        self.at = None
+
+
 class Estimator:
-    """Train and evaluate a KerasNet on its device."""
+    """Train and evaluate a KerasNet on its device.
+
+    ``model_dir`` or ``checkpoint=(path, over_write)`` checkpoint the fit
+    (default trigger ``EveryEpoch``) and resume it from ``LATEST``;
+    ``tensorboard=(log_dir, app_name)`` writes its summaries (the
+    reference's arguments, estimator.py:596-631)."""
 
     def __init__(self, model, optimizer=None, loss=None, metrics=None,
-                 grad_clip=None, ctx=None, plan=None):
+                 model_dir: str | None = None, grad_clip=None,
+                 tensorboard=None, checkpoint=None, ctx=None, plan=None):
         self.model = model
-        # a ShardingPlan or a plan name; None is "dp".  train(plan=)
-        # overrides it per fit.
+        # a ShardingPlan or a plan name; None defers to ZOO_SHARDING_PLAN,
+        # then "dp".  train(plan=) overrides it per fit.
         self.plan = plan
         self.optimizer = optimizer
         self.loss = loss
         self.metrics = list(metrics or [])
         self.grad_clip = _normalize_grad_clip(grad_clip)
         self.ctx = ctx or get_zoo_context()
+        self._ckpt = None
+        if checkpoint is not None:
+            path, over_write = checkpoint
+            self._ckpt = _Checkpointer(path, over_write)
+        elif model_dir:
+            self._ckpt = _Checkpointer(model_dir)
+        self._writers = None
+        if tensorboard is not None:
+            from analytics_zoo_tpu_torch.tensorboard import (
+                TrainSummary,
+                ValidationSummary,
+            )
+            log_dir, app_name = tensorboard
+            self._writers = (TrainSummary(log_dir, app_name),
+                             ValidationSummary(log_dir, app_name))
         self.global_step = 0
         self.epoch = 1
+        # the batch a fit stopped before, mid-epoch (an end trigger that
+        # held inside the epoch): the next fit starts there
+        self._next_batch = 0
         self.history: list[dict] = []
         self.loss_log: list[tuple[int, float]] = []
         self._opt_state = None  # persists across fit() calls
+        self._profiled = False  # one profiler trace per estimator
         # the plan the last fit ran under: its name and dtype policy
-        # ("" = none), as the reference's checkpoint plan record holds them
+        # ("" = none); the checkpoint's plan record adds the mesh and the
+        # spec lists the reference writes
         self._plan_record: dict | None = None
         # the compile plane: train and eval steps per (K or None, plan),
         # the randomness of each K-step dispatch per (K, device), and the
@@ -371,10 +830,15 @@ class Estimator:
     # train / evaluate
     # ------------------------------------------------------------------
     def _resolve_plan(self, plan=None):
-        """The effective plan: ``plan`` over the estimator's, then ``dp``,
-        with the context's dtype policy (``ZOO_DTYPE_POLICY``) overlaid on
-        a plan that has no dtype rules (explicit beats environment)."""
-        plan = resolve_plan(plan if plan is not None else self.plan)
+        """The effective plan: ``plan`` over the estimator's, then the
+        config's ``ZOO_SHARDING_PLAN``, then ``dp``; an explicit
+        ``ZOO_USE_PALLAS=0`` and the context's dtype policy
+        (``ZOO_DTYPE_POLICY``) overlaid on a plan that has no rules of
+        that kind (explicit beats environment)."""
+        config = self.ctx.config
+        plan = resolve_plan(plan if plan is not None else self.plan, config)
+        if config.use_pallas is False:
+            plan = kernels_off(plan)
         policy = self.ctx.dtype_policy
         if not policy or plan.dtype_rules:
             return plan
@@ -388,14 +852,19 @@ class Estimator:
     def train(self, train_set: FeatureSet, batch_size: int = 32,
               nb_epoch: int | None = None,
               end_trigger: ZooTrigger | None = None,
+              checkpoint_trigger: ZooTrigger | None = None,
               validation_set: FeatureSet | None = None,
               validation_trigger: ZooTrigger | None = None,
               seed: int | None = None, plan=None):
         """Train until ``end_trigger`` (default: ``nb_epoch`` more epochs,
-        Keras continuation semantics) with every step under ``plan`` (a
-        ``ShardingPlan`` or name; ``None`` defers to the estimator's plan,
-        then ``dp``).  The optimizer state persists across calls, so a
-        second fit continues the moments and the step count."""
+        Keras continuation semantics; checked at every dispatch boundary)
+        with every step under ``plan`` (a ``ShardingPlan`` or name;
+        ``None`` defers to the estimator's plan, then
+        ``ZOO_SHARDING_PLAN``, then ``dp``).  The optimizer state persists
+        across calls, so a second fit continues the moments and the step
+        count.  With a checkpointer the fit saves at
+        ``checkpoint_trigger`` (default ``EveryEpoch``), resumes from
+        ``LATEST`` and retries failures from it."""
         plan = self._resolve_plan(plan)
         # validation runs under the estimator's own plan, as in the
         # reference; resolved only when there is a validation set
@@ -405,11 +874,15 @@ class Estimator:
         if end_trigger is None:
             end_trigger = MaxEpoch(
                 self.epoch - 1 + (nb_epoch if nb_epoch is not None else 10))
+        if checkpoint_trigger is None and self._ckpt is not None:
+            checkpoint_trigger = EveryEpoch()
         if validation_set is not None and validation_trigger is None:
             validation_trigger = EveryEpoch()
         seed = self.ctx.seed if seed is None else seed
+        if self.ctx.config.use_pallas is False:
+            logger.info("ZOO_USE_PALLAS=0: this fit's kernel scopes take "
+                        "their plain PyTorch paths (plan %s)", plan.name)
         params, state = self.model.build_params()
-        device = self.model.device
         casts = self.compute_casts(plan, params)
         eval_casts = None
         if eval_plan is not None:
@@ -419,66 +892,151 @@ class Estimator:
         opt_state = (self._opt_state if self._opt_state is not None
                      else self.optimizer.init(params))
         params, opt_state, state = self._own(params, opt_state, state)
-        tstate = TrainingState(epoch=self.epoch, iteration=self.global_step)
-        epoch = self.epoch
-        while not end_trigger(tstate):
-            t0 = time.perf_counter()
-            # every step's loss, read once at the epoch boundary
-            losses = torch.empty(train_set.num_samples // batch_size,
-                                 dtype=torch.float32, device=device)
-            done = 0
-            for chunk in _chunks(train_set.batches(
-                    batch_size, shuffle=True, seed=seed, epoch=epoch,
-                    drop_last=True), k):
-                n = len(chunk)
-                params, opt_state, state, out = self._train_step_for(
-                    n, plan)(params, opt_state, state,
-                             self._keys(n, device, seed, self.global_step),
-                             [_to_device(b, device) for b in chunk], casts)
-                self._buffers = (params, opt_state, state)
-                losses[done:done + n].copy_(out)
-                done += n
-                self.global_step += n
-                tstate.iteration = self.global_step
-                tstate.epoch_finished = False
-                tstate.loss = losses[done - 1]
-                self._maybe_validate(tstate, params, state, validation_set,
-                                     validation_trigger, batch_size,
-                                     eval_plan, eval_casts)
-            # the epoch boundary: the one host sync of the loop
-            values = losses[:done].tolist()
-            first = self.global_step - len(values) + 1
-            self.loss_log.extend(
-                (first + i, v) for i, v in enumerate(values))
-            tstate.loss = values[-1] if values else None
-            dt = time.perf_counter() - t0
-            throughput = len(values) * batch_size / max(dt, 1e-9)
-            logger.info("epoch %d done: loss=%s, %.1f records/s, step=%d",
-                        epoch, tstate.loss, throughput, self.global_step)
-            self.history.append({"epoch": epoch, "loss": tstate.loss,
-                                 "throughput": throughput})
-            epoch += 1
-            tstate.epoch = epoch
-            tstate.epoch_finished = True
-            self._maybe_validate(tstate, params, state, validation_set,
-                                 validation_trigger, batch_size, eval_plan,
-                                 eval_casts)
-        self.epoch = epoch
+        self._buffers = (params, opt_state, state)
+        start = (self.epoch, self._next_batch)
+        resumed = self._ckpt.latest() if self._ckpt else None
+        if resumed is not None:
+            start, seed = self._resume(resumed, plan, params, opt_state,
+                                       state)
+        read_ahead = None
+        if isinstance(train_set, ShardedFeatureSet):
+            from concurrent.futures import ThreadPoolExecutor
+
+            read_ahead = ThreadPoolExecutor(1, thread_name_prefix="zoo-ra")
+            train_set.set_read_ahead(read_ahead)
+        run = _Run(self, train_set, batch_size, seed, plan, casts, k,
+                   end_trigger, checkpoint_trigger, validation_set,
+                   validation_trigger, eval_plan, eval_casts)
+        try:
+            self._train_with_retries(run, start)
+        finally:
+            if read_ahead is not None:
+                train_set.set_read_ahead(None)
+                read_ahead.shutdown(wait=True)
+        # the buffers the last dispatch updated: a replay of a capture made
+        # on other buffers (``warmup``'s) updates that capture's own
+        params, opt_state, state = self._buffers
         self.model.params = params
         self.model.state = state
         self._opt_state = opt_state
+        if self._ckpt is not None:
+            # the process may exit right after fit: the last snapshot must
+            # be complete (and a deferred write error raised)
+            self._ckpt._wait()
         return self
 
-    def _maybe_validate(self, tstate, params, state, validation_set,
-                        validation_trigger, batch_size, plan, casts):
-        if validation_set is None or validation_trigger is None \
-                or not validation_trigger(tstate):
-            return
-        results = self._evaluate_with(params, state, validation_set,
-                                      batch_size, casts, plan)
-        tstate.score = next((v for k, v in results.items() if k != "loss"),
-                            -results.get("loss", 0.0))
-        logger.info("validation @ step %d: %s", tstate.iteration, results)
+    def _resume(self, resumed: dict, plan, params, opt_state, state):
+        """Restore ``resumed`` (a checkpoint payload) into the fit's
+        buffers in place, after the dtype-policy guard; returns ((epoch,
+        next batch), seed)."""
+        from analytics_zoo_tpu_torch.convert import load_opt_flat_
+
+        saved_plan = resumed.get("plan") or {}
+        saved_policy = saved_plan.get("dtype_policy")
+        if saved_policy is not None \
+                and saved_policy != plan.dtype_policy_str():
+            if os.environ.get("ZOO_DTYPE_RESUME", "").strip().lower() \
+                    in ("cast", "force"):
+                logger.warning(
+                    "resuming checkpoint trained under dtype policy %r "
+                    "into plan %r with policy %r (ZOO_DTYPE_RESUME): "
+                    "casting on resume", saved_policy, plan.name,
+                    plan.dtype_policy_str())
+            else:
+                raise ValueError(
+                    f"checkpoint was trained under dtype policy "
+                    f"{saved_policy!r} but this fit's plan {plan.name!r} "
+                    f"declares {plan.dtype_policy_str()!r}; resume with a "
+                    f"matching plan (mixed_precision(), ZOO_DTYPE_POLICY) "
+                    f"or set ZOO_DTYPE_RESUME=cast to cast deliberately")
+        if saved_plan and (saved_plan.get("name") != plan.name
+                           or saved_plan.get("mesh") != {"data": 1}):
+            logger.info("resuming a checkpoint of plan=%s mesh=%s into "
+                        "plan=%s on one device", saved_plan.get("name"),
+                        saved_plan.get("mesh"), plan.name)
+        self.global_step = int(resumed["global_step"])
+        with torch.no_grad():
+            _restore_(params, resumed["params"])
+            _restore_(state, resumed["state"])
+            load_opt_flat_(self.optimizer, opt_state, resumed["opt_flat"],
+                           self.global_step)
+        start = (int(resumed["epoch"]), int(resumed["next_batch"]))
+        logger.info("resumed from checkpoint @ step %d (epoch %d.%d)",
+                    self.global_step, *start)
+        return start, int(resumed["seed"])
+
+    def _train_with_retries(self, run, start):
+        """The retry-from-checkpoint loop (reference estimator.py:
+        1372-1429; Topology.scala:1171-1253): ``KeyboardInterrupt``,
+        ``ValueError`` and ``TypeError`` are raised at once; any other
+        exception is retried from ``LATEST`` up to
+        ``ZOO_FAILURE_RETRY_TIMES`` times, then raised."""
+        retries = 0
+        retry_times = int(self.ctx.config.failure_retry_times)
+        while True:
+            try:
+                run.loop(start, *self._buffers)
+                return
+            except (KeyboardInterrupt, ValueError, TypeError):
+                raise
+            except Exception:
+                retries += 1
+                if self._ckpt is None or retries > retry_times:
+                    raise
+                logger.exception(
+                    "training failed; retry %d/%d from latest checkpoint",
+                    retries, retry_times)
+                # the steps that ran before the fault keep their losses
+                # (a device fault raises again here, and is not retried)
+                run.flush()
+                resumed = self._ckpt.latest()
+                if resumed is None:
+                    raise
+                start, _ = self._resume(resumed, run.plan, *self._buffers)
+                # the failed attempt's records after the checkpoint are
+                # trained again
+                self.loss_log = [(i, v) for i, v in self.loss_log
+                                 if i <= self.global_step]
+                self.history = [h for h in self.history
+                                if h["epoch"] < start[0]]
+
+    def _checkpoint_plan(self, plan, params, opt_flat) -> dict:
+        """The checkpoint's plan record: the reference's keys, with the
+        replicated (empty) spec list of each leaf that ``dp`` writes."""
+        return {"name": plan.name, "mesh": {"data": 1},
+                "param_specs": [[] for _ in tree_leaves(params)],
+                "opt_specs": [[] for _ in opt_flat],
+                "dtype_policy": plan.dtype_policy_str()}
+
+    def _on_iteration(self, run, tstate, params, opt_state, state, epoch,
+                      next_batch):
+        """Validation, then the checkpoint, where their triggers hold (the
+        reference's ``_on_iteration``): once per dispatch and at each
+        epoch boundary."""
+        if run.validation_set is not None \
+                and run.validation_trigger is not None \
+                and run.validation_trigger(tstate):
+            results = self._evaluate_with(params, state, run.validation_set,
+                                          run.batch_size, run.eval_casts,
+                                          run.eval_plan)
+            tstate.score = next(
+                (v for k, v in results.items() if k != "loss"),
+                -results.get("loss", 0.0))
+            logger.info("validation @ step %d: %s", tstate.iteration,
+                        results)
+            if self._writers:
+                for key, v in results.items():
+                    self._writers[1].add_scalar(key, v, tstate.iteration)
+        if run.checkpoint_trigger is not None and self._ckpt is not None \
+                and run.checkpoint_trigger(tstate):
+            from analytics_zoo_tpu_torch.convert import opt_flat_leaves
+
+            opt_flat = opt_flat_leaves(self.optimizer, opt_state)
+            self._ckpt.save(tstate.iteration, dict(
+                params=params, state=state, opt_flat=opt_flat,
+                global_step=tstate.iteration, epoch=epoch,
+                next_batch=next_batch, seed=run.seed,
+                plan=self._checkpoint_plan(run.plan, params, opt_flat)))
 
     def evaluate(self, val_set: FeatureSet, batch_size: int = 32) -> dict:
         """Loss and metrics over ``val_set``, unshuffled, every record
@@ -584,3 +1142,121 @@ class Estimator:
                                           for s in accum[idx]])
             idx += 1
         return results
+
+
+class _Run:
+    """One fit's settings and its epoch loop (the reference's
+    ``_train_loop``, estimator.py:1431-1696)."""
+
+    def __init__(self, est, train_set, batch_size, seed, plan, casts, k,
+                 end_trigger, checkpoint_trigger, validation_set,
+                 validation_trigger, eval_plan, eval_casts):
+        self.est, self.train_set = est, train_set
+        self.batch_size, self.seed, self.plan, self.casts = (
+            batch_size, seed, plan, casts)
+        self.k, self.end_trigger = k, end_trigger
+        self.checkpoint_trigger = checkpoint_trigger
+        self.validation_set = validation_set
+        self.validation_trigger = validation_trigger
+        self.eval_plan, self.eval_casts = eval_plan, eval_casts
+        # this epoch's losses on the device, unread: (buffer, count, the
+        # iteration of the first)
+        self.pending = None
+
+    def flush(self) -> list:
+        """Read this epoch's losses (one host sync) into ``loss_log`` and
+        the ``Loss`` summaries; returns them."""
+        if self.pending is None:
+            return []
+        losses, done, first = self.pending
+        self.pending = None
+        values = losses[:done].tolist()
+        logged = [(first + i, v) for i, v in enumerate(values)]
+        self.est.loss_log.extend(logged)
+        if self.est._writers:
+            for i, v in logged:
+                self.est._writers[0].add_scalar("Loss", v, i)
+        return values
+
+    def loop(self, start, params, opt_state, state) -> None:
+        """Epochs from ``start`` = (epoch, first batch) until the end
+        trigger holds, updating the buffers in place."""
+        est = self.est
+        device = est.model.device
+        pin = torch.device(device).type == "cuda"
+        epoch, start_batch = start
+        tstate = TrainingState(epoch=epoch, iteration=est.global_step)
+        per_epoch = self.train_set.steps_per_epoch(self.batch_size)
+        profile = _Profile(est, device)
+        stopped = False
+        try:
+            while not self.end_trigger(tstate):
+                t0 = time.perf_counter()
+                # every step's loss, read once at the epoch boundary
+                losses = torch.empty(max(per_epoch - start_batch, 0),
+                                     dtype=torch.float32, device=device)
+                done = 0
+                bi = start_batch
+                feeder = _DeviceFeeder(
+                    _chunks(self.train_set.batches(
+                        self.batch_size, shuffle=True, seed=self.seed,
+                        epoch=epoch, drop_last=True,
+                        start_batch=start_batch), self.k),
+                    lambda chunk: [_stage(b, pin) for b in chunk],
+                    depth=est.ctx.config.infeed_depth)
+                try:
+                    for chunk in feeder:
+                        n = len(chunk)
+                        profile.before(est.global_step)
+                        params, opt_state, state, out = est._train_step_for(
+                            n, self.plan)(
+                                params, opt_state, state,
+                                est._keys(n, device, self.seed,
+                                          est.global_step),
+                                [_upload(b, device) for b in chunk],
+                                self.casts)
+                        est._buffers = (params, opt_state, state)
+                        losses[done:done + n].copy_(out)
+                        done += n
+                        self.pending = (losses, done, est.global_step + 1 - (
+                            done - n))
+                        bi += n
+                        est.global_step += n
+                        profile.after(est.global_step)
+                        tstate.iteration = est.global_step
+                        tstate.epoch_finished = False
+                        tstate.loss = losses[done - 1]
+                        est._on_iteration(self, tstate, params, opt_state,
+                                          state, epoch, bi)
+                        if bi < per_epoch and self.end_trigger(tstate):
+                            stopped = True
+                            break
+                finally:
+                    feeder.stop()
+                # the epoch boundary: the one host sync of the loop
+                values = self.flush()
+                tstate.loss = values[-1] if values else None
+                if stopped:
+                    est._next_batch = bi
+                    break
+                dt = time.perf_counter() - t0
+                throughput = len(values) * self.batch_size / max(dt, 1e-9)
+                logger.info("epoch %d done: loss=%s, %.1f records/s, "
+                            "step=%d", epoch, tstate.loss, throughput,
+                            est.global_step)
+                est.history.append({"epoch": epoch, "loss": tstate.loss,
+                                    "throughput": throughput})
+                if est._writers:
+                    est._writers[0].add_scalar("Throughput", throughput,
+                                               est.global_step)
+                epoch += 1
+                start_batch = 0
+                tstate.epoch = epoch
+                tstate.epoch_finished = True
+                est._on_iteration(self, tstate, params, opt_state, state,
+                                  epoch, 0)
+        finally:
+            profile.close()
+        if not stopped:
+            est._next_batch = 0
+        est.epoch = epoch

@@ -4726,6 +4726,430 @@ def optimizers_phase(card_line: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Fault-tolerant training: checkpoints, mid-epoch resume and retry, with
+# the data tiers.  BERT-base (bf16 mixed precision, Adam 2e-5, dropout
+# 0.1, batch 8) fed from .npz shards (DISK_2) and ResNet-50 (bf16, the
+# ImageNet SGD recipe, batch 64) fed from a memory-mapped (PMEM) array
+# set, each FT_STEPS steps an epoch, two epochs, FT_K steps a dispatch
+# (ZOO_STEPS_PER_DISPATCH): an uninterrupted fit, a fit stopped at
+# MaxIteration(FT_STOP) and resumed by a fresh model and estimator, and a
+# fit retried after an injected fault must end bit for bit alike.
+FT_STEPS, FT_K, FT_STOP, FT_EVERY = 5, 2, 4, 3
+FT_SHARDS = 4
+
+
+def ft_trees(net) -> dict:
+    """A trained model's parameters, optimizer state and model state."""
+    return {"params": net.params, "opt": net._estimator._opt_state,
+            "state": net.state}
+
+
+def ft_same(tag, got, want, resumed_from: int) -> None:
+    """``got`` (a resumed or retried model) against ``want`` (the
+    uninterrupted one): the losses from the resume point on, every leaf of
+    the parameters, optimizer state and model state, and the step count,
+    bit for bit."""
+    ge, we = got._estimator, want._estimator
+    gl, wl = dict(ge.loss_log), dict(we.loss_log)
+    tail = {i: v for i, v in wl.items() if i > resumed_from}
+    off = differing(ft_trees(got), ft_trees(want))
+    same_losses = {i: v for i, v in gl.items() if i > resumed_from} == tail
+    log(f"fault tolerant {tag}: resumed after step {resumed_from}; "
+        f"losses of steps {sorted(tail)} equal {same_losses}; "
+        f"{len(named_leaves(ft_trees(want))) - len(off)} of "
+        f"{len(named_leaves(ft_trees(want)))} parameter, optimizer and "
+        f"model-state leaves equal bit for bit"
+        f"{'; differ: ' + str(off[:8]) if off else ''}; steps "
+        f"{ge.global_step} / {we.global_step}")
+    if not same_losses or off or ge.global_step != we.global_step:
+        raise AssertionError(f"the {tag} fit is not the uninterrupted fit")
+
+
+def ft_fit(net, fs, batch, plan, ckpt=None, tb=None, **kw):
+    """``train`` of a fresh estimator of ``net`` (checkpointed into
+    ``ckpt``, summaries into ``tb``), timed: (estimator, seconds)."""
+    import torch
+
+    if ckpt is not None:
+        net.set_checkpoint(ckpt)
+    if tb is not None:
+        net.set_tensorboard(tb, "fault_tolerant")
+    est = net._make_estimator()
+    net._estimator = est
+    kw.setdefault("nb_epoch", 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.train(fs, batch_size=batch, plan=plan, **kw)
+    torch.cuda.synchronize()
+    return est, time.perf_counter() - t0
+
+
+def ft_saves(tag, ck, card_line) -> None:
+    """A checkpointer's snapshot bytes, the caller's stall and the
+    writer's seconds per save."""
+    log(f"fault tolerant {tag} saves ({ck.path}): bytes "
+        f"{ck.bytes}; caller's stall "
+        f"{[round(s * 1e3, 2) for s in ck.stall_seconds]} ms; writer "
+        f"{[round(s, 3) for s in ck.write_seconds]} s ({card_line})")
+
+
+def ft_step_times(tag, make, sets, batch, plan, tmp, card_line) -> dict:
+    """The host clock of a step (one epoch of FT_STEPS, after a warm
+    epoch) from each set of ``sets`` ({tier: FeatureSet}), then from the
+    resident set with a save at the epoch's last step and boundary
+    (SeveralIteration(FT_STEPS)), asynchronous and inline; the device time
+    of a step from the K-step capture's replay, and the idle share."""
+    import os
+    import shutil
+
+    import torch
+
+    from analytics_zoo_tpu_torch.common.triggers import SeveralIteration
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _Checkpointer,
+    )
+
+    net = make()
+    est, _ = ft_fit(net, sets["array"], batch, plan, nb_epoch=1)
+    dev_ms = replay_ms(graph_of(est._train_step_for(
+        FT_K, est._resolve_plan(plan)))) / FT_K
+    out = {}
+    rows = [(tier, fs, None) for tier, fs in sets.items()]
+    rows += [("array, saves async", sets["array"], "1"),
+             ("array, saves inline", sets["array"], "0")]
+    for tier, fs, mode in rows:
+        est._ckpt = None
+        trigger = None
+        if mode is not None:
+            os.environ["ZOO_ASYNC_CHECKPOINT"] = mode
+            est._ckpt = _Checkpointer(os.path.join(tmp,
+                                                   f"{tag}_saves{mode}"))
+            trigger = SeveralIteration(FT_STEPS)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.train(fs, batch_size=batch, nb_epoch=1, plan=plan,
+                      checkpoint_trigger=trigger)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3 / FT_STEPS
+        finally:
+            os.environ.pop("ZOO_ASYNC_CHECKPOINT", None)
+        out[tier] = host
+        saves = ""
+        if est._ckpt is not None:
+            ck = est._ckpt
+            saves = (f"; {len(ck.bytes)} saves of {ck.bytes} B, stall "
+                     f"{[round(s * 1e3, 2) for s in ck.stall_seconds]} ms, "
+                     f"writer {[round(s, 3) for s in ck.write_seconds]} s")
+        log(f"fault tolerant {tag} step from {tier}: host clock "
+            f"{host:.2f} ms, device {dev_ms:.2f} ms, idle "
+            f"{max(0.0, 1 - dev_ms / host):.1%}{saves} ({card_line})")
+        if mode is not None:
+            shutil.rmtree(est._ckpt.path)
+    return out
+
+
+def ft_bert(tmp, card_line) -> dict:
+    """BERT-base's parts (a), (b), (c) and the step times; returns the
+    resumed steps' kernel launches."""
+    import os
+    import shutil
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.triggers import (
+        MaxIteration,
+        SeveralIteration,
+    )
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    gen = np.random.default_rng(SEED + 90)
+    n = TRAIN_BATCH * FT_STEPS
+    x, y = train_data(n, gen)
+    paths = []
+    for i, rows in enumerate(np.array_split(np.arange(n), FT_SHARDS)):
+        p = os.path.join(tmp, f"bert{i}.npz")
+        np.savez(p, y=y[rows], **{f"x{j}": a[rows] for j, a in enumerate(x)})
+        paths.append(p)
+    calls, fail_at = [], set()
+
+    def loader(path):
+        """The shards' four inputs and labels; raises once where asked."""
+        calls.append(path)
+        if len(calls) in fail_at:
+            fail_at.discard(len(calls))
+            raise RuntimeError(f"injected loader fault at load {len(calls)}")
+        d = np.load(path)
+        return {"x": [d[f"x{j}"] for j in range(4)], "y": d["y"]}
+
+    def disk():
+        return FeatureSet.from_shards(paths, "DISK_2", loader=loader)
+
+    def fresh():
+        init_zoo_context(seed=SEED, device="cuda")
+        net = bert_classifier(BERT_BASE["n_block"], DROPOUT, DROPOUT)
+        net.build_params()
+        net.compile(optimizer=Adam(2e-5),
+                    loss="sparse_categorical_crossentropy_from_logits")
+        return net
+
+    plan = mixed_precision()
+    blocks = BERT_BASE["n_block"]
+    per_step = {"flash_attention_fwd": blocks, "flash_attention_bwd": blocks,
+                "fused_adam": 1, "softmax_xent_fwd": 1,
+                "softmax_xent_bwd": 1, "int8_matmul": 0, "int8_conv": 0,
+                "quantize_act": 0}
+    every = SeveralIteration
+    # (a) uninterrupted, with summaries
+    full = fresh()
+    reset_counters()  # (a): to the read below
+    est_a, sec = ft_fit(full, disk(), TRAIN_BATCH, plan,
+                        os.path.join(tmp, "a"), os.path.join(tmp, "tb"),
+                        checkpoint_trigger=every(FT_EVERY))
+    counted = counters()
+    steps = 2 * FT_STEPS
+    tb = [(s, v) for s, v, _ in est_a._writers[0].read_scalar("Loss")]
+    want_tb = [(i, float(np.float32(v))) for i, v in est_a.loss_log]
+    log(f"fault tolerant bert (a): {steps} steps in {sec:.1f} s from "
+        f"DISK_2 shards, K={FT_K}; Loss summaries read back equal loss_log "
+        f"{tb == want_tb} ({len(tb)}); Throughput "
+        f"{[(s, round(v, 1)) for s, v, _ in est_a._writers[0].read_scalar('Throughput')]}"
+        f"; launches {counted}")
+    if tb != want_tb or [i for i, _ in est_a.loss_log] != list(
+            range(1, steps + 1)):
+        raise AssertionError("the Loss summaries are not loss_log")
+    if counted != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError("the uninterrupted fit did not count its "
+                             "kernels")
+    ft_saves("bert (a), async", est_a._ckpt, card_line)
+    # (b) stopped mid-epoch, resumed by a fresh model and estimator; the
+    # saves inline
+    os.environ["ZOO_ASYNC_CHECKPOINT"] = "0"
+    try:
+        leg1 = fresh()
+        est1, _ = ft_fit(leg1, disk(), TRAIN_BATCH, plan,
+                         os.path.join(tmp, "b"),
+                         end_trigger=MaxIteration(FT_STOP),
+                         checkpoint_trigger=every(FT_EVERY))
+        ft_saves("bert (b) leg 1, inline", est1._ckpt, card_line)
+        del leg1, est1
+        leg2 = fresh()
+        reset_counters()  # the resumed steps: to the read below
+        est2, _ = ft_fit(leg2, disk(), TRAIN_BATCH, plan,
+                         os.path.join(tmp, "b"),
+                         checkpoint_trigger=every(FT_EVERY))
+        counted = counters()
+        ft_saves("bert (b) leg 2, inline", est2._ckpt, card_line)
+    finally:
+        os.environ.pop("ZOO_ASYNC_CHECKPOINT", None)
+    resumed = steps - len(est2.loss_log)
+    ft_same("bert (b)", leg2, full, resumed)
+    expected = {k: v * (steps - resumed) for k, v in per_step.items()}
+    log(f"fault tolerant bert (b): launches over the {steps - resumed} "
+        f"resumed steps {counted} (expected {expected})")
+    if counted != expected:
+        raise AssertionError("the resumed steps did not launch their "
+                             "kernels")
+    del leg2, est2
+    shutil.rmtree(os.path.join(tmp, "b"))
+    free_device_memory("after fault tolerant bert (b)")
+    # (c) a loader fault mid-epoch 2, retried from LATEST: the fault is
+    # set at the second load the set makes in epoch 2
+    probe_calls = []
+
+    def probe(path):
+        probe_calls.append(path)
+        d = np.load(path)
+        return {"x": [d[f"x{j}"] for j in range(4)], "y": d["y"]}
+
+    probe_set = FeatureSet.from_shards(paths, "DISK_2", loader=probe)
+    probe_set.num_samples  # sizing loads each shard once
+    for _ in probe_set.batches(TRAIN_BATCH, seed=SEED, epoch=1):
+        pass
+    before = len(probe_calls)
+    for _ in probe_set.batches(TRAIN_BATCH, seed=SEED, epoch=2):
+        pass
+    fail_at.add(before + min(2, len(probe_calls) - before))
+    calls.clear()
+    os.environ["ZOO_FAILURE_RETRY_TIMES"] = "1"
+    try:
+        retried = fresh()
+        est_c, _ = ft_fit(retried, disk(), TRAIN_BATCH, plan,
+                          os.path.join(tmp, "c"),
+                          checkpoint_trigger=every(FT_EVERY))
+    finally:
+        os.environ.pop("ZOO_FAILURE_RETRY_TIMES", None)
+    log(f"fault tolerant bert (c): the loader raised at load "
+        f"{before + min(2, len(probe_calls) - before)} of {len(calls)}; "
+        f"pending faults {sorted(fail_at)}")
+    if fail_at:
+        raise AssertionError("the injected fault did not happen")
+    ft_same("bert (c)", retried, full, 0)
+    ft_saves("bert (c), async", est_c._ckpt, card_line)
+    del retried, est_c
+    shutil.rmtree(os.path.join(tmp, "c"))
+    shutil.rmtree(os.path.join(tmp, "a"))
+    free_device_memory("after fault tolerant bert (c)")
+    times = ft_step_times(
+        "bert", fresh, {"array": FeatureSet.of(x, y), "DISK_2": disk()},
+        TRAIN_BATCH, plan, tmp, card_line)
+    del full, est_a
+    free_device_memory("after fault tolerant bert")
+    return {"launches": counted, "times": times}
+
+
+class FaultOnce:
+    """A feature set that raises a RuntimeError once, at ``(epoch,
+    batch)``, and otherwise yields ``base``'s batches."""
+
+    def __init__(self, base, epoch: int, batch: int):
+        self.base, self.at, self.raised = base, (epoch, batch), False
+
+    @property
+    def num_samples(self):
+        return self.base.num_samples
+
+    def steps_per_epoch(self, batch_size, drop_last=True):
+        return self.base.steps_per_epoch(batch_size, drop_last)
+
+    def batches(self, batch_size, **kw):
+        b = kw.get("start_batch", 0)
+        for batch in self.base.batches(batch_size, **kw):
+            if (kw.get("epoch"), b) == self.at and not self.raised:
+                self.raised = True
+                raise RuntimeError("injected fault")
+            b += 1
+            yield batch
+
+
+def ft_resnet(tmp, card_line) -> dict:
+    """ResNet-50's parts: (a) uninterrupted, saving every FT_EVERY steps
+    and at each epoch boundary; (b) stopped and resumed; (c) a fault in
+    epoch 2 retried; ``load_checkpoint`` of (a)'s last snapshot into a
+    fresh model evaluates as the trained model; the step times from the
+    PMEM set against the resident one."""
+    import os
+    import shutil
+
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.triggers import (
+        EveryEpoch,
+        MaxIteration,
+        SeveralIteration,
+    )
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.models import ResNet
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
+
+    gen = np.random.default_rng(SEED + 91)
+    n = RESNET_BATCH * FT_STEPS
+    x = gen.standard_normal((n,) + RESNET_SHAPE, dtype=np.float32)
+    y = gen.integers(0, RESNET_CLASSES, n).astype(np.int32)
+    pmem = FeatureSet.array(x, y, memory_type="PMEM", spool_dir=tmp)
+    log(f"fault tolerant resnet50: {n} images ({x.nbytes} B) spilled to "
+        f"{pmem._spool.name}, memory-mapped: {type(pmem.xs[0]).__name__}")
+
+    def fresh():
+        init_zoo_context(seed=SEED, device="cuda")
+        net = ResNet.image_net(50, classes=RESNET_CLASSES,
+                               input_shape=RESNET_SHAPE)
+        net.build_params()
+        net.compile(optimizer=ResNet.imagenet_optimizer(
+            batch_size=RESNET_BATCH, steps_per_epoch=FT_STEPS),
+            loss="sparse_categorical_crossentropy",
+            metrics=["accuracy", "top5_accuracy"])
+        return net
+
+    plan = mixed_precision()
+    steps = 2 * FT_STEPS
+    full = fresh()
+    est_a, sec = ft_fit(full, pmem, RESNET_BATCH, plan,
+                        os.path.join(tmp, "ra"),
+                        checkpoint_trigger=SeveralIteration(FT_EVERY)
+                        | EveryEpoch())
+    log(f"fault tolerant resnet50 (a): {steps} steps in {sec:.1f} s from "
+        f"the PMEM set, K={FT_K}; moving statistics, momentum and the "
+        f"step count {int(est_a._opt_state.count)} kept")
+    ft_saves("resnet50 (a), async", est_a._ckpt, card_line)
+    leg1 = fresh()
+    ft_fit(leg1, pmem, RESNET_BATCH, plan, os.path.join(tmp, "rb"),
+           end_trigger=MaxIteration(FT_STOP),
+           checkpoint_trigger=SeveralIteration(FT_EVERY) | EveryEpoch())
+    del leg1
+    leg2 = fresh()
+    est2, _ = ft_fit(leg2, pmem, RESNET_BATCH, plan,
+                     os.path.join(tmp, "rb"),
+                     checkpoint_trigger=SeveralIteration(FT_EVERY)
+                     | EveryEpoch())
+    ft_same("resnet50 (b)", leg2, full, steps - len(est2.loss_log))
+    del leg2, est2
+    shutil.rmtree(os.path.join(tmp, "rb"))
+    os.environ["ZOO_FAILURE_RETRY_TIMES"] = "1"
+    try:
+        retried = fresh()
+        faulty = FaultOnce(pmem, epoch=2, batch=3)
+        ft_fit(retried, faulty, RESNET_BATCH, plan, os.path.join(tmp, "rc"),
+               checkpoint_trigger=SeveralIteration(FT_EVERY) | EveryEpoch())
+    finally:
+        os.environ.pop("ZOO_FAILURE_RETRY_TIMES", None)
+    if not faulty.raised:
+        raise AssertionError("the injected fault did not happen")
+    ft_same("resnet50 (c)", retried, full, 0)
+    del retried
+    shutil.rmtree(os.path.join(tmp, "rc"))
+    free_device_memory("after fault tolerant resnet50 (c)")
+    loaded = fresh()
+    loaded.load_checkpoint(os.path.join(tmp, "ra"))
+    want = full.evaluate(x[:2 * RESNET_BATCH], y[:2 * RESNET_BATCH],
+                         batch_size=RESNET_BATCH)
+    got = loaded.evaluate(x[:2 * RESNET_BATCH], y[:2 * RESNET_BATCH],
+                          batch_size=RESNET_BATCH)
+    log(f"fault tolerant resnet50: load_checkpoint into a fresh model "
+        f"evaluates {got}, the trained model {want}")
+    if got != want:
+        raise AssertionError("load_checkpoint does not reproduce evaluate")
+    del loaded, full, est_a
+    shutil.rmtree(os.path.join(tmp, "ra"))
+    free_device_memory("after fault tolerant resnet50 (a)")
+    times = ft_step_times(
+        "resnet50", fresh, {"array": FeatureSet.of(x, y), "PMEM": pmem},
+        RESNET_BATCH, plan, tmp, card_line)
+    torch.cuda.synchronize()
+    pmem._spool.cleanup()
+    free_device_memory("after fault tolerant resnet50")
+    return times
+
+
+def fault_tolerant_phase(card_line: str) -> dict:
+    """The ``fault_tolerant_fit`` phase: BERT-base, then ResNet-50, under
+    ``ZOO_STEPS_PER_DISPATCH=FT_K``, in one temporary directory that is
+    removed at the end.  Returns the BERT part's resumed launches."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="zoo_fault_tolerant_")
+    usage = shutil.disk_usage(tmp)
+    log(f"fault tolerant: working in {tmp} ({usage.free / 2**30:.1f} GiB "
+        f"free of {usage.total / 2**30:.1f})")
+    saved_k = os.environ.get("ZOO_STEPS_PER_DISPATCH")
+    os.environ["ZOO_STEPS_PER_DISPATCH"] = str(FT_K)
+    try:
+        bert = ft_bert(tmp, card_line)
+        ft_resnet(tmp, card_line)
+    finally:
+        if saved_k is None:
+            os.environ.pop("ZOO_STEPS_PER_DISPATCH", None)
+        else:
+            os.environ["ZOO_STEPS_PER_DISPATCH"] = saved_k
+        shutil.rmtree(tmp, ignore_errors=True)
+    return bert["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -4791,6 +5215,8 @@ def main() -> int:
                                         card_line)
     zoo_serving = phase("zoo_serving", zoo_serving_phase, card_line)
     zoo_int8 = phase("zoo_int8", zoo_int8_phase, card_line)
+    fault_tolerant = phase("fault_tolerant_fit", fault_tolerant_phase,
+                           card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -4817,7 +5243,8 @@ def main() -> int:
                  "bert_adamw": bert_adamw.get(name, 0),
                  "optimizers": optimizers.get(name, 0),
                  "resnet50_int8": resnet_int8.get(name, 0),
-                 "zoo_int8": zoo_int8.get(name, 0)}
+                 "zoo_int8": zoo_int8.get(name, 0),
+                 "fault_tolerant_fit": fault_tolerant.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},
@@ -4826,7 +5253,9 @@ def main() -> int:
                          training_f16=training_f16["flash_attention_fwd"],
                          training_d192=training_d192["flash_attention_fwd"],
                          training_captured=captured["flash_attention_fwd"],
-                         bert_adamw=bert_adamw["flash_attention_fwd"])
+                         bert_adamw=bert_adamw["flash_attention_fwd"],
+                         fault_tolerant_fit=fault_tolerant[
+                             "flash_attention_fwd"])
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",
