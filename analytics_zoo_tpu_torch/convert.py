@@ -33,7 +33,15 @@ dtypes (the depthwise kernel (kh, kw, 1, in·dm), the pointwise (1, 1,
 in·dm, out), the transposed convolution's (kh, kw, in, out), the locally
 connected kernels (positions, patch, out)), so a tree converts leaf for
 leaf, with no layout change; any layout a torch op wants is made inside
-the layer's call.
+the layer's call.  The trees of the sequence path convert the same way:
+``Bidirectional``'s ``{"fwd", "bwd"}`` and ``TimeDistributed``'s
+``{"inner"}`` are nested dicts; a frozen ``Embedding``'s table is a
+*state* leaf (``state[name]["embeddings"]``), so its state tree goes
+through :func:`params_from_jax` as the parameters do; an MoE stack's
+``moe_gate`` (D, E), ``moe_w1`` (E, D, F), ``moe_b1`` (E, F), ``moe_w2``
+(E, F, D) and ``moe_b2`` (D,) are parameter leaves, and its state scalars
+``moe_aux_loss``, ``moe_aux_cost`` and ``moe_drop_fraction`` 0-d f32
+tensors.
 """
 
 from __future__ import annotations

@@ -35,7 +35,9 @@ eval step, ``KerasNet.predict`` and ``InferenceModel``'s bucket forwards
 :class:`CaptureGroup` replay one at a time and share a memory pool).
 The sharded plans (zero1/2/3, fsdp, ``+overlap``) and the
 param/opt/grad/remat tables wait for the distribution slice (queue 1
-item 13); their names raise ``NotImplementedError``.
+item 13); their names raise ``NotImplementedError``.  Without a
+``remat_rules`` table, :func:`resolve_remat` returns the layer's own
+``remat=`` flag, and :func:`apply_remat` is the one remat site.
 The env tier comes from ``common.engine.ZooConfig``: ``resolve_plan(None,
 config)`` takes ``ZOO_SHARDING_PLAN`` (or ``ZOO_SHARD_OPTIMIZER``'s zero1),
 with the same names, suffixes and raises as an explicit name;
@@ -48,11 +50,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import re
 import threading
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from analytics_zoo_tpu_torch.common.utils import tree_map, tree_map_many
 from analytics_zoo_tpu_torch.parallel.partition import (
@@ -67,7 +75,8 @@ __all__ = [
     "DTYPE_ROLES", "DTYPE_POLICY_NAMES", "with_kernels",
     "resolve_kernel", "KERNEL_NAMES", "DEFAULT_KERNEL_RULES",
     "resolve_plan", "compile_step", "PlannedStep", "CaptureGroup",
-    "PLAN_NAMES", "kernels_off",
+    "PLAN_NAMES", "kernels_off", "REMAT_POLICIES", "apply_remat",
+    "resolve_remat", "checkpoint_name",
 ]
 
 #: names :func:`resolve_plan` knows (only the single-device ``dp`` family
@@ -266,6 +275,128 @@ def resolve_kernel(scope: str, default: str | None = None) -> str | None:
         if kernel is not None:
             return kernel
     return default
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation: the one checkpoint site.
+# ---------------------------------------------------------------------------
+
+#: the remat policies :func:`apply_remat` takes (besides None)
+REMAT_POLICIES = ("full", "dots", "attn")
+
+_NAMING = threading.local()  # the names checkpoint_name marks, per thread
+
+
+@torch.library.custom_op("zoo_torch::checkpoint_name", mutates_args=())
+def _named(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_named.register_fake
+def _named_fake(x, name):
+    return torch.empty_like(x)
+
+
+_named.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def checkpoint_name(x, name: str):
+    """``x`` tagged ``name`` for :func:`apply_remat`'s ``"attn"`` policy
+    (``jax.ad_checkpoint.checkpoint_name``): inside such a region, a copy
+    the policy keeps for the backward; anywhere else ``x`` itself."""
+    if name in getattr(_NAMING, "names", ()):
+        return _named(x, name)
+    return x
+
+
+@contextlib.contextmanager
+def _region(plans, names):
+    """Run a remat region with ``plans`` as the active plans and ``names``
+    marked: its recompute runs on the autograd engine's thread, which
+    must see the forward's kernel routing."""
+    stack = _plans()
+    saved, saved_names = stack[:], getattr(_NAMING, "names", ())
+    stack[:] = plans
+    _NAMING.names = names
+    try:
+        yield
+    finally:
+        stack[:] = saved
+        _NAMING.names = saved_names
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    # jax's dots_with_no_batch_dims_saveable: 2-D products (a 3-D @ 2-D
+    # matmul reaches here as mm), not the batched einsums
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_attn(ctx, op, *args, **kwargs):
+    if op is torch.ops.zoo_torch.checkpoint_name.default \
+            and args[1] == "attn_context":
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE = {"dots": _save_dots, "attn": _save_attn}
+
+
+def resolve_remat(path: str, default: str | None = None) -> str | None:
+    """The remat policy of a logical scope (a layer name): the plans'
+    ``remat_rules`` wait for item 13, so it is the layer's own flag,
+    ``default``."""
+    del path
+    return default
+
+
+def apply_remat(fn, policy: str | None, *, static_argnums=()):
+    """``fn`` rematerialised under a named policy: the one remat site.
+
+    ``None`` returns ``fn``; ``"full"`` recomputes the whole region in the
+    backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps
+    the outputs of 2-D matrix products and recomputes the rest, and
+    ``"attn"`` keeps only the tensors tagged ``checkpoint_name(...,
+    "attn_context")`` (selective checkpointing); any other name raises the
+    reference's ``ValueError``.  Non-tensor arguments pass through as they
+    are, so ``static_argnums`` has nothing to do.
+
+    The recompute must draw the forward's dropout masks.  The port's
+    dropout draws from explicit generators derived from the step's key by
+    ``fold_in`` (in a captured step, from ``StepRandomness``), never from
+    the default generators, so ``preserve_rng_state`` is off: a recompute
+    asks for the same key again and gets a generator seeded alike (eagerly
+    a fresh one; in a capture its own registered generator, reseeded with
+    the same seed before each replay), and the flash kernel the same seed
+    pair.  The active plans are re-entered in the recompute, which runs
+    on the autograd engine's thread."""
+    del static_argnums
+    if policy in (None, "", "none"):
+        return fn
+    if policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat policy {policy!r}; expected one of "
+            f"{REMAT_POLICIES} or a jax.checkpoint_policies attribute name")
+    names = ("attn_context",) if policy == "attn" else ()
+    kw = {}
+    if policy in _SAVE:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _SAVE[policy])
+
+    def remat(*args):
+        plans = tuple(_plans())
+
+        def region(*a):
+            with _region(plans, names):
+                return fn(*a)
+
+        return checkpoint(region, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return remat
 
 
 # ---------------------------------------------------------------------------

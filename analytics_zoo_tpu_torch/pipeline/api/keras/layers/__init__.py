@@ -1,7 +1,8 @@
 """Layers of the port: core, convolution, pooling, normalization, merge,
-the tensor ops and the transformer layers.  The core, convolution,
-normalization and tensor-op modules export every name the reference's
-modules do."""
+the tensor ops, the embeddings, the recurrent layers, the advanced
+activations and the transformer layers.  The core, convolution,
+normalization, tensor-op, embedding, recurrent and advanced modules export
+every name the reference's modules do."""
 
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import (  # noqa
     Activation,
@@ -100,6 +101,28 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.layers.tensor_ops import (  # no
     Sqrt,
     Square,
     Threshold,
+)
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.embedding import (  # noqa
+    Embedding,
+    SparseEmbedding,
+    WordEmbedding,
+)
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.recurrent import (  # noqa
+    GRU,
+    LSTM,
+    Bidirectional,
+    ConvLSTM2D,
+    ConvLSTM3D,
+    SimpleRNN,
+    TimeDistributed,
+)
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.advanced import (  # noqa
+    ELU,
+    LeakyReLU,
+    ParametricSoftPlus,
+    PReLU,
+    SReLU,
+    ThresholdedReLU,
 )
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (  # noqa
     self_attention as _self_attention,

@@ -154,6 +154,7 @@ from analytics_zoo_tpu_torch.feature.dataset import (
     FeatureSet,
     ShardedFeatureSet,
 )
+from analytics_zoo_tpu_torch.ops.moe import aux_cost_leaves, collect_aux_cost
 from analytics_zoo_tpu_torch.parallel.plan import (
     CaptureGroup,
     cast_to_compute,
@@ -707,8 +708,9 @@ class Estimator:
         """(loss, grads, new_state) of one training forward and backward;
         ``batch`` holds tensors on the model's device, ``rng`` is the step's
         generator, ``casts`` (from :meth:`compute_casts`; None: the
-        context's ``compute_dtype``) the compute casts.  Gradients have the
-        masters' dtypes; integer leaves get zero gradients."""
+        context's ``compute_dtype``) the compute casts.  The loss is the
+        task loss plus every ``moe_aux_cost`` of the new state.  Gradients
+        have the masters' dtypes; integer leaves get zero gradients."""
         casts = casts or (None, self.ctx.compute_dtype)
         leaves = [t.detach().requires_grad_(t.is_floating_point())
                   for t in tree_leaves(params)]
@@ -721,6 +723,11 @@ class Estimator:
                 state=state, training=True, rng=rng)
             preds = cast_floats(preds, torch.float32)
             loss = self.loss.mean(batch.get("y"), preds, batch.get("w"))
+            # auxiliary losses reported through the state (MoE load
+            # balancing: each stack's pre-weighted ``moe_aux_cost``) join
+            # the training loss; the eval loss stays the task loss
+            if aux_cost_leaves(new_state):
+                loss = loss + collect_aux_cost(new_state)
         wrt = [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
         grads = []

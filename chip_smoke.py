@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, training and int8 serving slices, its
-convolutional path and its ImageNet zoo on one CUDA GPU and check them.
+convolutional path, its ImageNet zoo, its fault-tolerant training and its
+sequence path on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -222,13 +223,53 @@ and prints no result):
 20. zoo_int8: Inception-v1 and MobileNet-v2 calibrated the same way, one
    replayed 8-image request each (MobileNet-v2's depthwise convolutions
    stay float);
-21. summary: ``phase seconds`` of every phase (each also logged as it
+21. fault_tolerant_fit: BERT-base from ``DISK_2`` shards and ResNet-50
+   from a PMEM set, each fit uninterrupted, stopped mid-epoch and resumed
+   by a fresh model, and retried after an injected fault, bit for bit
+   alike;
+22. text_classifier, the sequence path's main path: the TextClassifier
+   at news20 width (LSTM encoder 256 over 500 tokens of width 200, a
+   20,000-word trainable table, 20 classes) through ``compile("adam",
+   "sparse_categorical_crossentropy", ["accuracy"])``: ``fit`` at batch
+   128 in f32 and bf16 (``mixed_precision()``), each bit for bit
+   ``train_step`` called eagerly (twice), a replayed epoch's host clock,
+   device time, idle share, device time a timestep, kernels a step (from
+   a ``torch.profiler`` trace of one replay, with the five largest) and
+   bound, one Adam launch a step; bf16's step 1 within 5% of f32's; the
+   captured ``evaluate`` bit for bit the uncaptured one; a loss that falls
+   on a fixed batch; step 1 against the CPU (8 records, dropout 0);
+   requests of 1, 8 and 32 records in f32 and bf16 through
+   ``InferenceModel`` (replays bit for bit the eager forward, rows finite
+   and summing to 1, bf16 by the logit gap); the GRU and CNN encoders (3
+   steps, one 8-record request each) and a frozen pretrained table (one
+   8-record request, the table in the model's state);
+23. recommenders: NeuralCF at MovieLens-1M's counts (6,040 users, 3,952
+   items, 5 rating classes) and WideAndDeep with the repo example's
+   columns, each 5 captured steps at batch 256 bit for bit the eager ones
+   with a replayed epoch's times; NeuralCF's captured ``evaluate``, a
+   loss that falls on a fixed batch, step 1 against the CPU and
+   ``recommend_for_user`` over every item (the CPU's best ten);
+   WideAndDeep one replayed 8-row request;
+24. moe_transformer: a GPT-style ``TransformerLayer`` at Switch-Base-8's
+   widths (vocabulary 40,990, sequence 512, 12 blocks of hidden 768, 12
+   heads, 8 experts of 3,072, top-2 routing, capacity factor 1.25; about
+   513 M parameters) with a pooled Dense(2) head, dropout 0.1, through
+   ``compile(Adam(2e-5), "sparse_categorical_crossentropy_from_logits")``:
+   ``fit`` at batch 8 x 512 in f32 and bf16 (each bit for bit the eager
+   steps; a replayed epoch's times and launches: 12 + 12 flash, 1 Adam,
+   1 + 1 cross-entropy a step), bf16's step 1 within 5% of f32's, the
+   state's aux loss and drop fraction; under each remat policy (None,
+   "full", "dots", "attn") an eager forward and backward's peak memory
+   and one captured plus one replayed step bit for bit ``remat=None``'s,
+   with each policy's fit peak, device time and flash forwards (a
+   recompute adds 12 a step); a loss that falls on a fixed batch; step 1
+   at 2 blocks (batch 2, attention dropout 0.1) against the CPU;
+25. summary: ``phase seconds`` of every phase (each also logged as it
    ends), a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
    of its own; and ``int8_conv`` and ``quantize_act``, which replace
-   none; launches by path,
-   the new paths included), then the result line ``{"ok": true,
-   "device": {...}}`` last.
+   none; launches by path, the sequence path's included), then the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
 """
@@ -3489,8 +3530,8 @@ def captured_eval_check(tag, net, x, y, batch) -> None:
     got = net.evaluate(x, y, batch_size=batch)    # replays
     log(f"{tag} captured eval: {got}; the capture's {first}; uncaptured "
         f"{eager} (equal: {got == eager == first})")
-    if not got == eager == first or not all(
-            0.0 <= got[k] <= 1.0 for k in ("accuracy", "top5_accuracy")):
+    if not got == eager == first or "accuracy" not in got or not all(
+            0.0 <= got[k] <= 1.0 for k in got if k != "loss"):
         raise AssertionError(f"the captured {tag} eval is not the eager "
                              "one")
 
@@ -3521,41 +3562,58 @@ def replayed_step(tag, net, plan, x, y, batch, steps, flops, peak,
 
 def serve_zoo_model(tag, net, shape, sizes, gen, flops, card_line,
                     precisions=("f32", "bf16")) -> dict:
-    """``net`` through ``InferenceModel`` in each precision at each request
-    size, each bucket warmed up (captured): each replay bit for bit its
-    eager forward, finite rows summing to 1, bf16 within BF16_LOGIT_TOL
-    of f32 by ``logit_gap``; the host clock (median of HOST_REPEATS), device
-    time, idle share and images/s of each request beside its bound.
-    Returns the launch counts of the replayed requests, the requests and
-    the replays' outputs by (precision, size)."""
+    """``net`` served (``serve_requests``) one seeded standard normal
+    request of each size of image ``shape``.  Returns the launch counts of
+    the replayed requests, the requests and the replays' outputs by
+    (precision, size)."""
+    reqs = {n: gen.standard_normal((n,) + shape, dtype=np.float32)
+            for n in sizes}
+    launches, got = serve_requests(tag, net, reqs, flops, card_line,
+                                   precisions)
+    return launches, reqs, got
+
+
+def serve_requests(tag, net, reqs, flops, card_line,
+                   precisions=("f32", "bf16"), unit="images") -> tuple:
+    """``net`` through ``InferenceModel`` in each precision for each
+    request of ``reqs`` (records -> an array, or a list of arrays for a
+    model of several inputs), each bucket warmed up (captured) with the
+    requests' shapes and dtypes: each replay bit for bit its eager
+    forward, finite rows summing to 1, bf16 within BF16_LOGIT_TOL of f32
+    by ``logit_gap``; the host clock (median of HOST_REPEATS), device
+    time, idle share and records/s of each request beside its bound.
+    Returns the launch counts of the replayed requests and the replays'
+    outputs by (precision, size)."""
     import torch
 
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 
+    sizes = list(reqs)
+    lists = {n: r if isinstance(r, list) else [r] for n, r in reqs.items()}
+    first = lists[sizes[0]]
     models = {"f32": InferenceModel().from_keras_net(net)}
     if "bf16" in precisions:
         models["bf16"] = InferenceModel().from_keras_net(net).optimize(
             "bf16")
     t0 = time.perf_counter()
     for im in models.values():
-        im.warmup([shape], dtype=np.float32, batch_sizes=sizes)
+        im.warmup([a.shape[1:] for a in first],
+                  dtype=[a.dtype for a in first], batch_sizes=sizes)
     torch.cuda.synchronize()
     log(f"{tag} serving: {len(models)} model(s) x {len(sizes)} bucket(s) "
         f"warmed up (captured) in {time.perf_counter() - t0:.1f} s")
-    reqs = {n: gen.standard_normal((n,) + shape, dtype=np.float32)
-            for n in sizes}
-    want = {(p, n): eager_predict(im, [reqs[n]])
+    want = {(p, n): eager_predict(im, lists[n])
             for p, im in models.items() for n in sizes}
     torch.cuda.synchronize()
     reset_counters()  # this model's serving path: to the read below
     got = {(p, n): im.predict(reqs[n])
            for p, im in models.items() for n in sizes}
     launches = counters()  # end of this model's serving path
-    classes = int(net.compute_output_shape((None,) + shape)[-1])
+    classes = want["f32", sizes[0]].shape[-1]
     for (p, n), out in got.items():
         same = np.array_equal(out, want[p, n])
         sums = float(np.abs(out.sum(-1) - 1).max())
-        log(f"{tag} serving {p}, {n} image(s): {out.shape}, replay equal to "
+        log(f"{tag} serving {p}, {n} {unit}: {out.shape}, replay equal to "
             f"the eager forward bit for bit: {same}; rows sum to 1 within "
             f"{sums:.2e}")
         if not same or not np.isfinite(out).all() \
@@ -3567,7 +3625,7 @@ def serve_zoo_model(tag, net, shape, sizes, gen, flops, card_line,
         diffs = [float(np.abs(got["bf16", n] - got["f32", n]).max())
                  for n in sizes]
         log(f"{tag} serving bf16 vs f32 at {'/'.join(map(str, sizes))} "
-            f"image(s): logit gap {', '.join(f'{g:.4f}' for g in gaps)} "
+            f"{unit}: logit gap {', '.join(f'{g:.4f}' for g in gaps)} "
             f"(tol {BF16_LOGIT_TOL}); max |d| "
             f"{', '.join(f'{d:.3e}' for d in diffs)}")
         if max(gaps) > BF16_LOGIT_TOL:
@@ -3581,16 +3639,16 @@ def serve_zoo_model(tag, net, shape, sizes, gen, flops, card_line,
                 t0 = time.perf_counter()
                 im.predict(reqs[n])
                 host.append((time.perf_counter() - t0) * 1e3)
-            key = ((reqs[n].shape, str(reqs[n].dtype)),)
+            key = tuple((a.shape, str(a.dtype)) for a in lists[n])
             dev = replay_ms(graph_of(im._steps[key].step))
             med = float(np.median(host))
-            log(f"{tag} request {p}, {n} image(s): host clock "
+            log(f"{tag} request {p}, {n} {unit}: host clock "
                 f"{', '.join(f'{t:.3f}' for t in host)} ms (median "
                 f"{med:.3f}), device {dev:.3f} ms, idle "
                 f"{max(0.0, 1 - dev / med):.1%}, {n / med * 1e3:.1f} "
-                f"images/s; bound {n * flops[0] / peak * 1e3:.3f} ms "
+                f"{unit}/s; bound {n * flops[0] / peak * 1e3:.3f} ms "
                 f"({card_line})")
-    return launches, reqs, got
+    return launches, got
 
 
 def rates_on_a_fixed_batch(tag, net, kernel_path, x, y, batch, steps,
@@ -5150,6 +5208,572 @@ def fault_tolerant_phase(card_line: str) -> dict:
     return bert["launches"]
 
 
+# ---------------------------------------------------------------------------
+# The sequence path: the TextClassifier at news20's width (the reference's
+# defaults: sequence 500, encoder 256, vocabulary 20000; 20 classes, GloVe-200
+# tokens), the recommenders at MovieLens-1M's counts, and a GPT-style
+# TransformerLayer at Switch-Base-8's widths (d_model 768, d_ff 3072, 12
+# heads, 8 experts; top-2 routing, the JAX package's default)
+# ---------------------------------------------------------------------------
+TEXT = dict(class_num=20, token_length=200, sequence_length=500,
+            encoder="lstm", encoder_output_dim=256, vocab_size=20000)
+TEXT_BATCH, TEXT_STEPS, TEXT_OTHER_STEPS = 128, 5, 3
+TEXT_REQUESTS = (1, 8, 32)
+ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS = 6040, 3952, 5
+REC_BATCH, REC_STEPS = 256, 5
+MOE = dict(vocab=40990, seq_len=512, n_block=12, n_head=12,
+           hidden_size=768, moe_experts=8, moe_top_k=2,
+           moe_capacity_factor=1.25)
+MOE_BATCH, MOE_STEPS = 8, 3
+MOE_POLICIES = (None, "full", "dots", "attn")
+SEQ_CPU_TOL = 1e-3
+
+
+def seq_flops(net) -> tuple[float, float]:
+    """(forward, training) FLOPs of one record through ``net``'s recurrent,
+    convolution and Dense layers: 2 x the multiply-adds; training three
+    times the forward (the table's gradient needs every input gradient)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.recurrent import (
+        _RNNBase,
+    )
+
+    fwd = conv_flops(net)[0]
+    for layer in net.layers:
+        if isinstance(layer, _RNNBase):
+            t, f = layer._build_shape
+            units = layer.output_dim * layer.units_per_gate
+            fwd += 2.0 * t * (f + layer.output_dim) * units
+    return fwd, 3 * fwd
+
+
+def moe_flops(batch: int, remat=None) -> tuple[float, float]:
+    """(forward, training) FLOPs of one MoE transformer step at ``batch``:
+    the projections, causal attention (half the square), the router, the
+    dense one-hot dispatch and combine einsums over (E, C) slots, and the
+    expert products over E x batch x C slots, 2 x the multiply-adds;
+    training three times the forward, plus one forward of the blocks
+    recomputed under remat."""
+    import math
+
+    d, m, e, k = (MOE["hidden_size"], 4 * MOE["hidden_size"],
+                  MOE["moe_experts"], MOE["moe_top_k"])
+    s = MOE["seq_len"]
+    t = batch * s
+    cap = min(s, math.ceil(MOE["moe_capacity_factor"] * k * s / e))
+    block = (2.0 * t * d * 4 * d            # qkv and the output projection
+             + 2.0 * batch * s * s * d      # QK^T and PV, causal
+             + 2.0 * t * d * e              # router
+             + 2 * 2.0 * t * e * cap * d    # dispatch and combine
+             + 2 * 2.0 * e * batch * cap * d * m)  # the experts
+    fwd = MOE["n_block"] * block + 2.0 * batch * d * 2
+    return fwd, 3 * fwd + (MOE["n_block"] * block if remat else 0.0)
+
+
+def device_kernels(graph) -> tuple[int, list]:
+    """The CUDA kernels one replay of ``graph`` runs, from a torch.profiler
+    trace (memory copies and sets left out; 0 where the trace shows no
+    device activity), and the five kernel names with the most device time
+    as (name, calls, ms)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    calls, us = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "Memcpy" not in e.name and "Memset" not in e.name:
+            calls[e.name] += 1
+            us[e.name] += e.device_time_total
+    top = [(name[:60], calls[name], us[name] / 1e3)
+           for name, _ in us.most_common(5)]
+    return sum(calls.values()), top
+
+
+def seq_step(tag, net, plan, x, y, batch, steps, flops, peak, card_line,
+             timesteps=None) -> dict:
+    """One more epoch of ``fit`` (every step a replay): its launch counts
+    (returned), the host clock a step, one replay's device time, the idle
+    share, the kernels a replay runs, records/s and the step's bound; with
+    ``timesteps`` also the device time per timestep."""
+    import torch
+
+    reset_counters()  # this epoch: from here to the read below
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=batch, nb_epoch=1, plan=plan)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = counters()  # end of this epoch
+    est = net._estimator
+    graph = graph_of(est._train_step_for(1, est._resolve_plan(plan)))
+    dev_ms = replay_ms(graph)
+    kernels, top = device_kernels(graph)
+    bound_ms = batch * flops[1] / peak * 1e3
+    per_t = (f", {dev_ms * 1e3 / timesteps:.1f} us of device time a "
+             f"timestep ({timesteps})" if timesteps else "")
+    log(f"{tag} step (batch {batch}, replayed): host clock {host_ms:.2f} "
+        f"ms, device {dev_ms:.2f} ms, idle "
+        f"{max(0.0, 1 - dev_ms / host_ms):.1%}{per_t}; "
+        f"{kernels if kernels else 'not measured'} kernels a step; "
+        f"{batch / host_ms * 1e3:.1f} records/s; bound {bound_ms:.2f} ms "
+        f"({batch} x {flops[1] / 1e9:.2f} GFLOP at {peak / 1e12:.0f} "
+        f"TFLOP/s; device time {bound_ms / dev_ms:.1%} of it); launches "
+        f"{launches} ({card_line})")
+    log(f"{tag} step's largest kernels (name, calls, ms of one replay): "
+        + "; ".join(f"{n} x{c} {ms:.2f}" for n, c, ms in top))
+    return {"launches": launches, "host_ms": host_ms, "dev_ms": dev_ms}
+
+
+def add_launches(total: dict, launches: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
+
+
+def expect_launches(tag, launches, **expected) -> None:
+    want = dict({k: 0 for k in launches}, **expected)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+
+
+def falling_loss(tag, net, optimizer, loss, x, y, batch, epochs) -> None:
+    """``epochs`` one-step fits on one batch with a fresh optimizer: the
+    loss falls."""
+    net.compile(optimizer=optimizer, loss=loss)
+    net.fit(x[:batch] if not isinstance(x, list) else
+            [a[:batch] for a in x], y[:batch], batch_size=batch,
+            nb_epoch=epochs)
+    rep = [v for _, v in net._estimator.loss_log]
+    log(f"{tag} on a fixed batch: " + ", ".join(f"{v:.4f}" for v in rep))
+    if not (np.all(np.isfinite(rep)) and min(rep[-2:]) < rep[0]):
+        raise AssertionError(f"{tag}: the loss did not fall: {rep}")
+
+
+def against_the_cpu(tag, make, loss, batch, gen_seed, drop_off=()) -> None:
+    """Step 1's loss (``loss``, by name) and gradients of ``make()`` (a
+    net) on the card against the same weights and batch on the CPU: the
+    loss within
+    SEQ_CPU_TOL relative, each gradient leaf within SEQ_CPU_TOL of its
+    largest value.  Layers of type ``drop_off`` get dropout 0 (their masks
+    come from the device's generator)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.engine import (
+        get_zoo_context,
+        step_generator,
+    )
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.pipeline.api.keras.objectives import (
+        get_loss,
+    )
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _to_device,
+    )
+
+    results = []
+    for device in (get_zoo_context().device, "cpu"):
+        net = make()
+        for layer in net.layers:
+            if type(layer).__name__ in drop_off:
+                layer.p = 0.0
+        net.build_params(rng=torch.Generator().manual_seed(gen_seed),
+                         device=device)
+        est = Estimator(net, loss=get_loss(loss))
+        value, grads, _ = est.loss_and_grads(
+            net.params, net.state, _to_device(batch, net.device),
+            step_generator(SEED, 0, net.device))
+        results.append((value.item(),
+                        [g.cpu() for g in tree_leaves(grads)]))
+    (g_loss, g_grads), (c_loss, c_grads) = results
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(g_grads, c_grads))
+    log(f"{tag} step 1 vs CPU: loss {g_loss:.6f} vs {c_loss:.6f} (rel "
+        f"{loss_err:.2e}), grads max rel to leaf max {grad_err:.2e} (tol "
+        f"{SEQ_CPU_TOL:g})")
+    if not (loss_err <= SEQ_CPU_TOL and grad_err <= SEQ_CPU_TOL):
+        raise AssertionError(f"{tag}: the card's step disagrees with the "
+                             "CPU's")
+
+
+def text_classifier_phase(card_line: str) -> dict:
+    """The slice's main path: the TextClassifier (LSTM encoder) at news20
+    width through ``compile("adam", ...)``, ``fit`` at batch 128 in f32
+    and bf16 (each captured fit bit for bit ``train_step`` called
+    eagerly, twice; a replayed epoch's times and launches: one Adam a
+    step), ``evaluate`` captured against uncaptured, a loss that falls on
+    a fixed batch, step 1 against the CPU (8 records, the head's dropout
+    at 0), requests of 1, 8 and 32 records in f32 and bf16; then the GRU
+    and CNN encoders (3 steps, one 8-record request each) and a frozen
+    pretrained table (one 8-record request, the table in state).  Returns
+    the path's launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models import TextClassifier
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
+
+    def build(**kw):
+        init_zoo_context(seed=SEED, device="cuda")
+        tc = TextClassifier(**dict(TEXT, **kw))
+        tc.model.build_params()
+        tc.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                   metrics=["accuracy"])
+        return tc
+
+    gen = np.random.default_rng(SEED + 80)
+    n, t = TEXT_BATCH * TEXT_STEPS, TEXT["sequence_length"]
+    x = gen.integers(0, TEXT["vocab_size"], (n, t)).astype(np.int32)
+    y = gen.integers(0, TEXT["class_num"], n).astype(np.int32)
+    total, first = {}, {}
+    for tag, plan, peak in (("f32", None, PEAK_FLOPS["float32"]),
+                            ("bf16", mixed_precision(),
+                             PEAK_FLOPS["bfloat16"])):
+        tc = build()
+        flops = seq_flops(tc.model)
+        losses = captured_fit_check(f"text_classifier {tag}", tc.model, plan,
+                                    x, y, TEXT_STEPS, TEXT_BATCH)
+        first[tag] = losses[0]
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"text_classifier {tag} losses {losses}")
+        step = seq_step(f"text_classifier {tag}", tc.model, plan, x, y,
+                        TEXT_BATCH, TEXT_STEPS, flops, peak, card_line,
+                        timesteps=t)
+        expect_launches(f"text_classifier {tag}", step["launches"],
+                        fused_adam=TEXT_STEPS)
+        total = add_launches(total, step["launches"])
+        if tag == "f32":
+            captured_eval_check("text_classifier", tc.model, x, y,
+                                TEXT_BATCH)
+            reqs = {r: x[:r] for r in TEXT_REQUESTS}
+            launches, _ = serve_requests("text_classifier", tc.model, reqs,
+                                         flops, card_line, unit="records")
+            total = add_launches(total, launches)
+            falling_loss("text_classifier", tc.model, "adam",
+                         "sparse_categorical_crossentropy", x, y,
+                         TEXT_BATCH, 5)
+        tc.model._estimator = None
+        del tc
+        free_device_memory(f"after text_classifier {tag}")
+    gap = abs(first["bf16"] - first["f32"]) / abs(first["f32"])
+    log(f"text_classifier step 1: bf16 {first['bf16']:.6f} vs f32 "
+        f"{first['f32']:.6f} (rel {gap:.2e}, tol 5%)")
+    if gap > 0.05:
+        raise AssertionError("text_classifier bf16 step 1 is not within 5% "
+                             "of f32")
+    against_the_cpu("text_classifier", lambda: TextClassifier(**TEXT).model,
+                    "sparse_categorical_crossentropy",
+                    {"x": x[:8], "y": y[:8]}, SEED, drop_off=("Dropout",))
+    for encoder in ("gru", "cnn"):
+        tc = build(encoder=encoder)
+        m = TEXT_BATCH * TEXT_OTHER_STEPS
+        tc.fit(x[:m], y[:m], batch_size=TEXT_BATCH, nb_epoch=1)
+        flops = seq_flops(tc.model)
+        step = seq_step(f"text_classifier {encoder}", tc.model, None, x[:m],
+                        y[:m], TEXT_BATCH, TEXT_OTHER_STEPS, flops,
+                        PEAK_FLOPS["float32"], card_line,
+                        timesteps=t if encoder == "gru" else None)
+        expect_launches(f"text_classifier {encoder}", step["launches"],
+                        fused_adam=TEXT_OTHER_STEPS)
+        launches, _ = serve_requests(f"text_classifier {encoder}", tc.model,
+                                     {8: x[:8]}, flops, card_line,
+                                     precisions=("f32",), unit="records")
+        total = add_launches(add_launches(total, step["launches"]),
+                             launches)
+        del tc
+        free_device_memory(f"after text_classifier {encoder}")
+    table = gen.standard_normal((TEXT["vocab_size"], TEXT["token_length"]),
+                                dtype=np.float32)
+    tc = build(embedding_weights=table, train_embed=False)
+    held = tc.model.state["embedding"]["embeddings"]
+    if "embedding" in tc.model.params or not torch.equal(
+            held.cpu(), torch.from_numpy(table)):
+        raise AssertionError("the frozen table is not the model's state")
+    launches, _ = serve_requests("text_classifier frozen table", tc.model,
+                                 {8: x[:8]}, seq_flops(tc.model), card_line,
+                                 precisions=("f32",), unit="records")
+    del tc
+    free_device_memory("after text_classifier")
+    return add_launches(total, launches)
+
+
+def recommenders_phase(card_line: str) -> dict:
+    """NeuralCF at MovieLens-1M's counts (6,040 users, 3,952 item ids,
+    ratings as 5 classes, the JAX package's default widths) through
+    ``fit`` at batch 256 (captured, bit for bit the eager steps; a replayed
+    epoch's times and launches), ``evaluate`` captured against uncaptured,
+    a loss that falls on a fixed batch, step 1 against the CPU, and
+    ``recommend_for_user`` over every item (rows finite, summing to 1; the
+    ranking the CPU's); WideAndDeep with the repo example's columns the
+    same way for 5 steps and one 8-row request.  Returns the launch
+    counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.models import (
+        ColumnFeatureInfo,
+        NeuralCF,
+        WideAndDeep,
+        to_wide_deep_features,
+    )
+
+    gen = np.random.default_rng(SEED + 90)
+    n = REC_BATCH * REC_STEPS
+    x = [gen.integers(0, ML1M_USERS, n).astype(np.int32),
+         gen.integers(0, ML1M_ITEMS, n).astype(np.int32)]
+    y = gen.integers(0, ML1M_RATINGS, n).astype(np.int32)
+    loss = "sparse_categorical_crossentropy"
+
+    def ncf():
+        return NeuralCF(ML1M_USERS, ML1M_ITEMS, class_num=ML1M_RATINGS)
+
+    init_zoo_context(seed=SEED, device="cuda")
+    model = ncf()
+    model.model.build_params()
+    model.compile(optimizer="adam", loss=loss, metrics=["accuracy"])
+    flops = conv_flops(model.model)
+    captured_fit_check("neural_cf", model.model, None, x, y, REC_STEPS,
+                       REC_BATCH)
+    step = seq_step("neural_cf", model.model, None, x, y, REC_BATCH,
+                    REC_STEPS, flops, PEAK_FLOPS["float32"], card_line)
+    expect_launches("neural_cf", step["launches"], fused_adam=REC_STEPS)
+    total = dict(step["launches"])
+    captured_eval_check("neural_cf", model.model, x, y, REC_BATCH)
+    items = np.arange(ML1M_ITEMS)
+    pairs = [np.full_like(items, 7), items]  # recommend_for_user's inputs
+    model.predict(pairs, batch_size=1024)  # captures its batch shapes
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = model.recommend_for_user(7, items, max_items=10)
+    ms = (time.perf_counter() - t0) * 1e3
+    total = add_launches(total, counters())
+    probs = model.predict(pairs, batch_size=1024)
+    cpu = ncf()
+    cpu.model.build_params(device="cpu")
+    cpu.model.params = tree_map(lambda a: a.cpu(), model.model.params)
+    scores = cpu.predict_user_item_pair(np.stack(pairs, axis=1))
+    top = [i for i, _ in recs]
+    sums = float(np.abs(probs.sum(-1) - 1).max())
+    log(f"neural_cf recommend_for_user over {ML1M_ITEMS} items: {ms:.2f} ms "
+        f"({card_line}); top 10 {top}, the CPU's "
+        f"{list(np.argsort(-scores)[:10])}; rows sum to 1 within "
+        f"{sums:.2e}")
+    # the card's top 10 are the CPU's best ten up to rounding
+    if not (np.allclose([v for _, v in recs], scores[top], rtol=1e-5,
+                        atol=1e-7)
+            and min(v for _, v in recs) >= np.sort(scores)[-10] - 1e-6
+            and np.isfinite(probs).all() and sums <= 1e-4):
+        raise AssertionError("neural_cf recommendations are wrong")
+    falling_loss("neural_cf", model.model, "adam", loss, x, y, REC_BATCH, 5)
+    against_the_cpu("neural_cf", lambda: ncf().model, loss,
+                    {"x": [a[:REC_BATCH] for a in x], "y": y[:REC_BATCH]},
+                    SEED)
+    del model, cpu
+
+    info = ColumnFeatureInfo(
+        wide_base_cols=["user", "item"], wide_base_dims=[40, 60],
+        wide_cross_cols=["genre"], wide_cross_dims=[4],
+        indicator_cols=["genre"], indicator_dims=[4],
+        embed_cols=["user", "item"], embed_in_dims=[40, 60],
+        embed_out_dims=[8, 8], continuous_cols=["age"])
+    rows = {"user": gen.integers(0, 40, n), "item": gen.integers(0, 60, n),
+            "genre": gen.integers(0, 4, n),
+            "age": gen.standard_normal(n).astype(np.float32)}
+    feats = to_wide_deep_features(rows, info)
+    labels = gen.integers(0, 2, n).astype(np.int32)
+    init_zoo_context(seed=SEED, device="cuda")
+    wnd = WideAndDeep("wide_n_deep", 2, info)
+    wnd.model.build_params()
+    wnd.compile(optimizer="adam", loss=loss, metrics=["accuracy"])
+    flops = conv_flops(wnd.model)
+    captured_fit_check("wide_and_deep", wnd.model, None, feats, labels,
+                       REC_STEPS, REC_BATCH)
+    step = seq_step("wide_and_deep", wnd.model, None, feats, labels,
+                    REC_BATCH, REC_STEPS, flops, PEAK_FLOPS["float32"],
+                    card_line)
+    expect_launches("wide_and_deep", step["launches"], fused_adam=REC_STEPS)
+    launches, _ = serve_requests("wide_and_deep", wnd.model,
+                                 {8: [f[:8] for f in feats]}, flops,
+                                 card_line, precisions=("f32",),
+                                 unit="rows")
+    del wnd
+    free_device_memory("after the recommenders")
+    return add_launches(add_launches(total, step["launches"]), launches)
+
+
+def moe_transformer(n_block=MOE["n_block"], **kw):
+    """TransformerLayer (MOE's widths) -> GlobalAveragePooling1D ->
+    Dense(2) logits, as a graph Model over token ids."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense,
+        GlobalAveragePooling1D,
+        TransformerLayer,
+    )
+
+    tok = Input((MOE["seq_len"],))
+    h = TransformerLayer(**dict(MOE, n_block=n_block, **kw))(tok)
+    return Model(tok, Dense(2)(GlobalAveragePooling1D()(h)))
+
+
+def moe_transformer_phase(card_line: str) -> dict:
+    """The MoE transformer (about 513 M parameters, dropout 0.1) through
+    ``compile(Adam(2e-5), "sparse_categorical_crossentropy_from_logits")``
+    and ``fit`` at batch 8 x 512 in f32 and bf16 (each captured fit bit for
+    bit ``train_step`` called eagerly, twice; a replayed epoch's times and
+    launches: 12 + 12 flash, 1 Adam, 1 + 1 cross-entropy a step), bf16's
+    step 1 within 5% of f32's, the state's aux loss and drop fraction;
+    then one captured and one replayed step under each remat policy from
+    the same weights, bit for bit ``remat=None``'s (losses and parameters),
+    with each policy's peak memory, device time and flash forwards (the
+    recompute adds forwards); a loss that falls on a fixed batch; step 1
+    at 2 blocks (batch 2, hidden and embedding dropout 0) against the CPU.
+    Returns the launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.engine import step_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _to_device,
+    )
+
+    loss = "sparse_categorical_crossentropy_from_logits"
+    blocks = MOE["n_block"]
+    gen = np.random.default_rng(SEED + 100)
+    n = MOE_BATCH * MOE_STEPS
+    x = gen.integers(0, MOE["vocab"], (n, MOE["seq_len"])).astype(np.int32)
+    y = gen.integers(0, 2, n).astype(np.int32)
+    t0 = time.perf_counter()
+    init_zoo_context(seed=SEED, device="cuda")
+    net = moe_transformer()
+    net.build_params()
+    weights = (tree_map(torch.clone, net.params),
+               tree_map(torch.clone, net.state))
+    count = sum(t.numel() for t in tree_leaves(net.params))
+    log(f"moe_transformer: {count} parameters built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del net
+
+    def model(remat=None):
+        ctx = init_zoo_context(seed=SEED, device="cuda")
+        m = moe_transformer(remat=remat)
+        m.device = ctx.device
+        m.params = tree_map(torch.clone, weights[0])
+        m.state = tree_map(torch.clone, weights[1])
+        m.compile(optimizer=Adam(2e-5), loss=loss, metrics=["accuracy"])
+        return m
+
+    def moe_state(m):
+        (st,) = [v for v in m.state.values() if "moe_aux_loss" in v]
+        return {k: float(v) for k, v in st.items()}
+
+    per_step = dict(flash_attention_fwd=blocks, flash_attention_bwd=blocks,
+                    fused_adam=1, softmax_xent_fwd=1, softmax_xent_bwd=1)
+    total, first = {}, {}
+    for tag, plan, peak in (("f32", None, PEAK_FLOPS["float32"]),
+                            ("bf16", mixed_precision(),
+                             PEAK_FLOPS["bfloat16"])):
+        m = model()
+        losses = captured_fit_check(f"moe_transformer {tag}", m, plan, x, y,
+                                    MOE_STEPS, MOE_BATCH)
+        first[tag] = losses[0]
+        step = seq_step(f"moe_transformer {tag}", m, plan, x, y, MOE_BATCH,
+                        MOE_STEPS, (0.0, moe_flops(MOE_BATCH)[1]
+                                    / MOE_BATCH), peak, card_line)
+        expect_launches(f"moe_transformer {tag}", step["launches"],
+                        **{k: v * MOE_STEPS for k, v in per_step.items()})
+        total = add_launches(total, step["launches"])
+        st = moe_state(m)
+        log(f"moe_transformer {tag} state after the steps: {st}")
+        if not (0.9 <= st["moe_aux_loss"] <= MOE["moe_experts"]
+                and 0.0 <= st["moe_drop_fraction"] < 1.0
+                and np.all(np.isfinite(losses))):
+            raise AssertionError(f"moe_transformer {tag}: state {st}, "
+                                 f"losses {losses}")
+        m._estimator = None
+        del m
+        free_device_memory(f"after moe_transformer {tag}")
+    gap = abs(first["bf16"] - first["f32"]) / abs(first["f32"])
+    log(f"moe_transformer step 1: bf16 {first['bf16']:.6f} vs f32 "
+        f"{first['f32']:.6f} (rel {gap:.2e}, tol 5%)")
+    if gap > 0.05:
+        raise AssertionError("moe_transformer bf16 step 1 is not within 5% "
+                             "of f32")
+
+    # per policy: one eager forward and backward's peak above what is
+    # held, then one captured and one replayed step
+    want = None
+    for policy in MOE_POLICIES:
+        m = model(remat=policy)
+        batch = _to_device({"x": x[:MOE_BATCH], "y": y[:MOE_BATCH]},
+                           m.device)
+        est = m._make_estimator()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        value, grads, _ = est.loss_and_grads(
+            m.params, m.state, batch, step_generator(SEED, 0, m.device))
+        torch.cuda.synchronize()
+        fb_bytes = torch.cuda.max_memory_allocated() - held
+        del value, grads, est
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()  # this policy's two steps: to the read below
+        m.fit(x[:2 * MOE_BATCH], y[:2 * MOE_BATCH], batch_size=MOE_BATCH,
+              nb_epoch=1)
+        torch.cuda.synchronize()
+        launches = counters()  # end of this policy's steps
+        peak_bytes = torch.cuda.max_memory_allocated()
+        est = m._estimator
+        dev_ms = replay_ms(graph_of(est._train_step_for(
+            1, est._resolve_plan())))
+        got = ([v for _, v in est.loss_log],
+               [t.cpu() for t in tree_leaves(m.params)])
+        log(f"moe_transformer remat={policy}: an eager forward and "
+            f"backward peak {fb_bytes} B above the {held} B held; the fit's "
+            f"peak allocated {peak_bytes} B, device {dev_ms:.2f} ms a step, "
+            f"launches {launches} ({card_line})")
+        fwd = blocks * (2 if policy else 1)
+        expect_launches(f"moe_transformer remat={policy}", launches,
+                        **dict({k: 2 * v for k, v in per_step.items()},
+                               flash_attention_fwd=2 * fwd))
+        total = add_launches(total, launches)
+        if want is None:
+            want = got
+        else:
+            same = got[0] == want[0] and all(
+                torch.equal(a, b) for a, b in zip(got[1], want[1]))
+            log(f"moe_transformer remat={policy} against remat=None: losses "
+                f"{got[0]} / {want[0]}, parameters equal bit for bit: "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"remat={policy} is not remat=None")
+        m._estimator = None
+        del m, est
+        free_device_memory(f"after remat={policy}")
+
+    m = model()
+    falling_loss("moe_transformer", m, Adam(5e-5), loss, x, y, MOE_BATCH, 6)
+    del m
+    free_device_memory("after the moe_transformer fixed batch")
+    against_the_cpu(
+        "moe_transformer (2 blocks, batch 2, attention dropout 0.1)",
+        lambda: moe_transformer(n_block=2, hidden_drop=0.0,
+                                embedding_drop=0.0),
+        loss, {"x": x[:2], "y": y[:2]}, SEED)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5217,6 +5841,9 @@ def main() -> int:
     zoo_int8 = phase("zoo_int8", zoo_int8_phase, card_line)
     fault_tolerant = phase("fault_tolerant_fit", fault_tolerant_phase,
                            card_line)
+    text = phase("text_classifier", text_classifier_phase, card_line)
+    recommenders = phase("recommenders", recommenders_phase, card_line)
+    moe = phase("moe_transformer", moe_transformer_phase, card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -5244,7 +5871,10 @@ def main() -> int:
                  "optimizers": optimizers.get(name, 0),
                  "resnet50_int8": resnet_int8.get(name, 0),
                  "zoo_int8": zoo_int8.get(name, 0),
-                 "fault_tolerant_fit": fault_tolerant.get(name, 0)}
+                 "fault_tolerant_fit": fault_tolerant.get(name, 0),
+                 "text_classifier": text.get(name, 0),
+                 "recommenders": recommenders.get(name, 0),
+                 "moe_transformer": moe.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},
@@ -5255,7 +5885,8 @@ def main() -> int:
                          training_captured=captured["flash_attention_fwd"],
                          bert_adamw=bert_adamw["flash_attention_fwd"],
                          fault_tolerant_fit=fault_tolerant[
-                             "flash_attention_fwd"])
+                             "flash_attention_fwd"],
+                         moe_transformer=moe["flash_attention_fwd"])
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",

@@ -12,8 +12,8 @@ layers`` and fails when
    ``analytics_zoo_tpu.pipeline.api.keras.layers``;
 
 and, the other way, when a class of the reference's ``conv``, ``core``,
-``normalization`` or ``tensor_ops`` module has no class of its name in
-the port's module.
+``normalization``, ``tensor_ops``, ``embedding``, ``recurrent`` or
+``advanced`` module has no class of its name in the port's module.
 
 Entry format: ``"LayerName": ("tests/<file>.py", "<test function>")``; the
 test holds the port's layer against the JAX package's on the same inputs
@@ -28,6 +28,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CONV = ("tests/test_torch_conv_layers.py", "test_layer_matches_jax")
 _REST = ("tests/test_torch_layers_rest.py", "test_layer_matches_jax")
+
+
+def _SEQ(test):
+    return ("tests/test_torch_sequence_layers.py", test)
+
 
 PARITY_TESTS = {
     # ---- core -----------------------------------------------------------
@@ -113,6 +118,20 @@ PARITY_TESTS = {
     "GetShape": ("tests/test_torch_layers_rest.py",
                  "test_get_shape_is_the_input_shape"),
     "SpaceToDepth": _CONV,
+    # ---- embedding, recurrent, advanced activations ----------------------
+    "Embedding": _SEQ("test_embedding_matches_jax"),
+    "SparseEmbedding": _SEQ("test_embedding_matches_jax"),
+    "WordEmbedding": _SEQ("test_word_embedding_from_a_glove_file"),
+    "SimpleRNN": _SEQ("test_rnn_matches_jax"),
+    "LSTM": _SEQ("test_rnn_matches_jax"),
+    "GRU": _SEQ("test_rnn_matches_jax"),
+    "Bidirectional": _SEQ("test_bidirectional_merge_modes_match_jax"),
+    "TimeDistributed": _SEQ("test_time_distributed_matches_jax"),
+    "ConvLSTM2D": _SEQ("test_conv_lstm_matches_jax"),
+    "ConvLSTM3D": _SEQ("test_conv_lstm_matches_jax"),
+    **{name: _SEQ("test_advanced_activation_matches_jax") for name in (
+        "LeakyReLU", "ELU", "ThresholdedReLU", "PReLU",
+        "ParametricSoftPlus", "SReLU")},
     # ---- transformer ----------------------------------------------------
     "TransformerLayer": ("tests/test_torch_layers.py",
                          "test_transformer_layer_matches_jax"),
@@ -178,13 +197,15 @@ def test_every_port_layer_has_a_reference_counterpart():
 
 
 def test_the_reference_layer_modules_are_whole_in_the_port():
-    """Every class of the reference's ``conv``, ``core``, ``normalization``
-    and ``tensor_ops`` layer modules has a class of the same name in the
-    port's module of the same name."""
+    """Every class of the reference's ``conv``, ``core``, ``normalization``,
+    ``tensor_ops``, ``embedding``, ``recurrent`` and ``advanced`` layer
+    modules has a class of the same name in the port's module of the same
+    name."""
     import importlib
 
     missing = []
-    for mod in ("conv", "core", "normalization", "tensor_ops"):
+    for mod in ("conv", "core", "normalization", "tensor_ops", "embedding",
+                "recurrent", "advanced"):
         ref = importlib.import_module(
             f"analytics_zoo_tpu.pipeline.api.keras.layers.{mod}")
         port = importlib.import_module(

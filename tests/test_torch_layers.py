@@ -148,12 +148,20 @@ def test_unported_training_features_raise():
         Dropout,
     )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the single-device MoE and remat are ported: they build, and only
+    # the reference's own refusals raise
+    moe = BERT(vocab=10, hidden_size=64, n_block=1, n_head=1, seq_len=8,
+               moe_experts=2)
+    assert moe.stateful and set(moe.init_state()) == {
+        "moe_aux_loss", "moe_aux_cost", "moe_drop_fraction"}
+    assert BERT(vocab=10, hidden_size=64, n_block=1, n_head=1, seq_len=8,
+                remat=True).remat == "full"
+    with pytest.raises(ValueError, match="moe_top_k=3 > moe_experts=2"):
         BERT(vocab=10, hidden_size=64, n_block=1, n_head=1, seq_len=8,
-             moe_experts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+             moe_experts=2, moe_top_k=3)
+    with pytest.raises(ValueError, match="remat must be"):
         BERT(vocab=10, hidden_size=64, n_block=1, n_head=1, seq_len=8,
-             remat=True)
+             remat="offload")
     # segment ids are ported: two packed sequences attend as two separate
     # calls would
     q = torch.randn(1, 1, 256, 64, generator=torch.Generator().manual_seed(0))
