@@ -94,7 +94,9 @@ class MaxEpoch(ZooTrigger):
 
 
 class MaxIteration(ZooTrigger):
-    """End-trigger: stop once ``max_iteration`` optimizer steps ran."""
+    """End-trigger: holds once ``max_iteration`` optimizer steps ran (a
+    fit checks its end trigger at epoch boundaries, so it ends with the
+    epoch in which this first holds)."""
 
     def __init__(self, max_iteration: int):
         self.max_iteration = int(max_iteration)

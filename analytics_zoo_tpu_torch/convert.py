@@ -41,7 +41,9 @@ through :func:`params_from_jax` as the parameters do; an MoE stack's
 ``moe_gate`` (D, E), ``moe_w1`` (E, D, F), ``moe_b1`` (E, F), ``moe_w2``
 (E, F, D) and ``moe_b2`` (D,) are parameter leaves, and its state scalars
 ``moe_aux_loss``, ``moe_aux_cost`` and ``moe_drop_fraction`` 0-d f32
-tensors.
+tensors.  An autograd ``Parameter`` holds one leaf, ``{"value"}``: in the
+parameter tree when it is trainable, in the state tree when it is frozen,
+and either tree converts the same way.
 """
 
 from __future__ import annotations

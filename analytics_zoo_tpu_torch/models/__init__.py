@@ -2,9 +2,9 @@
 ImageNet classification set (``imagenet_zoo``: AlexNet, VGG, SqueezeNet,
 DenseNet, MobileNet and MobileNet-v2); the text classifier, the
 recommenders (NeuralCF, WideAndDeep, SessionRecommender), the anomaly
-detector and Seq2seq, on ``ZooModel`` with the ``Ranker`` metrics.  KNRM
-(``textmatching.py``, which needs ``autograd``) and the detection models
-wait for their slices (ROADMAP queue 1, item 15)."""
+detector and Seq2seq; KNRM (``textmatching.py``), all on ``ZooModel``
+with the ``Ranker`` metrics.  The detection models wait for their slice
+(ROADMAP queue 1, item 15)."""
 
 from analytics_zoo_tpu_torch.models import imagenet_zoo  # noqa: F401
 from analytics_zoo_tpu_torch.models.anomalydetection import (  # noqa: F401
@@ -32,3 +32,4 @@ from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq  # noqa: F401
 from analytics_zoo_tpu_torch.models.textclassification import (  # noqa: F401
     TextClassifier,
 )
+from analytics_zoo_tpu_torch.models.textmatching import KNRM  # noqa: F401

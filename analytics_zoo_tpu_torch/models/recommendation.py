@@ -10,10 +10,11 @@ layer and name for name, so a JAX model's parameters carry over with
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from analytics_zoo_tpu_torch.models.common import ZooModel
+from analytics_zoo_tpu_torch.pipeline.api.autograd import LambdaOp
 from analytics_zoo_tpu_torch.pipeline.api.keras import Input, Model
-from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
     GRU,
     Activation,
@@ -123,21 +124,6 @@ class ColumnFeatureInfo:
         return sum(self.indicator_dims)
 
 
-class _Column(Layer):
-    """Column ``index`` of a (B, n) float id matrix as integer ids (B,):
-    the reference's ``LambdaOp`` ``v[:, idx].astype(int32)``."""
-
-    def __init__(self, index, name=None):
-        super().__init__(name=name)
-        self.index = int(index)
-
-    def call(self, params, inputs, state=None, training=False, rng=None):
-        return inputs[:, self.index].long()
-
-    def compute_output_shape(self, input_shape):
-        return (input_shape[0],)
-
-
 class WideAndDeep(Recommender):
     """Wide & Deep: a linear wide arm over the multi-hot wide columns and
     a deep MLP over the indicators, the embedded id columns and the
@@ -178,7 +164,11 @@ class WideAndDeep(Recommender):
                 for i, (col, in_dim, out_dim) in enumerate(zip(
                         info.embed_cols, info.embed_in_dims,
                         info.embed_out_dims)):
-                    pick = _Column(i, name=f"pick_{col}")(ids)
+                    pick = LambdaOp(
+                        (lambda idx: (lambda v: v[:, idx].to(
+                            torch.int32)))(i),
+                        (lambda s: (s[0],)), op_name=f"pick_{col}",
+                    )(ids)
                     deep_parts.append(Embedding(in_dim + 1, out_dim,
                                                 name=f"embed_{col}")(pick))
             if info.continuous_cols:

@@ -13,6 +13,15 @@ fires a device-side assert that kills the context, so :func:`lookup`
 clamps, gathers and masks instead, all on the device (no host sync: the
 lookup stays capturable).  The gradient of a NaN row is zero, as that of
 ``jnp.take``'s filled rows.
+
+The table's gradient must be bit-reproducible, or no captured step can be
+held against its eager run.  ``F.embedding``'s gradient of more than 3,072
+ids sorts them, and on the H100 that path is not reproducible where ids
+repeat heavily (24,576 ids over a 100-row character table differ from run
+to run; 24,576 over 1,000 rows and 64,000 over 20,000 reproduce:
+``tools/embedding_grad_repro.py``).  So a lookup of more than 3,072 ids averaging more than 32 a
+row gathers in chunks of 3,072, whose gradients PyTorch sums row by row
+in order.
 """
 
 from __future__ import annotations
@@ -26,6 +35,12 @@ import torch.nn.functional as F
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
 
 
+#: ``F.embedding``'s gradient of more ids than this takes the sorting path
+CHUNK_IDS = 3072
+#: ids a row above which the sorting path is not reproducible (see above)
+REPEATS = 32
+
+
 def lookup(table, ids):
     """``jnp.take(table, ids.astype(int32), axis=0)``: rows of ``table``
     for ``ids`` (any shape), negative ids wrapped once, out-of-range ids
@@ -34,7 +49,15 @@ def lookup(table, ids):
     ids = ids.long()
     ids = torch.where(ids < 0, ids + n, ids)
     valid = (ids >= 0) & (ids < n)
-    rows = F.embedding(ids.clamp(0, n - 1), table)
+    safe = ids.clamp(0, n - 1)
+    m = safe.numel()
+    if m > CHUNK_IDS and m > REPEATS * n:
+        flat = safe.reshape(-1)
+        rows = torch.cat([F.embedding(flat[i:i + CHUNK_IDS], table)
+                          for i in range(0, m, CHUNK_IDS)])
+        rows = rows.reshape(safe.shape + (table.shape[1],))
+    else:
+        rows = F.embedding(safe, table)
     return rows.masked_fill(~valid.unsqueeze(-1), float("nan"))
 
 

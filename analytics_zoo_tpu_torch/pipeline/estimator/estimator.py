@@ -109,10 +109,12 @@ Fault tolerance, as the reference (estimator.py:335-588, 1286-1429):
 - ``ZOO_PROFILE_DIR``: one ``torch.profiler`` trace (``*.trace.json.gz``)
   of ``profile_steps`` warm steps, armed once per estimator.
 
-The end trigger is checked at every dispatch boundary, as BigDL's
-``endWhen`` is checked every iteration (the reference checks it at epoch
-boundaries only), so ``MaxIteration`` stops mid-epoch; a later ``fit`` of
-the same estimator continues from the next batch.
+The end trigger is checked at epoch boundaries only, as the reference's
+epoch loop checks it (``while not end_trigger(...)``): a fit always ends
+at the end of an epoch, so ``MaxIteration(n)`` with n inside an epoch
+trains that epoch to its end, and a later ``fit`` of the same estimator
+starts the next epoch.  A mid-epoch stop is a checkpoint's: a resume
+continues from the snapshot's ``(epoch, next_batch)``.
 
 Not ported yet: multi-host batch sharding and sharded plans (ROADMAP
 queue 1 item 13), the prefetch and autotune planes (16), metrics, the
@@ -670,9 +672,6 @@ class Estimator:
                              ValidationSummary(log_dir, app_name))
         self.global_step = 0
         self.epoch = 1
-        # the batch a fit stopped before, mid-epoch (an end trigger that
-        # held inside the epoch): the next fit starts there
-        self._next_batch = 0
         self.history: list[dict] = []
         self.loss_log: list[tuple[int, float]] = []
         self._opt_state = None  # persists across fit() calls
@@ -864,7 +863,7 @@ class Estimator:
               validation_trigger: ZooTrigger | None = None,
               seed: int | None = None, plan=None):
         """Train until ``end_trigger`` (default: ``nb_epoch`` more epochs,
-        Keras continuation semantics; checked at every dispatch boundary)
+        Keras continuation semantics; checked at each epoch boundary)
         with every step under ``plan`` (a ``ShardingPlan`` or name;
         ``None`` defers to the estimator's plan, then
         ``ZOO_SHARDING_PLAN``, then ``dp``).  The optimizer state persists
@@ -900,7 +899,7 @@ class Estimator:
                      else self.optimizer.init(params))
         params, opt_state, state = self._own(params, opt_state, state)
         self._buffers = (params, opt_state, state)
-        start = (self.epoch, self._next_batch)
+        start = (self.epoch, 0)
         resumed = self._ckpt.latest() if self._ckpt else None
         if resumed is not None:
             start, seed = self._resume(resumed, plan, params, opt_state,
@@ -1195,7 +1194,6 @@ class _Run:
         tstate = TrainingState(epoch=epoch, iteration=est.global_step)
         per_epoch = self.train_set.steps_per_epoch(self.batch_size)
         profile = _Profile(est, device)
-        stopped = False
         try:
             while not self.end_trigger(tstate):
                 t0 = time.perf_counter()
@@ -1235,17 +1233,11 @@ class _Run:
                         tstate.loss = losses[done - 1]
                         est._on_iteration(self, tstate, params, opt_state,
                                           state, epoch, bi)
-                        if bi < per_epoch and self.end_trigger(tstate):
-                            stopped = True
-                            break
                 finally:
                     feeder.stop()
                 # the epoch boundary: the one host sync of the loop
                 values = self.flush()
                 tstate.loss = values[-1] if values else None
-                if stopped:
-                    est._next_batch = bi
-                    break
                 dt = time.perf_counter() - t0
                 throughput = len(values) * self.batch_size / max(dt, 1e-9)
                 logger.info("epoch %d done: loss=%s, %.1f records/s, "
@@ -1264,6 +1256,4 @@ class _Run:
                                   epoch, 0)
         finally:
             profile.close()
-        if not stopped:
-            est._next_batch = 0
         est.epoch = epoch

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, training and int8 serving slices, its
-convolutional path, its ImageNet zoo, its fault-tolerant training and its
-sequence path on one CUDA GPU and check them.
+convolutional path, its ImageNet zoo, its fault-tolerant training, its
+sequence path and its text-matching path on one CUDA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -224,9 +225,9 @@ and prints no result):
    replayed 8-image request each (MobileNet-v2's depthwise convolutions
    stay float);
 21. fault_tolerant_fit: BERT-base from ``DISK_2`` shards and ResNet-50
-   from a PMEM set, each fit uninterrupted, stopped mid-epoch and resumed
-   by a fresh model, and retried after an injected fault, bit for bit
-   alike;
+   from a PMEM set, each fit uninterrupted, resumed mid-epoch by a fresh
+   model (the first leg's snapshots after its first mid-epoch one
+   dropped), and retried after an injected fault, bit for bit alike;
 22. text_classifier, the sequence path's main path: the TextClassifier
    at news20 width (LSTM encoder 256 over 500 tokens of width 200, a
    20,000-word trainable table, 20 classes) through ``compile("adam",
@@ -264,12 +265,44 @@ and prints no result):
    with each policy's fit peak, device time and flash forwards (a
    recompute adds 12 a step); a loss that falls on a fixed batch; step 1
    at 2 blocks (batch 2, attention dropout 0.1) against the CPU;
-25. summary: ``phase seconds`` of every phase (each also logged as it
+25. text_matching, the text-matching path's main path: a seeded
+   question/answer corpus (one positive answer among five a question, a
+   vocabulary reaching 20,000 words) written as CSV and read back through
+   ``TextSet.read_csv`` and ``read_relations_csv``, tokenized, normalized,
+   indexed and shaped; ``from_relation_pairs`` feeds KNRM at the JAX
+   package's defaults (vocabulary 20,000, width 300, 21 kernels; question
+   10 and answer 40 tokens) through ``compile("adam", "rank_hinge")`` and
+   ``fit`` at batch 200 for 5 steps, bit for bit ``train_step`` called
+   eagerly (twice); a replayed epoch's host clock, device time, idle
+   share, kernels, launches (one Adam a step) and bound (FLOPs and Adam's
+   bytes); ``evaluate_ndcg`` (k = 3, 5) and ``evaluate_map`` over 40
+   held-out groups; requests of 1, 8 and 32 pairs through
+   ``InferenceModel`` (replays bit for bit the eager forward); a loss that
+   falls on a fixed batch; step 1 against the CPU;
+26. autograd: ``examples/autograd``'s ``custom.py`` (a ``Lambda`` in a
+   ``Model``, a mean-absolute-error ``CustomLoss`` of ``AutoGrad`` ops)
+   and ``customloss.py`` (a ``Lambda`` in a ``Sequential``, a torch
+   ``CustomLoss``), and a graph adding a trainable, then a frozen,
+   (128,) ``Parameter`` to a Dense(256 -> 128) output: each 5 captured
+   steps at batch 32 bit for bit the eager ones, the frozen value
+   unchanged, a replayed epoch's times and launches (the examples' leaves
+   are below the fused Adam kernel's 128 elements: none; the graphs one a
+   step), a loss that falls on a fixed batch, step 1 against the CPU, one
+   8-record request;
+27. tfpark_text: ``NER`` (9 tags), ``SequenceTagger`` (45 POS, 23 chunk
+   tags) and ``IntentEntity`` (7 intents, 9 entity tags) at their defaults
+   (sequence 64, words of 12 characters, 20,000 words, 100 characters),
+   each 3 captured steps at batch 32 on one label or a list of two, bit
+   for bit the eager ones, a replayed epoch's times, launches (one Adam a
+   step) and bound, a loss that falls on a fixed batch, step 1 against the
+   CPU, one 8-record request with each head's rows summing to 1;
+28. summary: ``phase seconds`` of every phase (each also logged as it
    ends), a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
    of its own; and ``int8_conv`` and ``quantize_act``, which replace
-   none; launches by path, the sequence path's included), then the
-   result line ``{"ok": true, "device": {...}}`` last.
+   none; launches by path, the sequence and text-matching paths'
+   included), then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
 """
@@ -1915,12 +1948,12 @@ def differing(a, b) -> list:
             if not torch.equal(u, v)]
 
 
-def eager_steps(net, plan, x, y, steps, batch=TRAIN_BATCH):
+def eager_steps(net, plan, x, y, steps, batch=TRAIN_BATCH, shuffle=True):
     """``Estimator.train_step`` called step by step (the uncaptured
     yardstick), from the model's weights and state and a fresh optimizer
     state over the ``steps`` batches of (x, y) that one epoch of ``fit``
-    takes: (parameters, optimizer state and model state after the steps,
-    losses, host ms a step)."""
+    takes (``shuffle=False``: in their order): (parameters, optimizer
+    state and model state after the steps, losses, host ms a step)."""
     import torch
 
     from analytics_zoo_tpu_torch.common.engine import step_generator
@@ -1942,7 +1975,7 @@ def eager_steps(net, plan, x, y, steps, batch=TRAIN_BATCH):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, b in enumerate(FeatureSet.of(x, y).batches(
-            batch, shuffle=True, seed=SEED, epoch=1, drop_last=True)):
+            batch, shuffle=shuffle, seed=SEED, epoch=1, drop_last=True)):
         params, opt, state, loss = step(
             params, opt, state, step_generator(SEED, i, net.device),
             _to_device(b, net.device), casts)
@@ -2220,7 +2253,10 @@ def eager_predict(im, xs):
     ts = [torch_from(np.concatenate(
         [a, np.zeros((b - n,) + a.shape[1:], a.dtype)]), im._net.device)
         for a in xs]
-    return im._forward_fn()(im._params, im._state, ts).cpu().numpy()[:n]
+    out = im._forward_fn()(im._params, im._state, ts)
+    if isinstance(out, (list, tuple)):  # one array a head
+        return [o.cpu().numpy()[:n] for o in out]
+    return out.cpu().numpy()[:n]
 
 
 def torch_from(a, device):
@@ -3350,7 +3386,8 @@ def lenet_phase(card_line: str) -> tuple[dict, float]:
 
 def conv_flops(net) -> tuple[float, float]:
     """(forward, training) FLOPs of one image through ``net``'s conv
-    (dense and depthwise) and Dense layers: 2 x the multiply-adds;
+    (dense and depthwise) and Dense layers (at every position of a
+    sequence): 2 x the multiply-adds;
     training adds the weight gradients (as many as the forward) and the
     input gradients (as many, but for the first layer, whose input needs
     none)."""
@@ -3374,7 +3411,7 @@ def conv_flops(net) -> tuple[float, float]:
                 (None,) + tuple(layer._build_shape))
             fwd.append(2.0 * np.prod(out[1:]) * np.prod(layer.kernel_size))
         elif isinstance(layer, Dense):
-            fwd.append(2.0 * layer._build_shape[-1] * layer.output_dim)
+            fwd.append(2.0 * np.prod(layer._build_shape) * layer.output_dim)
         else:
             continue
         first = fwd[0] if first is None else first
@@ -3574,16 +3611,18 @@ def serve_zoo_model(tag, net, shape, sizes, gen, flops, card_line,
 
 
 def serve_requests(tag, net, reqs, flops, card_line,
-                   precisions=("f32", "bf16"), unit="images") -> tuple:
+                   precisions=("f32", "bf16"), unit="images",
+                   softmax=True) -> tuple:
     """``net`` through ``InferenceModel`` in each precision for each
     request of ``reqs`` (records -> an array, or a list of arrays for a
     model of several inputs), each bucket warmed up (captured) with the
-    requests' shapes and dtypes: each replay bit for bit its eager
-    forward, finite rows summing to 1, bf16 within BF16_LOGIT_TOL of f32
-    by ``logit_gap``; the host clock (median of HOST_REPEATS), device
-    time, idle share and records/s of each request beside its bound.
-    Returns the launch counts of the replayed requests and the replays'
-    outputs by (precision, size)."""
+    requests' shapes and dtypes: each replay (every head of a model of
+    several outputs) bit for bit its eager forward, finite, with
+    ``softmax`` rows summing to 1, bf16 within BF16_LOGIT_TOL of f32 by
+    ``logit_gap``; the host clock (median of HOST_REPEATS), device time,
+    idle share and records/s of each request beside its bound.  Returns
+    the launch counts of the replayed requests and the replays' outputs
+    by (precision, size)."""
     import torch
 
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
@@ -3609,15 +3648,19 @@ def serve_requests(tag, net, reqs, flops, card_line,
     got = {(p, n): im.predict(reqs[n])
            for p, im in models.items() for n in sizes}
     launches = counters()  # end of this model's serving path
-    classes = want["f32", sizes[0]].shape[-1]
     for (p, n), out in got.items():
-        same = np.array_equal(out, want[p, n])
-        sums = float(np.abs(out.sum(-1) - 1).max())
-        log(f"{tag} serving {p}, {n} {unit}: {out.shape}, replay equal to "
-            f"the eager forward bit for bit: {same}; rows sum to 1 within "
-            f"{sums:.2e}")
-        if not same or not np.isfinite(out).all() \
-                or out.shape != (n, classes) \
+        heads = out if isinstance(out, list) else [out]
+        wants = want[p, n] if isinstance(out, list) else [want[p, n]]
+        same = len(heads) == len(wants) and all(
+            np.array_equal(a, b) for a, b in zip(heads, wants))
+        sums = max(float(np.abs(o.sum(-1) - 1).max()) for o in heads) \
+            if softmax else 0.0
+        log(f"{tag} serving {p}, {n} {unit}: "
+            f"{[o.shape for o in heads]}, replay equal to the eager "
+            f"forward bit for bit: {same}"
+            + (f"; rows sum to 1 within {sums:.2e}" if softmax else ""))
+        if not same or not all(np.isfinite(o).all() and len(o) == n
+                               for o in heads) \
                 or sums > (1e-4 if p == "f32" else 1e-2):
             raise AssertionError(f"{tag} {p} serving of {n} is wrong")
     if "bf16" in models:
@@ -3646,7 +3689,7 @@ def serve_requests(tag, net, reqs, flops, card_line,
                 f"{', '.join(f'{t:.3f}' for t in host)} ms (median "
                 f"{med:.3f}), device {dev:.3f} ms, idle "
                 f"{max(0.0, 1 - dev / med):.1%}, {n / med * 1e3:.1f} "
-                f"{unit}/s; bound {n * flops[0] / peak * 1e3:.3f} ms "
+                f"{unit}/s; bound {n * flops[0] / peak * 1e3:.4g} ms "
                 f"({card_line})")
     return launches, got
 
@@ -4790,11 +4833,28 @@ def optimizers_phase(card_line: str) -> dict:
 # 0.1, batch 8) fed from .npz shards (DISK_2) and ResNet-50 (bf16, the
 # ImageNet SGD recipe, batch 64) fed from a memory-mapped (PMEM) array
 # set, each FT_STEPS steps an epoch, two epochs, FT_K steps a dispatch
-# (ZOO_STEPS_PER_DISPATCH): an uninterrupted fit, a fit stopped at
-# MaxIteration(FT_STOP) and resumed by a fresh model and estimator, and a
-# fit retried after an injected fault must end bit for bit alike.
-FT_STEPS, FT_K, FT_STOP, FT_EVERY = 5, 2, 4, 3
+# (ZOO_STEPS_PER_DISPATCH): an uninterrupted fit, a fit resumed mid-epoch
+# by a fresh model and estimator (its first leg's snapshots after the first
+# mid-epoch one dropped, as if the process had died there: an end trigger
+# stops a fit only at an epoch boundary, as in the reference), and a fit
+# retried after an injected fault must end bit for bit alike.
+FT_STEPS, FT_K, FT_EVERY = 5, 2, 3
 FT_SHARDS = 4
+
+
+def ft_crash_after_first_mid_epoch_save(ck: str) -> int:
+    """Removes every snapshot in ``ck`` after the first one taken inside an
+    epoch (its step not a multiple of FT_STEPS); returns that step."""
+    import os
+
+    tags = sorted(int(f[len("ckpt-"):-len(".pkl")]) for f in os.listdir(ck)
+                  if f.startswith("ckpt-") and f.endswith(".pkl"))
+    keep = next(t for t in tags if t % FT_STEPS)
+    for t in tags:
+        if t > keep:
+            os.remove(os.path.join(ck, f"ckpt-{t}.pkl"))
+    log(f"fault tolerant: snapshots {tags} in {ck}; kept up to step {keep}")
+    return keep
 
 
 def ft_trees(net) -> dict:
@@ -4915,10 +4975,7 @@ def ft_bert(tmp, card_line) -> dict:
     import shutil
 
     from analytics_zoo_tpu_torch import init_zoo_context
-    from analytics_zoo_tpu_torch.common.triggers import (
-        MaxIteration,
-        SeveralIteration,
-    )
+    from analytics_zoo_tpu_torch.common.triggers import SeveralIteration
     from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
     from analytics_zoo_tpu_torch.parallel import mixed_precision
     from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
@@ -4982,17 +5039,17 @@ def ft_bert(tmp, card_line) -> dict:
         raise AssertionError("the uninterrupted fit did not count its "
                              "kernels")
     ft_saves("bert (a), async", est_a._ckpt, card_line)
-    # (b) stopped mid-epoch, resumed by a fresh model and estimator; the
-    # saves inline
+    # (b) resumed mid-epoch by a fresh model and estimator; the saves
+    # inline
     os.environ["ZOO_ASYNC_CHECKPOINT"] = "0"
     try:
         leg1 = fresh()
         est1, _ = ft_fit(leg1, disk(), TRAIN_BATCH, plan,
                          os.path.join(tmp, "b"),
-                         end_trigger=MaxIteration(FT_STOP),
                          checkpoint_trigger=every(FT_EVERY))
         ft_saves("bert (b) leg 1, inline", est1._ckpt, card_line)
         del leg1, est1
+        ft_crash_after_first_mid_epoch_save(os.path.join(tmp, "b"))
         leg2 = fresh()
         reset_counters()  # the resumed steps: to the read below
         est2, _ = ft_fit(leg2, disk(), TRAIN_BATCH, plan,
@@ -5084,7 +5141,7 @@ class FaultOnce:
 
 def ft_resnet(tmp, card_line) -> dict:
     """ResNet-50's parts: (a) uninterrupted, saving every FT_EVERY steps
-    and at each epoch boundary; (b) stopped and resumed; (c) a fault in
+    and at each epoch boundary; (b) resumed mid-epoch; (c) a fault in
     epoch 2 retried; ``load_checkpoint`` of (a)'s last snapshot into a
     fresh model evaluates as the trained model; the step times from the
     PMEM set against the resident one."""
@@ -5096,7 +5153,6 @@ def ft_resnet(tmp, card_line) -> dict:
     from analytics_zoo_tpu_torch import init_zoo_context
     from analytics_zoo_tpu_torch.common.triggers import (
         EveryEpoch,
-        MaxIteration,
         SeveralIteration,
     )
     from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
@@ -5135,9 +5191,9 @@ def ft_resnet(tmp, card_line) -> dict:
     ft_saves("resnet50 (a), async", est_a._ckpt, card_line)
     leg1 = fresh()
     ft_fit(leg1, pmem, RESNET_BATCH, plan, os.path.join(tmp, "rb"),
-           end_trigger=MaxIteration(FT_STOP),
            checkpoint_trigger=SeveralIteration(FT_EVERY) | EveryEpoch())
     del leg1
+    ft_crash_after_first_mid_epoch_save(os.path.join(tmp, "rb"))
     leg2 = fresh()
     est2, _ = ft_fit(leg2, pmem, RESNET_BATCH, plan,
                      os.path.join(tmp, "rb"),
@@ -5230,19 +5286,28 @@ SEQ_CPU_TOL = 1e-3
 
 
 def seq_flops(net) -> tuple[float, float]:
-    """(forward, training) FLOPs of one record through ``net``'s recurrent,
-    convolution and Dense layers: 2 x the multiply-adds; training three
-    times the forward (the table's gradient needs every input gradient)."""
+    """(forward, training) FLOPs of one record through ``net``'s recurrent
+    (a Bidirectional's two), convolution and Dense layers: 2 x the
+    multiply-adds; training three times the forward (the table's gradient
+    needs every input gradient)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Bidirectional,
+    )
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers.recurrent import (
         _RNNBase,
     )
 
+    def rnn(layer):
+        t, f = layer._build_shape
+        units = layer.output_dim * layer.units_per_gate
+        return 2.0 * t * (f + layer.output_dim) * units
+
     fwd = conv_flops(net)[0]
     for layer in net.layers:
         if isinstance(layer, _RNNBase):
-            t, f = layer._build_shape
-            units = layer.output_dim * layer.units_per_gate
-            fwd += 2.0 * t * (f + layer.output_dim) * units
+            fwd += rnn(layer)
+        elif isinstance(layer, Bidirectional):
+            fwd += rnn(layer.forward_layer) + rnn(layer.backward_layer)
     return fwd, 3 * fwd
 
 
@@ -5296,11 +5361,12 @@ def device_kernels(graph) -> tuple[int, list]:
 
 
 def seq_step(tag, net, plan, x, y, batch, steps, flops, peak, card_line,
-             timesteps=None) -> dict:
+             timesteps=None, nbytes=0.0) -> dict:
     """One more epoch of ``fit`` (every step a replay): its launch counts
     (returned), the host clock a step, one replay's device time, the idle
-    share, the kernels a replay runs, records/s and the step's bound; with
-    ``timesteps`` also the device time per timestep."""
+    share, the kernels a replay runs, records/s and the step's bound (the
+    larger of its FLOPs at ``peak`` and ``nbytes`` at the memory rate);
+    with ``timesteps`` also the device time per timestep."""
     import torch
 
     reset_counters()  # this epoch: from here to the read below
@@ -5314,17 +5380,21 @@ def seq_step(tag, net, plan, x, y, batch, steps, flops, peak, card_line,
     graph = graph_of(est._train_step_for(1, est._resolve_plan(plan)))
     dev_ms = replay_ms(graph)
     kernels, top = device_kernels(graph)
-    bound_ms = batch * flops[1] / peak * 1e3
+    bound_ms = max(batch * flops[1] / peak, nbytes / PEAK_BYTES) * 1e3
     per_t = (f", {dev_ms * 1e3 / timesteps:.1f} us of device time a "
              f"timestep ({timesteps})" if timesteps else "")
+    by_bytes = (f", {nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s "
+                f"{nbytes / PEAK_BYTES * 1e3:.4f} ms" if nbytes else "")
     log(f"{tag} step (batch {batch}, replayed): host clock {host_ms:.2f} "
         f"ms, device {dev_ms:.2f} ms, idle "
         f"{max(0.0, 1 - dev_ms / host_ms):.1%}{per_t}; "
         f"{kernels if kernels else 'not measured'} kernels a step; "
-        f"{batch / host_ms * 1e3:.1f} records/s; bound {bound_ms:.2f} ms "
-        f"({batch} x {flops[1] / 1e9:.2f} GFLOP at {peak / 1e12:.0f} "
-        f"TFLOP/s; device time {bound_ms / dev_ms:.1%} of it); launches "
-        f"{launches} ({card_line})")
+        f"{batch / host_ms * 1e3:.1f} records/s; bound {bound_ms:.4f} ms "
+        f"({batch} x {flops[1] / 1e9:.3f} GFLOP at {peak / 1e12:.0f} "
+        f"TFLOP/s {batch * flops[1] / peak * 1e3:.4f} ms{by_bytes}; device "
+        f"time {bound_ms / dev_ms:.1%} of it); launches {launches}, "
+        f"{ {k: v / steps for k, v in launches.items() if v} } a step "
+        f"({card_line})")
     log(f"{tag} step's largest kernels (name, calls, ms of one replay): "
         + "; ".join(f"{n} x{c} {ms:.2f}" for n, c, ms in top))
     return {"launches": launches, "host_ms": host_ms, "dev_ms": dev_ms}
@@ -5345,8 +5415,8 @@ def falling_loss(tag, net, optimizer, loss, x, y, batch, epochs) -> None:
     loss falls."""
     net.compile(optimizer=optimizer, loss=loss)
     net.fit(x[:batch] if not isinstance(x, list) else
-            [a[:batch] for a in x], y[:batch], batch_size=batch,
-            nb_epoch=epochs)
+            [a[:batch] for a in x], y[:batch] if not isinstance(y, list)
+            else [a[:batch] for a in y], batch_size=batch, nb_epoch=epochs)
     rep = [v for _, v in net._estimator.loss_log]
     log(f"{tag} on a fixed batch: " + ", ".join(f"{v:.4f}" for v in rep))
     if not (np.all(np.isfinite(rep)) and min(rep[-2:]) < rep[0]):
@@ -5774,6 +5844,388 @@ def moe_transformer_phase(card_line: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The text-matching path: KNRM at the JAX package's defaults (vocabulary
+# 20,000, width 300, 21 kernels) and the upstream qa_ranker example's
+# lengths (question 10, answer 40; batch 200), fed from CSV files through
+# TextSet; the autograd examples and Parameter graphs; the tfpark text
+# taggers at their defaults (sequence 64, words of 12 characters).
+# ---------------------------------------------------------------------------
+KNRM_ARGS = dict(text1_length=10, text2_length=40, vocab_size=20000,
+                 embed_size=300, kernel_num=21, target_mode="ranking")
+KNRM_BATCH, KNRM_STEPS = 200, 5
+# one positive answer among KNRM_PER_Q a question: (KNRM_PER_Q - 1)
+# (positive, negative) pairs, two rows each
+KNRM_PER_Q = 5
+KNRM_TRAIN_Q = KNRM_BATCH * KNRM_STEPS // (2 * (KNRM_PER_Q - 1))
+KNRM_HELD_Q = 40
+KNRM_REQUESTS = (1, 8, 32)
+AG_BATCH, AG_STEPS = 32, 5
+TAG_BATCH, TAG_STEPS, TAG_REQUEST = 32, 3, 8
+# the taggers' defaults: sequence 64, words of 12 characters
+TAG_SEQ, TAG_WLEN, TAG_WORDS, TAG_CHARS = 64, 12, 20000, 100
+TAGGERS = {
+    # CoNLL-2003's BIO tag set
+    "ner": ("NER", dict(num_entities=9, word_vocab_size=TAG_WORDS,
+                        char_vocab_size=TAG_CHARS)),
+    # the Penn Treebank's 45 POS tags, CoNLL-2000's 23 chunk tags
+    "sequence_tagger": ("SequenceTagger", dict(
+        num_pos_labels=45, num_chunk_labels=23, word_vocab_size=TAG_WORDS)),
+    # SNIPS's 7 intents, 9 entity tags
+    "intent_entity": ("IntentEntity", dict(
+        num_intents=7, num_entities=9, word_vocab_size=TAG_WORDS,
+        char_vocab_size=TAG_CHARS)),
+}
+
+
+def adam_bytes(net) -> float:
+    """The bytes one Adam step must move over ``net``'s f32 parameters:
+    the parameter, its gradient and both moments read, the parameter and
+    both moments written (7 x 4 bytes a parameter)."""
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+
+    return 28.0 * sum(t.numel() for t in tree_leaves(net.params))
+
+
+def qa_corpus(tmp, gen):
+    """Writes ``questions.csv``, ``answers.csv`` (uri,text) and
+    ``relations.csv`` (id1,id2,label with a header) shaped as
+    ``examples/qaranker/train.py``'s ``load_relations``: each question has
+    one positive answer, which repeats its key token and three of its
+    words, among KNRM_PER_Q; the filler words cycle through seeded
+    permutations of 20,000 words, so the vocabulary reaches 20,000.
+    Returns the three paths."""
+    import os
+
+    n_q = KNRM_TRAIN_Q + KNRM_HELD_Q
+    vocab = KNRM_ARGS["vocab_size"]
+    stream = np.concatenate([gen.permutation(vocab) for _ in range(2)])
+    pos = [0]
+
+    def words(k):
+        out = stream[pos[0]:pos[0] + k]
+        pos[0] += k
+        return [f"w{i}" for i in out]
+
+    qs, ans, rels = [], [], []
+    q_len, a_len = KNRM_ARGS["text1_length"], KNRM_ARGS["text2_length"]
+    for qi in range(n_q):
+        body = words(q_len - 3)
+        qs.append((f"q{qi}", " ".join(["what", "is", f"key{qi}"] + body)))
+        for ai in range(KNRM_PER_Q):
+            uri = f"a{qi}_{ai}"
+            if ai == 0:
+                text = ["the", "answer", f"key{qi}"] + body[:3] + words(
+                    a_len - 6)
+            else:
+                other = int(gen.integers(n_q))
+                text = ["some", "text", f"key{other}"] + words(a_len - 3)
+            ans.append((uri, " ".join(text)))
+            rels.append((f"q{qi}", uri, int(ai == 0)))
+    paths = [os.path.join(tmp, f) for f in
+             ("questions.csv", "answers.csv", "relations.csv")]
+    for path, rows in zip(paths[:2], (qs, ans)):
+        with open(path, "w") as f:
+            f.writelines(f"{u},{t}\n" for u, t in rows)
+    with open(paths[2], "w") as f:
+        f.write("id1,id2,label\n")
+        f.writelines(f"{a},{b},{c}\n" for a, b, c in rels)
+    return paths
+
+
+def knrm_flops(batch_rows: int = 1) -> tuple[float, float]:
+    """(forward, training) FLOPs of KNRM on one (question, answer) pair:
+    the cosine matrix (2 x Lq x Ld x E, and the norms), the kernel pooling
+    (about 7 operations a kernel and entry) and the score; training three
+    times the forward."""
+    lq, ld = KNRM_ARGS["text1_length"], KNRM_ARGS["text2_length"]
+    e, k = KNRM_ARGS["embed_size"], KNRM_ARGS["kernel_num"]
+    fwd = (2.0 * lq * ld * e + 3.0 * (lq + ld) * e + 7.0 * k * lq * ld
+           + 2.0 * k)
+    return batch_rows * fwd, 3 * batch_rows * fwd
+
+
+def falling_pairs(tag, net, x, y, batch, steps) -> None:
+    """``steps`` eager Adam steps (a fresh optimizer state) on the first
+    ``batch`` rows of (x, y) in their order: the loss falls.  ``fit``
+    shuffles its rows, as the reference's does, and so pairs
+    ``rank_hinge``'s positives and negatives at random; here the pairs
+    stay whole."""
+    _, rep, _ = eager_steps(
+        net, None, [np.concatenate([a[:batch]] * steps) for a in x],
+        np.concatenate([y[:batch]] * steps), steps, batch, shuffle=False)
+    log(f"{tag} on a fixed batch, pairs whole: "
+        + ", ".join(f"{v:.4f}" for v in rep))
+    if not (np.all(np.isfinite(rep)) and rep[-1] < rep[0]):
+        raise AssertionError(f"{tag}: the loss did not fall: {rep}")
+
+
+def text_matching_phase(card_line: str) -> dict:
+    """The slice's main path: a seeded question/answer corpus written as
+    CSV and read back through ``TextSet.read_csv``/``read_relations_csv``,
+    tokenized, normalized, indexed (``word2idx`` over both sides, the
+    20,000 most frequent words) and shaped; ``from_relation_pairs`` feeds
+    KNRM (``compile("adam", "rank_hinge")``) at batch 200 for one epoch of
+    5 steps, captured, bit for bit ``train_step`` called eagerly (twice);
+    a replayed epoch's times, launches (one Adam a step) and bound; step 1
+    against the CPU; ``evaluate_ndcg`` (k = 3, 5) and ``evaluate_map`` over the held-out
+    groups; requests of 1, 8 and 32 pairs through ``InferenceModel``; a
+    loss that falls on a fixed batch of whole pairs.  Returns the path's
+    launch counts."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.text import (
+        TextSet,
+        read_relations_csv,
+    )
+    from analytics_zoo_tpu_torch.models import KNRM
+
+    gen = np.random.default_rng(SEED + 110)
+    tmp = tempfile.mkdtemp(prefix="zoo_qa_")
+    try:
+        t0 = time.perf_counter()
+        q_csv, a_csv, r_csv = qa_corpus(tmp, gen)
+        q_set, a_set = TextSet.read_csv(q_csv), TextSet.read_csv(a_csv)
+        rels = read_relations_csv(r_csv)
+        vocab = KNRM_ARGS["vocab_size"]
+        corpus = TextSet(q_set.features + a_set.features).tokenize() \
+            .normalize().word2idx(max_words_num=vocab - 1)
+        q_set = TextSet(q_set.features, corpus.word_index).shape_sequence(
+            KNRM_ARGS["text1_length"])
+        a_set = TextSet(a_set.features, corpus.word_index).shape_sequence(
+            KNRM_ARGS["text2_length"])
+        n_train = KNRM_TRAIN_Q * KNRM_PER_Q
+        qa, da, y = TextSet.from_relation_pairs(rels[:n_train], q_set,
+                                                a_set)
+        groups = TextSet.from_relation_lists(rels[n_train:], q_set, a_set)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    top = max(int(qa.max()), int(da.max()))
+    log(f"text_matching: {len(q_set)} questions, {len(a_set)} answers, "
+        f"{len(rels)} relations read from CSV; {len(corpus.word_index)} "
+        f"words indexed, ids up to {top}; pairs {qa.shape} / {da.shape}, "
+        f"{len(groups)} held-out groups; {time.perf_counter() - t0:.1f} s")
+    if qa.shape != (KNRM_BATCH * KNRM_STEPS, KNRM_ARGS["text1_length"]) \
+            or top != vocab - 1 or len(groups) != KNRM_HELD_Q:
+        raise AssertionError("the text pipeline did not give the expected "
+                             "arrays")
+    x = [qa, da]
+
+    def build():
+        init_zoo_context(seed=SEED, device="cuda")
+        m = KNRM(**KNRM_ARGS)
+        m.model.build_params()
+        m.compile(optimizer="adam", loss="rank_hinge")
+        return m
+
+    knrm = build()
+    losses = captured_fit_check("knrm", knrm.model, None, x, y, KNRM_STEPS,
+                                KNRM_BATCH)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"knrm losses {losses}")
+    flops = knrm_flops()
+    step = seq_step("knrm", knrm.model, None, x, y, KNRM_BATCH, KNRM_STEPS,
+                    flops, PEAK_FLOPS["float32"], card_line,
+                    nbytes=adam_bytes(knrm.model))
+    expect_launches("knrm", step["launches"], fused_adam=KNRM_STEPS)
+    total = dict(step["launches"])
+    qd = [(g[0], g[1]) for g in groups]
+    labels = [g[2] for g in groups]
+    reset_counters()  # the evaluation's predicts: to the read below
+    t0 = time.perf_counter()
+    metrics = {f"ndcg@{k}": knrm.evaluate_ndcg(qd, labels, k=k)
+               for k in (3, 5)}
+    metrics["map"] = knrm.evaluate_map(qd, labels)
+    ms = (time.perf_counter() - t0) * 1e3
+    total = add_launches(total, counters())
+    log(f"knrm on {len(groups)} held-out groups of {KNRM_PER_Q}: "
+        f"{metrics} in {ms:.1f} ms ({card_line})")
+    if not all(0.0 <= v <= 1.0 for v in metrics.values()):
+        raise AssertionError(f"knrm metrics {metrics}")
+    reqs = {n: [qa[:n], da[:n]] for n in KNRM_REQUESTS}
+    launches, _ = serve_requests("knrm", knrm.model, reqs, flops, card_line,
+                                 precisions=("f32",), unit="pairs",
+                                 softmax=False)
+    total = add_launches(total, launches)
+    falling_pairs("knrm", knrm.model, x, y, KNRM_BATCH, 5)
+    del knrm
+    free_device_memory("after knrm")
+    against_the_cpu("knrm", lambda: KNRM(**KNRM_ARGS).model, "rank_hinge",
+                    {"x": [qa[:KNRM_BATCH], da[:KNRM_BATCH]],
+                     "y": y[:KNRM_BATCH]}, SEED)
+    return total
+
+
+def autograd_phase(card_line: str) -> dict:
+    """``examples/autograd``'s two programs at their widths (custom.py:
+    4 features, Dense(1), a Lambda adding one, mean absolute error as a
+    ``CustomLoss`` of ``AutoGrad`` ops, Adam(0.05); customloss.py: a
+    Lambda scaling 2 features to 2x - 1, Dense(1), a torch
+    mean-absolute-error ``CustomLoss``), and a graph whose output adds a
+    trainable ``Parameter`` (256 features, Dense(128) plus a (128,)
+    parameter, then ``l2_normalize``), and the same graph with the
+    ``Parameter`` frozen: each 5 steps at batch 32 through ``fit``,
+    captured, bit for bit ``train_step`` called eagerly (twice), a replayed
+    epoch's launches (the examples' leaves are below the fused Adam
+    kernel's 128 elements, as in the reference's gate: none; the graphs
+    one a step), the frozen value unchanged, a loss that falls on a fixed
+    batch, step 1 against the CPU, one 8-record request.  Returns the
+    path's launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api import autograd as A
+    from analytics_zoo_tpu_torch.pipeline.api.keras import (
+        Input,
+        Model,
+        Sequential,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    gen = np.random.default_rng(SEED + 120)
+    n = AG_BATCH * AG_STEPS
+
+    def mae(y_true, y_pred):
+        return A.mean(A.abs(y_true - y_pred), axis=1)
+
+    def torch_mae(y_true, y_pred):
+        return torch.mean(torch.abs(y_true - y_pred), dim=1)
+
+    def custom():
+        inp = Input(shape=(4,))
+        return Model(inp, A.Lambda(lambda v: v + 1.0)(Dense(1)(inp)))
+
+    def customloss():
+        m = Sequential()
+        m.add(A.Lambda(lambda t: t * 2.0 - 1.0, input_shape=(2,)))
+        m.add(Dense(1))
+        return m
+
+    def parameter_graph(trainable):
+        def make():
+            x = Input(shape=(256,))
+            w = A.Parameter((128,), trainable=trainable, name="offset")()
+            return Model(x, A.l2_normalize(Dense(128)(x) + w))
+        return make
+
+    x4 = gen.normal(size=(n, 4)).astype(np.float32)
+    x2 = gen.uniform(0, 1, (n, 2)).astype(np.float32)
+    xp = gen.normal(size=(n, 256)).astype(np.float32)
+    yp = gen.normal(size=(n, 128)).astype(np.float32)
+    cases = [
+        ("custom.py", custom, A.CustomLoss(mae, [1]), Adam(lr=0.05), x4,
+         (x4 @ gen.normal(size=(4, 1)).astype(np.float32) + 1.0)
+         .astype(np.float32), 0),
+        ("customloss.py", customloss, A.CustomLoss(torch_mae),
+         Adam(lr=0.05), x2,
+         ((2 * x2).sum(1) + 0.4).reshape(n, 1).astype(np.float32), 0),
+        ("trainable Parameter", parameter_graph(True), "mse", Adam(1e-3),
+         xp, yp, 1),
+        ("frozen Parameter", parameter_graph(False), "mse", Adam(1e-3), xp,
+         yp, 1),
+    ]
+    total = {}
+    for tag, make, loss, opt, x, y, adam in cases:
+        init_zoo_context(seed=SEED, device="cuda")
+        net = make()
+        net.build_params()
+        net.compile(optimizer=opt, loss=loss)
+        frozen = {k: v.clone() for k, v in net.state.get("offset",
+                                                          {}).items()}
+        losses = captured_fit_check(f"autograd {tag}", net, None, x, y,
+                                    AG_STEPS, AG_BATCH)
+        step = seq_step(f"autograd {tag}", net, None, x, y, AG_BATCH,
+                        AG_STEPS, seq_flops(net), PEAK_FLOPS["float32"],
+                        card_line, nbytes=adam_bytes(net))
+        expect_launches(f"autograd {tag}", step["launches"],
+                        fused_adam=adam * AG_STEPS)
+        total = add_launches(total, step["launches"])
+        if frozen and not torch.equal(net.state["offset"]["value"],
+                                      frozen["value"]):
+            raise AssertionError("the frozen Parameter moved")
+        log(f"autograd {tag}: losses {losses[0]:.5f} .. {losses[-1]:.5f}; "
+            f"parameters {sorted(net.params)}, state {sorted(net.state)}"
+            + ("; the frozen value unchanged bit for bit" if frozen else ""))
+        launches, _ = serve_requests(f"autograd {tag}", net, {8: x[:8]},
+                                     seq_flops(net), card_line,
+                                     precisions=("f32",), unit="records",
+                                     softmax=False)
+        total = add_launches(total, launches)
+        falling_loss(f"autograd {tag}", net, Adam(0.05 if adam == 0
+                                                  else 1e-3),
+                     loss, x, y, AG_BATCH, 5)
+        against_the_cpu(f"autograd {tag}", make, loss,
+                        {"x": x[:AG_BATCH], "y": y[:AG_BATCH]}, SEED)
+        del net
+    free_device_memory("after autograd")
+    return total
+
+
+def tfpark_text_phase(card_line: str) -> dict:
+    """The tfpark text taggers at their defaults (sequence 64, words of 12
+    characters, a 20,000-word vocabulary, 100 characters): ``NER`` (9
+    tags), ``SequenceTagger`` (45 POS and 23 chunk tags, two heads, words
+    only) and ``IntentEntity`` (7 intents, 9 entity tags, two heads), each
+    3 steps at batch 32 through ``fit`` on one label or a list of two,
+    captured, bit for bit ``train_step`` called eagerly (twice); a
+    replayed epoch's times, launches (one Adam a step) and bound; a loss
+    that falls on a fixed batch; step 1 against the CPU (8 records,
+    dropout 0); one 8-record request, each head's rows summing to 1.
+    Returns the path's launch counts."""
+    import analytics_zoo_tpu_torch.tfpark.text.keras as K
+    from analytics_zoo_tpu_torch import init_zoo_context
+
+    gen = np.random.default_rng(SEED + 130)
+    n = TAG_BATCH * TAG_STEPS
+    words = gen.integers(1, TAG_WORDS, (n, TAG_SEQ)).astype(np.int32)
+    chars = gen.integers(1, TAG_CHARS, (n, TAG_SEQ, TAG_WLEN)) \
+        .astype(np.int32)
+    total = {}
+    for tag, (cls, kw) in TAGGERS.items():
+        def make(cls=cls, kw=kw):
+            init_zoo_context(seed=SEED, device="cuda")
+            return getattr(K, cls)(**kw)
+
+        m = make()
+        m.model.build_params()
+        x = words if tag == "sequence_tagger" else [words, chars]
+        if tag == "ner":
+            y = (words % 9).astype(np.int32)
+        elif tag == "sequence_tagger":
+            y = [(words % 45).astype(np.int32), (words % 23).astype(np.int32)]
+        else:
+            y = [(words[:, 0] % 7).astype(np.int32),
+                 (words % 9).astype(np.int32)]
+        losses = captured_fit_check(tag, m.model, None, x, y, TAG_STEPS,
+                                    TAG_BATCH)
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{tag} losses {losses}")
+        flops = seq_flops(m.model)
+        step = seq_step(tag, m.model, None, x, y, TAG_BATCH, TAG_STEPS,
+                        flops, PEAK_FLOPS["float32"], card_line,
+                        timesteps=TAG_SEQ, nbytes=adam_bytes(m.model))
+        expect_launches(tag, step["launches"], fused_adam=TAG_STEPS)
+        total = add_launches(total, step["launches"])
+        xs = x if isinstance(x, list) else [x]
+        launches, _ = serve_requests(
+            tag, m.model, {TAG_REQUEST: [a[:TAG_REQUEST] for a in xs]},
+            flops, card_line, precisions=("f32",), unit="records")
+        total = add_launches(total, launches)
+        loss = m.model._compiled["loss"]
+        falling_loss(tag, m.model, "adam", loss, x, y, TAG_BATCH, 5)
+        del m
+        free_device_memory(f"after {tag}")
+        against_the_cpu(
+            tag, lambda make=make: make().model, loss,
+            {"x": [a[:8] for a in xs] if len(xs) > 1 else xs[0][:8],
+             "y": [a[:8] for a in y] if isinstance(y, list) else y[:8]},
+            SEED, drop_off=("Dropout",))
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5844,6 +6296,9 @@ def main() -> int:
     text = phase("text_classifier", text_classifier_phase, card_line)
     recommenders = phase("recommenders", recommenders_phase, card_line)
     moe = phase("moe_transformer", moe_transformer_phase, card_line)
+    text_matching = phase("text_matching", text_matching_phase, card_line)
+    autograd = phase("autograd", autograd_phase, card_line)
+    tfpark_text = phase("tfpark_text", tfpark_text_phase, card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -5874,7 +6329,10 @@ def main() -> int:
                  "fault_tolerant_fit": fault_tolerant.get(name, 0),
                  "text_classifier": text.get(name, 0),
                  "recommenders": recommenders.get(name, 0),
-                 "moe_transformer": moe.get(name, 0)}
+                 "moe_transformer": moe.get(name, 0),
+                 "text_matching": text_matching.get(name, 0),
+                 "autograd": autograd.get(name, 0),
+                 "tfpark_text": tfpark_text.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},

@@ -1,8 +1,9 @@
 """Checkpoints, resume and retry in the port's estimator.
 
-- A fit stopped mid-epoch (``MaxIteration``) and resumed by a fresh model
-  and estimator from ``LATEST`` ends bit for bit where the uninterrupted
-  fit ends: its losses from the resume point on, its parameters, its
+- A fit resumed mid-epoch by a fresh model and estimator from its
+  checkpoints (saved by ``SeveralIteration``, the snapshots after the
+  first mid-epoch one dropped, as the reference's own test reaches a
+  mid-epoch snapshot) ends bit for bit where the uninterrupted fit ends: its losses from the resume point on, its parameters, its
   optimizer state and its model state (``torch.equal``), at K=1 and K=2
   (the resume point off a K boundary runs the K=1 step).  So does a fit
   whose loader raises once, retried from ``LATEST``.
@@ -34,10 +35,7 @@ import torch
 
 from analytics_zoo_tpu_torch import init_zoo_context
 from analytics_zoo_tpu_torch.common import engine
-from analytics_zoo_tpu_torch.common.triggers import (
-    MaxIteration,
-    SeveralIteration,
-)
+from analytics_zoo_tpu_torch.common.triggers import SeveralIteration
 from analytics_zoo_tpu_torch.common.utils import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
 from analytics_zoo_tpu_torch.pipeline.api.keras import (
@@ -143,9 +141,11 @@ def _assert_equal(a, b):
 @pytest.mark.parametrize("k", [1, 2])
 def test_mid_epoch_resume_matches_the_uninterrupted_fit(tmp_path, device,
                                                         k):
-    """Saves every 3 steps (off the K boundaries at K=2); the second fit
-    stops at iteration 4, mid-epoch 1, so the third resumes at batch 4 of
-    5 (K=2: the K=1 tail step first)."""
+    """Saves every 3 steps (off the K boundaries at K=2: at 3, 6, 9 at
+    K=1, at 4, 7, 9 at K=2); the snapshots after the first (iteration 3
+    or 4, mid-epoch 1) are dropped, as if the process had died there, so
+    the third fit resumes at batch 3 or 4 of 5 (K=2: the K=1 tail step
+    first)."""
     device = _device(device)
     x, y = _data(device)
     full = _net(device, k)
@@ -156,11 +156,13 @@ def test_mid_epoch_resume_matches_the_uninterrupted_fit(tmp_path, device,
     assert sorted(log) == list(range(1, 11))
 
     leg1 = _net(device, k)
-    est1 = _train(leg1, FeatureSet.of(x, y), str(tmp_path / "b"),
-                  end_trigger=MaxIteration(4),
+    ck = str(tmp_path / "b")
+    est1 = _train(leg1, FeatureSet.of(x, y), ck,
                   checkpoint_trigger=SeveralIteration(3))
-    assert est1.global_step == 4 and est1.epoch == 1
-    assert est1._next_batch == 4
+    assert est1.global_step == 10 and est1.epoch == 3
+    kept = _drop_snapshots_after_the_first(ck)
+    blob = _Checkpointer(ck).latest()
+    assert (blob["epoch"], blob["next_batch"]) == (1, kept)
     leg2 = _net(device, k)
     est2 = _train(leg2, FeatureSet.of(x, y), str(tmp_path / "b"),
                   checkpoint_trigger=SeveralIteration(3))
@@ -169,6 +171,18 @@ def test_mid_epoch_resume_matches_the_uninterrupted_fit(tmp_path, device,
     assert dict(est2.loss_log) == {i: v for i, v in log.items()
                                    if i > resumed_at}
     _assert_equal(_state_of(leg2), want)
+
+
+def _drop_snapshots_after_the_first(ck) -> int:
+    """Removes every snapshot of ``ck`` after the first (a crash right
+    after it; ``LATEST`` then names a missing file and the newest file
+    left wins); returns the kept one's iteration."""
+    tags = sorted(int(f[len("ckpt-"):-len(".pkl")]) for f in os.listdir(ck)
+                  if f.startswith("ckpt-") and f.endswith(".pkl"))
+    assert len(tags) == 3
+    for tag in tags[1:]:
+        os.remove(os.path.join(ck, f"ckpt-{tag}.pkl"))
+    return tags[0]
 
 
 def _counting_loader(fail_at):

@@ -18,11 +18,20 @@ and, the other way, when a class of the reference's ``conv``, ``core``,
 Entry format: ``"LayerName": ("tests/<file>.py", "<test function>")``; the
 test holds the port's layer against the JAX package's on the same inputs
 (a parametrised test covers every layer named in its cases).
+
+Two more registries hold the other layer surfaces the same way:
+``KERAS2_PARITY_TESTS`` for ``pipeline.api.keras2.layers`` (every public
+class and merge function of the reference's module must have a port
+counterpart of its name and an entry, and every port name an entry and a
+reference counterpart), and ``AUTOGRAD_PARITY_TESTS`` for the layers of
+``pipeline.api.autograd`` (``LambdaOp``, ``Parameter``, ``Lambda``).
 """
 
 import ast
 import inspect
 import os
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -139,6 +148,32 @@ PARITY_TESTS = {
 }
 
 
+_K2 = ("tests/test_torch_keras2.py", "test_keras2_layer_matches_jax")
+_MERGES = ("tests/test_torch_keras2.py", "test_functional_merges_match_jax")
+
+KERAS2_PARITY_TESTS = {
+    **{name: _K2 for name in (
+        "Dense", "Activation", "Dropout", "Flatten", "Conv1D", "Conv2D",
+        "Cropping1D", "LocallyConnected1D", "MaxPooling1D",
+        "AveragePooling1D", "GlobalAveragePooling1D",
+        "GlobalAveragePooling2D", "GlobalAveragePooling3D",
+        "GlobalMaxPooling1D", "GlobalMaxPooling2D", "GlobalMaxPooling3D",
+        "Softmax", "Maximum", "Minimum", "Average")},
+    "maximum": _MERGES,
+    "minimum": _MERGES,
+    "average": _MERGES,
+}
+
+AUTOGRAD_PARITY_TESTS = {
+    "LambdaOp": ("tests/test_torch_autograd.py",
+                 "test_op_matches_jax_on_a_graph"),
+    "Parameter": ("tests/test_torch_autograd.py",
+                  "test_parameter_matches_jax"),
+    "Lambda": ("tests/test_torch_autograd.py",
+               "test_lambda_infers_the_reference_shape_and_runs_alike"),
+}
+
+
 def _public_layers(module, base):
     return sorted(n for n in dir(module) if not n.startswith("_")
                   and inspect.isclass(getattr(module, n))
@@ -166,10 +201,13 @@ def test_every_port_layer_has_a_parity_test():
         f"register it in PARITY_TESTS: {missing}")
 
 
-def test_registry_entries_point_at_real_tests():
+@pytest.mark.parametrize("registry", [
+    PARITY_TESTS, KERAS2_PARITY_TESTS, AUTOGRAD_PARITY_TESTS],
+    ids=["keras", "keras2", "autograd"])
+def test_registry_entries_point_at_real_tests(registry):
     broken = []
     names = {}
-    for layer, (path, test) in sorted(PARITY_TESTS.items()):
+    for layer, (path, test) in sorted(registry.items()):
         if path not in names:
             full = os.path.join(REPO, path)
             names[path] = _test_names_in(path) if os.path.exists(full) \
@@ -215,3 +253,44 @@ def test_the_reference_layer_modules_are_whole_in_the_port():
                     and not inspect.isclass(getattr(port, name, None)):
                 missing.append(f"{mod}.{name}")
     assert not missing, f"reference classes the port lacks: {missing}"
+
+
+def _keras2_names(module):
+    """Public classes and merge functions defined in a keras2 layers
+    module."""
+    return sorted(n for n, obj in vars(module).items()
+                  if not n.startswith("_")
+                  and (inspect.isclass(obj) or inspect.isfunction(obj))
+                  and obj.__module__ == module.__name__)
+
+
+def test_keras2_names_are_whole_and_registered():
+    """Every public class and merge function of the reference's
+    ``keras2/layers`` has a port counterpart of its name with an entry in
+    ``KERAS2_PARITY_TESTS``, and the port has no name the reference
+    lacks."""
+    import analytics_zoo_tpu.pipeline.api.keras2.layers as J
+    import analytics_zoo_tpu_torch.pipeline.api.keras2.layers as T
+
+    reference, port = set(_keras2_names(J)), set(_keras2_names(T))
+    assert len(reference) == 23
+    assert reference == port, (sorted(reference - port),
+                               sorted(port - reference))
+    assert set(KERAS2_PARITY_TESTS) == port
+
+
+def test_autograd_layers_are_registered():
+    """Every public layer class of the port's ``autograd`` has an entry in
+    ``AUTOGRAD_PARITY_TESTS`` and a class of its name in the reference's
+    ``autograd``."""
+    import analytics_zoo_tpu.pipeline.api.autograd as J
+    import analytics_zoo_tpu_torch.pipeline.api.autograd as T
+    from analytics_zoo_tpu.pipeline.api.keras.engine import Layer as JLayer
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
+
+    port = [n for n in _public_layers(T, Layer)
+            if getattr(T, n).__module__ == T.__name__]
+    assert sorted(port) == sorted(AUTOGRAD_PARITY_TESTS)
+    reference = [n for n in _public_layers(J, JLayer)
+                 if getattr(J, n).__module__ == J.__name__]
+    assert sorted(reference) == sorted(port)
