@@ -15,10 +15,12 @@ kinds:
 
 :func:`timed_compile` times each such piece of work under its label
 (``train_step``, ``train_step_scan4``, ``kernel_<name>``, ...) and counts
-it as a hit or a miss.  The reference keeps these as the
-``zoo_compile_seconds{label}`` histogram and its hit/miss counters; the
-port keeps them in this module, read by :func:`compile_stats`, until the
-metrics plane is ported (ROADMAP queue 1, item 18).
+it as a hit or a miss, into the reference's ``zoo_compile_seconds{label}``
+histogram and its ``zoo_compile_cache_hits_total`` /
+``zoo_compile_cache_misses_total`` counters, and into this module's own
+record, read by :func:`compile_stats`.  A replay of an existing capture
+is a hit in :func:`compile_stats` only (the reference's in-process
+executable cache counts in no metric either).
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ import threading
 import time
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+#: the reference's ``zoo_compile_seconds`` buckets
+COMPILE_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                   60.0, 120.0, 300.0)
 
 _LOCK = threading.Lock()
 _ENABLED_DIR: str | None = None  # guarded-by: _LOCK
@@ -73,14 +79,39 @@ def disable_persistent_cache() -> None:
         _ENABLED_DIR = None
 
 
+def _metrics(label: str):
+    from analytics_zoo_tpu_torch.metrics.registry import get_registry
+
+    reg = get_registry()
+    return (
+        reg.histogram("zoo_compile_seconds",
+                      "wall time of AOT lower().compile() calls",
+                      ("label",), buckets=COMPILE_BUCKETS)
+        .labels(label=label),
+        reg.counter("zoo_compile_cache_hits_total",
+                    "AOT compiles served from the persistent cache",
+                    ("label",)).labels(label=label),
+        reg.counter("zoo_compile_cache_misses_total",
+                    "AOT compiles that ran XLA (no persistent-cache "
+                    "entry)", ("label",)).labels(label=label),
+    )
+
+
 def timed_compile(work, label: str, *, hit: bool = False):
     """Run ``work()`` (a capture, or a kernel build) and record its wall
     seconds under ``label``, as a hit (``hit``: served from what was
-    already built) or a miss; returns what ``work`` returns.  A ``work``
-    that raises records nothing."""
+    already built) or a miss, in :func:`compile_stats` and the registry
+    (the reference's family names and help strings, letter for letter);
+    returns what ``work`` returns.  A ``work`` that raises records
+    nothing.  The registry is fed after ``work`` returns: a capture is
+    over by then."""
     t0 = time.perf_counter()
     out = work()
-    record(label, time.perf_counter() - t0, hit=hit)
+    dt = time.perf_counter() - t0
+    record(label, dt, hit=hit)
+    hist, hits, misses = _metrics(label)
+    hist.observe(dt)
+    (hits if hit else misses).inc()
     return out
 
 

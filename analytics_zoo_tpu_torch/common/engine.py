@@ -97,6 +97,11 @@ def _bool_parser(var):
     return parse
 
 
+#: ZooConfig fields that ``serving.ClusterServingHelper`` reads when its
+#: own overrides and yaml leave them unset (``serving_knob``)
+SERVING_KNOBS = ("serving_batch_budget_ms", "fleet_lease_ms")
+
+
 @dataclasses.dataclass
 class ZooConfig:
     """Typed engine configuration: the reference's ``ZooConfig``
@@ -128,11 +133,16 @@ class ZooConfig:
       with the reference's messages, and ``init_zoo_context`` raises
       ``NotImplementedError`` naming the plane's ROADMAP item for any of
       them away from its default (:data:`UNPORTED_KNOBS`): the prefetch
-      and autotune planes (item 16), the serving fleet, admission and
-      model roster (17), the federation and SLO tier and the
-      ``ZOO_METRICS_PORT``/``ZOO_FLIGHT_DIR`` env vars (18), the elastic
-      runtime (21), and a mesh of more than one device or a DCN axis
-      (13).
+      and autotune planes (item 16), the serving fleet plane: its
+      scaler, admission and model roster (17), the metrics plane's
+      federation and SLO tier (18), the elastic runtime (21), and a mesh
+      of more than one device or a DCN axis (13).
+      ``serving_batch_budget_ms`` and ``fleet_lease_ms``
+      (:data:`SERVING_KNOBS`) are honoured by
+      ``serving.ClusterServingHelper``: a value given here (a field or a
+      conf entry) is taken through :func:`serving_knob`, and their env
+      vars the helper reads itself, as the reference's does;
+      ``ZOO_METRICS_PORT`` and ``ZOO_FLIGHT_DIR`` by the metrics plane.
 
     ``use_pallas`` differs from the reference in its unset state: the
     reference's default (False) computes without its Pallas kernels,
@@ -190,6 +200,11 @@ class ZooConfig:
 
     def __post_init__(self):
         env = os.environ
+        # the serving knobs given as fields, before their env vars fill
+        # them in (``serving_knob``); init_zoo_context carries this over
+        # its dataclasses.replace copies
+        self._given_serving = {n: getattr(self, n) for n in SERVING_KNOBS
+                               if getattr(self, n) is not None}
 
         def resolve(value, env_key, default, cast=int):
             if value is not None:
@@ -392,9 +407,9 @@ UNPORTED_KNOBS = {
     "prefetch_workers": (0, 16), "prefetch_depth": (4, 16),
     "autotune": (False, 16), "autotune_ram_budget": (None, 16),
     "autotune_interval": (0.25, 16), "autotune_max_workers": (None, 16),
-    "serving_batch_budget_ms": (25.0, 17), "slo_p99_ms": (500.0, 17),
+    "slo_p99_ms": (500.0, 17),
     "fleet_min_replicas": (1, 17), "fleet_max_replicas": (4, 17),
-    "fleet_interval": (1.0, 17), "fleet_lease_ms": (10_000, 17),
+    "fleet_interval": (1.0, 17),
     "admission": (False, 17), "serving_models": (None, 17),
     "scrape_targets": (None, 18), "scrape_interval": (1.0, 18),
     "scrape_stale_after": (10.0, 18), "slo_objective": (0.99, 18),
@@ -405,14 +420,17 @@ UNPORTED_KNOBS = {
     "dcn_axis": (None, 13),
 }
 
-#: env vars outside ``ZooConfig`` that turn on an unported plane
-UNPORTED_ENV = {"ZOO_METRICS_PORT": 18, "ZOO_FLIGHT_DIR": 18}
+#: env vars outside ``ZooConfig`` that turn on an unported plane (none
+#: left: ``ZOO_METRICS_PORT`` and ``ZOO_FLIGHT_DIR`` are read by the
+#: ported metrics plane, ``metrics.http`` and ``metrics.flight``)
+UNPORTED_ENV: dict[str, int] = {}
 
 _ITEMS = {13: "the multi-device mesh and sharded plans",
           16: "the prefetch and autotune planes",
-          17: "the serving fleet, admission and model roster",
-          18: "the metrics plane (scrape endpoints, flight recorder, "
-              "federation and SLO tier)",
+          17: "the serving fleet plane (fleet controller, SLO scaler, "
+              "model router and admission)",
+          18: "the metrics plane's federation and SLO tier (scrape "
+              "targets, SLO engine, time series)",
           21: "the elastic training runtime"}
 
 
@@ -756,6 +774,7 @@ def init_zoo_context(conf=None, *, seed: int | None = None, device=None,
     global _CONTEXT
     if isinstance(conf, ZooConfig):
         cfg = dataclasses.replace(conf)  # never mutate the caller's config
+        cfg._given_serving = dict(conf._given_serving)
     else:
         if isinstance(conf, str):
             conf = {"app_name": conf}
@@ -779,7 +798,9 @@ def init_zoo_context(conf=None, *, seed: int | None = None, device=None,
     if compute_dtype is not None:
         cfg.compute_dtype = compute_dtype
     if steps_per_dispatch is not None:
-        cfg = dataclasses.replace(cfg, steps_per_dispatch=steps_per_dispatch)
+        given, cfg = cfg._given_serving, dataclasses.replace(
+            cfg, steps_per_dispatch=steps_per_dispatch)
+        cfg._given_serving = given
     if dcn_shape or slice_groups is not None:
         raise _unported(13, "dcn_shape/slice_groups")
     _refuse_unported(cfg)
@@ -807,6 +828,17 @@ def init_zoo_context(conf=None, *, seed: int | None = None, device=None,
         logger.info("ZOO_USE_PALLAS=0: every kernel scope takes its plain "
                     "PyTorch path (the user's opt-out)")
     return ctx
+
+
+def serving_knob(name: str):
+    """The value the current context's ``ZooConfig`` was given for one of
+    :data:`SERVING_KNOBS` (as a field or a conf entry, not through its
+    env var), or None: no context yet, or the knob was not given.
+    ``serving.ClusterServingHelper`` takes it over the env var and the
+    default, and creates no context to ask."""
+    with _LOCK:
+        ctx = _CONTEXT
+    return None if ctx is None else ctx.config._given_serving.get(name)
 
 
 def get_zoo_context() -> ZooContext:

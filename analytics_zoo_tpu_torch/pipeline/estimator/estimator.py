@@ -116,9 +116,21 @@ trains that epoch to its end, and a later ``fit`` of the same estimator
 starts the next epoch.  A mid-epoch stop is a checkpoint's: a resume
 continues from the snapshot's ``(epoch, next_batch)``.
 
+Observability, as the reference's loop (estimator.py:1452-1470,
+1616-1648, 1683-1684): ``StepMetrics`` on every dispatch (data wait,
+dispatch and step seconds, steps and records), a
+``zoo.train.step_dispatch`` span, one ``step`` flight record a dispatch,
+``StragglerDetector`` on the per-step time, the ``train_loop`` heartbeat
+(``stale_after=600``), ``record_device_memory`` and the epoch gauges at
+each epoch boundary, ``maybe_start_from_env`` and the flight recorder's
+crash dump.  All of it is host-side work around the replay of the
+captured step, never inside a capture.  The checkpoint writer records
+``ckpt`` flight events, the ``checkpoint_writer`` health component and
+the ``zoo_ckpt_*`` families, and a flight dump first waits (bounded by
+``ZOO_ELASTIC_GRACE_MS``) for the save in flight.
+
 Not ported yet: multi-host batch sharding and sharded plans (ROADMAP
-queue 1 item 13), the prefetch and autotune planes (16), metrics, the
-flight recorder, health and straggler detection (18), elastic training
+queue 1 item 13), the prefetch and autotune planes (16), elastic training
 (21).
 """
 
@@ -131,6 +143,7 @@ import queue
 import socket
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -155,6 +168,17 @@ from analytics_zoo_tpu_torch.common.utils import (
 from analytics_zoo_tpu_torch.feature.dataset import (
     FeatureSet,
     ShardedFeatureSet,
+)
+from analytics_zoo_tpu_torch.metrics import (
+    StepMetrics,
+    StragglerDetector,
+    get_flight_recorder,
+    get_health,
+    get_registry,
+    maybe_start_from_env,
+    record_device_memory,
+    register_predump_hook,
+    span,
 )
 from analytics_zoo_tpu_torch.ops.moe import aux_cost_leaves, collect_aux_cost
 from analytics_zoo_tpu_torch.parallel.plan import (
@@ -360,6 +384,32 @@ def _tensors(tree) -> list:
     return out
 
 
+# A flight dump (SIGTERM, exit, crash) first waits, bounded by
+# ZOO_ELASTIC_GRACE_MS, for every live checkpointer's save in flight, so
+# the dump's last ``ckpt`` event says complete or error, never a bare
+# start (the reference's shutdown ordering, estimator.py:298-331).
+_live_ckpt_lock = threading.Lock()
+_live_checkpointers: "weakref.WeakValueDictionary" = (  # guarded-by: _live_ckpt_lock
+    weakref.WeakValueDictionary())
+
+
+def _dump_flush_grace_s() -> float:
+    """Lenient read of ZOO_ELASTIC_GRACE_MS: this runs inside a dying
+    process and must never raise."""
+    try:
+        return max(0.0, int(os.environ.get("ZOO_ELASTIC_GRACE_MS",
+                                           "5000")) / 1e3)
+    except (TypeError, ValueError):
+        return 5.0
+
+
+def _flush_checkpointers_for_dump() -> None:
+    with _live_ckpt_lock:
+        cks = list(_live_checkpointers.values())
+    for c in cks:
+        c._flush_for_dump()
+
+
 class _Checkpointer:
     """Snapshots of (params, optimizer state, model state, step, epoch,
     iterator position) in ``path`` (the reference's ``_Checkpointer``,
@@ -377,7 +427,12 @@ class _Checkpointer:
     :meth:`latest` wait for it, and its error is raised there.
     ``ZOO_ASYNC_CHECKPOINT=0`` runs the write on the caller's thread.
     ``stall_seconds``, ``write_seconds`` and ``bytes`` hold each save's
-    stall of the caller, the writer's seconds and the file's size."""
+    stall of the caller, the writer's seconds and the file's size; the
+    first two also go to the reference's ``zoo_ckpt_stall_seconds`` and
+    ``zoo_ckpt_write_seconds`` histograms, completed saves to
+    ``zoo_ckpt_writes_total``.  The writer runs as the
+    ``checkpoint_writer`` health component and records ``ckpt`` flight
+    events (start, complete, error)."""
 
     LATEST = "LATEST"
     FORMAT_VERSION = 1
@@ -394,6 +449,29 @@ class _Checkpointer:
         self.stall_seconds: list[float] = []
         self.write_seconds: list[float] = []
         self.bytes: list[int] = []
+        reg = get_registry()
+        self._stall_hist = reg.histogram(
+            "zoo_ckpt_stall_seconds",
+            "train-thread stall per checkpoint save: join of the "
+            "previous in-flight write + device-side snapshot dispatch "
+            "(the whole gather+serialize+rename when "
+            "ZOO_ASYNC_CHECKPOINT=0)")
+        self._write_hist = reg.histogram(
+            "zoo_ckpt_write_seconds",
+            "background D2H gather + serialization + atomic-rename time "
+            "per snapshot")
+        self._writes = reg.counter(
+            "zoo_ckpt_writes_total", "completed checkpoint snapshots")
+        with _live_ckpt_lock:
+            _live_checkpointers[id(self)] = self
+        register_predump_hook(_flush_checkpointers_for_dump)
+
+    def _flush_for_dump(self):
+        """Bounded join of the save in flight, so a flight dump holds its
+        final ``ckpt`` event.  Never raises."""
+        t = self._pending
+        if t is not None and t.is_alive():
+            t.join(timeout=_dump_flush_grace_s())
 
     def _wait(self):
         if self._pending is not None:
@@ -445,8 +523,13 @@ class _Checkpointer:
                 self._stream = torch.cuda.Stream(cuda[0])
 
         def write():
+            health = get_health()
+            flight = get_flight_recorder()
             t_w = time.perf_counter()
             try:
+                health.heartbeat("checkpoint_writer")
+                flight.record("ckpt", phase="start", tag=str(tag),
+                              file=os.path.basename(fname))
                 host = self._host_buffers(snap)
                 if event is not None:
                     with torch.cuda.stream(self._stream):
@@ -474,8 +557,17 @@ class _Checkpointer:
                 self._write_latest(os.path.basename(fname))
                 self._gc()
                 self.bytes.append(os.path.getsize(fname))
-                self.write_seconds.append(time.perf_counter() - t_w)
+                dt = time.perf_counter() - t_w
+                self.write_seconds.append(dt)
+                self._writes.inc()
+                self._write_hist.observe(dt)
+                health.set_status("checkpoint_writer", True)
+                flight.record("ckpt", phase="complete", tag=str(tag),
+                              seconds=round(dt, 6))
             except BaseException as e:  # raised on the next save/_wait
+                health.set_status("checkpoint_writer", False)
+                flight.record("ckpt", phase="error", tag=str(tag),
+                              error=repr(e))
                 self._pending_err = e
 
         if _async_checkpoint_enabled():
@@ -483,9 +575,11 @@ class _Checkpointer:
                                              name="zoo-ckpt")
             self._pending.start()
             self.stall_seconds.append(time.perf_counter() - t0)
+            self._stall_hist.observe(self.stall_seconds[-1])
         else:
             write()
             self.stall_seconds.append(time.perf_counter() - t0)
+            self._stall_hist.observe(self.stall_seconds[-1])
             if self._pending_err is not None:
                 err, self._pending_err = self._pending_err, None
                 raise err
@@ -1184,6 +1278,28 @@ class _Run:
                 self.est._writers[0].add_scalar("Loss", v, i)
         return values
 
+    def _record_dispatch(self, step_metrics, flight, straggler, health,
+                         epoch, n, data_wait_s, dispatch_s, step_s) -> None:
+        """One dispatch's telemetry, as the reference's loop records it:
+        the step breakdown, the heartbeat, one ``step`` flight record, and
+        straggler detection on the per-step time (a K-step dispatch is
+        about K times a single one)."""
+        est = self.est
+        step_metrics.record_step(data_wait_s, dispatch_s, step_s,
+                                 self.batch_size * n, steps=n)
+        health.heartbeat("train_loop")
+        flight.record(
+            "step", loop="train", step=est.global_step, epoch=epoch,
+            data_wait_s=round(data_wait_s, 6),
+            dispatch_s=round(dispatch_s, 6), step_s=round(step_s, 6),
+            **({"fused_steps": n} if n > 1 else {}))
+        if straggler.observe(step_s / n):
+            step_metrics.stragglers.inc()
+            flight.record(
+                "straggler", loop="train", step=est.global_step,
+                step_s=round(step_s, 6), per_step_s=round(step_s / n, 6),
+                rolling_p50_s=round(straggler.rolling_p50(), 6))
+
     def loop(self, start, params, opt_state, state) -> None:
         """Epochs from ``start`` = (epoch, first batch) until the end
         trigger holds, updating the buffers in place."""
@@ -1194,6 +1310,20 @@ class _Run:
         tstate = TrainingState(epoch=epoch, iteration=est.global_step)
         per_epoch = self.train_set.steps_per_epoch(self.batch_size)
         profile = _Profile(est, device)
+        # Observability (the reference's train loop): children resolved
+        # once here, so a dispatch costs a handful of host-side observe
+        # and inc calls around the replay (shared no-ops under
+        # ZOO_METRICS=0); the scrape server (ZOO_METRICS_PORT), the
+        # flight recorder's crash dump (ZOO_FLIGHT_DIR), the train_loop
+        # heartbeat and straggler detection on the per-step time
+        step_metrics = StepMetrics()
+        maybe_start_from_env()
+        flight = get_flight_recorder().install()
+        straggler = StragglerDetector()
+        health = get_health()
+        # the first dispatch of a signature is its capture: the silence
+        # budget covers it
+        health.register("train_loop", stale_after=600.0)
         try:
             while not self.end_trigger(tstate):
                 t0 = time.perf_counter()
@@ -1210,16 +1340,22 @@ class _Run:
                     lambda chunk: [_stage(b, pin) for b in chunk],
                     depth=est.ctx.config.infeed_depth)
                 try:
+                    t_iter0 = time.perf_counter()
                     for chunk in feeder:
+                        t_data = time.perf_counter()
                         n = len(chunk)
                         profile.before(est.global_step)
-                        params, opt_state, state, out = est._train_step_for(
-                            n, self.plan)(
-                                params, opt_state, state,
-                                est._keys(n, device, self.seed,
-                                          est.global_step),
-                                [_upload(b, device) for b in chunk],
-                                self.casts)
+                        # host-side launch or replay only: device time
+                        # shows in the ZOO_PROFILE_DIR trace
+                        with span("zoo.train.step_dispatch"):
+                            params, opt_state, state, out = \
+                                est._train_step_for(n, self.plan)(
+                                    params, opt_state, state,
+                                    est._keys(n, device, self.seed,
+                                              est.global_step),
+                                    [_upload(b, device) for b in chunk],
+                                    self.casts)
+                        t_disp = time.perf_counter()
                         est._buffers = (params, opt_state, state)
                         losses[done:done + n].copy_(out)
                         done += n
@@ -1233,6 +1369,11 @@ class _Run:
                         tstate.loss = losses[done - 1]
                         est._on_iteration(self, tstate, params, opt_state,
                                           state, epoch, bi)
+                        step_s = time.perf_counter() - t_iter0
+                        self._record_dispatch(
+                            step_metrics, flight, straggler, health, epoch,
+                            n, t_data - t_iter0, t_disp - t_data, step_s)
+                        t_iter0 = time.perf_counter()
                 finally:
                     feeder.stop()
                 # the epoch boundary: the one host sync of the loop
@@ -1248,6 +1389,8 @@ class _Run:
                 if est._writers:
                     est._writers[0].add_scalar("Throughput", throughput,
                                                est.global_step)
+                step_metrics.record_epoch(epoch, throughput)
+                record_device_memory()  # no-op without a CUDA device
                 epoch += 1
                 start_batch = 0
                 tstate.epoch = epoch
@@ -1256,4 +1399,7 @@ class _Run:
                                   epoch, 0)
         finally:
             profile.close()
+        # finished on purpose, not wedged (a failed fit leaves it
+        # registered, so /healthz goes stale, as in the reference)
+        health.unregister("train_loop")
         est.epoch = epoch

@@ -18,9 +18,16 @@ captures share one CUDA graph memory pool, so the buckets of one model
 form one ``CaptureGroup``: a micro-batch holds its lock from the copy in
 until its outputs are on the host.  ``concurrent_num`` bounds in-flight
 predict calls with a semaphore, and the outputs are copied back to numpy
-inside it.  Telemetry is plain counters on the instance (``records``,
-``bucket_stats``) and the compile plane's ``compile_stats()``; the metrics
-registry comes with the serving-host slice.
+inside it.  Telemetry is the reference's registry families:
+``zoo_inference_compiles_total{bucket}`` (one a bucket, counted when its
+first micro-batch has run: its capture on the card, its first eager
+forward on the CPU, under a ``zoo.inference.compile`` span),
+``zoo_inference_predict_seconds{bucket}`` (host clock of each predict
+micro-batch, from the copy in to the outputs on the host; a bucket's
+first micro-batch includes its capture) and ``zoo_inference_records_total``;
+plus plain counters on the instance (``records``, ``bucket_stats``) and
+the compile plane's ``compile_stats()``.  All of it is recorded on the
+host around the replay, never inside a capture.
 
 ``optimize("int8")`` is weight-only: the graph dequantizes the weights
 before each forward, as the reference's executable does;
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.utils import tree_map
+from analytics_zoo_tpu_torch.metrics import get_registry, span
 from analytics_zoo_tpu_torch.pipeline.inference.quantize import (
     HOOK_LOCK,
     dequantize_params,
@@ -67,8 +75,10 @@ class _Bucket:
     """One bucket shape's planned forward and, once it is captured, the
     capture's static batch inputs with a pinned staging buffer each."""
 
-    def __init__(self, step):
+    def __init__(self, step, bucket: str):
         self.step = step
+        self.bucket = bucket  # the ``bucket`` label of its metrics
+        self.ran = False     # guarded-by: step.lock
         self.static = None   # guarded-by: step.lock
         self.staging = None  # guarded-by: step.lock
 
@@ -101,6 +111,15 @@ class InferenceModel:
         # device-to-host copy)
         self.records = 0
         self.bucket_stats: dict[int, dict] = {}  # guarded-by: _lock
+        reg = get_registry()
+        self._m_compiles = reg.counter(
+            "zoo_inference_compiles_total",
+            "XLA compiles by input shape bucket", ("bucket",))
+        self._m_latency = reg.histogram(
+            "zoo_inference_predict_seconds",
+            "executable run time per micro-batch", ("bucket",))
+        self._m_records = reg.counter(
+            "zoo_inference_records_total", "records predicted")
 
     # ------------------------------------------------------------------
     # loading
@@ -235,7 +254,7 @@ class InferenceModel:
                 maybe_enable_persistent_cache()
                 entry = self._steps[key] = _Bucket(compile_step(
                     self._forward_fn(), label=f"inference_b{b}",
-                    ref_argnums=(0, 1), group=self._group))
+                    ref_argnums=(0, 1), group=self._group), str(b))
         return entry
 
     def _run(self, xs: Sequence[np.ndarray], m: int):
@@ -256,7 +275,15 @@ class InferenceModel:
             else:
                 batch = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                          for a in xs]
-            out = entry.step(self._params, self._state, batch)
+            if entry.ran:
+                out = entry.step(self._params, self._state, batch)
+            else:
+                # the bucket's first micro-batch: its capture on the card
+                with span("zoo.inference.compile",
+                          args={"bucket": entry.bucket}):
+                    out = entry.step(self._params, self._state, batch)
+                entry.ran = True
+                self._m_compiles.labels(bucket=entry.bucket).inc()
             if entry.static is None and device.type == "cuda":
                 captured = entry.step.static_inputs(self._params,
                                                     self._state, batch)
@@ -353,6 +380,8 @@ class InferenceModel:
         return np.concatenate(outs, axis=0)
 
     def _record(self, bucket: int, m: int, seconds: float) -> None:
+        self._m_latency.labels(bucket=str(bucket)).observe(seconds)
+        self._m_records.inc(m)
         with self._lock:
             self.records += m
             st = self.bucket_stats.setdefault(

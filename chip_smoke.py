@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, training and int8 serving slices, its
 convolutional path, its ImageNet zoo, its fault-tolerant training, its
-sequence path and its text-matching path on one CUDA GPU and check
-them.
+sequence path, its text-matching path and its serving host (Cluster
+Serving and the metrics plane) on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -296,13 +296,39 @@ and prints no result):
    for bit the eager ones, a replayed epoch's times, launches (one Adam a
    step) and bound, a loss that falls on a fixed batch, step 1 against the
    CPU, one 8-record request with each head's rows summing to 1;
-28. summary: ``phase seconds`` of every phase (each also logged as it
+28. cluster_serving, the serving host's main path: BERT-base f32 at
+   full width over token ids alone (a Cluster Serving record is one
+   array: the BERT layer's single-input form), saved with
+   ``KerasNet.save`` and loaded by ``ClusterServingHelper``, 64 records
+   from ``InputQueue`` served by ``ClusterServing.run`` at batch 8
+   serially (the bucket captured inside ``run``), pipelined and in claim
+   mode over one ``InMemoryBroker``, pipelined over a ``FileBroker`` and
+   serially again; ResNet-50 in calibrated int8 passed as
+   ``ClusterServing(model=...)``, 64 (224, 224, 3) records at batch 16,
+   pipelined over a ``FileBroker``.  Every record answered once through
+   ``OutputQueue.query``; classes equal to direct
+   ``InferenceModel.predict``'s, probabilities bit for bit where the
+   micro-batch took the same bucket; 12 flash forwards a BERT
+   micro-batch, 54 ``int8_conv`` and ``quantize_act`` launches a ResNet
+   one; records a second against direct ``predict``, enqueue-to-result
+   p50 and p99, the idle share of a served window from a torch.profiler
+   trace of one more run (BERT serial and pipelined, ResNet-50
+   pipelined) and the host's time by stage; then the registry: one TYPE line a family, record counters
+   equal to what was served and predicted, ``record_device_memory()``
+   reporting one device, a ``MetricsServer`` on port 0 answering its
+   endpoints;
+29. instrumented_fit: BERT-base fine-tuned 8 captured steps at batch 8
+   with the metrics plane on and off from one seed: the step and record
+   counters and one flight record a dispatch, the trained parameters and
+   Adam moments bit for bit alike, replayed epochs' host clock a step on
+   and off, and the instruments' own host cost a dispatch;
+30. summary: ``phase seconds`` of every phase (each also logged as it
    ends), a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
    of its own; and ``int8_conv`` and ``quantize_act``, which replace
-   none; launches by path, the sequence and text-matching paths'
-   included), then the result line ``{"ok": true, "device": {...}}``
-   last.
+   none; launches by path, the sequence, text-matching and Cluster
+   Serving paths' included), then the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 Needs one GPU, nvcc, and nothing from the JAX package.
 """
@@ -6226,6 +6252,673 @@ def tfpark_text_phase(card_line: str) -> dict:
     return total
 
 
+# the cluster_serving phase: BERT-base served from the stream at batch 8
+# in each mode, ResNet-50 in calibrated int8 at batch 16
+CS_RECORDS, CS_BERT_BATCH, CS_RESNET_BATCH = 64, 8, 16
+CS_TOL = 1e-5  # a record served in another bucket than direct predict's
+CS_TIMEOUT = 300.0  # seconds a run may take to answer its records
+
+
+class BatchLog:
+    """A model behind ``ClusterServing`` that notes the micro-batch size
+    each record was predicted in (by the digest of its bytes), so the
+    phase knows which answers must equal direct ``predict`` bit for bit
+    (the same bucket) and which within CS_TOL."""
+
+    def __init__(self, model):
+        self.model, self.size = model, {}
+
+    def predict(self, x, batch_size=None):
+        for row in x:
+            self.size[digest(row)] = len(x)
+        return self.model.predict(x, batch_size=batch_size)
+
+
+def digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def serve_stream(tag, server, db, records, card_line, run_kwargs):
+    """Enqueue ``records`` through ``InputQueue`` under fresh uris, serve
+    them with ``server.run(max_records=len(records), **run_kwargs)`` while
+    a client thread polls ``OutputQueue.query`` for each uri and notes
+    when its answer lands; checks that every record is answered exactly
+    once (``run`` serves exactly that many, every uri has an answer, the
+    stream is empty, the ``zoo_serving_records_total`` counter moved by
+    that many).  Returns ({uri: answer}, the uris in order, timings)."""
+    import threading
+
+    from analytics_zoo_tpu_torch.metrics import get_registry, get_tracer
+    from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
+
+    iq, oq = InputQueue(broker=db), OutputQueue(broker=db)
+    uris = [f"{tag.replace(' ', '-')}-{i}" for i in range(len(records))]
+    served_before = counter_value(get_registry(), "zoo_serving_records_total")
+    t_enq = {}
+    for uri, rec in zip(uris, records):
+        t_enq[uri] = time.perf_counter()
+        iq.enqueue(uri, rec)
+    answers, t_done = {}, {}
+    stop = threading.Event()
+
+    def poll():
+        pending = list(uris)
+        while pending and not stop.is_set():
+            left = []
+            for uri in pending:
+                res = oq.query(uri)
+                if res is None:
+                    left.append(uri)
+                else:
+                    t_done[uri] = time.perf_counter()
+                    answers[uri] = res
+            pending = left
+            # a sweep every 2 ms: the poller takes the GIL from the
+            # server's threads for as short as it can
+            time.sleep(0.002)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    get_tracer().clear()
+    poller.start()
+    t0 = time.perf_counter()
+    served = server.run(max_records=len(records), idle_timeout=CS_TIMEOUT,
+                        **run_kwargs)
+    t_run = time.perf_counter() - t0
+    poller.join(timeout=CS_TIMEOUT)
+    stop.set()
+    spans = {}
+    for ev in get_tracer().events():
+        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    moved = counter_value(get_registry(), "zoo_serving_records_total") \
+        - served_before
+    backlog = db.xlen(server.stream)
+    if served != len(records) or len(answers) != len(records) \
+            or moved != len(records) or backlog:
+        raise AssertionError(
+            f"cluster_serving {tag}: served {served}, answered "
+            f"{len(answers)}, counted {moved} of {len(records)} records; "
+            f"{backlog} left in the stream")
+    lat = np.array([t_done[u] - t_enq[u] for u in uris]) * 1e3
+    window = max(t_done.values()) - t0
+    out = {"run_s": t_run, "window_s": window,
+           "rate": len(records) / window,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "spans_ms": spans}
+    log(f"cluster_serving {tag}: {len(records)} records answered once "
+        f"each; run() {t_run * 1e3:.1f} ms, run start to "
+        f"last answer {window * 1e3:.1f} ms = {out['rate']:.1f} records/s; "
+        f"enqueue-to-result p50 {out['p50_ms']:.1f} ms, p99 "
+        f"{out['p99_ms']:.1f} ms; host spans "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(spans.items()))
+        + f" ({card_line})")
+    return answers, uris, out
+
+
+def counter_value(reg, name, **labels) -> float:
+    """The value of one counter child (0 when it has no sample yet)."""
+    for fam in reg.collect():
+        if fam.name == name:
+            for lab, child in fam.samples():
+                if lab == labels:
+                    return child.get()
+    return 0.0
+
+
+def check_answers(tag, answers, uris, records, want, sizes, direct_batch,
+                  top_n):
+    """Each answer's top-``top_n`` classes equal those of direct
+    ``predict`` (``want``), and its probabilities bit for bit where the
+    record was served in a micro-batch of ``direct_batch`` (the same
+    bucket), else within CS_TOL.  Returns (records served in the same
+    bucket, the largest difference)."""
+    same, worst = 0, 0.0
+    for uri, rec, row in zip(uris, records, want):
+        got = answers[uri]
+        top = np.argsort(row)[::-1][:top_n]
+        if [c for c, _ in got] != [int(c) for c in top]:
+            raise AssertionError(f"cluster_serving {tag}: {uri} classes "
+                                 f"{[c for c, _ in got]} != {list(top)}")
+        diff = max(abs(p - float(row[c])) for c, p in got)
+        worst = max(worst, diff)
+        if sizes[digest(rec)] == direct_batch:
+            same += 1
+            if diff != 0.0:
+                raise AssertionError(f"cluster_serving {tag}: {uri} served "
+                                     f"in the same bucket differs by {diff}")
+        elif not diff <= CS_TOL:
+            raise AssertionError(f"cluster_serving {tag}: {uri} differs by "
+                                 f"{diff} (tol {CS_TOL:g})")
+    log(f"cluster_serving {tag}: classes equal direct predict's; "
+        f"{same} of {len(uris)} records in its bucket, bit for bit; "
+        f"largest difference {worst:.3e}")
+    return same, worst
+
+
+def direct_rate(im, x, batch, card_line, tag) -> float:
+    """Records a second through ``InferenceModel.predict`` at ``batch``
+    over the same records (median of 3, each ending on the host)."""
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        im.predict(x, batch_size=batch)
+        times.append(time.perf_counter() - t0)
+    rate = len(x) / float(np.median(times))
+    log(f"cluster_serving {tag}: direct predict at batch {batch}: "
+        f"{rate:.1f} records/s ({card_line})")
+    return rate
+
+
+def idle_share(tag, server, db, records, card_line, run_kwargs) -> float:
+    """Serve ``records`` once more (``serve_stream``: every record answered
+    once) under a torch.profiler trace of the card's activity, and return
+    the idle share of that served window: 1 - the union of the traced
+    kernels' and copies' device intervals / the host clock from ``run``'s
+    start to the last answer.  The trace's own host cost falls inside the
+    window.  NaN, logged as not measured, when the trace shows no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, out = serve_stream(tag, server, db, records, card_line,
+                                 run_kwargs)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, None
+    for a, b in spans:  # the union of the device intervals
+        if reach is None or a > reach:
+            busy_us, reach = busy_us + b - a, b
+        elif b > reach:
+            busy_us, reach = busy_us + b - reach, b
+    window_ms = out["window_s"] * 1e3
+    if not spans:
+        log(f"cluster_serving {tag}: idle share not measured (the trace "
+            f"shows no device activity) ({card_line})")
+        return float("nan")
+    idle = max(0.0, 1 - busy_us / 1e3 / window_ms)
+    log(f"cluster_serving {tag}: device busy {busy_us / 1e3:.1f} ms "
+        f"({len(spans)} traced kernels and copies) over a "
+        f"{window_ms:.1f} ms served window: idle {idle:.1%} "
+        f"({card_line})")
+    return idle
+
+
+def host_split(tag, server, records, db, batch) -> int:
+    """The host's time by stage for ``records``, stages the reference has
+    no span for: the broker read of their records (``xread`` on a stream
+    of their own), their serial decode, ``np.stack`` and ``predict`` of
+    each micro-batch of ``batch`` (what the ``zoo.serving.predict`` span
+    holds), and the batched write-back of their answers (``hset_many``,
+    one broker round-trip).  Returns the records predicted."""
+    from analytics_zoo_tpu_torch.serving.client import (
+        RESULT_PREFIX,
+        encode_ndarray,
+    )
+
+    for i, r in enumerate(records):
+        db.xadd("split", {"uri": f"split-{i}", "image": encode_ndarray(r)})
+    t0 = time.perf_counter()
+    recs = db.xread("split", len(records))
+    read = time.perf_counter() - t0
+    db.ack("split", recs[-1][0])
+    t0 = time.perf_counter()
+    uris, arrs = server._decode_records(recs)
+    decode = time.perf_counter() - t0
+    stack = predict = 0.0
+    outs = []
+    for i in range(0, len(arrs), batch):
+        t0 = time.perf_counter()
+        x = np.stack(arrs[i:i + batch])
+        t1 = time.perf_counter()
+        outs.extend(server.model.predict(x))
+        stack, predict = stack + t1 - t0, predict + time.perf_counter() - t1
+    writes = [(RESULT_PREFIX + u, server._postprocess(u, o))
+              for u, o in zip(uris, outs)]
+    t0 = time.perf_counter()
+    db.hset_many(writes)
+    write = time.perf_counter() - t0
+    for key, _ in writes:
+        db.delete(key)
+    log(f"cluster_serving {tag} host split for {len(records)} records: "
+        f"broker read {read * 1e3:.1f} ms, decode {decode * 1e3:.1f} ms "
+        f"({decode / len(records) * 1e3:.3f} ms a record, serial), "
+        f"np.stack {stack * 1e3:.1f} ms, predict {predict * 1e3:.1f} ms "
+        f"({-(-len(records) // batch)} micro-batches of {batch}), "
+        f"write-back {write * 1e3:.1f} ms")
+    return len(records)
+
+
+def parse_prometheus(text) -> dict:
+    """{family: type} from a Prometheus exposition; raises on a family
+    with two TYPE lines or a sample of no declared family."""
+    types = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            if name in types:
+                raise AssertionError(f"two TYPE lines for {name}")
+            types[name] = kind
+        elif line and not line.startswith("#"):
+            name = line.split("{")[0].split(" ")[0]
+            base = name
+            for suffix in ("_bucket", "_sum", "_count"):
+                if name.endswith(suffix) and \
+                        types.get(name[:-len(suffix)]) == "histogram":
+                    base = name[:-len(suffix)]
+            if base not in types:
+                raise AssertionError(f"sample {name} of no TYPE line")
+            float(line.rsplit(" ", 1)[1])
+    return types
+
+
+def cluster_serving_phase(card_line: str) -> tuple[dict, dict]:
+    """Cluster Serving on the card: brokers, client, ``ClusterServing`` in
+    its serial, pipelined and claim modes, and the metrics plane.
+
+    (a) BERT-base f32 at full width over token ids alone (the BERT
+    layer's single-input form: a Cluster Serving record is one array, so
+    positions are made and there are no type ids or mask) with a
+    Dense(2, softmax) head, saved with ``KerasNet.save`` and loaded by
+    ``ClusterServingHelper(model_path=..., batch_size=8, top_n=2,
+    data_shape=(512,), log_dir=tmp)``; 64 int32 records served with
+    ``run(max_records=64)`` over one ``InMemoryBroker``, serially (its
+    first micro-batch captures bucket 8 inside ``run``), pipelined and in
+    claim mode (``owner`` set, with a serve log), then pipelined over a
+    ``FileBroker``, then serially again (warm).  Every record answered
+    once; top-2 classes equal to ``InferenceModel.predict`` at batch 8,
+    probabilities bit for bit in the same bucket, else within CS_TOL;
+    12 flash launches a micro-batch.
+    (b) ResNet-50 in calibrated int8 (as ``resnet50_int8_phase``) passed
+    as ``ClusterServing(model=...)``: 64 (224, 224, 3) f32 records at
+    batch 16, pipelined over a ``FileBroker`` twice (the bucket captured
+    inside the first ``run``); top-5 classes equal direct ``predict``'s
+    at 16; RESNET_INT8_LAUNCHES ``int8_conv`` and
+    ``quantize_act`` launches a micro-batch.
+    (c) The registry after (a) and (b): one TYPE line a family, the
+    serving and inference record counters equal to the records served and
+    predicted, ``record_device_memory() == 1``, a ``MetricsServer`` on
+    port 0 answering ``/metrics /varz /healthz /flightz /telemetryz``
+    with 200.
+    Logs records a second against direct ``predict`` at the same batch,
+    enqueue-to-result p50 and p99, the idle share of one more served run
+    of each kind under a trace of the card (``idle_share``) and the
+    host's time by stage.  Returns the path's launch counts."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.metrics import (
+        MetricsRegistry,
+        MetricsServer,
+        get_registry,
+        prometheus_text,
+        record_device_memory,
+        set_registry,
+        snapshot,
+    )
+    from analytics_zoo_tpu_torch.models import ResNet
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        recalibrate_batchnorm,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import (
+        ClusterServing,
+        ClusterServingHelper,
+        FileBroker,
+        InMemoryBroker,
+    )
+
+    t_phase = time.perf_counter()
+    free_device_memory("before cluster_serving")
+    prev = set_registry(MetricsRegistry())  # this phase's counts alone
+    tmp = tempfile.mkdtemp(prefix="zoo-cluster-serving-")
+    launches = {}
+    predicted = served = 0
+
+    def counted(fn):
+        reset_counters()  # one served run: to the read below
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in counters().items():  # end of the served run
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    try:
+        # (a) BERT-base over token ids
+        init_zoo_context(seed=SEED, device="cuda")
+        gen = np.random.default_rng(SEED + 220)
+        path = os.path.join(tmp, "bert_base.model")
+        net = bert_tokens_model()
+        net.build_params()
+        t0 = time.perf_counter()
+        net.save(path)
+        del net
+        helper = ClusterServingHelper(
+            model_path=path, batch_size=CS_BERT_BATCH, top_n=2,
+            data_shape=(SEQ,), log_dir=tmp)
+        mem = InMemoryBroker()
+        first = ClusterServing(helper=helper, broker=mem)
+        im = first.model
+        log(f"cluster_serving bert: saved and loaded through "
+            f"ClusterServingHelper in {time.perf_counter() - t0:.1f} s")
+        ids = gen.integers(1, BERT_BASE["vocab"],
+                           (CS_RECORDS, SEQ)).astype(np.int32)
+        recs = list(ids)
+        log_path = os.path.join(tmp, "serve.log")
+        runs = {}
+        for tag, db, kwargs, owner in (
+                ("bert serial", mem, {"pipelined": False}, None),
+                ("bert pipelined", mem, {}, None),
+                ("bert claim", mem, {}, "replica-0"),
+                ("bert pipelined file", FileBroker(os.path.join(
+                    tmp, "spool")), {}, None),
+                ("bert serial warm", mem, {"pipelined": False}, None)):
+            server = first if tag == "bert serial" else ClusterServing(
+                helper=helper, model=im, broker=db, owner=owner,
+                serve_log=log_path if owner else None)
+            server.model = BatchLog(im)
+            answers, uris, out = counted(lambda: serve_stream(
+                tag, server, db, recs, card_line, kwargs))
+            served += CS_RECORDS
+            runs[tag] = (answers, uris, out, server.model.size)
+            if owner:
+                with open(log_path) as f:
+                    lines = f.read().split()
+                if sorted(lines[1::2]) != sorted(uris) or \
+                        set(lines[0::2]) != {owner}:
+                    raise AssertionError(
+                        f"cluster_serving bert claim: the serve log is not "
+                        f"each uri once: {lines[:6]} ... ({len(lines)})")
+        bert_launches = dict(launches)
+        want = im.predict(ids, batch_size=CS_BERT_BATCH)
+        predicted += CS_RECORDS
+        for tag, (answers, uris, out, sizes) in runs.items():
+            check_answers(tag, answers, uris, recs, want, sizes,
+                          CS_BERT_BATCH, 2)
+        micro = len(runs) * CS_RECORDS // CS_BERT_BATCH
+        expect = dict({k: 0 for k in bert_launches},
+                      flash_attention_fwd=BERT_BASE["n_block"] * micro)
+        log(f"cluster_serving bert launches {bert_launches} (expected "
+            f"{expect}: 12 flash forwards a micro-batch of 8)")
+        if bert_launches != expect:
+            raise AssertionError("cluster_serving bert did not run its "
+                                 "attention on the flash kernel")
+        rate = direct_rate(im, ids, CS_BERT_BATCH, card_line, "bert")
+        predicted += 3 * CS_RECORDS
+        for tag, (_, _, out, _) in runs.items():
+            log(f"cluster_serving {tag}: {out['rate']:.1f} records/s "
+                f"against direct predict's {rate:.1f} "
+                f"({out['rate'] / rate:.2f}x)")
+        for tag, kwargs in (("bert serial traced", {"pipelined": False}),
+                            ("bert pipelined traced", {})):
+            idle_share(tag, ClusterServing(helper=helper, model=im,
+                                           broker=mem),
+                       mem, recs, card_line, kwargs)
+            served += CS_RECORDS
+        predicted += host_split("bert", first, recs[:CS_BERT_BATCH * 2],
+                                mem, CS_BERT_BATCH)
+        del first, server, im, runs
+        free_device_memory("after cluster_serving bert")
+
+        # (b) ResNet-50 in calibrated int8
+        init_zoo_context(seed=SEED, device="cuda")
+        gen = np.random.default_rng(SEED + 221)
+        rn = ResNet.image_net(50, classes=RESNET_CLASSES,
+                              input_shape=RESNET_SHAPE)
+        rn.build_params()
+        recalibrate_batchnorm(rn, gen.standard_normal(
+            (RESNET_BATCH,) + RESNET_SHAPE, dtype=np.float32))
+        calib = gen.standard_normal((INT8_CALIB,) + RESNET_SHAPE,
+                                    dtype=np.float32)
+        int8 = InferenceModel().from_keras_net(rn).optimize(
+            "int8", calibration_data=calib)
+        images = gen.standard_normal((CS_RECORDS,) + RESNET_SHAPE,
+                                     dtype=np.float32)
+        fb = FileBroker(os.path.join(tmp, "spool-resnet"))
+        server = ClusterServing(model=BatchLog(int8), broker=fb,
+                                batch_size=CS_RESNET_BATCH, top_n=5,
+                                data_shape=RESNET_SHAPE, log_dir=tmp)
+        before = dict(launches)
+        rn_runs = {}
+        for tag in ("resnet50 int8 pipelined file",
+                    "resnet50 int8 pipelined file warm"):
+            server.model = BatchLog(int8)
+            answers, uris, out = counted(lambda: serve_stream(
+                tag, server, fb, list(images), card_line, {}))
+            served += CS_RECORDS
+            rn_runs[tag] = (answers, uris, out, server.model.size)
+        rn_launches = {k: v - before.get(k, 0) for k, v in launches.items()}
+        want = int8.predict(images, batch_size=CS_RESNET_BATCH)
+        predicted += CS_RECORDS
+        for tag, (answers, uris, out, sizes) in rn_runs.items():
+            check_answers(tag, answers, uris, list(images), want, sizes,
+                          CS_RESNET_BATCH, 5)
+        per = RESNET_INT8_LAUNCHES * len(rn_runs) * (
+            CS_RECORDS // CS_RESNET_BATCH)
+        expect = dict({k: 0 for k in rn_launches}, int8_conv=per,
+                      quantize_act=per)
+        log(f"cluster_serving resnet50 int8 launches {rn_launches} "
+            f"(expected {expect})")
+        if rn_launches != expect:
+            raise AssertionError("cluster_serving resnet50 int8 did not run "
+                                 "its layers on int8_conv and quantize_act")
+        rate = direct_rate(int8, images, CS_RESNET_BATCH, card_line,
+                           "resnet50 int8")
+        predicted += 3 * CS_RECORDS
+        for tag, (_, _, out, _) in rn_runs.items():
+            log(f"cluster_serving {tag}: {out['rate']:.1f} records/s "
+                f"against direct predict's {rate:.1f} "
+                f"({out['rate'] / rate:.2f}x)")
+        server.model = int8
+        idle_share("resnet50 int8 pipelined file traced", server, fb,
+                   list(images), card_line, {})
+        served += CS_RECORDS
+        predicted += host_split("resnet50 int8", server,
+                                list(images[:CS_RESNET_BATCH]), fb,
+                                CS_RESNET_BATCH)
+        del server, int8, rn
+
+        # (c) the telemetry of (a) and (b)
+        reg = get_registry()
+        types = parse_prometheus(prometheus_text(reg))
+        got = {"zoo_serving_records_total": counter_value(
+            reg, "zoo_serving_records_total"),
+            "zoo_inference_records_total": counter_value(
+                reg, "zoo_inference_records_total")}
+        wanted = {"zoo_serving_records_total": served,
+                  "zoo_inference_records_total": served + predicted}
+        devices = record_device_memory()
+        mem_gauges = {f"{s['name']}{s.get('labels', {})}": s["value"]
+                      for s in snapshot(reg)["samples"]
+                      if s["name"].startswith("zoo_device_")}
+        srv = MetricsServer(port=0).start()
+        codes = {}
+        try:
+            for ep in ("/metrics", "/varz", "/healthz", "/flightz",
+                       "/telemetryz"):
+                with urllib.request.urlopen(srv.url + ep, timeout=10) as r:
+                    codes[ep] = r.status
+                    r.read()
+        finally:
+            srv.stop()
+        log(f"cluster_serving telemetry: {len(types)} families, one TYPE "
+            f"line each; counters {got} (expected {wanted}); "
+            f"record_device_memory() = {devices}, {mem_gauges}; "
+            f"endpoints {codes}")
+        if got != wanted or devices != 1 or \
+                set(codes.values()) != {200}:
+            raise AssertionError("cluster_serving telemetry is wrong")
+    finally:
+        set_registry(prev)
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_device_memory("after cluster_serving")
+    log(f"phase cluster_serving: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
+# the instrumented fit: BERT-base steps a fit, replayed fits timed on each
+# side, and instrument calls timed
+FIT_STEPS, FIT_REPEATS, INSTRUMENT_CALLS = 8, 5, 2000
+
+
+def instrument_cost_us(enabled: bool) -> float:
+    """Host microseconds of one dispatch's instruments as the fit loop
+    makes them (``StepMetrics.record_step``, the heartbeat, a ``step``
+    flight record, ``StragglerDetector.observe`` and a span), with the
+    registry, tracer and flight recorder on or off, over
+    INSTRUMENT_CALLS calls."""
+    from analytics_zoo_tpu_torch.metrics import (
+        FlightRecorder,
+        HealthRegistry,
+        MetricsRegistry,
+        StepMetrics,
+        StragglerDetector,
+        Tracer,
+        span,
+    )
+
+    sm = StepMetrics(MetricsRegistry(enabled=enabled))
+    health, tracer = HealthRegistry(), Tracer(enabled=enabled)
+    flight = FlightRecorder(enabled=enabled)
+    straggler = StragglerDetector()
+    health.register("train_loop", stale_after=600.0)
+    t0 = time.perf_counter()
+    for i in range(INSTRUMENT_CALLS):
+        with span("zoo.train.step_dispatch", tracer=tracer):
+            pass
+        sm.record_step(1e-4, 2e-4, 3e-3, 8, steps=1)
+        health.heartbeat("train_loop")
+        flight.record("step", loop="train", step=i, epoch=0,
+                      data_wait_s=1e-4, dispatch_s=2e-4, step_s=3e-3)
+        straggler.observe(3e-3)
+    return (time.perf_counter() - t0) / INSTRUMENT_CALLS * 1e6
+
+
+def instrumented_fit_phase(card_line: str) -> dict:
+    """(d) of the cluster_serving phase: BERT-base at full width (dropout
+    0.1) through ``compile(Adam(2e-5), ...)`` and a captured ``fit`` of
+    FIT_STEPS steps at batch 8, twice from one seed: once with the
+    metrics plane on (a fresh registry, tracer and flight recorder) and
+    once with it off (``ZOO_METRICS=0``'s disabled registry, ``ZOO_TRACE=0``
+    and ``ZOO_FLIGHT=0``'s).  ``zoo_train_steps_total`` and
+    ``zoo_train_records_total`` equal what was trained, there is one
+    ``step`` flight record a dispatch, and the trained parameters and Adam
+    moments are bit for bit those of the fit with the plane off; each
+    model then fits the same epoch FIT_REPEATS times more, replayed, in
+    turns, and the median host clock a step on less off is logged beside
+    the instruments' own host cost a step.  Returns the replayed steps' launch counts."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.metrics import (
+        FlightRecorder,
+        MetricsRegistry,
+        Tracer,
+        set_flight_recorder,
+        set_registry,
+        set_tracer,
+    )
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    t_phase = time.perf_counter()
+    free_device_memory("before instrumented_fit")
+    gen = np.random.default_rng(SEED + 222)
+    x, y = train_data(TRAIN_BATCH * FIT_STEPS, gen)
+    planes = {}
+    for tag, on in (("on", True), ("off", False)):
+        planes[tag] = (MetricsRegistry(enabled=on), Tracer(enabled=on),
+                       FlightRecorder(enabled=on))
+    saved = (set_registry(planes["on"][0]), set_tracer(planes["on"][1]),
+             set_flight_recorder(planes["on"][2]))
+
+    def plane(tag):
+        reg, tracer, flight = planes[tag]
+        set_registry(reg)
+        set_tracer(tracer)
+        set_flight_recorder(flight)
+
+    nets, host, launches = {}, {"on": [], "off": []}, {}
+    try:
+        for tag in ("on", "off"):
+            plane(tag)
+            init_zoo_context(seed=SEED, device="cuda")
+            net = bert_classifier(BERT_BASE["n_block"], DROPOUT, DROPOUT)
+            net.build_params()
+            net.compile(optimizer=Adam(2e-5),
+                        loss="sparse_categorical_crossentropy_from_logits")
+            net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+            nets[tag] = net
+        reg = planes["on"][0]
+        steps = counter_value(reg, "zoo_train_steps_total")
+        records = counter_value(reg, "zoo_train_records_total")
+        flights = len(planes["on"][2].events("step"))
+        off = differing(
+            {"p": nets["on"].params, "o": nets["on"]._estimator._opt_state},
+            {"p": nets["off"].params,
+             "o": nets["off"]._estimator._opt_state})
+        log(f"instrumented fit: {FIT_STEPS} captured steps with the plane "
+            f"on: zoo_train_steps_total {steps}, zoo_train_records_total "
+            f"{records}, {flights} step flight records; parameters and "
+            f"Adam moments against the fit with the plane off: "
+            f"{'bit for bit' if not off else 'differ at ' + str(off[:8])}")
+        if steps != FIT_STEPS or records != FIT_STEPS * TRAIN_BATCH \
+                or flights != FIT_STEPS or off:
+            raise AssertionError("the instrumented fit is wrong")
+        for rep in range(FIT_REPEATS):
+            # alternate which side goes first: host clocks drift
+            for tag in ("on", "off") if rep % 2 == 0 else ("off", "on"):
+                plane(tag)
+                if rep == 0 and tag == "on":
+                    reset_counters()  # the replayed steps: to the read below
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nets[tag].fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+                torch.cuda.synchronize()
+                host[tag].append((time.perf_counter() - t0) * 1e3
+                                 / FIT_STEPS)
+                if rep == 0 and tag == "on":
+                    launches = counters()  # end of the replayed steps
+        off = differing(
+            {"p": nets["on"].params, "o": nets["on"]._estimator._opt_state},
+            {"p": nets["off"].params,
+             "o": nets["off"]._estimator._opt_state})
+        blocks = BERT_BASE["n_block"]
+        expect = dict({k: 0 for k in launches},
+                      flash_attention_fwd=blocks * FIT_STEPS,
+                      flash_attention_bwd=blocks * FIT_STEPS,
+                      fused_adam=FIT_STEPS, softmax_xent_fwd=FIT_STEPS,
+                      softmax_xent_bwd=FIT_STEPS)
+        cost = {tag: instrument_cost_us(tag == "on") for tag in ("on", "off")}
+        on, offh = float(np.median(host["on"])), float(np.median(host["off"]))
+        log(f"instrumented fit: replayed epochs, host clock a step with "
+            f"the plane on {', '.join(f'{t:.3f}' for t in host['on'])} ms, "
+            f"off {', '.join(f'{t:.3f}' for t in host['off'])} ms: on less "
+            f"off {on - offh:+.3f} ms a step (medians); the instruments' "
+            f"own host cost {cost['on']:.2f} us a dispatch on, "
+            f"{cost['off']:.2f} us off; launches {launches} (expected "
+            f"{expect}); still bit for bit after both: {not off} "
+            f"({card_line})")
+        if launches != expect or off:
+            raise AssertionError("the instrumented fit's replays are wrong")
+    finally:
+        set_registry(saved[0])
+        set_tracer(saved[1])
+        set_flight_recorder(saved[2])
+    del nets
+    free_device_memory("after instrumented_fit")
+    log(f"phase instrumented_fit: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6299,6 +6992,8 @@ def main() -> int:
     text_matching = phase("text_matching", text_matching_phase, card_line)
     autograd = phase("autograd", autograd_phase, card_line)
     tfpark_text = phase("tfpark_text", tfpark_text_phase, card_line)
+    cluster = phase("cluster_serving", cluster_serving_phase, card_line)
+    inst_fit = phase("instrumented_fit", instrumented_fit_phase, card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -6332,7 +7027,9 @@ def main() -> int:
                  "moe_transformer": moe.get(name, 0),
                  "text_matching": text_matching.get(name, 0),
                  "autograd": autograd.get(name, 0),
-                 "tfpark_text": tfpark_text.get(name, 0)}
+                 "tfpark_text": tfpark_text.get(name, 0),
+                 "cluster_serving": cluster.get(name, 0),
+                 "instrumented_fit": inst_fit.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},
@@ -6344,7 +7041,8 @@ def main() -> int:
                          bert_adamw=bert_adamw["flash_attention_fwd"],
                          fault_tolerant_fit=fault_tolerant[
                              "flash_attention_fwd"],
-                         moe_transformer=moe["flash_attention_fwd"])
+                         moe_transformer=moe["flash_attention_fwd"],
+                         instrumented_fit=inst_fit["flash_attention_fwd"])
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",

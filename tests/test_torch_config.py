@@ -197,10 +197,27 @@ def test_unported_plane_knob_raises_naming_its_item(field, spec):
 
 
 @pytest.mark.parametrize("var", ["ZOO_METRICS_PORT", "ZOO_FLIGHT_DIR"])
-def test_unported_env_var_raises(monkeypatch, var):
-    monkeypatch.setenv(var, "9100" if var.endswith("PORT") else "/x")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        init_zoo_context(device="cpu")
+def test_unported_env_var_raises(monkeypatch, tmp_path, var):
+    """These two env vars raised while the metrics plane was unported;
+    now the plane reads them: ``init_zoo_context`` accepts them, and the
+    port's metrics plane honours each as the reference's does
+    (``maybe_start_from_env`` binds the port, ``install`` arms the dump
+    directory)."""
+    from analytics_zoo_tpu_torch.metrics import flight, http
+
+    monkeypatch.setenv(var, "0" if var.endswith("PORT") else str(tmp_path))
+    init_zoo_context(device="cpu")
+    if var == "ZOO_METRICS_PORT":
+        monkeypatch.setattr(http, "_env_server", None)
+        srv = http.maybe_start_from_env()
+        assert srv is not None and srv.port > 0
+        srv.stop()
+    else:
+        monkeypatch.setattr(flight, "_default", None)
+        rec = flight.get_flight_recorder()
+        rec.record("probe", value=1)
+        path = rec.dump(reason="probe")
+        assert path is not None and path.startswith(str(tmp_path))
 
 
 def test_a_mesh_of_more_than_one_device_raises():
