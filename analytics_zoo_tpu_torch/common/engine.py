@@ -128,15 +128,19 @@ class ZooConfig:
       (``ZOO_USE_PALLAS``, below), ``platform`` (``"cuda"``/``"gpu"`` or
       ``"cpu"``: the device when ``init_zoo_context`` is given none);
       ``ZOO_DTYPE_RESUME`` and ``ZOO_ASYNC_CHECKPOINT`` are read by the
-      estimator's checkpointer, as in the reference;
+      estimator's checkpointer, as in the reference; the prefetch and
+      autotune knobs (``prefetch_workers``, ``prefetch_depth``,
+      ``autotune``, ``autotune_ram_budget``, ``autotune_interval``,
+      ``autotune_max_workers``) by ``Estimator.train``, which wraps the
+      train set in ``feature.prefetch`` and runs ``feature.autotune``'s
+      controller;
     - the knobs of planes the port does not have yet are validated here
       with the reference's messages, and ``init_zoo_context`` raises
       ``NotImplementedError`` naming the plane's ROADMAP item for any of
-      them away from its default (:data:`UNPORTED_KNOBS`): the prefetch
-      and autotune planes (item 16), the serving fleet plane: its
-      scaler, admission and model roster (17), the metrics plane's
-      federation and SLO tier (18), the elastic runtime (21), and a mesh
-      of more than one device or a DCN axis (13).
+      them away from its default (:data:`UNPORTED_KNOBS`): the serving
+      fleet plane: its scaler, admission and model roster (17), the
+      metrics plane's federation and SLO tier (18), the elastic runtime
+      (21), and a mesh of more than one device or a DCN axis (13).
       ``serving_batch_budget_ms`` and ``fleet_lease_ms``
       (:data:`SERVING_KNOBS`) are honoured by
       ``serving.ClusterServingHelper``: a value given here (a field or a
@@ -404,9 +408,6 @@ class ZooConfig:
 #: leaves the plane off, its ROADMAP queue 1 item).  ``init_zoo_context``
 #: raises for any other value.
 UNPORTED_KNOBS = {
-    "prefetch_workers": (0, 16), "prefetch_depth": (4, 16),
-    "autotune": (False, 16), "autotune_ram_budget": (None, 16),
-    "autotune_interval": (0.25, 16), "autotune_max_workers": (None, 16),
     "slo_p99_ms": (500.0, 17),
     "fleet_min_replicas": (1, 17), "fleet_max_replicas": (4, 17),
     "fleet_interval": (1.0, 17),
@@ -426,7 +427,6 @@ UNPORTED_KNOBS = {
 UNPORTED_ENV: dict[str, int] = {}
 
 _ITEMS = {13: "the multi-device mesh and sharded plans",
-          16: "the prefetch and autotune planes",
           17: "the serving fleet plane (fleet controller, SLO scaler, "
               "model router and admission)",
           18: "the metrics plane's federation and SLO tier (scrape "

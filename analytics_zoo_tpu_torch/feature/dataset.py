@@ -23,9 +23,13 @@ mid-epoch resume contract).
   one-thread pool) the next ``set_read_ahead_count`` shards load while
   the current one is consumed.
 
-Per-process sharding (``process_shard``) and the parallel prefetch plane
-wait for the distribution and host-data slices (ROADMAP queue 1, items 13
-and 16).
+Also as in the reference: TFRecord shards (:meth:`FeatureSet.from_tfrecord`,
+``feature/tfrecord.py``), a per-batch transform run on the device inside
+the captured train and eval steps (:meth:`FeatureSet.transform_on_device`;
+the host ships compact dtypes such as uint8 images), and the parallel
+prefetch plane (:meth:`FeatureSet.prefetch`, ``feature/prefetch.py``).
+Per-process sharding (``process_shard``) waits for the distribution slice
+(ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -55,6 +59,12 @@ def _unwrap(xs):
 
 class FeatureSet:
     """Base: iterate shuffled minibatches with exact, resumable state."""
+
+    # Optional per-batch fn, a dict of device tensors -> a dict of device
+    # tensors, run ON THE DEVICE inside the captured train/eval step (see
+    # Estimator): the host ships compact dtypes (uint8 images) and the
+    # normalization or augmentation runs on the card, inside the step.
+    device_transform: Callable | None = None
 
     # ------------------------------------------------------------------
     # constructors (mirror FeatureSet.rdd / .array factories)
@@ -91,6 +101,29 @@ class FeatureSet:
         return ShardedFeatureSet(list(paths), n_slices=n_slices,
                                  loader=loader)
 
+    @staticmethod
+    def from_tfrecord(paths: Sequence[str], parse_fn: Callable | None = None,
+                      memory_type: MemoryType = "DISK_4") -> "FeatureSet":
+        """TFRecord shards (reference ``TFDataset.from_tfrecord_file``,
+        pyzoo .../net/tf_dataset.py:456-501; no tensorflow needed, see
+        feature/tfrecord.py).  ``parse_fn(feature_map) -> (x, y)`` maps one
+        decoded tf.train.Example to arrays; the default is the ImageNet
+        JPEG + label layout (``imagenet_example_parser``, which needs
+        cv2)."""
+        from analytics_zoo_tpu_torch.feature.tfrecord import (
+            count_tfrecord_records,
+            imagenet_example_parser,
+            tfrecord_loader,
+        )
+
+        parse = parse_fn or imagenet_example_parser()
+        n_slices = 1
+        if memory_type.upper().startswith("DISK_"):
+            n_slices = int(memory_type.split("_")[1])
+        return ShardedFeatureSet(
+            list(paths), n_slices=n_slices, loader=tfrecord_loader(parse),
+            sizer=count_tfrecord_records)
+
     # ------------------------------------------------------------------
     @property
     def num_samples(self) -> int:
@@ -99,6 +132,27 @@ class FeatureSet:
     def transform(self, preprocessing: Preprocessing) -> "FeatureSet":
         """Attach a per-record transform."""
         return TransformedFeatureSet(self, preprocessing)
+
+    def transform_on_device(self, fn: Callable) -> "FeatureSet":
+        """Attach a per-batch torch transform run on the device inside the
+        captured train and eval steps (after any already attached)."""
+        prev = self.device_transform
+        if prev is None:
+            self.device_transform = fn
+        else:
+            self.device_transform = lambda b, _p=prev, _f=fn: _f(_p(b))
+        return self
+
+    def prefetch(self, depth: int = 4, workers: int = 2) -> "FeatureSet":
+        """The same stream through the parallel host data plane
+        (feature/prefetch.py): shard loads, host transforms and batch
+        assembly on ``workers`` pool threads behind a ``depth``-bounded
+        queue, delivered in order — byte-identical to the serial path for
+        the same seed, epoch and start batch."""
+        from analytics_zoo_tpu_torch.feature.prefetch import (
+            PrefetchFeatureSet,
+        )
+        return PrefetchFeatureSet(self, depth=depth, workers=workers)
 
     def batches(self, batch_size: int, shuffle: bool = True,
                 seed: int = 0, epoch: int = 0, drop_last: bool = True,
@@ -132,6 +186,18 @@ def _batch_from_arrays(xs, ys, ws, idx, pad_to=None):
         # padded rows are marked via n_valid so evaluation masks them out
         batch["n_valid"] = np.asarray(n_valid, np.int32)
     return batch
+
+
+def _host_nbytes(d) -> int:
+    """Host bytes of a dict of arrays / array lists (0 for other shapes):
+    the one accounting for both batch and shard sizes that feeds the
+    autotune RAM-budget estimate (feature/autotune.py)."""
+    if not isinstance(d, dict):
+        return 0
+    return int(sum(
+        getattr(a, "nbytes", 0)
+        for v in d.values()
+        for a in (v if isinstance(v, (list, tuple)) else (v,))))
 
 
 class ArrayFeatureSet(FeatureSet):
@@ -222,6 +288,9 @@ class ShardedFeatureSet(FeatureSet):
         self._ra_pool = None
         self._ra_futures: dict[str, Any] = {}
         self._ra_ahead = 1
+        # host bytes of the last loaded shard (the autotune RAM estimate:
+        # each read-ahead slot holds about one shard)
+        self._last_shard_nbytes = 0
 
     @staticmethod
     def _default_loader(path: str) -> dict:
@@ -284,6 +353,12 @@ class ShardedFeatureSet(FeatureSet):
             raise ValueError(f"read-ahead count must be >= 1, got {ahead}")
         self._ra_ahead = int(ahead)
 
+    @property
+    def last_shard_nbytes(self) -> int:
+        """Host bytes of the most recently loaded shard (0 before any
+        load): the autotune RAM-budget estimator's per-slot cost."""
+        return self._last_shard_nbytes
+
     def _read_ahead(self, path):
         if self._ra_pool is None or path in self._cache \
                 or path in self._ra_futures:
@@ -300,8 +375,10 @@ class ShardedFeatureSet(FeatureSet):
             while len(self._cache) >= max(budget, 1):
                 self._cache.pop(next(iter(self._cache)))
             fut = self._ra_futures.pop(path, None)
-            self._cache[path] = (fut.result() if fut is not None
-                                 else self.loader(path))
+            data = fut.result() if fut is not None else self.loader(path)
+            self._cache[path] = data
+            if isinstance(data, dict):
+                self._last_shard_nbytes = _host_nbytes(data)
         return self._cache[path]
 
     @property
@@ -430,3 +507,13 @@ class TransformedFeatureSet(FeatureSet):
     def batches(self, *args, **kwargs):
         for batch in self.base.batches(*args, **kwargs):
             yield _preprocess_batch(self.preprocessing, batch)
+
+    @property
+    def device_transform(self):
+        """The base's, so a transform attached at either level (even after
+        this wrapper was made) reaches the estimator."""
+        return self.base.device_transform
+
+    @device_transform.setter
+    def device_transform(self, fn):
+        self.base.device_transform = fn

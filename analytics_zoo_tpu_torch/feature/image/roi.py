@@ -1,0 +1,380 @@
+"""ROI (detection-aware) image transforms + the SSD training pipeline.
+
+The port's own copy of ``analytics_zoo_tpu/feature/image/roi.py`` (numpy
+only); the SSD model itself waits for ROADMAP queue 1 item 15.
+
+Reference: the SSD train/val chains in
+zoo/.../models/image/objectdetection/ssd/SSDDataSet.scala:44-53,70-76
+(RoiRecordToFeature -> ImageRoiNormalize -> ImageColorJitter ->
+ random(ImageExpand -> ImageRoiProject) -> ImageRandomSampler ->
+ ImageResize -> random(ImageHFlip -> ImageRoiHFlip) ->
+ ImageChannelNormalize -> batch) and the box-preserving ops under
+zoo/.../feature/image/ (ImageExpand.scala, RandomSampler.scala,
+RoiTransformer.scala) backed by BigDL's roi label transformers.
+
+A **roi record** is a dict:
+  ``image``     uint8/float32 (H, W, 3) RGB
+  ``boxes``     float32 (N, 4) corners — pixel coords until
+                :class:`ImageRoiNormalize` makes them relative [0,1]
+  ``classes``   float32 (N,) 1-based class ids (0 = background)
+  ``difficult`` float32 (N,) 0/1 flags
+  ``_rng``      np.random.Generator injected per-record by
+                :class:`RoiFeatureSet` so augmentation is seeded and
+                resumable (the reference uses a global RNG and is not).
+
+All ops are host-side per-record (the host assembles compact batches; the
+device does the math).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from analytics_zoo_tpu_torch.feature.common import Preprocessing
+from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+
+__all__ = [
+    "ImageRoiNormalize", "ImageColorJitter", "ImageExpandRoi",
+    "ImageRandomSampler", "ImageRoiResize", "ImageRoiHFlip",
+    "ImageRoiChannelNormalize", "RoiFeatureSet", "ssd_train_set",
+    "ssd_val_set",
+]
+
+
+def _rng_of(record) -> np.random.Generator:
+    rng = record.get("_rng")
+    if rng is None:
+        rng = np.random.default_rng()
+        record["_rng"] = rng
+    return rng
+
+
+class ImageRoiNormalize(Preprocessing):
+    """Pixel-corner boxes -> relative [0,1] (BigDL RoiNormalize; used at
+    SSDDataSet.scala:45)."""
+
+    def transform(self, record):
+        h, w = record["image"].shape[:2]
+        boxes = np.asarray(record["boxes"], np.float32).reshape(-1, 4).copy()
+        boxes[:, [0, 2]] /= float(w)
+        boxes[:, [1, 3]] /= float(h)
+        record["boxes"] = boxes
+        return record
+
+
+class ImageColorJitter(Preprocessing):
+    """Brightness/contrast/saturation jitter in random order (reference
+    ImageColorJitter.scala -> BigDL ColorJitter defaults)."""
+
+    def __init__(self, brightness_delta=32.0, contrast=(0.5, 1.5),
+                 saturation=(0.5, 1.5), prob=0.5):
+        self.brightness_delta = brightness_delta
+        self.contrast = contrast
+        self.saturation = saturation
+        self.prob = prob
+
+    def transform(self, record):
+        rng = _rng_of(record)
+        img = record["image"].astype(np.float32)
+
+        def bright(im):
+            if rng.random() < self.prob:
+                im = im + rng.uniform(-self.brightness_delta,
+                                      self.brightness_delta)
+            return im
+
+        def contrast(im):
+            if rng.random() < self.prob:
+                im = im * rng.uniform(*self.contrast)
+            return im
+
+        def sat(im):
+            if rng.random() < self.prob:
+                gray = im.mean(axis=2, keepdims=True)
+                im = gray + (im - gray) * rng.uniform(*self.saturation)
+            return im
+
+        ops = [bright, contrast, sat]
+        rng.shuffle(ops)
+        for op in ops:
+            img = op(img)
+        record["image"] = np.clip(img, 0, 255).astype(np.uint8)
+        return record
+
+
+class ImageExpandRoi(Preprocessing):
+    """Zoom-out: place the image on a mean-filled canvas of ratio
+    [1, max_ratio], projecting boxes (reference ImageExpand.scala +
+    ImageRoiProject, applied with prob 0.5 at SSDDataSet.scala:47)."""
+
+    def __init__(self, max_expand_ratio=4.0, means=(123, 117, 104),
+                 prob=0.5):
+        self.max_ratio = float(max_expand_ratio)
+        self.means = np.asarray(means, np.float32)
+        self.prob = prob
+
+    def transform(self, record):
+        rng = _rng_of(record)
+        if rng.random() >= self.prob:
+            return record
+        img = record["image"]
+        h, w = img.shape[:2]
+        ratio = rng.uniform(1.0, self.max_ratio)
+        nh, nw = int(h * ratio), int(w * ratio)
+        top = int(rng.uniform(0, nh - h))
+        left = int(rng.uniform(0, nw - w))
+        canvas = np.empty((nh, nw, 3), img.dtype)
+        canvas[...] = self.means.astype(img.dtype)
+        canvas[top:top + h, left:left + w] = img
+        record["image"] = canvas
+        boxes = record["boxes"].copy()  # relative coords
+        boxes[:, [0, 2]] = (boxes[:, [0, 2]] * w + left) / nw
+        boxes[:, [1, 3]] = (boxes[:, [1, 3]] * h + top) / nh
+        record["boxes"] = boxes
+        return record
+
+
+def _iou_one_many(box, boxes):
+    ix1 = np.maximum(box[0], boxes[:, 0])
+    iy1 = np.maximum(box[1], boxes[:, 1])
+    ix2 = np.minimum(box[2], boxes[:, 2])
+    iy2 = np.minimum(box[3], boxes[:, 3])
+    iw = np.clip(ix2 - ix1, 0, None)
+    ih = np.clip(iy2 - iy1, 0, None)
+    inter = iw * ih
+    a = (box[2] - box[0]) * (box[3] - box[1])
+    b = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    return inter / np.maximum(a + b - inter, 1e-12)
+
+
+class ImageRandomSampler(Preprocessing):
+    """SSD batch-sampled crop (reference ImageRandomSampler ->
+    BigDL RandomSampler: one 'keep whole image' sampler plus one sampler
+    per min-IoU in {0.1, 0.3, 0.5, 0.7, 0.9}, each up to ``max_trials``
+    attempts at scale [0.3,1], aspect [0.5,2]; one sampled crop is chosen
+    at random; boxes are kept iff their center lies in the crop, then
+    projected and clipped)."""
+
+    MIN_IOUS = (0.1, 0.3, 0.5, 0.7, 0.9)
+
+    def __init__(self, max_trials=50, min_scale=0.3, max_scale=1.0,
+                 min_aspect=0.5, max_aspect=2.0):
+        self.max_trials = max_trials
+        self.min_scale = min_scale
+        self.max_scale = max_scale
+        self.min_aspect = min_aspect
+        self.max_aspect = max_aspect
+
+    def _sample_box(self, rng, boxes, min_iou):
+        for _ in range(self.max_trials):
+            scale = rng.uniform(self.min_scale, self.max_scale)
+            ar = rng.uniform(max(self.min_aspect, scale ** 2),
+                            min(self.max_aspect, 1.0 / scale ** 2))
+            bw = scale * np.sqrt(ar)
+            bh = scale / np.sqrt(ar)
+            x = rng.uniform(0, 1 - bw)
+            y = rng.uniform(0, 1 - bh)
+            crop = np.array([x, y, x + bw, y + bh], np.float32)
+            if len(boxes) == 0:
+                return crop
+            if _iou_one_many(crop, boxes).max() >= min_iou:
+                return crop
+        return None
+
+    def transform(self, record):
+        rng = _rng_of(record)
+        boxes = record["boxes"]
+        sampled = [None]  # the "whole image" sampler
+        for miou in self.MIN_IOUS:
+            got = self._sample_box(rng, boxes, miou)
+            if got is not None:
+                sampled.append(got)
+        crop = sampled[rng.integers(len(sampled))]
+        if crop is None:
+            return record
+        img = record["image"]
+        h, w = img.shape[:2]
+        x1, y1, x2, y2 = crop
+        px1, py1 = int(x1 * w), int(y1 * h)
+        px2, py2 = max(px1 + 1, int(x2 * w)), max(py1 + 1, int(y2 * h))
+        record["image"] = img[py1:py2, px1:px2]
+        if len(boxes):
+            centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+            keep = ((centers[:, 0] >= x1) & (centers[:, 0] <= x2)
+                    & (centers[:, 1] >= y1) & (centers[:, 1] <= y2))
+            boxes = boxes[keep].copy()
+            cw, ch = x2 - x1, y2 - y1
+            boxes[:, [0, 2]] = np.clip((boxes[:, [0, 2]] - x1) / cw, 0, 1)
+            boxes[:, [1, 3]] = np.clip((boxes[:, [1, 3]] - y1) / ch, 0, 1)
+            record["boxes"] = boxes
+            record["classes"] = record["classes"][keep]
+            record["difficult"] = record["difficult"][keep]
+        return record
+
+
+class ImageRoiResize(Preprocessing):
+    """Resize to a fixed resolution; relative boxes are untouched
+    (reference ImageResize at SSDDataSet.scala:49)."""
+
+    def __init__(self, width: int, height: int):
+        self.width, self.height = int(width), int(height)
+
+    def transform(self, record):
+        import cv2
+
+        record["image"] = cv2.resize(
+            record["image"], (self.width, self.height),
+            interpolation=cv2.INTER_LINEAR)
+        return record
+
+
+class ImageRoiHFlip(Preprocessing):
+    """Horizontal flip of image + boxes with prob (reference
+    ImageHFlip -> ImageRoiHFlip under ImageRandomPreprocessing 0.5)."""
+
+    def __init__(self, prob=0.5):
+        self.prob = prob
+
+    def transform(self, record):
+        rng = _rng_of(record)
+        if rng.random() >= self.prob:
+            return record
+        record["image"] = record["image"][:, ::-1]
+        boxes = record["boxes"].copy()
+        boxes[:, [0, 2]] = 1.0 - boxes[:, [2, 0]]
+        record["boxes"] = boxes
+        return record
+
+
+class ImageRoiChannelNormalize(Preprocessing):
+    """Subtract per-channel means (reference ImageChannelNormalize(123,
+    117, 104) at SSDDataSet.scala:52); output float32."""
+
+    def __init__(self, means=(123, 117, 104), stds=None):
+        self.means = np.asarray(means, np.float32)
+        self.stds = None if stds is None else np.asarray(stds, np.float32)
+
+    def transform(self, record):
+        img = record["image"].astype(np.float32) - self.means
+        if self.stds is not None:
+            img = img / self.stds
+        record["image"] = img
+        return record
+
+
+class RoiFeatureSet(FeatureSet):
+    """FeatureSet over roi records with seeded per-record augmentation and
+    SSDMiniBatch-style padding (variable gt counts -> fixed (max_boxes, 5)
+    with label −1 padding; reference SSDMiniBatch.scala / RoiImageToSSDBatch).
+
+    Iteration state is (seed, epoch, cursor) like every FeatureSet here —
+    augmentation draws from a per-(record, epoch) generator, so resume
+    replays identical batches (the reference's global-RNG pipeline cannot).
+    """
+
+    def __init__(self, records, chain: Preprocessing, max_boxes: int = 16,
+                 keep_difficult: bool = True, label_offset: float = 0.0):
+        self.records = list(records)
+        self.chain = chain
+        self.max_boxes = int(max_boxes)
+        self.keep_difficult = keep_difficult
+        # VOC-style annotations are 1-based with background=0
+        # (PascalVoc.scala:88); MultiBoxLoss here takes 0-based foreground
+        # ids with -1 padding, so VOC pipelines pass label_offset=-1.
+        self.label_offset = float(label_offset)
+
+    @property
+    def num_samples(self):
+        return len(self.records)
+
+    def _materialize(self, ri: int, seed: int, epoch: int):
+        rec = self.records[ri]
+        image = rec.get("image")
+        if image is None:
+            # Lazy loading for full-scale datasets: PascalVoc/Coco
+            # roidb(read_image=False) records carry only "path", so the
+            # whole split is never resident at once (COCO train2017 would
+            # be ~60 GB decoded).
+            from PIL import Image
+
+            with Image.open(rec["path"]) as im:
+                image = np.asarray(im.convert("RGB"))
+        rec = {
+            "image": image,
+            "boxes": np.asarray(rec["boxes"], np.float32).reshape(-1, 4),
+            "classes": np.asarray(rec.get("classes", []), np.float32),
+            "difficult": np.asarray(
+                rec.get("difficult", np.zeros(len(rec["boxes"]))),
+                np.float32),
+            "_rng": np.random.default_rng(
+                np.random.SeedSequence([seed, epoch, ri])),
+        }
+        rec = self.chain(rec)
+        if not self.keep_difficult and len(rec["difficult"]):
+            keep = rec["difficult"] == 0
+            rec["boxes"] = rec["boxes"][keep]
+            rec["classes"] = rec["classes"][keep]
+        x = np.asarray(rec["image"], np.float32)
+        y = np.full((self.max_boxes, 5), 0, np.float32)
+        y[:, 4] = -1.0
+        nb = min(len(rec["boxes"]), self.max_boxes)
+        y[:nb, :4] = rec["boxes"][:nb]
+        y[:nb, 4] = rec["classes"][:nb] + self.label_offset
+        return x, y
+
+    def batches(self, batch_size, shuffle=True, seed=0, epoch=0,
+                drop_last=True, start_batch=0, pad_to_batch=None,
+                process_shard=None):
+        n = len(self.records)
+        if shuffle:
+            order = np.random.default_rng(
+                np.random.SeedSequence([seed, epoch])).permutation(n)
+        else:
+            order = np.arange(n)
+        n_batches = n // batch_size if drop_last else -(-n // batch_size)
+        for b in range(start_batch, n_batches):
+            idx = order[b * batch_size:(b + 1) * batch_size]
+            n_valid = len(idx)
+            if pad_to_batch is not None and n_valid % pad_to_batch != 0:
+                pad = pad_to_batch - n_valid % pad_to_batch
+                idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
+            if process_shard is not None:
+                raise NotImplementedError(
+                    "process_shard: per-process batch slices belong to the "
+                    "multi-host plane, which the port does not have yet "
+                    "(ROADMAP queue 1 item 13)")
+            xs, ys = zip(*(self._materialize(int(ri), seed, epoch)
+                           for ri in idx))
+            batch = {"x": np.stack(xs), "y": np.stack(ys)}
+            if pad_to_batch is not None:
+                batch["n_valid"] = np.asarray(n_valid, np.int32)
+            yield batch
+
+
+def ssd_train_set(records, resolution: int = 300, max_boxes: int = 16,
+                  means=(123, 117, 104), augment: bool = True,
+                  scale: float | None = None,
+                  label_offset: float = 0.0) -> RoiFeatureSet:
+    """The SSD training pipeline (SSDDataSet.loadSSDTrainSet,
+    SSDDataSet.scala:38-54), composed with ``>>``."""
+    chain = ImageRoiNormalize()
+    if augment:
+        chain = (chain >> ImageColorJitter()
+                 >> ImageExpandRoi(means=means, prob=0.5)
+                 >> ImageRandomSampler())
+    chain = chain >> ImageRoiResize(resolution, resolution)
+    if augment:
+        chain = chain >> ImageRoiHFlip(prob=0.5)
+    stds = None if scale is None else (scale, scale, scale)
+    chain = chain >> ImageRoiChannelNormalize(means, stds)
+    return RoiFeatureSet(records, chain, max_boxes=max_boxes,
+                         label_offset=label_offset)
+
+
+def ssd_val_set(records, resolution: int = 300, max_boxes: int = 16,
+                means=(123, 117, 104),
+                label_offset: float = 0.0) -> RoiFeatureSet:
+    """The SSD validation pipeline (SSDDataSet.loadSSDValSet,
+    SSDDataSet.scala:64-77): no augmentation, difficult boxes kept."""
+    return ssd_train_set(records, resolution, max_boxes, means,
+                         augment=False, label_offset=label_offset)

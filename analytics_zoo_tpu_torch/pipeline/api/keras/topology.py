@@ -172,11 +172,14 @@ class KerasNet(_ContainerBase):
 
     def fit(self, x, y=None, batch_size=32, nb_epoch=10,
             validation_data=None, distributed=True, sample_weight=None,
-            plan=None):
+            autotune=None, plan=None):
         """Train ``nb_epoch`` more epochs on (x, y); returns the model (the
         estimator's ``history`` and ``loss_log`` hold the losses).  ``plan``
         (a ``ShardingPlan`` or a name, default ``dp``) is the plan every
-        step runs under: its ``kernel_rules`` pick each scope's kernel."""
+        step runs under: its ``kernel_rules`` pick each scope's kernel.
+        ``autotune=True`` (or ``ZOO_AUTOTUNE=1``) tunes the prefetch
+        workers, depth, read-ahead and the steps a dispatch online, with
+        the same loss trajectory bit for bit (``Estimator.train``)."""
         from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
 
         train_set = FeatureSet.of(x, y, sample_weight=sample_weight)
@@ -186,7 +189,7 @@ class KerasNet(_ContainerBase):
             self._estimator = self._make_estimator()
         self._estimator.train(train_set, batch_size=batch_size,
                               nb_epoch=nb_epoch, validation_set=val_set,
-                              plan=plan)
+                              autotune=autotune, plan=plan)
         self._predict_fn = None  # the trained parameters are new buffers
         return self
 

@@ -129,9 +129,28 @@ captured step, never inside a capture.  The checkpoint writer records
 the ``zoo_ckpt_*`` families, and a flight dump first waits (bounded by
 ``ZOO_ELASTIC_GRACE_MS``) for the save in flight.
 
+The host data plane, as the reference's (estimator.py:1171-1220,
+1484-1521, 1620): a set's ``device_transform``
+(``FeatureSet.transform_on_device``, a torch function of the batch dict)
+runs first in every train and eval step, inside the capture, so a uint8
+batch crosses to the card and is normalized there; the step cache keys on
+the transform, so another transform is another capture.  With
+``ZOO_PREFETCH_WORKERS`` (``prefetch_workers``) the train set goes through
+``feature.prefetch.PrefetchFeatureSet``: shard loads, host transforms and
+batch assembly on a pool, the stream byte-identical to the serial one
+(a sharded set then reads ahead on that pool instead of the fit's own
+one-thread pool).  ``train(autotune=True)`` (``ZOO_AUTOTUNE=1``) attaches a
+``feature.autotune.AutotuneController`` for the fit: it resizes the pool
+online and picks the steps a dispatch at chunk boundaries
+(:func:`_chunks_dynamic`) from each dispatch's measured time; each inner
+step still takes its global step's randomness, so the trajectory is K=1's
+bit for bit.  The infeed thread beats the ``infeed`` health component.
+:meth:`Estimator.measure_pure_step` times the K=1 captured step on a
+device-resident batch.
+
 Not ported yet: multi-host batch sharding and sharded plans (ROADMAP
-queue 1 item 13), the prefetch and autotune planes (16), elastic training
-(21).
+queue 1 item 13), the config oracle's autotune prior (19), elastic
+training (21).
 """
 
 from __future__ import annotations
@@ -144,6 +163,7 @@ import socket
 import threading
 import time
 import weakref
+from functools import partial
 
 import numpy as np
 import torch
@@ -279,15 +299,25 @@ def _upload(staged: dict, device) -> dict:
             for k, v in staged.items()}
 
 
-def _chunks(batches, k: int):
-    """Lists of K batches, then the tail one batch a list (the reference's
-    ``_chunk_batches``: the same batch sequence as K=1)."""
+def _chunks_dynamic(batches, k_fn):
+    """Lists of K batches, K re-read from ``k_fn()`` at every chunk
+    boundary, then the tail one batch a list: the batch sequence of K=1
+    (the reference's ``_chunk_batches``, and with a moving K its
+    ``_chunk_batches_dynamic``, the autotune plane's chunker).  A decision
+    takes effect within one dispatch; a chunk in flight keeps the size it
+    started with."""
     chunk = []
+    k = max(1, int(k_fn()))
     for b in batches:
+        if k <= 1:
+            yield [b]
+            k = max(1, int(k_fn()))
+            continue
         chunk.append(b)
         if len(chunk) == k:
             yield chunk
             chunk = []
+            k = max(1, int(k_fn()))
     for b in chunk:
         yield [b]
 
@@ -305,11 +335,16 @@ class _DeviceFeeder:
     host thread runs ``items`` (the batch stream, shard loads included)
     and ``stage`` on each item, up to ``depth`` items ahead of the fit's
     thread; an error on the thread is raised on the consumer's side, at
-    the item where it happened."""
+    the item where it happened.  ``heartbeat`` is called for each item and
+    while blocked on a full queue (waiting for a capture is not being
+    wedged); ``on_exit`` runs on the thread after its last beat (the
+    estimator unregisters the ``infeed`` component there, so no late beat
+    brings it back)."""
 
     _END = object()
 
-    def __init__(self, items, stage, depth: int = 2):
+    def __init__(self, items, stage, depth: int = 2, heartbeat=None,
+                 on_exit=None):
         self._q: queue.Queue = queue.Queue(maxsize=max(1, int(depth)))
         self._stop = threading.Event()
         self._err: BaseException | None = None
@@ -320,16 +355,25 @@ class _DeviceFeeder:
                     self._q.put(item, timeout=0.1)
                     return True
                 except queue.Full:
-                    continue
+                    if heartbeat is not None:
+                        heartbeat()
             return False
 
         def run():
             try:
                 for item in items:
+                    if heartbeat is not None:
+                        heartbeat()
                     if not put(stage(item)):
                         return
             except BaseException as e:  # raised on the consumer side
                 self._err = e
+            finally:
+                if on_exit is not None:
+                    try:
+                        on_exit()
+                    except Exception:
+                        pass
             put(self._END)
 
         self._thread = threading.Thread(target=run, daemon=True,
@@ -868,34 +912,52 @@ class Estimator:
             tree_map_many(lambda old, new: old.copy_(new), state, new_state)
         return loss
 
-    def _dispatch(self, params, opt_state, state, keys, batches, casts):
+    def _dispatch(self, params, opt_state, state, keys, batches, casts,
+                  device_transform=None):
         """``len(batches)`` train steps in place, inner step i under
-        ``keys[i]`` (global step ``keys.step0 + i``): (params, opt_state,
-        state, the (K,) f32 losses)."""
+        ``keys[i]`` (global step ``keys.step0 + i``), each batch first
+        through ``device_transform`` when there is one: (params,
+        opt_state, state, the (K,) f32 losses)."""
+        if device_transform is not None:
+            batches = [device_transform(b) for b in batches]
         losses = [self._step_(params, opt_state, state, keys[i], batch,
                               casts) for i, batch in enumerate(batches)]
         return params, opt_state, state, torch.stack(losses)
 
-    def _train_step_for(self, k: int, plan):
-        """The planned K-step dispatch under ``plan``, made once."""
-        key = (k, plan.cache_key())
+    # train steps kept per estimator: a caller that makes a new transform
+    # for every fit would otherwise keep every capture alive
+    _MAX_TRAIN_STEPS = 8
+
+    def _train_step_for(self, k: int, plan, device_transform=None):
+        """The planned K-step dispatch under ``plan`` with
+        ``device_transform`` inside it, made once (the reference's cache,
+        keyed on the transform, K and the plan)."""
+        key = (k, plan.cache_key(), device_transform)
         step = self._steps.get(key)
         if step is None:
+            train_keys = [kk for kk in self._steps if kk[0] is not None]
+            while len(train_keys) >= self._MAX_TRAIN_STEPS:
+                self._steps.pop(train_keys.pop(0))
             tag = "" if plan.name == "dp" else f"_{plan.name}"
             label = f"train_step{tag}" if k == 1 \
                 else f"train_step_scan{k}{tag}"
+            fn = self._dispatch if device_transform is None else partial(
+                self._dispatch, device_transform=device_transform)
             step = self._steps[key] = compile_step(
-                self._dispatch, plan, label=label, donate_argnums=(0, 1, 2))
+                fn, plan, label=label, donate_argnums=(0, 1, 2))
         return step
 
-    def _eval_step_for(self, plan):
-        """The planned per-batch eval step under ``plan``, made once: the
-        parameters and state by reference, its captures in one pool."""
-        key = (None, plan.cache_key())
+    def _eval_step_for(self, plan, device_transform=None):
+        """The planned per-batch eval step under ``plan`` with
+        ``device_transform`` inside it, made once: the parameters and
+        state by reference, its captures in one pool."""
+        key = (None, plan.cache_key(), device_transform)
         step = self._steps.get(key)
         if step is None:
+            fn = self.eval_step if device_transform is None else partial(
+                self.eval_step, device_transform=device_transform)
             step = self._steps[key] = compile_step(
-                self.eval_step, plan, label="eval_step", ref_argnums=(0, 1),
+                fn, plan, label="eval_step", ref_argnums=(0, 1),
                 group=CaptureGroup())
         return step
 
@@ -955,7 +1017,7 @@ class Estimator:
               checkpoint_trigger: ZooTrigger | None = None,
               validation_set: FeatureSet | None = None,
               validation_trigger: ZooTrigger | None = None,
-              seed: int | None = None, plan=None):
+              seed: int | None = None, autotune=None, plan=None):
         """Train until ``end_trigger`` (default: ``nb_epoch`` more epochs,
         Keras continuation semantics; checked at each epoch boundary)
         with every step under ``plan`` (a ``ShardingPlan`` or name;
@@ -964,7 +1026,17 @@ class Estimator:
         across calls, so a second fit continues the moments and the step
         count.  With a checkpointer the fit saves at
         ``checkpoint_trigger`` (default ``EveryEpoch``), resumes from
-        ``LATEST`` and retries failures from it."""
+        ``LATEST`` and retries failures from it.
+
+        ``autotune``: ``True`` (or ``ZOO_AUTOTUNE=1``, which ``None``
+        defers to) turns on the closed-loop tuner (feature/autotune.py):
+        the train set goes through the prefetch plane (from the
+        configured knobs, or workers=1, depth=1 when prefetch is off and
+        the set has host work to hide) and a controller thread resizes it
+        online while the steps a dispatch hill-climb at dispatch
+        boundaries, the loss trajectory bit for bit K=1's.  An
+        ``AutotuneController`` instance is shared across fits (and keeps
+        running); ``False`` turns it off whatever the environment."""
         plan = self._resolve_plan(plan)
         # validation runs under the estimator's own plan, as in the
         # reference; resolved only when there is a validation set
@@ -998,21 +1070,33 @@ class Estimator:
         if resumed is not None:
             start, seed = self._resume(resumed, plan, params, opt_state,
                                        state)
+        train_set, controller, own_controller, attached_set = \
+            self._data_plane(train_set, autotune)
         read_ahead = None
         if isinstance(train_set, ShardedFeatureSet):
+            # a prefetched set reads ahead on its pipeline's pool instead
             from concurrent.futures import ThreadPoolExecutor
 
             read_ahead = ThreadPoolExecutor(1, thread_name_prefix="zoo-ra")
             train_set.set_read_ahead(read_ahead)
+        if controller is not None:
+            tag = "" if plan.name == "dp" else f"_{plan.name}"
+            controller.set_feature_label(f"train_step{tag}")
         run = _Run(self, train_set, batch_size, seed, plan, casts, k,
                    end_trigger, checkpoint_trigger, validation_set,
-                   validation_trigger, eval_plan, eval_casts)
+                   validation_trigger, eval_plan, eval_casts, controller)
         try:
             self._train_with_retries(run, start)
         finally:
             if read_ahead is not None:
                 train_set.set_read_ahead(None)
                 read_ahead.shutdown(wait=True)
+            if attached_set is not None:
+                # the attachment was for this fit only
+                attached_set._controller = None
+            if own_controller:
+                # a caller's controller keeps running across fits
+                controller.stop()
         # the buffers the last dispatch updated: a replay of a capture made
         # on other buffers (``warmup``'s) updates that capture's own
         params, opt_state, state = self._buffers
@@ -1024,6 +1108,47 @@ class Estimator:
             # be complete (and a deferred write error raised)
             self._ckpt._wait()
         return self
+
+    def _data_plane(self, train_set, autotune):
+        """The train set through the host data plane for one fit (the
+        reference's, estimator.py:1171-1220): (the set to iterate, the
+        autotune controller or None, whether this fit owns it, the
+        caller's prefetched set the controller was attached to or None).
+        With neither ``ZOO_PREFETCH_WORKERS`` nor autotune the set is
+        returned as it is and no thread is made."""
+        cfg = self.ctx.config
+        controller, own = None, False
+        auto = autotune if autotune is not None else cfg.autotune
+        if auto:
+            from analytics_zoo_tpu_torch.feature.autotune import (
+                AutotuneController,
+            )
+            if isinstance(auto, AutotuneController):
+                controller = auto
+            else:
+                controller = AutotuneController.from_config(cfg)
+                own = True
+        if not cfg.prefetch_workers and controller is None:
+            return train_set, None, False, None
+        from analytics_zoo_tpu_torch.feature.prefetch import (
+            PrefetchFeatureSet,
+            worth_prefetching,
+        )
+        if isinstance(train_set, PrefetchFeatureSet):
+            if controller is not None and train_set._controller is None:
+                # attached for this fit only: a later fit without autotune
+                # on the same set must not find this fit's controller
+                train_set._controller = controller
+                return train_set, controller, own, train_set
+        elif cfg.prefetch_workers or worth_prefetching(train_set):
+            # under autotune with prefetch off, from the worst case
+            # (workers=1, depth=1), and only for a set with host work to
+            # hide; an explicit ZOO_PREFETCH_WORKERS always wraps
+            train_set = PrefetchFeatureSet(
+                train_set,
+                depth=cfg.prefetch_depth if cfg.prefetch_workers else 1,
+                workers=cfg.prefetch_workers or 1, controller=controller)
+        return train_set, controller, own, None
 
     def _resume(self, resumed: dict, plan, params, opt_state, state):
         """Restore ``resumed`` (a checkpoint payload) into the fit's
@@ -1152,8 +1277,8 @@ class Estimator:
         return self._evaluate_with(params, state, val_set, batch_size,
                                    self.compute_casts(plan, params), plan)
 
-    def warmup(self, batch: dict, steps_per_dispatch: int | None = None,
-               plan=None) -> dict:
+    def warmup(self, batch: dict, device_transform=None,
+               steps_per_dispatch: int | None = None, plan=None) -> dict:
         """Capture the train steps before the first real batch (the
         reference's ``warmup``, estimator.py:1863-1940): the K=1 step and,
         when ``steps_per_dispatch`` (default: the context's
@@ -1161,9 +1286,11 @@ class Estimator:
         dispatch on ``batch`` (an example host batch ``{"x": ..., "y":
         ...}`` of the batch size fit will use) against fresh buffers: the
         model's parameters and the optimizer state are left untouched.  A
-        later ``fit`` under the same plan replays these captures.  Returns
-        ``{label: seconds}``, each dispatch's time to ready (on the card
-        its eager run and its capture; on the CPU the eager step)."""
+        later ``fit`` under the same plan replays these captures;
+        ``device_transform`` must be the one the train set carries
+        (``train_set.device_transform``: the step cache keys on it).
+        Returns ``{label: seconds}``, each dispatch's time to ready (on the
+        card its eager run and its capture; on the CPU the eager step)."""
         plan = self._resolve_plan(plan)
         k = self._steps_per_dispatch(steps_per_dispatch)
         params, state = self.model.build_params()
@@ -1175,7 +1302,7 @@ class Estimator:
             tree_map(torch.clone, state))
         out = {}
         for kk in sorted({1, k}):
-            step = self._train_step_for(kk, plan)
+            step = self._train_step_for(kk, plan, device_transform)
             t0 = time.perf_counter()
             res = step(params, opt_state, state,
                        self._keys(kk, device, self.ctx.seed, 0),
@@ -1186,24 +1313,70 @@ class Estimator:
         logger.info("warmup captured %s", out)
         return out
 
-    def eval_step(self, params, state, batch, casts=None) -> list:
+    def measure_pure_step(self, batch: dict, n_steps: int = 20,
+                          device_transform=None) -> float:
+        """Seconds a step of the K=1 train step (the fit's, through the
+        same cache, captured on the card) on a device-resident ``batch``,
+        averaged over ``n_steps`` after a warm step (the reference's
+        ``measure_pure_step``, estimator.py:1802): the "pure step" half of
+        an end-to-end against compute split, whose difference is the
+        infeed the feeder failed to hide.  It runs on copies of the
+        parameters, optimizer and model state, so the model is untouched.
+        The warm step's seconds (the capture, the first time a signature
+        is seen; 0.0 after) go to ``last_probe_warmup_seconds``."""
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        plan = self._resolve_plan()
+        params, state = self.model.build_params()
+        device = self.model.device
+        casts = self.compute_casts(plan, params)
+        params, opt_state, state = (
+            tree_map(torch.clone, params),
+            self.optimizer.in_layout(self.optimizer.init(params)),
+            tree_map(torch.clone, state))
+        step = self._train_step_for(1, plan, device_transform)
+        on_device = [_to_device(batch, device)]
+        args = (params, opt_state, state, self._keys(1, device, 0, 0),
+                on_device, casts)
+        seen = step._key(args, {}) in step._exes
+        t0 = time.perf_counter()
+        params, opt_state, state, loss = step(*args)
+        loss.tolist()  # ready: the warm step has run
+        self.last_probe_warmup_seconds = (
+            0.0 if seen else time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            params, opt_state, state, loss = step(
+                params, opt_state, state, self._keys(1, device, 0, i + 1),
+                on_device, casts)
+        loss.tolist()
+        return (time.perf_counter() - t0) / n_steps
+
+    def eval_step(self, params, state, batch, casts=None,
+                  device_transform=None) -> list:
         """One batch's statistics (the reference's ``eval_step``,
-        estimator.py:1053-1098): the forward with the compute casts of
+        estimator.py:1053-1098): ``device_transform`` first when there is
+        one, then the forward with the compute casts of
         ``casts`` (:meth:`compute_casts`; None: the context's
         ``compute_dtype``), predictions up to f32, the rows past
-        ``batch["n_valid"]`` (a device scalar) masked out, then the loss's
+        ``batch["n_valid"]`` (a device scalar; a batch without it, as a
+        sharded set yields, counts every row) masked out, then the loss's
         (sum, count) and each metric's ``batch_stats``, all on the
         device.  The state stays as stored (f32 running statistics)."""
         casts = casts or (None, self.ctx.compute_dtype)
         with torch.no_grad():
+            if device_transform is not None:
+                batch = device_transform(batch)
             preds, _ = self.model.forward(
                 _cast_params(params, casts),
                 cast_floats(batch["x"], casts[1]), state=state,
                 training=False)
             preds = cast_floats(preds, torch.float32)
             first = preds[0] if isinstance(preds, list) else preds
-            mask = (torch.arange(first.shape[0], device=first.device)
-                    < batch["n_valid"]).float()
+            mask = torch.ones(first.shape[0], device=first.device)
+            if "n_valid" in batch:
+                mask = (torch.arange(first.shape[0], device=first.device)
+                        < batch["n_valid"]).float()
             stats = []
             if self.loss is not None and "y" in batch:
                 per = self.loss(batch["y"], preds)
@@ -1218,9 +1391,12 @@ class Estimator:
         planned eval step (``step``, default :meth:`eval_step` under
         ``plan`` through ``compile_step``, captured on the card), its
         statistics summed on the device in batch order, ``finalize`` on
-        the host at the end."""
+        the host at the end; the set's ``device_transform`` runs inside the
+        step."""
         device = self.model.device
-        step = step or self._eval_step_for(self._resolve_plan(plan))
+        step = step or self._eval_step_for(
+            self._resolve_plan(plan),
+            getattr(val_set, "device_transform", None))
         accum = None
         for batch in val_set.batches(batch_size, shuffle=False,
                                      drop_last=False, pad_to_batch=1):
@@ -1250,8 +1426,13 @@ class _Run:
 
     def __init__(self, est, train_set, batch_size, seed, plan, casts, k,
                  end_trigger, checkpoint_trigger, validation_set,
-                 validation_trigger, eval_plan, eval_casts):
+                 validation_trigger, eval_plan, eval_casts, controller=None):
         self.est, self.train_set = est, train_set
+        # the autotune controller: K per chunk, a measured dispatch each
+        self.controller = controller
+        self.k_fn = controller.current_k if controller is not None \
+            else lambda: self.k
+        self.device_transform = getattr(train_set, "device_transform", None)
         self.batch_size, self.seed, self.plan, self.casts = (
             batch_size, seed, plan, casts)
         self.k, self.end_trigger = k, end_trigger
@@ -1332,13 +1513,18 @@ class _Run:
                                      dtype=torch.float32, device=device)
                 done = 0
                 bi = start_batch
+                batches = self.train_set.batches(
+                    self.batch_size, shuffle=True, seed=self.seed,
+                    epoch=epoch, drop_last=True, start_batch=start_batch)
+                # the infeed thread beats per chunk and while it waits on a
+                # full queue; it unregisters the component when it ends
+                health.register("infeed", stale_after=60.0)
                 feeder = _DeviceFeeder(
-                    _chunks(self.train_set.batches(
-                        self.batch_size, shuffle=True, seed=self.seed,
-                        epoch=epoch, drop_last=True,
-                        start_batch=start_batch), self.k),
+                    _chunks_dynamic(batches, self.k_fn),
                     lambda chunk: [_stage(b, pin) for b in chunk],
-                    depth=est.ctx.config.infeed_depth)
+                    depth=est.ctx.config.infeed_depth,
+                    heartbeat=lambda: health.heartbeat("infeed"),
+                    on_exit=lambda: health.unregister("infeed"))
                 try:
                     t_iter0 = time.perf_counter()
                     for chunk in feeder:
@@ -1349,7 +1535,8 @@ class _Run:
                         # shows in the ZOO_PROFILE_DIR trace
                         with span("zoo.train.step_dispatch"):
                             params, opt_state, state, out = \
-                                est._train_step_for(n, self.plan)(
+                                est._train_step_for(
+                                    n, self.plan, self.device_transform)(
                                     params, opt_state, state,
                                     est._keys(n, device, self.seed,
                                               est.global_step),
@@ -1373,6 +1560,9 @@ class _Run:
                         self._record_dispatch(
                             step_metrics, flight, straggler, health, epoch,
                             n, t_data - t_iter0, t_disp - t_data, step_s)
+                        if self.controller is not None:
+                            # one measured dispatch for the K hill-climb
+                            self.controller.observe_dispatch(n, step_s)
                         t_iter0 = time.perf_counter()
                 finally:
                     feeder.stop()

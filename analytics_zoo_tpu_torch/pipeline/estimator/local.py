@@ -30,7 +30,7 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
 )
 from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
     Estimator,
-    _chunks,
+    _chunks_dynamic,
     _to_device,
 )
 
@@ -70,8 +70,9 @@ class LocalEstimator:
         history = []
         for epoch in range(epochs):
             last = None
-            for chunk in _chunks(fs.batches(batch_size, shuffle=True,
-                                            seed=seed, epoch=epoch), k):
+            for chunk in _chunks_dynamic(
+                    fs.batches(batch_size, shuffle=True, seed=seed,
+                               epoch=epoch), lambda: k):
                 n = len(chunk)
                 params, opt_state, state, out = est._train_step_for(
                     n, plan)(params, opt_state, state,

@@ -3,16 +3,17 @@
 The port's own copy of ``analytics_zoo_tpu/tensorboard/record.py`` (which
 imports no JAX): the handful of proto fields TensorBoard reads, encoded by
 hand, so summaries need no tensorflow, with the reference's bytes
-(``encode_event``, the masked CRC32C framing).  The CRC is the pure-Python
-table; the loader of the reference's native library
-(``native/zoonative.cpp``) comes with the host data plane (ROADMAP queue 1
-item 16).
+(``encode_event``, the masked CRC32C framing).  The CRC comes from the
+port's native host library (``analytics_zoo_tpu_torch.native``) when it is
+built, as in the reference; the pure-Python table is always there.
 """
 
 from __future__ import annotations
 
 import struct
 import time
+
+from analytics_zoo_tpu_torch import native as _native
 
 # ---------------------------------------------------------------------------
 # CRC32C (Castagnoli), table-driven
@@ -35,6 +36,9 @@ def _crc32c_py(data: bytes, crc: int = 0) -> int:
 
 
 def crc32c(data: bytes) -> int:
+    # ``lib`` is read per call, so a library built later is used
+    if _native.lib is not None:
+        return _native.lib.crc32c(data)
     return _crc32c_py(data)
 
 

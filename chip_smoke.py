@@ -6425,23 +6425,15 @@ def idle_share(tag, server, db, records, card_line, run_kwargs) -> float:
         _, _, out = serve_stream(tag, server, db, records, card_line,
                                  run_kwargs)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, reach = 0.0, None
-    for a, b in spans:  # the union of the device intervals
-        if reach is None or a > reach:
-            busy_us, reach = busy_us + b - a, b
-        elif b > reach:
-            busy_us, reach = busy_us + b - reach, b
+    busy_us, n_spans = device_union_us(cuda_spans(prof))
     window_ms = out["window_s"] * 1e3
-    if not spans:
+    if not n_spans:
         log(f"cluster_serving {tag}: idle share not measured (the trace "
             f"shows no device activity) ({card_line})")
         return float("nan")
     idle = max(0.0, 1 - busy_us / 1e3 / window_ms)
     log(f"cluster_serving {tag}: device busy {busy_us / 1e3:.1f} ms "
-        f"({len(spans)} traced kernels and copies) over a "
+        f"({n_spans} traced kernels and copies) over a "
         f"{window_ms:.1f} ms served window: idle {idle:.1%} "
         f"({card_line})")
     return idle
@@ -6919,6 +6911,783 @@ def instrumented_fit_phase(card_line: str) -> dict:
     return launches
 
 
+# the image data plane: npz and TFRecord shards, the host transforms on the
+# native library, the prefetch pool and autotune, uint8 batches normalized
+# inside the captured step, and ImageClassifier
+DP_SHARDS, DP_PER_SHARD = 16, 96           # 1536 (224, 224, 3) npz images
+DP_TF_SHARDS, DP_TF_PER_SHARD = 8, 128     # 1024 (256, 256, 3) raw records
+DP_SKIP = 4                                # dispatches before the window
+DP_TF_SIDE = 256
+DP_WORKERS = 4
+DP_NATIVE_BATCH = 64
+IMAGENET_MEAN = (123.68, 116.779, 103.939)
+IMAGENET_STD = (58.393, 57.12, 57.375)
+AT_SHARDS, AT_PER_SHARD, AT_BATCH, AT_EPOCHS = 16, 96, 16, 4
+AT_SHARD_SLEEP_S, AT_RECORD_SLEEP_S = 0.015, 0.0002
+AT_K_LADDER = (1, 2, 4, 8, 16)
+CLF_IMAGES, CLF_SIDE = 32, 300
+CLF_PROB_TOL = 1e-4
+
+
+class _NoCv2:
+    """``import cv2`` raises inside the block, as on a host without it:
+    the image ops take their numpy paths."""
+
+    def __enter__(self):
+        self.saved = sys.modules.get("cv2", _NoCv2)
+        sys.modules["cv2"] = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is _NoCv2:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = self.saved
+        return False
+
+
+def stream_digest(batches) -> tuple[str, int]:
+    """A sha256 over every array of every batch in order, and the count."""
+    import hashlib
+
+    h, n = hashlib.sha256(), 0
+    for b in batches:
+        for k in sorted(b):
+            for a in (b[k] if isinstance(b[k], list) else [b[k]]):
+                a = np.ascontiguousarray(a)
+                h.update(f"{k}{a.dtype}{a.shape}".encode())
+                h.update(a.tobytes())
+        n += 1
+    return h.hexdigest(), n
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """The best host clock of ``reps`` calls of ``fn``, in ms."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def native_checks(card_line: str) -> None:
+    """(a): the host library built from the port's copy and loaded, then
+    crc32c, the crop-and-flip batch assembly and the bilinear resize held
+    against their numpy paths (bit for bit; the resize within 1, its own
+    contract), and each timed on a 64-image batch."""
+    from analytics_zoo_tpu_torch import native
+    from analytics_zoo_tpu_torch.feature.image import transforms as tf
+    from analytics_zoo_tpu_torch.tensorboard import record
+
+    t0 = time.perf_counter()
+    lib = native.build_native(force=True)
+    if lib is None or native.lib is None:
+        raise AssertionError("the native host library did not build or "
+                             "load from analytics_zoo_tpu_torch/native")
+    log(f"image data plane (a): native library built in "
+        f"{time.perf_counter() - t0:.1f} s and loaded from {lib.path}")
+    gen = np.random.default_rng(SEED + 230)
+    blob = gen.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    crc_ok = all(lib.crc32c(b) == record._crc32c_py(b)
+                 for b in (b"", b"a", blob[:7], blob[:4097], blob))
+    src = [gen.integers(0, 256, (DP_TF_SIDE, DP_TF_SIDE, 3), dtype=np.uint8)
+           for _ in range(DP_NATIVE_BATCH)]
+    side = RESNET_SHAPE[0]
+    crop_rng = np.random.default_rng(SEED + 231)
+    offsets = crop_rng.integers(0, DP_TF_SIDE - side + 1,
+                                (DP_NATIVE_BATCH, 2)).astype(np.int32)
+    flips = crop_rng.random(DP_NATIVE_BATCH) < 0.5
+
+    def assemble():
+        return tf.assemble_crop_batch(src, side, side, offsets=offsets,
+                                      flips=flips)
+
+    nat = assemble()
+    ms_nat = host_ms(assemble)
+    native.lib = None
+    try:
+        ref = assemble()
+        ms_np = host_ms(assemble)
+    finally:
+        native.lib = lib
+    big = np.stack([gen.integers(0, 256, (CLF_SIDE, CLF_SIDE, 3),
+                                 dtype=np.uint8)
+                    for _ in range(DP_NATIVE_BATCH)])
+    r_nat = tf.resize_batch(big, 256, 256)
+    r_ms_nat = host_ms(lambda: tf.resize_batch(big, 256, 256))
+    op = tf.ImageResize(256, 256)
+    with _NoCv2():
+        r_np = np.stack([op(im) for im in big])
+        r_ms_np = host_ms(lambda: [op(im) for im in big], reps=1)
+    resize_diff = int(np.abs(r_nat.astype(np.int16)
+                             - r_np.astype(np.int16)).max())
+    log(f"image data plane (a): crc32c equal to the Python table {crc_ok}; "
+        f"assemble_batch of {DP_NATIVE_BATCH} {DP_TF_SIDE}x{DP_TF_SIDE} "
+        f"images to {side} with flips equal bit for bit "
+        f"{np.array_equal(nat, ref)}: {ms_nat:.2f} ms on C++ threads, "
+        f"{ms_np:.2f} ms numpy; resize_bilinear of {DP_NATIVE_BATCH} "
+        f"{CLF_SIDE}x{CLF_SIDE} to 256 within {resize_diff} of ImageResize's "
+        f"numpy path: {r_ms_nat:.2f} ms on C++ threads, {r_ms_np:.2f} ms "
+        f"numpy ({card_line})")
+    if not crc_ok or not np.array_equal(nat, ref) or resize_diff > 1:
+        raise AssertionError("the native host library disagrees with the "
+                             "numpy paths")
+
+
+def write_image_shards(tmp, gen):
+    """The seeded shards: DP_SHARDS npz of uint8 (224, 224, 3) images with
+    int32 labels, and DP_TF_SHARDS TFRecords of raw uint8 (256, 256, 3)
+    records.  Returns (npz paths, tfrecord paths, all npz images, labels)."""
+    import os
+
+    from analytics_zoo_tpu_torch.feature.tfrecord import (
+        encode_example,
+        write_tfrecord_file,
+    )
+
+    for sub in ("npz", "tfrecord"):
+        os.makedirs(os.path.join(tmp, sub), exist_ok=True)
+    npz, xs, ys = [], [], []
+    for i in range(DP_SHARDS):
+        x = gen.integers(0, 256, (DP_PER_SHARD,) + RESNET_SHAPE,
+                         dtype=np.uint8)
+        y = gen.integers(0, RESNET_CLASSES, DP_PER_SHARD).astype(np.int32)
+        path = os.path.join(tmp, "npz", f"train-{i:02d}.npz")
+        np.savez(path, x=x, y=y)
+        npz.append(path)
+        xs.append(x)
+        ys.append(y)
+    tfr = []
+    for i in range(DP_TF_SHARDS):
+        path = os.path.join(tmp, "tfrecord", f"raw-{i:02d}.tfrecord")
+        write_tfrecord_file(path, [
+            encode_example({
+                "image/raw": gen.integers(
+                    0, 256, (DP_TF_SIDE, DP_TF_SIDE, 3),
+                    dtype=np.uint8).tobytes(),
+                "image/class/label": [int(gen.integers(RESNET_CLASSES))]})
+            for _ in range(DP_TF_PER_SHARD)])
+        tfr.append(path)
+    return npz, tfr, np.concatenate(xs), np.concatenate(ys)
+
+
+def raw_record(fm):
+    """A TFRecord's raw pixels and label (the card has no JPEG decoder)."""
+    return (np.frombuffer(fm["image/raw"][0], np.uint8).reshape(
+        DP_TF_SIDE, DP_TF_SIDE, 3), np.int32(fm["image/class/label"][0]))
+
+
+def normalize_on_device(fs):
+    """``fs`` with the ImageNet normalization attached on the device: the
+    uint8 batch crosses to the card and becomes f32 inside the step."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.engine import get_zoo_context
+
+    device = get_zoo_context().device
+    mean = torch.tensor(IMAGENET_MEAN, device=device)
+    inv = 1.0 / torch.tensor(IMAGENET_STD, device=device)
+    return fs.transform_on_device(
+        lambda b: {**b, "x": (b["x"].float() - mean) * inv})
+
+
+def stream_identity(npz, tfr, chain_ops, card_line):
+    """(b): the npz stream through imagenet_feature_set and from_shards as
+    DISK_2, serial against 4 prefetch workers; the TFRecord stream with the
+    random crop and flip, serial against one worker."""
+    import os
+
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.feature.imagenet import imagenet_feature_set
+
+    kw = dict(batch_size=RESNET_BATCH, shuffle=True, seed=SEED, epoch=1)
+    disk2 = FeatureSet.from_shards(npz, memory_type="DISK_2")
+    t0 = time.perf_counter()
+    serial = stream_digest(disk2.batches(**kw))
+    t_serial = time.perf_counter() - t0
+    via_dir = stream_digest(imagenet_feature_set(os.path.dirname(npz[0]))
+                            .batches(**kw))
+    t0 = time.perf_counter()
+    pooled = stream_digest(disk2.prefetch(depth=4, workers=DP_WORKERS)
+                           .batches(**kw))
+    t_pooled = time.perf_counter() - t0
+    tf_set = FeatureSet.from_tfrecord(tfr, raw_record, "DISK_2").transform(
+        chain_ops[0] >> chain_ops[1])
+    digests = []
+    for workers in (None, 1):
+        for op in chain_ops:
+            op._counter = 0
+        src = tf_set if workers is None else tf_set.prefetch(4, workers)
+        digests.append(stream_digest(src.batches(**kw)))
+    for op in chain_ops:
+        op._counter = 0
+    alone = {}
+    for name, src in (("npz", disk2), ("tfrecord", tf_set)):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in src.batches(**kw))
+        alone[name] = (time.perf_counter() - t0) * 1e3 / n
+    log(f"image data plane (b): one thread alone, the batches only (no "
+        f"digest, no fit): npz DISK_2 {alone['npz']:.2f} ms a batch, "
+        f"TFRecord crop+flip {alone['tfrecord']:.2f} ms a batch "
+        f"({card_line})")
+    log(f"image data plane (b): npz DISK_2 stream {serial[1]} batches "
+        f"serial {serial[0][:16]} ({t_serial * 1e3:.0f} ms), "
+        f"imagenet_feature_set {via_dir[0][:16]}, {DP_WORKERS} prefetch "
+        f"workers {pooled[0][:16]} ({t_pooled * 1e3:.0f} ms); TFRecord "
+        f"crop+flip {digests[0][1]} batches serial {digests[0][0][:16]}, "
+        f"one worker {digests[1][0][:16]} ({card_line})")
+    if not (serial == via_dir == pooled) or digests[0] != digests[1]:
+        raise AssertionError("the prefetched streams are not the serial "
+                             "ones")
+    return disk2, tf_set
+
+
+def cuda_spans(prof) -> list:
+    """(name, start, end) in us of the card's kernels and copies in a
+    finished torch.profiler trace, its GPU user annotations (the spans of
+    ``record_function``) left out; read from the raw kineto events, since
+    building the event tree of a long trace takes seconds."""
+    import torch
+
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
+def device_union_us(spans, lo: float = -float("inf"),
+                    hi: float = float("inf")) -> tuple[float, int]:
+    """The union of ``spans`` (:func:`cuda_spans`) clipped to [``lo``,
+    ``hi``] us, and the count of those that reach into it."""
+    inside = sorted((max(a, lo), min(b, hi)) for _, a, b in spans
+                    if b > lo and a < hi)
+    busy, reach = 0.0, None
+    for a, b in inside:
+        if reach is None or a > reach:
+            busy, reach = busy + b - a, b
+        elif b > reach:
+            busy, reach = busy + b - reach, b
+    return busy, len(inside)
+
+
+def steady_window(spans, records, skip: int, steps: int) -> dict:
+    """The steady part of a fit of ``steps`` steps, after its first
+    ``skip``: the data plane's start (the pool, the first shard loads, the
+    feeder's fill) and the first dispatches are outside it.  On the host,
+    from the fit's ``step`` flight records (one a dispatch, taken as it
+    ends): the clock a step from the ``skip``-th record to the last, and
+    the medians of the dispatch span (``zoo.train.step_dispatch``) and
+    of the wait for data.  On the card, from a trace of the same fit
+    (:func:`cuda_spans`): from the end of step ``skip``'s fused Adam
+    kernel (one a step, the end of its update) to the end of the last
+    one, so that work queued before the window stays outside it; the
+    clock a step there, the busy ms (the union of the kernels and copies)
+    and the idle share."""
+    if len(records) != steps:
+        raise AssertionError(f"{len(records)} step records, expected "
+                             f"{steps}")
+    later = records[skip:]
+    adam = sorted(b for name, _, b in spans if "adam_multi_kernel" in name)
+    if len(adam) < skip + 2:
+        raise AssertionError(f"the trace holds {len(adam)} fused Adam "
+                             f"kernels of {steps} steps")
+    lo, hi = adam[skip - 1], adam[-1]
+    busy, _ = device_union_us(spans, lo, hi)
+    # the steps on the card's side: a kernel the trace dropped shows as a
+    # gap of two steps
+    gaps = np.diff(adam[skip - 1:])
+    on_card = int(sum(max(1, round(g / np.median(gaps))) for g in gaps))
+    return {"steps": len(later),
+            "host_ms": (records[-1]["mono"] - records[skip - 1]["mono"])
+            * 1e3 / len(later),
+            "span_ms": float(np.median([r["dispatch_s"] for r in later]))
+            * 1e3,
+            "wait_ms": float(np.median([r["data_wait_s"] for r in later]))
+            * 1e3,
+            "adam_traced": len(adam), "card_steps": on_card,
+            "card_ms": (hi - lo) / 1e3 / on_card,
+            "busy_ms": busy / 1e3 / on_card,
+            "idle": 1 - busy / (hi - lo)}
+
+
+def uint8_fit(tag, make, fs, steps, plan, card_line, env=None) -> dict:
+    """A fresh model (``make()``) whose train step ``warmup`` captures on
+    ``fs``'s first batch, then trained one epoch on ``fs`` under ``plan``
+    with ``env`` set (the prefetch knobs), every step a replay, under a
+    torch.profiler trace of the card.  Logs, over the epoch's steady
+    window (:func:`steady_window`, after DP_SKIP steps), the card's clock
+    a step (one step's end to the next's) and images/s, its busy time and
+    idle share, the host's dispatch cadence, the fit thread's dispatch
+    span and its wait for data; the whole epoch's clock a step, the data
+    plane's start included; one replay's device time and the bytes a step sends to the
+    card.  The trace's own cost falls inside the window.  Returns the
+    trained model, its Adam launches and the numbers."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.metrics import get_flight_recorder
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+
+    t_fit = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    flight = get_flight_recorder()
+    batch = next(iter(fs.batches(RESNET_BATCH, shuffle=False)))
+    try:
+        net = make()
+        net._estimator = net._make_estimator()
+        before = fad.launch_count
+        net._estimator.warmup(batch, device_transform=fs.device_transform,
+                              plan=plan)
+        torch.cuda.synchronize()
+        flight.clear()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.fit(fs, batch_size=RESNET_BATCH, nb_epoch=1, plan=plan)
+            torch.cuda.synchronize()
+            epoch = (time.perf_counter() - t0) * 1e3 / steps
+        adam = fad.launch_count - before
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    t_trace = time.perf_counter()
+    win = steady_window(cuda_spans(prof),
+                        [r for r in flight.events("step")
+                         if r.get("loop") == "train"], DP_SKIP, steps)
+    t_trace = time.perf_counter() - t_trace
+    est = net._estimator
+    graph = graph_of(est._train_step_for(1, est._resolve_plan(plan),
+                                         fs.device_transform))
+    dev = replay_ms(graph)
+    h2d = sum(np.asarray(v).nbytes for v in batch.values())
+    log(f"image data plane (c) {tag}: steady window after {DP_SKIP} "
+        f"steps: on the card a step every {win['card_ms']:.2f} ms over "
+        f"{win['card_steps']} steps, "
+        f"{RESNET_BATCH / win['card_ms'] * 1e3:.1f} images/s, busy "
+        f"{win['busy_ms']:.2f} ms a step, idle {win['idle']:.1%} (traced; "
+        f"{win['adam_traced']} of {steps} Adam kernels in the trace); on "
+        f"the host a dispatch every {win['host_ms']:.2f} ms over "
+        f"{win['steps']}, the fit thread's dispatch span "
+        f"{win['span_ms']:.2f} ms, wait for data {win['wait_ms']:.3f} ms "
+        f"(medians); the whole epoch {epoch:.2f} ms a "
+        f"step (start-up included); one replay {dev:.2f} ms; {h2d} B to "
+        f"the card a step ({batch['x'].dtype} x); fused Adam launches "
+        f"{adam} over the warmup's step and {steps} steps; "
+        f"{time.perf_counter() - t_fit:.1f} s, {t_trace:.1f} s of it "
+        f"reading the trace ({card_line})")
+    if adam != steps + 1:
+        raise AssertionError(f"{tag}: {adam} Adam launches, expected "
+                             f"{steps + 1}")
+    return {"net": net, "step_ms": win["card_ms"], "dev_ms": dev,
+            "adam": adam, "idle": win["idle"]}
+
+
+def resnet_from_shards(disk2, tf_set, chain_ops, x, y, card_line) -> int:
+    """(c): ResNet-50 bf16 under Adam from the npz shards with the
+    normalization inside the captured step, prefetch off and with 4
+    workers, bit for bit; the f32 host-normalized resident set as the
+    yardstick; the TFRecord crop+flip chain off and with one worker, bit
+    for bit.  Returns the fused Adam launches."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.models import ResNet
+    from analytics_zoo_tpu_torch.parallel import mixed_precision
+
+    init_zoo_context(seed=SEED, device="cuda")
+    first = ResNet.image_net(50, classes=RESNET_CLASSES,
+                             input_shape=RESNET_SHAPE)
+    first.build_params()
+    weights = (first.params, first.state)
+
+    def make():
+        ctx = init_zoo_context(seed=SEED, device="cuda")
+        net = ResNet.image_net(50, classes=RESNET_CLASSES,
+                               input_shape=RESNET_SHAPE)
+        net.device = ctx.device
+        net.params = tree_map(torch.clone, weights[0])
+        net.state = tree_map(torch.clone, weights[1])
+        net.compile(optimizer="adam",
+                    loss="sparse_categorical_crossentropy")
+        return net
+
+    plan = mixed_precision()
+    steps = DP_SHARDS * DP_PER_SHARD // RESNET_BATCH
+    npz_set = normalize_on_device(disk2)
+    runs = {}
+    for tag, env in (("npz, prefetch off", {"ZOO_PREFETCH_WORKERS": "0"}),
+                     (f"npz, {DP_WORKERS} prefetch workers",
+                      {"ZOO_PREFETCH_WORKERS": str(DP_WORKERS)})):
+        runs[tag] = uint8_fit(tag, make, npz_set, steps, plan, card_line,
+                              env)
+    (ta, a), (tb, b) = runs.items()
+    same = (a["net"]._estimator.loss_log == b["net"]._estimator.loss_log,
+            differing(trained(a["net"]), trained(b["net"])))
+    log(f"image data plane (c): {ta} against {tb}: losses equal "
+        f"{same[0]}, parameters, Adam moments and BatchNorm state "
+        f"{'bit for bit' if not same[1] else 'differ at ' + str(same[1][:8])}")
+    if not same[0] or same[1]:
+        raise AssertionError("ResNet-50 from shards differs with prefetch")
+    losses = [v for _, v in a["net"]._estimator.loss_log]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ResNet-50 from shards: losses {losses}")
+    launches = a["adam"] + b["adam"] + another_transform(
+        a["net"], disk2, steps, plan, card_line)
+    del runs, a, b
+    free_device_memory("after image data plane npz fits")
+    mean = np.asarray(IMAGENET_MEAN, np.float32)
+    std = np.asarray(IMAGENET_STD, np.float32)
+    host_set = FeatureSet.of((x.astype(np.float32) - mean) / std, y)
+    yard = uint8_fit("f32 host-normalized resident set (yardstick)", make,
+                     host_set, steps, plan, card_line)
+    launches += yard["adam"]
+    del yard, host_set
+    free_device_memory("after image data plane yardstick")
+    tf_steps = DP_TF_SHARDS * DP_TF_PER_SHARD // RESNET_BATCH
+    tf_norm = normalize_on_device(tf_set)
+    runs = {}
+    for tag, env in (("TFRecord crop+flip, prefetch off",
+                      {"ZOO_PREFETCH_WORKERS": "0"}),
+                     ("TFRecord crop+flip, one prefetch worker",
+                      {"ZOO_PREFETCH_WORKERS": "1"})):
+        for op in chain_ops:
+            op._counter = 0
+        runs[tag] = uint8_fit(tag, make, tf_norm, tf_steps, plan, card_line,
+                              env)
+    (ta, a), (tb, b) = runs.items()
+    off = differing(trained(a["net"]), trained(b["net"]))
+    same = a["net"]._estimator.loss_log == b["net"]._estimator.loss_log
+    log(f"image data plane (c): {ta} against {tb}: losses equal {same}, "
+        f"trees {'bit for bit' if not off else 'differ at ' + str(off[:8])}")
+    if not same or off:
+        raise AssertionError("ResNet-50 from TFRecords differs with "
+                             "prefetch")
+    launches += a["adam"] + b["adam"]
+    del runs, a, b, first, weights
+    free_device_memory("after image data plane TFRecord fits")
+    return launches
+
+
+def another_transform(net, fs, steps, plan, card_line) -> int:
+    """One more epoch of a trained model on the same shards under another
+    device transform (x / 255): a new train step, captured anew, while the
+    old transform's capture is left as it was.  Returns the Adam
+    launches."""
+    import torch
+
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+
+    est = net._estimator
+    resolved = est._resolve_plan(plan)
+    old = est._train_step_for(1, resolved, fs.device_transform)
+    old_exes = dict(old._exes)
+    other = FeatureSet.from_shards(fs.paths, "DISK_2").transform_on_device(
+        lambda b: {**b, "x": b["x"].float() * (1.0 / 255)})
+    before = fad.launch_count
+    net.fit(other, batch_size=RESNET_BATCH, nb_epoch=1, plan=plan)
+    torch.cuda.synchronize()
+    new = est._train_step_for(1, resolved, other.device_transform)
+    fresh = new is not old and any(e is not None
+                                   for e in new._exes.values())
+    kept = old._exes == old_exes
+    launched = fad.launch_count - before
+    losses = [v for _, v in est.loss_log[-steps:]]
+    log(f"image data plane (c): another transform on the trained model: "
+        f"its own capture {fresh}, the first transform's capture "
+        f"untouched {kept}, losses finite {bool(np.isfinite(losses).all())}, "
+        f"Adam launches {launched} over {steps} steps ({card_line})")
+    if not (fresh and kept and np.isfinite(losses).all()):
+        raise AssertionError("another device transform did not capture "
+                             "anew")
+    if launched != steps:
+        raise AssertionError(f"another transform: {launched} Adam "
+                             f"launches, expected {steps}")
+    return launched
+
+
+class _SlowShards:
+    """A shard loader that sleeps AT_SHARD_SLEEP_S before ``np.load``, and
+    a per-record transform that sleeps AT_RECORD_SLEEP_S: host work the
+    autotune controller can see and grow the pool against."""
+
+    @staticmethod
+    def load(path):
+        time.sleep(AT_SHARD_SLEEP_S)
+        data = np.load(path)
+        return {k: data[k] for k in data.files}
+
+    @staticmethod
+    def record(img):
+        time.sleep(AT_RECORD_SLEEP_S)
+        return img
+
+
+def pool_bytes() -> dict:
+    """Bytes of device memory each private pool (CUDA graph pool) holds,
+    from the allocator's snapshot; {} where it does not say."""
+    import collections
+
+    import torch
+
+    out = collections.Counter()
+    for seg in torch.cuda.memory_snapshot():
+        pool = seg.get("segment_pool_id")
+        if pool is not None and tuple(pool) != (0, 0):
+            out[tuple(pool)] += seg["total_size"]
+    return dict(out)
+
+
+def ladder_launches() -> int:
+    """The fused Adam launches of the K ladder's warmups: each warmup at K
+    dispatches the K=1 step and the K-step one once (one dispatch when K
+    is 1), each step one launch, whether the dispatch is a capture's eager
+    run or a replay."""
+    return sum(sum({1, k}) for k in AT_K_LADDER)
+
+
+def image_plane_launches() -> int:
+    """The fused Adam launches the phase's fits must make, one a step:
+    the warmup's step and an epoch of each ResNet-50 fit from the npz
+    shards (prefetch off, DP_WORKERS workers, the f32 yardstick), one
+    epoch under another transform, the warmup's step and an epoch of each
+    TFRecord fit (off, one worker), the autotuned and the untuned LeNet-5,
+    and the K ladder's warmups."""
+    npz = DP_SHARDS * DP_PER_SHARD // RESNET_BATCH
+    tfr = DP_TF_SHARDS * DP_TF_PER_SHARD // RESNET_BATCH
+    lenet = AT_EPOCHS * AT_SHARDS * AT_PER_SHARD // AT_BATCH
+    return (3 * (npz + 1) + npz + 2 * (tfr + 1) + 2 * lenet
+            + ladder_launches())
+
+
+def autotune_lenet(tmp, card_line) -> int:
+    """(d): LeNet-5 under Adam from npz shards with a slow loader, through
+    ``fit(autotune=True)``: the loss trajectory equals the untuned K=1
+    fit's; the zoo_autotune_* gauges, the decision log, the K values
+    captured and the graph pools' bytes.  Then one capture at each K of
+    the ladder through ``warmup`` and the reserved bytes each adds.
+    Returns the fused Adam launches."""
+    import os
+
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.autotune import AutotuneController
+    from analytics_zoo_tpu_torch.feature.common import FnPreprocessing
+    from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
+    from analytics_zoo_tpu_torch.metrics import get_registry, prometheus_text
+    from analytics_zoo_tpu_torch.models import build_lenet
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+
+    gen = np.random.default_rng(SEED + 232)
+    paths = []
+    for i in range(AT_SHARDS):
+        path = os.path.join(tmp, f"lenet-{i:02d}.npz")
+        np.savez(path, x=gen.integers(0, 256, (AT_PER_SHARD, 28, 28, 1),
+                                      dtype=np.uint8),
+                 y=gen.integers(0, 10, AT_PER_SHARD).astype(np.int32))
+        paths.append(path)
+
+    def fit(autotune):
+        ctx = init_zoo_context({"autotune_interval": 0.05}, seed=SEED,
+                               device="cuda")
+        net = build_lenet()
+        net.build_params(rng=torch.Generator().manual_seed(SEED),
+                         device=ctx.device)
+        net.compile(optimizer="adam",
+                    loss="sparse_categorical_crossentropy")
+        fs = FeatureSet.from_shards(paths, "DISK_2", loader=_SlowShards.load)
+        fs = fs.transform(FnPreprocessing(_SlowShards.record))
+        fs = fs.transform_on_device(
+            lambda b: {**b, "x": b["x"].float() * (1.0 / 255)})
+        ctrl = AutotuneController.from_config(ctx.config) if autotune \
+            else False
+        before = fad.launch_count
+        t0 = time.perf_counter()
+        net.fit(fs, batch_size=AT_BATCH, nb_epoch=AT_EPOCHS, autotune=ctrl)
+        torch.cuda.synchronize()
+        return (net, ctrl, fad.launch_count - before,
+                time.perf_counter() - t0)
+
+    plain, _, l_plain, s_plain = fit(False)
+    tuned, ctrl, l_tuned, s_tuned = fit(True)
+    ctrl.stop()
+    steps = AT_EPOCHS * AT_SHARDS * AT_PER_SHARD // AT_BATCH
+    same = plain._estimator.loss_log == tuned._estimator.loss_log
+    gauges = [line for line in prometheus_text(get_registry()).splitlines()
+              if line.startswith("zoo_autotune")]
+    est = tuned._estimator
+    ks = sorted(k[0] for k in est._steps if k[0] is not None)
+    pools = pool_bytes()
+    log(f"image data plane (d): autotuned LeNet-5 over {steps} steps "
+        f"({s_tuned:.1f} s, untuned {s_plain:.1f} s): loss trajectory "
+        f"equal to K=1's {same}; Adam launches {l_tuned} / {l_plain}; "
+        f"controller {ctrl.current()}")
+    log(f"image data plane (d): gauges {gauges}")
+    log(f"image data plane (d): decisions "
+        + json.dumps([{k: d[k] for k in ('knob', 'old', 'new', 'reason')}
+                      for d in ctrl.decision_log()]))
+    log(f"image data plane (d): K values captured {ks}; graph pools' bytes "
+        f"{sorted(pools.values()) if pools else 'not reported'}")
+    if not same or l_tuned != steps or l_plain != steps:
+        raise AssertionError("the autotuned fit is not the K=1 fit")
+    sizes = {}
+    warm = build_lenet()
+    warm.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+    warm.build_params()
+    warm._estimator = warm._make_estimator()
+    batch = {"x": np.zeros((AT_BATCH, 28, 28, 1), np.float32),
+             "y": np.zeros(AT_BATCH, np.int32)}
+    before = fad.launch_count
+    for k in AT_K_LADDER:
+        torch.cuda.synchronize()
+        pools = pool_bytes()
+        warm._estimator.warmup(batch, steps_per_dispatch=k)
+        torch.cuda.synchronize()
+        sizes[k] = sum(b for p, b in pool_bytes().items() if p not in pools)
+    warm_launches = fad.launch_count - before
+    log(f"image data plane (d): bytes of the graph pool each K's capture "
+        f"through warmup makes: {sizes}; its {warm_launches} Adam launches, "
+        f"expected {ladder_launches()} ({card_line})")
+    if warm_launches != ladder_launches():
+        raise AssertionError(f"the K ladder's warmups: {warm_launches} "
+                             f"Adam launches, expected {ladder_launches()}")
+    launched = l_plain + l_tuned + warm_launches
+    del plain, tuned, warm
+    return launched
+
+
+def image_classifier_check(card_line: str) -> None:
+    """(e): ImageClassifier("resnet-50") answers predict_image_set on 32
+    seeded uint8 (300, 300, 3) images through its default chain (resize
+    256, center crop 224, ImageChannelNormalize on the native library):
+    the top-5 labels equal those of the same weights on the CPU and the
+    probabilities within CLF_PROB_TOL.  The moving statistics are set to
+    the batch's first (recalibrate_batchnorm), so the softmax is not
+    saturated."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.utils import tree_map
+    from analytics_zoo_tpu_torch.feature.image import ImageSet
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.normalization \
+        import recalibrate_batchnorm
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        ImageClassifier,
+    )
+
+    try:
+        import cv2
+        path = f"cv2 {cv2.__version__}"
+    except ImportError:
+        path = "numpy (no cv2 on this host)"
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} importable"
+    except ImportError:
+        pil = "no PIL on this host"
+    gen = np.random.default_rng(SEED + 233)
+    images = ImageSet.from_arrays(
+        gen.integers(0, 256, (CLF_IMAGES, CLF_SIDE, CLF_SIDE, 3),
+                     dtype=np.uint8))
+    init_zoo_context(seed=SEED, device="cuda")
+    clf = ImageClassifier("resnet-50")
+    t0 = time.perf_counter()
+    x = images.transform(clf.config.preprocessing()).to_feature_set().xs[0]
+    chain_ms = (time.perf_counter() - t0) * 1e3 / CLF_IMAGES
+    clf.model.build_params()
+    recalibrate_batchnorm(clf.model, x)
+    clf.predict_image_set(images)  # the capture of the request
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = clf.predict_image_set(images)
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    clf.model.predict(x, batch_size=CLF_IMAGES)
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    init_zoo_context(seed=SEED, device="cpu")
+    ref = ImageClassifier("resnet-50")
+    ref.model.device = torch.device("cpu")
+    ref.model.params = tree_map(lambda t: t.cpu(), clf.model.params)
+    ref.model.state = tree_map(lambda t: t.cpu(), clf.model.state)
+    want = ref.predict_image_set(images)
+    labels = [[n for n, _ in row] for row in got] == \
+        [[n for n, _ in row] for row in want]
+    err = max(abs(p - q) for g, w in zip(got, want)
+              for (_, p), (_, q) in zip(g, w))
+    log(f"image data plane (e): ImageClassifier('resnet-50') on "
+        f"{CLF_IMAGES} {CLF_SIDE}x{CLF_SIDE} images: the chain (resize by "
+        f"{path}, crop, native normalize; {pil}) {chain_ms:.2f} ms an image "
+        f"on the host; predict_image_set {pred_ms:.1f} ms, of it the "
+        f"model's predict {fwd_ms:.1f} ms; top-5 labels equal the "
+        f"CPU's {labels}, probabilities within {err:.2e} (tol "
+        f"{CLF_PROB_TOL:g}); top-1 of the first {got[0][0]} ({card_line})")
+    init_zoo_context(seed=SEED, device="cuda")
+    if not labels or err > CLF_PROB_TOL:
+        raise AssertionError("ImageClassifier on the card disagrees with "
+                             "the CPU")
+
+
+def image_data_plane_phase(card_line: str) -> dict:
+    """The host data plane and ImageClassifier on the card: (a) the native
+    host library, (b) stream identity serial against prefetched, (c)
+    ResNet-50 bf16 under Adam from uint8 npz and TFRecord shards with the
+    normalization inside the captured step, (d) autotune on LeNet-5, (e)
+    ImageClassifier against the CPU.  Returns the phase's launch counts
+    (fused Adam: one a step of every fit)."""
+    import tempfile
+
+    from analytics_zoo_tpu_torch.feature.image import (
+        ImageHFlip,
+        ImageRandomCrop,
+    )
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    free_device_memory("before image_data_plane")
+    part("native", native_checks, card_line)
+    reset_counters()  # the data plane's fits: from here to the read below
+    with tempfile.TemporaryDirectory() as tmp:
+        gen = np.random.default_rng(SEED + 234)
+        npz, tfr, x, y = part("write", write_image_shards, tmp, gen)
+        log(f"image data plane: wrote {len(npz)} npz shards "
+            f"({x.nbytes} B of uint8 images) and {len(tfr)} TFRecord "
+            f"shards in {parts['write']} s")
+        chain = (ImageRandomCrop(*RESNET_SHAPE[:2]), ImageHFlip())
+        disk2, tf_set = part("streams", stream_identity, npz, tfr, chain,
+                             card_line)
+        adam = part("resnet", resnet_from_shards, disk2, tf_set, chain, x,
+                    y, card_line)
+        adam += part("autotune", autotune_lenet, tmp, card_line)
+    launches = counters()  # end of the data plane's fits
+    if adam != image_plane_launches():
+        raise AssertionError(f"image_data_plane: {adam} Adam launches "
+                             f"counted by its fits, expected "
+                             f"{image_plane_launches()}")
+    expect_launches("image_data_plane", launches,
+                    fused_adam=image_plane_launches())
+    part("classifier", image_classifier_check, card_line)
+    free_device_memory("after image_data_plane")
+    log(f"phase image_data_plane: {time.perf_counter() - t_phase:.1f} s "
+        f"(seconds by part: {parts})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6994,6 +7763,7 @@ def main() -> int:
     tfpark_text = phase("tfpark_text", tfpark_text_phase, card_line)
     cluster = phase("cluster_serving", cluster_serving_phase, card_line)
     inst_fit = phase("instrumented_fit", instrumented_fit_phase, card_line)
+    data_plane = phase("image_data_plane", image_data_plane_phase, card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -7029,7 +7799,8 @@ def main() -> int:
                  "autograd": autograd.get(name, 0),
                  "tfpark_text": tfpark_text.get(name, 0),
                  "cluster_serving": cluster.get(name, 0),
-                 "instrumented_fit": inst_fit.get(name, 0)}
+                 "instrumented_fit": inst_fit.get(name, 0),
+                 "image_data_plane": data_plane.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},

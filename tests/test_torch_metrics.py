@@ -413,17 +413,22 @@ def _server(pkg):
 
 
 # /varz panels of modules the port does not have yet (ROADMAP queue 1
-# items 16-19, 21): the reference shows each one whose module this
+# items 17-19, 21): the reference shows each one whose module this
 # process has imported; the port's server looks its own module names up
 # and answers as "not running"
-PANELS = {"autotune", "fleet", "router", "admission", "oracle", "elastic",
-          "slo", "scrape"}
+PANELS = {"fleet", "router", "admission", "oracle", "elastic", "slo",
+          "scrape"}
 
 
 def test_metrics_server_endpoints_and_keys_match():
+    # the autotune panel is ported: each package's /varz shows it once its
+    # own feature.autotune is imported, so both are
+    for pkg in PACKAGES:
+        importlib.import_module(f"{pkg}.feature.autotune")
     ref, port = _both(_server)
     code, keys = port["/varz"]
     assert not PANELS & set(keys)
+    assert "autotune" in keys
     ref["/varz"] = (ref["/varz"][0],
                     [k for k in ref["/varz"][1] if k not in PANELS])
     assert port == ref
