@@ -133,14 +133,22 @@ class ZooConfig:
       ``autotune``, ``autotune_ram_budget``, ``autotune_interval``,
       ``autotune_max_workers``) by ``Estimator.train``, which wraps the
       train set in ``feature.prefetch`` and runs ``feature.autotune``'s
-      controller;
+      controller; the fleet knobs (``slo_p99_ms``,
+      ``fleet_min_replicas``, ``fleet_max_replicas``, ``fleet_interval``)
+      by ``serving.FleetController.from_config`` and
+      ``serving.ModelRouter.from_config``, which also reads
+      ``serving_models`` and ``admission``; the scrape and SLO knobs
+      (``scrape_*``, ``slo_objective``, ``slo_short_window``,
+      ``slo_long_window``, ``slo_burn_threshold``) are validated and
+      held, and read by nothing else, as in the reference
+      (``metrics.scrape.targets_from_env`` reads ``ZOO_SCRAPE_TARGETS``
+      itself);
     - the knobs of planes the port does not have yet are validated here
       with the reference's messages, and ``init_zoo_context`` raises
       ``NotImplementedError`` naming the plane's ROADMAP item for any of
-      them away from its default (:data:`UNPORTED_KNOBS`): the serving
-      fleet plane: its scaler, admission and model roster (17), the
-      metrics plane's federation and SLO tier (18), the elastic runtime
-      (21), and a mesh of more than one device or a DCN axis (13).
+      them away from its default (:data:`UNPORTED_KNOBS`): the elastic
+      runtime (21), and a mesh of more than one device or a DCN axis
+      (13).
       ``serving_batch_budget_ms`` and ``fleet_lease_ms``
       (:data:`SERVING_KNOBS`) are honoured by
       ``serving.ClusterServingHelper``: a value given here (a field or a
@@ -408,14 +416,6 @@ class ZooConfig:
 #: leaves the plane off, its ROADMAP queue 1 item).  ``init_zoo_context``
 #: raises for any other value.
 UNPORTED_KNOBS = {
-    "slo_p99_ms": (500.0, 17),
-    "fleet_min_replicas": (1, 17), "fleet_max_replicas": (4, 17),
-    "fleet_interval": (1.0, 17),
-    "admission": (False, 17), "serving_models": (None, 17),
-    "scrape_targets": (None, 18), "scrape_interval": (1.0, 18),
-    "scrape_stale_after": (10.0, 18), "slo_objective": (0.99, 18),
-    "slo_short_window": (30.0, 18), "slo_long_window": (300.0, 18),
-    "slo_burn_threshold": (1.0, 18),
     "elastic": (False, 21), "elastic_lease_ms": (3_000, 21),
     "elastic_min_workers": (1, 21), "elastic_grace_ms": (5_000, 21),
     "dcn_axis": (None, 13),
@@ -427,10 +427,6 @@ UNPORTED_KNOBS = {
 UNPORTED_ENV: dict[str, int] = {}
 
 _ITEMS = {13: "the multi-device mesh and sharded plans",
-          17: "the serving fleet plane (fleet controller, SLO scaler, "
-              "model router and admission)",
-          18: "the metrics plane's federation and SLO tier (scrape "
-              "targets, SLO engine, time series)",
           21: "the elastic training runtime"}
 
 

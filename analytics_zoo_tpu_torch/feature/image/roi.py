@@ -1,7 +1,7 @@
 """ROI (detection-aware) image transforms + the SSD training pipeline.
 
 The port's own copy of ``analytics_zoo_tpu/feature/image/roi.py`` (numpy
-only); the SSD model itself waits for ROADMAP queue 1 item 15.
+only); the SSD model is ``models.image.objectdetection``.
 
 Reference: the SSD train/val chains in
 zoo/.../models/image/objectdetection/ssd/SSDDataSet.scala:44-53,70-76

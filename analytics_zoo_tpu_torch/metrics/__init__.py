@@ -22,11 +22,12 @@ cross-process snapshot format and :class:`TelemetryAggregator`;
 :mod:`flight` is the bounded crash flight recorder dumped to
 ``ZOO_FLIGHT_DIR`` on exit/SIGTERM/crash.
 
-Not ported yet (ROADMAP queue 1 item 18): the federation tier,
-``VarzScraper``/``fleet_varz_targets`` (``scrape.py``),
-``SloEngine``/``SloSpec``/``default_slos`` (``slo.py``) and
-``TimeSeriesStore`` (``timeseries.py``); reading one of those names
-raises ``NotImplementedError``.
+The federation plane: :class:`VarzScraper` pulls every host's
+``/telemetryz`` into the :class:`TelemetryAggregator` and a
+:class:`TimeSeriesStore` of windowed history, and an :class:`SloEngine`
+evaluates declarative :class:`SloSpec` objectives into multi-window
+burn-rate alerts (``/alertz``) that the federated ``SloScaler`` and the
+admission controller read.
 """
 
 
@@ -87,6 +88,18 @@ from analytics_zoo_tpu_torch.metrics.runtime import (
     StepMetrics,
     record_device_memory,
 )
+from analytics_zoo_tpu_torch.metrics.scrape import (
+    VarzScraper,
+    fleet_varz_targets,
+)
+from analytics_zoo_tpu_torch.metrics.slo import (
+    SloEngine,
+    SloSpec,
+    default_slos,
+)
+from analytics_zoo_tpu_torch.metrics.timeseries import (
+    TimeSeriesStore,
+)
 from analytics_zoo_tpu_torch.metrics.tracing import (
     Tracer,
     get_tracer,
@@ -112,22 +125,6 @@ __all__ = [
     "FlightRecorder", "StragglerDetector", "StragglerBoard",
     "get_flight_recorder", "set_flight_recorder",
     "register_predump_hook",
+    "TimeSeriesStore", "SloSpec", "SloEngine", "default_slos",
+    "VarzScraper", "fleet_varz_targets",
 ]
-
-#: names of the reference's metrics package that wait for ROADMAP queue 1
-#: item 18's federation tier
-UNPORTED = ("VarzScraper", "fleet_varz_targets", "SloEngine", "SloSpec",
-            "default_slos", "TimeSeriesStore")
-
-
-def unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"metrics.{name} belongs to the metrics plane's federation tier "
-        f"(scrape, SLO engine, time series), which the port does not have "
-        f"yet (ROADMAP queue 1 item 18)")
-
-
-def __getattr__(name):
-    if name in UNPORTED:
-        raise unported(name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

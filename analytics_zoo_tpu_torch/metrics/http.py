@@ -100,8 +100,11 @@ class MetricsServer:
 
     def __init__(self, port: int = 0, host: str = "127.0.0.1",
                  registry: MetricsRegistry | None = None, tracer=None,
-                 health=None, flight=None, aggregator=None):
+                 health=None, flight=None, aggregator=None, collect=None):
         self._want_port = int(port)
+        # run before each render of the registry (/metrics, /varz,
+        # /telemetryz): it sets the gauges that are read at pull time
+        self._collect = collect
         self._host = host
         self._registry = registry
         self._tracer = tracer
@@ -156,9 +159,15 @@ class MetricsServer:
         return 200, "application/json", json.dumps(
             {"endpoints": sorted(p for p in self._routes if p != "/")})
 
+    def _collected(self):
+        if self._collect is not None:
+            self._collect()
+        return self._reg()
+
     def _metrics(self):
+        reg = self._collected()
         if self.aggregator is None:
-            text = prometheus_text(self._reg())
+            text = prometheus_text(reg)
         else:
             # own + per-source series through ONE renderer: a family
             # name present on both sides must produce ONE group with ONE
@@ -169,13 +178,13 @@ class MetricsServer:
             )
 
             text = samples_to_prometheus(
-                registry_samples(self._reg())
+                registry_samples(reg)
                 + self.aggregator.labeled_samples())
         return 200, "text/plain; version=0.0.4", text
 
     def _varz(self):
         tracer = self._trc()
-        doc = snapshot(self._reg())
+        doc = snapshot(self._collected())
         doc["health"] = self._hlt().status()
         doc["trace"] = {"dropped_spans": tracer.dropped,
                         "max_events": tracer.max_events}
@@ -249,7 +258,7 @@ class MetricsServer:
         from analytics_zoo_tpu_torch.metrics.merge import telemetry_snapshot
 
         return 200, "application/json", json.dumps(
-            telemetry_snapshot(self._reg(), health=self._hlt()))
+            telemetry_snapshot(self._collected(), health=self._hlt()))
 
     def _alertz(self):
         # sys.modules-only, like the /varz panels: serving /alertz on a

@@ -3,8 +3,9 @@ ImageNet classification set (``imagenet_zoo``: AlexNet, VGG, SqueezeNet,
 DenseNet, MobileNet and MobileNet-v2); the text classifier, the
 recommenders (NeuralCF, WideAndDeep, SessionRecommender), the anomaly
 detector and Seq2seq; KNRM (``textmatching.py``), all on ``ZooModel``
-with the ``Ranker`` metrics.  The detection models wait for their slice
-(ROADMAP queue 1, item 15)."""
+with the ``Ranker`` metrics; the SSD object detector
+(``image.objectdetection``) and ``ImageClassifier``
+(``image.imageclassification``)."""
 
 from analytics_zoo_tpu_torch.models import imagenet_zoo  # noqa: F401
 from analytics_zoo_tpu_torch.models.anomalydetection import (  # noqa: F401
@@ -13,6 +14,9 @@ from analytics_zoo_tpu_torch.models.anomalydetection import (  # noqa: F401
 from analytics_zoo_tpu_torch.models.common import (  # noqa: F401
     Ranker,
     ZooModel,
+)
+from analytics_zoo_tpu_torch.models.image.objectdetection import (  # noqa: F401
+    ObjectDetector,
 )
 from analytics_zoo_tpu_torch.models.inception import (  # noqa: F401
     Inception,

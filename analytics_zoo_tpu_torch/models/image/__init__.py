@@ -1,2 +1,7 @@
-"""Image model zoo (reference zoo/.../models/image): classification.  The
-object detection models wait for ROADMAP queue 1 item 15."""
+"""Image model zoo: classification + object detection (reference
+zoo/.../models/image)."""
+
+from analytics_zoo_tpu_torch.models.image.objectdetection import (  # noqa: F401
+    MultiBoxLoss,
+    ObjectDetector,
+)

@@ -76,7 +76,8 @@ __all__ = [
     "resolve_kernel", "KERNEL_NAMES", "DEFAULT_KERNEL_RULES",
     "resolve_plan", "compile_step", "PlannedStep", "CaptureGroup",
     "PLAN_NAMES", "kernels_off", "REMAT_POLICIES", "apply_remat",
-    "resolve_remat", "checkpoint_name",
+    "resolve_remat", "checkpoint_name", "KERNEL_SCOPES",
+    "record_dtype_gauges", "record_kernel_gauges",
 ]
 
 #: names :func:`resolve_plan` knows (only the single-device ``dp`` family
@@ -654,6 +655,13 @@ def _static_leaves(args, kwargs, donate_argnums, ref_argnums) -> list:
                 for i, arg in enumerate(list(args) + list(kwargs.values()))]
 
 
+#: held by every capture in the process, whatever its group: entering a
+#: capture synchronizes the device (``torch.cuda.graph``), and a device-wide
+#: synchronize while another thread's capture is underway is refused and
+#: ends that capture.  Replays of other groups go on during a capture.
+_CAPTURE_LOCK = threading.RLock()
+
+
 class CaptureGroup:
     """Captures that run one at a time: one lock, which a caller holds from
     the copy into a capture's static inputs until it has read the outputs
@@ -797,8 +805,9 @@ class PlannedStep:
             elif self.capture and any(
                     torch.is_tensor(t) and t.device.type == "cuda"
                     for t in _leaves(call, [])):
-                exe, out = timed_compile(lambda: self._capture(call),
-                                         self.label)
+                with _CAPTURE_LOCK:  # one capture at a time in the process
+                    exe, out = timed_compile(lambda: self._capture(call),
+                                             self.label)
                 self._remember(key, exe)
                 return out
         # eager: the CPU, or capture off
@@ -901,3 +910,103 @@ def compile_step(step_fn, plan: ShardingPlan | str | None = None, *,
     return PlannedStep(step_fn, label or f"{plan.name}_step", plan,
                        donate_argnums=donate_argnums,
                        ref_argnums=ref_argnums, capture=capture, group=group)
+
+
+# ---------------------------------------------------------------------------
+# The planes' gauges (the reference's ``zoo_dtype_*`` and ``zoo_kernel_*``)
+# ---------------------------------------------------------------------------
+
+#: the logical op scopes the kernel plane routes (consumers listed in
+#: :func:`resolve_kernel`) — what :func:`record_kernel_gauges` resolves a
+#: plan's table against
+KERNEL_SCOPES = ("attention", "optimizer.adam", "loss.softmax_xent",
+                 "serving.int8_matmul")
+
+_ROLE_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "int8": 1}
+
+
+def record_dtype_gauges(label: str, plan: ShardingPlan, params) -> dict:
+    """Publish the ``zoo_dtype_*`` gauge family for one plan label — the
+    precision plane's observable: per-role leaf counts and COMPUTE bytes
+    (what the role's compute dtype makes the leaf weigh in the step —
+    bf16 halves, int8 quarters; role ``f32`` counts every unmatched/kept
+    leaf at its stored size).  Returns ``{"roles": {role: {"leaves",
+    "compute_bytes"}}, "master_bytes", "compute_bytes"}``; the
+    reference's families, help strings and labels."""
+    from analytics_zoo_tpu_torch.metrics import get_registry
+
+    roles = plan.dtype_roles(params)
+    per_role: dict = {}
+    master_bytes = compute_bytes = 0
+
+    def visit(path, leaf):
+        nonlocal master_bytes, compute_bytes
+        if not torch.is_tensor(leaf):
+            return leaf
+        role = roles.get(leaf_path_name(path), "f32")
+        size = leaf.numel()
+        stored = size * leaf.element_size()
+        comp = size * _ROLE_BYTES.get(role, 4) if role != "f32" else stored
+        slot = per_role.setdefault(role, {"leaves": 0, "compute_bytes": 0})
+        slot["leaves"] += 1
+        slot["compute_bytes"] += comp
+        master_bytes += stored
+        compute_bytes += comp
+        return leaf
+
+    tree_map_with_path(visit, params)
+    reg = get_registry()
+    for role, slot in per_role.items():
+        lab = ("label", "role")
+        reg.gauge("zoo_dtype_leaves",
+                  "param leaves per dtype role under a plan's "
+                  "dtype_rules", lab).labels(
+            label=label, role=role).set(slot["leaves"])
+        reg.gauge("zoo_dtype_compute_bytes",
+                  "compute-copy bytes per dtype role (master stays f32)",
+                  lab).labels(
+            label=label, role=role).set(slot["compute_bytes"])
+    reg.gauge("zoo_dtype_bytes_ratio",
+              "compute-copy bytes / master bytes for a plan label",
+              ("label",)).labels(label=label).set(
+        compute_bytes / master_bytes if master_bytes else 1.0)
+    return {"roles": per_role, "master_bytes": int(master_bytes),
+            "compute_bytes": int(compute_bytes)}
+
+
+def record_kernel_gauges(label: str, plan: ShardingPlan) -> dict:
+    """Publish the ``zoo_kernel_*`` selection/routing gauges for one plan
+    label — the kernel plane's observable (the twin of
+    :func:`record_dtype_gauges`): ``zoo_kernel_selections{label, scope,
+    kernel}`` is what the plan's ``kernel_rules`` resolve to per known
+    scope (kernel ``"xla"`` included — a declined kernel is a decision,
+    not an absence), and ``zoo_kernel_invocations{kernel, backend}``
+    re-exports ``ops.cuda.kernel_invocation_counts()``: backend
+    ``kernel`` counts the CUDA kernel's launches, ``plain`` its plain
+    PyTorch version's calls (the reference's ``pallas``/``fallback``
+    pair).  Returns ``{"selections": {scope: kernel}, "invocations":
+    {...}}``."""
+    from analytics_zoo_tpu_torch.metrics import get_registry
+    from analytics_zoo_tpu_torch.ops.cuda import kernel_invocation_counts
+
+    reg = get_registry()
+    selections = {}
+    for scope in KERNEL_SCOPES:
+        kernel = plan.kernel_for(scope)
+        if kernel is None:
+            continue
+        selections[scope] = kernel
+        reg.gauge("zoo_kernel_selections",
+                  "kernel a plan's kernel_rules resolve for an op scope "
+                  "(1 = selected; 'xla' is the explicit fallback pick)",
+                  ("label", "scope", "kernel")).labels(
+            label=label, scope=scope, kernel=kernel).set(1)
+    invocations = kernel_invocation_counts()
+    for kernel, counts in invocations.items():
+        for backend, n in counts.items():
+            reg.gauge("zoo_kernel_invocations",
+                      "per-kernel routing counter: launches of the CUDA "
+                      "kernel vs calls of its plain PyTorch version",
+                      ("kernel", "backend")).labels(
+                kernel=kernel, backend=backend).set(n)
+    return {"selections": selections, "invocations": invocations}

@@ -202,11 +202,12 @@ class KerasNet(_ContainerBase):
         return self._estimator.evaluate(FeatureSet.of(x, y),
                                         batch_size=batch_size)
 
-    def predict(self, x, batch_size=32, distributed=True):
-        """The outputs over ``x`` (an array or a list of arrays), batch by
-        batch in order; a multi-output model gives a list.  Each batch runs
-        through the planned forward under the ``predict_step`` label, in
-        the context's compute dtype, with f32 outputs."""
+    def _predict_each(self, x, take, batch_size=32):
+        """:meth:`predict`'s batches, each output given to ``take`` on the
+        model's device while the replay's output buffers hold it (the next
+        replay overwrites them: ``take`` returns a copy of what it keeps);
+        returns the list of what ``take`` returned, batch by batch in order
+        (the last batch padded), and the number of samples."""
         from analytics_zoo_tpu_torch.feature.dataset import FeatureSet
         from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
             _tensor,
@@ -246,9 +247,18 @@ class KerasNet(_ContainerBase):
                   if isinstance(xb, list) else _tensor(xb, self.device))
             with fwd.lock:  # the next replay overwrites the outputs
                 out = fwd(self.params, self.state, xb)
-                outs.append([_to_numpy(o) for o in out]
+                outs.append(take(out))
+        return outs, n
+
+    def predict(self, x, batch_size=32, distributed=True):
+        """The outputs over ``x`` (an array or a list of arrays), batch by
+        batch in order; a multi-output model gives a list.  Each batch runs
+        through the planned forward under the ``predict_step`` label, in
+        the context's compute dtype, with f32 outputs."""
+        outs, n = self._predict_each(
+            x, lambda out: ([_to_numpy(o) for o in out]
                             if isinstance(out, (list, tuple))
-                            else _to_numpy(out))
+                            else _to_numpy(out)), batch_size)
         if isinstance(outs[0], list):  # multi-output graph
             return [np.concatenate([o[i] for o in outs], axis=0)[:n]
                     for i in range(len(outs[0]))]

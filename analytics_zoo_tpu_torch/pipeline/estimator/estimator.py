@@ -975,6 +975,26 @@ class Estimator:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
         return k
 
+    def _publish_plan_gauges(self, plan, params):
+        """The planes' gauges for this fit's plan label, where the
+        reference publishes them with its memory gauges: the precision
+        plane's ``zoo_dtype_*`` when the plan has dtype rules, the kernel
+        plane's ``zoo_kernel_*`` (selections and the kernels'
+        launch/plain counters) when it has kernel rules."""
+        from analytics_zoo_tpu_torch.parallel.plan import (
+            record_dtype_gauges,
+            record_kernel_gauges,
+        )
+
+        try:
+            tag = "" if plan.name == "dp" else f"_{plan.name}"
+            if plan.dtype_rules:
+                record_dtype_gauges(f"train_step{tag}", plan, params)
+            if plan.kernel_rules:
+                record_kernel_gauges(f"train_step{tag}", plan)
+        except Exception as e:  # telemetry must never fail a fit
+            logger.debug("zoo plan gauges skipped: %s", e)
+
     def _own(self, params, opt_state, state):
         """The buffers a fit updates in place: those of this estimator's
         last dispatch when ``params`` are them, else copies (the moments
@@ -1065,6 +1085,7 @@ class Estimator:
                      else self.optimizer.init(params))
         params, opt_state, state = self._own(params, opt_state, state)
         self._buffers = (params, opt_state, state)
+        self._publish_plan_gauges(plan, params)
         start = (self.epoch, 0)
         resumed = self._ckpt.latest() if self._ckpt else None
         if resumed is not None:

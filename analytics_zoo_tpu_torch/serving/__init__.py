@@ -12,12 +12,18 @@ The broker is pluggable: in-memory (tests/embedded), file-spool
 (multi-process, no external service), or Redis when the ``redis``
 package is importable — same stream/hash data model in all three.
 
-Not ported yet (ROADMAP queue 1 item 17): the fleet plane —
-``FleetController`` (``fleet.py``), ``SloScaler`` (``scaler.py``),
-``ModelRouter`` (``router.py``) and ``AdmissionController``
-(``admission.py``); reading one of those names raises
-``NotImplementedError``.  One ``ClusterServing`` with an ``owner``
-already serves in the fleet's claim mode.
+The fleet plane sits on top: :class:`~analytics_zoo_tpu_torch.serving.fleet
+.FleetController` supervises N replicas against one broker and ticks an
+SLO-aware :class:`~analytics_zoo_tpu_torch.serving.scaler.SloScaler`;
+:class:`~analytics_zoo_tpu_torch.serving.router.ModelRouter` runs one fleet
+per :class:`~analytics_zoo_tpu_torch.serving.modelspec.ModelSpec` on
+per-model streams, and
+:class:`~analytics_zoo_tpu_torch.serving.admission.AdmissionController`
+sheds overload at the front door (clients see the typed
+:class:`~analytics_zoo_tpu_torch.serving.client.ServingRejected`) so
+accepted work keeps the exactly-once claim guarantee.  The four load
+lazily, as the reference's do, so a process that never touches them
+shows no fleet, router or admission panel in ``/varz``.
 """
 
 from .broker import FileBroker, InMemoryBroker, RedisBroker, connect_broker
@@ -32,22 +38,23 @@ __all__ = [
     "model_stream", "ModelSpec", "parse_model_specs",
     "format_model_specs",
     "ClusterServing", "ClusterServingHelper",
+    "FleetController", "SloScaler",
+    "ModelRouter", "AdmissionController",
 ]
-
-#: the reference's control-plane names (its lazy ``__getattr__``), which
-#: wait for ROADMAP queue 1 item 17
-UNPORTED = ("FleetController", "SloScaler", "ModelRouter",
-            "AdmissionController")
-
-
-def unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"serving.{name} belongs to the serving fleet plane (fleet "
-        f"controller, SLO scaler, model router, admission), which the "
-        f"port does not have yet (ROADMAP queue 1 item 17)")
 
 
 def __getattr__(name):
-    if name in UNPORTED:
-        raise unported(name)
+    # the control plane loads lazily (PEP 562), as the reference's does
+    if name == "FleetController":
+        from .fleet import FleetController
+        return FleetController
+    if name == "SloScaler":
+        from .scaler import SloScaler
+        return SloScaler
+    if name == "ModelRouter":
+        from .router import ModelRouter
+        return ModelRouter
+    if name == "AdmissionController":
+        from .admission import AdmissionController
+        return AdmissionController
     raise AttributeError(name)

@@ -11,8 +11,8 @@ i.e. comma-separated ``name=slo_p99_ms[@offered_rate]`` entries.  Each
 model gets its OWN input stream on the shared broker
 (:func:`~analytics_zoo_tpu_torch.serving.client.model_stream`), its own
 lease/pad-bucket/batch-budget config, and its own
-``zoo_fleet_*{model=}`` telemetry — the reference's router runs one
-fleet per spec (the port's router waits for ROADMAP queue 1 item 17).
+``zoo_fleet_*{model=}`` telemetry — the router
+(:mod:`analytics_zoo_tpu_torch.serving.router`) runs one fleet per spec.
 
 Pure stdlib on purpose: client processes route by model without
 pulling in torch.  Every parse error

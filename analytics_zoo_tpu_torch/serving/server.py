@@ -31,7 +31,10 @@ That is safe without a warm-up, because
 - the reader, decode-pool, writer and lease threads do no CUDA work
   (broker I/O and numpy decode only);
 - captures run in ``thread_local`` error mode on their group's side
-  stream, so another model's requests on other threads go on.
+  stream, so another model's requests on other threads go on; captures
+  of two models run one at a time (``parallel.plan._CAPTURE_LOCK``:
+  entering a capture synchronizes the device, which another thread's
+  capture would refuse).
 A warm-up (``InferenceModel.warmup``) before ``run`` only moves the
 capture's seconds out of the first request's latency.
 

@@ -6367,7 +6367,7 @@ def counter_value(reg, name, **labels) -> float:
 
 
 def check_answers(tag, answers, uris, records, want, sizes, direct_batch,
-                  top_n):
+                  top_n, prefix="cluster_serving"):
     """Each answer's top-``top_n`` classes equal those of direct
     ``predict`` (``want``), and its probabilities bit for bit where the
     record was served in a micro-batch of ``direct_batch`` (the same
@@ -6378,25 +6378,26 @@ def check_answers(tag, answers, uris, records, want, sizes, direct_batch,
         got = answers[uri]
         top = np.argsort(row)[::-1][:top_n]
         if [c for c, _ in got] != [int(c) for c in top]:
-            raise AssertionError(f"cluster_serving {tag}: {uri} classes "
+            raise AssertionError(f"{prefix} {tag}: {uri} classes "
                                  f"{[c for c, _ in got]} != {list(top)}")
         diff = max(abs(p - float(row[c])) for c, p in got)
         worst = max(worst, diff)
         if sizes[digest(rec)] == direct_batch:
             same += 1
             if diff != 0.0:
-                raise AssertionError(f"cluster_serving {tag}: {uri} served "
+                raise AssertionError(f"{prefix} {tag}: {uri} served "
                                      f"in the same bucket differs by {diff}")
         elif not diff <= CS_TOL:
-            raise AssertionError(f"cluster_serving {tag}: {uri} differs by "
+            raise AssertionError(f"{prefix} {tag}: {uri} differs by "
                                  f"{diff} (tol {CS_TOL:g})")
-    log(f"cluster_serving {tag}: classes equal direct predict's; "
+    log(f"{prefix} {tag}: classes equal direct predict's; "
         f"{same} of {len(uris)} records in its bucket, bit for bit; "
         f"largest difference {worst:.3e}")
     return same, worst
 
 
-def direct_rate(im, x, batch, card_line, tag) -> float:
+def direct_rate(im, x, batch, card_line, tag,
+                prefix="cluster_serving") -> float:
     """Records a second through ``InferenceModel.predict`` at ``batch``
     over the same records (median of 3, each ending on the host)."""
     times = []
@@ -6405,7 +6406,7 @@ def direct_rate(im, x, batch, card_line, tag) -> float:
         im.predict(x, batch_size=batch)
         times.append(time.perf_counter() - t0)
     rate = len(x) / float(np.median(times))
-    log(f"cluster_serving {tag}: direct predict at batch {batch}: "
+    log(f"{prefix} {tag}: direct predict at batch {batch}: "
         f"{rate:.1f} records/s ({card_line})")
     return rate
 
@@ -7688,6 +7689,1253 @@ def image_data_plane_phase(card_line: str) -> dict:
     return launches
 
 
+# the serving fleet plane: a ModelRouter of two tenants (thread replicas)
+# and a process-mode fleet scraped into an SLO engine
+ROUTER_RECORDS = 128         # a tenant's overload wave
+ROUTER_FIRST = 96            # the wave's first burst; the rest after a pause
+ROUTER_BATCH = 8
+ROUTER_SPECS = "bert=100,ssd=400"   # name=slo_p99_ms (ZOO_SERVING_MODELS)
+ROUTER_MAX_REPLICAS = 3
+ROUTER_INTERVAL = 0.1        # seconds a fleet and router tick
+ROUTER_BACKLOG = 64          # admission's backlog limit a tenant
+ROUTER_IDLE_S = 20.0         # the longest idle gap to wait for scale-down
+SSD_SHAPE = (300, 300, 3)
+VOC_NAMES = ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car",
+             "cat", "chair", "cow", "diningtable", "dog", "horse",
+             "motorbike", "person", "pottedplant", "sheep", "sofa", "train",
+             "tvmonitor")
+
+
+class BucketLog:
+    """A replica's view of a tenant's shared ``InferenceModel``: notes the
+    micro-batch size each record was predicted in (by the digest of its
+    bytes) and counts the predict calls, for every replica of the tenant."""
+
+    def __init__(self, model, sizes, calls):
+        import threading
+
+        self.model, self.sizes, self.calls = model, sizes, calls
+        self._lock = threading.Lock()
+
+    def predict(self, x, batch_size=None):
+        with self._lock:
+            self.calls.append(len(x))
+            for row in x:
+                self.sizes[digest(row)] = len(x)
+        return self.model.predict(x, batch_size=batch_size)
+
+
+def offer_wave(name, inq, records, prefix, t_enq, rejections, pause):
+    """Enqueue ``records`` under ``prefix-i`` in two bursts (ROUTER_FIRST,
+    then the rest after ``pause`` seconds); a record the front door sheds
+    raises the typed ``ServingRejected`` at enqueue, is noted and offered
+    again after its retry-after hint (at most 0.2 s)."""
+    from analytics_zoo_tpu_torch.serving import ServingRejected
+
+    for i, rec in enumerate(records):
+        if i == ROUTER_FIRST:
+            time.sleep(pause)
+        uri = f"{prefix}-{i}"
+        while True:
+            try:
+                inq.enqueue(uri, rec)
+            except ServingRejected as e:
+                rejections.append((name, e.reason, e.retry_after_s))
+                time.sleep(min(max(e.retry_after_s, 0.005), 0.2))
+                continue
+            t_enq[uri] = time.perf_counter()
+            break
+
+
+def changes(samples) -> list:
+    """(seconds, value) change points of a sampled series."""
+    out = []
+    for t, v in samples:
+        if not out or out[-1][1] != v:
+            out.append((round(t, 2), v))
+    return out
+
+
+def fleet_host_split(tag, server, records, db, batch, owner) -> None:
+    """A tenant's host time by stage for ``records`` on a stream of their
+    own: the broker claim (``claim``), the decode, ``predict`` of each
+    micro-batch of ``batch`` (what the ``zoo.serving.predict`` span holds)
+    and the batched write-back (``hset_many``) with the release."""
+    from analytics_zoo_tpu_torch.serving.client import (
+        RESULT_PREFIX,
+        encode_ndarray,
+    )
+
+    for i, r in enumerate(records):
+        db.xadd("split", {"uri": f"split-{i}", "image": encode_ndarray(r)})
+    t0 = time.perf_counter()
+    recs = db.claim("split", owner, len(records), lease_ms=60_000)
+    claim = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uris, arrs = server._decode_records(recs)
+    decode = time.perf_counter() - t0
+    predict, outs = 0.0, []
+    for i in range(0, len(arrs), batch):
+        t0 = time.perf_counter()
+        outs.extend(server.model.predict(np.stack(arrs[i:i + batch])))
+        predict += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    writes = [(RESULT_PREFIX + u, server._postprocess(u, o))
+              for u, o in zip(uris, outs)]
+    db.hset_many(writes)
+    db.release("split", owner, [r[0] for r in recs], done=True)
+    write = time.perf_counter() - t0
+    for key, _ in writes:
+        db.delete(key)
+    log(f"fleet_router {tag} host split for {len(records)} records: claim "
+        f"{claim * 1e3:.1f} ms, decode {decode * 1e3:.1f} ms "
+        f"({decode / len(records) * 1e3:.3f} ms a record), predict "
+        f"{predict * 1e3:.1f} ms ({-(-len(records) // batch)} micro-batches "
+        f"of {batch}), encode + write-back + release {write * 1e3:.1f} ms")
+
+
+def router_tenants(gen):
+    """The two tenants' shared models and waves: BERT-base f32 over token
+    ids (``bert_tokens_model``, 512 tokens) and SSD300-VGG16 with the 20
+    VOC classes, f32, each in an ``InferenceModel`` warmed up at the
+    bucket of ROUTER_BATCH; ROUTER_RECORDS records each."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        ObjectDetector,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    bert = bert_tokens_model()
+    bert.build_params()
+    det = ObjectDetector("ssd-vgg16-300", class_names=VOC_NAMES)
+    det.model.build_params()
+    models = {"bert": InferenceModel().from_keras_net(bert),
+              "ssd": InferenceModel().from_keras_net(det.model)}
+    records = {
+        "bert": list(gen.integers(1, BERT_BASE["vocab"],
+                                  (ROUTER_RECORDS, SEQ)).astype(np.int32)),
+        "ssd": list(gen.uniform(-1.0, 1.0, (ROUTER_RECORDS,) + SSD_SHAPE)
+                    .astype(np.float32))}
+    buckets = [b for b in (1, 2, 4, 8, 16) if b <= ROUTER_BATCH]
+    for name, im in models.items():
+        pools, t0 = pool_bytes(), time.perf_counter()
+        im.warmup([records[name][0].shape],
+                  dtype=[records[name][0].dtype], batch_sizes=buckets)
+        torch.cuda.synchronize()
+        grown = sum(v - pools.get(k, 0) for k, v in pool_bytes().items())
+        log(f"fleet_router: {name} warmed up (captured) at buckets "
+            f"{buckets} in {time.perf_counter() - t0:.1f} s; its graph pool "
+            f"{grown} B (thread replicas share these captures: no pool "
+            f"bytes per replica)")
+    return models, records, det
+
+
+def check_tenant_answers(name, answers, uris, records, want, sizes):
+    """BERT's top-2 answers (classes equal, probabilities bit for bit in
+    the direct bucket, else within CS_TOL) through ``check_answers``;
+    SSD's raw (8732, 25) tensors bit for bit where the record was served
+    in a micro-batch of ROUTER_BATCH (the direct bucket), else within
+    CS_TOL of the answer's largest magnitude."""
+    if name == "bert":
+        return check_answers(name, answers, uris, records, want, sizes,
+                             ROUTER_BATCH, 2, prefix="fleet_router")
+    same, worst = 0, 0.0
+    for uri, rec, row in zip(uris, records, want):
+        got = np.asarray(answers[uri])
+        if got.shape != row.shape or not np.isfinite(got).all():
+            raise AssertionError(f"fleet_router ssd: {uri} answer "
+                                 f"{got.shape} is not {row.shape}, finite")
+        diff = float(np.abs(got - row).max() / max(np.abs(row).max(),
+                                                     1e-30))
+        worst = max(worst, diff)
+        if sizes[digest(rec)] == ROUTER_BATCH:
+            same += 1
+            if not np.array_equal(got, row):
+                raise AssertionError(f"fleet_router ssd: {uri} served in the "
+                                     f"direct bucket differs by {diff}")
+        elif not diff <= CS_TOL:
+            raise AssertionError(f"fleet_router ssd: {uri} differs by "
+                                 f"{diff} (tol {CS_TOL:g})")
+    log(f"fleet_router ssd: raw outputs equal direct predict's; {same} of "
+        f"{len(uris)} records in its bucket, bit for bit; largest "
+        f"difference {worst:.3e} of the answer's largest magnitude")
+    return same, worst
+
+
+def fleet_router_phase(card_line: str) -> dict:
+    """The serving fleet plane's main path on the card: a ``ModelRouter``
+    built by ``from_config`` from ``ZOO_SERVING_MODELS``-style specs
+    (ROUTER_SPECS), ``admission=True`` and the ``fleet_*`` knobs, over an
+    ``InMemoryBroker`` in thread mode, serving two tenants at full width:
+    ``bert`` (BERT-base f32, 512 tokens) and ``ssd`` (SSD300-VGG16, the
+    20 VOC classes, f32), batch ROUTER_BATCH, 1 to ROUTER_MAX_REPLICAS
+    replicas each, every replica of a tenant on one shared
+    ``InferenceModel``.  Each tenant gets an overload wave of
+    ROUTER_RECORDS records (two bursts, both tenants at once, under a
+    torch.profiler trace of the card), then an idle gap until both fleets
+    are back at one replica.
+
+    Checks: every accepted record answered exactly once (the serve log,
+    the answers, the empty streams); each answer equal to direct
+    ``predict`` at ROUTER_BATCH (``check_tenant_answers``); rejections
+    only the typed ``ServingRejected``; each scaler scaled up and back
+    down; 12 flash forwards a BERT predict call.  Logs records/s against
+    direct predict, enqueue-to-result p50 / p99, the replica counts over
+    time, the scalers' and router's decisions, the admission verdicts, the
+    served window's idle share and each tenant's host split.  Returns the
+    path's launch counts."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.engine import ZooConfig
+    from analytics_zoo_tpu_torch.serving import (
+        ClusterServingHelper,
+        InMemoryBroker,
+        InputQueue,
+        ModelRouter,
+        OutputQueue,
+    )
+
+    t_phase = time.perf_counter()
+    free_device_memory("before fleet_router")
+    init_zoo_context(seed=SEED, device="cuda")
+    gen = np.random.default_rng(SEED + 240)
+    models, records, _ = router_tenants(gen)
+    sizes = {n: {} for n in models}
+    calls = {n: [] for n in models}
+    tmp = tempfile.mkdtemp(prefix="zoo-fleet-router-")
+    serve_log = os.path.join(tmp, "serve.log")
+    cfg = ZooConfig(serving_models=ROUTER_SPECS, admission=True,
+                    fleet_min_replicas=1,
+                    fleet_max_replicas=ROUTER_MAX_REPLICAS,
+                    fleet_interval=ROUTER_INTERVAL)
+    db = InMemoryBroker()
+
+    def helper(spec, verdict):
+        return ClusterServingHelper(
+            batch_size=ROUTER_BATCH, top_n=2 if spec.name == "bert" else 0,
+            data_shape=records[spec.name][0].shape, log_dir=tmp)
+
+    router = ModelRouter.from_config(
+        cfg, db, model_factory=lambda spec: BucketLog(
+            models[spec.name], sizes[spec.name], calls[spec.name]),
+        helper_factory=helper, serve_log=serve_log,
+        admission_kwargs={"backlog_limit": ROUTER_BACKLOG,
+                          "interval": ROUTER_INTERVAL / 5})
+    t_enq, t_done, answers, rejections = {}, {}, {}, []
+    replicas = {n: [] for n in models}
+    stop = threading.Event()
+    try:
+        router.start()
+        t0 = [time.perf_counter()]  # the wave's start, set below
+
+        def monitor():
+            while not stop.is_set():
+                now = time.perf_counter() - t0[0]
+                for n in models:
+                    replicas[n].append(
+                        (now, router.controller(n).replica_count()))
+                time.sleep(0.02)
+
+        def collect(want):
+            oq = OutputQueue(broker=db)
+            while len(answers) < want and not stop.is_set():
+                got = oq.dequeue()
+                now = time.perf_counter()
+                for uri, res in got.items():
+                    if uri in answers:
+                        raise AssertionError(f"fleet_router: {uri} "
+                                             "answered twice")
+                    answers[uri], t_done[uri] = res, now
+                time.sleep(0.002)
+
+        threads = [threading.Thread(target=monitor, daemon=True),
+                   threading.Thread(target=collect, daemon=True,
+                                    args=(2 * ROUTER_RECORDS,))]
+        threads += [threading.Thread(
+            target=offer_wave, daemon=True,
+            args=(n, InputQueue(broker=db, model=n), records[n], n, t_enq,
+                  rejections, 2 * ROUTER_INTERVAL / 5)) for n in models]
+        reset_counters()  # the router's served path: to the read below
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_wave = t0[0] = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads[1:]:
+                th.join(timeout=CS_TIMEOUT)
+            t_last = time.perf_counter()
+            torch.cuda.synchronize()
+        launches = counters()  # end of the router's served path
+        if len(answers) != 2 * ROUTER_RECORDS:
+            raise AssertionError(f"fleet_router: {len(answers)} of "
+                                 f"{2 * ROUTER_RECORDS} records answered")
+        deadline = time.perf_counter() + ROUTER_IDLE_S
+        while time.perf_counter() < deadline and any(
+                router.controller(n).replica_count() > 1 for n in models):
+            time.sleep(0.05)
+        router.tick()
+        final = {n: router.controller(n).replica_count() for n in models}
+        decisions = {n: router.controller(n).decision_log() for n in models}
+        admitted = {n: router.admission(n).decision_log() for n in models}
+        router_log = router.decision_log()
+        leftover = {n: db.xlen(router.tenant(n).stream) for n in models}
+    finally:
+        stop.set()
+        router.stop()
+    busy_us, n_spans = device_union_us(cuda_spans(prof))
+    window_ms = (t_last - t_wave) * 1e3
+    log(f"fleet_router: served window {window_ms:.1f} ms for "
+        f"{2 * ROUTER_RECORDS} records of two tenants; device busy "
+        f"{busy_us / 1e3:.1f} ms ({n_spans} traced kernels and copies): idle "
+        + (f"{max(0.0, 1 - busy_us / 1e3 / window_ms):.1%}" if n_spans
+           else "not measured (the trace shows no device activity)")
+        + f" ({card_line})")
+    with open(serve_log) as f:
+        lines = [ln.split() for ln in f.read().splitlines()]
+    served = sorted(u for _, u in lines)
+    if served != sorted(answers) or leftover != {n: 0 for n in models}:
+        raise AssertionError(f"fleet_router: the serve log is not each "
+                             f"accepted uri once ({len(served)} lines, "
+                             f"{len(answers)} answers; left {leftover})")
+    for n in models:
+        uris = [f"{n}-{i}" for i in range(ROUTER_RECORDS)]
+        want = models[n].predict(np.stack(records[n]),
+                                 batch_size=ROUTER_BATCH)
+        check_tenant_answers(n, answers, uris, records[n], want, sizes[n])
+        lat = np.array([t_done[u] - t_enq[u] for u in uris]) * 1e3
+        span = max(t_done[u] for u in uris) - min(t_enq[u] for u in uris)
+        rate = direct_rate(models[n], np.stack(records[n]), ROUTER_BATCH,
+                           card_line, n, prefix="fleet_router")
+        owners = sorted({o for o, u in lines if u.startswith(n + "-")})
+        log(f"fleet_router {n}: {ROUTER_RECORDS} records in "
+            f"{span * 1e3:.1f} ms = {ROUTER_RECORDS / span:.1f} records/s "
+            f"against direct predict's {rate:.1f} "
+            f"({ROUTER_RECORDS / span / rate:.2f}x); enqueue-to-result p50 "
+            f"{np.percentile(lat, 50):.1f} ms, p99 "
+            f"{np.percentile(lat, 99):.1f} ms; {len(calls[n])} predict calls "
+            f"(micro-batches {sorted(set(calls[n]))}); served by "
+            f"{len(owners)} replicas; replica counts over time (s, n) "
+            f"{changes(replicas[n])} ({card_line})")
+        log(f"fleet_router {n} scaler decisions: " + "; ".join(
+            f"{d['action']} {d['old']}->{d['new']} {d['reason']} est_p99 "
+            f"{d['est_p99_ms']} ms depth {d['queue_depth']}"
+            for d in decisions[n]))
+        log(f"fleet_router {n} admission verdicts: " + "; ".join(
+            f"{d['state']} ({d['reason']}) backlog {d['backlog']} retry "
+            f"{d['retry_after_ms']} ms" for d in admitted[n])
+            + f"; {sum(1 for r in rejections if r[0] == n)} offers refused "
+            f"with ServingRejected")
+        acts = [d["action"] for d in decisions[n]]
+        if "up" not in acts or final[n] != 1 or "down" not in acts:
+            raise AssertionError(f"fleet_router {n}: the scaler did not "
+                                 f"scale up and back down: {acts}")
+    log("fleet_router router decisions: " + "; ".join(
+        f"{d['model']} {d['action']}" + (f" {d.get('old')}->{d.get('new')}"
+                                         if d["action"] == "scale" else "")
+        for d in router_log))
+    expect_launches("fleet_router", launches,
+                    flash_attention_fwd=BERT_BASE["n_block"]
+                    * len(calls["bert"]))
+    log(f"fleet_router launches {launches}: "
+        f"{BERT_BASE['n_block']} flash forwards x {len(calls['bert'])} "
+        f"BERT predict calls")
+    init_zoo_context(seed=SEED, device="cuda")
+    fleet_host_split("bert", _split_server(models["bert"], tmp),
+                     records["bert"][:2 * ROUTER_BATCH], InMemoryBroker(),
+                     ROUTER_BATCH, "split-bert")
+    fleet_host_split("ssd", _split_server(models["ssd"], tmp),
+                     records["ssd"][:2 * ROUTER_BATCH], InMemoryBroker(),
+                     ROUTER_BATCH, "split-ssd")
+    shutil.rmtree(tmp, ignore_errors=True)
+    del models, router
+    free_device_memory("after fleet_router")
+    log(f"phase fleet_router: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _split_server(model, tmp):
+    from analytics_zoo_tpu_torch.serving import ClusterServing, InMemoryBroker
+
+    return ClusterServing(model=model, broker=InMemoryBroker(),
+                          batch_size=ROUTER_BATCH, log_dir=tmp)
+
+
+PROC_WAVE = 96               # records of the warm and the SIGKILL waves
+PROC_TIMED = 384             # records of a timed wave
+PROC_REPEATS = 3             # timed waves with two and with one process
+PROC_LEASE_MS = 3000
+PROC_SCRAPE_S = 0.5          # the scraper's poll interval
+PROC_STALE_S = 2.0           # a target is stale after this long unanswered
+PROC_SPAWN_S = 240.0         # the longest a replica may take to answer
+PROC_BACKEND = "kernel"      # zoo_kernel_invocations' backend of a launch
+
+
+def sample_value(store_or_samples, name, **labels) -> float | None:
+    """The value of one sample of a scraped snapshot (a list of mergeable
+    samples), or None."""
+    for s in store_or_samples:
+        if s["name"] == name and all(
+                (s.get("labels") or {}).get(k) == v
+                for k, v in labels.items()):
+            return s.get("value", s.get("count"))
+    return None
+
+
+def replica_snapshots(scraper) -> dict:
+    """Each target's latest ``/telemetryz`` samples, pulled directly."""
+    import json
+    import urllib.request
+
+    out = {}
+    for name, tgt in scraper.healthz()["targets"].items():
+        try:
+            with urllib.request.urlopen(tgt["url"] + "/telemetryz",
+                                        timeout=5) as r:
+                out[name] = json.loads(r.read().decode())["samples"]
+        except OSError:
+            out[name] = None
+    return out
+
+
+def same_top(a, b) -> bool:
+    """Two top-N answers ([[class, prob], ...]) agree: the same classes,
+    the probabilities within CS_TOL."""
+    return [c for c, _ in a] == [c for c, _ in b] and all(
+        abs(p - q) <= CS_TOL for (_, p), (_, q) in zip(a, b))
+
+
+def process_wave(tag, inq, oq, ids, prefix, answered, card_line,
+                 during=None, linger=0.0, twice=None) -> tuple[dict, float]:
+    """Enqueue ``ids`` under ``prefix-i`` while ``during()`` (if given)
+    runs on a thread of its own, collect every answer once it has
+    returned and the records are enqueued, then go on dequeuing for
+    ``linger`` seconds after the last.  An answer to a uri of another wave
+    raises, and so does one to a uri already answered (in this wave or in
+    ``answered``) unless ``twice`` (a dict) is given, the uri is in
+    ``twice["allowed"]`` and the two answers agree (:func:`same_top`);
+    such a uri is added to ``twice["seen"]``.  Returns {uri: answer} and
+    the records/s from the first enqueue to the last answer."""
+    import threading
+
+    want = {f"{prefix}-{i}" for i in range(len(ids))}
+    got = {}
+
+    def take():
+        for uri, res in oq.dequeue().items():
+            first = got.get(uri, answered.get(uri))
+            if first is not None:
+                if twice is None or uri not in twice["allowed"] \
+                        or not same_top(first, res):
+                    raise AssertionError(f"fleet_process {tag}: {uri} "
+                                         f"answered twice: {first}, {res}")
+                twice["seen"].append(uri)
+                continue
+            if uri not in want:
+                raise AssertionError(f"fleet_process {tag}: an answer to "
+                                     f"{uri}, not of this wave")
+            got[uri] = res
+
+    failed = []
+
+    def run_during():
+        try:
+            during()
+        except BaseException as e:  # raised again below
+            failed.append(e)
+
+    side = threading.Thread(target=run_during, daemon=True) \
+        if during is not None else None
+    if side is not None:
+        side.start()
+    t0 = time.perf_counter()
+    for i, rec in enumerate(ids):
+        inq.enqueue(f"{prefix}-{i}", rec)
+    if side is not None:
+        side.join()
+        if failed:
+            raise failed[0]
+    deadline = t0 + CS_TIMEOUT
+    while len(got) < len(ids) and time.perf_counter() < deadline:
+        take()
+        time.sleep(0.005)
+    span = time.perf_counter() - t0
+    if len(got) != len(ids):
+        raise AssertionError(f"fleet_process {tag}: {len(got)} of "
+                             f"{len(ids)} answered")
+    end = time.perf_counter() + linger
+    while time.perf_counter() < end:
+        take()
+        time.sleep(0.05)
+    log(f"fleet_process {tag}: {len(ids)} records in {span * 1e3:.1f} ms "
+        f"from the first enqueue to the last answer = "
+        f"{len(ids) / span:.1f} records/s"
+        + (f"; dequeued {linger:.1f} s more" if linger else "")
+        + f" ({card_line})")
+    return got, len(ids) / span
+
+
+def claimed_uris(sdir, owner) -> set:
+    """The uris of the records ``owner`` holds claims on in a
+    ``FileBroker`` stream directory (``.c-<rid>.json`` next to
+    ``<rid>.json``); a claim or record that goes while the directory is
+    read (a batch being committed or requeued) is left out."""
+    import os
+
+    out = set()
+    for n in os.listdir(sdir):
+        if not (n.startswith(".c-") and n.endswith(".json")):
+            continue
+        try:
+            with open(os.path.join(sdir, n)) as f:
+                if owner not in f.read():
+                    continue
+            with open(os.path.join(sdir, n[3:])) as f:
+                out.add(json.load(f)["uri"])
+        except (OSError, ValueError, KeyError):
+            continue
+    return out
+
+
+def fleet_process_phase(card_line: str) -> dict:
+    """A process-mode fleet on the card: ``FleetController(mode="process")``
+    over a ``FileBroker`` with 2 replicas (``python -m
+    analytics_zoo_tpu_torch.serving.fleet --replica --metrics-port 0``,
+    each its own CUDA context on the card) serving a BERT-base f32 (512
+    tokens, batch 8) saved to a temporary directory; a ``VarzScraper`` over
+    ``fleet_varz_targets`` fills a ``TimeSeriesStore`` and a
+    ``TelemetryAggregator``, ticks an ``SloEngine(default_slos(...))``, and
+    a ``FederatedSignalSource`` feeds the controller's scaler.
+
+    Sequence: spawn and a probe record (seconds from spawn to the first
+    answer, the kernels found built: each replica's
+    ``zoo_compile_cache_hits_total{label=kernel_flash_attention_fwd}`` is
+    1, a library an nvcc run built would record no hit); a warm wave and
+    PROC_REPEATS timed waves of PROC_TIMED records with two replicas; a
+    wave during which one replica is killed with SIGKILL while it holds
+    claims (the survivor serves its records after the lease expires; the
+    phase dequeues one lease longer); PROC_REPEATS timed waves with the
+    one survivor; then a supervision tick replaces the dead replica.
+    Checks: every record answered once (an answer twice raises), the
+    serve log each uri at most once and every uri but those the victim
+    held claims on when it was killed; the dead target stale in the
+    scraper's
+    ``/healthz`` rollup and in the aggregator; a live replica's flash
+    launches 12 a predict call.  Logs records/s with two and one process,
+    each process's device memory and the alert transitions.  Returns the
+    replicas' flash launches (their scraped ``zoo_kernel_invocations``)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.metrics import (
+        MetricsServer,
+        SloEngine,
+        TelemetryAggregator,
+        TimeSeriesStore,
+        VarzScraper,
+        default_slos,
+        fleet_varz_targets,
+    )
+    from analytics_zoo_tpu_torch.metrics.health import HealthRegistry
+    from analytics_zoo_tpu_torch.serving import (
+        ClusterServingHelper,
+        FileBroker,
+        FleetController,
+        InputQueue,
+        OutputQueue,
+        SloScaler,
+    )
+    from analytics_zoo_tpu_torch.serving.client import INPUT_STREAM
+    from analytics_zoo_tpu_torch.serving.scaler import FederatedSignalSource
+
+    t_phase = time.perf_counter()
+    free_device_memory("before fleet_process")
+    init_zoo_context(seed=SEED, device="cuda")
+    tmp = tempfile.mkdtemp(prefix="zoo-fleet-process-")
+    path = os.path.join(tmp, "bert_base.model")
+    net = bert_tokens_model()
+    net.build_params()
+    net.save(path)
+    del net
+    free_device_memory("fleet_process: model saved")
+    spool = os.path.join(tmp, "spool")
+    db = FileBroker(spool)
+    serve_log = os.path.join(tmp, "serve.log")
+    gen = np.random.default_rng(SEED + 250)
+    health = HealthRegistry()
+    store, agg = TimeSeriesStore(), TelemetryAggregator(
+        stale_after=PROC_STALE_S)
+    engine = SloEngine(store, default_slos(
+        slo_p99_ms=500.0, heartbeat_stale_s=PROC_STALE_S, short_window=2.0,
+        long_window=6.0))
+    scraper = VarzScraper(aggregator=agg, store=store, engine=engine,
+                          interval=PROC_SCRAPE_S, stale_after=PROC_STALE_S,
+                          health=health, discover=fleet_varz_targets(db))
+    helper = ClusterServingHelper(
+        model_path=path, batch_size=CS_BERT_BATCH, top_n=2,
+        data_shape=(SEQ,), lease_ms=PROC_LEASE_MS, log_dir=tmp)
+    ctrl = FleetController(
+        helper, "dir:" + spool, mode="process", serve_log=serve_log,
+        scaler=SloScaler(slo_p99_ms=500.0, min_replicas=2, max_replicas=2),
+        interval=3600.0, replica_metrics=True,
+        signal_source=FederatedSignalSource(store, db, INPUT_STREAM,
+                                            scraper=scraper))
+    inq, oq = InputQueue(broker=db), OutputQueue(broker=db)
+    # the replicas log into the phase's directory and import the package
+    # from this checkout whatever their working directory
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {"ZOO_SERVING_LOG_DIR": tmp,
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    env_saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    answered = {}
+    try:
+        t0 = time.perf_counter()
+        ctrl.start()
+        inq.enqueue("probe-0", np.asarray(gen.integers(
+            1, BERT_BASE["vocab"], SEQ), np.int32))
+        while not answered and time.perf_counter() - t0 < PROC_SPAWN_S:
+            answered.update(oq.dequeue())
+            time.sleep(0.01)
+        first = time.perf_counter() - t0
+        if not answered:
+            raise AssertionError("fleet_process: no replica answered")
+        deadline = time.perf_counter() + PROC_SPAWN_S
+        while len(fleet_varz_targets(db)()) < 2 \
+                and time.perf_counter() < deadline:
+            time.sleep(0.1)
+        scraper.poll_once()
+        scraper.start()
+        log(f"fleet_process: spawn to the first answer {first:.1f} s (a "
+            f"warm replica: torch, the saved model, the kernel libraries "
+            f"found built, the probe's bucket captured) ({card_line})")
+        owners = ctrl.owners()
+
+        def wave(tag, prefix, n, during=None, linger=0.0, twice=None):
+            ids = list(gen.integers(1, BERT_BASE["vocab"], (n, SEQ))
+                       .astype(np.int32))
+            got, rate = process_wave(tag, inq, oq, ids, prefix, answered,
+                                     card_line, during, linger, twice)
+            answered.update(got)
+            return rate
+
+        def timed(tag, prefix):
+            rates = [wave(f"{tag}, wave {i + 1} of {PROC_REPEATS}",
+                          f"{prefix}{i}", PROC_TIMED)
+                     for i in range(PROC_REPEATS)]
+            log(f"fleet_process {tag}: {PROC_REPEATS} waves of "
+                f"{PROC_TIMED} records, records/s min "
+                f"{min(rates):.1f}, median {float(np.median(rates)):.1f}, "
+                f"max {max(rates):.1f} ({card_line})")
+            return rates
+
+        wave("two processes, first wave (their other buckets captured)",
+             "warm", PROC_WAVE)
+        rates = {"two": timed("two processes", "two")}
+        snaps = replica_snapshots(scraper)
+        hits = {n: sample_value(s or [], "zoo_compile_cache_hits_total",
+                                label="kernel_flash_attention_fwd")
+                for n, s in snaps.items()}
+        log(f"fleet_process: replicas {sorted(snaps)}; "
+            f"kernel_flash_attention_fwd library hits {hits} (a library "
+            f"found built is a hit; an nvcc run records none)")
+        if len(hits) != 2 or set(hits.values()) != {1}:
+            raise AssertionError("fleet_process: a replica did not load the "
+                                 "flash kernel's built library (a hit)")
+        victim = next(r for r in ctrl._replicas if r.owner == owners[-1])
+        sdir = os.path.join(spool, "stream-" + INPUT_STREAM)
+
+        claimed = set()  # every record the victim was seen to claim
+        # the victim may write a batch's answers and die before its
+        # release (the commit): the survivor serves that batch again once
+        # the lease expires, and its client reads a second answer
+        twice = {"allowed": claimed, "seen": []}
+
+        def kill_mid_batch():
+            # read the victim's claims over and over from before the
+            # wave's first enqueue, and kill it once it holds some: a
+            # batch it commits just before the kill was read while it
+            # was claimed; one it claimed after the last reading is read
+            # once it is dead
+            deadline = time.perf_counter() + 30
+            held, readings = set(), 0
+            while not held and time.perf_counter() < deadline:
+                held = claimed_uris(sdir, victim.owner)
+                claimed.update(held)
+                readings += 1
+            os.kill(victim.proc.pid, signal.SIGKILL)
+            victim.proc.wait()
+            after = claimed_uris(sdir, victim.owner)
+            claimed.update(after)
+            log(f"fleet_process: killed {victim.owner} with SIGKILL while "
+                f"it held claims on {sorted(held)} (read {readings} times; "
+                f"after the kill {sorted(after)})")
+            if not held:
+                raise AssertionError("fleet_process: the victim held no "
+                                     "claim within 30 s")
+
+        wave("with a SIGKILL mid-batch (lease expiry included)", "kill",
+             PROC_WAVE, kill_mid_batch, linger=PROC_LEASE_MS / 1e3,
+             twice=twice)
+        log(f"fleet_process: answered twice {sorted(twice['seen'])}, each "
+            f"a record the killed replica was seen to claim, the two "
+            f"answers agreeing (its answers written, it died before the "
+            f"release; the survivor served them again after the lease)")
+        rates["one"] = timed("one process", "one")
+        late = oq.dequeue()
+        if late:
+            raise AssertionError(f"fleet_process: answers after the last "
+                                 f"wave: {sorted(late)}")
+        two, one = rates["two"], rates["one"]
+        log(f"fleet_process records/s, two processes {min(two):.1f}-"
+            f"{max(two):.1f}, one {min(one):.1f}-{max(one):.1f}: "
+            + ("the ranges overlap" if min(two) <= max(one)
+               and min(one) <= max(two) else
+               "two faster" if min(two) > max(one) else "one faster")
+            + f" ({card_line})")
+        time.sleep(PROC_STALE_S + 2 * PROC_SCRAPE_S)
+        hz = scraper.healthz()
+        merged = agg.merged(include_driver=False)
+        stale = {n: t["healthy"] for n, t in hz["targets"].items()}
+        log(f"fleet_process: scraper health {stale} (overall "
+            f"{hz['healthy']}); aggregator sources "
+            f"{ {s: v.get('stale') for s, v in merged['sources'].items()} }")
+        dead = [n for n in hz["targets"] if victim.owner in n]
+        dead_src = [k for k in merged["sources"] if victim.owner in k]
+        if not dead or hz["targets"][dead[0]]["healthy"] or hz["healthy"] \
+                or not dead_src or not merged["sources"][dead_src[0]][
+                    "stale"]:
+            raise AssertionError("fleet_process: the dead replica is not "
+                                 "stale in /healthz and the aggregator")
+        srv = MetricsServer(port=0, health=health).start()
+        try:
+            code = urllib_status(srv.url + "/healthz")
+        finally:
+            srv.stop()
+        if code != 503:
+            raise AssertionError(f"fleet_process: /healthz answered {code} "
+                                 "with a dead target")
+        ctrl._tick()  # supervision replaces the dead replica
+        snaps = replica_snapshots(scraper)
+        per = {}
+        for n, s in snaps.items():
+            if s is None:
+                continue
+            fl = sample_value(s, "zoo_kernel_invocations",
+                              kernel="flash_attention_fwd",
+                              backend=PROC_BACKEND)
+            pc = sample_value(s, "zoo_serving_predict_seconds")
+            used = sample_value(s, "zoo_device_bytes_in_use")
+            peak = sample_value(s, "zoo_device_peak_bytes_in_use")
+            per[n] = (fl, pc, used, peak)
+        final = {}
+        for labels in store.label_sets("zoo_kernel_invocations"):
+            if labels.get("kernel") == "flash_attention_fwd" \
+                    and labels.get("backend") == PROC_BACKEND:
+                pts = store._select("zoo_kernel_invocations", labels)
+                final[labels["host"]] = pts[0].points[-1][1]
+        launches = int(sum(final.values()))
+        memory = {}
+        for name in ("zoo_device_bytes_in_use",
+                     "zoo_device_peak_bytes_in_use"):
+            for labels in store.label_sets(name):
+                pts = store._select(name, labels)[0].points
+                memory.setdefault(labels["host"], []).append(int(pts[-1][1]))
+        log(f"fleet_process per live replica (flash launches, predict "
+            f"calls, device bytes in use, peak): {per}; every replica's "
+            f"last scrape: flash launches {final}, device bytes in use and "
+            f"peak {memory} ({card_line})")
+        for n, (fl, pc, used, peak) in per.items():
+            if pc and fl != BERT_BASE["n_block"] * pc:
+                raise AssertionError(f"fleet_process {n}: {fl} flash "
+                                     f"launches for {pc} predict calls")
+        log("fleet_process alert transitions: " + "; ".join(
+            f"{d['slo']} {d['state']} (short {d['short_burn']}, long "
+            f"{d['long_burn']})" for d in engine.decision_log()))
+        log("fleet_process controller decisions: " + "; ".join(
+            f"{d['action']} {d['old']}->{d['new']} {d['reason']} hosts "
+            f"{d.get('hosts')}" for d in ctrl.decision_log()))
+    finally:
+        scraper.stop()
+        ctrl.stop()
+        for k, v in env_saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with open(serve_log) as f:
+        lines = [ln.split() for ln in f.read().splitlines()]
+    uris = [u for _, u in lines]
+    # the writer commits a batch (release done) and then appends its
+    # lines, as the reference's does: a SIGKILL between the two leaves a
+    # committed, answered batch of the dead replica without its lines,
+    # which it was seen to claim
+    unlogged = sorted(set(answered) - set(uris))
+    if len(uris) != len(set(uris)) or not set(uris) <= set(answered) \
+            or not set(unlogged) <= claimed or db.xlen(INPUT_STREAM):
+        raise AssertionError(f"fleet_process: the serve log is not each "
+                             f"record once ({len(uris)} lines, "
+                             f"{len(answered)} answers, unlogged "
+                             f"{unlogged})")
+    log(f"fleet_process: {len(uris)} of {len(answered)} answered records "
+        f"in the serve log once each, by "
+        f"{sorted({o for o, _ in lines})}; answered without a line "
+        f"{unlogged}, of the {len(claimed)} the killed replica was seen to "
+        f"claim (a batch it committed before its serve-log append)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    free_device_memory("after fleet_process")
+    log(f"phase fleet_process: {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_fwd": launches}
+
+
+def urllib_status(url) -> int:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+# SSD300 on the card: a synthetic VOC devkit through PascalVoc and the
+# port's SSD pipelines, fit at the SSD paper's batch in f32 and bf16
+SSD_TRAIN, SSD_VAL = 640, 16          # images of the synthetic devkit
+SSD_SRC = (240, 320)                  # their (height, width)
+SSD_RES = 300                         # the pipelines' square resolution
+SSD_BATCH = 32                        # 20 steps an epoch
+SSD_WORKERS = 4                       # prefetch workers of the fits
+SSD_CPU_TOL = 1e-3                    # step 1's loss, card against CPU
+SSD_LOSS_REPS = 5
+
+
+def write_voc_devkit(root, n, gen, image_set="train", start=0):
+    """``n`` JPEGs of SSD_SRC under ``root/VOC2007`` with 1-3 filled boxes
+    each, drawn in a colour of their VOC class, and their XML annotations
+    and image-set list: the layout ``PascalVoc`` reads."""
+    import os
+
+    from PIL import Image
+
+    base = os.path.join(root, "VOC2007")
+    for d in ("Annotations", "JPEGImages", os.path.join("ImageSets",
+                                                        "Main")):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    h, w = SSD_SRC
+    colours = gen.integers(0, 256, (len(VOC_NAMES), 3))
+    ids = []
+    for i in range(start, start + n):
+        idx = f"{i:06d}"
+        ids.append(idx)
+        img = gen.integers(0, 64, (h, w, 3)).astype(np.uint8)
+        objs = []
+        for _ in range(int(gen.integers(1, 4))):
+            c = int(gen.integers(len(VOC_NAMES)))
+            bw, bh = int(gen.integers(w // 6, w // 2)), \
+                int(gen.integers(h // 6, h // 2))
+            x0, y0 = int(gen.integers(0, w - bw)), int(gen.integers(0, h - bh))
+            img[y0:y0 + bh, x0:x0 + bw] = colours[c]
+            objs.append(f"<object><name>{VOC_NAMES[c]}</name><difficult>0"
+                        f"</difficult><bndbox><xmin>{x0}</xmin><ymin>{y0}"
+                        f"</ymin><xmax>{x0 + bw - 1}</xmax><ymax>"
+                        f"{y0 + bh - 1}</ymax></bndbox></object>")
+        Image.fromarray(img).save(os.path.join(base, "JPEGImages",
+                                               idx + ".jpg"), quality=90)
+        with open(os.path.join(base, "Annotations", idx + ".xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}"
+                    f"</height></size>{''.join(objs)}</annotation>")
+    with open(os.path.join(base, "ImageSets", "Main", image_set + ".txt"),
+              "w") as f:
+        f.write("\n".join(ids) + "\n")
+
+
+def ssd_net(seed, device=None):
+    """A fresh ``ObjectDetector("ssd-vgg16-300")`` over the 20 VOC classes
+    with weights drawn from a CPU generator seeded ``seed`` onto ``device``
+    (default: the context's), so the card and the CPU get the same
+    weights."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        ObjectDetector,
+    )
+
+    det = ObjectDetector("ssd-vgg16-300", class_names=VOC_NAMES)
+    det.model.build_params(rng=torch.Generator().manual_seed(seed),
+                           device=device)
+    return det
+
+
+def ssd_step1_vs_cpu(batch, card_line) -> None:
+    """Step 1's loss (the MultiBox loss of the initial weights on one
+    training batch) on the card, in f32 and under ``mixed_precision()``'s
+    bf16 compute, against the same weights and batch on the CPU in f32:
+    f32 within SSD_CPU_TOL relative, bf16 within BF16_F32_LOSS_TOL of the
+    card's f32."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.engine import (
+        cast_floats,
+        get_zoo_context,
+    )
+    from analytics_zoo_tpu_torch.parallel.plan import mixed_precision
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _cast_params,
+    )
+
+    losses = {}
+    t0 = time.perf_counter()
+    for tag, device, plan in (("cuda f32", get_zoo_context().device, None),
+                              ("cuda bf16", get_zoo_context().device,
+                               mixed_precision()),
+                              ("cpu f32", "cpu", None)):
+        det = ssd_net(SEED + 262, device)
+        net = det.model
+        est = Estimator(net, loss=det.loss(), plan=plan)
+        casts = est.compute_casts(est._resolve_plan(), net.params)
+        x = torch.from_numpy(batch["x"]).to(device)
+        y = torch.from_numpy(batch["y"]).to(device)
+        with torch.no_grad():
+            preds, _ = net.forward(_cast_params(net.params, casts),
+                                   cast_floats(x, casts[1]),
+                                   state=net.state)
+            losses[tag] = est.loss.mean(y, preds.float()).item()
+        del det, net, est
+    rel = abs(losses["cuda f32"] - losses["cpu f32"]) / abs(losses["cpu f32"])
+    rel16 = abs(losses["cuda bf16"] - losses["cuda f32"]) / \
+        abs(losses["cuda f32"])
+    log(f"ssd step 1 (batch {SSD_BATCH}): loss on the card f32 "
+        f"{losses['cuda f32']:.6f}, bf16 {losses['cuda bf16']:.6f}; on the "
+        f"CPU f32 {losses['cpu f32']:.6f}; card f32 vs CPU rel {rel:.2e} "
+        f"(tol {SSD_CPU_TOL:g}), bf16 vs f32 rel {rel16:.2e} (tol "
+        f"{BF16_F32_LOSS_TOL}); {time.perf_counter() - t0:.1f} s "
+        f"({card_line})")
+    if not (rel <= SSD_CPU_TOL and rel16 <= BF16_F32_LOSS_TOL):
+        raise AssertionError("ssd: step 1's loss disagrees with the CPU's")
+
+
+def loss_groups_ms(det, y_pred, y_true, card_line) -> None:
+    """Device ms of the MultiBox loss's parts at the fit's shapes, each
+    alone under torch.profiler (the sum of its kernels over SSD_LOSS_REPS
+    calls): matching (IoU, the bipartite loop of max_boxes rounds, argmax
+    and gathers), the box targets and smooth-L1, the log-softmax
+    cross-entropy, the hard-negative mining (two stable argsorts), the
+    whole loss, and the loss with its backward."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        encode_boxes,
+        match_priors,
+    )
+    from analytics_zoo_tpu_torch.models.image.objectdetection.multibox_loss import (  # noqa: E501
+        _smooth_l1,
+    )
+
+    loss = det.loss()
+    center, corner = loss.priors_on(y_pred.device)
+    conf, matched = match_priors(y_true[..., :4], y_true[..., 4].long(),
+                                 corner)
+    pos = conf > 0
+    logits = y_pred[..., 4:]
+    ce = -torch.gather(torch.log_softmax(logits, -1), -1,
+                       conf[..., None])[..., 0]
+    yp = y_pred.detach().requires_grad_(True)
+
+    def mining():
+        neg = torch.where(pos, -torch.inf, ce)
+        order = torch.argsort(-neg, dim=1, stable=True)
+        rank = torch.argsort(order, dim=1, stable=True)
+        return rank < (3 * pos.sum(1))[:, None]
+
+    def backward():
+        loss(y_true, yp).mean().backward()
+
+    groups = {
+        "matching": lambda: match_priors(y_true[..., :4],
+                                         y_true[..., 4].long(), corner),
+        "targets + smooth L1": lambda: _smooth_l1(
+            y_pred[..., :4] - encode_boxes(matched, center)),
+        "cross-entropy": lambda: -torch.gather(
+            torch.log_softmax(logits, -1), -1, conf[..., None]),
+        "mining": mining,
+        "whole loss": lambda: loss(y_true, y_pred),
+        "loss + backward": backward,
+    }
+    out = {}
+    for name, fn in groups.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SSD_LOSS_REPS):
+                fn()
+            torch.cuda.synchronize()
+        spans = cuda_spans(prof)
+        out[name] = (sum(b - a for _, a, b in spans) / 1e3 / SSD_LOSS_REPS,
+                     len(spans) // SSD_LOSS_REPS)
+    log(f"ssd MultiBox loss by group at batch {y_pred.shape[0]}, "
+        f"{y_pred.shape[1]} priors, {y_true.shape[1]} boxes (device ms, "
+        f"kernels a call; torch.profiler): " + "; ".join(
+            f"{k} {ms:.3f} ({n})" for k, (ms, n) in out.items())
+        + f" ({card_line})")
+
+
+def ssd_chain_split(train, card_line) -> None:
+    """``ssd_train_set``'s batches alone on the host, on one thread: one
+    batch of SSD_BATCH through ``batches`` as the fit's producer thread
+    makes it (a ``RoiFeatureSet`` is no ``TransformedFeatureSet``, so the
+    prefetch stage has no pooled map stage: its producer thread runs the
+    whole chain), and the same records' time by stage (the JPEG decode,
+    each op of the chain, the padding and ``np.stack``)."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    next(iter(train.batches(SSD_BATCH, shuffle=True, seed=SEED, epoch=1)))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    stages = train.chain.stages
+    took = {"decode": 0.0, **{type(op).__name__: 0.0 for op in stages}}
+    for ri in range(SSD_BATCH):
+        rec = train.records[ri]
+        t0 = time.perf_counter()
+        with Image.open(rec["path"]) as im:
+            image = np.asarray(im.convert("RGB"))
+        took["decode"] += time.perf_counter() - t0
+        r = {"image": image,
+             "boxes": np.asarray(rec["boxes"], np.float32).reshape(-1, 4),
+             "classes": np.asarray(rec.get("classes", []), np.float32),
+             "difficult": np.asarray(rec.get(
+                 "difficult", np.zeros(len(rec["boxes"]))), np.float32),
+             "_rng": np.random.default_rng(SEED + ri)}
+        for op in stages:
+            t0 = time.perf_counter()
+            r = op.transform(r)
+            took[type(op).__name__] += time.perf_counter() - t0
+    total = sum(took.values())
+    log(f"ssd training chain alone on one thread: a batch of {SSD_BATCH} "
+        f"through ssd_train_set.batches {batch_ms:.1f} ms = "
+        f"{SSD_BATCH / batch_ms * 1e3:.1f} images/s; by stage over "
+        f"{SSD_BATCH} records (ms an image): " + ", ".join(
+            f"{k} {v * 1e3 / SSD_BATCH:.2f}" for k, v in took.items())
+        + f"; the stages' sum {total * 1e3 / SSD_BATCH:.2f} ({card_line})")
+
+
+def ssd_fit(tag, det, train, plan, card_line) -> dict:
+    """``det``'s train step captured by ``Estimator.warmup`` on the set's
+    first batch, then one epoch of ``train`` under ``plan`` (every step a
+    replay, the prefetch stage on) under a torch.profiler trace of the
+    card; the steady window after DP_SKIP steps (:func:`steady_window`:
+    the card's clock a step, images/s, its busy time and idle share, the
+    host's dispatch cadence, the fit thread's dispatch span and its wait
+    for data); one replay's device time and the convolutions' bound.
+    Returns the losses and the steps (the warmup's included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.metrics import get_flight_recorder
+
+    t_fit = time.perf_counter()
+    net = det.model
+    steps = train.num_samples // SSD_BATCH
+    flight = get_flight_recorder()
+    net._estimator = net._make_estimator()
+    est = net._estimator
+    est.warmup(next(iter(train.batches(SSD_BATCH, shuffle=False))),
+               device_transform=train.device_transform, plan=plan)
+    torch.cuda.synchronize()
+    flight.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(train, batch_size=SSD_BATCH, nb_epoch=1, plan=plan)
+        torch.cuda.synchronize()
+        epoch = (time.perf_counter() - t0) * 1e3 / steps
+    win = steady_window(cuda_spans(prof),
+                        [r for r in flight.events("step")
+                         if r.get("loop") == "train"], DP_SKIP, steps)
+    losses = [v for _, v in est.loss_log[-steps:]]
+    dev_ms = replay_ms(graph_of(est._train_step_for(
+        1, est._resolve_plan(plan), train.device_transform)))
+    flops = conv_flops(net)
+    peak = PEAK_FLOPS["float32" if plan is None else "bfloat16"]
+    bound_ms = SSD_BATCH * flops[1] / peak * 1e3
+    log(f"ssd {tag} fit (batch {SSD_BATCH}, {steps} steps, prefetch on "
+        f"with {SSD_WORKERS} workers): steady window after {DP_SKIP} "
+        f"steps: on the card a step every {win['card_ms']:.2f} ms over "
+        f"{win['card_steps']} steps, "
+        f"{SSD_BATCH / win['card_ms'] * 1e3:.1f} images/s, busy "
+        f"{win['busy_ms']:.2f} ms a step, idle {win['idle']:.1%} (traced; "
+        f"{win['adam_traced']} of {steps} Adam kernels in the trace); on "
+        f"the host a dispatch every {win['host_ms']:.2f} ms over "
+        f"{win['steps']}, the fit thread's dispatch span "
+        f"{win['span_ms']:.2f} ms, wait for data {win['wait_ms']:.2f} ms "
+        f"(medians); the whole epoch {epoch:.2f} ms a step (start-up "
+        f"included); one replay {dev_ms:.2f} ms; bound {bound_ms:.2f} ms "
+        f"({SSD_BATCH} x {flops[1] / 1e9:.1f} GFLOP of convolutions at "
+        f"{peak / 1e12:.0f} TFLOP/s; a replay {bound_ms / dev_ms:.1%} of "
+        f"it); losses " + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; {time.perf_counter() - t_fit:.1f} s ({card_line})")
+    if not (np.all(np.isfinite(losses)) and max(losses[-2:]) < losses[0]):
+        raise AssertionError(f"ssd {tag}: the loss did not fall: {losses}")
+    return {"steps": steps + 1, "losses": losses}
+
+
+def ssd_phase(card_line: str) -> dict:
+    """SSD300-VGG16 on the card.  A synthetic VOC devkit (SSD_TRAIN +
+    SSD_VAL JPEGs of SSD_SRC with 1-3 boxes of known classes, XML
+    annotations) read by ``PascalVoc`` into the port's ``ssd_train_set`` /
+    ``ssd_val_set`` (300x300, the reference's augmentation chain); the
+    training chain alone on the host (``ssd_chain_split``);
+    ``ObjectDetector("ssd-vgg16-300").compile(Adam)`` fit one epoch at
+    batch SSD_BATCH, captured, in f32 and under ``mixed_precision()``,
+    read in a steady window (``ssd_fit``; one fused Adam launch a step, the
+    loss falling); step 1's loss against the CPU (``ssd_step1_vs_cpu``);
+    the loss's matching and mining by group; ``predict_image_set`` at 1
+    and 8 images (a request's device ms from its captured bucket, the
+    decode on the card and the NMS on the host) and ``PascalVocEvaluator``
+    over the validation set.  Its mAP is the synthetic devkit's; a VOC
+    score waits for the dataset in the repository.  Returns the fits'
+    launch counts."""
+    import tempfile
+
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.image.roi import (
+        ssd_train_set,
+        ssd_val_set,
+    )
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        PascalVoc,
+        PascalVocEvaluator,
+    )
+    from analytics_zoo_tpu_torch.models.image.objectdetection.postprocess import (  # noqa: E501
+        decode_predictions,
+        nms_decoded,
+    )
+    from analytics_zoo_tpu_torch.parallel.plan import mixed_precision
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    t_phase = time.perf_counter()
+    free_device_memory("before ssd")
+    init_zoo_context({"prefetch_workers": SSD_WORKERS}, seed=SEED,
+                     device="cuda")
+    gen = np.random.default_rng(SEED + 260)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_voc_devkit(tmp, SSD_TRAIN, gen, "train")
+        write_voc_devkit(tmp, SSD_VAL, gen, "val", start=SSD_TRAIN)
+        train_recs = PascalVoc(tmp, "2007", "train").roidb(read_image=False)
+        val_recs = PascalVoc(tmp, "2007", "val").roidb()
+        log(f"ssd: synthetic VOC devkit of {SSD_TRAIN} + {SSD_VAL} JPEGs "
+            f"{SSD_SRC} written and indexed in "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{sum(len(r['boxes']) for r in train_recs)} training boxes")
+        train = ssd_train_set(train_recs, resolution=SSD_RES, max_boxes=8,
+                              label_offset=-1)
+        val = ssd_val_set(val_recs, resolution=SSD_RES, max_boxes=8,
+                          label_offset=-1)
+        first = next(iter(train.batches(SSD_BATCH, shuffle=False)))
+        ssd_chain_split(train, card_line)
+        ssd_step1_vs_cpu(first, card_line)
+        launches, steps = {}, 0
+        fitted = None
+        for tag, plan in (("f32", None), ("bf16", mixed_precision())):
+            det = ssd_net(SEED + 261)
+            det.compile(Adam(lr=1e-4))
+            reset_counters()  # this fit: to the read below
+            res = ssd_fit(tag, det, train, plan, card_line)
+            torch.cuda.synchronize()
+            launches = add_launches(launches, counters())  # end of the fit
+            steps += res["steps"]
+            # the fit's captured step holds its graph pool (tens of GB at
+            # batch 32): free it before the next fit
+            det.model._estimator = None
+            if plan is None:
+                fitted = det
+            else:
+                del det
+            free_device_memory(f"ssd after the {tag} fit")
+        expect_launches("ssd", launches, fused_adam=steps)
+        log(f"ssd launches {launches}: one fused Adam launch a step over "
+            f"{steps} steps")
+        dev = fitted.model.device
+        y_true = torch.from_numpy(first["y"]).to(dev)
+        with torch.no_grad():
+            y_pred, _ = fitted.model.forward(
+                fitted.model.params, torch.from_numpy(first["x"]).to(dev),
+                state=fitted.model.state)
+        loss_groups_ms(fitted, y_pred, y_true, card_line)
+        val_batches = list(val.batches(8, shuffle=False, drop_last=False))
+        val_x = np.concatenate([b["x"] for b in val_batches])
+        gts = [dict(boxes=row[row[:, 4] >= 0][:, :4],
+                    classes=row[row[:, 4] >= 0][:, 4])
+               for b in val_batches for row in b["y"]]
+        im = InferenceModel().from_keras_net(fitted.model)
+        im.warmup([val_x.shape[1:]], dtype=[val_x.dtype], batch_sizes=[1, 8])
+        for n in (1, 8):
+            x = val_x[:n]
+            host = []
+            for _ in range(HOST_REPEATS):
+                t0 = time.perf_counter()
+                dets = fitted.predict_image_set(x, conf_threshold=0.3)
+                host.append((time.perf_counter() - t0) * 1e3)
+            raw = torch.from_numpy(im.predict(x)).to(fitted.model.device)
+            priors = torch.as_tensor(np.asarray(fitted.priors, np.float32),
+                                     device=raw.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            boxes, scores = decode_predictions(raw, priors)
+            boxes, scores = boxes.cpu().numpy(), scores.cpu().numpy()
+            decode_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            again = nms_decoded(boxes, scores, 0.3)
+            nms_ms = (time.perf_counter() - t0) * 1e3
+            key = ((x.shape, str(x.dtype)),)
+            dev = replay_ms(graph_of(im._steps[key].step))
+            flops = conv_flops(fitted.model)
+            same = [len(d["scores"]) for d in dets] == \
+                [len(d["scores"]) for d in again]
+            log(f"ssd request of {n}: predict_image_set host "
+                f"{float(np.median(host)):.2f} ms (median of {HOST_REPEATS})"
+                f", the request's device {dev:.3f} ms (bound "
+                f"{n * flops[0] / PEAK_FLOPS['float32'] * 1e3:.3f} ms), "
+                f"the decode on the card with its copy of boxes and scores "
+                f"to the host {decode_ms:.2f} ms, the NMS on the host "
+                f"{nms_ms:.2f} ms (host clock); "
+                f"{sum(len(d['scores']) for d in dets)} detections, the "
+                f"same through InferenceModel: {same} ({card_line})")
+            if len(dets) != n or not all(
+                    np.isfinite(d["boxes"]).all() for d in dets):
+                raise AssertionError(f"ssd: predict_image_set of {n} is "
+                                     "wrong")
+        dets = fitted.predict_image_set(val_x, conf_threshold=0.01)
+        ev = PascalVocEvaluator(VOC_NAMES).evaluate(dets, gts)
+        present = {k: round(v, 4) for k, v in ev["AP"].items()
+                   if v == v}
+        log(f"ssd PascalVocEvaluator on the synthetic devkit's {len(gts)} "
+            f"validation images (not VOC: VOC2007 is not in the "
+            f"repository): mAP {ev['mAP']:.4f} over {len(present)} classes "
+            f"present ({card_line})")
+        if not 0.0 <= ev["mAP"] <= 1.0:
+            raise AssertionError("ssd: the mAP is not a fraction")
+        del fitted, im
+    free_device_memory("after ssd")
+    log(f"phase ssd: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7764,6 +9012,9 @@ def main() -> int:
     cluster = phase("cluster_serving", cluster_serving_phase, card_line)
     inst_fit = phase("instrumented_fit", instrumented_fit_phase, card_line)
     data_plane = phase("image_data_plane", image_data_plane_phase, card_line)
+    fleet_router = phase("fleet_router", fleet_router_phase, card_line)
+    fleet_process = phase("fleet_process", fleet_process_phase, card_line)
+    ssd = phase("ssd", ssd_phase, card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -7800,7 +9051,10 @@ def main() -> int:
                  "tfpark_text": tfpark_text.get(name, 0),
                  "cluster_serving": cluster.get(name, 0),
                  "instrumented_fit": inst_fit.get(name, 0),
-                 "image_data_plane": data_plane.get(name, 0)}
+                 "image_data_plane": data_plane.get(name, 0),
+                 "fleet_router": fleet_router.get(name, 0),
+                 "fleet_process": fleet_process.get(name, 0),
+                 "ssd": ssd.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},

@@ -170,7 +170,21 @@ DATA_PLANE_KNOBS = {
     "autotune": (False, 16), "autotune_ram_budget": (None, 16),
     "autotune_interval": (0.25, 16), "autotune_max_workers": (None, 16),
 }
-UNPORTED = sorted({**UNPORTED_KNOBS, **DATA_PLANE_KNOBS}.items())
+#: the fleet plane's knobs (items 17 and 18), which raised until the
+#: fleet controller, router, admission, scraper and SLO engine were
+#: ported: their cases check the value is taken (the ids stay the same)
+FLEET_PLANE_KNOBS = {
+    "slo_p99_ms": (500.0, 17),
+    "fleet_min_replicas": (1, 17), "fleet_max_replicas": (4, 17),
+    "fleet_interval": (1.0, 17),
+    "admission": (False, 17), "serving_models": (None, 17),
+    "scrape_targets": (None, 18), "scrape_interval": (1.0, 18),
+    "scrape_stale_after": (10.0, 18), "slo_objective": (0.99, 18),
+    "slo_short_window": (30.0, 18), "slo_long_window": (300.0, 18),
+    "slo_burn_threshold": (1.0, 18),
+}
+READ_KNOBS = {**DATA_PLANE_KNOBS, **FLEET_PLANE_KNOBS}
+UNPORTED = sorted({**UNPORTED_KNOBS, **READ_KNOBS}.items())
 
 
 def _other(value):
@@ -179,6 +193,37 @@ def _other(value):
     if value is None:
         return 2
     return value + 1
+
+
+def _fleet_reads(cfg, field, value):
+    """Where the reference reads a fleet knob, the port's fleet plane
+    reads it: the fleet and router ``from_config`` builders."""
+    from analytics_zoo_tpu_torch.serving import (
+        ClusterServingHelper,
+        FleetController,
+        InMemoryBroker,
+        ModelRouter,
+    )
+
+    if field in ("slo_p99_ms", "fleet_min_replicas", "fleet_max_replicas",
+                 "fleet_interval"):
+        ctrl = FleetController.from_config(
+            cfg, ClusterServingHelper(), InMemoryBroker())
+        got = {"slo_p99_ms": ctrl.scaler.slo_p99_ms,
+               "fleet_min_replicas": ctrl.scaler.min_replicas,
+               "fleet_max_replicas": ctrl.scaler.max_replicas,
+               "fleet_interval": ctrl.interval}[field]
+        assert got == value
+    if field in ("serving_models", "admission", "fleet_min_replicas",
+                 "fleet_max_replicas", "fleet_interval"):
+        cfg.serving_models = cfg.serving_models or "m=100"
+        router = ModelRouter.from_config(cfg, InMemoryBroker())
+        got = {"serving_models": router.models(),
+               "admission": router.admission_enabled,
+               "fleet_min_replicas": router.min_replicas,
+               "fleet_max_replicas": router.max_replicas,
+               "fleet_interval": router.interval}[field]
+        assert got == (["bert"] if field == "serving_models" else value)
 
 
 @pytest.mark.parametrize("field,spec", UNPORTED, ids=[u[0] for u in UNPORTED])
@@ -198,10 +243,12 @@ def test_unported_plane_knob_raises_naming_its_item(field, spec):
     elif field == "slo_short_window":
         value = 20.0
     init_zoo_context(device="cpu")  # a valid context first
-    if field in DATA_PLANE_KNOBS:
+    if field in READ_KNOBS:
         assert field not in UNPORTED_KNOBS
         ctx = init_zoo_context({field: value}, device="cpu")
         assert getattr(ctx.config, field) == value
+        if field in FLEET_PLANE_KNOBS:
+            _fleet_reads(ctx.config, field, value)
         return
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         init_zoo_context({field: value}, device="cpu")

@@ -24,7 +24,9 @@ Two more registries hold the other layer surfaces the same way:
 class and merge function of the reference's module must have a port
 counterpart of its name and an entry, and every port name an entry and a
 reference counterpart), and ``AUTOGRAD_PARITY_TESTS`` for the layers of
-``pipeline.api.autograd`` (``LambdaOp``, ``Parameter``, ``Lambda``).
+``pipeline.api.autograd`` (``LambdaOp``, ``Parameter``, ``Lambda``), and
+``DETECTION_PARITY_TESTS`` for the layers the detection models define
+(``models.image.objectdetection.ssd``: ``L2Normalize2D``).
 """
 
 import ast
@@ -174,6 +176,12 @@ AUTOGRAD_PARITY_TESTS = {
 }
 
 
+DETECTION_PARITY_TESTS = {
+    "L2Normalize2D": ("tests/test_torch_objectdetection.py",
+                      "test_l2normalize2d_matches_jax"),
+}
+
+
 def _public_layers(module, base):
     return sorted(n for n in dir(module) if not n.startswith("_")
                   and inspect.isclass(getattr(module, n))
@@ -202,8 +210,9 @@ def test_every_port_layer_has_a_parity_test():
 
 
 @pytest.mark.parametrize("registry", [
-    PARITY_TESTS, KERAS2_PARITY_TESTS, AUTOGRAD_PARITY_TESTS],
-    ids=["keras", "keras2", "autograd"])
+    PARITY_TESTS, KERAS2_PARITY_TESTS, AUTOGRAD_PARITY_TESTS,
+    DETECTION_PARITY_TESTS],
+    ids=["keras", "keras2", "autograd", "detection"])
 def test_registry_entries_point_at_real_tests(registry):
     broken = []
     names = {}
@@ -291,6 +300,23 @@ def test_autograd_layers_are_registered():
     port = [n for n in _public_layers(T, Layer)
             if getattr(T, n).__module__ == T.__name__]
     assert sorted(port) == sorted(AUTOGRAD_PARITY_TESTS)
+    reference = [n for n in _public_layers(J, JLayer)
+                 if getattr(J, n).__module__ == J.__name__]
+    assert sorted(reference) == sorted(port)
+
+
+def test_detection_layers_are_registered():
+    """Every layer class the port's SSD module defines has an entry in
+    ``DETECTION_PARITY_TESTS`` and a class of its name in the reference's
+    module."""
+    import analytics_zoo_tpu.models.image.objectdetection.ssd as J
+    import analytics_zoo_tpu_torch.models.image.objectdetection.ssd as T
+    from analytics_zoo_tpu.pipeline.api.keras.engine import Layer as JLayer
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
+
+    port = [n for n in _public_layers(T, Layer)
+            if getattr(T, n).__module__ == T.__name__]
+    assert sorted(port) == sorted(DETECTION_PARITY_TESTS)
     reference = [n for n in _public_layers(J, JLayer)
                  if getattr(J, n).__module__ == J.__name__]
     assert sorted(reference) == sorted(port)

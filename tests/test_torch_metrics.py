@@ -413,22 +413,25 @@ def _server(pkg):
 
 
 # /varz panels of modules the port does not have yet (ROADMAP queue 1
-# items 17-19, 21): the reference shows each one whose module this
-# process has imported; the port's server looks its own module names up
-# and answers as "not running"
-PANELS = {"fleet", "router", "admission", "oracle", "elastic", "slo",
-          "scrape"}
+# items 19, 21): the reference shows each one whose module this process
+# has imported; the port's server looks its own module names up and
+# answers as "not running"
+PANELS = {"oracle", "elastic"}
 
 
 def test_metrics_server_endpoints_and_keys_match():
-    # the autotune panel is ported: each package's /varz shows it once its
-    # own feature.autotune is imported, so both are
+    # the autotune, fleet, router, admission, slo and scrape panels are
+    # ported: each package's /varz shows one once its own module is
+    # imported (slo and scrape come with the metrics package), so all are
     for pkg in PACKAGES:
-        importlib.import_module(f"{pkg}.feature.autotune")
+        for mod in ("feature.autotune", "serving.fleet", "serving.router",
+                    "serving.admission"):
+            importlib.import_module(f"{pkg}.{mod}")
     ref, port = _both(_server)
     code, keys = port["/varz"]
     assert not PANELS & set(keys)
-    assert "autotune" in keys
+    assert {"autotune", "fleet", "router", "admission", "slo",
+            "scrape"} <= set(keys)
     ref["/varz"] = (ref["/varz"][0],
                     [k for k in ref["/varz"][1] if k not in PANELS])
     assert port == ref
@@ -475,21 +478,31 @@ def test_sanitizers_and_sample_keys_match():
                                   "SloEngine", "SloSpec", "default_slos",
                                   "TimeSeriesStore"])
 def test_the_federation_tier_raises_naming_its_item(name):
+    """These names raised (item 18) until the federation tier was ported;
+    the case now checks each is exported from its own module (the id
+    stays the same)."""
+    import importlib
+
     import analytics_zoo_tpu_torch.metrics as metrics
 
-    with pytest.raises(NotImplementedError, match="item 18"):
-        getattr(metrics, name)
+    mod = {"VarzScraper": "scrape", "fleet_varz_targets": "scrape",
+           "SloEngine": "slo", "SloSpec": "slo", "default_slos": "slo",
+           "TimeSeriesStore": "timeseries"}[name]
+    assert name in metrics.__all__
+    assert getattr(metrics, name) is getattr(importlib.import_module(
+        f"analytics_zoo_tpu_torch.metrics.{mod}"), name)
 
 
 def test_every_reference_name_is_exported_or_raises():
+    """Every name of the reference's metrics package is exported (the
+    federation tier, the last that raised, is ported)."""
     import analytics_zoo_tpu.metrics as ref
     import analytics_zoo_tpu_torch.metrics as port
 
     for name in ref.__all__:
-        if name in port.UNPORTED:
-            continue
         assert name in port.__all__, name
         getattr(port, name)
+    assert not hasattr(port, "UNPORTED")
 
 
 def test_record_device_memory_is_zero_without_a_cuda_device():

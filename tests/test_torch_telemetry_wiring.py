@@ -246,8 +246,8 @@ def test_ported_serving_knobs_are_accepted(monkeypatch, tmp_path, field,
     ``ClusterServingHelper`` serves with a value given there, over its env
     var (the ZooConfig precedence), whether it came as a conf entry or a
     ``ZooConfig``; its own override still wins.  A context not given the
-    knob leaves the helper to its env var.  The fleet plane's other knobs
-    still raise."""
+    knob leaves the helper to its env var.  The fleet plane's other knobs,
+    which raised until the fleet plane was ported, are accepted too."""
     import analytics_zoo_tpu_torch.common.engine as torch_engine
     from analytics_zoo_tpu_torch import init_zoo_context
     from analytics_zoo_tpu_torch.common.engine import ZooConfig
@@ -272,7 +272,7 @@ def test_ported_serving_knobs_are_accepted(monkeypatch, tmp_path, field,
             assert helper(**{attr: 300}) == 300
         init_zoo_context(device="cpu")
         assert helper() == env_value
-        with pytest.raises(NotImplementedError, match="item 17"):
-            init_zoo_context({"fleet_max_replicas": 8}, device="cpu")
+        ctx = init_zoo_context({"fleet_max_replicas": 8}, device="cpu")
+        assert ctx.config.fleet_max_replicas == 8
     finally:
         torch_engine._CONTEXT = saved
