@@ -44,6 +44,12 @@ through :func:`params_from_jax` as the parameters do; an MoE stack's
 tensors.  An autograd ``Parameter`` holds one leaf, ``{"value"}``: in the
 parameter tree when it is trainable, in the state tree when it is frozen,
 and either tree converts the same way.
+
+The importers' trees convert the same way: an ``OnnxNet``'s parameters
+are keyed by their initializer names and a ``CaffeNet``'s by
+``"<layer>/blob<i>"``, each leaf in its file's layout (NCHW activations,
+OIHW kernels, caffe's (out, in) InnerProduct weights).  A
+``GANEstimator``'s two groups come through :func:`gan_groups_from_jax`.
 """
 
 from __future__ import annotations
@@ -166,15 +172,17 @@ def opt_state_from_jax(state, device=None):
                     trace=tree(traces[0].trace) if traces else ())
 
 
-def _sorted_leaves(tree, out: list) -> list:
-    """``tree``'s leaves in JAX's flatten order: dict keys sorted, lists
-    and tuples by position."""
+def sorted_leaves(tree, out: list | None = None) -> list:
+    """``tree``'s leaves in JAX's flatten order (dict keys sorted, lists
+    and tuples by position), appended to ``out`` (a new list by
+    default)."""
+    out = [] if out is None else out
     if isinstance(tree, dict):
         for k in sorted(tree):
-            _sorted_leaves(tree[k], out)
+            sorted_leaves(tree[k], out)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            _sorted_leaves(v, out)
+            sorted_leaves(v, out)
     else:
         out.append(tree)
     return out
@@ -189,7 +197,7 @@ def opt_flat_leaves(optimizer, opt_state) -> list:
     fields = [f for f in type(opt_state)._fields if f != "count"]
     out = [opt_state.count] if isinstance(opt_state, AdamState) else []
     for f in fields:
-        _sorted_leaves(getattr(opt_state, f), out)
+        sorted_leaves(getattr(opt_state, f), out)
     if getattr(optimizer, "schedule", None) is not None:
         out.append(opt_state.count)
     return out
@@ -214,3 +222,14 @@ def load_opt_flat_(optimizer, opt_state, flat, global_step: int) -> None:
     if not any(t is opt_state.count for t in leaves):
         opt_state.count.fill_(int(global_step))
 
+
+
+def gan_groups_from_jax(groups: dict, device=None) -> dict:
+    """A ``GANEstimator``'s groups from the JAX package's: ``groups`` has
+    the reference checkpoint's keys (``gp``, ``dp``, ``gs``, ``ds``: the
+    generator's and discriminator's parameters and layer states, trees of
+    arrays), each converted by :func:`params_from_jax`; any other key
+    (``step``) passes through."""
+    dev = resolve_device(device)
+    return {k: params_from_jax(v, dev) if k in ("gp", "dp", "gs", "ds")
+            else v for k, v in groups.items()}

@@ -894,6 +894,35 @@ class PlannedStep:
                         counts, states), eager
 
 
+def host_bound(model) -> bool:
+    """Whether ``model`` holds a layer that runs on the host (one with
+    ``host_round_trip``, as ``TFNet``), nested containers included: a
+    host round trip cannot sit inside a CUDA graph."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
+
+    seen = set()
+
+    def visit(layer) -> bool:
+        if id(layer) in seen:
+            return False
+        seen.add(id(layer))
+        if getattr(layer, "host_round_trip", False):
+            return True
+        inner = getattr(layer, "layers", None) or ()
+        return any(visit(ly) for ly in inner if isinstance(ly, Layer))
+
+    return visit(model)
+
+
+def step_options(model, label: str) -> dict:
+    """``compile_step``'s ``label`` and ``capture`` for a step of
+    ``model``: a host-bound model's steps run uncaptured, under the label
+    with ``_host`` appended, so ``compile_stats`` says so."""
+    if host_bound(model):
+        return {"label": f"{label}_host", "capture": False}
+    return {"label": label}
+
+
 def compile_step(step_fn, plan: ShardingPlan | str | None = None, *,
                  label: str | None = None, donate_argnums=(),
                  ref_argnums=(), capture: bool = True,

@@ -447,20 +447,27 @@ class GraphFunction:
                         "graph contains an Input not listed in `inputs`"
                     )
 
-    def init_params(self, rng: torch.Generator) -> dict:
+    def init_params(self, rng: torch.Generator, given=None) -> dict:
+        """Each layer's weights drawn from the child of ``rng`` at its
+        position, or taken as they are from ``given`` (by layer name)
+        where it has them."""
+        given = given or {}
         params = {}
         for i, layer in enumerate(self.layers):
             if isinstance(layer, InputLayer):
                 continue
-            p = layer.init_params(fold_in(rng, i))
+            p = given[layer.name] if layer.name in given \
+                else layer.init_params(fold_in(rng, i))
             if p:
                 params[layer.name] = p
         return params
 
-    def init_state(self) -> dict:
+    def init_state(self, given=None) -> dict:
+        given = given or {}
         state = {}
         for layer in self.layers:
-            s = layer.init_state()
+            s = given[layer.name] if layer.name in given \
+                else layer.init_state()
             if s:
                 state[layer.name] = s
         return state

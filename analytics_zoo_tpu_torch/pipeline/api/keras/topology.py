@@ -88,9 +88,12 @@ class KerasNet(_ContainerBase):
     # parameter materialization
     # ------------------------------------------------------------------
     def build_params(self, rng: torch.Generator | None = None,
-                     force: bool = False, device=None):
+                     force: bool = False, device=None, given=None):
         """Materialize params/state trees (idempotent) on ``device``
-        (default: the context's device, ``cuda`` unless set otherwise)."""
+        (default: the context's device, ``cuda`` unless set otherwise).
+        ``given``: a (params, state) pair of trees by layer name, on
+        ``device`` already; the layers they hold take those tensors as
+        they are and draw nothing, the others draw as without them."""
         if self.params is not None and not force:
             return self.params, self.state
         if force:
@@ -99,8 +102,10 @@ class KerasNet(_ContainerBase):
         rng = rng if rng is not None else make_generator(ctx.seed)
         self.device = resolve_device(device) if device is not None \
             else ctx.device
-        self.params = _to_device(self.init_params(rng), self.device)
-        self.state = _to_device(self.init_state(), self.device)
+        given_params, given_state = given or (None, None)
+        self.params = _to_device(self.init_params(rng, given_params),
+                                 self.device)
+        self.state = _to_device(self.init_state(given_state), self.device)
         self._predict_fn = None  # its captures read the old buffers
         return self.params, self.state
 
@@ -222,6 +227,7 @@ class KerasNet(_ContainerBase):
             from analytics_zoo_tpu_torch.parallel.plan import (
                 CaptureGroup,
                 compile_step,
+                step_options,
             )
 
             dtype = ctx.compute_dtype
@@ -234,9 +240,9 @@ class KerasNet(_ContainerBase):
                                           training=False)
                 return cast_floats(out, torch.float32)
 
-            cached = (dtype, compile_step(_fwd, label="predict_step",
-                                          ref_argnums=(0, 1),
-                                          group=CaptureGroup()))
+            cached = (dtype, compile_step(
+                _fwd, ref_argnums=(0, 1), group=CaptureGroup(),
+                **step_options(self, "predict_step")))
             self._predict_fn = cached
         fwd = cached[1]
         outs = []
@@ -507,20 +513,24 @@ class Sequential(KerasNet):
             return None
         return (None,) + tuple(self._layers[0]._build_shape or ())
 
-    def init_params(self, rng):
+    def init_params(self, rng, given=None):
+        given = given or {}
         params = {}
         for i, layer in enumerate(self._layers):
             if isinstance(layer, InputLayer):
                 continue
-            p = layer.init_params(fold_in(rng, i))
+            p = given[layer.name] if layer.name in given \
+                else layer.init_params(fold_in(rng, i))
             if p:
                 params[layer.name] = p
         return params
 
-    def init_state(self):
+    def init_state(self, given=None):
+        given = given or {}
         state = {}
         for layer in self._layers:
-            s = layer.init_state()
+            s = given[layer.name] if layer.name in given \
+                else layer.init_state()
             if s:
                 state[layer.name] = s
         return state
@@ -583,11 +593,11 @@ class Model(KerasNet):
         shapes = [v.shape for v in self._graph.inputs]
         return shapes[0] if len(shapes) == 1 else shapes
 
-    def init_params(self, rng):
-        return self._graph.init_params(rng)
+    def init_params(self, rng, given=None):
+        return self._graph.init_params(rng, given)
 
-    def init_state(self):
-        return self._graph.init_state()
+    def init_state(self, given=None):
+        return self._graph.init_state(given)
 
     def call(self, params, inputs, state=None, training=False, rng=None):
         return self._graph(params, inputs, state=state, training=training,

@@ -207,6 +207,7 @@ from analytics_zoo_tpu_torch.parallel.plan import (
     compile_step,
     kernels_off,
     resolve_plan,
+    step_options,
     with_dtype_policy,
 )
 from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
@@ -944,7 +945,8 @@ class Estimator:
             fn = self._dispatch if device_transform is None else partial(
                 self._dispatch, device_transform=device_transform)
             step = self._steps[key] = compile_step(
-                fn, plan, label=label, donate_argnums=(0, 1, 2))
+                fn, plan, donate_argnums=(0, 1, 2),
+                **step_options(self.model, label))
         return step
 
     def _eval_step_for(self, plan, device_transform=None):
@@ -957,8 +959,8 @@ class Estimator:
             fn = self.eval_step if device_transform is None else partial(
                 self.eval_step, device_transform=device_transform)
             step = self._steps[key] = compile_step(
-                fn, plan, label="eval_step", ref_argnums=(0, 1),
-                group=CaptureGroup())
+                fn, plan, ref_argnums=(0, 1), group=CaptureGroup(),
+                **step_options(self.model, "eval_step"))
         return step
 
     def _keys(self, k: int, device, seed: int, step0: int):

@@ -242,7 +242,10 @@ class InferenceModel:
         from analytics_zoo_tpu_torch.common.compile_cache import (
             maybe_enable_persistent_cache,
         )
-        from analytics_zoo_tpu_torch.parallel.plan import compile_step
+        from analytics_zoo_tpu_torch.parallel.plan import (
+            compile_step,
+            step_options,
+        )
 
         key = tuple((a.shape, str(a.dtype)) for a in xs)
         with self._lock:
@@ -253,8 +256,9 @@ class InferenceModel:
                 # ZOO_COMPILE_CACHE: the kernel libraries a capture loads
                 maybe_enable_persistent_cache()
                 entry = self._steps[key] = _Bucket(compile_step(
-                    self._forward_fn(), label=f"inference_b{b}",
-                    ref_argnums=(0, 1), group=self._group), str(b))
+                    self._forward_fn(), ref_argnums=(0, 1),
+                    group=self._group,
+                    **step_options(self._net, f"inference_b{b}")), str(b))
         return entry
 
     def _run(self, xs: Sequence[np.ndarray], m: int):

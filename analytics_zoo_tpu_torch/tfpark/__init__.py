@@ -2,31 +2,17 @@
 
 The reference's tfpark trains user-defined graphs through a Keras-style
 facade (``KerasModel``), spec-driven estimators (``TFEstimator``),
-alternating GAN optimization (``GANEstimator``) and ready-made text models.
-The port has ``KerasModel`` and the text taggers (``tfpark.text.keras``),
-over its own ``KerasNet``.  ``TFEstimator``, ``TFEstimatorSpec``,
-``ZooOptimizer``, ``sparse_ce``, ``GANEstimator`` and the BERT estimators
-(``tfpark.text.estimator``) are not ported yet (ROADMAP queue 1 item 21):
-importing one raises ``NotImplementedError``.
+alternating GAN optimization (``GANEstimator``) and ready-made text models
+(the Keras taggers of ``tfpark.text.keras`` and the BERT estimators of
+``tfpark.text.estimator``).  The port keeps the API shapes over its own
+``KerasNet`` and ``Estimator``: bring-your-own model function,
+spec-driven estimators, alternating GAN phases, all building the port's
+symbolic graph (autograd Variables and keras layers).
 """
 
+from .estimator import TFEstimator, TFEstimatorSpec, ZooOptimizer, sparse_ce
+from .gan import GANEstimator
 from .model import KerasModel
 
-__all__ = ["KerasModel"]
-
-#: names of the reference's tfpark that wait for ROADMAP queue 1 item 21
-UNPORTED = ("TFEstimator", "TFEstimatorSpec", "ZooOptimizer", "sparse_ce",
-            "GANEstimator", "estimator", "gan")
-
-
-def unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"tfpark.{name} belongs to tfpark's estimator plane (TFEstimator, "
-        f"GANEstimator and the BERT estimators), which the port does not "
-        f"have yet (ROADMAP queue 1 item 21)")
-
-
-def __getattr__(name):
-    if name in UNPORTED:
-        raise unported(name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["KerasModel", "TFEstimator", "TFEstimatorSpec", "ZooOptimizer",
+           "sparse_ce", "GANEstimator"]

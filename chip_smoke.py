@@ -322,7 +322,38 @@ and prints no result):
    counters and one flight record a dispatch, the trained parameters and
    Adam moments bit for bit alike, replayed epochs' host clock a step on
    and off, and the instruments' own host cost a dispatch;
-30. summary: ``phase seconds`` of every phase (each also logged as it
+30. tfpark_bert, tfpark's estimator plane's main path: BERT-base (f32,
+   dropout 0.1, Adam) fine-tuned through ``TFEstimator.train`` as
+   ``BERTSquad`` at 12 x 384 (20 steps, one epoch), then ``predict``
+   (start and end rows summing to 1) and ``evaluate``; ``BERTNER`` at 8 x
+   512 with 9 tags (10 steps) and its per-token accuracy;
+   ``BERTClassifier`` at 32 x 128 (10 steps, no flash launch: the dense
+   attention under 256 tokens), whose ``save_init_checkpoint``
+   warm-starts a ``BERTSquad`` encoder with no leaf missed; 12 flash
+   forwards with statistics and 12 backwards a step, one Adam a step, 12
+   forwards a predict batch; the flash forward with dropout and
+   statistics and the backward against their plain versions at 12 x 384
+   and 8 x 512; each kind's step 1, loss and gradients, against the CPU
+   (2 blocks, batch 2, hidden dropout 0, attention dropout 0.1 on the
+   flash route); each epoch traced, read in a steady window (the card's
+   clock, busy time and idle share, the host's dispatch cadence);
+31. tfpark_gan: ``GANEstimator`` on a DCGAN-sized pair (28 x 28 x 1,
+   64-d noise) at batch 64, 40 phase-steps (one captured step a phase,
+   one Adam launch a phase-step), step 1 against the CPU, each group's
+   Adam counting its own phases, 40 more replayed under a trace (the
+   card's clock, busy time and idle share), ``generate`` from the
+   checkpoint equal to ``generate`` in memory;
+32. model_import, the importers' main path: the seeded ResNet-50 through
+   ``export_onnx`` and ``Net.load_onnx``, a captured ``InferenceModel``
+   request of 32 images whose logits are within 1e-4 of the native
+   net's (of each row's range) and bit for bit its eager run, 3 Adam
+   fine-tune steps; BVLC AlexNet's deploy prototxt with a seeded
+   caffemodel through ``Net.load_caffe``, a captured predict of 32
+   images of 227 x 227 whose logits are within 1e-4 of the CPU's, 2
+   Adam fine-tune steps; a ``TorchNet`` in a ``Sequential``, its captured
+   predict bit for bit its eager forward; ``TFNet``'s ``ImportError``
+   without TensorFlow;
+33. summary: ``phase seconds`` of every phase (each also logged as it
    ends), a ``kernels`` JSON line (the seven TPU kernels: the flash
    forward with its statistics, the TPU's ``attention_stats``, has a row
    of its own; and ``int8_conv`` and ``quantize_act``, which replace
@@ -976,16 +1007,19 @@ def sdpa_backward(q, k, v, g, bias, scale):
     return call
 
 
-def flash_train_phase(dev, fwd_entry) -> dict:
-    """The flash forward with dropout and statistics, and the backward,
-    at the BERT-base training shape with the padding bias."""
+def flash_train_check(b: int, l: int, dev, gen) -> dict:
+    """The flash forward with dropout DROPOUT and its (m, l) statistics,
+    then the backward, f32 at (b, 12, l, 64) with the padding bias, each
+    held against its plain version on the same inputs: the forward's
+    output and m within F32_TOL, l relative; each gradient within BWD_TOL
+    relative; the fully masked row all zeros.  Raises where one
+    disagrees.  Returns the inputs, the forward's outputs and the
+    errors."""
     import torch
-    import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
 
-    gen = np.random.default_rng(SEED + 2)
-    b, h, l, d = 8, 12, SEQ, 64
+    h, d = 12, 64
     q, k, v = attention_inputs(b, h, l, l, d, gen, dev)
     g = torch.from_numpy(gen.normal(size=(b, h, l, d)).astype(np.float32)
                          ).to(dev)
@@ -993,7 +1027,6 @@ def flash_train_phase(dev, fwd_entry) -> dict:
     bias = torch.from_numpy(bias_np).to(dev)
     scale = 1.0 / np.sqrt(d)
     seed = (0x2545F491, 0x9E3779B9)
-    live_keys = int((bias_np[:, 0, 0, :] == 0).sum())
 
     out, m, lsum = fa._flash_cuda(q, k, v, False, scale, bias, DROPOUT,
                                   seed, stats=True)
@@ -1003,28 +1036,13 @@ def flash_train_phase(dev, fwd_entry) -> dict:
     errs = [(out - w_out).abs().max().item(),
             (m - w_m).abs().max().item(),
             ((lsum - w_l).abs() / w_l.abs().clamp_min(1.0)).max().item()]
-    log(f"kernel fwd train (dropout {DROPOUT}, stats): max|d| out "
-        f"{errs[0]:.3e}, m {errs[1]:.3e}, l (rel) {errs[2]:.3e} "
-        f"(tol {F32_TOL:g}); fully masked row max "
+    log(f"kernel fwd train B={b} H={h} L={l} D={d} (dropout {DROPOUT}, "
+        f"stats): max|d| out {errs[0]:.3e}, m {errs[1]:.3e}, l (rel) "
+        f"{errs[2]:.3e} (tol {F32_TOL:g}); fully masked row max "
         f"{out[-1].abs().max().item():.1e}")
     if not max(errs) <= F32_TOL or out[-1].abs().max().item() != 0.0:
-        raise AssertionError(f"flash forward with dropout disagrees: {errs}")
-    lib_q, lib_k, lib_v = (t.contiguous() for t in (q, k, v))
-    train = graph_timed(
-        lambda: fa._flash_cuda(q, k, v, False, scale, bias, DROPOUT, seed,
-                               stats=True),
-        lambda: fa.attention_reference(q, k, v, False, scale, bias,
-                                       DROPOUT, seed, True),
-        lambda: F.scaled_dot_product_attention(
-            lib_q, lib_k, lib_v, attn_mask=bias, dropout_p=DROPOUT,
-            scale=scale))
-    fwd_bytes = 4 * b * h * l * d * 4 + bias.numel() * 4 + 2 * b * h * l * 4
-    train.update(route_bound(fwd_bytes, 4.0 * h * l * live_keys * d,
-                             "float32", d))
-    train["max_abs_err"] = max(errs)
-    fwd_entry["train"] = train
-    fwd_entry["max_abs_err"] = max(fwd_entry["max_abs_err"], max(errs))
-    log(f"kernel fwd train: {fmt_row(train)}")
+        raise AssertionError(f"flash forward with dropout disagrees at "
+                             f"B={b} L={l}: {errs}")
 
     args = (q, k, v, g, out, m, lsum, False, scale, bias, DROPOUT, seed)
     got = fa._flash_bwd_cuda(*args)
@@ -1042,11 +1060,51 @@ def flash_train_phase(dev, fwd_entry) -> dict:
         f"{top_f32:.3e}; fully masked row grads max {masked:.1e}")
     if not err <= BWD_TOL or masked != 0.0 \
             or not all(torch.isfinite(x).all() for x in got[:3]):
-        raise AssertionError(f"flash backward disagrees: {err}")
+        raise AssertionError(f"flash backward disagrees at B={b} L={l}: "
+                             f"{err}")
+    return {"q": q, "k": k, "v": v, "g": g, "bias": bias,
+            "bias_np": bias_np, "scale": scale, "seed": seed, "out": out,
+            "args": args, "fwd_err": max(errs), "bwd_abs_err": abs_err,
+            "top": top_f32}
+
+
+def flash_train_phase(dev, fwd_entry) -> dict:
+    """The flash forward with dropout and statistics, and the backward,
+    at the BERT-base training shape with the padding bias."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = np.random.default_rng(SEED + 2)
+    b, h, l, d = 8, 12, SEQ, 64
+    c = flash_train_check(b, l, dev, gen)
+    q, k, v, g, bias = c["q"], c["k"], c["v"], c["g"], c["bias"]
+    scale, seed, out = c["scale"], c["seed"], c["out"]
+    live_keys = int((c["bias_np"][:, 0, 0, :] == 0).sum())
+    lib_q, lib_k, lib_v = (t.contiguous() for t in (q, k, v))
+    train = graph_timed(
+        lambda: fa._flash_cuda(q, k, v, False, scale, bias, DROPOUT, seed,
+                               stats=True),
+        lambda: fa.attention_reference(q, k, v, False, scale, bias,
+                                       DROPOUT, seed, True),
+        lambda: F.scaled_dot_product_attention(
+            lib_q, lib_k, lib_v, attn_mask=bias, dropout_p=DROPOUT,
+            scale=scale))
+    fwd_bytes = 4 * b * h * l * d * 4 + bias.numel() * 4 + 2 * b * h * l * 4
+    train.update(route_bound(fwd_bytes, 4.0 * h * l * live_keys * d,
+                             "float32", d))
+    train["max_abs_err"] = c["fwd_err"]
+    fwd_entry["train"] = train
+    fwd_entry["max_abs_err"] = max(fwd_entry["max_abs_err"], c["fwd_err"])
+    log(f"kernel fwd train: {fmt_row(train)}")
+
+    args = c["args"]
     entry = {"name": "flash_attention_bwd", "route": "cuda",
              "source": "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu",
              "replaces": REPLACES["flash_attention_bwd"],
-             "max_abs_err": abs_err, "rel_to_largest_grad": top_f32}
+             "max_abs_err": c["bwd_abs_err"],
+             "rel_to_largest_grad": c["top"]}
     entry.update(graph_timed(
         lambda: fa._flash_bwd_cuda(*args),
         lambda: fa.attention_bwd_reference(*args),
@@ -7172,6 +7230,26 @@ def device_union_us(spans, lo: float = -float("inf"),
     return busy, len(inside)
 
 
+def card_window(spans, skip: int) -> dict:
+    """The card's side of a traced run of steps that each end in one fused
+    Adam kernel (:func:`cuda_spans`), after its first ``skip``: from the
+    end of step ``skip``'s Adam kernel to the end of the last one, so
+    that work queued before the window stays outside it; the clock a step
+    there, the busy ms (the union of the kernels and copies) and the idle
+    share.  A kernel the trace drops counts as a gap of two steps."""
+    adam = sorted(b for name, _, b in spans if "adam_multi_kernel" in name)
+    if len(adam) < skip + 2:
+        raise AssertionError(f"the trace holds {len(adam)} fused Adam "
+                             f"kernels, fewer than {skip + 2}")
+    lo, hi = adam[skip - 1], adam[-1]
+    busy, _ = device_union_us(spans, lo, hi)
+    gaps = np.diff(adam[skip - 1:])
+    on_card = int(sum(max(1, round(g / np.median(gaps))) for g in gaps))
+    return {"adam_traced": len(adam), "card_steps": on_card,
+            "card_ms": (hi - lo) / 1e3 / on_card,
+            "busy_ms": busy / 1e3 / on_card, "idle": 1 - busy / (hi - lo)}
+
+
 def steady_window(spans, records, skip: int, steps: int) -> dict:
     """The steady part of a fit of ``steps`` steps, after its first
     ``skip``: the data plane's start (the pool, the first shard loads, the
@@ -7179,26 +7257,12 @@ def steady_window(spans, records, skip: int, steps: int) -> dict:
     from the fit's ``step`` flight records (one a dispatch, taken as it
     ends): the clock a step from the ``skip``-th record to the last, and
     the medians of the dispatch span (``zoo.train.step_dispatch``) and
-    of the wait for data.  On the card, from a trace of the same fit
-    (:func:`cuda_spans`): from the end of step ``skip``'s fused Adam
-    kernel (one a step, the end of its update) to the end of the last
-    one, so that work queued before the window stays outside it; the
-    clock a step there, the busy ms (the union of the kernels and copies)
-    and the idle share."""
+    of the wait for data.  On the card, from a trace of the same fit:
+    :func:`card_window`."""
     if len(records) != steps:
         raise AssertionError(f"{len(records)} step records, expected "
                              f"{steps}")
     later = records[skip:]
-    adam = sorted(b for name, _, b in spans if "adam_multi_kernel" in name)
-    if len(adam) < skip + 2:
-        raise AssertionError(f"the trace holds {len(adam)} fused Adam "
-                             f"kernels of {steps} steps")
-    lo, hi = adam[skip - 1], adam[-1]
-    busy, _ = device_union_us(spans, lo, hi)
-    # the steps on the card's side: a kernel the trace dropped shows as a
-    # gap of two steps
-    gaps = np.diff(adam[skip - 1:])
-    on_card = int(sum(max(1, round(g / np.median(gaps))) for g in gaps))
     return {"steps": len(later),
             "host_ms": (records[-1]["mono"] - records[skip - 1]["mono"])
             * 1e3 / len(later),
@@ -7206,10 +7270,7 @@ def steady_window(spans, records, skip: int, steps: int) -> dict:
             * 1e3,
             "wait_ms": float(np.median([r["data_wait_s"] for r in later]))
             * 1e3,
-            "adam_traced": len(adam), "card_steps": on_card,
-            "card_ms": (hi - lo) / 1e3 / on_card,
-            "busy_ms": busy / 1e3 / on_card,
-            "idle": 1 - busy / (hi - lo)}
+            **card_window(spans, skip)}
 
 
 def uint8_fit(tag, make, fs, steps, plan, card_line, env=None) -> dict:
@@ -8936,6 +8997,801 @@ def ssd_phase(card_line: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# tfpark's estimator plane and the model importers: the tfpark_bert,
+# tfpark_gan and model_import phases
+# ---------------------------------------------------------------------------
+
+# google-research/bert README's SQuAD 1.1 run (max_seq_length=384,
+# train_batch_size=12): 20 steps as one epoch of 240 records
+SQUAD_SEQ, SQUAD_BATCH, SQUAD_STEPS = 384, 12, 20
+# CoNLL-2003's tag set (9 entities), 8 x 512, 10 steps
+NER_SEQ, NER_BATCH, NER_STEPS, NER_TAGS = 512, 8, 10, 9
+# run_classifier's defaults (max_seq_length=128, train_batch_size=32)
+CLF_SEQ, CLF_BATCH, CLF_STEPS = 128, 32, 10
+EST_CPU_TOL = 1e-3            # step 1's loss and grads, card against CPU
+ZERO_GRAD = 1e-6              # a gradient leaf this far under the largest: 0
+GAN_BATCH, GAN_STEPS, GAN_NOISE, GAN_RECORDS = 64, 40, 64, 640
+IMPORT_BATCH = 32
+IMPORT_RESNET_SHAPE = (224, 224, 3)
+# ONNX ResNet-50 / Caffe AlexNet: the logits under the softmax (each
+# row's shift taken out), relative to the row's logit range
+IMPORT_TOL = 1e-4
+IMPORT_LR = 1e-5              # the imported nets' fine-tune rate (Adam)
+ALEXNET_DEPLOY = """
+name: "AlexNet"
+input: "data"
+input_shape { dim: 10 dim: 3 dim: 227 dim: 227 }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  convolution_param { num_output: 96 kernel_size: 11 stride: 4 } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "norm1" type: "LRN" bottom: "conv1" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layer { name: "pool1" type: "Pooling" bottom: "norm1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "conv2" type: "Convolution" bottom: "pool1" top: "conv2"
+  convolution_param { num_output: 256 pad: 2 kernel_size: 5 group: 2 } }
+layer { name: "relu2" type: "ReLU" bottom: "conv2" top: "conv2" }
+layer { name: "norm2" type: "LRN" bottom: "conv2" top: "norm2"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layer { name: "pool2" type: "Pooling" bottom: "norm2" top: "pool2"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "conv3" type: "Convolution" bottom: "pool2" top: "conv3"
+  convolution_param { num_output: 384 pad: 1 kernel_size: 3 } }
+layer { name: "relu3" type: "ReLU" bottom: "conv3" top: "conv3" }
+layer { name: "conv4" type: "Convolution" bottom: "conv3" top: "conv4"
+  convolution_param { num_output: 384 pad: 1 kernel_size: 3 group: 2 } }
+layer { name: "relu4" type: "ReLU" bottom: "conv4" top: "conv4" }
+layer { name: "conv5" type: "Convolution" bottom: "conv4" top: "conv5"
+  convolution_param { num_output: 256 pad: 1 kernel_size: 3 group: 2 } }
+layer { name: "relu5" type: "ReLU" bottom: "conv5" top: "conv5" }
+layer { name: "pool5" type: "Pooling" bottom: "conv5" top: "pool5"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "fc6" type: "InnerProduct" bottom: "pool5" top: "fc6"
+  inner_product_param { num_output: 4096 } }
+layer { name: "relu6" type: "ReLU" bottom: "fc6" top: "fc6" }
+layer { name: "drop6" type: "Dropout" bottom: "fc6" top: "fc6"
+  dropout_param { dropout_ratio: 0.5 } }
+layer { name: "fc7" type: "InnerProduct" bottom: "fc6" top: "fc7"
+  inner_product_param { num_output: 4096 } }
+layer { name: "relu7" type: "ReLU" bottom: "fc7" top: "fc7" }
+layer { name: "drop7" type: "Dropout" bottom: "fc7" top: "fc7"
+  dropout_param { dropout_ratio: 0.5 } }
+layer { name: "fc8" type: "InnerProduct" bottom: "fc7" top: "fc8"
+  inner_product_param { num_output: 1000 } }
+layer { name: "prob" type: "Softmax" bottom: "fc8" top: "prob" }
+"""
+# BVLC AlexNet's blob shapes (weights, biases) per layer
+ALEXNET_BLOBS = {"conv1": (96, 3, 11, 11), "conv2": (256, 48, 5, 5),
+                 "conv3": (384, 256, 3, 3), "conv4": (384, 192, 3, 3),
+                 "conv5": (256, 192, 3, 3), "fc6": (4096, 9216),
+                 "fc7": (4096, 4096), "fc8": (1000, 4096)}
+
+
+def tfpark_tokens(n: int, seq: int, gen: np.random.Generator) -> dict:
+    """``bert_input_fn``'s dict of n records of real lengths seq/2-seq:
+    token ids, segment types (a question then its context), positions
+    and the attention mask."""
+    lengths = gen.integers(seq // 2, seq + 1, n)
+    split = (lengths * gen.uniform(0.2, 0.4, n)).astype(np.int64)
+    pos = np.arange(seq)[None, :]
+    mask = (pos < lengths[:, None]).astype(np.int32)
+    ids = gen.integers(1, BERT_BASE["vocab"], (n, seq)) * mask
+    types = ((pos >= split[:, None]) & (mask > 0)).astype(np.int32)
+    return {"input_ids": ids.astype(np.int32), "token_type_ids": types,
+            "position_ids": np.tile(pos.astype(np.int32), (n, 1)),
+            "input_mask": mask}
+
+
+def tfpark_labels(kind: str, data: dict, gen: np.random.Generator):
+    ids = data["input_ids"]
+    if kind == "squad":  # an answer span inside the context
+        lengths = data["input_mask"].sum(-1)
+        start = gen.integers(1, lengths // 2)
+        return np.stack([start, start + gen.integers(0, 20, len(ids))],
+                        1).astype(np.int32)
+    if kind == "ner":
+        return (ids % NER_TAGS).astype(np.int32)
+    return (ids[:, 1] % 2).astype(np.int32)
+
+
+def tfpark_estimator(kind, drop=DROPOUT, attn_drop=None, n_block=None,
+                     init_checkpoint=None):
+    """A BERT-base estimator of tfpark's text family, Adam as in the
+    reference's examples, hidden dropout ``drop`` and attention dropout
+    ``attn_drop`` (default ``drop``)."""
+    from analytics_zoo_tpu_torch.tfpark.text.estimator import (
+        BERTClassifier,
+        BERTNER,
+        BERTSquad,
+    )
+
+    cfg = dict(BERT_BASE, hidden_p_drop=drop,
+               attn_p_drop=drop if attn_drop is None else attn_drop,
+               optimizer="adam", init_checkpoint=init_checkpoint)
+    if n_block is not None:
+        cfg["n_block"] = n_block
+    if kind == "squad":
+        return BERTSquad(**cfg)
+    if kind == "ner":
+        return BERTNER(NER_TAGS, dropout=drop, **cfg)
+    return BERTClassifier(2, dropout=drop, **cfg)
+
+
+def tfpark_step1_vs_cpu(kind, seq, gen) -> None:
+    """Step 1 of a 2-block estimator of ``kind`` at batch 2 x ``seq``,
+    hidden dropout 0, on the card against the same weights and batch on
+    the CPU: the loss (relative) and every gradient (relative to its
+    leaf's largest), within EST_CPU_TOL; a leaf whose gradient on the CPU
+    is under ZERO_GRAD of the largest is zero but for rounding, and must
+    be so on the card.  At 256 tokens and more the
+    attention takes the flash route, whose dropout mask is the kernel's
+    position hash on both devices, so attention dropout is DROPOUT there;
+    below it the dense route draws its mask from the device's generator,
+    so attention dropout is 0."""
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.common.engine import step_generator
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.pipeline.estimator.estimator import (
+        _to_device,
+    )
+    from analytics_zoo_tpu_torch.tfpark.estimator import _MergedFeatureSet
+    from analytics_zoo_tpu_torch.tfpark.text.estimator import bert_input_fn
+
+    attn = DROPOUT if seq >= 256 else 0.0
+    data = tfpark_tokens(2, seq, gen)
+    fn = bert_input_fn({**data, "labels": tfpark_labels(kind, data, gen)},
+                       seq)
+    got = []
+    for device in ("cuda", "cpu"):
+        init_zoo_context(seed=SEED, device=device)
+        est = tfpark_estimator(kind, drop=0.0, attn_drop=attn, n_block=2)
+        fs = est._to_feature_set(fn())
+        est._ensure_built(fs, "train")
+        net = est._train_net
+        net.build_params(rng=torch.Generator().manual_seed(SEED),
+                         device=device)
+        batch = next(_MergedFeatureSet(fs).batches(2, shuffle=False))
+        loss, grads, _ = est._training_estimator().loss_and_grads(
+            net.params, net.state, _to_device(batch, net.device),
+            step_generator(SEED, 0, net.device))
+        got.append((loss.item(), [g.cpu() for g in tree_leaves(grads)]))
+    (g_loss, g_grads), (c_loss, c_grads) = got
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    # leaves whose gradient is zero but for rounding (a shift that the
+    # softmax over tokens does not see: the SQuAD heads' biases, the last
+    # LayerNorm's beta under them) are held to zero on the card too
+    top = max(b.abs().max().item() for b in c_grads)
+    live = [b.abs().max().item() > ZERO_GRAD * top for b in c_grads]
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b, on in zip(g_grads, c_grads, live) if on)
+    zero_err = max([a.abs().max().item() / top
+                    for a, on in zip(g_grads, live) if not on] or [0.0])
+    log(f"tfpark_bert {kind} step 1 (2 blocks at full width, batch 2 x "
+        f"{seq}, hidden dropout 0, attention dropout {attn}) vs CPU: loss "
+        f"{g_loss:.6f} vs {c_loss:.6f} (rel {loss_err:.2e}), grads max rel "
+        f"to leaf max {grad_err:.2e} over {sum(live)} leaves (tol "
+        f"{EST_CPU_TOL:g}); {len(live) - sum(live)} leaves zero on the CPU "
+        f"(under {ZERO_GRAD:g} of the largest gradient, {top:.3e}), on the "
+        f"card at most {zero_err:.2e} of it")
+    if not (loss_err <= EST_CPU_TOL and grad_err <= EST_CPU_TOL
+            and zero_err <= ZERO_GRAD and len(g_grads) == len(c_grads)):
+        raise AssertionError(f"tfpark_bert {kind}: the card's step 1 "
+                             "disagrees with the CPU's")
+
+
+def estimator_train(tag, est, fn, steps, batch, card_line) -> dict:
+    """``est.train(fn, steps=steps)`` over one epoch of exactly ``steps``
+    steps (step 1 eager and captured, then replays) under a torch.profiler
+    trace of the card: finite losses, ``steps`` steps; the steady window
+    after DP_SKIP steps (:func:`steady_window`: the card's clock a step,
+    its busy time and idle share, the host's dispatch cadence and the
+    fit thread's dispatch span).  The trace's own cost falls inside the
+    window.  Returns the launch counts of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.metrics import get_flight_recorder
+
+    flight = get_flight_recorder()
+    reset_counters()
+    torch.cuda.synchronize()
+    flight.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est.train(fn, steps=steps, batch_size=batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counters()
+    inner = est._estimator
+    losses = [v for _, v in inner.loss_log]
+    if inner.global_step != steps or len(losses) != steps \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: {inner.global_step} steps, losses "
+                             f"{losses}")
+    win = steady_window(cuda_spans(prof),
+                        [r for r in flight.events("step")
+                         if r.get("loop") == "train"], DP_SKIP, steps)
+    log(f"{tag}: {steps} steps at batch {batch} through TFEstimator.train "
+        f"in {wall:.2f} s (the set-up, step 1's eager run and capture and "
+        f"the hand-over to the predict net included), losses "
+        f"{losses[0]:.4f} .. {losses[-1]:.4f}; steady window after "
+        f"{DP_SKIP} steps: on the card a step every {win['card_ms']:.2f} "
+        f"ms over {win['card_steps']} steps, "
+        f"{batch / win['card_ms'] * 1e3:.1f} records/s, busy "
+        f"{win['busy_ms']:.2f} ms a step, idle {win['idle']:.1%} (traced; "
+        f"{win['adam_traced']} of {steps} Adam kernels in the trace); on "
+        f"the host a dispatch every {win['host_ms']:.2f} ms over "
+        f"{win['steps']}, the dispatch span {win['span_ms']:.2f} ms "
+        f"(median); launches {launches} ({card_line})")
+    return launches
+
+
+def tfpark_bert_phase(card_line: str) -> dict:
+    """tfpark's BERT estimators fine-tuning BERT-base (f32, dropout 0.1,
+    Adam) through ``TFEstimator.train``: ``BERTSquad`` at 12 x 384 (20
+    steps, one epoch of 240 records), then ``predict`` (start and end rows
+    summing to 1) and ``evaluate``; ``BERTNER`` at 8 x 512 with 9 tags (10
+    steps) and its per-token accuracy; ``BERTClassifier`` at 32 x 128 (10
+    steps) with no flash launch (sequences under 256 take the dense
+    attention), whose ``save_init_checkpoint`` warm-starts a
+    ``BERTSquad`` encoder with no leaf missed.  Each training epoch is
+    read in a steady window of a trace (:func:`estimator_train`).  The
+    flash forward with dropout and statistics and the backward held
+    against their plain versions at the two training shapes
+    (:func:`flash_train_check`); each kind's step 1, loss and gradients,
+    against the CPU (:func:`tfpark_step1_vs_cpu`).  Launches: 12 flash
+    forwards with statistics and 12 backwards a training step, one Adam a
+    step, 12 forwards a predict batch.  Returns the path's launch counts,
+    with the statistics forwards under ``attention_stats``, and the
+    kernels' largest errors at the path's shapes."""
+    import os
+    import tempfile
+
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.tfpark.text.estimator import bert_input_fn
+    from analytics_zoo_tpu_torch.convert import sorted_leaves
+
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(SEED + 140)
+    checks = [flash_train_check(b, seq, torch.device("cuda"), gen)
+              for b, seq in ((SQUAD_BATCH, SQUAD_SEQ), (NER_BATCH, NER_SEQ))]
+    errs = {"flash_attention_fwd": max(c["fwd_err"] for c in checks),
+            "flash_attention_bwd": max(c["bwd_abs_err"] for c in checks)}
+    del checks
+    for kind, seq in (("squad", SQUAD_SEQ), ("ner", NER_SEQ),
+                      ("classifier", CLF_SEQ)):
+        tfpark_step1_vs_cpu(kind, seq, gen)
+    free_device_memory("after the tfpark_bert CPU checks")
+    total, stats = {}, 0
+    blocks = BERT_BASE["n_block"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # BERTSquad: train, predict, evaluate
+        init_zoo_context(seed=SEED, device="cuda")
+        n = SQUAD_BATCH * SQUAD_STEPS
+        data = tfpark_tokens(n, SQUAD_SEQ, gen)
+        fn = bert_input_fn({**data, "labels": tfpark_labels("squad", data,
+                                                             gen)},
+                           SQUAD_SEQ)
+        est = tfpark_estimator("squad")
+        launches = estimator_train("tfpark_bert squad", est, fn,
+                                   SQUAD_STEPS, SQUAD_BATCH, card_line)
+        expect_launches("tfpark_bert squad train", launches,
+                        flash_attention_fwd=blocks * SQUAD_STEPS,
+                        flash_attention_bwd=blocks * SQUAD_STEPS,
+                        fused_adam=SQUAD_STEPS)
+        total, stats = add_launches(total, launches), \
+            stats + launches["flash_attention_fwd"]
+        reset_counters()
+        t0 = time.perf_counter()
+        start_p, end_p = est.predict(fn, batch_size=SQUAD_BATCH)
+        torch.cuda.synchronize()
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        launches = counters()
+        expect_launches("tfpark_bert squad predict", launches,
+                        flash_attention_fwd=blocks * SQUAD_STEPS)
+        total = add_launches(total, launches)
+        rows = np.concatenate([start_p.sum(-1), end_p.sum(-1)])
+        log(f"tfpark_bert squad predict of {n} records at batch "
+            f"{SQUAD_BATCH}: {predict_ms:.0f} ms host clock (the captures "
+            f"included), start and end rows sum to 1 within "
+            f"{np.abs(rows - 1).max():.2e}; launches {launches} "
+            f"({card_line})")
+        if start_p.shape != (n, SQUAD_SEQ) or np.abs(rows - 1).max() > 1e-4:
+            raise AssertionError("tfpark_bert squad: predictions are wrong")
+        reset_counters()
+        out = est.evaluate(fn, [])
+        launches = counters()
+        n_pred = -(-n // 32)  # evaluate's predict batches of 32
+        expect_launches("tfpark_bert squad evaluate", launches,
+                        flash_attention_fwd=blocks * (n_pred + 1))
+        total = add_launches(total, launches)
+        log(f"tfpark_bert squad evaluate: loss {out['loss']:.4f}; launches "
+            f"{launches}")
+        if not np.isfinite(out["loss"]):
+            raise AssertionError("tfpark_bert squad: evaluate's loss")
+        del est, start_p, end_p
+        free_device_memory("after BERTSquad")
+
+        # BERTNER: train, evaluate per-token accuracy
+        n = NER_BATCH * NER_STEPS
+        data = tfpark_tokens(n, NER_SEQ, gen)
+        fn = bert_input_fn({**data, "labels": tfpark_labels("ner", data,
+                                                             gen)},
+                           NER_SEQ)
+        est = tfpark_estimator("ner")
+        launches = estimator_train("tfpark_bert ner", est, fn, NER_STEPS,
+                                   NER_BATCH, card_line)
+        expect_launches("tfpark_bert ner train", launches,
+                        flash_attention_fwd=blocks * NER_STEPS,
+                        flash_attention_bwd=blocks * NER_STEPS,
+                        fused_adam=NER_STEPS)
+        total, stats = add_launches(total, launches), \
+            stats + launches["flash_attention_fwd"]
+        reset_counters()
+        out = est.evaluate(fn, ["accuracy"])
+        launches = counters()
+        expect_launches("tfpark_bert ner evaluate", launches,
+                        flash_attention_fwd=blocks * (-(-n // 32) + 1))
+        total = add_launches(total, launches)
+        log(f"tfpark_bert ner evaluate: per-token accuracy "
+            f"{out['accuracy']:.4f} (9 tags), loss {out['loss']:.4f}; "
+            f"launches {launches}")
+        if not (0.0 <= out["accuracy"] <= 1.0 and np.isfinite(out["loss"])):
+            raise AssertionError("tfpark_bert ner: evaluate is wrong")
+        del est
+        free_device_memory("after BERTNER")
+
+        # BERTClassifier at 128: the dense attention, and a warm start
+        n = CLF_BATCH * CLF_STEPS
+        data = tfpark_tokens(n, CLF_SEQ, gen)
+        fn = bert_input_fn({**data, "labels": tfpark_labels(
+            "classifier", data, gen)}, CLF_SEQ)
+        est = tfpark_estimator("classifier")
+        launches = estimator_train("tfpark_bert classifier", est, fn,
+                                   CLF_STEPS, CLF_BATCH, card_line)
+        expect_launches("tfpark_bert classifier train", launches,
+                        fused_adam=CLF_STEPS)
+        total = add_launches(total, launches)
+        probs = est.predict(fn, batch_size=CLF_BATCH)
+        if probs.shape != (n, 2) or \
+                np.abs(probs.sum(-1) - 1).max() > 1e-5:
+            raise AssertionError("tfpark_bert classifier: predictions")
+        path = os.path.join(tmp, "bert_init.npz")
+        est.save_init_checkpoint(path)
+        want = [t.cpu() for t in sorted_leaves(
+            est._train_net.params[est.bert.name])]
+        del est
+        squad = tfpark_estimator("squad", init_checkpoint=path)
+        sdata = tfpark_tokens(SQUAD_BATCH, SQUAD_SEQ, gen)
+        squad._ensure_built(squad._to_feature_set(bert_input_fn(
+            {**sdata, "labels": tfpark_labels("squad", sdata, gen)},
+            SQUAD_SEQ)()), "train")
+        got = sorted_leaves(squad._train_net.params[squad.bert.name])
+        same = sum(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        log(f"tfpark_bert: the classifier's save_init_checkpoint "
+            f"warm-started a BERTSquad encoder: {same} of {len(want)} "
+            f"leaves restored bit for bit")
+        if same != len(want) or len(got) != len(want):
+            raise AssertionError("tfpark_bert: the warm start missed leaves")
+        del squad
+    free_device_memory("after tfpark_bert")
+    total["attention_stats"] = stats
+    log(f"phase tfpark_bert: {time.perf_counter() - t_phase:.1f} s")
+    return total, errs
+
+
+def dcgan_fns():
+    """A DCGAN-sized pair for 28 x 28 x 1: the generator takes 64-d noise
+    through Dense(7*7*128), Reshape and two stride-2 Deconvolution2D (to
+    14 x 14 x 64, then 28 x 28 x 1 with tanh); the discriminator two
+    stride-2 Convolution2D of 64 and 128 (LeakyReLU 0.2), Flatten and
+    Dense(1)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Convolution2D,
+        Deconvolution2D,
+        Dense,
+        Flatten,
+        LeakyReLU,
+        Reshape,
+    )
+
+    def generator_fn(z):
+        h = Reshape((7, 7, 128))(Dense(7 * 7 * 128, activation="relu")(z))
+        h = Deconvolution2D(64, 4, 4, subsample=(2, 2), border_mode="same",
+                            activation="relu")(h)
+        return Deconvolution2D(1, 4, 4, subsample=(2, 2),
+                               border_mode="same", activation="tanh")(h)
+
+    def discriminator_fn(x):
+        h = LeakyReLU(0.2)(Convolution2D(64, 4, 4, subsample=(2, 2),
+                                         border_mode="same")(x))
+        h = LeakyReLU(0.2)(Convolution2D(128, 4, 4, subsample=(2, 2),
+                                         border_mode="same")(h))
+        return Dense(1)(Flatten()(h))
+
+    return generator_fn, discriminator_fn
+
+
+def dcgan(model_dir):
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.tfpark import GANEstimator
+
+    g, d = dcgan_fns()
+    return GANEstimator(
+        g, d, lambda f: F.softplus(-f),
+        lambda r, f: F.softplus(-r) + F.softplus(f), "adam", "adam",
+        generator_steps=1, discriminator_steps=1, model_dir=model_dir)
+
+
+def gan_data(gen):
+    """(noise, real): 64-d Gaussian noise and 28 x 28 x 1 images in
+    [-1, 1], each a Gaussian bump at a random place."""
+    noise = gen.normal(size=(GAN_RECORDS, GAN_NOISE)).astype(np.float32)
+    yy, xx = np.mgrid[0:28, 0:28]
+    cy, cx = gen.uniform(6, 22, (2, GAN_RECORDS, 1, 1))
+    real = 2 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 18.0) - 1
+    return noise, real[..., None].astype(np.float32)
+
+
+def tfpark_gan_phase(card_line: str) -> dict:
+    """``GANEstimator`` on a DCGAN-sized pair (28 x 28 x 1, 64-d noise) at
+    batch 64, Adam on both groups, d_steps = g_steps = 1: GAN_STEPS
+    phase-steps, each one captured step of its phase (one Adam launch a
+    phase-step), step 1's loss within 1e-3 of the CPU's (the same seeded
+    weights and batch) and each group's Adam counting its own phases;
+    then GAN_STEPS more, every one a replay, under a torch.profiler trace
+    of the card, read after DP_SKIP phase-steps (:func:`card_window`) and
+    beside the call's host clock a phase-step; ``generate`` from the
+    checkpoint equal to ``generate`` in memory.  Returns the path's
+    launch counts."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+
+    t_phase = time.perf_counter()
+    noise, real = gan_data(np.random.default_rng(SEED + 150))
+    with tempfile.TemporaryDirectory() as tmp:
+        init_zoo_context(seed=SEED, device="cpu")
+        cpu = dcgan(os.path.join(tmp, "cpu"))
+        cpu.train((noise, real), steps=1, batch_size=GAN_BATCH)
+        init_zoo_context(seed=SEED, device="cuda")
+        est = dcgan(os.path.join(tmp, "card"))
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.train((noise, real), steps=GAN_STEPS, batch_size=GAN_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters()
+        expect_launches("tfpark_gan", launches, fused_adam=GAN_STEPS)
+        first = list(est.losses)
+        err = abs(first[0] - cpu.losses[0]) / abs(cpu.losses[0])
+        counts = (int(est._d_opt_state.count), int(est._g_opt_state.count))
+        log(f"tfpark_gan step 1 (the discriminator's phase) vs CPU: loss "
+            f"{first[0]:.6f} vs {cpu.losses[0]:.6f} (rel {err:.2e}, tol "
+            f"{EST_CPU_TOL:g}); {GAN_STEPS} phase-steps at batch "
+            f"{GAN_BATCH} in {wall:.2f} s (the two first eager and "
+            f"captured), losses d {first[0]:.4f} .. {first[-2]:.4f}, g "
+            f"{first[1]:.4f} .. {first[-1]:.4f}; Adam counts {counts}")
+        if not err <= EST_CPU_TOL \
+                or counts != (GAN_STEPS // 2, GAN_STEPS // 2) \
+                or not np.all(np.isfinite(first)):
+            raise AssertionError(f"tfpark_gan: step 1 or the phase counts "
+                                 f"{counts} are wrong")
+        reset_counters()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            est.train((noise, real), steps=2 * GAN_STEPS,
+                      batch_size=GAN_BATCH)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / GAN_STEPS
+        more = counters()
+        expect_launches("tfpark_gan traced", more, fused_adam=GAN_STEPS)
+        launches = add_launches(launches, more)
+        win = card_window(cuda_spans(prof), DP_SKIP)
+        counts = (int(est._d_opt_state.count), int(est._g_opt_state.count))
+        log(f"tfpark_gan: {GAN_STEPS} more phase-steps, every one a replay, "
+            f"in {host_ms:.3f} ms a phase-step on the host clock (the "
+            f"call's, the checkpoint's write included); steady window "
+            f"after {DP_SKIP}: on the card a phase-step every "
+            f"{win['card_ms']:.3f} ms over {win['card_steps']}, busy "
+            f"{win['busy_ms']:.3f} ms a phase-step, idle {win['idle']:.1%} "
+            f"(traced; {win['adam_traced']} of {GAN_STEPS} Adam kernels in "
+            f"the trace); losses d {est.losses[-2]:.4f}, g "
+            f"{est.losses[-1]:.4f} at the end; Adam counts {counts}; "
+            f"launches {launches} ({card_line})")
+        if counts != (GAN_STEPS, GAN_STEPS) \
+                or not np.all(np.isfinite(est.losses)):
+            raise AssertionError(f"tfpark_gan: the traced call's phase "
+                                 f"counts {counts} or losses")
+        z = noise[:GAN_BATCH]
+        mem = est.generate(z)
+        again = dcgan(os.path.join(tmp, "card")).generate(z)
+        log(f"tfpark_gan: generate from the checkpoint equal to generate in "
+            f"memory: {np.array_equal(mem, again)} ({mem.shape}, range "
+            f"{mem.min():.3f} .. {mem.max():.3f})")
+        if not np.array_equal(mem, again) or mem.shape != (GAN_BATCH, 28,
+                                                            28, 1):
+            raise AssertionError("tfpark_gan: the checkpoint's samples")
+        del est, cpu
+    free_device_memory("after tfpark_gan")
+    log(f"phase tfpark_gan: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def logit_err(got, want) -> float:
+    """The largest difference between the logits under two softmax
+    outputs, relative to each row's range of ``want``'s logits.  The
+    logits are the log-probabilities with each row's shift (the one thing
+    a softmax loses) taken out: ``(log got - log want)`` less its row
+    mean.  NaN where a probability is 0 or not finite."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        a = np.log(np.asarray(got, np.float64))
+        b = np.log(np.asarray(want, np.float64))
+        d = a - b
+        d -= d.mean(-1, keepdims=True)
+        err = np.abs(d).max(-1) / (b.max(-1) - b.min(-1))
+    return float(err.max()) if np.all(np.isfinite(err)) else float("nan")
+
+
+def caffe_blob(arr) -> bytes:
+    from analytics_zoo_tpu_torch.pipeline.api.onnx.proto import (
+        _put_bytes,
+        _put_varint,
+    )
+
+    out, shape = bytearray(), bytearray()
+    for d in arr.shape:
+        _put_varint(shape, 1, d)
+    _put_bytes(out, 7, bytes(shape))
+    _put_bytes(out, 5, np.ascontiguousarray(arr, np.float32).tobytes())
+    return bytes(out)
+
+
+def caffemodel_bytes(blobs: dict) -> bytes:
+    """A binary NetParameter holding ``blobs`` ({layer: [arrays]}), written
+    with the port's wire codec (caffe.proto's field numbers)."""
+    from analytics_zoo_tpu_torch.pipeline.api.onnx.proto import _put_bytes
+
+    out = bytearray()
+    _put_bytes(out, 1, b"AlexNet")
+    for name, arrs in blobs.items():
+        layer = bytearray()
+        _put_bytes(layer, 1, name.encode())
+        for a in arrs:
+            _put_bytes(layer, 7, caffe_blob(a))
+        _put_bytes(out, 100, bytes(layer))
+    return bytes(out)
+
+
+def import_finetune(tag, net, x, y, steps, card_line) -> dict:
+    """``steps`` Adam(IMPORT_LR) steps of ``net`` at batch IMPORT_BATCH through
+    ``fit`` (one epoch): finite losses and one Adam launch a step for each
+    256 of its f32 leaves of at least 128 elements."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.utils import tree_leaves
+    from analytics_zoo_tpu_torch.ops.cuda import fused_adam as fad
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    net.compile(optimizer=Adam(lr=IMPORT_LR),
+                loss="sparse_categorical_crossentropy")
+    kernel_leaves = sum(1 for t in tree_leaves(net.params)
+                        if t.dtype == torch.float32
+                        and t.numel() >= fad.MIN_KERNEL_LEAF)
+    per_step = -(-kernel_leaves // fad.TABLE_LEAVES)
+    reset_counters()
+    t0 = time.perf_counter()
+    net.fit(x[:IMPORT_BATCH * steps], y[:IMPORT_BATCH * steps],
+            batch_size=IMPORT_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    losses = [v for _, v in net._estimator.loss_log]
+    log(f"{tag} fine-tune: {steps} Adam steps at batch {IMPORT_BATCH} in "
+        f"{wall:.2f} s (step 1 eager and captured), losses "
+        f"{[round(v, 4) for v in losses]}; {kernel_leaves} kernel leaves, "
+        f"{per_step} launch(es) a step; launches {launches} ({card_line})")
+    expect_launches(f"{tag} fine-tune", launches,
+                    fused_adam=steps * per_step)
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: the fine-tune's losses {losses}")
+    return launches
+
+
+def model_import_phase(card_line: str) -> dict:
+    """The importers on the card.  ONNX: the port's seeded ResNet-50 (its
+    moving statistics from one batch) through ``export_onnx``, then
+    ``Net.load_onnx``, served by a captured ``InferenceModel`` request of
+    32 images (NCHW), whose logits are within IMPORT_TOL of the native
+    ResNet-50's on the same images (:func:`logit_err`) and the replay
+    bit for bit its eager run, then 3 Adam
+    fine-tune steps at 32.  Caffe: BVLC AlexNet's deploy prototxt (written
+    here: a public architecture) with seeded weights written as a
+    caffemodel, through ``Net.load_caffe``, a captured predict of 32
+    images of 227 x 227 whose logits are within IMPORT_TOL of the same
+    files' on the CPU, then 2
+    Adam fine-tune steps.  A ``TorchNet`` inside a ``Sequential``: its
+    captured predict bit for bit its eager forward.  ``TFNet`` raises the
+    reference's ``ImportError`` where TensorFlow is absent.  Returns the
+    path's launch counts."""
+    import os
+    import tempfile
+
+    import torch
+
+    from analytics_zoo_tpu_torch import init_zoo_context
+    from analytics_zoo_tpu_torch.models import ResNet
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.normalization \
+        import recalibrate_batchnorm
+    from analytics_zoo_tpu_torch.pipeline.api.net import Net, TFNet, TorchNet
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import (
+        OnnxNet,
+        export_onnx,
+        proto,
+    )
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(SEED + 160)
+    total = {}
+    init_zoo_context(seed=SEED, device="cuda")
+
+    # ONNX: ResNet-50 out and back in
+    native = ResNet.image_net(50, input_shape=IMPORT_RESNET_SHAPE)
+    native.build_params()
+    x = gen.uniform(-1, 1, (3 * IMPORT_BATCH,) + IMPORT_RESNET_SHAPE
+                    ).astype(np.float32)
+    recalibrate_batchnorm(native, x[:IMPORT_BATCH])
+    t0 = time.perf_counter()
+    data = export_onnx(native)
+    export_s = time.perf_counter() - t0
+    graph = proto.decode_model(data).graph
+    ops = sorted({n.op_type for n in graph.nodes})
+    log(f"model_import onnx: ResNet-50 exported in {export_s:.2f} s: "
+        f"{len(data)} bytes, {len(graph.nodes)} nodes ({', '.join(ops)}), "
+        f"{len(graph.initializers)} initializers")
+    onnx_net = Net.load_onnx(data)
+    if not isinstance(onnx_net, OnnxNet) or len(graph.nodes) != 176:
+        raise AssertionError("model_import onnx: the exported graph")
+    m = Sequential()
+    m.add(onnx_net)
+    m.build_params()
+    x_nchw = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+    batch = x_nchw[:IMPORT_BATCH]
+    want = native.predict(x[:IMPORT_BATCH], batch_size=IMPORT_BATCH)
+    im = InferenceModel().from_keras_net(m)
+    im.warmup([batch.shape[1:]], batch_sizes=[IMPORT_BATCH])
+    reset_counters()
+    got = im.predict(batch)
+    eager = eager_predict(im, [batch])
+    err = logit_err(got, want)
+    key = ((batch.shape, str(batch.dtype)),)
+    dev = replay_ms(graph_of(im._steps[key].step), reps=3)
+    log(f"model_import onnx: a captured InferenceModel request of "
+        f"{IMPORT_BATCH} against the native ResNet-50: logits max err "
+        f"{err:.2e} of the row's range (tol {IMPORT_TOL:g}), probabilities "
+        f"max abs err {np.abs(got - want).max():.2e} (top probability "
+        f"{got.max():.4f}), the replay bit for bit its eager run: "
+        f"{np.array_equal(got, eager)}; device {dev:.2f} ms a request "
+        f"({card_line})")
+    if not err <= IMPORT_TOL or not np.array_equal(got, eager):
+        raise AssertionError("model_import onnx: the imported ResNet-50 "
+                             "disagrees")
+    total = add_launches(total, counters())
+    del im, native
+    free_device_memory("after the ONNX request")
+    y = gen.integers(0, 1000, len(x_nchw)).astype(np.int32)
+    total = add_launches(total, import_finetune(
+        "model_import onnx ResNet-50", m, x_nchw, y, 3, card_line))
+    del m, onnx_net, x, x_nchw
+    free_device_memory("after the ONNX fine-tune")
+
+    # Caffe: AlexNet's deploy prototxt and a seeded caffemodel
+    blobs = {}
+    for name, shape in ALEXNET_BLOBS.items():
+        fan_in = int(np.prod(shape[1:]))
+        blobs[name] = [
+            (gen.normal(size=shape) * np.sqrt(2.0 / fan_in)).astype(
+                np.float32),
+            (gen.normal(size=shape[0]) * 0.01).astype(np.float32)]
+    x = gen.uniform(-1, 1, (2 * IMPORT_BATCH, 3, 227, 227)).astype(
+        np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        def_path = os.path.join(tmp, "deploy.prototxt")
+        model_path = os.path.join(tmp, "alexnet.caffemodel")
+        with open(def_path, "w") as f:
+            f.write(ALEXNET_DEPLOY)
+        with open(model_path, "wb") as f:
+            f.write(caffemodel_bytes(blobs))
+        del blobs
+        outs = []
+        for device in ("cpu", "cuda"):
+            m = Sequential()
+            m.add(Net.load_caffe(def_path, model_path))
+            m.build_params(device=device)
+            if device == "cuda":
+                reset_counters()
+            t0 = time.perf_counter()
+            outs.append(m.predict(x[:IMPORT_BATCH], batch_size=IMPORT_BATCH))
+            ms = (time.perf_counter() - t0) * 1e3
+        dev = replay_ms(graph_of(m._predict_fn[1]), reps=3)
+        err = logit_err(outs[1], outs[0])
+        log(f"model_import caffe: AlexNet ({len(m.layers[0].layers)} "
+            f"layers after the train-only ones, groups of 2 on conv2, conv4 "
+            f"and conv5, LRN after conv1 and conv2) predict of "
+            f"{IMPORT_BATCH} images of 227 x 227 on the card "
+            f"({ms:.0f} ms host clock with the capture, device {dev:.2f} ms "
+            f"a replay) against the CPU: logits max err {err:.2e} of the "
+            f"row's range (tol {IMPORT_TOL:g}), probabilities max abs err "
+            f"{np.abs(outs[1] - outs[0]).max():.2e} (top probability "
+            f"{outs[1].max():.4f}) ({card_line})")
+        if not err <= IMPORT_TOL or outs[1].shape != (IMPORT_BATCH, 1000):
+            raise AssertionError("model_import caffe: AlexNet disagrees with "
+                                 "the CPU")
+        total = add_launches(total, counters())
+        y = gen.integers(0, 1000, len(x)).astype(np.int32)
+        total = add_launches(total, import_finetune(
+            "model_import caffe AlexNet", m, x, y, 2, card_line))
+        del m, x
+    free_device_memory("after the Caffe AlexNet")
+
+    # TorchNet inside a Sequential: captured predict against eager
+    torch.manual_seed(SEED)
+    module = torch.nn.Sequential(
+        torch.nn.Conv2d(3, 32, 3, padding=1), torch.nn.ReLU(),
+        torch.nn.Conv2d(32, 64, 3, stride=2, padding=1), torch.nn.ReLU(),
+        torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten())
+    m = Sequential()
+    m.add(TorchNet.from_pytorch(module, input_shape=(3, 32, 32)))
+    m.add(Dense(10, activation="softmax"))
+    m.build_params()
+    xt = gen.normal(size=(16, 3, 32, 32)).astype(np.float32)
+    reset_counters()
+    m.predict(xt, batch_size=16)  # the eager run and the capture
+    replayed = m.predict(xt, batch_size=16)
+    with torch.no_grad():
+        eager, _ = m.forward(m.params, torch.from_numpy(xt).cuda(),
+                             state=m.state)
+    same = np.array_equal(replayed, eager.cpu().numpy())
+    log(f"model_import torchnet: a captured predict of a TorchNet and a "
+        f"Dense bit for bit its eager forward: {same}; the module's "
+        f"parameters stay out of the tree: {list(m.params)}")
+    if not same or list(m.params) != ["dense_0"]:
+        raise AssertionError("model_import: TorchNet's captured predict")
+    total = add_launches(total, counters())
+    try:
+        import tensorflow  # noqa: F401
+        log("model_import tfnet: TensorFlow is installed here; TFNet runs "
+            "on the host, uncaptured (the CPU tests hold it)")
+    except ImportError:
+        net = TFNet(lambda t: t, input_shape=(4,))
+        try:
+            net.ensure_built((4,))
+        except ImportError as e:
+            log(f"model_import tfnet: no TensorFlow here, TFNet raises the "
+                f"reference's ImportError: {e}")
+        else:
+            raise AssertionError("model_import: TFNet built without TF")
+    del m
+    free_device_memory("after model_import")
+    log(f"phase model_import: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -9015,6 +9871,14 @@ def main() -> int:
     fleet_router = phase("fleet_router", fleet_router_phase, card_line)
     fleet_process = phase("fleet_process", fleet_process_phase, card_line)
     ssd = phase("ssd", ssd_phase, card_line)
+    tfpark_bert, tfpark_errs = phase("tfpark_bert", tfpark_bert_phase,
+                                     card_line)
+    for entry, key in ((fwd, "flash_attention_fwd"),
+                       (stats, "flash_attention_fwd"),
+                       (bwd, "flash_attention_bwd")):
+        entry["max_abs_err"] = max(entry["max_abs_err"], tfpark_errs[key])
+    tfpark_gan = phase("tfpark_gan", tfpark_gan_phase, card_line)
+    model_import = phase("model_import", model_import_phase, card_line)
     eval_captured = {k: sum(c.get(k, 0) for c in EVAL_LAUNCHES.values())
                      for k in counters()}
     for entry in entries:
@@ -9054,7 +9918,10 @@ def main() -> int:
                  "image_data_plane": data_plane.get(name, 0),
                  "fleet_router": fleet_router.get(name, 0),
                  "fleet_process": fleet_process.get(name, 0),
-                 "ssd": ssd.get(name, 0)}
+                 "ssd": ssd.get(name, 0),
+                 "tfpark_bert": tfpark_bert.get(name, 0),
+                 "tfpark_gan": tfpark_gan.get(name, 0),
+                 "model_import": model_import.get(name, 0)}
         if name == "attention_stats":
             # training launches the forward with its statistics
             paths = dict({p: 0 for p in paths},
@@ -9067,7 +9934,8 @@ def main() -> int:
                          fault_tolerant_fit=fault_tolerant[
                              "flash_attention_fwd"],
                          moe_transformer=moe["flash_attention_fwd"],
-                         instrumented_fit=inst_fit["flash_attention_fwd"])
+                         instrumented_fit=inst_fit["flash_attention_fwd"],
+                         tfpark_bert=tfpark_bert["attention_stats"])
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     keys = ("name", "route", "source", "replaces", "launches",

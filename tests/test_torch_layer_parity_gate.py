@@ -26,7 +26,9 @@ counterpart of its name and an entry, and every port name an entry and a
 reference counterpart), and ``AUTOGRAD_PARITY_TESTS`` for the layers of
 ``pipeline.api.autograd`` (``LambdaOp``, ``Parameter``, ``Lambda``), and
 ``DETECTION_PARITY_TESTS`` for the layers the detection models define
-(``models.image.objectdetection.ssd``: ``L2Normalize2D``).
+(``models.image.objectdetection.ssd``: ``L2Normalize2D``), and
+``IMPORTER_PARITY_TESTS`` for the importers' layers (``OnnxNet``,
+``CaffeNet``, ``TorchNet``, ``TorchCriterion``, ``TFNet``).
 """
 
 import ast
@@ -181,6 +183,22 @@ DETECTION_PARITY_TESTS = {
                       "test_l2normalize2d_matches_jax"),
 }
 
+#: the importers' layers (``pipeline.api.onnx``, ``models.caffe``,
+#: ``pipeline.api.net``), each held against the JAX package's on the same
+#: bytes, module or graph
+IMPORTER_PARITY_TESTS = {
+    "OnnxNet": ("tests/test_torch_onnx.py",
+                "test_convnet_matches_reference"),
+    "CaffeNet": ("tests/test_torch_caffe.py",
+                 "test_caffe_net_matches_reference"),
+    "TorchNet": ("tests/test_torch_net.py",
+                 "test_torchnet_output_and_input_gradient_match_reference"),
+    "TorchCriterion": ("tests/test_torch_net.py",
+                       "test_torch_criterion_matches_reference"),
+    "TFNet": ("tests/test_torch_net.py",
+              "test_tfnet_matches_reference_and_runs_uncaptured"),
+}
+
 
 def _public_layers(module, base):
     return sorted(n for n in dir(module) if not n.startswith("_")
@@ -211,8 +229,8 @@ def test_every_port_layer_has_a_parity_test():
 
 @pytest.mark.parametrize("registry", [
     PARITY_TESTS, KERAS2_PARITY_TESTS, AUTOGRAD_PARITY_TESTS,
-    DETECTION_PARITY_TESTS],
-    ids=["keras", "keras2", "autograd", "detection"])
+    DETECTION_PARITY_TESTS, IMPORTER_PARITY_TESTS],
+    ids=["keras", "keras2", "autograd", "detection", "importers"])
 def test_registry_entries_point_at_real_tests(registry):
     broken = []
     names = {}
@@ -319,4 +337,29 @@ def test_detection_layers_are_registered():
     assert sorted(port) == sorted(DETECTION_PARITY_TESTS)
     reference = [n for n in _public_layers(J, JLayer)
                  if getattr(J, n).__module__ == J.__name__]
+    assert sorted(reference) == sorted(port)
+
+
+_IMPORTER_MODULES = ("pipeline.api.onnx", "models.caffe", "pipeline.api.net",
+                     "pipeline.api.net.torch_net", "pipeline.api.net.tf_net")
+
+
+def test_importer_layers_are_registered():
+    """Every layer class the port's importer modules define has an entry
+    in ``IMPORTER_PARITY_TESTS`` and a class of its name in the
+    reference's module of the same name."""
+    import importlib
+
+    from analytics_zoo_tpu.pipeline.api.keras.engine import Layer as JLayer
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Layer
+
+    port, reference = set(), set()
+    for mod in _IMPORTER_MODULES:
+        t = importlib.import_module(f"analytics_zoo_tpu_torch.{mod}")
+        j = importlib.import_module(f"analytics_zoo_tpu.{mod}")
+        port |= {n for n in _public_layers(t, Layer)
+                 if getattr(t, n).__module__ == t.__name__}
+        reference |= {n for n in _public_layers(j, JLayer)
+                      if getattr(j, n).__module__ == j.__name__}
+    assert sorted(port) == sorted(IMPORTER_PARITY_TESTS)
     assert sorted(reference) == sorted(port)

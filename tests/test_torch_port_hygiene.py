@@ -104,3 +104,40 @@ def test_chip_smoke_fails_without_gpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+#: the modules of the estimator plane and the importers, as the JAX
+#: package names them
+ESTIMATOR_AND_IMPORTER_MODULES = (
+    "tfpark.estimator", "tfpark.text.estimator",
+    "tfpark.text.estimator.bert_base",
+    "tfpark.text.estimator.bert_classifier",
+    "tfpark.text.estimator.bert_ner", "tfpark.text.estimator.bert_squad",
+    "tfpark.gan", "tfpark.gan.gan_estimator", "pipeline.api.onnx",
+    "pipeline.api.onnx.proto", "pipeline.api.onnx.mapper",
+    "pipeline.api.onnx.export", "models.caffe", "pipeline.api.net",
+    "pipeline.api.net.torch_net", "pipeline.api.net.tf_net")
+
+
+@pytest.mark.parametrize("module", ESTIMATOR_AND_IMPORTER_MODULES)
+def test_reference_module_names_are_whole_in_the_port(module):
+    """Every public class and function the reference module defines or
+    exports (and the private helpers other modules reach for) has a port
+    counterpart of its name in the port's module of the same name."""
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"analytics_zoo_tpu.{module}")
+    port = importlib.import_module(f"analytics_zoo_tpu_torch.{module}")
+    helpers = {"_squad_loss", "_token_softmax", "_MergedFeatureSet",
+               "_stack_all", "_load_init_checkpoint", "_Fixed",
+               "_iter_fields", "_read_varint", "_put_bytes", "_put_varint"}
+    names = set(getattr(ref, "__all__", ()))
+    for name, obj in vars(ref).items():
+        if (inspect.isclass(obj) or inspect.isfunction(obj)) \
+                and obj.__module__ == ref.__name__ \
+                and (not name.startswith("_") or name in helpers):
+            names.add(name)
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert not missing, f"{module}: the port lacks {missing}"
+    assert not _is_reference(port.__name__)

@@ -293,11 +293,16 @@ def test_text_keras_model_save_and_load(tmp_path):
 @pytest.mark.parametrize("name", ["TFEstimator", "TFEstimatorSpec",
                                   "ZooOptimizer", "sparse_ce",
                                   "GANEstimator"])
-def test_unported_tfpark_names_raise(name):
+def test_tfpark_names_resolve_to_the_port(name):
     import importlib
 
     tfpark = importlib.import_module("analytics_zoo_tpu_torch.tfpark")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        getattr(tfpark, name)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        from analytics_zoo_tpu_torch.tfpark.text import estimator  # noqa
+    reference = importlib.import_module("analytics_zoo_tpu.tfpark")
+    obj = getattr(tfpark, name)
+    assert obj.__module__.startswith("analytics_zoo_tpu_torch.tfpark.")
+    assert obj.__name__ == getattr(reference, name).__name__
+    assert name in tfpark.__all__
+    from analytics_zoo_tpu_torch.tfpark.text import estimator
+
+    assert estimator.BERTSquad.__module__ == \
+        "analytics_zoo_tpu_torch.tfpark.text.estimator.bert_squad"
